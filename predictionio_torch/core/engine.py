@@ -1,0 +1,162 @@
+"""The Engine: named DASE component maps + variant parsing.
+
+Counterpart of ``predictionio_tpu/core/engine.py`` for what deploy
+needs (ref: controller/Engine.scala): an Engine holds maps of named
+component classes per DASE slot; an EngineParams picks one name per
+slot; engine.json variants become EngineParams. ``train`` and ``eval``
+come with the training slice.
+
+``resolve_engine_factory`` reads factory paths written for either
+package: a path under ``predictionio_tpu.`` resolves to the same path
+under ``predictionio_torch.`` (a string rewrite, so nothing of the JAX
+package is imported), which is how an engine instance trained by the
+JAX package deploys here.
+"""
+
+from __future__ import annotations
+
+import abc
+import importlib
+import logging
+import typing
+from typing import Any, Callable, Dict, List, Optional, Tuple, Type, Union
+
+from predictionio_torch.core.controller import Algorithm, Serving
+from predictionio_torch.core.params import EngineParams, Params, params_from_dict
+
+log = logging.getLogger(__name__)
+
+ClassMap = Union[type, Dict[str, type]]
+
+JAX_PACKAGE = "predictionio_tpu"
+PORT_PACKAGE = "predictionio_torch"
+
+
+def port_module(name: str) -> str:
+    """``predictionio_tpu[.x]`` -> ``predictionio_torch[.x]``; any other
+    module name unchanged."""
+    if name == JAX_PACKAGE or name.startswith(JAX_PACKAGE + "."):
+        return PORT_PACKAGE + name[len(JAX_PACKAGE):]
+    return name
+
+
+def _as_map(classes: ClassMap) -> Dict[str, type]:
+    if isinstance(classes, dict):
+        return dict(classes)
+    return {"": classes}
+
+
+def _declared_params_class(cls: type) -> Optional[Type[Params]]:
+    """The params dataclass a component declares: an explicit
+    ``params_class`` attribute, else the annotation of the ctor's
+    ``params`` argument (ref: AbstractDoer.scala:24)."""
+    pc = getattr(cls, "params_class", None)
+    if pc is not None:
+        return pc
+    try:
+        hints = typing.get_type_hints(cls.__init__)
+    except Exception as e:  # noqa: BLE001 — user annotations can raise anything
+        log.warning("cannot resolve type hints on %s.__init__ (%s: %s); "
+                    "params dataclass not auto-detected",
+                    cls.__name__, type(e).__name__, e)
+        return None
+    ann = hints.get("params")
+    return ann if isinstance(ann, type) else None
+
+
+class Engine:
+    """ref: controller/Engine.scala:78."""
+
+    def __init__(self, data_source_classes: ClassMap,
+                 preparator_classes: ClassMap, algorithm_classes: ClassMap,
+                 serving_classes: ClassMap):
+        self.data_source_classes = _as_map(data_source_classes)
+        self.preparator_classes = _as_map(preparator_classes)
+        self.algorithm_classes = _as_map(algorithm_classes)
+        self.serving_classes = _as_map(serving_classes)
+
+    def _make(self, classes: Dict[str, type], slot: Tuple[str, Params],
+              role: str):
+        name, params = slot
+        if name not in classes:
+            raise KeyError(
+                f"{role} {name!r} not found (available: {sorted(classes)})")
+        return classes[name].create(params)
+
+    def make_algorithms(self, ep: EngineParams) -> List[Algorithm]:
+        if not ep.algorithm_params_list:
+            raise ValueError("EngineParams.algorithm_params_list must not be empty")
+        return [self._make(self.algorithm_classes, slot, "Algorithm")
+                for slot in ep.algorithm_params_list]
+
+    def make_serving(self, ep: EngineParams) -> Serving:
+        return self._make(self.serving_classes, ep.serving_params, "Serving")
+
+    # -- variant JSON -> EngineParams (ref: Engine.jValueToEngineParams:328) --
+    def engine_params_from_variant(self, variant: Dict[str, Any]) -> EngineParams:
+        def default_name(classes):
+            return "" if "" in classes else next(iter(sorted(classes)))
+
+        def slot(key: str, classes: Dict[str, type]) -> Tuple[str, Params]:
+            block = variant.get(key)
+            if block is None:
+                name = default_name(classes)
+                return (name, _materialize(classes, name, {}))
+            name = block.get("name", "")
+            return (name, _materialize(classes, name, block.get("params")))
+
+        algo_blocks = variant.get("algorithms")
+        if algo_blocks is None:
+            name = default_name(self.algorithm_classes)
+            algo_list = [(name, _materialize(self.algorithm_classes, name, {}))]
+        else:
+            algo_list = [(b.get("name", ""),
+                          _materialize(self.algorithm_classes,
+                                       b.get("name", ""), b.get("params")))
+                         for b in algo_blocks]
+        return EngineParams(
+            data_source_params=slot("datasource", self.data_source_classes),
+            preparator_params=slot("preparator", self.preparator_classes),
+            algorithm_params_list=algo_list,
+            serving_params=slot("serving", self.serving_classes),
+        )
+
+
+def _materialize(classes: Dict[str, type], name: str,
+                 params_dict: Optional[dict]) -> Params:
+    if name not in classes:
+        raise KeyError(f"component {name!r} not found (available: {sorted(classes)})")
+    return params_from_dict(_declared_params_class(classes[name]), params_dict)
+
+
+class EngineFactory(abc.ABC):
+    """User entry point (ref: EngineFactory.scala:28)."""
+
+    @abc.abstractmethod
+    def apply(self) -> Engine:
+        ...
+
+
+def factory_from_object(obj: Any, name: str) -> Callable[[], Engine]:
+    """Resolved attribute -> zero-arg engine factory (an EngineFactory
+    subclass or instance, an Engine, or a plain callable;
+    ref: WorkflowUtils.getEngine:60)."""
+    if isinstance(obj, type) and issubclass(obj, EngineFactory):
+        return obj().apply
+    if isinstance(obj, EngineFactory):
+        return obj.apply
+    if isinstance(obj, Engine):
+        return lambda: obj
+    if callable(obj):
+        return obj
+    raise TypeError(f"{name} is not an EngineFactory / Engine / callable")
+
+
+def resolve_engine_factory(dotted: str) -> Callable[[], Engine]:
+    """'pkg.module.ObjName' -> zero-arg engine factory; a
+    ``predictionio_tpu.`` path resolves under ``predictionio_torch.``."""
+    module_name, _, attr = dotted.rpartition(".")
+    if not module_name:
+        raise ValueError(f"engine factory {dotted!r} must be a dotted path")
+    obj = getattr(importlib.import_module(port_module(module_name)), attr)
+    return factory_from_object(obj, dotted)
