@@ -47,12 +47,54 @@ exits non-zero before printing any result.
    reset just before the deploy, must have risen by at least the number
    of lone user and item queries.
 
-Output: the card's name and power limit (``nvidia-smi``), a ``serve``
-line, the ``kernels`` line, and last ``{"ok": true, "device": ...}``.
+4. Two-tower kernel phase: the ``flash_ce`` kernels (forward, du, dv)
+   against their plain version ``flash_ce_reference`` over B in {128,
+   130, 1000, 8192}, D in {8, 64, 128}, cdt in {float32, bfloat16},
+   uniform and real-valued weights, with in-batch duplicate users and
+   items and a zero-weight tail; the loss within the JAX package's
+   kernel-test tolerance (f32 rtol 1e-5, bf16 5e-3), both gradients
+   within its tolerances (f32 rtol 1e-4 / atol 1e-6, bf16 1e-1 / 2e-3)
+   and also within the same rtol with an atol scaled to the gradient's
+   size (1e-4 / 2e-3 of max|ref|) and a relative norm error of at most
+   1e-4 / 2e-2. At the train shape (B=8192, D=128) deliberately wrong
+   gradients (zeros, rows shifted, scaled by 0.9, one tile zeroed) must
+   fail that check. The ``embed_update``
+   kernel against ``embed_update_reference`` at (N, E, B, vocab) =
+   (64, 24, 37, 64), (50, 8, 24, 6) (every row collides) and (1M, 128,
+   8192, 1M), rtol 1e-5 / atol 1e-6. Both are timed at the train
+   phase's shapes (B=8192, D=128, bf16; 8192 rows into a [1M, 128]
+   table) against their plain versions and, for ``embed_update``, one
+   ``index_add_`` (no single PyTorch call computes the flash-CE loss):
+   device time from ``torch.profiler``, for ``embed_update`` with L2
+   flushed before each call (``warm_ms`` beside it).
+5. Train phase, the second main path: the repo's stretch two-tower
+   configuration (BASELINE.json configs[4], sized in bench.py: 1M
+   users, 1M items, 4M positives synthesized as bench.py does from
+   ``default_rng(1)``, dim 128, batch 8192, temperature 0.07, lr 3e-3,
+   seed 11, bf16, 3 epochs) through ``TwoTowerAlgorithm.train``, with
+   the launch counters reset just before: ``flash_ce`` must launch 3
+   times and ``embed_update`` twice per step, losses must be finite and
+   fall, vectors unit-norm. The model is serialized into a memory
+   store, deployed with the port's ``EngineServer`` and asked user and
+   item queries over the 1M-item catalog through ``topk_dot``, each
+   checked against a float64 host top-k as in the serve phase. Then,
+   off the counted path, 20 steps at the same widths are profiled:
+   device time per step by kernel group and the device's idle share.
+6. ``pio train`` phase: seeded rate events at MovieLens-100K's shape
+   (943 users, 1,682 items, 100,000 ratings) go into a localfs event
+   store through the port's storage; ``python -m
+   predictionio_torch.tools.cli train`` trains ``twotower_engine`` (dim
+   64, batch 1024: flash_ce eligible) and ``... cli deploy`` serves it;
+   queries are checked against the stored model's vectors.
+
+Output: the card's name and power limit (``nvidia-smi``), a ``serve``,
+a ``train`` and a ``pio_train`` line, the ``kernels`` line, and last
+``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import pickle
@@ -71,8 +113,27 @@ N_USERS, N_ITEMS, RANK = 138_493, 26_744, 64     # bench.py DEFAULT_KNOBS
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 L2_FLUSH_BYTES = 256 << 20       # five times the 50 MB L2
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor cores
+# H100 SXM exponentials: 132 SMs x 16 special-function results per clock
+# (CUDA C++ Programming Guide, arithmetic throughput, cc 9.0) x 1.98 GHz
+SFU_PER_S = 132 * 16 * 1.98e9
+# flash_ce gradients against the plain version, per cdt: the JAX
+# package's kernel-test tolerances (rtol, atol), then the same rtol with
+# an atol scaled to the gradient's own size (a fraction of max|ref|), and
+# a bound on ||g - ref|| / ||ref||. The JAX atol alone says nothing at
+# the train shape, where |du| is ~1e-4.
+GRAD_TOLS = {"float32": (1e-4, 1e-6, 1e-4, 1e-4),
+             "bfloat16": (1e-1, 2e-3, 2e-3, 2e-2)}
 TOPK_SOURCE = "predictionio_torch/ops/kernels/csrc/topk_dot.cu"
 TOPK_REPLACES = "predictionio_tpu/ops/pallas/topk_dot.py:70"
+FLASH_SOURCE = "predictionio_torch/ops/kernels/csrc/flash_ce.cu"
+FLASH_REPLACES = "predictionio_tpu/ops/pallas/flash_ce.py:192"
+EMBED_SOURCE = "predictionio_torch/ops/kernels/csrc/embed_update.cu"
+EMBED_REPLACES = "predictionio_tpu/ops/pallas/embed_update.py:100"
+# the stretch two-tower configuration (BASELINE.json configs[4]; bench.py)
+TT_IDS, TT_POS, TT_DIM, TT_BATCH = 1_000_000, 4_000_000, 128, 8192
+TT_EPOCHS = 3
+TEMP = 0.07
 
 
 def fail(msg: str) -> None:
@@ -126,34 +187,52 @@ def cold_ms(fn, iters: int = 50) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def device_ms(fn, iters: int = 100):
+def device_ms(fn, iters: int = 100, cold: bool = False):
     """Device time per call: the summed self time of every CUDA kernel
     and memset ``torch.profiler`` traced over ``iters`` calls, and that
-    time split by kernel name."""
+    time split by kernel name. ``cold``: each call follows a
+    ``bitwise_not_`` over ``L2_FLUSH_BYTES``, so it finds nothing of its
+    inputs in L2; the flush's own kernel is left out of the sums."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    flush = (torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                         device="cuda") if cold else None)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
+            if flush is not None:
+                flush.bitwise_not_()
             fn()
         torch.cuda.synchronize()
     split = {e.key: e.self_device_time_total / iters / 1e3
              for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA}
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "bitwise_not" not in e.key}
     if sum(split.values()) <= 0:
         fail("torch.profiler traced no device time")
     return sum(split.values()), split
 
 
+def own_split(split: dict, prefix: str) -> dict:
+    """The device split by kernel, the port's own kernels by name and
+    PyTorch's summed under ``torch ops``."""
+    out = {"torch ops": 0.0}
+    for name, ms in split.items():
+        if prefix in name:
+            out[kernel_name(name)] = ms
+        else:
+            out["torch ops"] += ms
+    return out
+
+
 def kernel_name(signature: str) -> str:
     """``void (anonymous namespace)::f<1>(float const*, ...)`` -> ``f<1>``."""
-    if signature.endswith(")") and "(" in signature:
-        signature = signature[:signature.rfind("(")]
-    return signature.replace("void ", "").replace(
-        "(anonymous namespace)::", "").strip()
+    name = signature.replace("(anonymous namespace)::", "").replace(
+        "void ", "")
+    return name.split("(", 1)[0].strip()
 
 
 # -- kernel phase ------------------------------------------------------------
@@ -291,51 +370,58 @@ def post(port: int, payload: dict) -> dict:
         return json.loads(resp.read())
 
 
-def expected_answer(U, V, users, items, q: dict):
-    """(ids, scores) the query must get, in float64 on the host, under
-    (score descending, item id ascending)."""
+class Truth:
+    """Factor tables and id maps of a served model, in float64 on the
+    host: what every answer is checked against."""
+
+    def __init__(self, U, V, user_names, item_names):
+        self.U = np.asarray(U, np.float64)
+        self.V = np.asarray(V, np.float64)
+        self.item_names = list(item_names)
+        self.users = {n: j for j, n in enumerate(user_names)}
+        self.items = {n: j for j, n in enumerate(self.item_names)}
+        self.vmax = float(np.linalg.norm(self.V, axis=1).max())
+
+
+def expected_answer(t: Truth, q: dict):
+    """(ids, scores, all scores) the query must get, under (score
+    descending, item id ascending)."""
     num = int(q.get("num", 10))
+    if "user" in q and q["user"] not in t.users:
+        return np.zeros(0, np.int64), np.zeros(0), np.zeros(0)
+    qvec = t.U[t.users[q["user"]]] if "user" in q else t.V[t.items[q["item"]]]
+    scores = t.V @ qvec
+    allowed = np.ones(len(t.V), bool)
+    if "whitelist" in q:
+        allowed[:] = False
+        allowed[[t.items[w] for w in q["whitelist"] if w in t.items]] = True
+    allowed[[t.items[b] for b in q.get("blacklist", ()) if b in t.items]] = False
     if "user" not in q:
-        row = items[q["item"]]
-        scores = V.astype(np.float64) @ V[row].astype(np.float64)
-        banned = {items[b] for b in q.get("blacklist", ()) if b in items}
-        banned.add(row)
-        cand = np.array([j for j in range(len(V)) if j not in banned])
-    else:
-        if q["user"] not in users:
-            return [], np.zeros(0), np.zeros(0)
-        scores = V.astype(np.float64) @ U[users[q["user"]]].astype(np.float64)
-        banned = {items[b] for b in q.get("blacklist", ()) if b in items}
-        if "whitelist" in q:
-            cand = np.array(sorted({items[w] for w in q["whitelist"]
-                                    if w in items} - banned))
-        else:
-            cand = np.array([j for j in range(len(V)) if j not in banned])
+        allowed[t.items[q["item"]]] = False
+    cand = np.flatnonzero(allowed)
     order = np.lexsort((cand, -scores[cand]))[:num]
     return cand[order], scores[cand[order]], scores
 
 
-def check_answer(U, V, users, items, item_names, q: dict, got: dict,
-                 what: str) -> None:
-    ids, exp_scores, all_scores = expected_answer(U, V, users, items, q)
+def check_answer(t: Truth, q: dict, got: dict, what: str) -> None:
+    ids, exp_scores, all_scores = expected_answer(t, q)
     served = got["itemScores"]
     if len(served) != len(ids):
         fail(f"{what}: {len(served)} items served, {len(ids)} expected "
              f"for {q}")
     if not len(ids):
         return
-    qvec = U[users[q["user"]]] if "user" in q else V[items[q["item"]]]
-    tol = 1e-5 * float(np.linalg.norm(qvec)) * float(
-        np.linalg.norm(V, axis=1).max())
+    qvec = t.U[t.users[q["user"]]] if "user" in q else t.V[t.items[q["item"]]]
+    tol = 1e-5 * float(np.linalg.norm(qvec)) * t.vmax
     for j, entry in enumerate(served):
         if abs(entry["score"] - exp_scores[j]) > tol:
             fail(f"{what}: slot {j} score {entry['score']} vs "
                  f"{exp_scores[j]} for {q}")
-        if entry["item"] != item_names[ids[j]]:
-            true = all_scores[items[entry["item"]]]
+        if entry["item"] != t.item_names[ids[j]]:
+            true = all_scores[t.items[entry["item"]]]
             if abs(true - exp_scores[j]) > tol:
                 fail(f"{what}: slot {j} item {entry['item']} vs "
-                     f"{item_names[ids[j]]} for {q}")
+                     f"{t.item_names[ids[j]]} for {q}")
 
 
 def serve_phase() -> dict:
@@ -355,8 +441,7 @@ def serve_phase() -> dict:
     V = (0.3 * rng.standard_normal((N_ITEMS, RANK))).astype(np.float32)
     user_names = [f"u{j}" for j in range(N_USERS)]
     item_names = [f"i{j}" for j in range(N_ITEMS)]
-    users = {n: j for j, n in enumerate(user_names)}
-    items = {n: j for j, n in enumerate(item_names)}
+    truth = Truth(U, V, user_names, item_names)
     model = als_model_from_arrays(U, V, user_names, item_names, rank=RANK)
 
     store = tempfile.mkdtemp(prefix="pio_chip_smoke_")
@@ -426,8 +511,7 @@ def serve_phase() -> dict:
             t0 = time.perf_counter()
             got = post(server.port, q)
             lat.append(time.perf_counter() - t0)
-            check_answer(U, V, users, items, item_names, q, got,
-                         f"lone query {j}")
+            check_answer(truth, q, got, f"lone query {j}")
         lone_launches = tkd.launches.value - before
 
         burst = [{"user": user_names[u], "num": 10}
@@ -448,8 +532,7 @@ def serve_phase() -> dict:
         for j, (q, got) in enumerate(zip(burst, answers)):
             if got is None:
                 fail(f"burst query {j} got no answer")
-            check_answer(U, V, users, items, item_names, q, got,
-                         f"burst query {j}")
+            check_answer(truth, q, got, f"burst query {j}")
         launches = tkd.launches.value
         status = json.loads(urllib.request.urlopen(
             f"http://127.0.0.1:{server.port}/", timeout=60).read())
@@ -482,6 +565,492 @@ def serve_phase() -> dict:
         shutil.rmtree(store, ignore_errors=True)
 
 
+# -- two-tower kernel phase ---------------------------------------------------
+
+def ce_batch(B, D, gen, uniform_w):
+    """Unit-norm towers, ids drawn from small ranges (many in-batch
+    duplicate users and items), a zero-weight tail of B // 16 rows."""
+    import torch
+
+    dev = torch.device("cuda")
+    u = torch.nn.functional.normalize(
+        torch.randn((B, D), generator=gen, device=dev), dim=1)
+    v = torch.nn.functional.normalize(
+        torch.randn((B, D), generator=gen, device=dev), dim=1)
+    w = (torch.ones(B, device=dev) if uniform_w
+         else 0.5 + 4.0 * torch.rand(B, generator=gen, device=dev))
+    w[B - max(1, B // 16):] = 0.0
+    return (u, v, torch.randint(0, max(2, B // 3), (B,), generator=gen,
+                                device=dev),
+            torch.randint(0, max(2, B // 4), (B,), generator=gen, device=dev),
+            w)
+
+
+def ce_step(fn, u, v, u_idx, i_idx, w, cdt):
+    """One loss forward and backward: (loss, du, dv)."""
+    u = u.detach().requires_grad_(True)
+    v = v.detach().requires_grad_(True)
+    loss = fn(u, v, u_idx, i_idx, w, TEMP, cdt)
+    loss.backward()
+    return loss.detach(), u.grad, v.grad
+
+
+def grad_close(g, r, cdt_name: str):
+    """(agrees, ||g - r|| / ||r||): ``g`` against the plain version's
+    ``r`` under ``GRAD_TOLS[cdt_name]``."""
+    rtol, atol, atol_scaled, norm_tol = GRAD_TOLS[cdt_name]
+    err = (g - r).abs()
+    rel_norm = float((g - r).norm() / r.norm())
+    agrees = (not bool((err > atol + rtol * r.abs()).any())
+              and not bool((err > atol_scaled * r.abs().max()
+                            + rtol * r.abs()).any())
+              and rel_norm <= norm_tol)
+    return agrees, rel_norm
+
+
+def grad_controls(g, r, cdt_name: str) -> dict:
+    """Deliberately wrong gradients that ``grad_close`` must refuse at
+    the shape it checks: zeros, rows shifted by one (a permuted coef),
+    a 10% scale error, one 64-row tile zeroed. -> their relative
+    errors."""
+    import torch
+
+    tile = g.clone()
+    tile[:64] = 0.0
+    wrong = {"zeros": torch.zeros_like(g), "rows_shifted": g.roll(1, 0),
+             "scaled_0.9": 0.9 * g, "one_tile_zeroed": tile}
+    out = {}
+    for name, bad in wrong.items():
+        agrees, rel_norm = grad_close(bad, r, cdt_name)
+        if agrees:
+            fail(f"flash_ce gradient check passed a wrong gradient "
+                 f"({name}, {cdt_name}): it cannot catch a broken kernel")
+        out[name] = rel_norm
+    return out
+
+
+def flash_ce_phase() -> dict:
+    import torch
+    from predictionio_torch.ops.kernels import flash_ce as fce
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    max_err, cases = 0.0, 0
+    rel_norm_max = {"float32": 0.0, "bfloat16": 0.0}
+    controls = {}
+    for B in (128, 130, 1000, 8192):
+        for D in (8, 64, 128):
+            for cdt in (torch.float32, torch.bfloat16):
+                for uniform_w in (True, False):
+                    batch = ce_batch(B, D, gen, uniform_w)
+                    got = ce_step(fce.flash_ce, *batch, cdt)
+                    want = ce_step(fce.flash_ce_reference, *batch, cdt)
+                    torch.cuda.synchronize()
+                    cdt_name = str(cdt).split(".")[-1]
+                    l_rtol = 1e-5 if cdt == torch.float32 else 5e-3
+                    what = f"B={B} D={D} cdt={cdt_name} uniform_w={uniform_w}"
+                    if not bool(torch.isfinite(got[0])) or abs(
+                            float(got[0] - want[0])) > l_rtol * abs(
+                            float(want[0])):
+                        fail(f"flash_ce loss differs ({what}): "
+                             f"{float(got[0])} vs {float(want[0])}")
+                    for name, g, r in (("du", got[1], want[1]),
+                                       ("dv", got[2], want[2])):
+                        agrees, rel_norm = grad_close(g, r, cdt_name)
+                        if not agrees:
+                            fail(f"flash_ce {name} differs ({what}): max "
+                                 f"err {float((g - r).abs().max())}, max "
+                                 f"|ref| {float(r.abs().max())}, relative "
+                                 f"norm err {rel_norm}")
+                        max_err = max(max_err, float((g - r).abs().max()))
+                        rel_norm_max[cdt_name] = max(rel_norm_max[cdt_name],
+                                                     rel_norm)
+                        if B == TT_BATCH and D == TT_DIM and uniform_w:
+                            controls[f"{name},{cdt_name}"] = grad_controls(
+                                g, r, cdt_name)
+                    cases += 1
+
+    # timing at the train phase's shape: one loss forward and backward
+    B, D, cdt = TT_BATCH, TT_DIM, torch.bfloat16
+    batch = ce_batch(B, D, gen, True)
+    kernel = lambda: ce_step(fce.flash_ce, *batch, cdt)  # noqa: E731
+    plain = lambda: ce_step(fce.flash_ce_reference, *batch, cdt)  # noqa: E731
+    kernel_call_ms, plain_call_ms = call_ms(kernel, 50), call_ms(plain, 10)
+    (kernel_ms, split), (plain_ms, _) = (device_ms(kernel, 20),
+                                         device_ms(plain, 5))
+    # necessary work: 2 B^2 D products forward and 4 B^2 D backward on
+    # the tensor cores (the kernels' logits recompute is a cost of their
+    # design), B^2 exponentials forward and 2 B^2 backward on the
+    # special-function units; each runs at its own peak, so the larger
+    # of the two times (and of the bytes') bounds the kernels
+    products_ms = 6.0 * B * B * D / BF16_FLOPS * 1e3
+    exps_ms = 3.0 * B * B / SFU_PER_S * 1e3
+    bytes_ms = (4 * B * D * 4 + B * (8 + 8 + 4)) / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(products_ms, exps_ms)
+    return {
+        "name": "flash_ce", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES, "max_abs_err": max_err,
+        "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "bound_terms_ms": {"products": products_ms, "exps": exps_ms,
+                           "bytes": bytes_ms},
+        "grad_rel_norm_err_max": rel_norm_max,
+        "grad_controls_rel_norm_err": controls,
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes this loss",
+        "call_ms": kernel_call_ms, "plain_call_ms": plain_call_ms,
+        "device_split_ms": own_split(split, "flash_ce_kernel"),
+        "cases": cases, "shape": f"B={B},D={D},cdt=bfloat16,fwd+bwd",
+    }
+
+
+def embed_update_phase() -> dict:
+    import torch
+    from predictionio_torch.ops.kernels import embed_update as eu
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    max_err = 0.0
+    for N, E, B, vocab in ((64, 24, 37, 64), (50, 8, 24, 6),
+                           (TT_IDS, TT_DIM, TT_BATCH, TT_IDS)):
+        table = torch.randn((N, E), generator=gen, device=dev)
+        idx = torch.randint(0, vocab, (B,), generator=gen, device=dev)
+        grad = torch.randn((B, E), generator=gen, device=dev)
+        scale = torch.rand(B, generator=gen, device=dev)
+        want = eu.embed_update_reference(table.clone(), idx, grad, scale)
+        eu.embed_update(table, idx, grad, scale)
+        torch.cuda.synchronize()
+        err = (table - want).abs()
+        if bool((err > 1e-6 + 1e-5 * want.abs()).any()):
+            fail(f"embed_update differs at N={N} E={E} B={B}: max err "
+                 f"{float(err.max())}")
+        max_err = max(max_err, float(err.max()))
+
+    # timing at the train phase's shape: 8192 rows into a [1M, 128] table
+    scale = scale * 1e-6          # the timed calls keep adding in place
+    kernel = lambda: eu.embed_update(table, idx, grad, scale)  # noqa: E731
+    plain = lambda: eu.embed_update_reference(  # noqa: E731
+        table, idx, grad, scale)
+    library = lambda: table.index_add_(  # noqa: E731
+        0, idx, -scale[:, None] * grad)
+    k_call, p_call, l_call = (call_ms(f) for f in (kernel, plain, library))
+    (warm_ms, _), (plain_warm_ms, _), (library_warm_ms, _) = (
+        device_ms(f) for f in (kernel, plain, library))
+    # the bound is HBM's: time each call with L2 flushed before it (the
+    # warm times above find the rows and gradients in the 50 MB L2)
+    (kernel_ms, _), (plain_ms, _), (library_ms, _) = (
+        device_ms(f, 50, cold=True) for f in (kernel, plain, library))
+    touched = int(torch.unique(idx).numel())
+    nbytes = B * E * 4 + B * 8 + B * 4 + 2 * touched * E * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2.0 * B * E / F32_FLOPS * 1e3
+    return {
+        "name": "embed_update", "route": "cuda", "source": EMBED_SOURCE,
+        "replaces": EMBED_REPLACES, "max_abs_err": max_err,
+        "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+        "library_note": "table.index_add_(0, idx, -scale[:, None] * grad)",
+        "warm_ms": warm_ms, "plain_warm_ms": plain_warm_ms,
+        "library_warm_ms": library_warm_ms, "timing": "ms: cold L2",
+        "call_ms": k_call, "plain_call_ms": p_call, "library_call_ms": l_call,
+        "touched_rows": touched, "shape": f"N={N},E={E},B={B}",
+    }
+
+
+# -- train phase ---------------------------------------------------------------
+
+def synth_positives():
+    """bench.py's stretch positives: 64 clusters, 80% in-cluster."""
+    rng = np.random.default_rng(1)
+    n_clusters = 64
+    user_cluster = rng.integers(0, n_clusters, size=TT_IDS)
+    uu = rng.integers(0, TT_IDS, size=TT_POS)
+    in_cluster = rng.random(TT_POS) < 0.8
+    per_cluster = TT_IDS // n_clusters
+    ii = np.where(
+        in_cluster,
+        user_cluster[uu] + n_clusters * rng.integers(0, per_cluster, TT_POS),
+        rng.integers(0, TT_IDS, size=TT_POS)).astype(np.int64)
+    return uu.astype(np.int64), ii
+
+
+def step_profile(uu, ii, steps: int = 20) -> dict:
+    """Where a steady stretch-width step's time goes: a trainer at the
+    train phase's widths on its first ``steps`` batches runs one warm-up
+    epoch, one timed epoch and one under ``torch.profiler``; device time
+    by kernel group per step, and the device's idle share (1 - device
+    time over the timed epoch's wall time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from predictionio_torch.ops.twotower import (TwoTowerConfig,
+                                                 TwoTowerTrainer)
+
+    n = steps * TT_BATCH
+    cfg = TwoTowerConfig(dim=TT_DIM, batch_size=TT_BATCH, epochs=3,
+                         learning_rate=3e-3, seed=11, temperature=TEMP)
+    trainer = TwoTowerTrainer((uu[:n], ii[:n], None), TT_IDS, TT_IDS, cfg,
+                              device="cuda")
+    trainer.run(epochs=2)
+    wall_ms = trainer.epoch_seconds[1] * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.run(epochs=3)
+        torch.cuda.synchronize()
+    groups = {"flash_ce": 0.0, "embed_update": 0.0, "torch ops": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        group = next((g for g in ("flash_ce", "embed_update")
+                      if g + "_kernel" in e.key), "torch ops")
+        groups[group] += e.self_device_time_total / 1e3 / steps
+    device_ms = sum(groups.values())
+    return {"steps": steps, "wall_ms_per_step": wall_ms,
+            "device_ms_per_step": device_ms,
+            "device_ms_by_group": groups,
+            "device_idle_share": 1.0 - device_ms / wall_ms}
+
+
+def deploy_and_check(engine, storage, engine_id: str, truth: Truth,
+                     queries, what: str) -> dict:
+    """Deploy the engine's latest instance with the port's EngineServer
+    on the card and check every answer."""
+    from predictionio_torch.serving.engine_server import EngineServer
+
+    server = EngineServer(engine, engine_id, host="127.0.0.1", port=0,
+                          storage=storage, device="cuda").start()
+    try:
+        lat = []
+        for j, q in enumerate(queries):
+            t0 = time.perf_counter()
+            got = post(server.port, q)
+            lat.append(1e3 * (time.perf_counter() - t0))
+            check_answer(truth, q, got, f"{what} query {j}")
+        lat.sort()
+        return {"queries": len(queries), "ms_p50": lat[len(lat) // 2],
+                "ms_max": lat[-1]}
+    finally:
+        server.stop()
+
+
+def tt_queries(truth: Truth, rng, n_users: int, n_items: int):
+    users = [f"u{j}" for j in rng.integers(0, n_users, 12)]
+    items = [truth.item_names[j] for j in rng.integers(0, n_items, 6)]
+    qs = [{"user": u, "num": 10} for u in users]
+    qs += [{"item": i, "num": 10} for i in items]
+    qs.append({"user": users[0], "num": 20, "blacklist": items[:2]})
+    qs.append({"user": "no-such-user", "num": 10})
+    return qs
+
+
+def train_phase() -> dict:
+    import datetime as dt
+
+    import torch
+    from predictionio_torch.data.metadata import EngineInstance, Model
+    from predictionio_torch.data.storage import Storage
+    from predictionio_torch.data.bimap import BiMap
+    from predictionio_torch.models.als import PreparedRatings
+    from predictionio_torch.models.twotower import (TwoTowerAlgorithm,
+                                                    TwoTowerParams)
+    from predictionio_torch.ops.kernels import embed_update as eu
+    from predictionio_torch.ops.kernels import flash_ce as fce
+    from predictionio_torch.ops.kernels import topk_dot as tkd
+    from predictionio_torch.parallel.context import DeviceContext
+    from predictionio_torch.templates.twotower import twotower_engine
+    from predictionio_torch.workflow.train import serialize_models
+
+    t0 = time.perf_counter()
+    uu, ii = synth_positives()
+    user_names = [f"u{j}" for j in range(TT_IDS)]
+    item_names = [f"i{j}" for j in range(TT_IDS)]
+    pd = PreparedRatings(user_ids=BiMap.from_vocab(user_names),
+                         item_ids=BiMap.from_vocab(item_names),
+                         user_idx=uu, item_idx=ii,
+                         ratings=np.ones(TT_POS, np.float32))
+    setup_sec = time.perf_counter() - t0
+    params = TwoTowerParams(dim=TT_DIM, batch_size=TT_BATCH, epochs=TT_EPOCHS,
+                            learning_rate=3e-3, seed=11, temperature=TEMP)
+    algo = TwoTowerAlgorithm(params)
+
+    # the main path starts here: train, serialize, deploy, serve
+    for counter in (fce.launches, eu.launches, tkd.launches):
+        counter.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = algo.train(DeviceContext("cuda"), pd)
+    train_sec = time.perf_counter() - t0
+    flash_launches, embed_launches = fce.launches.value, eu.launches.value
+    peak_mem = torch.cuda.max_memory_allocated()
+    plan = model.kernel_plan
+    if not (plan["flash_ce"] and plan["embed_update"]):
+        fail(f"the trainer did not plan both kernels: {plan}")
+    steps = -(-TT_POS // TT_BATCH) * TT_EPOCHS
+    if flash_launches != 3 * steps or embed_launches != 2 * steps:
+        fail(f"{steps} steps launched flash_ce {flash_launches} times "
+             f"(want {3 * steps}) and embed_update {embed_launches} times "
+             f"(want {2 * steps})")
+    losses = model.train_losses
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"two-tower losses not finite and falling: {losses}")
+    for side, vecs in (("user", model.user_factors),
+                       ("item", model.item_factors)):
+        norms = np.linalg.norm(vecs, axis=1)
+        if not np.all(np.abs(norms - 1.0) < 1e-4):
+            fail(f"{side} vectors not unit-norm: {norms.min()}..{norms.max()}")
+
+    storage = Storage.from_env({"PIO_STORAGE_SOURCES_M_TYPE": "memory"})
+    now = dt.datetime.now(tz=dt.timezone.utc)
+    storage.engine_instances().insert(EngineInstance(
+        id="tt-stretch", status="COMPLETED", start_time=now, end_time=now,
+        engine_id="tt-stretch", engine_version="0", engine_variant="default",
+        engine_factory="predictionio_torch.templates.twotower.twotower_engine",
+        data_source_params=json.dumps({"name": "", "params": {}}),
+        preparator_params=json.dumps({"name": "", "params": {}}),
+        algorithms_params=json.dumps([{"name": "twotower", "params":
+                                       dataclasses.asdict(params)}]),
+        serving_params=json.dumps({"name": "", "params": {}})))
+    storage.models().insert(Model(id="tt-stretch",
+                                  models=serialize_models([model])))
+    truth = Truth(model.user_factors, model.item_factors, user_names,
+                  item_names)
+    epoch_sec = [float(x) for x in model.train_epoch_seconds]
+    del model
+    served = deploy_and_check(twotower_engine(), storage, "tt-stretch", truth,
+                              tt_queries(truth, np.random.default_rng(SEED),
+                                         TT_IDS, TT_IDS), "train phase")
+    topk_launches = tkd.launches.value
+    profiled = step_profile(uu, ii)
+
+    steady = min(epoch_sec[1:])
+    steps_per_epoch = steps // TT_EPOCHS
+    return {
+        "config": {"users": TT_IDS, "items": TT_IDS, "positives": TT_POS,
+                   "dim": TT_DIM, "batch": TT_BATCH, "epochs": TT_EPOCHS,
+                   "compute_dtype": "bfloat16", "temperature": TEMP},
+        "setup_sec": setup_sec, "train_sec": train_sec,
+        "epoch_sec": epoch_sec, "steps_per_epoch": steps_per_epoch,
+        "step_ms": steady / steps_per_epoch * 1e3,
+        "examples_per_sec": steps_per_epoch * TT_BATCH / steady,
+        "losses": losses, "final_loss": losses[-1],
+        "loss_bar_0.75_ln_batch": 0.75 * float(np.log(TT_BATCH)),
+        "flash_ce_launches": flash_launches,
+        "embed_update_launches": embed_launches,
+        "topk_dot_launches": topk_launches, "kernel_plan": plan,
+        "peak_train_mem_bytes": peak_mem, "serve": served,
+        "step_profile": profiled,
+    }
+
+
+# -- pio train phase -----------------------------------------------------------
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def pio_train_phase() -> dict:
+    import datetime as dt
+
+    from predictionio_torch.data.event import Event
+    from predictionio_torch.data.storage import Storage
+    from predictionio_torch.workflow.deploy import load_blob
+
+    store = tempfile.mkdtemp(prefix="pio_chip_smoke_ml100k_")
+    env = {"PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
+           "PIO_STORAGE_SOURCES_FS_PATH": store}
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = None
+    try:
+        storage = Storage.from_env(env)
+        app = storage.apps().insert("ml100k")
+        storage.events().init(app.id)
+        rng = np.random.default_rng(SEED + 3)
+        n_users, n_items, n = 943, 1682, 100_000
+        us = rng.integers(1, n_users + 1, n)
+        its = rng.integers(1, n_items + 1, n)
+        rs = rng.integers(1, 6, n)
+        t0 = dt.datetime(1998, 1, 1, tzinfo=dt.timezone.utc)
+        storage.events().insert_batch([
+            Event(event="rate", entity_type="user", entity_id=f"u{u}",
+                  target_entity_type="item", target_entity_id=f"i{i}",
+                  properties={"rating": float(r)},
+                  event_time=t0 + dt.timedelta(seconds=j))
+            for j, (u, i, r) in enumerate(zip(us, its, rs))], app.id)
+        engine_json = os.path.join(store, "engine.json")
+        with open(engine_json, "w") as f:
+            json.dump({
+                "id": "default", "engineId": "ml100k-tt",
+                "engineFactory":
+                    "predictionio_torch.templates.twotower.twotower_engine",
+                "datasource": {"params": {"app_name": "ml100k"}},
+                "algorithms": [{"name": "twotower", "params": {
+                    "dim": 64, "batch_size": 1024, "epochs": 5}}]}, f)
+        sub_env = {**os.environ, **env, "PYTHONPATH": root}
+        cli = [sys.executable, "-m", "predictionio_torch.tools.cli"]
+        t0 = time.perf_counter()
+        out = subprocess.run(cli + ["train", "--engine-json", engine_json],
+                             env=sub_env, cwd=store, capture_output=True,
+                             text=True, timeout=600)
+        train_sec = time.perf_counter() - t0
+        if out.returncode != 0:
+            fail(f"pio train exited {out.returncode}: {out.stderr[-2000:]}")
+        instance = Storage.from_env(env).engine_instances() \
+            .get_latest_completed("ml100k-tt", "0", "default")
+        if instance is None:
+            fail("pio train stored no COMPLETED instance")
+        model = load_blob(Storage.from_env(env).models()
+                          .get(instance.id).models)[0]
+        plan = model.kernel_plan
+        if not (plan["flash_ce"] and plan["embed_update"]):
+            fail(f"pio train did not run both kernels: {plan}")
+        if not model.train_losses[-1] < model.train_losses[0]:
+            fail(f"pio train losses did not fall: {model.train_losses}")
+        truth = Truth(model.user_factors, model.item_factors,
+                      list(model.user_ids.keys()),
+                      list(model.item_ids.keys()))
+        port = free_port()
+        proc = subprocess.Popen(
+            cli + ["deploy", "--engine-json", engine_json, "--ip",
+                   "127.0.0.1", "--port", str(port)],
+            env=sub_env, cwd=store, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        deadline = time.time() + 300
+        while True:
+            try:
+                urllib.request.urlopen(f"http://127.0.0.1:{port}/",
+                                       timeout=10).read()
+                break
+            except OSError:
+                if proc.poll() is not None or time.time() > deadline:
+                    fail(f"pio deploy did not come up: "
+                         f"{proc.stdout.read()[-2000:]}")
+                time.sleep(1.0)
+        rng = np.random.default_rng(SEED + 4)
+        queries = [{"user": f"u{u}", "num": 10}
+                   for u in rng.integers(1, n_users + 1, 10)]
+        queries += [{"item": f"i{i}", "num": 5}
+                    for i in rng.integers(1, n_items + 1, 5)]
+        for j, q in enumerate(queries):
+            check_answer(truth, q, post(port, q), f"pio deploy query {j}")
+        return {"events": n, "train_sec": train_sec,
+                "losses": model.train_losses, "kernel_plan": plan,
+                "queries": len(queries), "instance": instance.id}
+    finally:
+        if proc is not None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(store, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -508,12 +1077,21 @@ def main() -> int:
     build_sec = time.perf_counter() - t0
     print(f"built {built} in {build_sec:.1f}s", flush=True)
     topk = kernel_phase()
-    print(f"kernel phase: {topk['cases']} shapes agree", flush=True)
+    print(f"topk_dot: {topk['cases']} shapes agree", flush=True)
+    flash = flash_ce_phase()
+    print(f"flash_ce: {flash['cases']} cases agree", flush=True)
+    embed = embed_update_phase()
+    print("embed_update: 3 cases agree", flush=True)
     serve = serve_phase()
     topk["launches"] = serve["launches"]
     print(json.dumps({"serve": serve, "build_sec": build_sec}), flush=True)
+    train = train_phase()
+    flash["launches"] = train["flash_ce_launches"]
+    embed["launches"] = train["embed_update_launches"]
+    print(json.dumps({"train": train}), flush=True)
+    print(json.dumps({"pio_train": pio_train_phase()}), flush=True)
     print(card, flush=True)
-    print(json.dumps({"kernels": [topk]}), flush=True)
+    print(json.dumps({"kernels": [topk, flash, embed]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -16,10 +16,12 @@ Entry points run on the card: ``DeviceContext()`` means ``cuda:0`` and
 raises when CUDA is absent, unless the caller asks for ``device="cpu"``
 (the tests do) or passes ``--device cpu`` to the CLI.
 
-Ported so far: ``pio deploy`` of the Recommendation (ALS) engine —
-loading a trained instance (JAX-trained blobs included) and answering
-``POST /queries.json`` through the ``topk_dot`` kernel. Training is the
-next slice (ROADMAP.md).
+Ported so far: ``pio deploy`` of the Recommendation (ALS) and two-tower
+engines — loading a trained instance (JAX-trained blobs included) and
+answering ``POST /queries.json`` through the ``topk_dot`` kernel — and
+``pio train`` of the two-tower engine from the event store, through the
+``flash_ce`` (loss forward and backward) and ``embed_update`` (table
+update) kernels. What remains is in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

@@ -7,6 +7,7 @@ from predictionio_torch.core.controller import (
     DataSource,
     FirstServing,
     Preparator,
+    SanityCheck,
     Serving,
 )
 from predictionio_torch.core.engine import Engine, EngineFactory
@@ -17,6 +18,7 @@ __all__ = [
     "EngineParams",
     "DataSource",
     "Preparator",
+    "SanityCheck",
     "Algorithm",
     "Serving",
     "FirstServing",

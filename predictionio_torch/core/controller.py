@@ -9,6 +9,7 @@ contracts from the reference controller layer:
   - Algorithm   (ref: controller/PAlgorithm.scala:45, P2LAlgorithm.scala:42,
                  LAlgorithm.scala:41 — collapsed into one class)
   - Serving     (ref: controller/LServing.scala:26 + LFirstServing)
+  - SanityCheck (ref: controller/SanityCheck.scala:24)
 """
 
 from __future__ import annotations
@@ -41,6 +42,16 @@ class Doer:
         if params is not None and not isinstance(params, EmptyParams):
             inst.params = params
         return inst
+
+
+class SanityCheck(abc.ABC):
+    """Opt-in hook: training data, prepared data and models implementing
+    this are checked after each pipeline stage (ref: SanityCheck.scala:24,
+    called from Engine.scala:610-666)."""
+
+    @abc.abstractmethod
+    def sanity_check(self) -> None:
+        """Raise on inconsistent data."""
 
 
 class DataSource(Doer):

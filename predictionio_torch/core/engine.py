@@ -1,10 +1,11 @@
 """The Engine: named DASE component maps + variant parsing.
 
-Counterpart of ``predictionio_tpu/core/engine.py`` for what deploy
-needs (ref: controller/Engine.scala): an Engine holds maps of named
-component classes per DASE slot; an EngineParams picks one name per
-slot; engine.json variants become EngineParams. ``train`` and ``eval``
-come with the training slice.
+Counterpart of ``predictionio_tpu/core/engine.py`` for what ``pio
+train`` and ``pio deploy`` need (ref: controller/Engine.scala): an
+Engine holds maps of named component classes per DASE slot; an
+EngineParams picks one name per slot; engine.json variants become
+EngineParams; ``train`` reads, prepares and fits (ref: object
+Engine.train:583). ``eval`` waits for the evaluation slice.
 
 ``resolve_engine_factory`` reads factory paths written for either
 package: a path under ``predictionio_tpu.`` resolves to the same path
@@ -19,10 +20,15 @@ import abc
 import importlib
 import logging
 import typing
+from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple, Type, Union
 
-from predictionio_torch.core.controller import Algorithm, Serving
+from predictionio_torch.core.controller import (Algorithm, DataSource,
+                                                Preparator, SanityCheck,
+                                                Serving)
 from predictionio_torch.core.params import EngineParams, Params, params_from_dict
+from predictionio_torch.parallel.context import DeviceContext
+from predictionio_torch.workflow.config import WorkflowParams
 
 log = logging.getLogger(__name__)
 
@@ -64,6 +70,25 @@ def _declared_params_class(cls: type) -> Optional[Type[Params]]:
     return ann if isinstance(ann, type) else None
 
 
+def _sanity(obj: Any, wp: WorkflowParams, stage: str) -> None:
+    """ref: Engine.scala:610-666 — check TD/PD/models implementing SanityCheck."""
+    if wp.skip_sanity_check:
+        return
+    if isinstance(obj, SanityCheck):
+        log.info("sanity check %s", stage)
+        obj.sanity_check()
+
+
+@dataclass
+class TrainResult:
+    """Outcome of Engine.train — models plus debug-interruption state."""
+
+    models: Optional[List[Any]] = None
+    stopped_after: Optional[str] = None  # None | "read" | "prepare"
+    training_data: Any = None
+    prepared_data: Any = None
+
+
 class Engine:
     """ref: controller/Engine.scala:78."""
 
@@ -83,6 +108,14 @@ class Engine:
                 f"{role} {name!r} not found (available: {sorted(classes)})")
         return classes[name].create(params)
 
+    def make_data_source(self, ep: EngineParams) -> DataSource:
+        return self._make(self.data_source_classes, ep.data_source_params,
+                          "DataSource")
+
+    def make_preparator(self, ep: EngineParams) -> Preparator:
+        return self._make(self.preparator_classes, ep.preparator_params,
+                          "Preparator")
+
     def make_algorithms(self, ep: EngineParams) -> List[Algorithm]:
         if not ep.algorithm_params_list:
             raise ValueError("EngineParams.algorithm_params_list must not be empty")
@@ -91,6 +124,29 @@ class Engine:
 
     def make_serving(self, ep: EngineParams) -> Serving:
         return self._make(self.serving_classes, ep.serving_params, "Serving")
+
+    def train(self, ctx: DeviceContext, engine_params: EngineParams,
+              workflow_params: Optional[WorkflowParams] = None
+              ) -> TrainResult:
+        """read -> sanity check -> [stop after read] -> prepare -> sanity
+        check -> [stop after prepare] -> train each algorithm -> sanity
+        check each model (ref: object Engine.train:583)."""
+        wp = workflow_params or WorkflowParams()
+        td = self.make_data_source(engine_params).read_training(ctx)
+        _sanity(td, wp, "training data")
+        if wp.stop_after_read:
+            return TrainResult(stopped_after="read", training_data=td)
+        pd = self.make_preparator(engine_params).prepare(ctx, td)
+        _sanity(pd, wp, "prepared data")
+        if wp.stop_after_prepare:
+            return TrainResult(stopped_after="prepare", training_data=td,
+                               prepared_data=pd)
+        models = []
+        for i, algo in enumerate(self.make_algorithms(engine_params)):
+            model = algo.train(ctx, pd)
+            _sanity(model, wp, f"model {i}")
+            models.append(model)
+        return TrainResult(models=models, training_data=td, prepared_data=pd)
 
     # -- variant JSON -> EngineParams (ref: Engine.jValueToEngineParams:328) --
     def engine_params_from_variant(self, variant: Dict[str, Any]) -> EngineParams:

@@ -1,9 +1,8 @@
 """Component parameters + engine-level parameter bundles.
 
-Copy of ``predictionio_tpu/core/params.py`` trimmed to the reading
-side: an engine instance stores its params as JSON, and deploy must
-read it as the JAX package does. Writing it comes with the training
-slice.
+Copy of ``predictionio_tpu/core/params.py``: an engine instance stores
+its params as JSON, written by ``pio train`` and read by deploy, in the
+JAX package's form.
 
 Behavior contract from the reference (controller/Params.scala:23,
 controller/EngineParams.scala:31): every DASE component takes a typed
@@ -17,6 +16,7 @@ engine.json variants are materialized into them by field name
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple, Type
 
@@ -31,6 +31,16 @@ class Params:
 @dataclass(frozen=True)
 class EmptyParams(Params):
     """ref: Params.scala:29 EmptyParams."""
+
+
+def params_to_dict(p: Optional[Params]) -> dict:
+    if p is None:
+        return {}
+    if dataclasses.is_dataclass(p):
+        return dataclasses.asdict(p)
+    if isinstance(p, dict):
+        return dict(p)
+    raise TypeError(f"params must be a dataclass or dict, got {type(p)}")
 
 
 def params_from_dict(cls: Optional[Type[Params]], d: Optional[dict]) -> Params:
@@ -77,6 +87,20 @@ class EngineParams:
         self.serving_params = _normalize(self.serving_params)
         self.algorithm_params_list = [_normalize(x) for x in self.algorithm_params_list]
 
+    def to_json_dict(self) -> dict:
+        return {
+            "dataSourceParams": _slot_json(self.data_source_params),
+            "preparatorParams": _slot_json(self.preparator_params),
+            "algorithmParamsList": [
+                {"name": n, "params": params_to_dict(p)}
+                for n, p in self.algorithm_params_list
+            ],
+            "servingParams": _slot_json(self.serving_params),
+        }
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_json_dict(), sort_keys=True)
+
 
 def _normalize(slot) -> Tuple[str, Params]:
     """Accept bare Params (name defaults to "") for SimpleEngine-style use."""
@@ -84,3 +108,8 @@ def _normalize(slot) -> Tuple[str, Params]:
         name, p = slot
         return (name, p if p is not None else EmptyParams())
     return ("", slot if slot is not None else EmptyParams())
+
+
+def _slot_json(slot: Tuple[str, Params]) -> dict:
+    name, p = slot
+    return {"name": name, "params": params_to_dict(p)}

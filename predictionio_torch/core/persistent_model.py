@@ -4,9 +4,10 @@ Counterpart of ``predictionio_tpu/core/persistent_model.py`` for the
 deploy side (ref: controller/PersistentModel.scala:47,72,
 PersistentModelManifest.scala:18): an algorithm whose model saves itself
 stores only a manifest naming its loader class in the Models repo; at
-deploy the manifest's class loads the model. The saving side comes with
-the training slice. A manifest naming a class
-under ``predictionio_tpu.`` resolves under ``predictionio_torch.``.
+deploy the manifest's class loads the model. No model of the port saves
+itself (``pio train`` pickles them whole), so the saving side is not
+ported. A manifest naming a class under ``predictionio_tpu.`` resolves
+under ``predictionio_torch.``.
 """
 
 from __future__ import annotations

@@ -1,3 +1,3 @@
-"""Metadata and model storage of the port (a trimmed copy of
-``predictionio_tpu.data``: what ``pio deploy`` reads). The event store
-comes with the training slice."""
+"""Events, metadata and model storage of the port (a trimmed copy of
+``predictionio_tpu.data``: what ``pio train`` and ``pio deploy`` read
+and write)."""

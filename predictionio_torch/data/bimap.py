@@ -9,14 +9,14 @@ them onto this class, so the two must keep the same attributes
 Behavior contract from the reference's BiMap
 (data/.../storage/BiMap.scala:25,96+): an immutable bidirectional map
 from string keys to contiguous integers 0..n-1 — the bridge between
-entity ids and dense factor-matrix rows. Deploy needs lookups both ways
-and ``from_vocab``; the id-column conversions come with the training
-slice.
+entity ids and dense factor-matrix rows: lookups both ways,
+``string_int`` (first-seen order) and ``from_vocab``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Generic, Hashable, Optional, Sequence, TypeVar
+from typing import (Dict, Generic, Hashable, Iterable, Optional, Sequence,
+                    TypeVar)
 
 K = TypeVar("K", bound=Hashable)
 V = TypeVar("V", bound=Hashable)
@@ -56,7 +56,16 @@ class BiMap(Generic[K, V]):
     def keys(self):
         return self._f.keys()
 
-    # -- constructor ----------------------------------------------------------
+    # -- constructors (ref: BiMap.scala stringInt) ---------------------------
+    @staticmethod
+    def string_int(keys: Iterable[str]) -> "BiMap[str, int]":
+        """Index distinct keys to 0..n-1 in first-seen order."""
+        forward: Dict[str, int] = {}
+        for k in keys:
+            if k not in forward:
+                forward[k] = len(forward)
+        return BiMap(forward)
+
     @staticmethod
     def from_vocab(vocab: Sequence[str]) -> "BiMap[str, int]":
         """Already-distinct keys -> their positions (the dict-encoded

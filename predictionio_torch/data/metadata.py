@@ -1,19 +1,36 @@
-"""Metadata records: engine instances and model blobs.
+"""Metadata records: apps, channels, engine instances and model blobs.
 
-Copy of ``predictionio_tpu/data/metadata.py`` trimmed to the two
-records ``pio deploy`` reads (ref: EngineInstances.scala:34,
-Models.scala:30). The field names and the JSON form
-(``record_to_dict`` / ``dict_to_record``) are the storage format both
-packages share, so the port reads what ``pio train`` wrote.
+Copy of ``predictionio_tpu/data/metadata.py`` trimmed to the records
+``pio train`` and ``pio deploy`` use (ref: Apps.scala:27,
+Channels.scala:27, EngineInstances.scala:34, Models.scala:30). The
+field names and the JSON form (``record_to_dict`` / ``dict_to_record``)
+are the storage format both packages share, so each reads what the
+other wrote.
 """
 
 from __future__ import annotations
 
 import datetime as _dt
 from dataclasses import asdict, dataclass, field
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 UTC = _dt.timezone.utc
+
+
+@dataclass
+class App:
+    """ref: Apps.scala:27"""
+    id: int
+    name: str
+    description: Optional[str] = None
+
+
+@dataclass
+class Channel:
+    """ref: Channels.scala:27"""
+    id: int
+    name: str
+    appid: int
 
 
 @dataclass

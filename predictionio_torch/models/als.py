@@ -15,7 +15,9 @@ index, whose item table the ``topk_dot`` kernel streams. Pickles drop
 every device-side piece. ``als_model_from_arrays`` builds a model from
 the factors and vocabularies of a JAX-trained one (as numpy arrays).
 
-Training is not ported yet (ROADMAP.md, queue 1 item 3).
+``PreparedRatings`` is the prepared data both factor models train on.
+ALS training is not ported yet (ROADMAP.md, queue 1 item 3); the
+two-tower model (``models/twotower.py``) trains on the same data.
 """
 
 from __future__ import annotations
@@ -27,12 +29,39 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from predictionio_torch.core import Algorithm
+from predictionio_torch.core import Algorithm, SanityCheck
 from predictionio_torch.core.params import Params
 from predictionio_torch.data.bimap import BiMap
 from predictionio_torch.ops.topk import TopKScorer
 from predictionio_torch.parallel.context import (DeviceContext, DeviceLike,
                                                  resolve_device)
+
+
+@dataclass
+class PreparedRatings(SanityCheck):
+    """Prepared data of the factor models: indexed COO ratings (the JAX
+    package's ``PreparedRatings`` without its native binned lane)."""
+
+    user_ids: Optional[BiMap] = None         # user id str -> row
+    item_ids: Optional[BiMap] = None         # item id str -> row
+    user_idx: Optional[np.ndarray] = None    # [nnz] int
+    item_idx: Optional[np.ndarray] = None    # [nnz] int
+    ratings: Optional[np.ndarray] = None     # [nnz] float32
+
+    @property
+    def n_users(self) -> int:
+        return len(self.user_ids)
+
+    @property
+    def n_items(self) -> int:
+        return len(self.item_ids)
+
+    def sanity_check(self) -> None:
+        if self.user_idx is None or len(self.user_idx) == 0:
+            raise ValueError("PreparedRatings is empty — no rating events "
+                             "found")
+        if not len(self.user_idx) == len(self.item_idx) == len(self.ratings):
+            raise ValueError("COO arrays length mismatch")
 
 
 @dataclass
