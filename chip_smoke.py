@@ -47,9 +47,10 @@ exits non-zero before printing any result.
    reset just before the deploy, must have risen by at least the number
    of lone user and item queries.
 
-4. Two-tower kernel phase: the ``flash_ce`` kernels (forward, du, dv)
+4. Two-tower kernel phase: the ``flash_ce`` kernels (the forward, and
+   the backward kernel twice: du, then dv with the roles swapped)
    against their plain version ``flash_ce_reference`` over B in {128,
-   130, 1000, 8192}, D in {8, 64, 128}, cdt in {float32, bfloat16},
+   130, 1000, 8192}, D in {8, 64, 128, 256}, cdt in {float32, bfloat16},
    uniform and real-valued weights, with in-batch duplicate users and
    items and a zero-weight tail; the loss within the JAX package's
    kernel-test tolerance (f32 rtol 1e-5, bf16 5e-3), both gradients
@@ -58,7 +59,8 @@ exits non-zero before printing any result.
    size (1e-4 / 2e-3 of max|ref|) and a relative norm error of at most
    1e-4 / 2e-2. At the train shape (B=8192, D=128) deliberately wrong
    gradients (zeros, rows shifted, scaled by 0.9, one tile zeroed) must
-   fail that check. The ``embed_update``
+   fail that check, and two kernel calls there must give the same
+   loss, du and dv bit for bit. The ``embed_update``
    kernel against ``embed_update_reference`` at (N, E, B, vocab) =
    (64, 24, 37, 64), (50, 8, 24, 6) (every row collides) and (1M, 128,
    8192, 1M), rtol 1e-5 / atol 1e-6. Both are timed at the train
@@ -66,7 +68,9 @@ exits non-zero before printing any result.
    table) against their plain versions and, for ``embed_update``, one
    ``index_add_`` (no single PyTorch call computes the flash-CE loss):
    device time from ``torch.profiler``, for ``embed_update`` with L2
-   flushed before each call (``warm_ms`` beside it).
+   flushed before each call (``warm_ms`` beside it); for ``flash_ce``
+   the forward and the backward kernel apart, and ``ptxas``'s registers
+   and spills of each of its kernels.
 5. Train phase, the second main path: the repo's stretch two-tower
    configuration (BASELINE.json configs[4], sized in bench.py: 1M
    users, 1M items, 4M positives synthesized as bench.py does from
@@ -631,6 +635,7 @@ def grad_controls(g, r, cdt_name: str) -> dict:
 
 def flash_ce_phase() -> dict:
     import torch
+    from predictionio_torch.ops import kernels
     from predictionio_torch.ops.kernels import flash_ce as fce
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -638,7 +643,7 @@ def flash_ce_phase() -> dict:
     rel_norm_max = {"float32": 0.0, "bfloat16": 0.0}
     controls = {}
     for B in (128, 130, 1000, 8192):
-        for D in (8, 64, 128):
+        for D in (8, 64, 128, 256):
             for cdt in (torch.float32, torch.bfloat16):
                 for uniform_w in (True, False):
                     batch = ce_batch(B, D, gen, uniform_w)
@@ -672,6 +677,12 @@ def flash_ce_phase() -> dict:
     # timing at the train phase's shape: one loss forward and backward
     B, D, cdt = TT_BATCH, TT_DIM, torch.bfloat16
     batch = ce_batch(B, D, gen, True)
+    # partials summed in a fixed order, no atomics: the same bits twice
+    first, second = (ce_step(fce.flash_ce, *batch, cdt) for _ in range(2))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        fail("flash_ce is not deterministic: two calls at B=8192, D=128 "
+             "gave different loss or gradients")
     kernel = lambda: ce_step(fce.flash_ce, *batch, cdt)  # noqa: E731
     plain = lambda: ce_step(fce.flash_ce_reference, *batch, cdt)  # noqa: E731
     kernel_call_ms, plain_call_ms = call_ms(kernel, 50), call_ms(plain, 10)
@@ -686,6 +697,12 @@ def flash_ce_phase() -> dict:
     exps_ms = 3.0 * B * B / SFU_PER_S * 1e3
     bytes_ms = (4 * B * D * 4 + B * (8 + 8 + 4)) / HBM_BYTES_PER_S * 1e3
     ops_ms = max(products_ms, exps_ms)
+    kernel_split = own_split(split, "flash_ce_kernel")
+    # the backward kernel is the one template instance with BWD = true
+    bwd_ms = sum(ms for name, ms in kernel_split.items()
+                 if name.startswith("flash_ce_kernel") and "true" in name)
+    fwd_ms = sum(ms for name, ms in kernel_split.items()
+                 if name.startswith("flash_ce_kernel") and "true" not in name)
     return {
         "name": "flash_ce", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "max_abs_err": max_err,
@@ -699,7 +716,10 @@ def flash_ce_phase() -> dict:
         "library_ms": None,
         "library_note": "no single PyTorch call computes this loss",
         "call_ms": kernel_call_ms, "plain_call_ms": plain_call_ms,
-        "device_split_ms": own_split(split, "flash_ce_kernel"),
+        "device_split_ms": kernel_split, "fwd_ms": fwd_ms,
+        "bwd_ms": bwd_ms,
+        "deterministic": True, "split": fce.split_for(B),
+        "ptxas": kernels.ptxas_report("flash_ce"),
         "cases": cases, "shape": f"B={B},D={D},cdt=bfloat16,fwd+bwd",
     }
 

@@ -24,6 +24,7 @@ import ctypes
 import hashlib
 import logging
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -37,9 +38,11 @@ _FALSY = {"0", "false", "no", "off"}
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 
-#: sm_90a, not sm_90: wgmma and setmaxnreg exist only for the "a" target
+#: sm_90a, not sm_90: wgmma and setmaxnreg exist only for the "a" target;
+#: ``-Xptxas -v`` reports each kernel's registers and spills
+#: (:func:`ptxas_report`)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def resolve_flag(config_value: str, env_name: str) -> str:
@@ -140,8 +143,55 @@ def build_all(names: Optional[List[str]] = None) -> List[str]:
                 raise RuntimeError(
                     f"nvcc failed to build kernel {name!r} "
                     f"(exit {proc.returncode}):\n{output}")
+            with open(f"{out}.log", "w") as f:
+                f.write(output)
             os.replace(tmp, out)
     return names
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """Registers, spill stores and spill loads of each kernel in source
+    ``name``, read from the ``ptxas -v`` output kept beside its library
+    (empty before the first build). Kernel names are shortened to
+    ``function<template args>``."""
+    report: Dict[str, Dict[str, int]] = {}
+    kernel = None
+    log_path = f"{_library_path(name)}.log"
+    text = open(log_path).read() if os.path.exists(log_path) else ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = _short_name(m.group(1))
+            report[kernel] = {}
+            continue
+        if kernel is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            report[kernel]["spill_stores"] = int(m.group(1))
+            report[kernel]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[kernel]["registers"] = int(m.group(1))
+    return report
+
+
+def _short_name(mangled: str) -> str:
+    """``_ZN12_GLOBAL__N_115flash_ce_kernelILi128ELb1EEEv..`` ->
+    ``flash_ce_kernel<128,1>``: the last name of the nested name and
+    its integer template arguments."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    rest, name = mangled[3:], mangled
+    while rest[:1].isdigit():
+        digits = re.match(r"\d+", rest).group(0)
+        n = int(digits)
+        name, rest = rest[len(digits):len(digits) + n], rest[len(digits) + n:]
+    args = re.match(r"I((?:L[a-z]\d+E)+)E", rest)
+    if not args:
+        return name
+    return f"{name}<{','.join(re.findall(r'(\d+)E', args.group(1)))}>"
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -23,8 +23,18 @@ Semantics are those of the JAX package's kernel:
   backward  softmax reconstruction from the two saved LSE vectors with
             the forward's rounding, ``coef = [w_b (p_ui - d) + w_j (p_iu
             - d)] * ct / (2 sum(w) temp)`` cast to ``cdt``, then ``du =
-            coef . v`` and ``dv = coef^T . u`` with f32 sums: two
-            kernels, one per gradient.
+            coef . v`` with f32 sums. The loss is symmetric, so one
+            backward kernel serves both gradients: ``dv = coef^T . u``
+            is the same kernel with u <-> v, u_idx <-> i_idx and
+            lse_ui <-> lse_iu swapped (:func:`grad_reference` is its
+            plain version). Three launches per loss.
+
+For bf16 the wrapper casts u and v to bf16 once per loss (zero-padded
+to the kernels' width ``Dp``) and keeps the copies for the backward;
+ids go to the kernels as int32, as the Pallas kernel takes them. Each
+kernel writes ``split_for(B)`` partials that torch sums in a fixed
+order: the loss and its gradients are the same bit for bit from run to
+run.
 
 ``u_idx``, ``i_idx`` and ``weight`` are not differentiable: a ``weight``
 that requires grad raises (the JAX kernel raises too; neither ever
@@ -60,10 +70,18 @@ MAX_DIM = 256
 #: structural.
 DIRECT_EXP_MAX_INV_TEMP = 70.0
 
-#: kernel launches: one forward, two backward (du, dv) per loss
+#: chunks of each block's loop over the other side (grid n_tiles x
+#: SPLIT, fewer when the batch has fewer tiles): at B = 8192 an H100
+#: holds all 128 x 3 = 384 blocks at once (3 on each of its 132 SMs).
+#: Measured with ``python -m predictionio_torch.tools.flash_ce_timing``
+#: over 1, 2, 3, 4, 6 and 8: 3 and 6 fastest, 3 has half the partials
+SPLIT = 3
+
+#: kernel launches: one forward and two of the backward kernel (du,
+#: then dv with the roles swapped) per loss
 launches = LaunchCounter("flash_ce")
 
-_MODE_FWD, _MODE_DU, _MODE_DV = 0, 1, 2
+_MODE_FWD, _MODE_GRAD = 0, 1
 
 
 def _check(u, v, u_idx, i_idx, weight, temp, cdt) -> None:
@@ -217,22 +235,58 @@ def blockwise_softmax_ce(u, v, u_idx, i_idx, weight, temp, chunk, cdt):
                               int(chunk), cdt)
 
 
+def grad_reference(own, other, own_ids, other_ids, weight, lse_own,
+                   lse_other, scale, temp, cdt) -> torch.Tensor:
+    """The plain version of the backward kernel: the gradient of the
+    loss with respect to one tower's rows ``own`` ``[B, D]``, given the
+    other tower's rows, each side's ids (``own_ids`` are compared for
+    the other side's bans, ``other_ids`` for this side's), the weights,
+    the two saved LSE vectors (this side's first), the scalar ``scale``
+    = ``ct / (2 sum(w) temp)``, ``temp`` and ``cdt``. ``du`` is
+    ``grad_reference(u, v, u_idx, i_idx, w, lse_ui, lse_iu, ...)``;
+    the loss is symmetric, so ``dv`` is the same call with the roles
+    swapped: ``grad_reference(v, u, i_idx, u_idx, w, lse_iu, lse_ui,
+    ...)``, as the kernel is launched."""
+    rows = torch.arange(own.shape[0], device=own.device)
+    L = tile_logits(own, other, temp, cdt)
+    not_diag, ban_ui, ban_iu = tile_masks(
+        rows, own_ids, other_ids, (weight <= 0.0)[:, None], other_ids,
+        weight, rows, own_ids)
+    p_ui = torch.where(ban_ui, 0.0, torch.exp(L - lse_own[:, None]))
+    p_iu = torch.where(ban_iu, 0.0, torch.exp(L - lse_other[None, :]))
+    isdiag = (~not_diag).float()
+    coef = (weight[:, None] * (p_ui - isdiag)
+            + weight[None, :] * (p_iu - isdiag)) * scale
+    return coef.to(cdt).float() @ other.to(cdt).float()
+
+
+def split_for(B: int) -> int:
+    """Chunks S of the loop over the other side (grid n_tiles x S): at
+    most the number of tiles, so every block has work."""
+    return min(SPLIT, -(-B // TILE))
+
+
 def _launcher():
     lib = load_library("flash_ce")
     fn = lib.flash_ce_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, p, p, i, i, f, p]
+        fn.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, f,
+                       p]
         fn.restype = ctypes.c_int
         lib.flash_ce_error_string.argtypes = [ctypes.c_int]
         lib.flash_ce_error_string.restype = ctypes.c_char_p
     return lib, fn
 
 
-def _launch(mode, u, v, u_idx, i_idx, weight, temp, cdt, lse_ui=None,
-            lse_iu=None, scale=None, sum_ui=None, diag=None, iu_parts=None,
-            out=None) -> None:
-    B, D = u.shape
+def _launch(mode, u, v, u_idx, i_idx, weight, temp, cdt, split, *,
+            lse_ui=None, lse_iu=None, scale=None, sum_ui=None, diag=None,
+            iu_parts=None, out=None) -> None:
+    """One kernel launch. ``u``, ``v``: the row and column sides, bf16
+    ``[B, Dp]`` (cdt bfloat16) or f32 ``[B, D]``; ids int32; ``D`` is
+    the output width (``out`` ``[split, B, D]``)."""
+    B = u.shape[0]
+    D = out.shape[2] if out is not None else u.shape[1]
     temp_c = float(torch.tensor(temp, dtype=cdt))   # the cdt-rounded divisor
     lib, fn = _launcher()
 
@@ -244,50 +298,85 @@ def _launch(mode, u, v, u_idx, i_idx, weight, temp, cdt, lse_ui=None,
         err = fn(mode, int(cdt == torch.bfloat16), ptr(u), ptr(v),
                  ptr(u_idx), ptr(i_idx), ptr(weight), ptr(lse_ui),
                  ptr(lse_iu), ptr(scale), ptr(sum_ui), ptr(diag),
-                 ptr(iu_parts), ptr(out), B, D, temp_c, stream)
+                 ptr(iu_parts), ptr(out), B, D, split, temp_c, stream)
     if err != 0:
         raise RuntimeError(
             f"flash_ce launch failed (mode={mode}, B={B}, D={D}, "
-            f"cdt={cdt}): CUDA error {err}: "
+            f"split={split}, cdt={cdt}): CUDA error {err}: "
             f"{lib.flash_ce_error_string(err).decode(errors='replace')}")
     launches.add()
 
 
+def _kernel_inputs(u, v, cdt):
+    """What the kernels read: bf16 copies zero-padded to ``Dp`` columns
+    (cast once per loss, kept for the backward), or f32 as given."""
+    if cdt == torch.float32:
+        return u.contiguous(), v.contiguous()
+    D = u.shape[1]
+    pad = next(p for p in (32, 64, 128, 256) if D <= p) - D
+    return tuple(torch.nn.functional.pad(t.to(torch.bfloat16), (0, pad))
+                 .contiguous() for t in (u, v))
+
+
+def forward_kernel(ub, vb, u_idx, i_idx, weight, temp, cdt, split=None):
+    """The forward kernel on kernel inputs (:func:`_kernel_inputs`, ids
+    int32): ``(lse_ui, lse_iu, diag)``, each ``[B]`` f32, with the
+    partials summed by torch in a fixed order."""
+    B = ub.shape[0]
+    split = split_for(B) if split is None else split
+    dev = ub.device
+    sum_ui = torch.empty((split, B), dtype=torch.float32, device=dev)
+    diag = torch.empty(B, dtype=torch.float32, device=dev)
+    iu_parts = torch.empty((-(-B // TILE), B), dtype=torch.float32,
+                           device=dev)
+    _launch(_MODE_FWD, ub, vb, u_idx, i_idx, weight, temp, cdt, split,
+            sum_ui=sum_ui, diag=diag, iu_parts=iu_parts)
+    return (torch.log(sum_ui.sum(dim=0)), torch.log(iu_parts.sum(dim=0)),
+            diag)
+
+
+def grad_kernel(own, other, own_ids, other_ids, weight, lse_own, lse_other,
+                scale, temp, cdt, D, split=None) -> torch.Tensor:
+    """The backward kernel, with :func:`grad_reference`'s arguments on
+    kernel inputs (``scale`` a one-element f32 tensor): the ``[B, D]``
+    gradient of ``own``, its ``split`` partials summed by torch in a
+    fixed order."""
+    B = own.shape[0]
+    split = split_for(B) if split is None else split
+    out = torch.empty((split, B, D), dtype=torch.float32, device=own.device)
+    _launch(_MODE_GRAD, own, other, own_ids, other_ids, weight, temp, cdt,
+            split, lse_ui=lse_own, lse_iu=lse_other, scale=scale, out=out)
+    return out[0] if split == 1 else out.sum(dim=0)
+
+
 class _FlashCE(torch.autograd.Function):
     """``loss = _FlashCE.apply(u, v, u_idx, i_idx, weight, temp, cdt)``
-    on CUDA tensors: the forward kernel, then the du and dv kernels
-    under autograd; gradients flow to ``u`` and ``v`` only."""
+    on CUDA tensors: the forward kernel, then under autograd the
+    backward kernel twice, for du and (roles swapped) for dv; gradients
+    flow to ``u`` and ``v`` only."""
 
     @staticmethod
     def forward(ctx, u, v, u_idx, i_idx, weight, temp, cdt):
-        u, v, u_idx, i_idx, weight = (
-            t.contiguous() for t in (u, v, u_idx, i_idx, weight))
-        B = u.shape[0]
+        ub, vb = _kernel_inputs(u, v, cdt)
+        ui, ii = (t.to(torch.int32).contiguous() for t in (u_idx, i_idx))
+        weight = weight.contiguous()
         wsum = torch.clamp(weight.sum(), min=1e-8)
-        sum_ui = torch.empty(B, dtype=torch.float32, device=u.device)
-        diag = torch.empty(B, dtype=torch.float32, device=u.device)
-        iu_parts = torch.empty((-(-B // TILE), B), dtype=torch.float32,
-                               device=u.device)
-        _launch(_MODE_FWD, u, v, u_idx, i_idx, weight, temp, cdt,
-                sum_ui=sum_ui, diag=diag, iu_parts=iu_parts)
-        lse_ui = torch.log(sum_ui)
-        lse_iu = torch.log(iu_parts.sum(dim=0))
+        lse_ui, lse_iu, diag = forward_kernel(ub, vb, ui, ii, weight, temp,
+                                              cdt)
         loss = 0.5 * (torch.sum((lse_ui - diag) * weight)
                       + torch.sum((lse_iu - diag) * weight)) / wsum
-        ctx.save_for_backward(u, v, u_idx, i_idx, weight, lse_ui, lse_iu,
-                              wsum)
-        ctx.temp, ctx.cdt = temp, cdt
+        ctx.save_for_backward(ub, vb, ui, ii, weight, lse_ui, lse_iu, wsum)
+        ctx.temp, ctx.cdt, ctx.D = temp, cdt, u.shape[1]
         return loss
 
     @staticmethod
     def backward(ctx, ct):
-        u, v, u_idx, i_idx, weight, lse_ui, lse_iu, wsum = ctx.saved_tensors
+        ub, vb, ui, ii, weight, lse_ui, lse_iu, wsum = ctx.saved_tensors
         scale = (ct / (2.0 * wsum * ctx.temp)).reshape(1).contiguous()
-        du = torch.empty_like(u)
-        dv = torch.empty_like(v)
-        for mode, out in ((_MODE_DU, du), (_MODE_DV, dv)):
-            _launch(mode, u, v, u_idx, i_idx, weight, ctx.temp, ctx.cdt,
-                    lse_ui=lse_ui, lse_iu=lse_iu, scale=scale, out=out)
+        du = grad_kernel(ub, vb, ui, ii, weight, lse_ui, lse_iu, scale,
+                         ctx.temp, ctx.cdt, ctx.D)
+        dv = grad_kernel(vb, ub, ii, ui, weight, lse_iu, lse_ui, scale,
+                         ctx.temp, ctx.cdt, ctx.D)
         return du, dv, None, None, None, None, None
 
 

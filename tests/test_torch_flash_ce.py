@@ -23,7 +23,10 @@ from predictionio_tpu.ops.pallas.flash_ce import make_flash_ce
 from predictionio_tpu.ops.twotower import (_dense_softmax_ce,
                                            _make_blockwise_ce_vjp)
 from predictionio_torch.ops import twotower as tt
-from predictionio_torch.ops.kernels.flash_ce import flash_ce
+from predictionio_torch.ops.kernels.flash_ce import (flash_ce,
+                                                     grad_reference,
+                                                     tile_logits, tile_masks,
+                                                     tile_stats)
 
 torch.set_num_threads(2)
 
@@ -103,6 +106,43 @@ def test_flash_ce_ragged_batch(B):
                                                 jnp.float32), u, v)):
         _close(got, ref, *TOLS["float32"])
     assert got[1].shape == (B, 16) and got[2].shape == (B, 16)
+
+
+@pytest.mark.parametrize("cdt_name,uniform_w,B", [
+    ("float32", True, 256), ("float32", False, 256), ("bfloat16", True, 256),
+    ("bfloat16", False, 256), ("float32", False, 130), ("bfloat16", True, 130),
+])
+def test_backward_kernel_plain_version_and_role_swap(cdt_name, uniform_w, B):
+    """The backward kernel's plain version gives du, and with the roles
+    swapped (v for u, i_idx for u_idx, lse_iu for lse_ui) dv, as the
+    card launches it: both match the Pallas kernel's gradients
+    (interpret mode) and the plain loss's autograd gradients. Batches
+    with duplicate users and items and a zero-weight tail; 130 is
+    ragged (3 tiles of 64)."""
+    D = 16
+    u, v, u_idx, i_idx, w = _batch(B, D, seed=B + len(cdt_name),
+                                   uniform_w=uniform_w)
+    cdt = CDT[cdt_name]
+    tu, tv, tw = torch.tensor(u), torch.tensor(v), torch.tensor(w)
+    tui, tii = (torch.tensor(a, dtype=torch.int64) for a in (u_idx, i_idx))
+    rows = torch.arange(B)
+    masks = tile_masks(rows, tui, tii, (tw <= 0.0)[:, None], tii, tw, rows,
+                       tui)
+    lse_ui, _, lse_iu, _ = tile_stats(tile_logits(tu, tv, TEMP, cdt), *masks,
+                                      True)
+    scale = 1.0 / (2.0 * torch.clamp(tw.sum(), min=1e-8) * TEMP)
+    du = grad_reference(tu, tv, tui, tii, tw, lse_ui, lse_iu, scale, TEMP,
+                        cdt).numpy()
+    dv = grad_reference(tv, tu, tii, tui, tw, lse_iu, lse_ui, scale, TEMP,
+                        cdt).numpy()
+    ju, ji, jw = jnp.asarray(u_idx), jnp.asarray(i_idx), jnp.asarray(w)
+    pallas = _jax(make_flash_ce(ju, ji, jw, TEMP, jnp.dtype(cdt_name), B,
+                                interpret=True, block=64), u, v)
+    plain = _torch(flash_ce, u, v, u_idx, i_idx, w, TEMP, cdt)
+    _, g_rtol, g_atol = TOLS[cdt_name]
+    for ref in (pallas, plain):
+        np.testing.assert_allclose(du, ref[1], rtol=g_rtol, atol=g_atol)
+        np.testing.assert_allclose(dv, ref[2], rtol=g_rtol, atol=g_atol)
 
 
 def test_weight_that_requires_grad_raises():
