@@ -17,21 +17,32 @@ exits non-zero before printing any result.
    D in {32, 64, 128}, B in {1, 8, 64, 128}, k in {8, 16, 128},
    E in {1, 2, 4, 64} (2 and 4 are the serve path's item query with a
    blacklist and a bucketed user blacklist), plus duplicated item rows
-   (exact ties) and a whole tile of top candidates excluded. Scores
+   (exact ties), a whole tile of top candidates excluded, and two
+   adversarial tables at three shapes each: rows whose scores rise
+   along the table (every block's buffer fills and it sorts again and
+   again) and every row identical (all ties: ids 0..k-1). Scores
    must agree within
    1e-5 * |q| * max|item| (the kernel sums in another order than
    cuBLAS), on slots scoring above -1e29. Indices must be equal, except
    where the reference itself has two scores within that tolerance (a
    near-tie the summation order may flip): there the kernel's item must
-   score within the tolerance of the reference's slot. Then the kernel,
-   the plain version and one library call (``torch.matmul`` +
-   ``torch.topk``) are timed at the serve shape (B=1, I=26744, D=64,
-   k=16, E=1), table warm in L2 as in serving: ``ms`` is device time
-   per call from ``torch.profiler``, ``call_ms`` the CUDA-event time per
-   call of back-to-back calls (the host's issue time when that is
-   longer). ``cold_ms`` and ``library_cold_ms`` time one call with the
-   L2 flushed before it (CUDA events, median): the case that the HBM
-   bound ``bound_ms`` describes.
+   score within the tolerance of the reference's slot. 60 calls
+   alternating over the serve (B=1, I=26744, D=64, k=16, E=1), catalog
+   (B=1, I=1M, D=128, k=16, E=1) and widest (B=128, I=66000, D=128,
+   k=128, E=64) shapes must each give their shape's first bits (the
+   kernel's ticket counters reset), and at each of the three the
+   profiler must trace exactly one device kernel and no memset per
+   call (the traced counts go on the ``kernels`` line as
+   ``traced_per_call``). Then the kernel, the plain version and one library call
+   (``torch.matmul`` + ``torch.topk``) are timed at the serve and the
+   catalog shape: ``ms`` is device time per call from
+   ``torch.profiler`` (the serve table warm in L2 as in serving; the
+   512 MB catalog never fits), ``cold_ms`` the same with L2 flushed
+   before each call (the case the HBM bound ``bound_ms`` describes),
+   ``call_ms`` the CUDA-event time per call of back-to-back calls (the
+   host's issue time when that is longer), ``cold_event_ms`` the median
+   CUDA-event time of one call after a flush. ``ptxas``'s registers and
+   spills of the kernel go on the ``kernels`` line.
 3. Serve phase, the port's main path: seeded MovieLens-20M-shaped
    factors (138,493 users, 26,744 items, rank 64) become an ALS model
    via ``als_model_from_arrays``; a COMPLETED engine instance and its
@@ -114,13 +125,6 @@ import numpy as np
 
 SEED = 20
 N_USERS, N_ITEMS, RANK = 138_493, 26_744, 64     # bench.py DEFAULT_KNOBS
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
-L2_FLUSH_BYTES = 256 << 20       # five times the 50 MB L2
-F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
-BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor cores
-# H100 SXM exponentials: 132 SMs x 16 special-function results per clock
-# (CUDA C++ Programming Guide, arithmetic throughput, cc 9.0) x 1.98 GHz
-SFU_PER_S = 132 * 16 * 1.98e9
 # flash_ce gradients against the plain version, per cdt: the JAX
 # package's kernel-test tolerances (rtol, atol), then the same rtol with
 # an atol scaled to the gradient's own size (a fraction of max|ref|), and
@@ -152,91 +156,16 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def call_ms(fn, iters: int = 200, warmup: int = 20) -> float:
-    """CUDA-event time per call over back-to-back calls: the device time
-    or the host's time to issue the call, whichever is longer."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def cold_ms(fn, iters: int = 50) -> float:
-    """Median CUDA-event time of one call issued right after a write of
-    ``L2_FLUSH_BYTES``, so the call finds nothing of its inputs in L2."""
-    import torch
-
-    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
-                        device="cuda")
-    fn()
-    times = []
-    for _ in range(iters):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[len(times) // 2]
-
-
-def device_ms(fn, iters: int = 100, cold: bool = False):
-    """Device time per call: the summed self time of every CUDA kernel
-    and memset ``torch.profiler`` traced over ``iters`` calls, and that
-    time split by kernel name. ``cold``: each call follows a
-    ``bitwise_not_`` over ``L2_FLUSH_BYTES``, so it finds nothing of its
-    inputs in L2; the flush's own kernel is left out of the sums."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    flush = (torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32,
-                         device="cuda") if cold else None)
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            if flush is not None:
-                flush.bitwise_not_()
-            fn()
-        torch.cuda.synchronize()
-    split = {e.key: e.self_device_time_total / iters / 1e3
-             for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and "bitwise_not" not in e.key}
-    if sum(split.values()) <= 0:
-        fail("torch.profiler traced no device time")
-    return sum(split.values()), split
-
-
 def own_split(split: dict, prefix: str) -> dict:
     """The device split by kernel, the port's own kernels by name and
     PyTorch's summed under ``torch ops``."""
     out = {"torch ops": 0.0}
     for name, ms in split.items():
         if prefix in name:
-            out[kernel_name(name)] = ms
+            out[name] = ms
         else:
             out["torch ops"] += ms
     return out
-
-
-def kernel_name(signature: str) -> str:
-    """``void (anonymous namespace)::f<1>(float const*, ...)`` -> ``f<1>``."""
-    name = signature.replace("(anonymous namespace)::", "").replace(
-        "void ", "")
-    return name.split("(", 1)[0].strip()
 
 
 # -- kernel phase ------------------------------------------------------------
@@ -277,7 +206,9 @@ def check_topk(q, items, excl, k, s_k, i_k, what: str) -> float:
 
 def kernel_phase() -> dict:
     import torch
+    from predictionio_torch.ops import kernels
     from predictionio_torch.ops.kernels import topk_dot as tkd
+    from predictionio_torch.tools.device_time import profile_call
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -329,37 +260,132 @@ def kernel_phase() -> dict:
     if bool(((i >= 1000) & (i < 1064)).any()):
         fail("topk_dot returned an excluded id")
 
-    # timing at the serve shape: one lone user query
-    B, E, k = 1, 1, 16
-    items = torch.randn((N_ITEMS, RANK), generator=gen, device=dev)
-    q = torch.randn((B, RANK), generator=gen, device=dev)
-    excl = torch.full((B, E), -1, dtype=torch.int32, device=dev)
+    # adversarial tables: scores that rise along the table (every block
+    # sorts again and again) and every row identical (all ties)
+    for name in ("rising", "identical"):
+        for I, D, B, k in ((N_ITEMS, RANK, 1, 16), (66_000, 128, 8, 128),
+                           (TT_IDS, TT_DIM, 1, 16)):
+            q, items = adversarial_table(name, I, D, B, gen)
+            excl = torch.full((B, 1), -1, dtype=torch.int32, device=dev)
+            s, i = tkd.topk_dot(q, items, excl, k)
+            torch.cuda.synchronize()
+            what = f"{name} I={I} D={D} B={B} k={k}"
+            max_err = max(max_err, check_topk(q, items, excl, k, s, i, what))
+            if name == "identical" and not bool(
+                    (i == torch.arange(k, device=dev)).all()):
+                fail(f"topk_dot on identical rows must return ids 0..k-1 "
+                     f"({what})")
+            cases += 1
+
+    # the two lone-query shapes the main paths run, and the largest one
+    shapes = {"serve": (1, N_ITEMS, RANK, 16, 1),
+              "catalog": (1, TT_IDS, TT_DIM, 16, 1),
+              "widest": (128, 66_000, 128, 128, 64)}
+    inputs = {}
+    for name, (B, I, D, k, E) in shapes.items():
+        items = torch.randn((I, D), generator=gen, device=dev)
+        q = torch.randn((B, D), generator=gen, device=dev)
+        excl = (torch.full((B, E), -1, dtype=torch.int32, device=dev)
+                if B == 1 else torch.randint(-1, I, (B, E), generator=gen,
+                                             device=dev, dtype=torch.int32))
+        inputs[name] = (q, items, excl, k)
+    # repeated calls, shapes alternating, give their first call's bits:
+    # each search's last block puts its ticket counter back to 0
+    first = {name: tkd.topk_dot(*args) for name, args in inputs.items()}
+    for n in range(60):
+        name = list(inputs)[n % len(inputs)]
+        s, i = tkd.topk_dot(*inputs[name])
+        if not (torch.equal(s, first[name][0])
+                and torch.equal(i, first[name][1])):
+            fail(f"topk_dot call {n} at the {name} shape differs from the "
+                 f"first call's bits")
+    torch.cuda.synchronize()
+    traced_per_call = {}
+    for name, args in inputs.items():
+        max_err = max(max_err, check_topk(*args, *first[name], name))
+        # one device kernel per call and no memset, from the profiler:
+        # the topk kernel is the only one traced, and it ran once a call
+        # (CUPTI can drop an event now and then, never add one)
+        traced = profile_call(lambda: tkd.topk_dot(*args), 20)
+        per_call = traced["kernels_per_call"]
+        if (len(traced["kernels"]) != 1 or "topk_dot_kernel" not in
+                traced["kernels"][0] or not 0.9 < per_call <= 1.0
+                or traced["memsets_per_call"] != 0):
+            fail(f"topk_dot at the {name} shape: {per_call} device kernels "
+                 f"({traced['kernels']}) and {traced['memsets_per_call']} "
+                 f"memsets per call, want one kernel and no memset")
+        traced_per_call[name] = {
+            key: traced[key] for key in (
+                "kernels_per_call", "memsets_per_call", "kernels")}
+    timed = {name: time_topk(*inputs[name], shapes[name])
+             for name in ("serve", "catalog")}
+    serve = timed["serve"]
+    return {
+        "name": "topk_dot", "route": "cuda", "source": TOPK_SOURCE,
+        "replaces": TOPK_REPLACES, "max_abs_err": max_err,
+        **{key: serve[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shapes": timed, "traced_per_call": traced_per_call,
+        "ptxas": kernels.ptxas_report("topk_dot"), "cases": cases,
+        "shape": serve["shape"],
+    }
+
+
+def adversarial_table(name: str, I: int, D: int, B: int, gen):
+    """(q, items): ``rising``, rows ordered so that every row of q scores
+    them in rising order; ``identical``, one row repeated."""
+    import torch
+
+    dev = torch.device("cuda")
+    direction = torch.nn.functional.normalize(
+        torch.randn(D, generator=gen, device=dev), dim=0)
+    q = direction + 0.01 * torch.randn((B, D), generator=gen, device=dev)
+    if name == "rising":
+        items = torch.linspace(0.1, 10.0, I, device=dev)[:, None] * direction
+    else:
+        items = torch.randn((1, D), generator=gen, device=dev).repeat(I, 1)
+    return q, items.contiguous()
+
+
+def time_topk(q, items, excl, k, shape) -> dict:
+    """The kernel, its plain version and one library call (``torch.matmul``
+    + ``torch.topk``) at one shape: ``ms`` is device time per call from
+    ``torch.profiler`` (table warm in L2 where it fits), ``cold_ms`` the
+    same with L2 flushed before each call, ``call_ms`` the CUDA-event time
+    per call of back-to-back calls (the host's issue time when that is
+    longer), ``cold_event_ms`` the median CUDA-event time of one call
+    after an L2 flush."""
+    import torch
+    from predictionio_torch.ops.kernels import topk_dot as tkd
+    from predictionio_torch.tools.device_time import (call_ms, cold_ms,
+                                                      profile_call)
+    from predictionio_torch.tools.topk_dot_timing import bound
+
+    B, I, D, _, E = shape
     kernel = lambda: tkd.topk_dot(q, items, excl, k)  # noqa: E731
     plain = lambda: tkd.topk_dot_reference(q, items, excl, k)  # noqa: E731
     library = lambda: torch.topk(q @ items.T, k, dim=1)  # noqa: E731
     # event timing first: launches run slower after profiling
     kernel_call_ms, plain_call_ms, library_call_ms = (
         call_ms(f) for f in (kernel, plain, library))
-    kernel_cold_ms, library_cold_ms = (cold_ms(f) for f in (kernel, library))
-    (kernel_ms, split), (plain_ms, _), (library_ms, _) = (
-        device_ms(f) for f in (kernel, plain, library))
-    in_bytes = (q.numel() + items.numel()) * 4 + excl.numel() * 4
-    out_bytes = B * k * (4 + 4)
-    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2.0 * B * N_ITEMS * RANK / F32_FLOPS * 1e3
+    kernel_cold_event_ms, library_cold_event_ms = (
+        cold_ms(f) for f in (kernel, library))
+    warm, plain_warm, library_warm = (
+        profile_call(f) for f in (kernel, plain, library))
+    kernel_cold, library_cold = (
+        profile_call(f, 50, cold=True) for f in (kernel, library))
+    bound_ms, bound_by = bound(B, I, D, k, E)
     return {
-        "name": "topk_dot", "route": "cuda", "source": TOPK_SOURCE,
-        "replaces": TOPK_REPLACES, "max_abs_err": max_err,
-        "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms, "call_ms": kernel_call_ms,
-        "plain_call_ms": plain_call_ms, "library_call_ms": library_call_ms,
-        "cold_ms": kernel_cold_ms, "library_cold_ms": library_cold_ms,
-        "device_split_ms": {kernel_name(name): ms
-                            for name, ms in split.items()},
-        "cases": cases,
-        "shape": f"B={B},I={N_ITEMS},D={RANK},k={k},E={E}",
+        "ms": warm["ms"], "cold_ms": kernel_cold["ms"],
+        "plain_ms": plain_warm["ms"], "library_ms": library_warm["ms"],
+        "library_cold_ms": library_cold["ms"],
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "call_ms": kernel_call_ms, "plain_call_ms": plain_call_ms,
+        "library_call_ms": library_call_ms,
+        "cold_event_ms": kernel_cold_event_ms,
+        "library_cold_event_ms": library_cold_event_ms,
+        "device_split_ms": warm["split"],
+        "shape": f"B={B},I={I},D={D},k={k},E={E}",
     }
 
 
@@ -637,6 +663,8 @@ def flash_ce_phase() -> dict:
     import torch
     from predictionio_torch.ops import kernels
     from predictionio_torch.ops.kernels import flash_ce as fce
+    from predictionio_torch.tools.device_time import (
+        BF16_FLOPS, HBM_BYTES_PER_S, SFU_PER_S, call_ms, profile_call)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     max_err, cases = 0.0, 0
@@ -686,8 +714,7 @@ def flash_ce_phase() -> dict:
     kernel = lambda: ce_step(fce.flash_ce, *batch, cdt)  # noqa: E731
     plain = lambda: ce_step(fce.flash_ce_reference, *batch, cdt)  # noqa: E731
     kernel_call_ms, plain_call_ms = call_ms(kernel, 50), call_ms(plain, 10)
-    (kernel_ms, split), (plain_ms, _) = (device_ms(kernel, 20),
-                                         device_ms(plain, 5))
+    traced, plain_ms = profile_call(kernel, 20), profile_call(plain, 5)["ms"]
     # necessary work: 2 B^2 D products forward and 4 B^2 D backward on
     # the tensor cores (the kernels' logits recompute is a cost of their
     # design), B^2 exponentials forward and 2 B^2 backward on the
@@ -697,7 +724,7 @@ def flash_ce_phase() -> dict:
     exps_ms = 3.0 * B * B / SFU_PER_S * 1e3
     bytes_ms = (4 * B * D * 4 + B * (8 + 8 + 4)) / HBM_BYTES_PER_S * 1e3
     ops_ms = max(products_ms, exps_ms)
-    kernel_split = own_split(split, "flash_ce_kernel")
+    kernel_split = own_split(traced["split"], "flash_ce_kernel")
     # the backward kernel is the one template instance with BWD = true
     bwd_ms = sum(ms for name, ms in kernel_split.items()
                  if name.startswith("flash_ce_kernel") and "true" in name)
@@ -706,7 +733,7 @@ def flash_ce_phase() -> dict:
     return {
         "name": "flash_ce", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms,
+        "ms": traced["ms"], "plain_ms": plain_ms,
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "bound_terms_ms": {"products": products_ms, "exps": exps_ms,
@@ -727,6 +754,8 @@ def flash_ce_phase() -> dict:
 def embed_update_phase() -> dict:
     import torch
     from predictionio_torch.ops.kernels import embed_update as eu
+    from predictionio_torch.tools.device_time import (
+        F32_FLOPS, HBM_BYTES_PER_S, call_ms, profile_call)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -754,12 +783,13 @@ def embed_update_phase() -> dict:
     library = lambda: table.index_add_(  # noqa: E731
         0, idx, -scale[:, None] * grad)
     k_call, p_call, l_call = (call_ms(f) for f in (kernel, plain, library))
-    (warm_ms, _), (plain_warm_ms, _), (library_warm_ms, _) = (
-        device_ms(f) for f in (kernel, plain, library))
+    warm_ms, plain_warm_ms, library_warm_ms = (
+        profile_call(f)["ms"] for f in (kernel, plain, library))
     # the bound is HBM's: time each call with L2 flushed before it (the
     # warm times above find the rows and gradients in the 50 MB L2)
-    (kernel_ms, _), (plain_ms, _), (library_ms, _) = (
-        device_ms(f, 50, cold=True) for f in (kernel, plain, library))
+    kernel_ms, plain_ms, library_ms = (
+        profile_call(f, 50, cold=True)["ms"]
+        for f in (kernel, plain, library))
     touched = int(torch.unique(idx).numel())
     nbytes = B * E * 4 + B * 8 + B * 4 + 2 * touched * E * 4
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3

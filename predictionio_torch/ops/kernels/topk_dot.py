@@ -9,11 +9,12 @@ row, the top-k of ``q . item^T`` over an item table, never writing the
 What bounds it on the card: it must read the table once, ``I*D*4``
 bytes (6.8 MB at MovieLens-20M, rank 64: about 2 us at 3.35 TB/s), and
 do ``2*B*I*D`` f32 operations, far below the card's f32 rate at
-``B <= 128``. At ``B = 1`` (a lone query) the launch dominates. The
-design spreads the table over enough blocks that the read runs in
-parallel, keeps every candidate list in shared memory, and merges the
-per-tile lists in a second pass; one 64-bit key per candidate carries
-the whole order.
+``B <= 128``. At ``B = 1`` (a lone query) the launch, the dependent
+load rounds and the merge dominate. The design is one launch: blocks
+scan item ranges with their loads kept in flight, keep a running top-K2
+per row in shared memory behind a threshold filter, and the last block
+to finish merges every block's list through the same filter. One 64-bit
+key per candidate carries the whole order.
 
 Order: score descending, then item id ascending, in the kernel and in
 ``topk_dot_reference`` alike. The port agrees with itself exactly, and
@@ -31,7 +32,9 @@ cannot occur because ``k <= I`` is required; excluded ids score
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+import threading
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -43,12 +46,12 @@ MAX_K = 128
 MAX_EXCLUDE = 64
 MAX_BATCH = 128
 
-#: keys per row in one pass-1 sort: the running top-K2 plus a chunk of
-#: 256 - K2 items (csrc/topk_dot.cu kSlots)
-SLOTS = 256
-#: candidate keys per query row that pass 2 merges in shared memory
-#: (32 KB); bounds the number of tiles
-MAX_CANDIDATES = 4096
+#: the grid's default: this many blocks per SM, each with at least
+#: MIN_ITEMS items, and at most MERGE_KEYS keys per row for the last
+#: block to merge
+BLOCKS_PER_SM = 2
+MIN_ITEMS = 128
+MERGE_KEYS = 8192
 
 #: kernel launches (one per call that reaches the card)
 launches = LaunchCounter("topk_dot")
@@ -61,17 +64,34 @@ def _next_pow2(n: int) -> int:
     return p
 
 
-def plan_tiles(n_items: int, k: int) -> Tuple[int, int, int, int]:
-    """The kernel's work split for ``n_items`` items and top-``k``:
-    ``(K2, chunk, chunks_per_tile, n_tiles)``. ``K2`` is ``k`` rounded
-    up to a power of two, ``chunk = SLOTS - K2`` items per sort, and as
-    many tiles as keep ``n_tiles * K2 <= MAX_CANDIDATES``."""
+def query_rows(batch: int) -> int:
+    """Query rows a block scores at once (csrc/topk_dot.cu ``QB``)."""
+    return 8 if batch >= 8 else 4 if batch >= 4 else 2 if batch >= 2 else 1
+
+
+def lanes_per_item(dim: int, vec4: bool) -> int:
+    """Lanes of a warp that load one item row: one load unit (16 bytes,
+    or 4 without ``vec4``) each, a power of two in [8, 32]."""
+    units = dim // 4 if vec4 else dim
+    return min(32, max(8, _next_pow2(units)))
+
+
+def plan_blocks(n_items: int, k: int, batch: int, sm_count: int,
+                blocks: Optional[int] = None) -> Tuple[int, int, int]:
+    """The kernel's grid for ``n_items`` items, top-``k`` and ``batch``
+    query rows: ``(K2, n_blocks, per_block)``. ``K2`` is ``k`` rounded
+    up to a power of two; block ``x`` scans items ``[x * per_block,
+    min(n_items, (x + 1) * per_block))``, and every block has at least
+    one. ``blocks`` asks for a block count; by default there are
+    ``BLOCKS_PER_SM`` per SM over all query blocks, with at least
+    ``MIN_ITEMS`` items each and at most ``MERGE_KEYS // K2`` blocks."""
     k2 = _next_pow2(k)
-    chunk = SLOTS - k2
-    n_chunks = -(-n_items // chunk)
-    max_tiles = max(1, MAX_CANDIDATES // k2)
-    per_tile = -(-n_chunks // max_tiles)
-    return k2, chunk, per_tile, -(-n_chunks // per_tile)
+    if blocks is None:
+        q_blocks = -(-batch // query_rows(batch))
+        blocks = min(max(1, BLOCKS_PER_SM * sm_count // q_blocks),
+                     -(-n_items // MIN_ITEMS), max(1, MERGE_KEYS // k2))
+    per_block = -(-n_items // max(1, min(blocks, n_items)))
+    return k2, -(-n_items // per_block), per_block
 
 
 def _check(q: torch.Tensor, items: torch.Tensor, excl: torch.Tensor,
@@ -125,11 +145,38 @@ def _launcher():
     fn = lib.topk_dot_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p] * 7 + [i] * 10 + [p]
         fn.restype = ctypes.c_int
         lib.topk_dot_error_string.argtypes = [ctypes.c_int]
         lib.topk_dot_error_string.restype = ctypes.c_char_p
     return lib, fn
+
+
+_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
+_tickets_lock = threading.Lock()
+
+
+def _stream_tickets(dev: torch.device, stream: int) -> torch.Tensor:
+    """The kernel's per-query-block counters for one stream: zeros made
+    once (the kernel's last block puts each back to 0), never shared by
+    two streams."""
+    key = (dev.index, stream)
+    with _tickets_lock:
+        t = _tickets.get(key)
+        if t is None:
+            t = _tickets[key] = torch.zeros(MAX_BATCH, dtype=torch.int32,
+                                            device=dev)
+    return t
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _cuda_device(t: torch.Tensor) -> torch.device:
+    return (t.device if t.device.index is not None
+            else torch.device("cuda", torch.cuda.current_device()))
 
 
 def topk_dot(q: torch.Tensor, items: torch.Tensor,
@@ -138,27 +185,44 @@ def topk_dot(q: torch.Tensor, items: torch.Tensor,
     """``(scores [B, k] f32, idx [B, k] int32)``: the top-``k`` of
     ``q @ items.T`` per row, ``exclude_idx`` ids (-1 pads) masked.
 
-    CUDA tensors launch the kernel on the current stream (no
-    synchronisation) or raise; CPU tensors take the plain version."""
+    CUDA tensors launch the kernel on the current stream (one kernel, no
+    synchronisation) on the planner's grid, or raise; CPU tensors take
+    the plain version."""
     _check(q, items, exclude_idx, k)
     if q.device.type == "cpu":
         return topk_dot_reference(q, items, exclude_idx, k)
     if q.device.type != "cuda":
         raise ValueError(f"topk_dot has no kernel for device {q.device}")
+    plan = plan_blocks(items.shape[0], k, q.shape[0],
+                       _sm_count(_cuda_device(q).index))
+    return _launch(q, items, exclude_idx, k, plan)
+
+
+def _launch(q: torch.Tensor, items: torch.Tensor, exclude_idx: torch.Tensor,
+            k: int, plan: Tuple[int, int, int],
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel on checked CUDA inputs over ``plan``, a
+    :func:`plan_blocks` grid ``(K2, n_blocks, per_block)``. Every grid
+    gives the same bits."""
     B, D = q.shape
     I, E = items.shape[0], exclude_idx.shape[1]
-    k2, _chunk, per_tile, n_tiles = plan_tiles(I, k)
-    dev = q.device
-    cand = torch.empty((B, n_tiles, k2), dtype=torch.int64, device=dev)
+    dev = _cuda_device(q)
+    k2, n_blocks, per_block = plan
+    qb = query_rows(B)
+    lists = torch.empty((-(-B // qb), k2, n_blocks, qb), dtype=torch.int64,
+                        device=dev)
     out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
-    vec4 = int(D % 4 == 0 and items.data_ptr() % 16 == 0)
+    vec4 = (D % 4 == 0 and items.data_ptr() % 16 == 0
+            and q.data_ptr() % 16 == 0)
     lib, fn = _launcher()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        tickets = _stream_tickets(dev, stream)
         err = fn(q.data_ptr(), items.data_ptr(), exclude_idx.data_ptr(),
-                 cand.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-                 B, I, D, E, k, k2, per_tile, n_tiles, vec4, stream)
+                 lists.data_ptr(), tickets.data_ptr(), out_s.data_ptr(),
+                 out_i.data_ptr(), B, I, D, E, k, k2, n_blocks, per_block,
+                 lanes_per_item(D, vec4), int(vec4), stream)
     if err != 0:
         raise RuntimeError(
             f"topk_dot launch failed (B={B}, I={I}, D={D}, E={E}, k={k}): "

@@ -27,20 +27,7 @@ import torch
 
 from predictionio_torch.ops import kernels
 from predictionio_torch.ops.kernels import flash_ce as fce
-
-
-def _events_ms(fn, iters: int) -> float:
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+from predictionio_torch.tools.device_time import call_ms
 
 
 def main(argv=None) -> int:
@@ -92,12 +79,12 @@ def main(argv=None) -> int:
         iu_parts = torch.empty((n_tiles, B), device="cuda")
         out = torch.empty((S, B, D), device="cuda")
         diag_out = torch.empty_like(diag)
-        fwd_ms = _events_ms(lambda: fce._launch(
+        fwd_ms = call_ms(lambda: fce._launch(
             fce._MODE_FWD, ub, vb, ui, ii, w, temp, cdt, S, sum_ui=sum_ui,
-            diag=diag_out, iu_parts=iu_parts), args.iters)
-        grad_ms = _events_ms(lambda: fce._launch(
+            diag=diag_out, iu_parts=iu_parts), args.iters, warmup=5)
+        grad_ms = call_ms(lambda: fce._launch(
             fce._MODE_GRAD, ub, vb, ui, ii, w, temp, cdt, S, lse_ui=lse_ui,
-            lse_iu=lse_iu, scale=scale, out=out), args.iters)
+            lse_iu=lse_iu, scale=scale, out=out), args.iters, warmup=5)
         rows.append({"split": S, "blocks": n_tiles * S, "fwd_ms": fwd_ms,
                      "grad_ms": grad_ms, "loss_ms": fwd_ms + 2 * grad_ms,
                      "max_err_vs_first_split": err,

@@ -34,9 +34,21 @@ def cuda():
     return torch.device("cuda")
 
 
+def _assert_matches_plain(q, items, excl, k, s, i):
+    """The kernel's answer against topk_dot_reference: the kernel sums in
+    another order than cuBLAS, so scores agree to 1e-5 * |q| * max|item|,
+    and ids agree except across near-ties of the reference."""
+    rs, ri = tkd.topk_dot_reference(q, items, excl, k)
+    live = rs > -1e29
+    tol = 1e-5 * q.norm(dim=1, keepdim=True) * items.norm(dim=1).max()
+    assert bool((((s - rs).abs() <= tol) | ~live).all())
+    got = torch.gather(q @ items.T, 1, i.long())
+    assert bool(((i == ri) | ((got - rs).abs() <= tol) | ~live).all())
+
+
 @pytest.mark.parametrize("I,D,B,k,E", [
     (513, 32, 8, 8, 8), (26_744, 64, 1, 16, 1), (66_000, 128, 128, 128, 64),
-    (900, 12, 3, 10, 2), (7, 4, 1, 7, 1),
+    (900, 12, 3, 10, 2), (7, 4, 1, 7, 1), (1_000_000, 128, 1, 16, 1),
 ])
 def test_kernel_matches_plain_version(cuda, I, D, B, k, E):
     rng = np.random.default_rng(I + k)
@@ -49,14 +61,113 @@ def test_kernel_matches_plain_version(cuda, I, D, B, k, E):
     s, i = tkd.topk_dot(q, items, excl, k)
     torch.cuda.synchronize()
     assert tkd.launches.value == before + 1
-    rs, ri = tkd.topk_dot_reference(q, items, excl, k)
-    live = rs > -1e29
-    # the kernel sums in another order than cuBLAS: scores agree to
-    # 1e-5 * |q| * max|item|, and ids agree except across near-ties
-    tol = 1e-5 * q.norm(dim=1, keepdim=True) * items.norm(dim=1).max()
-    assert bool((((s - rs).abs() <= tol) | ~live).all())
-    got = torch.gather(q @ items.T, 1, i.long())
-    assert bool(((i == ri) | ((got - rs).abs() <= tol) | ~live).all())
+    _assert_matches_plain(q, items, excl, k, s, i)
+
+
+def _adversarial(name, I, D, B, device):
+    """``rising``: rows ordered so that every query's scores rise along
+    the table (each block's buffer fills in every batch and it sorts
+    again and again); ``identical``: every row the same (all ties)."""
+    rng = np.random.default_rng(I + B)
+    direction = rng.normal(size=D).astype(np.float32)
+    direction /= np.linalg.norm(direction)
+    q = direction + 0.01 * rng.normal(size=(B, D)).astype(np.float32)
+    if name == "rising":
+        items = (np.linspace(0.1, 10.0, I, dtype=np.float32)[:, None]
+                 * direction[None, :])
+    else:
+        items = np.repeat(rng.normal(size=(1, D)).astype(np.float32), I, 0)
+    return (torch.tensor(q, device=device),
+            torch.tensor(items, device=device))
+
+
+@pytest.mark.parametrize("name", ["rising", "identical"])
+@pytest.mark.parametrize("I,D,B,k", [(26_744, 64, 1, 16),
+                                     (66_000, 128, 8, 128),
+                                     (1_000_000, 128, 1, 16)])
+def test_kernel_on_adversarial_tables(cuda, name, I, D, B, k):
+    q, items = _adversarial(name, I, D, B, cuda)
+    excl = torch.full((B, 1), -1, dtype=torch.int32, device=cuda)
+    before = tkd.launches.value
+    s, i = tkd.topk_dot(q, items, excl, k)
+    torch.cuda.synchronize()
+    assert tkd.launches.value == before + 1
+    _assert_matches_plain(q, items, excl, k, s, i)
+    if name == "identical":   # all ties: the lowest ids, in order
+        assert bool((i == torch.arange(k, device=cuda,
+                                       dtype=torch.int32)).all())
+    else:                     # the last rows of the table, best last
+        assert bool((i[:, 0] >= I - k).all())
+
+
+def test_repeated_calls_are_bit_identical(cuda):
+    """200 back-to-back calls over alternating shapes each give the bits
+    of their shape's first call: the last block of every search puts its
+    ticket counter back to 0."""
+    rng = np.random.default_rng(11)
+    shapes = [(26_744, 64, 1, 16, 1), (66_000, 128, 8, 128, 4),
+              (513, 32, 3, 8, 2), (1_000_000, 128, 1, 16, 1)]
+    cases = []
+    for I, D, B, k, E in shapes:
+        q = torch.tensor(rng.normal(size=(B, D)).astype(np.float32),
+                         device=cuda)
+        items = torch.tensor(rng.normal(size=(I, D)).astype(np.float32),
+                             device=cuda)
+        excl = torch.tensor(rng.integers(-1, I, size=(B, E)),
+                            dtype=torch.int32, device=cuda)
+        cases.append((q, items, excl, k))
+    outs = [[] for _ in cases]
+    for n in range(200):
+        j = n % len(cases)
+        outs[j].append(tkd.topk_dot(*cases[j]))
+    torch.cuda.synchronize()
+    for case, got in zip(cases, outs):
+        _assert_matches_plain(*case, *got[0])
+        for s, i in got[1:]:
+            assert torch.equal(s, got[0][0]) and torch.equal(i, got[0][1])
+
+
+def test_calls_on_two_streams_at_once(cuda):
+    """Searches issued on two streams run concurrently, each with its
+    own ticket counters, and answer as on one stream."""
+    rng = np.random.default_rng(12)
+    cases = []
+    for I, D, B, k in ((200_000, 64, 1, 16), (150_000, 128, 4, 32)):
+        q = torch.tensor(rng.normal(size=(B, D)).astype(np.float32),
+                         device=cuda)
+        items = torch.tensor(rng.normal(size=(I, D)).astype(np.float32),
+                             device=cuda)
+        excl = torch.full((B, 1), -1, dtype=torch.int32, device=cuda)
+        cases.append((q, items, excl, k))
+    want = [tkd.topk_dot(*c) for c in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = [[], []]
+    for _ in range(20):
+        for j in (0, 1):
+            with torch.cuda.stream(streams[j]):
+                got[j].append(tkd.topk_dot(*cases[j]))
+    torch.cuda.synchronize()
+    for j in (0, 1):
+        _assert_matches_plain(*cases[j], *want[j])
+        for s, i in got[j]:
+            assert torch.equal(s, want[j][0]) and torch.equal(i, want[j][1])
+
+
+def test_block_counts_give_the_same_bits(cuda):
+    """Each item's dot is summed in the same order whatever the grid, and
+    the merge is exact: every block count gives the planner's bits."""
+    rng = np.random.default_rng(13)
+    q = torch.tensor(rng.normal(size=(2, 64)).astype(np.float32), device=cuda)
+    items = torch.tensor(rng.normal(size=(26_744, 64)).astype(np.float32),
+                         device=cuda)
+    excl = torch.full((2, 1), -1, dtype=torch.int32, device=cuda)
+    s0, i0 = tkd.topk_dot(q, items, excl, 16)
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    for blocks in (1, 7, 132, 264, 1000):
+        plan = tkd.plan_blocks(26_744, 16, 2, sm_count, blocks)
+        s, i = tkd._launch(q, items, excl, 16, plan)
+        assert torch.equal(s, s0) and torch.equal(i, i0)
 
 
 def test_index_on_the_card_answers_like_the_cpu(cuda):

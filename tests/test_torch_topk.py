@@ -136,14 +136,126 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch():
     assert tkd.launches.value == before
 
 
-@pytest.mark.parametrize("I,k", [(513, 8), (26_744, 16), (66_000, 128),
-                                 (1, 1), (300, 5)])
-def test_tile_plan_covers_the_table(I, k):
-    k2, chunk, per_tile, n_tiles = tkd.plan_tiles(I, k)
-    assert k2 >= k and k2 & (k2 - 1) == 0 and k2 + chunk == tkd.SLOTS
-    assert n_tiles * k2 <= max(tkd.MAX_CANDIDATES, k2)
-    n_chunks = -(-I // chunk)
-    assert (n_tiles - 1) * per_tile < n_chunks <= n_tiles * per_tile
+def _block_ranges(I, k, B, blocks=None):
+    k2, n_blocks, per_block = tkd.plan_blocks(I, k, B, 132, blocks)
+    return k2, [(x * per_block, min(I, (x + 1) * per_block))
+                for x in range(n_blocks)]
+
+
+@pytest.mark.parametrize("I,k,B,blocks", [
+    (513, 8, 1, None), (26_744, 16, 1, None), (66_000, 128, 128, None),
+    (1, 1, 1, None), (300, 5, 3, None), (1_000_000, 16, 1, None),
+    (1_000_000, 16, 1, 1056), (129, 16, 8, 1000), (7, 7, 1, 3),
+])
+def test_tile_plan_covers_the_table(I, k, B, blocks):
+    """The planner's blocks cover [0, I) exactly once, none empty; K2 is
+    the power of two at or above k; the default grid fills the card at
+    B=1 and keeps the last block's merge within MERGE_KEYS per row."""
+    k2, ranges = _block_ranges(I, k, B, blocks)
+    assert k2 >= k and k2 & (k2 - 1) == 0 and k2 < 2 * k
+    covered = np.zeros(I, np.int64)
+    for lo, hi in ranges:
+        assert lo < hi
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    if blocks is None:
+        assert len(ranges) * k2 <= max(tkd.MERGE_KEYS, k2)
+        if B == 1 and I >= tkd.MIN_ITEMS * 264:
+            assert len(ranges) == tkd.BLOCKS_PER_SM * 132
+    else:
+        assert len(ranges) <= blocks
+
+
+@pytest.mark.parametrize("D,vec4,lanes", [(64, True, 16), (128, True, 32),
+                                          (256, True, 32), (12, True, 8),
+                                          (12, False, 16), (3, False, 8)])
+def test_lanes_per_item(D, vec4, lanes):
+    assert tkd.lanes_per_item(D, vec4) == lanes
+
+
+def _by_key_order(scores, ids, n):
+    """The first n of (scores, ids) under score descending, id
+    ascending: the kernel's 64-bit key order."""
+    order = np.lexsort((ids, -scores))[:n]
+    return scores[order], ids[order]
+
+
+def _blockwise_topk(q, items, excl, k, blocks):
+    """The kernel's work split walked in torch: each planned block's
+    top-K2 by the key order, then the merge of every block's list."""
+    I = len(items)
+    k2, ranges = _block_ranges(I, k, len(q), blocks)
+    full = (torch.tensor(q) @ torch.tensor(items).T).numpy()
+    out_s = np.zeros((len(q), k), np.float32)
+    out_i = np.zeros((len(q), k), np.int32)
+    for b in range(len(q)):
+        row = full[b].copy()
+        banned = excl[b][(excl[b] >= 0) & (excl[b] < I)]
+        row[banned] = -1e30
+        cand_s, cand_i = [], []
+        for lo, hi in ranges:
+            s, i = _by_key_order(row[lo:hi], np.arange(lo, hi), k2)
+            cand_s.append(s)
+            cand_i.append(i)
+        s, i = _by_key_order(np.concatenate(cand_s), np.concatenate(cand_i), k)
+        out_s[b], out_i[b] = s, i
+    return out_s, out_i
+
+
+def _partition_case(name):
+    rng = np.random.default_rng(len(name))
+    D = 8
+    if name == "one_item":
+        I, k, blocks = 1, 1, None
+    elif name == "k_equals_I":
+        I, k, blocks = 24, 24, 4
+    elif name == "just_above_one_block":
+        I, k, blocks = 257, 8, 2          # blocks of 129 and 128 items
+    elif name == "ragged_tails":
+        I, k, blocks = 1000, 16, 7        # 143 per block, 142 in the last
+    else:
+        I, k, blocks = 600, 16, 6         # blocks of 100
+    items = rng.normal(size=(I, D)).astype(np.float32)
+    q = rng.normal(size=(3, D)).astype(np.float32)
+    excl = np.full((3, 2), -1, np.int32)
+    if name == "ties_across_edges":
+        # the best rows repeat on both sides of every block edge
+        best = items[np.argsort(-(items @ q[0]))[:4]]
+        for edge in range(100, 600, 100):
+            items[edge - 2:edge] = best[:2]
+            items[edge:edge + 2] = best[2:]
+    if name == "block_best_excluded":
+        # block 2's eight best items for row 0 are banned and beat all
+        items[200:208] += 10.0 * q[0] / np.linalg.norm(q[0])
+        excl = np.full((3, 8), -1, np.int32)
+        excl[0] = np.arange(200, 208)
+        excl[1, :3] = [201, 700, -5]      # stale ids outside [0, I) ignored
+    return q, items, excl, k, blocks
+
+
+@pytest.mark.parametrize("name", [
+    "one_item", "k_equals_I", "just_above_one_block", "ragged_tails",
+    "ties_across_edges", "block_best_excluded"])
+def test_block_partition_merge_matches_pallas(name):
+    """Top-K2 per planned block, merged, is the whole table's top-k: the
+    same as the Pallas kernel in interpret mode (exact ties aside) and
+    as topk_dot_reference bit for bit. This checks the merge argument
+    over the planner's partition, not the CUDA kernel: the card tests
+    (adversarial tables, block counts giving the same bits) do that."""
+    q, items, excl, k, blocks = _partition_case(name)
+    s, i = _blockwise_topk(q, items, excl, k, blocks)
+    rs, ri = _port(q, items, excl, k)
+    np.testing.assert_array_equal(s, rs)
+    np.testing.assert_array_equal(i, ri)
+    js, ji = jax_topk_dot(q, items, excl, k, interpret=True)
+    _assert_same_topk(q, items, s, i, np.asarray(js), np.asarray(ji))
+    if name == "block_best_excluded":
+        assert not set(i[0].tolist()) & set(range(200, 208))
+    if name == "ties_across_edges":
+        for b in range(len(q)):
+            for j in range(k - 1):
+                if s[b, j] == s[b, j + 1]:
+                    assert i[b, j] < i[b, j + 1]
 
 
 def test_ordered_topk_is_one_total_order():
