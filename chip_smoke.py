@@ -95,16 +95,38 @@ exits non-zero before printing any result.
    checked against a float64 host top-k as in the serve phase. Then,
    off the counted path, 20 steps at the same widths are profiled:
    device time per step by kernel group and the device's idle share.
-6. ``pio train`` phase: seeded rate events at MovieLens-100K's shape
+6. ALS train phase, the north star's main path: bench.py's synthetic
+   MovieLens-20M ratings (``synthesize`` at ``DEFAULT_KNOBS``: 138,493
+   users, 26,744 items, 20,000,000 ratings from ``default_rng(0)``),
+   every 20th held out, bench's config (rank 64, 5 iterations, reg
+   0.05, block 4096, the rest default: bf16 gather and Gramians, 6-step
+   Jacobi CG in bf16). First an ``ALSTrainer`` on ``cuda``: host
+   binning, the transfer, ``compile()`` (one warm alternation), then 5
+   timed alternations; its held-out RMSE must land in bench's
+   ``RMSE_BAND`` (0.38, 0.48); peak device memory; then, off the timed
+   run, device time per alternation by stage (gather+Gramian,
+   segment-sum, solve) from ``torch.profiler``, the launches and the
+   device's idle share per alternation, and ``work_model`` bytes over
+   device time as a share of the card's HBM rate
+   (``tools/als_timing.py``). Then the main path, with the launch
+   counters reset just before: ``ALSAlgorithm.train`` on ``cuda`` over
+   the same prepared ratings (RMSE in the band again), the model stored
+   in a memory store and deployed with the port's ``EngineServer``;
+   user and item queries through ``topk_dot``, each checked against a
+   float64 host top-k of the model's factors, and the kernel's counter
+   must rise by at least the number of lone queries.
+7. ``pio train`` phase: seeded rate events at MovieLens-100K's shape
    (943 users, 1,682 items, 100,000 ratings) go into a localfs event
    store through the port's storage; ``python -m
    predictionio_torch.tools.cli train`` trains ``twotower_engine`` (dim
-   64, batch 1024: flash_ce eligible) and ``... cli deploy`` serves it;
-   queries are checked against the stored model's vectors.
+   64, batch 1024: flash_ce eligible) and ``... cli deploy`` serves it,
+   then the same two commands train and serve ``recommendation_engine``
+   (ALS, rank 16) over the same events; queries are checked against
+   each stored model's factors.
 
 Output: the card's name and power limit (``nvidia-smi``), a ``serve``,
-a ``train`` and a ``pio_train`` line, the ``kernels`` line, and last
-``{"ok": true, "device": ...}``.
+a ``train``, an ``als_train`` and a ``pio_train`` line, the ``kernels``
+line, and last ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -142,6 +164,10 @@ EMBED_REPLACES = "predictionio_tpu/ops/pallas/embed_update.py:100"
 TT_IDS, TT_POS, TT_DIM, TT_BATCH = 1_000_000, 4_000_000, 128, 8192
 TT_EPOCHS = 3
 TEMP = 0.07
+# bench.py's ALS run: DEFAULT_KNOBS ratings, its 5% holdout, _bench_cfg
+# (rank 64 above, 5 iterations, reg 0.05, block 4096), and RMSE_BAND
+ALS_RATINGS, ALS_ITERS, ALS_REG, ALS_BLOCK = 20_000_000, 5, 0.05, 4096
+RMSE_BAND = (0.38, 0.48)
 
 
 def fail(msg: str) -> None:
@@ -993,6 +1019,139 @@ def train_phase() -> dict:
     }
 
 
+# -- ALS train phase -----------------------------------------------------------
+
+def synth_ratings():
+    """bench.py's ``synthesize`` at DEFAULT_KNOBS from ``default_rng(0)``:
+    ratings with planted rank-8 structure, clip(3 + 1.2 z + noise) in
+    half-stars, over Zipf-popular items."""
+    rng = np.random.default_rng(0)
+    n = ALS_RATINGS
+    uu = rng.integers(0, N_USERS, size=n, dtype=np.int64)
+    ii = (rng.zipf(1.2, size=n) % N_ITEMS).astype(np.int64)
+    U = rng.normal(size=(N_USERS, 8)).astype(np.float32)
+    V = rng.normal(size=(N_ITEMS, 8)).astype(np.float32)
+    z = np.einsum("nk,nk->n", U[uu], V[ii]) / np.sqrt(8.0)
+    raw = 3.0 + 1.2 * z + rng.normal(0, 0.35, size=n).astype(np.float32)
+    vals = np.clip(np.round(raw * 2.0) / 2.0, 0.5, 5.0).astype(np.float64)
+    return uu, ii, vals
+
+
+def als_train_phase() -> dict:
+    import datetime as dt
+
+    import torch
+    from predictionio_torch.data.bimap import BiMap
+    from predictionio_torch.data.metadata import EngineInstance, Model
+    from predictionio_torch.data.storage import Storage
+    from predictionio_torch.models.als import (ALSAlgorithm, ALSParams,
+                                               PreparedRatings)
+    from predictionio_torch.ops.als import (ALSConfig, ALSFactors,
+                                            ALSTrainer, predict_rmse)
+    from predictionio_torch.ops.kernels import embed_update as eu
+    from predictionio_torch.ops.kernels import flash_ce as fce
+    from predictionio_torch.ops.kernels import topk_dot as tkd
+    from predictionio_torch.parallel.context import DeviceContext
+    from predictionio_torch.templates.recommendation import (
+        recommendation_engine)
+    from predictionio_torch.tools.als_timing import stage_profile
+    from predictionio_torch.workflow.train import serialize_models
+
+    t0 = time.perf_counter()
+    uu, ii, vals = synth_ratings()
+    hold = np.arange(ALS_RATINGS) % 20 == 0          # bench's 5% holdout
+    train = (uu[~hold], ii[~hold], vals[~hold].astype(np.float32))
+    held = (uu[hold], ii[hold], vals[hold])
+    synth_sec = time.perf_counter() - t0
+    cfg = ALSConfig(rank=RANK, iterations=ALS_ITERS, reg=ALS_REG,
+                    block_size=ALS_BLOCK)
+
+    # the trainer alone: binning, transfer, compile, 5 timed alternations
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = ALSTrainer(train, N_USERS, N_ITEMS, cfg, device="cuda")
+    trainer.compile()
+    t0 = time.perf_counter()
+    trainer.step_n()
+    train_sec = time.perf_counter() - t0
+    peak_mem = torch.cuda.max_memory_allocated()
+    factors = trainer.factors()
+    rmse_trainer = predict_rmse(factors, held)
+    if not (np.all(np.isfinite(factors.user_factors))
+            and np.all(np.isfinite(factors.item_factors))):
+        fail("ALS factors are not finite")
+    if not RMSE_BAND[0] < rmse_trainer < RMSE_BAND[1]:
+        fail(f"ALS held-out RMSE {rmse_trainer} outside {RMSE_BAND}")
+    layout = trainer.layout()
+    profile = stage_profile(trainer, train_sec * 1e3 / ALS_ITERS)
+    timing = {"bin_sec": trainer.bin_sec, "put_sec": trainer.put_sec,
+              "compile_sec": trainer.compile_sec, "train_sec": train_sec,
+              "work_model": trainer.work_model()}
+    del trainer
+    torch.cuda.empty_cache()
+
+    # the main path: ALSAlgorithm.train, serialize, deploy, serve
+    user_names = [f"u{j}" for j in range(N_USERS)]
+    item_names = [f"i{j}" for j in range(N_ITEMS)]
+    pd = PreparedRatings(user_ids=BiMap.from_vocab(user_names),
+                         item_ids=BiMap.from_vocab(item_names),
+                         user_idx=train[0], item_idx=train[1],
+                         ratings=train[2])
+    params = ALSParams(rank=RANK, num_iterations=ALS_ITERS, lambda_=ALS_REG,
+                       block_size=ALS_BLOCK)
+    for counter in (fce.launches, eu.launches, tkd.launches):
+        counter.reset()
+    t0 = time.perf_counter()
+    model = ALSAlgorithm(params).train(DeviceContext("cuda"), pd)
+    algorithm_train_sec = time.perf_counter() - t0
+    rmse = predict_rmse(ALSFactors(model.user_factors, model.item_factors),
+                        held)
+    if not RMSE_BAND[0] < rmse < RMSE_BAND[1]:
+        fail(f"ALSAlgorithm.train held-out RMSE {rmse} outside {RMSE_BAND}")
+    storage = Storage.from_env({"PIO_STORAGE_SOURCES_M_TYPE": "memory"})
+    now = dt.datetime.now(tz=dt.timezone.utc)
+    storage.engine_instances().insert(EngineInstance(
+        id="als-ml20m", status="COMPLETED", start_time=now, end_time=now,
+        engine_id="als-ml20m", engine_version="0", engine_variant="default",
+        engine_factory=("predictionio_torch.templates.recommendation."
+                        "recommendation_engine"),
+        data_source_params=json.dumps({"name": "", "params": {}}),
+        preparator_params=json.dumps({"name": "", "params": {}}),
+        algorithms_params=json.dumps([{"name": "als", "params":
+                                       dataclasses.asdict(params)}]),
+        serving_params=json.dumps({"name": "", "params": {}})))
+    storage.models().insert(Model(id="als-ml20m",
+                                  models=serialize_models([model])))
+    truth = Truth(model.user_factors, model.item_factors, user_names,
+                  item_names)
+    del model
+    queries = tt_queries(truth, np.random.default_rng(SEED + 5), N_USERS,
+                         N_ITEMS)
+    lone = sum(1 for q in queries if "item" in q or q["user"] in truth.users)
+    served = deploy_and_check(recommendation_engine(), storage, "als-ml20m",
+                              truth, queries, "ALS phase")
+    topk_launches = tkd.launches.value
+    if topk_launches < lone:
+        fail(f"topk_dot launched {topk_launches} times for {lone} lone "
+             f"user/item queries to the trained ALS model")
+    if fce.launches.value or eu.launches.value:
+        fail("the ALS path launched a two-tower kernel")
+    return {
+        "config": {"users": N_USERS, "items": N_ITEMS,
+                   "ratings": ALS_RATINGS, "held_out": int(hold.sum()),
+                   "rank": RANK, "iterations": ALS_ITERS, "reg": ALS_REG,
+                   "block_size": ALS_BLOCK, "compute_dtype": "bfloat16",
+                   "cg": "jacobi, 6 steps, bfloat16"},
+        "layout": layout, "synth_sec": synth_sec, **timing,
+        "rmse_heldout": rmse_trainer, "rmse_band": RMSE_BAND,
+        "peak_train_mem_bytes": peak_mem, "profile": profile,
+        "algorithm_train_sec": algorithm_train_sec,
+        "algorithm_rmse_heldout": rmse,
+        "topk_dot_launches": topk_launches, "lone_queries": lone,
+        "serve": served,
+    }
+
+
 # -- pio train phase -----------------------------------------------------------
 
 def free_port() -> int:
@@ -1003,18 +1162,71 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
+def cli_train_and_deploy(cli, engine_json: str, engine_id: str, env: dict,
+                         sub_env: dict, cwd: str, queries, what: str):
+    """``cli train`` then ``cli deploy`` of one engine.json in
+    subprocesses; every query's answer is checked against the stored
+    model's factors. -> (train seconds, the stored model, instance id)."""
+    from predictionio_torch.data.storage import Storage
+    from predictionio_torch.workflow.deploy import load_blob
+
+    t0 = time.perf_counter()
+    out = subprocess.run(cli + ["train", "--engine-json", engine_json],
+                         env=sub_env, cwd=cwd, capture_output=True,
+                         text=True, timeout=600)
+    train_sec = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"pio train ({what}) exited {out.returncode}: "
+             f"{out.stderr[-2000:]}")
+    instance = Storage.from_env(env).engine_instances() \
+        .get_latest_completed(engine_id, "0", "default")
+    if instance is None:
+        fail(f"pio train ({what}) stored no COMPLETED instance")
+    model = load_blob(Storage.from_env(env).models()
+                      .get(instance.id).models)[0]
+    truth = Truth(model.user_factors, model.item_factors,
+                  list(model.user_ids.keys()), list(model.item_ids.keys()))
+    port = free_port()
+    proc = subprocess.Popen(
+        cli + ["deploy", "--engine-json", engine_json, "--ip",
+               "127.0.0.1", "--port", str(port)],
+        env=sub_env, cwd=cwd, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.time() + 300
+        while True:
+            try:
+                urllib.request.urlopen(f"http://127.0.0.1:{port}/",
+                                       timeout=10).read()
+                break
+            except OSError:
+                if proc.poll() is not None or time.time() > deadline:
+                    fail(f"pio deploy ({what}) did not come up: "
+                         f"{proc.stdout.read()[-2000:]}")
+                time.sleep(1.0)
+        for j, q in enumerate(queries):
+            check_answer(truth, q, post(port, q),
+                         f"pio deploy ({what}) query {j}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    return train_sec, model, instance.id
+
+
 def pio_train_phase() -> dict:
     import datetime as dt
 
     from predictionio_torch.data.event import Event
     from predictionio_torch.data.storage import Storage
-    from predictionio_torch.workflow.deploy import load_blob
 
     store = tempfile.mkdtemp(prefix="pio_chip_smoke_ml100k_")
     env = {"PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
            "PIO_STORAGE_SOURCES_FS_PATH": store}
     root = os.path.dirname(os.path.abspath(__file__))
-    proc = None
     try:
         storage = Storage.from_env(env)
         app = storage.apps().insert("ml100k")
@@ -1031,6 +1243,14 @@ def pio_train_phase() -> dict:
                   properties={"rating": float(r)},
                   event_time=t0 + dt.timedelta(seconds=j))
             for j, (u, i, r) in enumerate(zip(us, its, rs))], app.id)
+        sub_env = {**os.environ, **env, "PYTHONPATH": root}
+        cli = [sys.executable, "-m", "predictionio_torch.tools.cli"]
+        rng = np.random.default_rng(SEED + 4)
+        queries = [{"user": f"u{u}", "num": 10}
+                   for u in rng.integers(1, n_users + 1, 10)]
+        queries += [{"item": f"i{i}", "num": 5}
+                    for i in rng.integers(1, n_items + 1, 5)]
+
         engine_json = os.path.join(store, "engine.json")
         with open(engine_json, "w") as f:
             json.dump({
@@ -1040,64 +1260,36 @@ def pio_train_phase() -> dict:
                 "datasource": {"params": {"app_name": "ml100k"}},
                 "algorithms": [{"name": "twotower", "params": {
                     "dim": 64, "batch_size": 1024, "epochs": 5}}]}, f)
-        sub_env = {**os.environ, **env, "PYTHONPATH": root}
-        cli = [sys.executable, "-m", "predictionio_torch.tools.cli"]
-        t0 = time.perf_counter()
-        out = subprocess.run(cli + ["train", "--engine-json", engine_json],
-                             env=sub_env, cwd=store, capture_output=True,
-                             text=True, timeout=600)
-        train_sec = time.perf_counter() - t0
-        if out.returncode != 0:
-            fail(f"pio train exited {out.returncode}: {out.stderr[-2000:]}")
-        instance = Storage.from_env(env).engine_instances() \
-            .get_latest_completed("ml100k-tt", "0", "default")
-        if instance is None:
-            fail("pio train stored no COMPLETED instance")
-        model = load_blob(Storage.from_env(env).models()
-                          .get(instance.id).models)[0]
+        train_sec, model, instance = cli_train_and_deploy(
+            cli, engine_json, "ml100k-tt", env, sub_env, store, queries,
+            "two-tower")
         plan = model.kernel_plan
         if not (plan["flash_ce"] and plan["embed_update"]):
             fail(f"pio train did not run both kernels: {plan}")
         if not model.train_losses[-1] < model.train_losses[0]:
             fail(f"pio train losses did not fall: {model.train_losses}")
-        truth = Truth(model.user_factors, model.item_factors,
-                      list(model.user_ids.keys()),
-                      list(model.item_ids.keys()))
-        port = free_port()
-        proc = subprocess.Popen(
-            cli + ["deploy", "--engine-json", engine_json, "--ip",
-                   "127.0.0.1", "--port", str(port)],
-            env=sub_env, cwd=store, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
-        deadline = time.time() + 300
-        while True:
-            try:
-                urllib.request.urlopen(f"http://127.0.0.1:{port}/",
-                                       timeout=10).read()
-                break
-            except OSError:
-                if proc.poll() is not None or time.time() > deadline:
-                    fail(f"pio deploy did not come up: "
-                         f"{proc.stdout.read()[-2000:]}")
-                time.sleep(1.0)
-        rng = np.random.default_rng(SEED + 4)
-        queries = [{"user": f"u{u}", "num": 10}
-                   for u in rng.integers(1, n_users + 1, 10)]
-        queries += [{"item": f"i{i}", "num": 5}
-                    for i in rng.integers(1, n_items + 1, 5)]
-        for j, q in enumerate(queries):
-            check_answer(truth, q, post(port, q), f"pio deploy query {j}")
+
+        als_json = os.path.join(store, "engine-als.json")
+        with open(als_json, "w") as f:
+            json.dump({
+                "id": "default", "engineId": "ml100k-als",
+                "engineFactory": ("predictionio_torch.templates."
+                                  "recommendation.recommendation_engine"),
+                "datasource": {"params": {"app_name": "ml100k"}},
+                "algorithms": [{"name": "als", "params": {
+                    "rank": 16, "num_iterations": 10}}]}, f)
+        als_sec, als_model, als_instance = cli_train_and_deploy(
+            cli, als_json, "ml100k-als", env, sub_env, store, queries, "ALS")
+        if not (np.all(np.isfinite(als_model.user_factors))
+                and np.all(np.isfinite(als_model.item_factors))):
+            fail("pio train (ALS) stored factors that are not finite")
         return {"events": n, "train_sec": train_sec,
                 "losses": model.train_losses, "kernel_plan": plan,
-                "queries": len(queries), "instance": instance.id}
+                "queries": len(queries), "instance": instance,
+                "als": {"train_sec": als_sec, "instance": als_instance,
+                        "rank": int(als_model.item_factors.shape[1]),
+                        "queries": len(queries)}}
     finally:
-        if proc is not None:
-            proc.terminate()
-            try:
-                proc.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait()
         shutil.rmtree(store, ignore_errors=True)
 
 
@@ -1139,6 +1331,11 @@ def main() -> int:
     flash["launches"] = train["flash_ce_launches"]
     embed["launches"] = train["embed_update_launches"]
     print(json.dumps({"train": train}), flush=True)
+    als = als_train_phase()
+    topk["launches_by_path"] = {
+        "serve": serve["launches"], "train_deploy": train["topk_dot_launches"],
+        "als_train_deploy": als["topk_dot_launches"]}
+    print(json.dumps({"als_train": als}), flush=True)
     print(json.dumps({"pio_train": pio_train_phase()}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [topk, flash, embed]}), flush=True)

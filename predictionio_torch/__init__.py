@@ -21,7 +21,9 @@ engines — loading a trained instance (JAX-trained blobs included) and
 answering ``POST /queries.json`` through the ``topk_dot`` kernel — and
 ``pio train`` of the two-tower engine from the event store, through the
 ``flash_ce`` (loss forward and backward) and ``embed_update`` (table
-update) kernels. What remains is in ROADMAP.md.
+update) kernels, and ``pio train`` of the Recommendation (ALS) engine
+(``ops/als.py``: the segmented layout, the gather+Gramian half-step and
+the Jacobi CG solve in PyTorch). What remains is in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

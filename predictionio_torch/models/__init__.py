@@ -1,6 +1,6 @@
 """Algorithm library of the port (counterpart of ``predictionio_tpu.models``).
 
-  als      — matrix factorization serving (ref: MLlib ALS templates)
-             and the prepared ratings; ALS training is not ported yet
+  als      — matrix factorization (ref: MLlib ALS templates): training
+             through ops/als.py, serving, and the prepared ratings
   twotower — two-tower neural retrieval, trained on the card
 """

@@ -15,9 +15,12 @@ index, whose item table the ``topk_dot`` kernel streams. Pickles drop
 every device-side piece. ``als_model_from_arrays`` builds a model from
 the factors and vocabularies of a JAX-trained one (as numpy arrays).
 
-``PreparedRatings`` is the prepared data both factor models train on.
-ALS training is not ported yet (ROADMAP.md, queue 1 item 3); the
-two-tower model (``models/twotower.py``) trains on the same data.
+``PreparedRatings`` is the prepared data both factor models train on:
+``ALSAlgorithm.train`` fits ALS on it through ``ops/als.py`` on the
+context's device, and the two-tower model (``models/twotower.py``)
+trains on the same data. The JAX package's binned lane (a deferred
+native scan and bin, and the layout cache keyed by a data fingerprint)
+is not ported (ROADMAP.md, queue 1 item 2(b)).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 from predictionio_torch.core import Algorithm, SanityCheck
 from predictionio_torch.core.params import Params
 from predictionio_torch.data.bimap import BiMap
+from predictionio_torch.ops.als import ALSConfig, als_train
 from predictionio_torch.ops.topk import TopKScorer
 from predictionio_torch.parallel.context import (DeviceContext, DeviceLike,
                                                  resolve_device)
@@ -68,7 +72,7 @@ class PreparedRatings(SanityCheck):
 class ALSParams(Params):
     """The JAX package's ALS params, field for field: an engine
     instance trained there stores all of them, and deploy rebuilds them
-    by name. The training knobs take effect with the training slice."""
+    by name. The training knobs are ``ops.als.ALSConfig``'s."""
 
     rank: int = 32
     num_iterations: int = 10
@@ -80,7 +84,7 @@ class ALSParams(Params):
     seg_len: object = "auto"
     solver: str = "cg"
     cg_iters: int = 6
-    cg_unroll: bool = True
+    cg_unroll: bool = True    # kept so JAX-trained instances load; unused
     cg_precond: str = "jacobi"
     cg_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
@@ -338,11 +342,33 @@ class ALSAlgorithm(Algorithm):
     def __init__(self, params: ALSParams):
         super().__init__(params)
 
-    def train(self, ctx: DeviceContext, prepared_data) -> ALSModel:
-        raise NotImplementedError(
-            "ALS training is not ported to predictionio_torch yet "
-            "(ROADMAP.md, queue 1 item 3: ALS compute, ops/als.py to "
-            "torch); train with predictionio_tpu and deploy here")
+    def train(self, ctx: DeviceContext, pd: PreparedRatings) -> ALSModel:
+        """Fit ALS on the prepared COO ratings on the context's device."""
+        p: ALSParams = self.params
+        cfg = ALSConfig(
+            rank=p.rank,
+            iterations=p.num_iterations,
+            reg=p.lambda_,
+            implicit=p.implicit_prefs,
+            alpha=p.alpha,
+            block_size=p.block_size,
+            seed=p.seed,
+            seg_len=p.seg_len,
+            solver=p.solver,
+            cg_iters=p.cg_iters,
+            cg_precond=p.cg_precond,
+            cg_dtype=p.cg_dtype,
+            compute_dtype=p.compute_dtype,
+        )
+        factors = als_train(
+            (pd.user_idx, pd.item_idx, pd.ratings), pd.n_users, pd.n_items,
+            cfg, device=ctx.device,
+            max_ratings_per_user=p.max_ratings_per_user,
+            max_ratings_per_item=p.max_ratings_per_item)
+        return ALSModel(factors.user_factors, factors.item_factors,
+                        pd.user_ids, pd.item_ids,
+                        index_backend=p.index_backend,
+                        index_kernel=p.index_kernel)
 
     def apply_patch(self, model: ALSModel, patch: dict) -> bool:
         return apply_rows_patch(model, patch)

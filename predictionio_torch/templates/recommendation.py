@@ -12,8 +12,9 @@ instance stores them and deploy rebuilds them by name;
 
 The port has no native event store, so ``binned=True`` reads through the
 columnar path, as the JAX package does when its backend lacks the
-zero-copy lane. ALS training itself is not ported yet (ROADMAP.md,
-queue 1 item 3); the two-tower template trains on this data.
+zero-copy lane (ROADMAP.md, queue 1 item 2(b)). ``pio train`` then fits
+ALS on the prepared COO with ``ALSAlgorithm.train`` (``ops/als.py``) on
+the card; the two-tower template trains on the same data.
 """
 
 from __future__ import annotations

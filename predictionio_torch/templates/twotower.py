@@ -6,8 +6,8 @@ examples/scala-parallel-recommendation DataSource.scala:31) with the
 two-tower model in the Algorithm slot. ``twotower_hybrid_engine`` runs
 ALS and two-tower and averages their scores at serve time (the
 reference's multi-algorithm Serving contract, CreateServer.scala:472–475);
-training it raises in ``ALSAlgorithm.train`` until ALS training is
-ported, and deploying a hybrid trained by the JAX package works.
+the port trains both of its algorithms, and deploys a hybrid trained by
+either package.
 
 Queries: ``{"user": U, "num": k}`` (user -> top-k items through the
 model's retrieval index, the ``topk_dot`` kernel on a card) and

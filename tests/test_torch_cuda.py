@@ -19,6 +19,7 @@ from predictionio_torch.models.als import (ALSAlgorithm, ALSParams,
                                            als_model_from_arrays)
 from predictionio_torch.ops.kernels import embed_update as eu
 from predictionio_torch.ops.kernels import flash_ce as fce
+from predictionio_torch.ops import als
 from predictionio_torch.ops.kernels import topk_dot as tkd
 from predictionio_torch.ops.topk import TopKScorer
 from predictionio_torch.ops.twotower import TwoTowerConfig, TwoTowerTrainer
@@ -332,3 +333,152 @@ def test_trainer_on_the_card_launches_both_kernels(cuda):
     emb = trainer.embeddings(losses)
     np.testing.assert_allclose(np.linalg.norm(emb.item_vecs, axis=1), 1.0,
                                atol=1e-5)
+
+
+# -- ALS training (PyTorch ops on the card; no kernel of its own) ---------------
+
+def _als_ratings(n_users, n_items, nnz, seed):
+    """Planted half-star ratings; item ids spread past 2^16, so the
+    index wire carries idx_hi; the last 50 users rate nothing."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, n_users - 50, nnz)
+    i = (rng.zipf(1.3, nnz) * 7919) % n_items
+    U = rng.normal(size=(n_users, 4))
+    V = rng.normal(size=(n_items, 4))
+    r = 3.0 + np.einsum("nk,nk->n", U[u], V[i]) / 2.0 + rng.normal(0, .3, nnz)
+    return u, i, np.clip(np.round(r * 2.0) / 2.0, 0.5, 5.0).astype(np.float32)
+
+
+ALS_PRECISION = {
+    "direct-f32": dict(solver="direct", compute_dtype="float32",
+                       cg_dtype="float32"),
+    "cg-bf16": {},
+}
+
+
+def _rel(a, b) -> float:
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@pytest.mark.parametrize("precision", sorted(ALS_PRECISION))
+def test_als_half_step_on_the_card_matches_the_cpu(cuda, precision):
+    """One compressed half-step with idx_hi present, on the card and on
+    the CPU from the same inputs. Direct/f32 to rtol 1e-4 (atol 1e-5 of
+    the largest factor): cuBLAS, the batched solve and index_add_'s
+    atomics sum in other orders. CG/bf16 to a relative Frobenius error
+    of 1e-2, the bound the CPU tests hold it to against the JAX package.
+    Empty groups are exactly 0 on both."""
+    n_users, n_items = 600, 70_000
+    u, i, r = _als_ratings(n_users, n_items, 20_000, seed=3)
+    cfg = als.ALSConfig(rank=16, reg=0.05, block_size=128,
+                        **ALS_PRECISION[precision])
+    side = als.build_compressed_side(u, i, r, n_users, cfg, 1, None)
+    assert side.idx_hi is not None and side.affine is not None
+    G = side.groups_per_shard
+    rng = np.random.default_rng(4)
+    Y = np.zeros((72_000, 16), np.float32)
+    Y[:n_items] = 0.3 * rng.normal(size=(n_items, 16))
+    X_prev = (0.3 * rng.normal(size=(G, 16))).astype(np.float32)
+    idx = side.idx_lo.astype(np.int32) | (side.idx_hi.astype(np.int32) << 16)
+    step = als.make_half_step(cfg, side.row_block, side.group_block, G,
+                              val_affine=side.affine)
+    host = [torch.from_numpy(a) for a in
+            (Y, X_prev, idx, side.val, side.seg, side.counts)]
+    want = step(*host).numpy()
+    got = step(*(t.to(cuda) for t in host))
+    torch.cuda.synchronize()
+    got = got.cpu().numpy()
+    assert np.all(got[side.counts == 0] == 0.0)
+    assert np.all(np.isfinite(got))
+    if precision == "direct-f32":
+        np.testing.assert_allclose(got, want, rtol=1e-4,
+                                   atol=1e-5 * np.abs(want).max())
+    else:
+        assert _rel(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("precision", sorted(ALS_PRECISION))
+def test_als_trainer_on_the_card_matches_the_cpu(cuda, precision):
+    """Three iterations on the card against three on the CPU; both start
+    from the same factors (drawn on the host from cfg.seed). The index
+    streams recombine on the card to the host's int32 indexes.
+    Direct/f32: factors to a relative Frobenius error of 1e-4, held-out
+    RMSE to 1e-5. CG/bf16: the 6-step CG is short of convergence on
+    groups of a few ratings, where a flipped bf16 rounding moves the
+    iterate far, so the factors must stay within 3x the spread the CPU
+    trainer shows against itself when its start is nudged by 1e-6 (the
+    largest of three nudges), and the RMSE within 1e-2 (the CPU tests'
+    bound against the JAX package)."""
+    n_users, n_items = 600, 70_000
+    u, i, r = _als_ratings(n_users, n_items, 20_000, seed=5)
+    hold = np.arange(len(r)) % 20 == 0
+    train = (u[~hold], i[~hold], r[~hold])
+    held = (u[hold], i[hold], r[hold])
+    cfg = als.ALSConfig(rank=16, iterations=3, reg=0.05, block_size=128,
+                        **ALS_PRECISION[precision])
+
+    def cpu_run(nudge=0.0, seed=0):
+        t = als.ALSTrainer(train, n_users, n_items, cfg, device="cpu")
+        noise = np.random.default_rng(seed).normal(size=tuple(t.X.shape))
+        t.X = t.X * (1.0 + nudge * torch.from_numpy(noise).float())
+        return t, t.run()
+
+    host_trainer, want = cpu_run()
+    trainer = als.ALSTrainer(train, n_users, n_items, cfg, device=cuda)
+    for dev_arr, host_arr in zip(
+            [a for side in trainer.sides() for a in side.args()],
+            [a for side in host_trainer.sides() for a in side.args()]):
+        assert torch.equal(dev_arr.cpu(), host_arr)
+    got = trainer.compile().run()
+    rmse, rmse_cpu = als.predict_rmse(got, held), als.predict_rmse(want, held)
+    if precision == "direct-f32":
+        tol_u = tol_i = 1e-4
+        tol_rmse = 1e-5
+    else:
+        nudged = [cpu_run(1e-6, seed)[1] for seed in range(3)]
+        tol_u = 3 * max(_rel(f.user_factors, want.user_factors)
+                        for f in nudged)
+        tol_i = 3 * max(_rel(f.item_factors, want.item_factors)
+                        for f in nudged)
+        tol_rmse = 1e-2
+    assert _rel(got.user_factors, want.user_factors) <= tol_u
+    assert _rel(got.item_factors, want.item_factors) <= tol_i
+    assert abs(rmse - rmse_cpu) <= tol_rmse
+
+
+def test_als_cg_bf16_on_the_card_matches_the_cpu_one_alternation_at_a_time(
+        cuda):
+    """The default precision (Jacobi CG, 6 steps, bf16) held to a fixed
+    bound: at each of 3 iterations the card's trainer starts from the
+    CPU trainer's current factors. One ``step_n(1)`` on the card gives
+    user factors within a relative Frobenius error of 2e-3 of the CPU
+    alternation's, and the card's item side, called on the CPU's new
+    user factors, item factors within 2e-3 of the CPU's (readings on an
+    H100: 6.3e-5 and 7.9e-5 at most). Every item has dozens of ratings
+    here (300 items, ids spread past 2^16): on items of one rating at
+    rank 16 a last-bit difference in the CG's f32 sums flips a bf16
+    rounding and moves the item by percents (0.9-3.0% card against CPU
+    on the Zipf data above, 4.3% between the JAX package and the port on
+    the CPU)."""
+    n_users, n_items = 600, 70_000
+    rng = np.random.default_rng(5)
+    u = rng.integers(0, n_users - 50, 20_000)
+    item_row = rng.integers(0, 300, 20_000)
+    r = 3.0 + np.einsum("nk,nk->n", rng.normal(size=(n_users, 4))[u],
+                        rng.normal(size=(300, 4))[item_row]) / 2.0
+    r = np.clip(np.round(r * 2.0) / 2.0, 0.5, 5.0).astype(np.float32)
+    keep = np.arange(len(r)) % 20 != 0
+    train = (u[keep], item_row[keep] * 233, r[keep])
+    cfg = als.ALSConfig(rank=16, iterations=3, reg=0.05, block_size=128)
+    host = als.ALSTrainer(train, n_users, n_items, cfg, device="cpu")
+    trainer = als.ALSTrainer(train, n_users, n_items, cfg, device=cuda)
+    _, item = trainer.sides()
+    for _ in range(3):
+        Y_prev = host.Y.to(cuda)
+        trainer.X, trainer.Y = host.X.to(cuda), Y_prev
+        host.step_n(1)
+        trainer.step_n(1)
+        assert _rel(trainer.X.cpu().numpy(), host.X.numpy()) <= 2e-3
+        Y_card = item(host.X.to(cuda), Y_prev)
+        torch.cuda.synchronize()
+        assert _rel(Y_card.cpu().numpy(), host.Y.numpy()) <= 2e-3

@@ -365,8 +365,9 @@ HYBRID_VARIANT = {
 def test_jax_trained_hybrid_deploys_on_the_port_and_port_training_raises(
         tmp_path):
     """The ALS + two-tower hybrid: a JAX-trained instance deploys on the
-    port and averages the same scores; training it with the port stops
-    at ALS, whose training is not ported yet."""
+    port and averages the same scores. Training it with the port raised
+    at ALS until ALS training was ported; now the port trains both
+    algorithms to a COMPLETED instance whose deployment answers."""
     from predictionio_tpu.templates.twotower import (
         twotower_hybrid_engine as jax_hybrid_engine)
     from predictionio_torch.templates.twotower import twotower_hybrid_engine
@@ -401,12 +402,17 @@ def test_jax_trained_hybrid_deploys_on_the_port_and_port_training_raises(
 
     set_storage(storage)
     try:
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-            run_train(port_engine, port_engine.engine_params_from_variant(
+        port_instance = run_train(
+            port_engine, port_engine.engine_params_from_variant(
                 HYBRID_VARIANT), engine_id="tt-h-port",
-                ctx=DeviceContext("cpu"), storage=storage)
+            ctx=DeviceContext("cpu"), storage=storage)
+        port_deployment = prepare_deploy(port_engine, port_instance,
+                                         DeviceContext("cpu"), storage)
     finally:
         set_storage(None)
-    failed = [i for i in storage.engine_instances().get_all()
-              if i.engine_id == "tt-h-port"]
-    assert [i.status for i in failed] == ["FAILED"]
+    trained = [i for i in storage.engine_instances().get_all()
+               if i.engine_id == "tt-h-port"]
+    assert [i.status for i in trained] == ["COMPLETED"]
+    answer = port_deployment.query({"user": "u1", "num": 3})["itemScores"]
+    assert len(answer) == 3
+    assert all(np.isfinite(e["score"]) for e in answer)
