@@ -101,7 +101,8 @@ exits non-zero before printing any result.
    every 20th held out, bench's config (rank 64, 5 iterations, reg
    0.05, block 4096, the rest default: bf16 gather and Gramians, 6-step
    Jacobi CG in bf16). First an ``ALSTrainer`` on ``cuda``: host
-   binning, the transfer, ``compile()`` (one warm alternation), then 5
+   binning (the native one-pass route, ``ops/ragged.py``), the
+   transfer, ``compile()`` (one warm alternation), then 5
    timed alternations; its held-out RMSE must land in bench's
    ``RMSE_BAND`` (0.38, 0.48); peak device memory; then, off the timed
    run, device time per alternation by stage (gather+Gramian,
@@ -115,18 +116,38 @@ exits non-zero before printing any result.
    user and item queries through ``topk_dot``, each checked against a
    float64 host top-k of the model's factors, and the kernel's counter
    must rise by at least the number of lone queries.
-7. ``pio train`` phase: seeded rate events at MovieLens-100K's shape
+7. Ingest phase, the data lane of the same main path at bench.py's
+   cold-stage width, uncut: the ALS phase's 20,000,000 ratings go into a
+   port ``eventlog`` store under the temporary directory (which must
+   have ``INGEST_DISK_BYTES`` free) by ``insert_columnar``; 100,000
+   events of another name through the event server's JSON row lane
+   (``insert_json_batch``); the template's binned request then makes
+   one fused native scan+bin with bench's 5% holdout and ``_bench_cfg``'s
+   layout knobs: ``n_rows`` plus the holdout must be every rating, and
+   both sides must be byte-equal to ``build_compressed_side`` over the
+   same split with the ids renumbered in the scan's first-seen order.
+   ``ALSTrainer.from_sides`` on ``cuda``, ``compile()``, 5 timed
+   alternations: RMSE in the band, the stage profile beside the ALS
+   phase's. Then the main path, counters reset: ``ALSAlgorithm.train``
+   on the template's binned request, cold (exactly one scan) and again
+   on the unchanged events (a layout-cache hit, no scan), the model
+   deployed and asked 20 queries through ``topk_dot``, each checked
+   against a float64 host top-k. The log and the cache are removed at
+   the end, pass or fail.
+8. ``pio train`` phase: seeded rate events at MovieLens-100K's shape
    (943 users, 1,682 items, 100,000 ratings) go into a localfs event
    store through the port's storage; ``python -m
    predictionio_torch.tools.cli train`` trains ``twotower_engine`` (dim
    64, batch 1024: flash_ce eligible) and ``... cli deploy`` serves it,
    then the same two commands train and serve ``recommendation_engine``
-   (ALS, rank 16) over the same events; queries are checked against
-   each stored model's factors.
+   (ALS, rank 16) over the same events, and again over the same events
+   in an ``eventlog`` store, where ``cli train``'s log must show the
+   binned lane; queries are checked against each stored model's
+   factors.
 
 Output: the card's name and power limit (``nvidia-smi``), a ``serve``,
-a ``train``, an ``als_train`` and a ``pio_train`` line, the ``kernels``
-line, and last ``{"ok": true, "device": ...}``.
+a ``train``, an ``als_train``, an ``ingest`` and a ``pio_train`` line,
+the ``kernels`` line, and last ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -168,6 +189,9 @@ TEMP = 0.07
 # (rank 64 above, 5 iterations, reg 0.05, block 4096), and RMSE_BAND
 ALS_RATINGS, ALS_ITERS, ALS_REG, ALS_BLOCK = 20_000_000, 5, 0.05, 4096
 RMSE_BAND = (0.38, 0.48)
+# free disk the ingest phase needs: the log (~173 bytes an event), its
+# index snapshot and two layout-cache entries
+INGEST_DISK_BYTES = 6 << 30
 
 
 def fail(msg: str) -> None:
@@ -1037,13 +1061,47 @@ def synth_ratings():
     return uu, ii, vals
 
 
-def als_train_phase() -> dict:
+def store_and_deploy(model, params, instance_id: str, user_names,
+                     item_names, what: str) -> dict:
+    """A trained ALS model as a COMPLETED engine instance and its blob in
+    a memory store, deployed with the port's EngineServer on the card
+    and asked 20 queries, each checked against a float64 host top-k of
+    the model's factors."""
     import datetime as dt
 
-    import torch
-    from predictionio_torch.data.bimap import BiMap
     from predictionio_torch.data.metadata import EngineInstance, Model
     from predictionio_torch.data.storage import Storage
+    from predictionio_torch.templates.recommendation import (
+        recommendation_engine)
+    from predictionio_torch.workflow.train import serialize_models
+
+    storage = Storage.from_env({"PIO_STORAGE_SOURCES_M_TYPE": "memory"})
+    now = dt.datetime.now(tz=dt.timezone.utc)
+    storage.engine_instances().insert(EngineInstance(
+        id=instance_id, status="COMPLETED", start_time=now, end_time=now,
+        engine_id=instance_id, engine_version="0", engine_variant="default",
+        engine_factory=("predictionio_torch.templates.recommendation."
+                        "recommendation_engine"),
+        data_source_params=json.dumps({"name": "", "params": {}}),
+        preparator_params=json.dumps({"name": "", "params": {}}),
+        algorithms_params=json.dumps([{"name": "als", "params":
+                                       dataclasses.asdict(params)}]),
+        serving_params=json.dumps({"name": "", "params": {}})))
+    storage.models().insert(Model(id=instance_id,
+                                  models=serialize_models([model])))
+    truth = Truth(model.user_factors, model.item_factors, user_names,
+                  item_names)
+    queries = tt_queries(truth, np.random.default_rng(SEED + 5),
+                         len(user_names), len(item_names))
+    lone = sum(1 for q in queries if "item" in q or q["user"] in truth.users)
+    served = deploy_and_check(recommendation_engine(), storage, instance_id,
+                              truth, queries, what)
+    return {**served, "lone_queries": lone}
+
+
+def als_train_phase(ratings) -> dict:
+    import torch
+    from predictionio_torch.data.bimap import BiMap
     from predictionio_torch.models.als import (ALSAlgorithm, ALSParams,
                                                PreparedRatings)
     from predictionio_torch.ops.als import (ALSConfig, ALSFactors,
@@ -1052,17 +1110,12 @@ def als_train_phase() -> dict:
     from predictionio_torch.ops.kernels import flash_ce as fce
     from predictionio_torch.ops.kernels import topk_dot as tkd
     from predictionio_torch.parallel.context import DeviceContext
-    from predictionio_torch.templates.recommendation import (
-        recommendation_engine)
     from predictionio_torch.tools.als_timing import stage_profile
-    from predictionio_torch.workflow.train import serialize_models
 
-    t0 = time.perf_counter()
-    uu, ii, vals = synth_ratings()
+    uu, ii, vals = ratings
     hold = np.arange(ALS_RATINGS) % 20 == 0          # bench's 5% holdout
     train = (uu[~hold], ii[~hold], vals[~hold].astype(np.float32))
     held = (uu[hold], ii[hold], vals[hold])
-    synth_sec = time.perf_counter() - t0
     cfg = ALSConfig(rank=RANK, iterations=ALS_ITERS, reg=ALS_REG,
                     block_size=ALS_BLOCK)
 
@@ -1102,38 +1155,21 @@ def als_train_phase() -> dict:
     for counter in (fce.launches, eu.launches, tkd.launches):
         counter.reset()
     t0 = time.perf_counter()
-    model = ALSAlgorithm(params).train(DeviceContext("cuda"), pd)
+    algorithm = ALSAlgorithm(params)
+    model = algorithm.train(DeviceContext("cuda"), pd)
     algorithm_train_sec = time.perf_counter() - t0
     rmse = predict_rmse(ALSFactors(model.user_factors, model.item_factors),
                         held)
     if not RMSE_BAND[0] < rmse < RMSE_BAND[1]:
         fail(f"ALSAlgorithm.train held-out RMSE {rmse} outside {RMSE_BAND}")
-    storage = Storage.from_env({"PIO_STORAGE_SOURCES_M_TYPE": "memory"})
-    now = dt.datetime.now(tz=dt.timezone.utc)
-    storage.engine_instances().insert(EngineInstance(
-        id="als-ml20m", status="COMPLETED", start_time=now, end_time=now,
-        engine_id="als-ml20m", engine_version="0", engine_variant="default",
-        engine_factory=("predictionio_torch.templates.recommendation."
-                        "recommendation_engine"),
-        data_source_params=json.dumps({"name": "", "params": {}}),
-        preparator_params=json.dumps({"name": "", "params": {}}),
-        algorithms_params=json.dumps([{"name": "als", "params":
-                                       dataclasses.asdict(params)}]),
-        serving_params=json.dumps({"name": "", "params": {}})))
-    storage.models().insert(Model(id="als-ml20m",
-                                  models=serialize_models([model])))
-    truth = Truth(model.user_factors, model.item_factors, user_names,
-                  item_names)
+    served = store_and_deploy(model, params, "als-ml20m", user_names,
+                              item_names, "ALS phase")
     del model
-    queries = tt_queries(truth, np.random.default_rng(SEED + 5), N_USERS,
-                         N_ITEMS)
-    lone = sum(1 for q in queries if "item" in q or q["user"] in truth.users)
-    served = deploy_and_check(recommendation_engine(), storage, "als-ml20m",
-                              truth, queries, "ALS phase")
     topk_launches = tkd.launches.value
-    if topk_launches < lone:
-        fail(f"topk_dot launched {topk_launches} times for {lone} lone "
-             f"user/item queries to the trained ALS model")
+    if topk_launches < served["lone_queries"]:
+        fail(f"topk_dot launched {topk_launches} times for "
+             f"{served['lone_queries']} lone user/item queries to the "
+             "trained ALS model")
     if fce.launches.value or eu.launches.value:
         fail("the ALS path launched a two-tower kernel")
     return {
@@ -1142,14 +1178,248 @@ def als_train_phase() -> dict:
                    "rank": RANK, "iterations": ALS_ITERS, "reg": ALS_REG,
                    "block_size": ALS_BLOCK, "compute_dtype": "bfloat16",
                    "cg": "jacobi, 6 steps, bfloat16"},
-        "layout": layout, "synth_sec": synth_sec, **timing,
+        "layout": layout, **timing,
         "rmse_heldout": rmse_trainer, "rmse_band": RMSE_BAND,
         "peak_train_mem_bytes": peak_mem, "profile": profile,
         "algorithm_train_sec": algorithm_train_sec,
+        "algorithm_lane": algorithm.last_train,
         "algorithm_rmse_heldout": rmse,
-        "topk_dot_launches": topk_launches, "lone_queries": lone,
-        "serve": served,
+        "topk_dot_launches": topk_launches, "serve": served,
     }
+
+
+# -- ingest phase --------------------------------------------------------------
+
+def first_seen(codes: np.ndarray, n: int):
+    """(old code -> its rank in first-appearance order, the codes in
+    that order): the native scan's dictionary order."""
+    uniq, first = np.unique(codes, return_index=True)
+    order = uniq[np.argsort(first)]
+    remap = np.full(n, -1, np.int64)
+    remap[order] = np.arange(len(order))
+    return remap, order
+
+
+def same_side(got, want, what: str) -> None:
+    """Two compressed sides must be byte-equal."""
+    for name in ("idx_lo", "idx_hi", "val", "mask", "seg", "counts"):
+        a, b = getattr(got, name), getattr(want, name)
+        if (a is None) != (b is None) or (a is not None and (
+                a.dtype != b.dtype or a.shape != b.shape
+                or a.tobytes() != b.tobytes())):
+            fail(f"{what}: {name} differs from build_compressed_side's")
+    for name in ("affine", "row_block", "group_block", "groups_per_shard",
+                 "n_shards"):
+        if getattr(got, name) != getattr(want, name):
+            fail(f"{what}: {name} {getattr(got, name)} != "
+                 f"{getattr(want, name)}")
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def ingest_phase(ratings, coo_profile: dict) -> dict:
+    """The north star's data lane at bench.py's cold-stage width: the
+    ALS phase's 20M ratings into a port eventlog store, the row lane,
+    the fused scan+bin, a trainer from the binned sides, then the main
+    path through ALSAlgorithm (cold, then warm from the layout cache),
+    deployed and answered through topk_dot."""
+    import torch
+    from predictionio_torch.data.storage import EventColumns, Storage
+    from predictionio_torch.data.storage import set_storage
+    from predictionio_torch.models.als import (ALSAlgorithm, ALSParams,
+                                               PreparedRatings)
+    from predictionio_torch.ops.als import (ALSConfig, ALSFactors,
+                                            ALSTrainer, als_row_cost_slots,
+                                            build_compressed_side,
+                                            predict_rmse,
+                                            side_layout_from_binned)
+    from predictionio_torch.ops.kernels import embed_update as eu
+    from predictionio_torch.ops.kernels import flash_ce as fce
+    from predictionio_torch.ops.kernels import topk_dot as tkd
+    from predictionio_torch.parallel.context import DeviceContext
+    from predictionio_torch.templates.recommendation import (
+        RecoDataSource, RecoDataSourceParams)
+    from predictionio_torch.tools.als_timing import stage_profile
+
+    uu, ii, vals = ratings
+    n = len(uu)
+    root = tempfile.mkdtemp(prefix="pio_chip_smoke_eventlog_")
+    free = shutil.disk_usage(root).free
+    if free < INGEST_DISK_BYTES:
+        shutil.rmtree(root, ignore_errors=True)
+        fail(f"{root} has {free} bytes free; the 20M-event log and its "
+             f"layout cache need {INGEST_DISK_BYTES}")
+    old_cache = os.environ.get("PIO_BIN_CACHE_DIR")
+    os.environ["PIO_BIN_CACHE_DIR"] = os.path.join(root, "bin_cache")
+    storage = Storage.from_env({"PIO_STORAGE_SOURCES_EL_TYPE": "eventlog",
+                                "PIO_STORAGE_SOURCES_EL_PATH": root})
+    events = storage.events()
+    set_storage(storage)
+    try:
+        app = storage.apps().insert("ml20m")
+        events.init(app.id)
+        cols = EventColumns(
+            entity_codes=uu.astype(np.int32), target_codes=ii.astype(np.int32),
+            name_codes=np.zeros(n, np.int32), values=vals,
+            times_us=np.arange(n, dtype=np.int64) * 1_000_000,
+            entity_vocab=[f"u{j}" for j in range(N_USERS)],
+            target_vocab=[f"i{j}" for j in range(N_ITEMS)], names=["rate"])
+        t0 = time.perf_counter()
+        if events.insert_columnar(cols, app.id, entity_type="user",
+                                  target_entity_type="item",
+                                  value_property="rating") != n:
+            fail("insert_columnar did not take every row")
+        ingest_sec = time.perf_counter() - t0
+        del cols
+        log_bytes = dir_bytes(os.path.join(root, "events"))
+
+        # the event server's row lane: bench.py's 100,000-row JSON array
+        # of an event the training read leaves out
+        sample = 100_000
+        raw = json.dumps([
+            {"event": "bench-row", "entityType": "user",
+             "entityId": f"u{int(uu[k])}", "targetEntityType": "item",
+             "targetEntityId": f"i{int(ii[k])}",
+             "properties": {"rating": float(vals[k])},
+             "eventTime": f"2026-01-01T{(k // 3600) % 24:02d}:"
+                          f"{(k // 60) % 60:02d}:{k % 60:02d}.000Z"}
+            for k in range(sample)]).encode()
+        t0 = time.perf_counter()
+        _, codes, _, _ = events.insert_json_batch(raw, app.id)
+        row_lane_sec = time.perf_counter() - t0
+        if len(codes) != sample or any(codes):
+            fail("the JSON row lane rejected rows")
+        del raw
+
+        # the fused scan+bin, as the template's request makes it, with
+        # bench's 5% holdout
+        source = RecoDataSource(RecoDataSourceParams(app_name="ml20m"))
+        request = source.read_training(None).binned_request
+        if request is None:
+            fail("the template did not take the binned lane on eventlog")
+        cfg = ALSConfig(rank=RANK, iterations=ALS_ITERS, reg=ALS_REG,
+                        block_size=ALS_BLOCK)
+        t0 = time.perf_counter()
+        binned = request.bin(skip_mod=20, skip_rem=0, seg_len=cfg.seg_len,
+                             n_shards=1, block_size=cfg.block_size,
+                             row_cost_slots=als_row_cost_slots(cfg.rank))
+        bin_wall_sec = time.perf_counter() - t0
+        n_hold = len(binned.holdout[0])
+        if binned.n_rows + n_hold != n or n_hold != (n + 19) // 20:
+            fail(f"scan+bin kept {binned.n_rows} + {n_hold} held-out rows "
+                 f"of {n}")
+        # byte-equal to the COO route over the same split, the ids
+        # renumbered in the scan's first-seen order
+        (ru, users), (ri, items) = (first_seen(uu, N_USERS),
+                                    first_seen(ii, N_ITEMS))
+        if (binned.entity_vocab != [f"u{j}" for j in users]
+                or binned.target_vocab != [f"i{j}" for j in items]):
+            fail("the scan's vocabularies are not first-seen order")
+        keep = np.arange(n) % 20 != 0
+        tu, ti = ru[uu[keep]], ri[ii[keep]]
+        tv = vals[keep].astype(np.float32)
+        t0 = time.perf_counter()
+        want_user = build_compressed_side(tu, ti, tv, len(users), cfg, 1,
+                                          None)
+        want_item = build_compressed_side(ti, tu, tv, len(items), cfg, 1,
+                                          None)
+        coo_bin_sec = time.perf_counter() - t0
+        user_side = side_layout_from_binned(binned.user_side)
+        item_side = side_layout_from_binned(binned.item_side)
+        same_side(user_side, want_user, "binned user side")
+        same_side(item_side, want_item, "binned item side")
+        del want_user, want_item, tu, ti, tv
+        held = tuple(np.asarray(a) for a in binned.holdout)
+
+        # a trainer from the binned sides: compile, 5 timed alternations
+        torch.cuda.empty_cache()
+        trainer = ALSTrainer.from_sides(
+            user_side, item_side, len(binned.entity_vocab),
+            len(binned.target_vocab), binned.n_rows, cfg, device="cuda")
+        del user_side, item_side
+        scan = {"scan_sec": binned.scan_sec, "bin_sec": binned.bin_sec,
+                "bin_wall_sec": bin_wall_sec}
+        del binned
+        trainer.compile()
+        t0 = time.perf_counter()
+        trainer.step_n()
+        train_sec = time.perf_counter() - t0
+        factors = trainer.factors()
+        rmse = predict_rmse(factors, held)
+        if not RMSE_BAND[0] < rmse < RMSE_BAND[1]:
+            fail(f"binned-lane held-out RMSE {rmse} outside {RMSE_BAND}")
+        profile = stage_profile(trainer, train_sec * 1e3 / ALS_ITERS)
+        from_sides = {"put_sec": trainer.put_sec,
+                      "compile_sec": trainer.compile_sec,
+                      "train_sec": train_sec, "rmse_heldout": rmse,
+                      "layout": trainer.layout(), "profile": profile,
+                      "device_ms_vs_coo_phase":
+                      profile["device_ms_per_alternation"]
+                      / coo_profile["device_ms_per_alternation"]}
+        del trainer, factors
+        torch.cuda.empty_cache()
+
+        # the main path: pio train's read and ALSAlgorithm on all the
+        # events, cold (one scan+bin, saved to the cache), then warm (the
+        # cache, no scan), deployed and answered through topk_dot
+        params = ALSParams(rank=RANK, num_iterations=ALS_ITERS,
+                           lambda_=ALS_REG, block_size=ALS_BLOCK)
+        for counter in (fce.launches, eu.launches, tkd.launches):
+            counter.reset()
+        runs = {}
+        for run in ("cold", "warm"):
+            calls = events.bin_columnar_calls
+            td = source.read_training(None)
+            pd = PreparedRatings(binned_request=td.binned_request,
+                                 fingerprint=td.fingerprint)
+            algorithm = ALSAlgorithm(params)
+            t0 = time.perf_counter()
+            model = algorithm.train(DeviceContext("cuda"), pd)
+            runs[run] = {"sec": time.perf_counter() - t0,
+                         "scans": events.bin_columnar_calls - calls,
+                         **algorithm.last_train}
+        if runs["cold"]["scans"] != 1 or runs["cold"]["cache_hit"]:
+            fail(f"the cold train did not scan once: {runs['cold']}")
+        if runs["warm"]["scans"] != 0 or not runs["warm"]["cache_hit"]:
+            fail(f"the warm retrain did not load the cache: {runs['warm']}")
+        if not (np.all(np.isfinite(model.user_factors))
+                and np.all(np.isfinite(model.item_factors))):
+            fail("the warm-trained factors are not finite")
+        served = store_and_deploy(model, params, "als-eventlog",
+                                  list(model.user_ids.keys()),
+                                  list(model.item_ids.keys()),
+                                  "ingest phase")
+        topk_launches = tkd.launches.value
+        if topk_launches < served["lone_queries"]:
+            fail(f"topk_dot launched {topk_launches} times for "
+                 f"{served['lone_queries']} lone queries in the ingest "
+                 "phase")
+        if fce.launches.value or eu.launches.value:
+            fail("the ingest phase launched a two-tower kernel")
+        return {
+            "events": n, "ingest_sec": ingest_sec,
+            "ingest_events_per_sec": n / ingest_sec,
+            "log_bytes": log_bytes, "log_bytes_per_event": log_bytes / n,
+            "disk_free_bytes": free,
+            "row_lane": {"events": sample, "sec": row_lane_sec,
+                         "events_per_sec": sample / row_lane_sec},
+            **scan, "n_rows": n - n_hold, "held_out": n_hold,
+            "coo_native_bin_sec": coo_bin_sec, "from_sides": from_sides,
+            "algorithm": runs,
+            "events_to_model_sec": ingest_sec + runs["cold"]["sec"],
+            "topk_dot_launches": topk_launches, "serve": served,
+        }
+    finally:
+        set_storage(None)
+        events.close()
+        shutil.rmtree(root, ignore_errors=True)
+        if old_cache is None:
+            os.environ.pop("PIO_BIN_CACHE_DIR", None)
+        else:
+            os.environ["PIO_BIN_CACHE_DIR"] = old_cache
 
 
 # -- pio train phase -----------------------------------------------------------
@@ -1166,7 +1436,8 @@ def cli_train_and_deploy(cli, engine_json: str, engine_id: str, env: dict,
                          sub_env: dict, cwd: str, queries, what: str):
     """``cli train`` then ``cli deploy`` of one engine.json in
     subprocesses; every query's answer is checked against the stored
-    model's factors. -> (train seconds, the stored model, instance id)."""
+    model's factors. -> (train seconds, the stored model, instance id,
+    the train's log)."""
     from predictionio_torch.data.storage import Storage
     from predictionio_torch.workflow.deploy import load_blob
 
@@ -1214,7 +1485,7 @@ def cli_train_and_deploy(cli, engine_json: str, engine_id: str, env: dict,
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait()
-    return train_sec, model, instance.id
+    return train_sec, model, instance.id, out.stderr
 
 
 def pio_train_phase() -> dict:
@@ -1237,12 +1508,12 @@ def pio_train_phase() -> dict:
         its = rng.integers(1, n_items + 1, n)
         rs = rng.integers(1, 6, n)
         t0 = dt.datetime(1998, 1, 1, tzinfo=dt.timezone.utc)
-        storage.events().insert_batch([
-            Event(event="rate", entity_type="user", entity_id=f"u{u}",
-                  target_entity_type="item", target_entity_id=f"i{i}",
-                  properties={"rating": float(r)},
-                  event_time=t0 + dt.timedelta(seconds=j))
-            for j, (u, i, r) in enumerate(zip(us, its, rs))], app.id)
+        events = [Event(event="rate", entity_type="user", entity_id=f"u{u}",
+                        target_entity_type="item", target_entity_id=f"i{i}",
+                        properties={"rating": float(r)},
+                        event_time=t0 + dt.timedelta(seconds=j))
+                  for j, (u, i, r) in enumerate(zip(us, its, rs))]
+        storage.events().insert_batch(events, app.id)
         sub_env = {**os.environ, **env, "PYTHONPATH": root}
         cli = [sys.executable, "-m", "predictionio_torch.tools.cli"]
         rng = np.random.default_rng(SEED + 4)
@@ -1260,7 +1531,7 @@ def pio_train_phase() -> dict:
                 "datasource": {"params": {"app_name": "ml100k"}},
                 "algorithms": [{"name": "twotower", "params": {
                     "dim": 64, "batch_size": 1024, "epochs": 5}}]}, f)
-        train_sec, model, instance = cli_train_and_deploy(
+        train_sec, model, instance, _ = cli_train_and_deploy(
             cli, engine_json, "ml100k-tt", env, sub_env, store, queries,
             "two-tower")
         plan = model.kernel_plan
@@ -1278,17 +1549,52 @@ def pio_train_phase() -> dict:
                 "datasource": {"params": {"app_name": "ml100k"}},
                 "algorithms": [{"name": "als", "params": {
                     "rank": 16, "num_iterations": 10}}]}, f)
-        als_sec, als_model, als_instance = cli_train_and_deploy(
+        als_sec, als_model, als_instance, _ = cli_train_and_deploy(
             cli, als_json, "ml100k-als", env, sub_env, store, queries, "ALS")
         if not (np.all(np.isfinite(als_model.user_factors))
                 and np.all(np.isfinite(als_model.item_factors))):
             fail("pio train (ALS) stored factors that are not finite")
+
+        # the same events in an eventlog store: pio train takes the
+        # binned lane (its log says so) and pio deploy serves the model
+        el_env = {"PIO_STORAGE_SOURCES_EL_TYPE": "eventlog",
+                  "PIO_STORAGE_SOURCES_EL_PATH": os.path.join(store, "el")}
+        el_storage = Storage.from_env(el_env)
+        el_app = el_storage.apps().insert("ml100k")
+        el_storage.events().init(el_app.id)
+        el_storage.events().insert_batch(events, el_app.id)
+        el_storage.events().close()    # one writer: pio train opens it
+        el_json = os.path.join(store, "engine-als-eventlog.json")
+        with open(el_json, "w") as f:
+            json.dump({"id": "default", "engineId": "ml100k-als-el",
+                       "engineFactory": ("predictionio_torch.templates."
+                                         "recommendation."
+                                         "recommendation_engine"),
+                       "datasource": {"params": {"app_name": "ml100k"}},
+                       "algorithms": [{"name": "als", "params": {
+                           "rank": 16, "num_iterations": 10}}]}, f)
+        el_sub_env = {**os.environ, **el_env, "PYTHONPATH": root,
+                      "PIO_BIN_CACHE_DIR": os.path.join(store, "bin_cache")}
+        el_sec, el_model, el_instance, el_log = cli_train_and_deploy(
+            cli, el_json, "ml100k-als-el", el_env, el_sub_env, store,
+            queries, "ALS, eventlog")
+        lane = [line for line in el_log.splitlines()
+                if "ALS trained on the binned lane" in line]
+        if len(lane) != 1:
+            fail(f"pio train on eventlog did not log the binned lane: "
+                 f"{el_log[-2000:]}")
+        if len(el_model.user_ids) != len(als_model.user_ids):
+            fail("pio train on eventlog saw other users than on localfs")
         return {"events": n, "train_sec": train_sec,
                 "losses": model.train_losses, "kernel_plan": plan,
                 "queries": len(queries), "instance": instance,
                 "als": {"train_sec": als_sec, "instance": als_instance,
                         "rank": int(als_model.item_factors.shape[1]),
-                        "queries": len(queries)}}
+                        "queries": len(queries)},
+                "als_eventlog": {"train_sec": el_sec,
+                                 "instance": el_instance,
+                                 "train_log": lane[0][-600:],
+                                 "queries": len(queries)}}
     finally:
         shutil.rmtree(store, ignore_errors=True)
 
@@ -1331,11 +1637,19 @@ def main() -> int:
     flash["launches"] = train["flash_ce_launches"]
     embed["launches"] = train["embed_update_launches"]
     print(json.dumps({"train": train}), flush=True)
-    als = als_train_phase()
+    t0 = time.perf_counter()
+    ratings = synth_ratings()
+    synth_sec = time.perf_counter() - t0
+    als = als_train_phase(ratings)
+    print(json.dumps({"als_train": {**als, "synth_sec": synth_sec}}),
+          flush=True)
+    ingest = ingest_phase(ratings, als["profile"])
+    del ratings
+    print(json.dumps({"ingest": ingest}), flush=True)
     topk["launches_by_path"] = {
         "serve": serve["launches"], "train_deploy": train["topk_dot_launches"],
-        "als_train_deploy": als["topk_dot_launches"]}
-    print(json.dumps({"als_train": als}), flush=True)
+        "als_train_deploy": als["topk_dot_launches"],
+        "ingest_deploy": ingest["topk_dot_launches"]}
     print(json.dumps({"pio_train": pio_train_phase()}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [topk, flash, embed]}), flush=True)

@@ -4,7 +4,9 @@ The same machine-learning server framework (DASE engines, model
 persistence, REST serving), with its compute on an NVIDIA Hopper card:
 plain tensor code is PyTorch, and every kernel the JAX package wrote in
 Pallas for the TPU is a hand-written CUDA kernel under
-``ops/kernels/csrc/``, built with ``nvcc`` at first use.
+``ops/kernels/csrc/``, built with ``nvcc`` at first use. The host
+C++ of the event log and the ALS layout lives under ``native/``, built
+with ``g++`` at first use.
 
 The package imports ``torch``, ``numpy`` and the standard library only —
 never ``jax`` and nothing of ``predictionio_tpu``. Where it needs a
@@ -23,7 +25,9 @@ answering ``POST /queries.json`` through the ``topk_dot`` kernel — and
 ``flash_ce`` (loss forward and backward) and ``embed_update`` (table
 update) kernels, and ``pio train`` of the Recommendation (ALS) engine
 (``ops/als.py``: the segmented layout, the gather+Gramian half-step and
-the Jacobi CG solve in PyTorch). What remains is in ROADMAP.md.
+the Jacobi CG solve in PyTorch), over the native event log's fused
+scan+bin and the layout cache when the events are in an ``eventlog``
+store. What remains is in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

@@ -115,6 +115,31 @@ class LocalFSEventStore(MemoryEventStore):
                 f.write(lines)
             return ids
 
+    def remove(self, app_id, channel_id=None):
+        with self._lock:
+            super().remove(app_id, channel_id)
+            self._loaded.discard(table_key(app_id, channel_id))
+            try:
+                os.remove(self._path(app_id, channel_id))
+            except FileNotFoundError:
+                pass
+
+    def get(self, event_id, app_id, channel_id=None):
+        with self._lock:
+            self._ensure_loaded(app_id, channel_id)
+            return super().get(event_id, app_id, channel_id)
+
+    def delete(self, event_id, app_id, channel_id=None) -> bool:
+        """Drop the event and append its tombstone line."""
+        with self._lock:
+            self._ensure_loaded(app_id, channel_id)
+            found = super().delete(event_id, app_id, channel_id)
+            if found:
+                with open(self._path(app_id, channel_id), "a") as f:
+                    f.write(json.dumps({"__tombstone__": event_id},
+                                       sort_keys=True) + "\n")
+            return found
+
     def find(self, app_id, channel_id=None, **kwargs):
         with self._lock:
             self._ensure_loaded(app_id, channel_id)

@@ -43,11 +43,24 @@ class MemoryEventStore(S.EventStore):
         with self._lock:
             self._tables.setdefault(table_key(app_id, channel_id), {})
 
+    def remove(self, app_id, channel_id=None):
+        with self._lock:
+            self._tables.pop(table_key(app_id, channel_id), None)
+
     def insert(self, event: Event, app_id, channel_id=None) -> str:
         with self._lock:
             e = event if event.event_id else event.with_id()
             self._table(app_id, channel_id)[e.event_id] = e
             return e.event_id
+
+    def get(self, event_id, app_id, channel_id=None):
+        with self._lock:
+            return self._table(app_id, channel_id).get(event_id)
+
+    def delete(self, event_id, app_id, channel_id=None) -> bool:
+        with self._lock:
+            return self._table(app_id, channel_id).pop(event_id,
+                                                       None) is not None
 
     def find(self, app_id, channel_id=None, start_time=None, until_time=None,
              entity_type=None, entity_id=None, event_names=None,

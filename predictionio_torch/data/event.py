@@ -1,11 +1,13 @@
 """The append-only Event model.
 
-Copy of ``predictionio_tpu/data/event.py`` trimmed to what the training
-read needs (ref: data/.../storage/Event.scala:37): an event has a name,
+Copy of ``predictionio_tpu/data/event.py`` trimmed to what the event
+stores and the training read need (ref: data/.../storage/Event.scala:37):
+an event has a name,
 entityType/entityId, an optional targetEntityType/Id, a properties
 DataMap, eventTime, tags, an optional prId and creationTime. The JSON
 form (``to_dict`` / ``from_dict``) is the event stores' on-disk format,
-shared with the JAX package.
+shared with the JAX package. ``validate_event`` holds the reference's
+validation rules, which the native event log's JSON lane applies too.
 """
 
 from __future__ import annotations
@@ -18,6 +20,9 @@ from typing import Any, Mapping, Optional
 from predictionio_torch.data.datamap import DataMap
 
 UTC = _dt.timezone.utc
+
+#: ref: Event.scala:62 — the only names a reserved-prefix event may take
+SPECIAL_EVENTS = frozenset({"$set", "$unset", "$delete"})
 
 
 class EventValidationError(ValueError):
@@ -121,3 +126,65 @@ def _parse_time(s: Any) -> _dt.datetime:
         s = s[:-1] + "+00:00"
     t = _dt.datetime.fromisoformat(s)
     return t if t.tzinfo else t.replace(tzinfo=UTC)
+
+
+#: ref: Event.scala:104 builtinEntityTypes — the only entity types allowed
+#: to use a reserved prefix
+BUILTIN_ENTITY_TYPES = frozenset({"pio_pr"})
+#: ref: Event.scala:105 builtinProperties — empty: no reserved-prefix
+#: property key is allowed
+BUILTIN_PROPERTIES: frozenset = frozenset()
+
+
+def is_reserved_prefix(name: str) -> bool:
+    """ref: Event.scala:62 — ``$`` and ``pio_`` prefixes are reserved."""
+    return name.startswith("$") or name.startswith("pio_")
+
+
+def validate_event(e: Event) -> None:
+    """Enforce the reference's validation rules (ref: Event.scala:69-116).
+
+    - event / entityType / entityId must be non-empty; target fields,
+      when present, non-empty and specified together
+    - reserved-prefix (``$``/``pio_``) event names must be one of the
+      special events $set/$unset/$delete
+    - special events must not have a target entity; $unset requires
+      non-empty properties
+    - reserved-prefix entityType / targetEntityType allowed only for
+      the builtin set ({"pio_pr"}); reserved-prefix property keys are
+      never allowed
+    """
+    if not e.event:
+        raise EventValidationError("event must not be empty.")
+    if not e.entity_type:
+        raise EventValidationError("entityType must not be empty string.")
+    if not e.entity_id:
+        raise EventValidationError("entityId must not be empty string.")
+    if (e.target_entity_type is None) != (e.target_entity_id is None):
+        raise EventValidationError(
+            "targetEntityType and targetEntityId must be specified together.")
+    if e.target_entity_type is not None and not e.target_entity_type:
+        raise EventValidationError(
+            "targetEntityType must not be empty string.")
+    if e.target_entity_id is not None and not e.target_entity_id:
+        raise EventValidationError("targetEntityId must not be empty string.")
+    if e.event == "$unset" and not len(e.properties):
+        raise EventValidationError(
+            "properties cannot be empty for $unset event")
+    if is_reserved_prefix(e.event) and e.event not in SPECIAL_EVENTS:
+        raise EventValidationError(
+            f"{e.event} is not a supported reserved event name.")
+    if e.event in SPECIAL_EVENTS and e.target_entity_id is not None:
+        raise EventValidationError(
+            f"Reserved event {e.event} cannot have targetEntity.")
+    for name, value in (("entityType", e.entity_type),
+                        ("targetEntityType", e.target_entity_type or "")):
+        if is_reserved_prefix(value) and value not in BUILTIN_ENTITY_TYPES:
+            raise EventValidationError(
+                f"The {name} {value} is not allowed. "
+                "'pio_' is a reserved name prefix.")
+    for key in e.properties:
+        if is_reserved_prefix(key) and key not in BUILTIN_PROPERTIES:
+            raise EventValidationError(
+                f"The property {key} is not allowed. 'pio_' is a reserved "
+                "name prefix.")

@@ -1,9 +1,11 @@
 """Storage abstraction + env-configured registry.
 
 Copy of ``predictionio_tpu/data/storage.py`` trimmed to what ``pio
-train`` and ``pio deploy`` use: the EVENTDATA repository (events, read
-by a filtered scan or as dict-encoded columns), the apps and channels
-that name an event table, engine instances and model blobs. The env-var
+train`` and ``pio deploy`` use: the EVENTDATA repository (events:
+appended one by one, in batches or as dict-encoded columns; read by id,
+by a filtered scan, as dict-encoded columns, or binned straight into the
+ALS layout by the native event log), the apps and channels that name an
+event table, engine instances and model blobs. The env-var
 contract is the same (ref: Storage.scala:40,151,183): sources are
 declared with ``PIO_STORAGE_SOURCES_<NAME>_TYPE`` (+ per-type config)
 and repositories are mapped onto them with
@@ -17,10 +19,11 @@ from __future__ import annotations
 import abc
 import dataclasses
 import datetime as _dt
+import math
 import os
 import re
 import threading
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -35,6 +38,11 @@ UNSET = object()
 
 class StorageError(RuntimeError):
     pass
+
+
+class RowValidationError(StorageError):
+    """A strict batch insert met an invalid row: a client-data error
+    (nothing was appended), never a backend fault."""
 
 
 @dataclasses.dataclass
@@ -59,6 +67,73 @@ class EventColumns:
         return len(self.entity_codes)
 
 
+@dataclasses.dataclass
+class BinnedSide:
+    """One side of the ALS trainer's transfer-compressed segmented
+    layout as the native builders produce it (``el_bin_columnar``,
+    ``rb_bin_compressed``): the same shapes and bytes as
+    ``ops.als.compress_side(ops.ragged.build_segmented_groups(...))``
+    over the same COO. The arrays may be zero-copy views over native
+    buffers, whose lifetime their buffer objects anchor
+    (``native.as_ndarray``)."""
+
+    idx_lo: np.ndarray              # [R, L] uint16
+    idx_hi: Optional[np.ndarray]    # [R, L] uint8, None when vocab < 2^16
+    val: np.ndarray                 # [R, L] uint8 codes | float32
+    mask: Optional[np.ndarray]      # [R, L] uint8, None when val is coded
+    seg: np.ndarray                 # [R] int32
+    counts: np.ndarray              # [G] int32
+    affine: Optional[Tuple[float, float]]
+    row_block: int
+    group_block: int
+    groups_per_shard: int
+    n_shards: int
+    n_groups: int                   # true group count (before padding)
+    kept_entries: int
+    kept_value_sum: float
+
+
+@dataclasses.dataclass
+class BinnedInteractions:
+    """Both sides of an interaction dataset binned straight off the
+    event log by one native call: grouped by entity (users) and by
+    target (items), the id vocabularies (first-seen order), and an
+    optional held-out COO split. ``scan_sec``/``bin_sec`` are the
+    native call's own split of its time: filter, encode and vocabularies
+    against plan and fill."""
+
+    user_side: BinnedSide
+    item_side: BinnedSide
+    entity_vocab: List[str]
+    target_vocab: List[str]
+    #: (user_idx int32, item_idx int32, values float32) or None
+    holdout: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]
+    n_rows: int
+    scan_sec: float
+    bin_sec: float
+
+
+def pack_vocab(vocab) -> tuple:
+    """Concatenated UTF-8 bytes + exact (len+1) uint64 prefix offsets:
+    the separator-free dictionary layout of the native columnar calls
+    and of the bin cache, so ids holding any byte round-trip."""
+    bs = [s.encode("utf-8") for s in vocab]
+    offsets = np.zeros(len(bs) + 1, np.uint64)
+    if bs:
+        np.cumsum(np.fromiter((len(b) for b in bs), np.uint64,
+                              count=len(bs)), out=offsets[1:])
+    return b"".join(bs), offsets
+
+
+def unpack_vocab(data, offsets) -> List[str]:
+    """Inverse of :func:`pack_vocab`: concatenated bytes (bytes or a
+    uint8 array) + prefix offsets -> the vocabulary list."""
+    raw = data.tobytes() if hasattr(data, "tobytes") else bytes(data)
+    offs = [int(o) for o in offsets]
+    return [raw[offs[i]:offs[i + 1]].decode("utf-8")
+            for i in range(len(offs) - 1)]
+
+
 class EventStore(abc.ABC):
     """Event DAO (ref: LEvents.scala:30 + PEvents.scala:30, one store
     for both the write path and the bulk training read)."""
@@ -66,6 +141,10 @@ class EventStore(abc.ABC):
     @abc.abstractmethod
     def init(self, app_id: int, channel_id: Optional[int] = None) -> None:
         """Create the event table of an app (ref: LEvents.init)."""
+
+    @abc.abstractmethod
+    def remove(self, app_id: int, channel_id: Optional[int] = None) -> None:
+        """Drop the event table of an app (ref: LEvents.remove)."""
 
     @abc.abstractmethod
     def insert(self, event: Event, app_id: int,
@@ -76,6 +155,17 @@ class EventStore(abc.ABC):
                      channel_id: Optional[int] = None) -> List[str]:
         """Bulk append (ref: PEvents.write:124)."""
         return [self.insert(e, app_id, channel_id) for e in events]
+
+    @abc.abstractmethod
+    def get(self, event_id: str, app_id: int,
+            channel_id: Optional[int] = None) -> Optional[Event]:
+        """The event with this id, or None (ref: LEvents.get)."""
+
+    @abc.abstractmethod
+    def delete(self, event_id: str, app_id: int,
+               channel_id: Optional[int] = None) -> bool:
+        """Delete one event; False when there was none (ref:
+        LEvents.delete)."""
 
     @abc.abstractmethod
     def find(self, app_id: int, channel_id: Optional[int] = None,
@@ -128,6 +218,47 @@ class EventStore(abc.ABC):
             name_codes=name_codes, values=values, times_us=times_us,
             entity_vocab=list(ent_vocab), target_vocab=list(tgt_vocab),
             names=list(name_vocab))
+
+    def insert_columnar(self, cols: EventColumns, app_id: int,
+                        channel_id: Optional[int] = None, *,
+                        entity_type: str,
+                        target_entity_type: Optional[str] = None,
+                        value_property: Optional[str] = None) -> int:
+        """Bulk append from dict-encoded columns, the ingest mirror of
+        ``find_columnar`` (ref: PEvents.write:124): ``values`` NaN = no
+        property, ``target_codes`` -1 = no target; event times come
+        from ``times_us`` and fresh ids are assigned. Returns the row
+        count. This default builds events in chunks; the native event
+        log packs the rows in C++."""
+        epoch = _dt.datetime(1970, 1, 1, tzinfo=_dt.timezone.utc)
+        n = len(cols)
+        chunk = 100_000
+        for s in range(0, n, chunk):
+            events = []
+            for i in range(s, min(s + chunk, n)):
+                props: Dict[str, Any] = {}
+                v = (float(cols.values[i]) if value_property is not None
+                     else math.nan)
+                if not math.isnan(v):
+                    props[value_property] = v
+                tc = int(cols.target_codes[i])
+                events.append(Event(
+                    event=cols.names[cols.name_codes[i]],
+                    entity_type=entity_type,
+                    entity_id=cols.entity_vocab[cols.entity_codes[i]],
+                    target_entity_type=target_entity_type if tc >= 0 else None,
+                    target_entity_id=cols.target_vocab[tc] if tc >= 0 else None,
+                    properties=props,
+                    event_time=epoch + _dt.timedelta(
+                        microseconds=int(cols.times_us[i]))))
+            self.insert_batch(events, app_id, channel_id)
+        return n
+
+    def compact(self, app_id: int, channel_id: Optional[int] = None):
+        """Reclaim the space of deleted or superseded events (the HBase
+        major-compaction role). Stores that update in place have none to
+        reclaim and return None; the native event log overrides."""
+        return None
 
 
 class AppsRepo(abc.ABC):
@@ -219,8 +350,10 @@ def register_backend(type_name: str, client_cls: type) -> None:
 
 
 def _load_backends() -> None:
-    # import side effect registers the built-in backends
-    from predictionio_torch.data.backends import localfs, memory  # noqa: F401
+    # import side effect registers the built-in backends; the eventlog
+    # backend builds its native library at first use, not on import
+    from predictionio_torch.data.backends import (eventlog, localfs,  # noqa: F401
+                                                  memory)
 
 
 _SOURCE_RE = re.compile(r"^PIO_STORAGE_SOURCES_([^_]+)_(.+)$")
@@ -232,8 +365,8 @@ REPOSITORIES = ("METADATA", "EVENTDATA", "MODELDATA")
 class Storage:
     """Repositories mapped to StorageClients (ref: Storage.scala:40-166).
     A source is opened at its first use, so a deployment whose EVENTDATA
-    source has a type the port lacks (the native eventlog) still reads
-    its metadata and models."""
+    source has a type the port lacks still reads its metadata and
+    models."""
 
     def __init__(self, sources: Dict[str, Dict[str, str]],
                  repo_to_source: Dict[str, str]):

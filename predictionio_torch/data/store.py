@@ -13,7 +13,8 @@ import datetime as _dt
 from typing import Any, List, Optional
 
 from predictionio_torch.data.event import Event
-from predictionio_torch.data.storage import (UNSET, EventColumns, Storage,
+from predictionio_torch.data.storage import (UNSET, BinnedInteractions,
+                                             EventColumns, Storage,
                                              StorageError, get_storage)
 
 
@@ -69,9 +70,37 @@ def find_columnar(app_name: str, channel_name: Optional[str] = None,
 
 def supports_bin_columnar(app_name: str, channel_name: Optional[str] = None,
                           storage: Optional[Storage] = None) -> bool:
-    """Whether the app's store offers the fused native ingest->bin lane:
-    never in the port yet (the native eventlog backend is a later
-    slice). Raises StorageError for an unknown app or channel, like
-    every other entry point."""
-    resolve_app(app_name, channel_name, storage or get_storage())
-    return False
+    """Whether the app's event store offers the fused native ingest->bin
+    lane: exactly when it has ``bin_columnar`` (the eventlog backend,
+    whose native library was built when the store was made, or raised).
+    Raises StorageError for an unknown app or channel, like every other
+    entry point."""
+    storage = storage or get_storage()
+    resolve_app(app_name, channel_name, storage)
+    return callable(getattr(storage.events(), "bin_columnar", None))
+
+
+def bin_columnar(app_name: str, channel_name: Optional[str] = None,
+                 storage: Optional[Storage] = None,
+                 **kwargs) -> BinnedInteractions:
+    """The zero-copy training read: one native call scans the mmapped
+    log and bins both sides into the ALS trainer's compressed layout
+    (``storage.BinnedInteractions``); no Event objects, no Python row
+    loop, no intermediate COO. Check :func:`supports_bin_columnar`
+    first: other stores have no such call."""
+    storage = storage or get_storage()
+    app_id, channel_id = resolve_app(app_name, channel_name, storage)
+    return storage.events().bin_columnar(app_id, channel_id=channel_id,
+                                         **kwargs)
+
+
+def data_fingerprint(app_name: str, channel_name: Optional[str] = None,
+                     storage: Optional[Storage] = None) -> Optional[str]:
+    """O(1) content fingerprint of an app's event data, or None when the
+    store has no cheap one (only the native event log has one). It
+    changes whenever the data does; the layout cache (``ops.bincache``)
+    keys on it, so a retrain on unchanged events skips the read."""
+    storage = storage or get_storage()
+    app_id, channel_id = resolve_app(app_name, channel_name, storage)
+    fn = getattr(storage.events(), "data_fingerprint", None)
+    return None if fn is None else fn(app_id, channel_id)

@@ -16,16 +16,20 @@ every device-side piece. ``als_model_from_arrays`` builds a model from
 the factors and vocabularies of a JAX-trained one (as numpy arrays).
 
 ``PreparedRatings`` is the prepared data both factor models train on:
-``ALSAlgorithm.train`` fits ALS on it through ``ops/als.py`` on the
-context's device, and the two-tower model (``models/twotower.py``)
-trains on the same data. The JAX package's binned lane (a deferred
-native scan and bin, and the layout cache keyed by a data fingerprint)
-is not ported (ROADMAP.md, queue 1 item 2(b)).
+indexed COO ratings, or on the binned lane a deferred read
+(``binned_request``) that ``ALSAlgorithm.train`` performs itself as one
+fused native scan+bin with its own layout knobs, so no COO exists.
+Either way the layout cache (``ops/bincache.py``), keyed by the data
+fingerprint, lets a retrain on unchanged events skip the read and the
+binning. ALS trains through ``ops/als.py`` on the context's device; the
+two-tower model (``models/twotower.py``) trains on the same data.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
+import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -35,22 +39,35 @@ import torch
 from predictionio_torch.core import Algorithm, SanityCheck
 from predictionio_torch.core.params import Params
 from predictionio_torch.data.bimap import BiMap
-from predictionio_torch.ops.als import ALSConfig, als_train
+from predictionio_torch.ops.als import (ALSConfig, ALSTrainer,
+                                        als_row_cost_slots, layout_cache_key,
+                                        load_layout, save_layout,
+                                        side_layout_from_binned)
 from predictionio_torch.ops.topk import TopKScorer
 from predictionio_torch.parallel.context import (DeviceContext, DeviceLike,
                                                  resolve_device)
 
+log = logging.getLogger(__name__)
+
 
 @dataclass
 class PreparedRatings(SanityCheck):
-    """Prepared data of the factor models: indexed COO ratings (the JAX
-    package's ``PreparedRatings`` without its native binned lane)."""
+    """Prepared data of the factor models: indexed COO ratings, or on
+    the binned lane a deferred ``binned_request``
+    (``templates.recommendation.BinnedReadRequest``; the COO fields are
+    then None): the layout depends on the algorithm's knobs, so the fit
+    stage makes the one native scan+bin call."""
 
     user_ids: Optional[BiMap] = None         # user id str -> row
     item_ids: Optional[BiMap] = None         # item id str -> row
     user_idx: Optional[np.ndarray] = None    # [nnz] int
     item_idx: Optional[np.ndarray] = None    # [nnz] int
     ratings: Optional[np.ndarray] = None     # [nnz] float32
+    #: data + derivation fingerprint from the DataSource (None when the
+    #: store has no cheap one): keys the layout cache
+    fingerprint: Optional[str] = None
+    #: the deferred native read of the binned lane
+    binned_request: Optional[Any] = None
 
     @property
     def n_users(self) -> int:
@@ -61,6 +78,8 @@ class PreparedRatings(SanityCheck):
         return len(self.item_ids)
 
     def sanity_check(self) -> None:
+        if self.binned_request is not None:
+            return   # the fit stage's native read checks for emptiness
         if self.user_idx is None or len(self.user_idx) == 0:
             raise ValueError("PreparedRatings is empty — no rating events "
                              "found")
@@ -343,7 +362,10 @@ class ALSAlgorithm(Algorithm):
         super().__init__(params)
 
     def train(self, ctx: DeviceContext, pd: PreparedRatings) -> ALSModel:
-        """Fit ALS on the prepared COO ratings on the context's device."""
+        """Fit ALS on the context's device: from the deferred binned read
+        (``_train_binned``), or from the prepared COO, whose layout the
+        cache keeps under ``pd.fingerprint``. ``last_train`` then holds
+        the lane taken and its one-time costs in seconds."""
         p: ALSParams = self.params
         cfg = ALSConfig(
             rank=p.rank,
@@ -360,14 +382,78 @@ class ALSAlgorithm(Algorithm):
             cg_dtype=p.cg_dtype,
             compute_dtype=p.compute_dtype,
         )
-        factors = als_train(
+        if pd.binned_request is not None:
+            return self._train_binned(ctx, pd, cfg)
+        trainer = ALSTrainer(
             (pd.user_idx, pd.item_idx, pd.ratings), pd.n_users, pd.n_items,
             cfg, device=ctx.device,
             max_ratings_per_user=p.max_ratings_per_user,
-            max_ratings_per_item=p.max_ratings_per_item)
+            max_ratings_per_item=p.max_ratings_per_item,
+            cache_key=pd.fingerprint)
+        return self._fit(trainer, "coo", pd.user_ids, pd.item_ids)
+
+    def _train_binned(self, ctx: DeviceContext, pd: PreparedRatings,
+                      cfg: ALSConfig) -> ALSModel:
+        """The zero-copy lane. A cache hit loads both sides and their
+        vocabularies as views over the entry's file; otherwise one fused
+        native scan+bin (``req.bin``: no COO, no Event objects) builds
+        them, and they are saved with the vocabularies so the next
+        retrain on unchanged events skips the read. Either way the sides
+        go to ``ALSTrainer.from_sides``."""
+        p: ALSParams = self.params
+        key = None
+        if pd.fingerprint:
+            # the COO lane's derivation: either lane's entry serves both
+            key = layout_cache_key(pd.fingerprint, cfg, 1,
+                                   p.max_ratings_per_user,
+                                   p.max_ratings_per_item)
+            cached = load_layout(key)
+            # an entry the COO lane saved has no vocabularies: bin
+            # again below and overwrite it
+            if cached is not None and cached.vocabs is not None:
+                trainer = ALSTrainer.from_cache(cached, cfg,
+                                                device=ctx.device)
+                return self._fit(trainer, "binned",
+                                 BiMap.from_vocab(cached.vocabs[0]),
+                                 BiMap.from_vocab(cached.vocabs[1]))
+        binned = pd.binned_request.bin(
+            seg_len=cfg.seg_len, max_len_user=p.max_ratings_per_user,
+            max_len_item=p.max_ratings_per_item, n_shards=1,
+            block_size=cfg.block_size,
+            row_cost_slots=als_row_cost_slots(cfg.rank))
+        if binned.n_rows == 0:
+            raise ValueError(
+                "PreparedRatings is empty — no rating events found")
+        user_side = side_layout_from_binned(binned.user_side)
+        item_side = side_layout_from_binned(binned.item_side)
+        users, items = binned.entity_vocab, binned.target_vocab
+        if key is not None:
+            save_layout(key, user_side, item_side, len(users), len(items),
+                        binned.n_rows, vocabs=(users, items))
+        trainer = ALSTrainer.from_sides(user_side, item_side, len(users),
+                                        len(items), binned.n_rows, cfg,
+                                        device=ctx.device)
+        # the native bytes are on the device now; release them
+        del user_side, item_side
+        scan = {"scan_sec": binned.scan_sec, "native_bin_sec": binned.bin_sec}
+        del binned
+        return self._fit(trainer, "binned", BiMap.from_vocab(users),
+                         BiMap.from_vocab(items), **scan)
+
+    def _fit(self, trainer: ALSTrainer, lane: str, user_ids: BiMap,
+             item_ids: BiMap, **costs) -> ALSModel:
+        p: ALSParams = self.params
+        t0 = time.perf_counter()
+        factors = trainer.run()
+        self.last_train = {
+            "lane": lane, "cache_hit": trainer.cache_hit,
+            "ratings": trainer.total_entries, **costs,
+            "bin_sec": trainer.bin_sec, "load_sec": trainer.load_sec,
+            "put_sec": trainer.put_sec,
+            "train_sec": time.perf_counter() - t0}
+        log.info("ALS trained on the %s lane: %s", lane, self.last_train)
         return ALSModel(factors.user_factors, factors.item_factors,
-                        pd.user_ids, pd.item_ids,
-                        index_backend=p.index_backend,
+                        user_ids, item_ids, index_backend=p.index_backend,
                         index_kernel=p.index_kernel)
 
     def apply_patch(self, model: ALSModel, patch: dict) -> bool:

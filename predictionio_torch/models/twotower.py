@@ -71,6 +71,11 @@ class TwoTowerAlgorithm(Algorithm):
 
     def train(self, ctx: DeviceContext, pd: PreparedRatings) -> TwoTowerModel:
         p: TwoTowerParams = self.params
+        if pd.binned_request is not None:
+            # the binned lane's deferred read is shaped for ALS's layout;
+            # this trainer takes host COO, read through the columnar path
+            # (the same rows, codes and values)
+            pd = pd.binned_request.read_prepared(pd.fingerprint)
         keep = pd.ratings >= p.min_rating
         u, i, r = pd.user_idx[keep], pd.item_idx[keep], pd.ratings[keep]
         if len(u) == 0:

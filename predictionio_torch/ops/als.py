@@ -29,11 +29,15 @@ float atomics, so the order of a group's partials, and with it the last
 bits of the factors, varies from run to run (the tests state the
 tolerance).
 
-Not ported here (ROADMAP.md, queue 1): the binned-layout cache and the
-native binned lane (item 2(b)), the chunked double-buffered transfer
-(item 2(b)), grid training (item 4), the streaming fold-in solve (item
-5), the gather roof probe (item 3), the observability hooks (item 10)
-and the sharded half-step (item 12).
+The trainer takes its layout three ways: binned here from COO (the
+native one-pass builder at scale, ``ops/ragged.py``), prebuilt by the
+event log's fused scan+bin (``ALSTrainer.from_sides``), or loaded from
+the layout cache (``ops/bincache.py``) under ``layout_cache_key``.
+
+Not ported here (ROADMAP.md, queue 1): the chunked double-buffered
+transfer, grid training (item 4), the streaming fold-in solve (item 5),
+the gather roof probe (item 3), the observability hooks (item 10) and
+the sharded half-step (item 12).
 """
 
 from __future__ import annotations
@@ -41,12 +45,16 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Optional, Tuple
+import warnings
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from predictionio_torch.data.storage import pack_vocab, unpack_vocab
+from predictionio_torch.ops import bincache
 from predictionio_torch.ops.ragged import (SegmentedGroups,
+                                           build_compressed_segmented,
                                            build_segmented_groups)
 from predictionio_torch.parallel.context import DeviceLike, resolve_device
 
@@ -349,6 +357,10 @@ class SideLayout:
     n_shards: int
 
     @property
+    def kept_entries(self) -> int:
+        return int(self.counts.sum())
+
+    @property
     def slot_bytes(self) -> int:
         return (2 + (1 if self.idx_hi is not None else 0)
                 + self.val.dtype.itemsize
@@ -363,6 +375,39 @@ class SideLayout:
         if self.mask is not None:
             n += self.mask.nbytes
         return n
+
+    def to_arrays(self, prefix: str) -> dict:
+        """The arrays under the layout cache's names."""
+        out = {f"{prefix}idx_lo": self.idx_lo, f"{prefix}val": self.val,
+               f"{prefix}seg": self.seg, f"{prefix}counts": self.counts}
+        if self.idx_hi is not None:
+            out[f"{prefix}idx_hi"] = self.idx_hi
+        if self.mask is not None:
+            out[f"{prefix}mask"] = self.mask
+        return out
+
+    @classmethod
+    def from_arrays(cls, arrays: dict, prefix: str,
+                    meta: dict) -> "SideLayout":
+        affine = meta.get(f"{prefix}affine")
+        return cls(
+            idx_lo=arrays[f"{prefix}idx_lo"],
+            idx_hi=arrays.get(f"{prefix}idx_hi"),
+            val=arrays[f"{prefix}val"], mask=arrays.get(f"{prefix}mask"),
+            seg=arrays[f"{prefix}seg"], counts=arrays[f"{prefix}counts"],
+            affine=tuple(affine) if affine is not None else None,
+            row_block=int(meta[f"{prefix}row_block"]),
+            group_block=int(meta[f"{prefix}group_block"]),
+            groups_per_shard=int(meta[f"{prefix}groups_per_shard"]),
+            n_shards=int(meta["n_shards"]))
+
+    def meta(self, prefix: str) -> dict:
+        """The scalars under the layout cache's names."""
+        return {f"{prefix}row_block": self.row_block,
+                f"{prefix}group_block": self.group_block,
+                f"{prefix}groups_per_shard": self.groups_per_shard,
+                f"{prefix}affine": (list(self.affine)
+                                    if self.affine is not None else None)}
 
 
 def _split_idx(idx: np.ndarray) -> Tuple[np.ndarray, Optional[np.ndarray]]:
@@ -422,6 +467,17 @@ def compress_side(sg: SegmentedGroups) -> SideLayout:
         groups_per_shard=sg.groups_per_shard, n_shards=sg.n_shards)
 
 
+def side_layout_from_binned(bs) -> SideLayout:
+    """``data.storage.BinnedSide`` (what the native builders make) -> the
+    trainer's ``SideLayout``: the same arrays, no copies."""
+    return SideLayout(
+        idx_lo=bs.idx_lo, idx_hi=bs.idx_hi, val=bs.val, mask=bs.mask,
+        seg=bs.seg, counts=bs.counts,
+        affine=tuple(bs.affine) if bs.affine is not None else None,
+        row_block=bs.row_block, group_block=bs.group_block,
+        groups_per_shard=bs.groups_per_shard, n_shards=bs.n_shards)
+
+
 def build_compressed_side(
     group_idx: np.ndarray,
     item_idx: np.ndarray,
@@ -431,13 +487,92 @@ def build_compressed_side(
     n_shards: int,
     max_len: Optional[int],
 ) -> SideLayout:
-    """One side's compressed layout from COO: the segmented layout, then
-    ``compress_side`` (the JAX package's two-stage route; its one-pass
-    native builder gives the same bits and comes with ROADMAP.md item
-    2(b))."""
-    sg = _build_side(group_idx, item_idx, vals, n_groups, cfg, n_shards,
-                     max_len)
-    return compress_side(sg)
+    """One side's compressed layout from COO: in one native pass
+    (``ragged.build_compressed_segmented``) at or above the native
+    cutover, else the segmented layout and then ``compress_side``. Both
+    routes give the same bits."""
+    bs = build_compressed_segmented(
+        group_idx, item_idx, vals, n_groups, seg_len=cfg.seg_len,
+        max_len=max_len, n_shards=n_shards, block_size=cfg.block_size,
+        row_cost_slots=als_row_cost_slots(cfg.rank))
+    if bs is not None:
+        return side_layout_from_binned(bs)
+    return compress_side(_build_side(group_idx, item_idx, vals, n_groups,
+                                     cfg, n_shards, max_len))
+
+
+def layout_cache_key(cache_key: str, cfg: ALSConfig, n_shards: int,
+                     max_ratings_per_user: Optional[int] = None,
+                     max_ratings_per_item: Optional[int] = None) -> str:
+    """The layout cache's key for an ALS segmented layout: the data
+    fingerprint ``cache_key`` and every knob that shapes the layout. The
+    JAX package derives it the same way and the layouts are equal, so an
+    entry written by either package, or by either lane (COO or binned),
+    serves the others."""
+    return bincache.layout_key(
+        cache_key, "als-segmented",
+        {"seg_len": cfg.seg_len, "block_size": cfg.block_size,
+         "rank": cfg.rank, "n_shards": n_shards,
+         "max_u": max_ratings_per_user, "max_i": max_ratings_per_item})
+
+
+class LayoutCacheMiss(LookupError):
+    """No cached layout for the key, and no COO to bin instead."""
+
+
+@dataclasses.dataclass
+class CachedLayout:
+    """A layout cache entry: both sides (views over the entry's file
+    mapping), their vocabularies when the binned lane saved them, and
+    how long the load took."""
+
+    user_side: SideLayout
+    item_side: SideLayout
+    n_users: int
+    n_items: int
+    total_entries: int
+    vocabs: Optional[Tuple[List[str], List[str]]]
+    load_sec: float
+
+
+def load_layout(key: str) -> Optional[CachedLayout]:
+    """The entry under ``key`` (a ``layout_cache_key``), or None."""
+    t0 = time.perf_counter()
+    cached = bincache.load(key)
+    if cached is None:
+        return None
+    arrays, meta = cached
+    vocabs = None
+    if "u_vocab_bytes" in arrays:
+        vocabs = (unpack_vocab(arrays["u_vocab_bytes"],
+                               arrays["u_vocab_offs"]),
+                  unpack_vocab(arrays["i_vocab_bytes"],
+                               arrays["i_vocab_offs"]))
+    return CachedLayout(
+        user_side=SideLayout.from_arrays(arrays, "u_", meta),
+        item_side=SideLayout.from_arrays(arrays, "i_", meta),
+        n_users=int(meta["n_users"]), n_items=int(meta["n_items"]),
+        total_entries=int(meta["total_entries"]), vocabs=vocabs,
+        load_sec=time.perf_counter() - t0)
+
+
+def save_layout(key: str, user_side: SideLayout, item_side: SideLayout,
+                n_users: int, n_items: int, total_entries: int,
+                vocabs: Optional[Tuple[Sequence[str], Sequence[str]]] = None
+                ) -> None:
+    """Store both sides (and, from the binned lane, the vocabularies
+    the layout's rows index) under ``key``, in the JAX package's
+    names."""
+    arrays = {**user_side.to_arrays("u_"), **item_side.to_arrays("i_")}
+    if vocabs is not None:
+        for prefix, vocab in zip(("u_", "i_"), vocabs):
+            raw, offsets = pack_vocab(vocab)
+            arrays[f"{prefix}vocab_bytes"] = np.frombuffer(raw, np.uint8)
+            arrays[f"{prefix}vocab_offs"] = offsets
+    bincache.save(key, arrays, {
+        "n_users": int(n_users), "n_items": int(n_items),
+        "n_shards": user_side.n_shards, "total_entries": int(total_entries),
+        **user_side.meta("u_"), **item_side.meta("i_")})
 
 
 @dataclasses.dataclass
@@ -467,37 +602,97 @@ class DeviceSide:
 class ALSTrainer:
     """Prepared ALS run: data binned and placed on the device, the two
     half-steps bound to their layouts. Keeps the one-time costs (host
-    binning, the transfer, first-call set-up) apart from the alternations,
-    so a caller can time them separately. Runs on ``device``: ``None``
-    means ``cuda:0`` and raises without CUDA.
-    """
+    binning or the cache load, the transfer, first-call set-up) apart
+    from the alternations, so a caller can time them separately. Runs
+    on ``device``: ``None`` means ``cuda:0`` and raises without CUDA.
+
+    Made from COO triples (``ALSTrainer(...)``) or from prebuilt sides
+    (``ALSTrainer.from_sides``); both go through one set-up path."""
 
     def __init__(
         self,
-        user_coo: Tuple[np.ndarray, np.ndarray, np.ndarray],
-        n_users: int,
-        n_items: int,
+        user_coo: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]],
+        n_users: Optional[int],
+        n_items: Optional[int],
         cfg: ALSConfig,
         device: DeviceLike = None,
         max_ratings_per_user: Optional[int] = None,
         max_ratings_per_item: Optional[int] = None,
         cache_key: Optional[str] = None,
     ):
+        """``cache_key`` (a data fingerprint) turns on the layout cache:
+        under ``layout_cache_key(cache_key, ...)`` a hit loads both
+        sides, and ``user_coo``/``n_users``/``n_items`` may then be
+        None; a miss bins the COO and saves the layout. With no entry
+        and no COO, raises LayoutCacheMiss."""
+        key = None
+        cached = None
         if cache_key is not None:
-            raise ValueError(
-                "the binned-layout cache is not ported to predictionio_torch "
-                "(ROADMAP.md, queue 1 item 2(b)); pass cache_key=None")
-        self.cfg = cfg
-        self.device = resolve_device(device)
+            key = layout_cache_key(cache_key, cfg, 1, max_ratings_per_user,
+                                   max_ratings_per_item)
+            cached = load_layout(key)
+        if cached is not None:
+            self._setup_cached(cached, cfg, device)
+            return
+        if user_coo is None:
+            raise LayoutCacheMiss(f"no cached layout for key {cache_key!r} "
+                                  "and no COO to bin")
         u_idx, i_idx, vals = user_coo
-        self.n_users, self.n_items = n_users, n_items
         t0 = time.perf_counter()
         user_side = build_compressed_side(
             u_idx, i_idx, vals, n_users, cfg, 1, max_ratings_per_user)
         item_side = build_compressed_side(
             i_idx, u_idx, vals, n_items, cfg, 1, max_ratings_per_item)
+        bin_sec = time.perf_counter() - t0
+        if key is not None:
+            save_layout(key, user_side, item_side, n_users, n_items,
+                        len(vals))
+        self._setup(user_side, item_side, n_users, n_items, len(vals), cfg,
+                    device)
         #: host seconds spent binning both sides
-        self.bin_sec = time.perf_counter() - t0
+        self.bin_sec = bin_sec
+
+    @classmethod
+    def from_sides(cls, user_side: SideLayout, item_side: SideLayout,
+                   n_users: int, n_items: int, total_entries: int,
+                   cfg: ALSConfig, device: DeviceLike = None
+                   ) -> "ALSTrainer":
+        """A trainer from prebuilt compressed sides: the event log's
+        fused scan+bin (``side_layout_from_binned``) or a cache entry.
+        The arrays (zero-copy views over native buffers or a cache
+        file's mapping) go to the device as they are."""
+        self = cls.__new__(cls)
+        self._setup(user_side, item_side, n_users, n_items, total_entries,
+                    cfg, device)
+        return self
+
+    @classmethod
+    def from_cache(cls, cached: CachedLayout, cfg: ALSConfig,
+                   device: DeviceLike = None) -> "ALSTrainer":
+        """A trainer from a layout cache entry (``load_layout``)."""
+        self = cls.__new__(cls)
+        self._setup_cached(cached, cfg, device)
+        return self
+
+    def _setup_cached(self, cached: CachedLayout, cfg: ALSConfig,
+                      device: DeviceLike) -> None:
+        self._setup(cached.user_side, cached.item_side, cached.n_users,
+                    cached.n_items, cached.total_entries, cfg, device)
+        self.cache_hit = True
+        self.load_sec = cached.load_sec
+
+    def _setup(self, user_side: SideLayout, item_side: SideLayout,
+               n_users: int, n_items: int, total_entries: int,
+               cfg: ALSConfig, device: DeviceLike) -> None:
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.n_users, self.n_items = n_users, n_items
+        self.total_entries = total_entries
+        #: host seconds of binning and of a cache load (0 where none ran)
+        self.bin_sec = 0.0
+        self.load_sec = 0.0
+        #: whether the layout came from the layout cache
+        self.cache_hit = False
         t0 = time.perf_counter()
         self._user = self._put_side(user_side)
         self._item = self._put_side(item_side)
@@ -517,11 +712,19 @@ class ALSTrainer:
                                cfg.rank).to(self.device)
 
     def _put_side(self, side: SideLayout) -> DeviceSide:
-        """The wire arrays to the device, once each; the index streams
-        recombined to int32 there. uint16 goes as int16 and is widened
-        with ``& 0xFFFF``: the cast every device has."""
+        """The wire arrays to the device, once each, straight from the
+        host arrays (native buffers or a cache file's read-only mapping
+        included: no host copy); the index streams recombined to int32
+        there. uint16 goes as int16 and is widened with ``& 0xFFFF``: the
+        cast every device has."""
         def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            with warnings.catch_warnings():
+                # a cache entry's views are read-only; nothing writes to
+                # the layout's tensors
+                warnings.filterwarnings(
+                    "ignore", message="The given NumPy array is not writable")
+                return torch.from_numpy(np.ascontiguousarray(a)).to(
+                    self.device)
 
         idx = put(side.idx_lo.view(np.int16)).to(torch.int32) & 0xFFFF
         if side.idx_hi is not None:
@@ -633,7 +836,8 @@ def als_train(
     max_ratings_per_item: Optional[int] = None,
     cache_key: Optional[str] = None,
 ) -> ALSFactors:
-    """One-call train from COO (user_idx, item_idx, rating) triples."""
+    """One-call train from COO (user_idx, item_idx, rating) triples;
+    ``cache_key`` as for ``ALSTrainer``."""
     return ALSTrainer(
         user_coo, n_users, n_items, cfg, device=device,
         max_ratings_per_user=max_ratings_per_user,

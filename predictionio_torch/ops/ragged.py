@@ -14,19 +14,57 @@ fixed-length *virtual rows*:
       counts [G]   int32   group sizes (after the optional cap)
 
 A group with c entries takes ceil(c / L) rows, so no rating is dropped
-unless ``max_len`` caps the group (keeping its latest entries). The
-layout is bit-identical to the JAX package's numpy route. Its native
-route (``predictionio_tpu.native``), the transfer-compressed native
-builder and the per-group padded layout are not ported (ROADMAP.md,
-queue 1 item 2(b)).
+unless ``max_len`` caps the group (keeping its latest entries).
+
+Two routes give the same bits as the JAX package's: at or above
+``_NATIVE_MIN_NNZ`` ratings the fill is one native pass
+(``native/raggedbin.cpp``), below it numpy sorts and scatters.
+``build_compressed_segmented`` plans and fills the transfer-compressed
+wire streams in one native call. ``PIO_NATIVE_RAGGED=0`` takes the numpy
+route everywhere; otherwise a native library that fails to build raises
+``NativeBuildError``. The per-group padded layout waits for the
+templates that use it (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+
+from predictionio_torch import native
+
+#: below this many ratings the numpy route wins (no call overhead)
+_NATIVE_MIN_NNZ = 200_000
+
+
+def _native_lib(nnz: int) -> Optional[ctypes.CDLL]:
+    """The native binning library for an input of ``nnz`` ratings, or
+    None for the numpy route (below the cutover, or PIO_NATIVE_RAGGED=0).
+    A build failure raises NativeBuildError."""
+    if nnz < _NATIVE_MIN_NNZ or os.environ.get("PIO_NATIVE_RAGGED",
+                                                 "1") == "0":
+        return None
+    lib = native.load_library("raggedbin")
+    i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    lib.rb_fill_segmented.restype = ctypes.c_int
+    lib.rb_fill_segmented.argtypes = [
+        i64p, i64p, f32p, ctypes.c_int64, ctypes.c_int64,
+        i64p, i64p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        i32p, f32p, f32p, i32p]
+    lib.rb_bin_compressed.restype = ctypes.c_int
+    lib.rb_bin_compressed.argtypes = [
+        i64p, i64p, f32p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_double, ctypes.POINTER(native.CSide)]
+    lib.rb_free.restype = None
+    lib.rb_free.argtypes = [ctypes.c_void_p]
+    return lib
 
 
 def pad_to_multiple(n: int, multiple: int) -> int:
@@ -155,7 +193,20 @@ def build_segmented_groups(
     # so seg stays nondecreasing per shard; real rows overwrite below
     seg = np.full(n_shards * R_s, g_per_shard - 1, dtype=np.int32)
 
-    if nnz:
+    lib = _native_lib(nnz)
+    if nnz and lib is not None:
+        # one cursor walk in arrival order: no argsort, no scattered
+        # fancy-index writes
+        rc = lib.rb_fill_segmented(
+            np.ascontiguousarray(group_idx), np.ascontiguousarray(item_idx),
+            np.ascontiguousarray(values), nnz, n_groups,
+            np.ascontiguousarray(group_row_start[:n_groups]),
+            np.ascontiguousarray(counts_true[:n_groups]),
+            -1 if max_len is None else max_len, L, g_per_shard,
+            idx.reshape(-1), val.reshape(-1), mask.reshape(-1), seg)
+        if rc != 0:
+            raise ValueError("group index out of range in native binning")
+    elif nnz:
         order = np.argsort(group_idx, kind="stable")
         g_sorted = group_idx[order]
         i_sorted = item_idx[order]
@@ -185,3 +236,58 @@ def build_segmented_groups(
         groups_per_shard=g_per_shard, row_block=row_block,
         group_block=group_block,
     )
+
+
+def build_compressed_segmented(
+    group_idx: np.ndarray,
+    item_idx: np.ndarray,
+    values: np.ndarray,
+    n_groups: int,
+    seg_len="auto",
+    max_len: Optional[int] = None,
+    n_shards: int = 1,
+    block_size: int = 4096,
+    row_cost_slots: float = 16.0,
+):
+    """One native pass from COO to the transfer-compressed segmented
+    layout (``rb_bin_compressed``): it plans the blocks and fills the
+    wire streams (uint16 idx_lo [+ uint8 idx_hi], uint8 affine value
+    codes or f32 + mask) into aligned buffers, bit-identical to
+    ``ops.als.compress_side(build_segmented_groups(...))`` without the
+    [R, L] float32 val/mask and int32 idx intermediates.
+
+    Returns a ``data.storage.BinnedSide`` of zero-copy views over the
+    native buffers, or None where ``_native_lib`` picks the numpy route
+    (the caller then takes the two-stage route)."""
+    from predictionio_torch.data.storage import BinnedSide
+
+    group_idx = np.ascontiguousarray(group_idx, dtype=np.int64)
+    item_idx = np.ascontiguousarray(item_idx, dtype=np.int64)
+    values = np.ascontiguousarray(values, dtype=np.float32)
+    if not (len(group_idx) == len(item_idx) == len(values)):
+        raise ValueError("COO arrays must have equal length")
+    nnz = len(group_idx)
+    lib = _native_lib(nnz)
+    if lib is None:
+        return None
+    if isinstance(seg_len, str):
+        if seg_len != "auto":
+            raise ValueError(
+                f"seg_len must be an int or 'auto', got {seg_len!r}")
+        seg_len_i = -1
+    else:
+        seg_len_i = int(seg_len)
+    out = native.CSide()
+    rc = lib.rb_bin_compressed(
+        group_idx, item_idx, values, nnz, n_groups, seg_len_i,
+        -1 if max_len is None else int(max_len), int(n_shards),
+        int(block_size), float(row_cost_slots), ctypes.byref(out))
+    if rc == -1:
+        raise ValueError("group index out of range in native binning")
+    if rc == -3:
+        raise ValueError("vocab exceeds the 24-bit index wire format "
+                         "(widen idx_hi before raising this cap)")
+    if rc != 0:
+        raise MemoryError("native compressed binning could not allocate")
+    return BinnedSide(**native.unpack_cside(out, native.NativeOwner(
+        lib.rb_free)))

@@ -10,11 +10,14 @@ instance stores them and deploy rebuilds them by name;
 ``recommendation_engine`` is the factory an engine.json names (a
 ``predictionio_tpu.`` factory path resolves here).
 
-The port has no native event store, so ``binned=True`` reads through the
-columnar path, as the JAX package does when its backend lacks the
-zero-copy lane (ROADMAP.md, queue 1 item 2(b)). ``pio train`` then fits
-ALS on the prepared COO with ``ALSAlgorithm.train`` (``ops/als.py``) on
-the card; the two-tower template trains on the same data.
+With ``columnar`` and ``binned`` (the defaults) over a store that has
+the fused native scan+bin (the ``eventlog`` backend), ``read_training``
+reads nothing: it hands the fit stage a ``BinnedReadRequest``, and
+``ALSAlgorithm.train`` bins the mmapped log straight into the trainer's
+layout with its own knobs, or loads that layout from the cache under the
+DataSource's ``data_fingerprint``. Other stores read through the
+columnar path. ``pio train`` then fits ALS (``ops/als.py``) on the
+card; the two-tower template trains on the same data.
 """
 
 from __future__ import annotations
@@ -67,14 +70,70 @@ def _resolve_ratings(values: np.ndarray, name_codes: np.ndarray,
 
 
 @dataclass
+class BinnedReadRequest:
+    """A deferred zero-copy training read. The DataSource cannot bin at
+    read time, since the layout depends on the algorithm's knobs (rank,
+    seg_len, block_size, per-group caps); the fit stage makes the one
+    fused native scan+bin call (``store.bin_columnar``) with its own:
+    events go from the mmapped log to the trainer's layout with no Event
+    objects and no intermediate COO in Python."""
+
+    app_name: str
+    channel_name: Optional[str]
+    entity_type: str
+    event_names: List[str]
+    target_entity_type: str
+    value_property: Optional[str]
+    #: event name -> constant rating (the "buy means 4.0" rule)
+    overrides: Dict[str, float]
+
+    def bin(self, **layout_knobs):
+        return store.bin_columnar(
+            self.app_name, self.channel_name,
+            value_property=self.value_property, overrides=self.overrides,
+            entity_type=self.entity_type, event_names=list(self.event_names),
+            target_entity_type=self.target_entity_type, **layout_knobs)
+
+    def read_prepared(self, fingerprint: Optional[str] = None
+                      ) -> PreparedRatings:
+        """The request as indexed COO, for algorithms that do not take
+        the binned layout (two-tower): read through the columnar path,
+        with the same rows, first-seen codes and value resolution as the
+        native lane. Memoized, so the algorithms of one engine share one
+        read."""
+        cached = getattr(self, "_prepared", None)
+        if cached is not None:
+            return cached
+        cols = read_interactions(
+            self.app_name, self.channel_name, self.entity_type,
+            self.event_names, self.target_entity_type,
+            value_property=self.value_property)
+        self._prepared = PreparedRatings(
+            user_ids=BiMap.from_vocab(cols.entity_vocab),
+            item_ids=BiMap.from_vocab(cols.target_vocab),
+            user_idx=cols.entity_idx.astype(np.int64, copy=False),
+            item_idx=cols.target_idx.astype(np.int64, copy=False),
+            ratings=_resolve_ratings(cols.values, cols.name_codes,
+                                     cols.names, self.overrides),
+            fingerprint=fingerprint)
+        return self._prepared
+
+
+@dataclass
 class RatingsTD(SanityCheck):
     """Training data: (user, item, rating) triples from the event store,
-    as a row list (``columnar=False``) or columnar arrays."""
+    as a row list (``columnar=False``), columnar arrays, or a deferred
+    ``binned_request`` (nothing read yet). ``fingerprint`` identifies the
+    data and its derivation where the store has a cheap fingerprint."""
 
     ratings: List[RatingEvent] = field(default_factory=list)
     columns: Optional[RatingColumns] = None
+    binned_request: Optional[BinnedReadRequest] = None
+    fingerprint: Optional[str] = None
 
     def sanity_check(self) -> None:
+        if self.binned_request is not None:
+            return   # emptiness shows at the fit stage's native read
         if not self.ratings and (self.columns is None
                                  or not len(self.columns.ratings)):
             raise ValueError("RatingsTD is empty — no rate/buy events found")
@@ -90,8 +149,8 @@ class RecoDataSourceParams(Params):
     eval_k: int = 0
     eval_query_num: int = 10
     columnar: bool = True     # bulk dict-encoded read; False: event rows
-    binned: bool = True       # the native zero-copy lane: not in the
-                              # port, which reads columnar instead
+    binned: bool = True       # the native scan+bin lane where the store
+                              # has it; columnar reads elsewhere
 
 
 class RecoDataSource(DataSource):
@@ -126,13 +185,34 @@ class RecoDataSource(DataSource):
                                      cols.names,
                                      {p.buy_event: p.buy_rating}))
 
+    def data_fingerprint(self) -> Optional[str]:
+        """O(1) fingerprint of what ``read_training`` would produce: the
+        store's content fingerprint (None where it has none) and every
+        param that shapes the derived ratings. A layout cached under it
+        lets the read be skipped."""
+        p: RecoDataSourceParams = self.params
+        fp = store.data_fingerprint(p.app_name, p.channel_name)
+        if fp is None:
+            return None
+        return (f"{fp}|reco|{p.rate_event}|{p.buy_event}|{p.buy_rating}"
+                f"|{p.columnar}")
+
     def read_training(self, ctx: DeviceContext) -> RatingsTD:
         p: RecoDataSourceParams = self.params
-        # no backend of the port has the binned lane
-        # (store.supports_bin_columnar), so binned reads columnar
+        fp = self.data_fingerprint()
+        if p.columnar and p.binned and store.supports_bin_columnar(
+                p.app_name, p.channel_name):
+            return RatingsTD(
+                binned_request=BinnedReadRequest(
+                    app_name=p.app_name, channel_name=p.channel_name,
+                    entity_type="user",
+                    event_names=[p.rate_event, p.buy_event],
+                    target_entity_type="item", value_property="rating",
+                    overrides={p.buy_event: p.buy_rating}),
+                fingerprint=fp)
         if p.columnar:
-            return RatingsTD(columns=self._read_columnar())
-        return RatingsTD(ratings=self._read())
+            return RatingsTD(columns=self._read_columnar(), fingerprint=fp)
+        return RatingsTD(ratings=self._read(), fingerprint=fp)
 
 
 class RecoPreparator(Preparator):
@@ -140,6 +220,11 @@ class RecoPreparator(Preparator):
     indexing); the columnar TD arrives dict-encoded already."""
 
     def prepare(self, ctx: DeviceContext, td: RatingsTD) -> PreparedRatings:
+        if td.binned_request is not None:
+            # nothing to index: the fit stage's native call dict-encodes
+            # the ids in its one pass
+            return PreparedRatings(binned_request=td.binned_request,
+                                   fingerprint=td.fingerprint)
         if td.columns is not None:
             c = td.columns
             return PreparedRatings(
@@ -147,7 +232,7 @@ class RecoPreparator(Preparator):
                 item_ids=BiMap.from_vocab(c.item_vocab),
                 user_idx=c.user_idx.astype(np.int64, copy=False),
                 item_idx=c.item_idx.astype(np.int64, copy=False),
-                ratings=c.ratings)
+                ratings=c.ratings, fingerprint=td.fingerprint)
         users = BiMap.string_int(r.user for r in td.ratings)
         items = BiMap.string_int(r.item for r in td.ratings)
         n = len(td.ratings)

@@ -181,14 +181,30 @@ def test_unknown_dtype_and_solver_raise():
         trainer.run()
 
 
-def test_cache_key_raises_naming_its_roadmap_item():
+def test_cache_key_raises_naming_its_roadmap_item(tmp_path, monkeypatch):
+    """The layout cache on the COO path: with no entry and no COO the
+    trainer raises LayoutCacheMiss; a COO train saves the layout, and a
+    trainer made from the key alone loads it and trains to the same
+    factors."""
+    monkeypatch.setenv("PIO_BIN_CACHE_DIR", str(tmp_path / "bc"))
     u, i, r = _ratings(40, 30, 300)
-    with pytest.raises(ValueError, match="item 2"):
-        als.ALSTrainer((u, i, r), 40, 30, als.ALSConfig(rank=4),
-                       device="cpu", cache_key="fingerprint")
-    with pytest.raises(ValueError, match="item 2"):
-        als.als_train((u, i, r), 40, 30, als.ALSConfig(rank=4),
-                      device="cpu", cache_key="fingerprint")
+    cfg = als.ALSConfig(rank=4, iterations=2, solver="direct",
+                        compute_dtype="float32", cg_dtype="float32")
+    with pytest.raises(als.LayoutCacheMiss):
+        als.ALSTrainer(None, None, None, cfg, device="cpu",
+                       cache_key="fingerprint")
+    cold = als.ALSTrainer((u, i, r), 40, 30, cfg, device="cpu",
+                          cache_key="fingerprint")
+    assert not cold.cache_hit
+    warm = als.ALSTrainer(None, None, None, cfg, device="cpu",
+                          cache_key="fingerprint")
+    assert warm.cache_hit and (warm.n_users, warm.n_items) == (40, 30)
+    a, b = cold.run(), warm.run()
+    np.testing.assert_array_equal(a.user_factors, b.user_factors)
+    np.testing.assert_array_equal(a.item_factors, b.item_factors)
+    again = als.als_train((u, i, r), 40, 30, cfg, device="cpu",
+                          cache_key="fingerprint")
+    np.testing.assert_array_equal(a.item_factors, again.item_factors)
 
 
 def test_trainer_without_cuda_raises_unless_the_cpu_is_asked_for(

@@ -482,3 +482,75 @@ def test_als_cg_bf16_on_the_card_matches_the_cpu_one_alternation_at_a_time(
         Y_card = item(host.X.to(cuda), Y_prev)
         torch.cuda.synchronize()
         assert _rel(Y_card.cpu().numpy(), host.Y.numpy()) <= 2e-3
+
+
+@pytest.mark.parametrize("precision", sorted(ALS_PRECISION))
+def test_als_from_sides_on_the_card_matches_the_cpu(cuda, precision,
+                                                    tmp_path, monkeypatch):
+    """The event log's fused scan+bin of 20,000 ratings (every 20th held
+    out), then ``ALSTrainer.from_sides`` for three iterations on the card
+    and on the CPU from the same start (drawn on the host from
+    cfg.seed), and once more on the card from the layout cache's
+    read-only mapping. The tolerances of the COO test above: direct/f32
+    factors to a relative Frobenius error of 1e-4 and RMSE to 1e-5;
+    CG/bf16 within 3x the CPU trainer's spread under a 1e-6 nudge of its
+    start, RMSE to 1e-2."""
+    from predictionio_torch.data.backends.eventlog import EventLogEventStore
+    from predictionio_torch.data.storage import EventColumns
+
+    monkeypatch.setenv("PIO_BIN_CACHE_DIR", str(tmp_path / "bc"))
+    n_users, n_items = 600, 70_000
+    u, i, r = _als_ratings(n_users, n_items, 20_000, seed=5)
+    store = EventLogEventStore(str(tmp_path / "log"))
+    store.init(1)
+    try:
+        store.insert_columnar(EventColumns(
+            entity_codes=u.astype(np.int32), target_codes=i.astype(np.int32),
+            name_codes=np.zeros(len(u), np.int32), values=r.astype(np.float64),
+            times_us=np.arange(len(u), dtype=np.int64),
+            entity_vocab=[f"u{j}" for j in range(n_users)],
+            target_vocab=[f"i{j}" for j in range(n_items)], names=["rate"]),
+            1, entity_type="user", target_entity_type="item",
+            value_property="rating")
+        binned = store.bin_columnar(
+            1, value_property="rating", skip_mod=20, skip_rem=0,
+            block_size=128, row_cost_slots=als.als_row_cost_slots(16))
+    finally:
+        store.close()
+    held = tuple(np.asarray(a) for a in binned.holdout)
+    sides = (als.side_layout_from_binned(binned.user_side),
+             als.side_layout_from_binned(binned.item_side))
+    counts = (len(binned.entity_vocab), len(binned.target_vocab),
+              binned.n_rows)
+    cfg = als.ALSConfig(rank=16, iterations=3, reg=0.05, block_size=128,
+                        **ALS_PRECISION[precision])
+
+    def run(device, user, item, nudge=0.0, seed=0):
+        t = als.ALSTrainer.from_sides(user, item, *counts, cfg,
+                                      device=device)
+        noise = np.random.default_rng(seed).normal(size=tuple(t.X.shape))
+        t.X = t.X * (1.0 + nudge * torch.from_numpy(noise).float().to(
+            t.X.device))
+        return t.run()
+
+    want = run("cpu", *sides)
+    got = run(cuda, *sides)
+    als.save_layout("card", *sides, *counts)
+    cached = als.load_layout("card")
+    assert not cached.user_side.val.flags.writeable
+    from_cache = run(cuda, cached.user_side, cached.item_side)
+    if precision == "direct-f32":
+        tol_u = tol_i = 1e-4
+        tol_rmse = 1e-5
+    else:
+        nudged = [run("cpu", *sides, 1e-6, seed) for seed in range(3)]
+        tol_u = 3 * max(_rel(f.user_factors, want.user_factors)
+                        for f in nudged)
+        tol_i = 3 * max(_rel(f.item_factors, want.item_factors)
+                        for f in nudged)
+        tol_rmse = 1e-2
+    for f in (got, from_cache):
+        assert _rel(f.user_factors, want.user_factors) <= tol_u
+        assert _rel(f.item_factors, want.item_factors) <= tol_i
+        assert abs(als.predict_rmse(f, held)
+                   - als.predict_rmse(want, held)) <= tol_rmse

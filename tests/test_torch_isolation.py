@@ -62,3 +62,31 @@ def test_no_source_imports_jax():
                     f"{name}" for name in names
                     if name.split(".")[0] in FORBIDDEN]
     assert bad == []
+
+
+#: the data lane's modules, which the walk above must reach
+DATA_LANE = ("predictionio_torch.native",
+             "predictionio_torch.data.backends.eventlog",
+             "predictionio_torch.ops.bincache",
+             "predictionio_torch.ops.ragged",
+             "predictionio_torch.data.store")
+
+
+def test_the_data_lane_modules_are_walked_and_import_no_jax():
+    code = (
+        "import importlib, json, pkgutil, sys\n"
+        "import predictionio_torch as pkg\n"
+        "names = {m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "'predictionio_torch.')}\n"
+        f"want = {DATA_LANE!r}\n"
+        "for n in want: importlib.import_module(n)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(json.dumps({'missing': sorted(set(want) - names), "
+        "'bad': bad}))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result == {"missing": [], "bad": []}
