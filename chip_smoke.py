@@ -134,19 +134,42 @@ exits non-zero before printing any result.
    deployed and asked 20 queries through ``topk_dot``, each checked
    against a float64 host top-k. The log and the cache are removed at
    the end, pass or fail.
-8. ``pio train`` phase: seeded rate events at MovieLens-100K's shape
+8. Front-door phase, the same main path from ``pio app new``, at the
+   ALS phase's width, uncut: in a new temporary ``eventlog`` store
+   (``INGEST_DISK_BYTES`` free), ``cli app new ml20m`` and ``cli
+   accesskey new ml20m view``; the first 19,000,000 ratings in time
+   order by ``insert_columnar`` (the bulk lane, as history), the store
+   closed; ``cli eventserver`` then takes the last 1,000,000 as API
+   ``rate`` events: 998,000 in ``/batch/events.json`` bodies of 10,000
+   over 4 keep-alive connections (every status 201) and 2,000 lone
+   ``POST /events.json`` (201 with an ``eventId``); the whitelisted
+   key's batch of 990 ``view`` events (201) and 10 ``rate`` events
+   (403); 20 ``GET /events.json`` reads that must list exactly that
+   user's history and live events; ``/stats.json`` counts equal to
+   what was sent. SIGTERM while a 10,000-event batch is in flight: the
+   batch is answered and the server exits 0 within
+   ``PIO_DRAIN_TIMEOUT``. ``cli train`` (bench's ALS knobs) must log
+   the binned lane with one scan of exactly 20,000,000 ratings; ``cli
+   deploy``'s 20 answers are checked against a float64 host top-k, and
+   ``topk_dot``'s launches in its ``GET /`` rise by at least the lone
+   queries; ``cli status`` exits 0. The batch route's per-event split
+   (native lane, result loop and stats, JSON) is measured in process
+   on a store of its own first. The store is removed at the end.
+9. ``pio train`` phase: seeded rate events at MovieLens-100K's shape
    (943 users, 1,682 items, 100,000 ratings) go into a localfs event
-   store through the port's storage; ``python -m
+   store through ``cli app new`` and ``cli import`` of a JSONL file,
+   and ``cli export`` must give them back; ``python -m
    predictionio_torch.tools.cli train`` trains ``twotower_engine`` (dim
    64, batch 1024: flash_ce eligible) and ``... cli deploy`` serves it,
    then the same two commands train and serve ``recommendation_engine``
    (ALS, rank 16) over the same events, and again over the same events
-   in an ``eventlog`` store, where ``cli train``'s log must show the
-   binned lane; queries are checked against each stored model's
-   factors.
+   imported into an ``eventlog`` store, where ``cli train``'s log must
+   show the binned lane; queries are checked against each stored
+   model's factors.
 
 Output: the card's name and power limit (``nvidia-smi``), a ``serve``,
-a ``train``, an ``als_train``, an ``ingest`` and a ``pio_train`` line,
+a ``train``, an ``als_train``, an ``ingest``, a ``front_door`` (with
+the card's line) and a ``pio_train`` line,
 the ``kernels`` line, and last ``{"ok": true, "device": ...}``.
 """
 
@@ -157,6 +180,7 @@ import json
 import os
 import pickle
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -192,6 +216,14 @@ RMSE_BAND = (0.38, 0.48)
 # free disk the ingest phase needs: the log (~173 bytes an event), its
 # index snapshot and two layout-cache entries
 INGEST_DISK_BYTES = 6 << 30
+# the front-door phase: the ALS phase's ratings, of which the first
+# FD_HISTORY go in as history and the rest through the event server
+# (batches of FD_BATCH over FD_CONNS connections, then FD_LONE lone
+# POSTs); a whitelisted key's batch of FD_VIEWS views and FD_DENIED
+# rates; FD_READS reads; the server's drain window
+FD_HISTORY, FD_BATCH, FD_CONNS, FD_LONE = 19_000_000, 10_000, 4, 2_000
+FD_VIEWS, FD_DENIED, FD_READS = 990, 10, 20
+FD_DRAIN_TIMEOUT = 30
 
 
 def fail(msg: str) -> None:
@@ -1220,6 +1252,18 @@ def dir_bytes(path: str) -> int:
                for d, _, files in os.walk(path) for f in files)
 
 
+def temp_store(prefix: str, need: int) -> str:
+    """A new temporary directory with ``need`` bytes free, for a
+    20M-event log and its layout cache."""
+    root = tempfile.mkdtemp(prefix=prefix)
+    free = shutil.disk_usage(root).free
+    if free < need:
+        shutil.rmtree(root, ignore_errors=True)
+        fail(f"{root} has {free} bytes free; the 20M-event log and its "
+             f"layout cache need {need}")
+    return root
+
+
 def ingest_phase(ratings, coo_profile: dict) -> dict:
     """The north star's data lane at bench.py's cold-stage width: the
     ALS phase's 20M ratings into a port eventlog store, the row lane,
@@ -1246,12 +1290,8 @@ def ingest_phase(ratings, coo_profile: dict) -> dict:
 
     uu, ii, vals = ratings
     n = len(uu)
-    root = tempfile.mkdtemp(prefix="pio_chip_smoke_eventlog_")
+    root = temp_store("pio_chip_smoke_eventlog_", INGEST_DISK_BYTES)
     free = shutil.disk_usage(root).free
-    if free < INGEST_DISK_BYTES:
-        shutil.rmtree(root, ignore_errors=True)
-        fail(f"{root} has {free} bytes free; the 20M-event log and its "
-             f"layout cache need {INGEST_DISK_BYTES}")
     old_cache = os.environ.get("PIO_BIN_CACHE_DIR")
     os.environ["PIO_BIN_CACHE_DIR"] = os.path.join(root, "bin_cache")
     storage = Storage.from_env({"PIO_STORAGE_SOURCES_EL_TYPE": "eventlog",
@@ -1422,6 +1462,380 @@ def ingest_phase(ratings, coo_profile: dict) -> dict:
             os.environ["PIO_BIN_CACHE_DIR"] = old_cache
 
 
+# -- front-door phase ----------------------------------------------------------
+
+def iso_at(sec: int) -> str:
+    """The API form of an event time ``sec`` seconds after the epoch."""
+    import datetime as dt
+
+    t = dt.datetime(1970, 1, 1, tzinfo=dt.timezone.utc) + dt.timedelta(
+        seconds=int(sec))
+    return t.isoformat().replace("+00:00", "Z")
+
+
+def rate_json(u: int, i: int, v: float, sec: int) -> str:
+    return (f'{{"event":"rate","entityType":"user","entityId":"u{u}",'
+            f'"targetEntityType":"item","targetEntityId":"i{i}",'
+            f'"properties":{{"rating":{v}}},"eventTime":"{iso_at(sec)}"}}')
+
+
+def view_json(name: str, u: str, i: int, sec: int) -> str:
+    return (f'{{"event":"{name}","entityType":"user","entityId":"{u}",'
+            f'"targetEntityType":"item","targetEntityId":"i{i}",'
+            f'"eventTime":"{iso_at(sec)}"}}')
+
+
+def send_bodies(port: int, path: str, bodies, conns: int):
+    """POST every body over ``conns`` keep-alive connections at once. ->
+    ([(status, response bytes)] in body order, wall seconds)."""
+    import http.client
+
+    results = [None] * len(bodies)
+    errors = []
+
+    def worker(w: int) -> None:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        try:
+            for j in range(w, len(bodies), conns):
+                conn.request("POST", path, body=bodies[j],
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                results[j] = (resp.status, resp.read())
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"{type(e).__name__}: {e}")
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=worker, args=(w,))
+               for w in range(conns)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        fail(f"batch POSTs failed: {errors[:3]}")
+    return results, wall
+
+
+def batch_statuses(status: int, raw: bytes, what: str) -> list:
+    if status != 200:
+        fail(f"{what}: POST /batch/events.json answered {status}: "
+             f"{raw[:300]!r}")
+    return [row["status"] for row in json.loads(raw)]
+
+
+def batch_lane_split(bodies) -> dict:
+    """Where the batch route's server time goes, per event, in this
+    process on a store of its own: the native lane alone
+    (``insert_json_batch``), ``EventServerCore.create_events_batch`` on
+    the same bodies (the native lane, then the per-row result dicts and
+    ``Stats.update``), and the response's JSON encoding."""
+    from predictionio_torch.data.storage import Storage
+    from predictionio_torch.serving.event_server import (AuthData,
+                                                         EventServerCore)
+
+    root = tempfile.mkdtemp(prefix="pio_chip_smoke_split_")
+    storage = Storage.from_env({"PIO_STORAGE_SOURCES_EL_TYPE": "eventlog",
+                                "PIO_STORAGE_SOURCES_EL_PATH": root})
+    events = storage.events()
+    try:
+        app = storage.apps().insert("split")
+        events.init(app.id)
+        core = EventServerCore(storage)
+        auth = AuthData(app_id=app.id, channel_id=None, events=[])
+        native = route = encode = 0.0
+        n = 0
+        for body in bodies:
+            t0 = time.perf_counter()
+            events.insert_json_batch(body, app.id, strict=False)
+            t1 = time.perf_counter()
+            status, results = core.create_events_batch(auth, body)
+            t2 = time.perf_counter()
+            json.dumps(results).encode()
+            t3 = time.perf_counter()
+            if status != 200:
+                fail(f"the batch route answered {status} in process")
+            native += t1 - t0
+            route += t2 - t1
+            encode += t3 - t2
+            n += len(results)
+        return {"events": n, "native_us": 1e6 * native / n,
+                "route_us": 1e6 * route / n,
+                "result_loop_us": 1e6 * (route - native) / n,
+                "encode_us": 1e6 * encode / n}
+    finally:
+        events.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def front_door_phase(ratings) -> dict:
+    """The main path from its front door, at the ALS phase's width: ``cli
+    app new`` and ``accesskey new``; the first 19M ratings as history by
+    ``insert_columnar``; ``cli eventserver`` takes the last 1M as live
+    traffic (batches over 4 keep-alive connections, lone POSTs), a
+    whitelisted key's batch (the per-row lane, 403s), reads and stats,
+    and drains an in-flight batch on SIGTERM; ``cli train`` scans all
+    20M ratings once on the binned lane, ``cli deploy`` answers through
+    ``topk_dot``, and ``cli status`` passes."""
+    import ast
+    import http.client
+
+    from predictionio_torch.data.storage import EventColumns, Storage
+
+    uu, ii, vals = ratings
+    n = len(uu)
+    hist = FD_HISTORY
+    root = temp_store("pio_chip_smoke_front_door_", INGEST_DISK_BYTES)
+    env = {"PIO_STORAGE_SOURCES_EL_TYPE": "eventlog",
+           "PIO_STORAGE_SOURCES_EL_PATH": root}
+    here = os.path.dirname(os.path.abspath(__file__))
+    sub_env = {**os.environ, **env, "PYTHONPATH": here,
+               "PIO_BIN_CACHE_DIR": os.path.join(root, "bin_cache"),
+               "PIO_DRAIN_TIMEOUT": str(FD_DRAIN_TIMEOUT)}
+    cli = [sys.executable, "-m", "predictionio_torch.tools.cli"]
+    server = None
+    server_log = os.path.join(root, "eventserver.log")
+    try:
+        # 1. the app and its keys, through the CLI
+        out = run_cli(cli, ["app", "new", "ml20m"], sub_env, here,
+                      "front door").stdout
+        key = next(line.split(": ", 1)[1] for line in out.splitlines()
+                   if line.startswith("Access Key: "))
+        out = run_cli(cli, ["accesskey", "new", "ml20m", "view"], sub_env,
+                      here, "front door").stdout
+        view_key = next(line.split(": ", 1)[1] for line in out.splitlines()
+                        if line.startswith("Created new access key: "))
+
+        # 2. the history: bench's bulk lane, then close (one writer)
+        storage = Storage.from_env(env)
+        app = storage.apps().get_by_name("ml20m")
+        cols = EventColumns(
+            entity_codes=uu[:hist].astype(np.int32),
+            target_codes=ii[:hist].astype(np.int32),
+            name_codes=np.zeros(hist, np.int32), values=vals[:hist],
+            times_us=np.arange(hist, dtype=np.int64) * 1_000_000,
+            entity_vocab=[f"u{j}" for j in range(N_USERS)],
+            target_vocab=[f"i{j}" for j in range(N_ITEMS)], names=["rate"])
+        t0 = time.perf_counter()
+        if storage.events().insert_columnar(
+                cols, app.id, entity_type="user", target_entity_type="item",
+                value_property="rating") != hist:
+            fail("insert_columnar did not take every history row")
+        history_sec = time.perf_counter() - t0
+        storage.events().close()
+        del cols
+
+        # the live traffic, built before the clock starts
+        live = [rate_json(u, i, v, k) for k, (u, i, v) in enumerate(
+            zip(uu[hist:].tolist(), ii[hist:].tolist(),
+                vals[hist:].tolist()), start=hist)]
+        n_batched = n - hist - FD_LONE
+        bodies = [("[" + ",".join(live[s:min(s + FD_BATCH, n_batched)])
+                   + "]").encode() for s in range(0, n_batched, FD_BATCH)]
+        lone = [row.encode() for row in live[n_batched:]]
+        split = batch_lane_split(bodies[:10])
+        rng = np.random.default_rng(SEED + 6)
+        read_users = [f"u{j}" for j in rng.choice(uu[hist:], FD_READS,
+                                                   replace=False)]
+        views = []          # (user, item) of the whitelisted key's views
+        wl_rows, wl_want = [], []
+        for j in range(FD_VIEWS + FD_DENIED):
+            user, item = read_users[j % FD_READS], int(ii[j])
+            denied = j % ((FD_VIEWS + FD_DENIED) // FD_DENIED) == 0
+            wl_rows.append(view_json("rate" if denied else "view", user,
+                                     item, n + j))
+            wl_want.append(403 if denied else 201)
+            if not denied:
+                views.append((user, item, n + j))
+        if wl_want.count(403) != FD_DENIED:
+            fail("the whitelist batch is not 990 views and 10 rates")
+        wl_body = ("[" + ",".join(wl_rows) + "]").encode()
+        drain_body = ("[" + ",".join(
+            view_json("view", f"u{int(uu[j])}", int(ii[j]), 2 * n + j)
+            for j in range(FD_BATCH)) + "]").encode()
+        del live
+
+        # 3. the server
+        port = free_port()
+        with open(server_log, "w") as logf:
+            server = subprocess.Popen(
+                cli + ["eventserver", "--ip", "127.0.0.1", "--port",
+                       str(port)], env=sub_env, cwd=here, stdout=logf,
+                stderr=subprocess.STDOUT)
+        wait_healthy(port, server, "cli eventserver", server_log, 120)
+
+        # 4. live traffic: batches, lone POSTs, the whitelist, reads, stats
+        t_first_post = time.perf_counter()
+        results, batch_wall = send_bodies(
+            port, f"/batch/events.json?accessKey={key}", bodies, FD_CONNS)
+        accepted = 0
+        for j, (status, raw) in enumerate(results):
+            codes = batch_statuses(status, raw, f"live batch {j}")
+            if set(codes) != {201}:
+                fail(f"live batch {j}: statuses {sorted(set(codes))}")
+            accepted += len(codes)
+        if accepted != n_batched:
+            fail(f"{accepted} of {n_batched} batched events acknowledged")
+        del results, bodies
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        lone_ms = []
+        for j, body in enumerate(lone):
+            t0 = time.perf_counter()
+            conn.request("POST", f"/events.json?accessKey={key}", body=body,
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            raw = resp.read()
+            lone_ms.append(1e3 * (time.perf_counter() - t0))
+            if resp.status != 201 or "eventId" not in json.loads(raw):
+                fail(f"lone POST {j} answered {resp.status}: {raw[:300]!r}")
+        t0 = time.perf_counter()
+        conn.request("POST", f"/batch/events.json?accessKey={view_key}",
+                     body=wl_body,
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        codes = batch_statuses(resp.status, resp.read(), "whitelist batch")
+        wl_sec = time.perf_counter() - t0
+        if codes != wl_want:
+            fail(f"the whitelisted key's batch answered {codes[:20]}...")
+        read_ms = []
+        for user in read_users:
+            t0 = time.perf_counter()
+            conn.request("GET", f"/events.json?accessKey={key}&entityType="
+                                f"user&entityId={user}&limit=-1")
+            resp = conn.getresponse()
+            got = json.loads(resp.read())
+            read_ms.append(1e3 * (time.perf_counter() - t0))
+            rows = np.flatnonzero(uu == int(user[1:]))
+            want = sorted([("rate", f"i{int(ii[k])}", float(vals[k]),
+                            iso_at(k)) for k in rows]
+                          + [("view", f"i{i}", None, iso_at(sec))
+                             for u, i, sec in views if u == user])
+            have = sorted((d["event"], d.get("targetEntityId"),
+                           d.get("properties", {}).get("rating"),
+                           d["eventTime"]) for d in got) \
+                if resp.status == 200 else []
+            if have != want:
+                fail(f"GET /events.json for {user}: {len(have)} events, "
+                     f"{len(want)} expected")
+        conn.request("GET", f"/stats.json?accessKey={key}")
+        stats = json.loads(conn.getresponse().read())
+        counts = {}
+        for bucket in stats["buckets"]:
+            for c in bucket["counts"]:
+                k = (c["status"], c["event"], c["entityType"])
+                counts[k] = counts.get(k, 0) + c["count"]
+        want_counts = {(201, "rate", "user"): n - hist,
+                       (201, "view", "user"): FD_VIEWS,
+                       (403, "rate", "user"): FD_DENIED}
+        if counts != want_counts:
+            fail(f"/stats.json counts {counts}, sent {want_counts}")
+
+        # 5. SIGTERM with a batch in flight on an open connection
+        conn.request("GET", "/healthz")
+        conn.getresponse().read()
+        conn.request("POST", f"/batch/events.json?accessKey={key}",
+                     body=drain_body,
+                     headers={"Content-Type": "application/json"})
+        t_term = time.perf_counter()
+        server.send_signal(signal.SIGTERM)
+        resp = conn.getresponse()
+        codes = batch_statuses(resp.status, resp.read(), "in-flight batch")
+        conn.close()
+        if codes != [201] * FD_BATCH:
+            fail("the batch in flight at SIGTERM was not acknowledged")
+        try:
+            rc = server.wait(timeout=FD_DRAIN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            fail(f"cli eventserver outlived its {FD_DRAIN_TIMEOUT} s drain")
+        drain_sec = time.perf_counter() - t_term
+        if rc != 0:
+            fail(f"cli eventserver exited {rc} after SIGTERM")
+
+        # 6. train on every rating, deploy, answer through topk_dot
+        engine_json = os.path.join(root, "engine.json")
+        with open(engine_json, "w") as f:
+            json.dump({"id": "default", "engineId": "ml20m-front-door",
+                       "engineFactory": ("predictionio_torch.templates."
+                                         "recommendation."
+                                         "recommendation_engine"),
+                       "datasource": {"params": {"app_name": "ml20m"}},
+                       "algorithms": [{"name": "als", "params": {
+                           "rank": RANK, "num_iterations": ALS_ITERS,
+                           "lambda_": ALS_REG, "block_size": ALS_BLOCK}}]},
+                      f)
+        lone_queries = []
+
+        def queries(truth):
+            qs = tt_queries(truth, np.random.default_rng(SEED + 7),
+                            N_USERS, len(truth.item_names))
+            lone_queries.extend(q for q in qs
+                                if "item" in q or q["user"] in truth.users)
+            return qs
+
+        served = cli_train_and_deploy(cli, engine_json, "ml20m-front-door",
+                                      env, sub_env, here, queries,
+                                      "front door")
+        lines = [line for line in served["train_log"].splitlines()
+                 if "ALS trained on the " in line]
+        if len(lines) != 1 or "on the binned lane" not in lines[0]:
+            fail(f"cli train did not log one binned-lane train: {lines}")
+        trained = ast.literal_eval(lines[0].split(" lane: ", 1)[1])
+        if trained["cache_hit"] or "scan_sec" not in trained:
+            fail(f"cli train did not scan the log once: {trained}")
+        if trained["ratings"] != n:
+            fail(f"cli train read {trained['ratings']} ratings of the {n} "
+                 "acknowledged")
+        before = served["retrieval_before"][0]
+        after = served["retrieval_after"][0]
+        launches = after["kernel_launches"] - before["kernel_launches"]
+        if not after["kernel"]["engaged"] or launches < len(lone_queries):
+            fail(f"topk_dot launched {launches} times for "
+                 f"{len(lone_queries)} lone queries behind cli deploy")
+
+        # 7. status
+        out = run_cli(cli, ["status"], sub_env, here, "front door").stdout
+        if "(sleeping)" not in out:
+            fail(f"cli status: {out}")
+        lone_ms.sort()
+        return {
+            "events": n, "history_events": hist,
+            "history_insert_sec": history_sec,
+            "live_batch": {"events": n_batched,
+                           "requests": len(range(0, n_batched, FD_BATCH)),
+                           "connections": FD_CONNS, "sec": batch_wall,
+                           "events_per_sec": n_batched / batch_wall,
+                           "requests_per_sec":
+                           len(range(0, n_batched, FD_BATCH)) / batch_wall},
+            "batch_lane_split": split,
+            "lone_post": {"events": FD_LONE,
+                          "ms_p50": lone_ms[len(lone_ms) // 2],
+                          "ms_p99": lone_ms[int(0.99 * len(lone_ms))]},
+            "whitelist": {"events": FD_VIEWS + FD_DENIED,
+                          "denied": FD_DENIED, "sec": wl_sec,
+                          "events_per_sec": (FD_VIEWS + FD_DENIED) / wl_sec},
+            "reads": {"count": FD_READS,
+                      "ms_max": max(read_ms),
+                      "ms_p50": sorted(read_ms)[FD_READS // 2]},
+            "drain_sec": drain_sec,
+            "cli_train": {"sec": served["train_sec"],
+                          "scan_sec": trained["scan_sec"],
+                          "bin_sec": trained["native_bin_sec"],
+                          "alternations_sec": trained["train_sec"],
+                          "put_sec": trained["put_sec"],
+                          "ratings": trained["ratings"]},
+            "events_to_answers_sec": served["first_answer_at"] - t_first_post,
+            "topk_dot_launches": launches,
+            "lone_queries": len(lone_queries),
+        }
+    finally:
+        if server is not None and server.poll() is None:
+            server.kill()
+            server.wait()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # -- pio train phase -----------------------------------------------------------
 
 def free_port() -> int:
@@ -1432,23 +1846,61 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
+def run_cli(cli, args, sub_env: dict, cwd: str, what: str,
+            timeout: float = 600) -> subprocess.CompletedProcess:
+    """One ``predictionio_torch.tools.cli`` command in a subprocess; a
+    non-zero exit fails the run."""
+    out = subprocess.run(cli + args, env=sub_env, cwd=cwd,
+                         capture_output=True, text=True, timeout=timeout)
+    if out.returncode != 0:
+        fail(f"pio {' '.join(args[:2])} ({what}) exited {out.returncode}: "
+             f"{out.stderr[-2000:]}")
+    return out
+
+
+def wait_healthy(port: int, proc, what: str, log_path: str = None,
+                 limit: float = 300) -> None:
+    """Wait for the server ``proc`` to answer ``GET /healthz``; its output
+    is in ``log_path`` or on its stdout pipe."""
+    deadline = time.time() + limit
+    while True:
+        try:
+            urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                   timeout=10).read()
+            return
+        except OSError:
+            if proc.poll() is not None or time.time() > deadline:
+                if log_path is None:
+                    tail = proc.stdout.read()
+                else:
+                    with open(log_path) as f:
+                        tail = f.read()
+                fail(f"{what} did not come up: {tail[-2000:]}")
+            time.sleep(0.2)
+
+
+def get_json(port: int, path: str) -> dict:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as resp:
+        return json.loads(resp.read())
+
+
 def cli_train_and_deploy(cli, engine_json: str, engine_id: str, env: dict,
-                         sub_env: dict, cwd: str, queries, what: str):
+                         sub_env: dict, cwd: str, queries, what: str) -> dict:
     """``cli train`` then ``cli deploy`` of one engine.json in
-    subprocesses; every query's answer is checked against the stored
-    model's factors. -> (train seconds, the stored model, instance id,
-    the train's log)."""
+    subprocesses; every query's answer (``queries``, or ``queries(truth)``
+    when it is a function of the stored model) is checked against the
+    stored model's factors. -> the train's seconds and log, the stored
+    model and instance id, the wall-clock time of the first checked
+    answer, and ``GET /``'s retrieval block before and after the
+    queries."""
     from predictionio_torch.data.storage import Storage
     from predictionio_torch.workflow.deploy import load_blob
 
     t0 = time.perf_counter()
-    out = subprocess.run(cli + ["train", "--engine-json", engine_json],
-                         env=sub_env, cwd=cwd, capture_output=True,
-                         text=True, timeout=600)
+    out = run_cli(cli, ["train", "--engine-json", engine_json], sub_env,
+                  cwd, what)
     train_sec = time.perf_counter() - t0
-    if out.returncode != 0:
-        fail(f"pio train ({what}) exited {out.returncode}: "
-             f"{out.stderr[-2000:]}")
     instance = Storage.from_env(env).engine_instances() \
         .get_latest_completed(engine_id, "0", "default")
     if instance is None:
@@ -1457,6 +1909,8 @@ def cli_train_and_deploy(cli, engine_json: str, engine_id: str, env: dict,
                       .get(instance.id).models)[0]
     truth = Truth(model.user_factors, model.item_factors,
                   list(model.user_ids.keys()), list(model.item_ids.keys()))
+    if callable(queries):
+        queries = queries(truth)
     port = free_port()
     proc = subprocess.Popen(
         cli + ["deploy", "--engine-json", engine_json, "--ip",
@@ -1464,58 +1918,88 @@ def cli_train_and_deploy(cli, engine_json: str, engine_id: str, env: dict,
         env=sub_env, cwd=cwd, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
     try:
-        deadline = time.time() + 300
-        while True:
-            try:
-                urllib.request.urlopen(f"http://127.0.0.1:{port}/",
-                                       timeout=10).read()
-                break
-            except OSError:
-                if proc.poll() is not None or time.time() > deadline:
-                    fail(f"pio deploy ({what}) did not come up: "
-                         f"{proc.stdout.read()[-2000:]}")
-                time.sleep(1.0)
+        wait_healthy(port, proc, f"pio deploy ({what})")
+        before = get_json(port, "/")["retrieval"]
+        first_answer = None
         for j, q in enumerate(queries):
             check_answer(truth, q, post(port, q),
                          f"pio deploy ({what}) query {j}")
+            if first_answer is None:
+                first_answer = time.perf_counter()
+        after = get_json(port, "/")["retrieval"]
     finally:
         proc.terminate()
         try:
-            proc.wait(timeout=30)
+            proc.wait(timeout=60)
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait()
-    return train_sec, model, instance.id, out.stderr
+    return {"train_sec": train_sec, "model": model, "instance": instance.id,
+            "train_log": out.stderr, "queries": queries,
+            "first_answer_at": first_answer, "retrieval_before": before,
+            "retrieval_after": after}
+
+
+def cli_app_with_events(cli, sub_env: dict, cwd: str, app: str,
+                        jsonl: str, want: set, what: str) -> dict:
+    """``cli app new``, ``cli import`` of a JSONL file, then ``cli
+    export``, which must give back the same set of API-format events
+    (``eventId`` and ``creationTime`` aside). -> seconds of each."""
+    t0 = time.perf_counter()
+    run_cli(cli, ["app", "new", app], sub_env, cwd, what)
+    t1 = time.perf_counter()
+    out = run_cli(cli, ["import", "--appname", app, "--input", jsonl],
+                  sub_env, cwd, what)
+    if f"Imported {len(want)} event(s)." not in out.stdout:
+        fail(f"pio import ({what}): {out.stdout[-500:]}")
+    t2 = time.perf_counter()
+    exported = jsonl + ".export"
+    run_cli(cli, ["export", "--appname", app, "--output", exported],
+            sub_env, cwd, what)
+    t3 = time.perf_counter()
+    with open(exported) as f:
+        got = [json.loads(line) for line in f]
+    back = {json.dumps({k: v for k, v in d.items()
+                        if k not in ("eventId", "creationTime")},
+                       sort_keys=True) for d in got}
+    if len(got) != len(want) or back != want:
+        fail(f"pio export ({what}) did not give back the imported events")
+    return {"app_new_sec": t1 - t0, "import_sec": t2 - t1,
+            "export_sec": t3 - t2}
 
 
 def pio_train_phase() -> dict:
     import datetime as dt
 
     from predictionio_torch.data.event import Event
-    from predictionio_torch.data.storage import Storage
 
     store = tempfile.mkdtemp(prefix="pio_chip_smoke_ml100k_")
     env = {"PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
            "PIO_STORAGE_SOURCES_FS_PATH": store}
     root = os.path.dirname(os.path.abspath(__file__))
     try:
-        storage = Storage.from_env(env)
-        app = storage.apps().insert("ml100k")
-        storage.events().init(app.id)
         rng = np.random.default_rng(SEED + 3)
         n_users, n_items, n = 943, 1682, 100_000
         us = rng.integers(1, n_users + 1, n)
         its = rng.integers(1, n_items + 1, n)
         rs = rng.integers(1, 6, n)
         t0 = dt.datetime(1998, 1, 1, tzinfo=dt.timezone.utc)
-        events = [Event(event="rate", entity_type="user", entity_id=f"u{u}",
-                        target_entity_type="item", target_entity_id=f"i{i}",
-                        properties={"rating": float(r)},
-                        event_time=t0 + dt.timedelta(seconds=j))
-                  for j, (u, i, r) in enumerate(zip(us, its, rs))]
-        storage.events().insert_batch(events, app.id)
+        lines = [json.dumps({k: v for k, v in Event(
+            event="rate", entity_type="user", entity_id=f"u{u}",
+            target_entity_type="item", target_entity_id=f"i{i}",
+            properties={"rating": float(r)},
+            event_time=t0 + dt.timedelta(seconds=j)).to_dict(True).items()
+            if k not in ("eventId", "creationTime")}, sort_keys=True)
+            for j, (u, i, r) in enumerate(zip(us, its, rs))]
+        jsonl = os.path.join(store, "ml100k.jsonl")
+        with open(jsonl, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        want = set(lines)
         sub_env = {**os.environ, **env, "PYTHONPATH": root}
         cli = [sys.executable, "-m", "predictionio_torch.tools.cli"]
+        # the events go in through the CLI: app new, import, export back
+        cli_io = cli_app_with_events(cli, sub_env, store, "ml100k", jsonl,
+                                     want, "localfs")
         rng = np.random.default_rng(SEED + 4)
         queries = [{"user": f"u{u}", "num": 10}
                    for u in rng.integers(1, n_users + 1, 10)]
@@ -1531,9 +2015,9 @@ def pio_train_phase() -> dict:
                 "datasource": {"params": {"app_name": "ml100k"}},
                 "algorithms": [{"name": "twotower", "params": {
                     "dim": 64, "batch_size": 1024, "epochs": 5}}]}, f)
-        train_sec, model, instance, _ = cli_train_and_deploy(
-            cli, engine_json, "ml100k-tt", env, sub_env, store, queries,
-            "two-tower")
+        tt = cli_train_and_deploy(cli, engine_json, "ml100k-tt", env,
+                                  sub_env, store, queries, "two-tower")
+        model = tt["model"]
         plan = model.kernel_plan
         if not (plan["flash_ce"] and plan["embed_update"]):
             fail(f"pio train did not run both kernels: {plan}")
@@ -1549,21 +2033,22 @@ def pio_train_phase() -> dict:
                 "datasource": {"params": {"app_name": "ml100k"}},
                 "algorithms": [{"name": "als", "params": {
                     "rank": 16, "num_iterations": 10}}]}, f)
-        als_sec, als_model, als_instance, _ = cli_train_and_deploy(
-            cli, als_json, "ml100k-als", env, sub_env, store, queries, "ALS")
+        als = cli_train_and_deploy(cli, als_json, "ml100k-als", env,
+                                   sub_env, store, queries, "ALS")
+        als_model = als["model"]
         if not (np.all(np.isfinite(als_model.user_factors))
                 and np.all(np.isfinite(als_model.item_factors))):
             fail("pio train (ALS) stored factors that are not finite")
 
-        # the same events in an eventlog store: pio train takes the
-        # binned lane (its log says so) and pio deploy serves the model
+        # the same events in an eventlog store, through the CLI too: pio
+        # train takes the binned lane (its log says so) and pio deploy
+        # serves the model
         el_env = {"PIO_STORAGE_SOURCES_EL_TYPE": "eventlog",
                   "PIO_STORAGE_SOURCES_EL_PATH": os.path.join(store, "el")}
-        el_storage = Storage.from_env(el_env)
-        el_app = el_storage.apps().insert("ml100k")
-        el_storage.events().init(el_app.id)
-        el_storage.events().insert_batch(events, el_app.id)
-        el_storage.events().close()    # one writer: pio train opens it
+        el_sub_env = {**os.environ, **el_env, "PYTHONPATH": root,
+                      "PIO_BIN_CACHE_DIR": os.path.join(store, "bin_cache")}
+        el_io = cli_app_with_events(cli, el_sub_env, store, "ml100k", jsonl,
+                                    want, "eventlog")
         el_json = os.path.join(store, "engine-als-eventlog.json")
         with open(el_json, "w") as f:
             json.dump({"id": "default", "engineId": "ml100k-als-el",
@@ -1573,26 +2058,26 @@ def pio_train_phase() -> dict:
                        "datasource": {"params": {"app_name": "ml100k"}},
                        "algorithms": [{"name": "als", "params": {
                            "rank": 16, "num_iterations": 10}}]}, f)
-        el_sub_env = {**os.environ, **el_env, "PYTHONPATH": root,
-                      "PIO_BIN_CACHE_DIR": os.path.join(store, "bin_cache")}
-        el_sec, el_model, el_instance, el_log = cli_train_and_deploy(
-            cli, el_json, "ml100k-als-el", el_env, el_sub_env, store,
-            queries, "ALS, eventlog")
-        lane = [line for line in el_log.splitlines()
+        el = cli_train_and_deploy(cli, el_json, "ml100k-als-el", el_env,
+                                  el_sub_env, store, queries,
+                                  "ALS, eventlog")
+        lane = [line for line in el["train_log"].splitlines()
                 if "ALS trained on the binned lane" in line]
         if len(lane) != 1:
             fail(f"pio train on eventlog did not log the binned lane: "
-                 f"{el_log[-2000:]}")
-        if len(el_model.user_ids) != len(als_model.user_ids):
+                 f"{el['train_log'][-2000:]}")
+        if len(el["model"].user_ids) != len(als_model.user_ids):
             fail("pio train on eventlog saw other users than on localfs")
-        return {"events": n, "train_sec": train_sec,
+        return {"events": n, "cli_io": cli_io, "cli_io_eventlog": el_io,
+                "train_sec": tt["train_sec"],
                 "losses": model.train_losses, "kernel_plan": plan,
-                "queries": len(queries), "instance": instance,
-                "als": {"train_sec": als_sec, "instance": als_instance,
+                "queries": len(queries), "instance": tt["instance"],
+                "als": {"train_sec": als["train_sec"],
+                        "instance": als["instance"],
                         "rank": int(als_model.item_factors.shape[1]),
                         "queries": len(queries)},
-                "als_eventlog": {"train_sec": el_sec,
-                                 "instance": el_instance,
+                "als_eventlog": {"train_sec": el["train_sec"],
+                                 "instance": el["instance"],
                                  "train_log": lane[0][-600:],
                                  "queries": len(queries)}}
     finally:
@@ -1644,12 +2129,16 @@ def main() -> int:
     print(json.dumps({"als_train": {**als, "synth_sec": synth_sec}}),
           flush=True)
     ingest = ingest_phase(ratings, als["profile"])
-    del ratings
     print(json.dumps({"ingest": ingest}), flush=True)
+    front_door = front_door_phase(ratings)
+    del ratings
+    print(json.dumps({"front_door": {**front_door, "card": card}}),
+          flush=True)
     topk["launches_by_path"] = {
         "serve": serve["launches"], "train_deploy": train["topk_dot_launches"],
         "als_train_deploy": als["topk_dot_launches"],
-        "ingest_deploy": ingest["topk_dot_launches"]}
+        "ingest_deploy": ingest["topk_dot_launches"],
+        "front_door_deploy": front_door["topk_dot_launches"]}
     print(json.dumps({"pio_train": pio_train_phase()}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [topk, flash, embed]}), flush=True)

@@ -900,6 +900,9 @@ class EventLogStorageClient(S.StorageClient):
     def apps(self):
         return self._meta.apps()
 
+    def access_keys(self):
+        return self._meta.access_keys()
+
     def channels(self):
         return self._meta.channels()
 
@@ -908,6 +911,9 @@ class EventLogStorageClient(S.StorageClient):
 
     def models(self):
         return self._meta.models()
+
+    def health_check(self) -> bool:
+        return self._meta.health_check()
 
 
 S.register_backend("eventlog", EventLogStorageClient)

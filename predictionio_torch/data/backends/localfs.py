@@ -1,5 +1,5 @@
-"""Local-filesystem storage backend: events, apps, channels, engine
-instances and model blobs.
+"""Local-filesystem storage backend: events, apps, access keys,
+channels, engine instances and model blobs.
 
 The on-disk format is ``predictionio_tpu/data/backends/localfs.py``'s,
 so the port reads what the JAX package wrote and the other way round:
@@ -9,14 +9,15 @@ so the port reads what the JAX package wrote and the other way round:
                 deletion as a ``{"__tombstone__": id}`` line (ref: hbase
                 tables ``events_<appId>[_<channelId>]``)
   - metadata -> one JSON document ``<root>/metadata.json``; apps,
-                channels and engine instances are its ``"apps"``,
-                ``"channels"`` and ``"engine_instances"`` lists, id
-                counters its ``"sequences"`` (ref: elasticsearch indices)
+                access keys, channels and engine instances are its
+                ``"apps"``, ``"access_keys"``, ``"channels"`` and
+                ``"engine_instances"`` lists, id counters its
+                ``"sequences"`` (ref: elasticsearch indices)
   - models   -> blob files ``<root>/models/pio_<id>``
                 (ref: localfs/LocalFSModels.scala:29)
 
-Every other section of the metadata document (access keys, manifests,
-...) is written back as it was read. Reads and writes hold the same
+Every other section of the metadata document (manifests, evaluation
+instances) is written back as it was read. Reads and writes hold the same
 exclusive ``flock`` on ``<root>/.metadata.lock`` as the JAX backend, so
 processes of both packages can share one root; writes are atomic
 renames. An event log is read once per process and table and then kept
@@ -26,20 +27,21 @@ in memory, as in the JAX backend.
 from __future__ import annotations
 
 import contextlib
+import copy
 import fcntl
 import json
 import logging
 import os
 import threading
 import uuid
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from predictionio_torch.data import storage as S
 from predictionio_torch.data.backends.memory import MemoryEventStore, table_key
 from predictionio_torch.data.event import Event
-from predictionio_torch.data.metadata import (App, Channel, EngineInstance,
-                                              Model, dict_to_record,
-                                              record_to_dict)
+from predictionio_torch.data.metadata import (AccessKey, App, Channel,
+                                              EngineInstance, Model,
+                                              dict_to_record, record_to_dict)
 
 log = logging.getLogger(__name__)
 
@@ -170,12 +172,19 @@ class LocalFSModelsRepo(S.ModelsRepo):
 
 class _MetadataDoc:
     """``metadata.json`` under the cross-process ``flock``: each change
-    reads the document, edits one section and writes it back whole."""
+    reads the document, edits one section and writes it back whole.
+    Reads are served from a parsed copy that is parsed again when the
+    file's inode, mtime or size changes, as the JAX client's
+    ``_sync_from_disk`` does: the event server looks up an access key on
+    every request, and a key another process added is seen on the next
+    one."""
 
     def __init__(self, basedir: str):
         self._path = os.path.join(basedir, "metadata.json")
         self._lock_path = os.path.join(basedir, ".metadata.lock")
-        self._lock = threading.Lock()
+        self._lock = threading.RLock()
+        #: (the file's (inode, mtime_ns, size) or None, the parsed doc)
+        self._cache: Optional[Tuple[Optional[tuple], dict]] = None
 
     @contextlib.contextmanager
     def _flocked(self):
@@ -186,12 +195,21 @@ class _MetadataDoc:
             finally:
                 fcntl.flock(lockf, fcntl.LOCK_UN)
 
+    @staticmethod
+    def _key(st: os.stat_result) -> tuple:
+        return (st.st_ino, st.st_mtime_ns, st.st_size)
+
     def _read(self) -> dict:
+        """The document as on disk (the caller holds the flock); the
+        parsed copy is refreshed with it."""
         try:
             with open(self._path) as f:
-                return json.load(f)
+                key = self._key(os.fstat(f.fileno()))
+                doc = json.load(f)
         except FileNotFoundError:
-            return {}
+            key, doc = None, {}
+        self._cache = (key, copy.deepcopy(doc))
+        return doc
 
     @contextlib.contextmanager
     def changing(self):
@@ -204,11 +222,37 @@ class _MetadataDoc:
             with open(tmp, "w") as f:
                 f.write(json.dumps(doc, indent=1, sort_keys=True))
             os.replace(tmp, self._path)
+            self._cache = (self._key(os.stat(self._path)), doc)
+
+    def rows(self, section: str) -> List[dict]:
+        """A section's rows as stored, copied, from the parsed copy
+        while the file is unchanged."""
+        try:
+            key = self._key(os.stat(self._path))
+        except FileNotFoundError:
+            key = None
+        with self._lock:
+            if self._cache is None or self._cache[0] != key:
+                with self._flocked():
+                    self._read()
+            return copy.deepcopy(self._cache[1].get(section, []))
 
     def records(self, section: str, cls) -> list:
-        with self._flocked():
-            rows = self._read().get(section, [])
-        return [dict_to_record(cls, rd) for rd in rows]
+        return [dict_to_record(cls, rd) for rd in self.rows(section)]
+
+    def upsert(self, section: str, field: str, record) -> None:
+        """Replace the row whose ``field`` equals the record's, or add
+        it."""
+        rd = record_to_dict(record)
+        with self.changing() as doc:
+            rows = [r for r in doc.get(section, [])
+                    if r[field] != rd[field]]
+            doc[section] = rows + [rd]
+
+    def remove(self, section: str, field: str, value) -> None:
+        with self.changing() as doc:
+            doc[section] = [r for r in doc.get(section, [])
+                            if r[field] != value]
 
     @staticmethod
     def next_id(doc: dict, sequence: str) -> int:
@@ -231,16 +275,79 @@ class LocalFSAppsRepo(S.AppsRepo):
             doc.setdefault("apps", []).append(record_to_dict(app))
         return app
 
+    def get(self, app_id):
+        return next((a for a in self.get_all() if a.id == int(app_id)), None)
+
+    def get_by_name(self, name):
+        return next((a for a in self.get_all() if a.name == name), None)
+
     def get_all(self):
         return sorted(self._doc.records("apps", App), key=lambda a: a.id)
+
+    def update(self, app):
+        self._doc.upsert("apps", "id", app)
+
+    def delete(self, app_id):
+        self._doc.remove("apps", "id", int(app_id))
+
+
+class LocalFSAccessKeysRepo(S.AccessKeysRepo):
+    def __init__(self, doc: _MetadataDoc):
+        self._doc = doc
+
+    def insert(self, access_key: AccessKey) -> str:
+        if not access_key.key:
+            access_key = AccessKey.generate(access_key.appid,
+                                            access_key.events)
+        self._doc.upsert("access_keys", "key", access_key)
+        return access_key.key
+
+    def get(self, key):
+        return next((dict_to_record(AccessKey, rd)
+                     for rd in self._doc.rows("access_keys")
+                     if rd["key"] == key), None)
+
+    def get_all(self):
+        return self._doc.records("access_keys", AccessKey)
+
+    def get_by_app_id(self, app_id):
+        return [k for k in self.get_all() if k.appid == int(app_id)]
+
+    def update(self, access_key):
+        self._doc.upsert("access_keys", "key", access_key)
+
+    def delete(self, key):
+        self._doc.remove("access_keys", "key", key)
 
 
 class LocalFSChannelsRepo(S.ChannelsRepo):
     def __init__(self, doc: _MetadataDoc):
         self._doc = doc
 
-    def get_all(self):
-        return self._doc.records("channels", Channel)
+    def insert(self, name, app_id) -> Channel:
+        if not Channel.is_valid_name(name):
+            raise S.StorageError(f"invalid channel name {name!r} (must "
+                                 "match [a-zA-Z0-9-]{1,16})")
+        with self._doc.changing() as doc:
+            if any(rd["name"] == name and rd["appid"] == int(app_id)
+                   for rd in doc.get("channels", [])):
+                raise S.StorageError(
+                    f"channel {name!r} already exists for app {app_id}")
+            ch = Channel(id=self._doc.next_id(doc, "channels"), name=name,
+                         appid=int(app_id))
+            doc.setdefault("channels", []).append(record_to_dict(ch))
+        return ch
+
+    def get(self, channel_id):
+        return next((c for c in self._doc.records("channels", Channel)
+                     if c.id == int(channel_id)), None)
+
+    def get_by_app_id(self, app_id):
+        return sorted((c for c in self._doc.records("channels", Channel)
+                       if c.appid == int(app_id)), key=lambda c: c.id)
+
+    def delete(self, channel_id):
+        self._doc.remove("channels", "id", int(channel_id))
 
 
 class LocalFSEngineInstancesRepo(S.EngineInstancesRepo):
@@ -250,10 +357,7 @@ class LocalFSEngineInstancesRepo(S.EngineInstancesRepo):
     def insert(self, instance: EngineInstance) -> str:
         if not instance.id:
             instance.id = uuid.uuid4().hex
-        with self._doc.changing() as doc:
-            rows = [rd for rd in doc.get("engine_instances", [])
-                    if rd["id"] != instance.id]
-            doc["engine_instances"] = rows + [record_to_dict(instance)]
+        self._doc.upsert("engine_instances", "id", instance)
         return instance.id
 
     def get(self, id: str) -> Optional[EngineInstance]:
@@ -272,12 +376,14 @@ class LocalFSStorageClient(S.StorageClient):
         doc = _MetadataDoc(basedir)
         self._events = LocalFSEventStore(basedir)
         self._apps = LocalFSAppsRepo(doc)
+        self._access_keys = LocalFSAccessKeysRepo(doc)
         self._channels = LocalFSChannelsRepo(doc)
         self._engine_instances = LocalFSEngineInstancesRepo(doc)
         self._models = LocalFSModelsRepo(basedir)
 
     def events(self): return self._events
     def apps(self): return self._apps
+    def access_keys(self): return self._access_keys
     def channels(self): return self._channels
     def engine_instances(self): return self._engine_instances
     def models(self): return self._models

@@ -1,5 +1,5 @@
-"""In-memory storage backend: events, apps, engine instances and model
-blobs.
+"""In-memory storage backend: events, apps, access keys, channels,
+engine instances and model blobs.
 
 Copy of the corresponding parts of
 ``predictionio_tpu/data/backends/memory.py``: plain dicts under one
@@ -16,7 +16,8 @@ from typing import Dict, List, Optional, Tuple
 
 from predictionio_torch.data import storage as S
 from predictionio_torch.data.event import Event
-from predictionio_torch.data.metadata import App, EngineInstance, Model
+from predictionio_torch.data.metadata import (AccessKey, App, Channel,
+                                              EngineInstance, Model)
 
 
 def table_key(app_id: int, channel_id: Optional[int]
@@ -103,31 +104,134 @@ def _matches(e: Event, start_time, until_time, entity_type, entity_id,
     return True
 
 
-class MemoryAppsRepo(S.AppsRepo):
+class _Sequences:
+    """Auto-increment ids (ref: elasticsearch/ESSequences.scala)."""
+
+    def __init__(self):
+        self._counters: Dict[str, int] = {}
+
+    def next(self, name: str) -> int:
+        self._counters[name] = self._counters.get(name, 0) + 1
+        return self._counters[name]
+
+
+class _RecordRepo:
+    """A dict of records under the client's lock, copied at the
+    boundary."""
+
     def __init__(self, lock: threading.RLock):
-        self._records: Dict[int, App] = {}
+        self._records: Dict = {}
         self._lock = lock
+
+    def _put(self, key, record) -> None:
+        self._records[key] = copy.deepcopy(record)
+
+    def _get(self, key):
+        rec = self._records.get(key)
+        return copy.deepcopy(rec) if rec is not None else None
+
+
+class MemoryAppsRepo(_RecordRepo, S.AppsRepo):
+    def __init__(self, sequences: _Sequences, lock: threading.RLock):
+        super().__init__(lock)
+        self._seq = sequences
 
     def insert(self, name, description=None) -> App:
         with self._lock:
             if any(a.name == name for a in self._records.values()):
                 raise S.StorageError(f"app name {name!r} already exists")
-            app = App(id=max(self._records, default=0) + 1, name=name,
+            app = App(id=self._seq.next("apps"), name=name,
                       description=description)
-            self._records[app.id] = app
+            self._put(app.id, app)
             return copy.deepcopy(app)
+
+    def get(self, app_id):
+        with self._lock:
+            return self._get(int(app_id))
+
+    def get_by_name(self, name):
+        with self._lock:
+            rec = next((a for a in self._records.values() if a.name == name),
+                       None)
+            return copy.deepcopy(rec) if rec is not None else None
 
     def get_all(self):
         with self._lock:
             return [copy.deepcopy(a) for a in sorted(
                 self._records.values(), key=lambda a: a.id)]
 
+    def update(self, app):
+        with self._lock:
+            self._put(app.id, app)
 
-class MemoryChannelsRepo(S.ChannelsRepo):
-    """A memory store holds no channels: the port creates none."""
+    def delete(self, app_id):
+        with self._lock:
+            self._records.pop(int(app_id), None)
+
+
+class MemoryAccessKeysRepo(_RecordRepo, S.AccessKeysRepo):
+    def insert(self, access_key: AccessKey) -> str:
+        with self._lock:
+            if not access_key.key:
+                access_key = AccessKey.generate(access_key.appid,
+                                                access_key.events)
+            self._put(access_key.key, access_key)
+            return access_key.key
+
+    def get(self, key):
+        with self._lock:
+            return self._get(key)
 
     def get_all(self):
-        return []
+        with self._lock:
+            return [copy.deepcopy(k) for k in self._records.values()]
+
+    def get_by_app_id(self, app_id):
+        with self._lock:
+            return [copy.deepcopy(k) for k in self._records.values()
+                    if k.appid == int(app_id)]
+
+    def update(self, access_key):
+        with self._lock:
+            self._put(access_key.key, access_key)
+
+    def delete(self, key):
+        with self._lock:
+            self._records.pop(key, None)
+
+
+class MemoryChannelsRepo(_RecordRepo, S.ChannelsRepo):
+    def __init__(self, sequences: _Sequences, lock: threading.RLock):
+        super().__init__(lock)
+        self._seq = sequences
+
+    def insert(self, name, app_id) -> Channel:
+        with self._lock:
+            if not Channel.is_valid_name(name):
+                raise S.StorageError(
+                    f"invalid channel name {name!r} (must match "
+                    "[a-zA-Z0-9-]{1,16})")
+            if any(c.name == name and c.appid == int(app_id)
+                   for c in self._records.values()):
+                raise S.StorageError(
+                    f"channel {name!r} already exists for app {app_id}")
+            ch = Channel(id=self._seq.next("channels"), name=name,
+                         appid=int(app_id))
+            self._put(ch.id, ch)
+            return copy.deepcopy(ch)
+
+    def get(self, channel_id):
+        with self._lock:
+            return self._get(int(channel_id))
+
+    def get_by_app_id(self, app_id):
+        with self._lock:
+            return sorted((copy.deepcopy(c) for c in self._records.values()
+                           if c.appid == int(app_id)), key=lambda c: c.id)
+
+    def delete(self, channel_id):
+        with self._lock:
+            self._records.pop(int(channel_id), None)
 
 
 class MemoryEngineInstancesRepo(S.EngineInstancesRepo):
@@ -171,14 +275,17 @@ class MemoryModelsRepo(S.ModelsRepo):
 class MemoryStorageClient(S.StorageClient):
     def __init__(self, config: Dict[str, str]):
         lock = threading.RLock()
+        sequences = _Sequences()
         self._events = MemoryEventStore()
-        self._apps = MemoryAppsRepo(lock)
-        self._channels = MemoryChannelsRepo()
+        self._apps = MemoryAppsRepo(sequences, lock)
+        self._access_keys = MemoryAccessKeysRepo(lock)
+        self._channels = MemoryChannelsRepo(sequences, lock)
         self._engine_instances = MemoryEngineInstancesRepo(lock)
         self._models = MemoryModelsRepo(lock)
 
     def events(self): return self._events
     def apps(self): return self._apps
+    def access_keys(self): return self._access_keys
     def channels(self): return self._channels
     def engine_instances(self): return self._engine_instances
     def models(self): return self._models

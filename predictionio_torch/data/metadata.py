@@ -1,7 +1,8 @@
 """Metadata records: apps, channels, engine instances and model blobs.
 
 Copy of ``predictionio_tpu/data/metadata.py`` trimmed to the records
-``pio train`` and ``pio deploy`` use (ref: Apps.scala:27,
+the event server, the app and access-key commands, ``pio train`` and
+``pio deploy`` use (ref: Apps.scala:27, AccessKeys.scala:27,
 Channels.scala:27, EngineInstances.scala:34, Models.scala:30). The
 field names and the JSON form (``record_to_dict`` / ``dict_to_record``)
 are the storage format both packages share, so each reads what the
@@ -11,10 +12,15 @@ other wrote.
 from __future__ import annotations
 
 import datetime as _dt
+import re
+import secrets
 from dataclasses import asdict, dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 UTC = _dt.timezone.utc
+
+#: ref: Channels.scala nameConstraint
+CHANNEL_NAME_RE = re.compile(r"^[a-zA-Z0-9-]{1,16}$")
 
 
 @dataclass
@@ -26,11 +32,31 @@ class App:
 
 
 @dataclass
+class AccessKey:
+    """ref: AccessKeys.scala:27 — key, owning app, allowed-event
+    whitelist (empty: every event is allowed)."""
+    key: str
+    appid: int
+    events: List[str] = field(default_factory=list)
+
+    @staticmethod
+    def generate(appid: int,
+                 events: Optional[List[str]] = None) -> "AccessKey":
+        # ref: AccessKeys.scala generateKey — 64-char url-safe random key
+        return AccessKey(key=secrets.token_urlsafe(48)[:64], appid=appid,
+                         events=list(events or []))
+
+
+@dataclass
 class Channel:
     """ref: Channels.scala:27"""
     id: int
     name: str
     appid: int
+
+    @staticmethod
+    def is_valid_name(name: str) -> bool:
+        return bool(CHANNEL_NAME_RE.match(name))
 
 
 @dataclass

@@ -1,11 +1,12 @@
 """Storage abstraction + env-configured registry.
 
-Copy of ``predictionio_tpu/data/storage.py`` trimmed to what ``pio
-train`` and ``pio deploy`` use: the EVENTDATA repository (events:
+Copy of ``predictionio_tpu/data/storage.py`` trimmed to what the event
+server, the app and access-key commands, ``pio train`` and ``pio
+deploy`` use: the EVENTDATA repository (events:
 appended one by one, in batches or as dict-encoded columns; read by id,
 by a filtered scan, as dict-encoded columns, or binned straight into the
-ALS layout by the native event log), the apps and channels that name an
-event table, engine instances and model blobs. The env-var
+ALS layout by the native event log), the apps, access keys and channels that
+name an event table, engine instances and model blobs. The env-var
 contract is the same (ref: Storage.scala:40,151,183): sources are
 declared with ``PIO_STORAGE_SOURCES_<NAME>_TYPE`` (+ per-type config)
 and repositories are mapped onto them with
@@ -19,6 +20,7 @@ from __future__ import annotations
 import abc
 import dataclasses
 import datetime as _dt
+import logging
 import math
 import os
 import re
@@ -28,8 +30,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from predictionio_torch.data.event import Event
-from predictionio_torch.data.metadata import (App, Channel, EngineInstance,
-                                              Model)
+from predictionio_torch.data.metadata import (AccessKey, App, Channel,
+                                              EngineInstance, Model)
+
+log = logging.getLogger(__name__)
 
 #: sentinel distinguishing "don't filter" from "filter for None"
 #: (ref: PEvents.find targetEntityType: Option[Option[String]])
@@ -267,22 +271,46 @@ class AppsRepo(abc.ABC):
     @abc.abstractmethod
     def insert(self, name: str, description: Optional[str] = None) -> App: ...
     @abc.abstractmethod
+    def get(self, app_id: int) -> Optional[App]: ...
+    @abc.abstractmethod
+    def get_by_name(self, name: str) -> Optional[App]: ...
+    @abc.abstractmethod
     def get_all(self) -> List[App]: ...
+    @abc.abstractmethod
+    def update(self, app: App) -> None: ...
+    @abc.abstractmethod
+    def delete(self, app_id: int) -> None: ...
 
-    def get_by_name(self, name: str) -> Optional[App]:
-        return next((a for a in self.get_all() if a.name == name), None)
+
+class AccessKeysRepo(abc.ABC):
+    """ref: AccessKeys.scala"""
+
+    @abc.abstractmethod
+    def insert(self, access_key: AccessKey) -> str: ...
+    @abc.abstractmethod
+    def get(self, key: str) -> Optional[AccessKey]: ...
+    @abc.abstractmethod
+    def get_all(self) -> List[AccessKey]: ...
+    @abc.abstractmethod
+    def get_by_app_id(self, app_id: int) -> List[AccessKey]: ...
+    @abc.abstractmethod
+    def update(self, access_key: AccessKey) -> None: ...
+    @abc.abstractmethod
+    def delete(self, key: str) -> None: ...
 
 
 class ChannelsRepo(abc.ABC):
-    """ref: Channels.scala — read by app-name resolution; channels are
-    created with the JAX package's ``pio app channel-new``."""
+    """ref: Channels.scala — created by ``pio app channel-new``; a
+    channel names its own event table of the app."""
 
     @abc.abstractmethod
-    def get_all(self) -> List[Channel]: ...
-
-    def get_by_app_id(self, app_id: int) -> List[Channel]:
-        return sorted((c for c in self.get_all() if c.appid == int(app_id)),
-                      key=lambda c: c.id)
+    def insert(self, name: str, app_id: int) -> Channel: ...
+    @abc.abstractmethod
+    def get(self, channel_id: int) -> Optional[Channel]: ...
+    @abc.abstractmethod
+    def get_by_app_id(self, app_id: int) -> List[Channel]: ...
+    @abc.abstractmethod
+    def delete(self, channel_id: int) -> None: ...
 
 
 class EngineInstancesRepo(abc.ABC):
@@ -335,11 +363,19 @@ class StorageClient(abc.ABC):
     @abc.abstractmethod
     def apps(self) -> AppsRepo: ...
     @abc.abstractmethod
+    def access_keys(self) -> AccessKeysRepo: ...
+    @abc.abstractmethod
     def channels(self) -> ChannelsRepo: ...
     @abc.abstractmethod
     def engine_instances(self) -> EngineInstancesRepo: ...
     @abc.abstractmethod
     def models(self) -> ModelsRepo: ...
+
+    def health_check(self) -> bool:
+        """Backend reachability probe (ref: Storage.verifyAllDataObjects
+        instantiates each DAO against its live backend). The port's
+        backends are local and healthy once constructed."""
+        return True
 
 
 _BACKENDS: Dict[str, type] = {}
@@ -397,6 +433,9 @@ class Storage:
     def apps(self) -> AppsRepo:
         return self.client_for("METADATA").apps()
 
+    def access_keys(self) -> AccessKeysRepo:
+        return self.client_for("METADATA").access_keys()
+
     def channels(self) -> ChannelsRepo:
         return self.client_for("METADATA").channels()
 
@@ -405,6 +444,29 @@ class Storage:
 
     def models(self) -> ModelsRepo:
         return self.client_for("MODELDATA").models()
+
+    def verify_all_data_objects(self) -> Dict[str, bool]:
+        """ref: Storage.verifyAllDataObjects:237 — each repository's
+        source opened and probed; a source that cannot be opened (a TYPE
+        the port lacks, an unreadable path) reads False."""
+        results: Dict[str, bool] = {}
+        for repo in REPOSITORIES:
+            try:
+                results[repo] = self.client_for(repo).health_check()
+            except Exception as e:  # noqa: BLE001 — reported, not raised
+                log.warning("health check failed for %s: %s: %s",
+                            repo, type(e).__name__, e)
+                results[repo] = False
+        return results
+
+    def serving_status(self) -> Dict[str, Dict[str, Any]]:
+        """Per repository, whether its source can answer (``serving``),
+        whether it answers with some endpoint down (``degraded``) and
+        each endpoint's state: the shape ``pio status`` reads. Every
+        port source has one endpoint, so ``degraded`` is always False."""
+        return {repo: {"serving": up, "degraded": False,
+                       "endpoints": {"": up}}
+                for repo, up in self.verify_all_data_objects().items()}
 
     @staticmethod
     def from_env(env: Optional[Dict[str, str]] = None) -> "Storage":

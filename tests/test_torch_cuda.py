@@ -554,3 +554,77 @@ def test_als_from_sides_on_the_card_matches_the_cpu(cuda, precision,
         assert _rel(f.item_factors, want.item_factors) <= tol_i
         assert abs(als.predict_rmse(f, held)
                    - als.predict_rmse(want, held)) <= tol_rmse
+
+
+# -- the front door: events over HTTP to answers on the card -------------------
+
+def test_events_posted_to_the_event_server_train_als_on_the_card(
+        cuda, tmp_path, monkeypatch):
+    """An eventlog app made by ``app new`` and filled through the port's
+    EventServer over HTTP (the batch route's native lane) trains ALS on
+    the card on the binned lane, and its answers come through
+    ``topk_dot``: the launch counter rises, and the items are the float64
+    host top-k of the trained factors."""
+    import json
+    import urllib.request
+
+    from predictionio_torch.data.storage import Storage, set_storage
+    from predictionio_torch.models.als import PreparedRatings
+    from predictionio_torch.parallel.context import DeviceContext
+    from predictionio_torch.serving.event_server import EventServer
+    from predictionio_torch.templates.recommendation import (
+        RecoDataSource, RecoDataSourceParams)
+    from predictionio_torch.tools import commands
+
+    monkeypatch.setenv("PIO_BIN_CACHE_DIR", str(tmp_path / "bc"))
+    storage = Storage.from_env({
+        "PIO_STORAGE_SOURCES_EL_TYPE": "eventlog",
+        "PIO_STORAGE_SOURCES_EL_PATH": str(tmp_path / "el")})
+    key = commands.app_new("card", storage=storage).access_keys[0].key
+    u, i, r = _als_ratings(300, 2000, 8000, seed=11)
+    server = EventServer(storage=storage, host="127.0.0.1", port=0).start()
+    set_storage(storage)
+    try:
+        for s in range(0, len(u), 2000):
+            body = json.dumps([
+                {"event": "rate", "entityType": "user",
+                 "entityId": f"u{int(a)}", "targetEntityType": "item",
+                 "targetEntityId": f"i{int(b)}",
+                 "properties": {"rating": float(c)}}
+                for a, b, c in zip(u[s:s + 2000], i[s:s + 2000],
+                                   r[s:s + 2000])]).encode()
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{server.port}/batch/events.json"
+                f"?accessKey={key}", data=body, method="POST")
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                rows = json.loads(resp.read())
+            assert [x["status"] for x in rows] == [201] * len(rows)
+        server.stop()
+        td = RecoDataSource(RecoDataSourceParams(app_name="card")) \
+            .read_training(None)
+        assert td.binned_request is not None
+        algo = ALSAlgorithm(ALSParams(rank=16, num_iterations=5,
+                                      lambda_=0.05))
+        model = algo.train(DeviceContext(cuda), PreparedRatings(
+            binned_request=td.binned_request, fingerprint=td.fingerprint))
+        assert algo.last_train["lane"] == "binned"
+        assert algo.last_train["ratings"] == len(u)
+        model = model.to(cuda)
+        U = model.user_factors.astype(np.float64)
+        V = model.item_factors.astype(np.float64)
+        names = model.item_ids.inverse()
+        before = tkd.launches.value
+        for user in ("u0", "u7", "u42"):
+            got = algo.predict(model, {"user": user, "num": 10})
+            scores = V @ U[model.user_ids[user]]
+            want = np.lexsort((np.arange(len(V)), -scores))[:10]
+            served = [e["item"] for e in got["itemScores"]]
+            tol = 1e-4 * max(1.0, float(np.abs(scores).max()))
+            for name, j in zip(served, want):
+                assert name == names[int(j)] or abs(
+                    scores[model.item_ids[name]] - scores[j]) <= tol
+        assert tkd.launches.value >= before + 3
+    finally:
+        set_storage(None)
+        server.stop()
+        storage.events().close()

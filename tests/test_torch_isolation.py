@@ -64,12 +64,22 @@ def test_no_source_imports_jax():
     assert bad == []
 
 
-#: the data lane's modules, which the walk above must reach
+#: the data lane's and the front door's modules, which the walk above
+#: must reach
 DATA_LANE = ("predictionio_torch.native",
              "predictionio_torch.data.backends.eventlog",
              "predictionio_torch.ops.bincache",
              "predictionio_torch.ops.ragged",
-             "predictionio_torch.data.store")
+             "predictionio_torch.data.store",
+             "predictionio_torch.serving.stats",
+             "predictionio_torch.serving.webhooks",
+             "predictionio_torch.serving.webhooks.mailchimp",
+             "predictionio_torch.serving.webhooks.segmentio",
+             "predictionio_torch.serving.event_server",
+             "predictionio_torch.tools.commands",
+             "predictionio_torch.tools.eventdata",
+             "predictionio_torch.tools.admin",
+             "predictionio_torch.tools.cli")
 
 
 def test_the_data_lane_modules_are_walked_and_import_no_jax():
