@@ -166,10 +166,30 @@ exits non-zero before printing any result.
    imported into an ``eventlog`` store, where ``cli train``'s log must
    show the binned lane; queries are checked against each stored
    model's factors.
+10. Eval phase, the evaluation half (``pio eval``). (a) The ALS phase's
+   ratings and holdout as ``PreparedRatings``; ``ALSAlgorithm.grid_train``
+   on ``cuda`` trains G = 4 candidates at once (``lambda_`` 0.05, 0.02,
+   0.1 at 5 iterations of 6 CG steps, and 0.05 at 3 iterations of 4):
+   every held-out RMSE finite, candidate 1 in ``RMSE_BAND`` and within
+   1e-2 of the ALS phase's ``ALSAlgorithm.train`` (its sequential
+   oracle: the same params and seed), candidate 4
+   within 1e-2 of one sequential ``ALSAlgorithm.train`` at 3 iterations
+   of 4 CG steps. Then an ``ALSGridTrainer`` of the same grid is
+   profiled (``tools/als_timing.grid_profile``): device ms, launches
+   and idle share per grid alternation. (b) ``python -m
+   predictionio_torch.tools.cli eval`` of a module written into the
+   temporary directory: an ``Evaluation`` of ``recommendation_engine``
+   with a rating-MSE metric, and a generator of six ``lambda_`` (0.01
+   to 5.0; 3 folds, rank 64, 3 iterations, f32) over the ``pio train``
+   phase's eventlog events. It must exit 0, print the one-liner, log 6
+   candidates grid-trained in 3 runs and no fallback, and leave one
+   EVALCOMPLETED EvaluationInstance whose JSON scores match an
+   in-process sequential ``FastEvalEngineWorkflow`` on the card (rtol
+   1e-4, atol 1e-5, the same ranking).
 
 Output: the card's name and power limit (``nvidia-smi``), a ``serve``,
 a ``train``, an ``als_train``, an ``ingest``, a ``front_door`` (with
-the card's line) and a ``pio_train`` line,
+the card's line), a ``pio_train`` and an ``eval`` line,
 the ``kernels`` line, and last ``{"ok": true, "device": ...}``.
 """
 
@@ -177,6 +197,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import os
 import pickle
 import shutil
@@ -224,6 +245,11 @@ INGEST_DISK_BYTES = 6 << 30
 FD_HISTORY, FD_BATCH, FD_CONNS, FD_LONE = 19_000_000, 10_000, 4, 2_000
 FD_VIEWS, FD_DENIED, FD_READS = 990, 10, 20
 FD_DRAIN_TIMEOUT = 30
+# the eval phase: (a) the grid's candidates (lambda_, iterations, CG
+# steps), the first the ALS phase's own training; (b) pio eval's sweep
+GRID_REGS, GRID_ITERS, GRID_CG = (0.05, 0.02, 0.1, 0.05), (5, 5, 5, 3), \
+    (6, 6, 6, 4)
+EVAL_REGS, EVAL_K = (0.01, 0.05, 0.1, 0.5, 1.0, 5.0), 3
 
 
 def fail(msg: str) -> None:
@@ -1968,120 +1994,340 @@ def cli_app_with_events(cli, sub_env: dict, cwd: str, app: str,
             "export_sec": t3 - t2}
 
 
-def pio_train_phase() -> dict:
+def pio_train_phase(store: str) -> dict:
+    """In the directory ``store``, which the caller removes: the eval
+    phase reads the eventlog events this phase imports."""
     import datetime as dt
 
     from predictionio_torch.data.event import Event
 
-    store = tempfile.mkdtemp(prefix="pio_chip_smoke_ml100k_")
     env = {"PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
            "PIO_STORAGE_SOURCES_FS_PATH": store}
     root = os.path.dirname(os.path.abspath(__file__))
+    rng = np.random.default_rng(SEED + 3)
+    n_users, n_items, n = 943, 1682, 100_000
+    us = rng.integers(1, n_users + 1, n)
+    its = rng.integers(1, n_items + 1, n)
+    rs = rng.integers(1, 6, n)
+    t0 = dt.datetime(1998, 1, 1, tzinfo=dt.timezone.utc)
+    lines = [json.dumps({k: v for k, v in Event(
+        event="rate", entity_type="user", entity_id=f"u{u}",
+        target_entity_type="item", target_entity_id=f"i{i}",
+        properties={"rating": float(r)},
+        event_time=t0 + dt.timedelta(seconds=j)).to_dict(True).items()
+        if k not in ("eventId", "creationTime")}, sort_keys=True)
+        for j, (u, i, r) in enumerate(zip(us, its, rs))]
+    jsonl = os.path.join(store, "ml100k.jsonl")
+    with open(jsonl, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    want = set(lines)
+    sub_env = {**os.environ, **env, "PYTHONPATH": root}
+    cli = [sys.executable, "-m", "predictionio_torch.tools.cli"]
+    # the events go in through the CLI: app new, import, export back
+    cli_io = cli_app_with_events(cli, sub_env, store, "ml100k", jsonl,
+                                 want, "localfs")
+    rng = np.random.default_rng(SEED + 4)
+    queries = [{"user": f"u{u}", "num": 10}
+               for u in rng.integers(1, n_users + 1, 10)]
+    queries += [{"item": f"i{i}", "num": 5}
+                for i in rng.integers(1, n_items + 1, 5)]
+
+    engine_json = os.path.join(store, "engine.json")
+    with open(engine_json, "w") as f:
+        json.dump({
+            "id": "default", "engineId": "ml100k-tt",
+            "engineFactory":
+                "predictionio_torch.templates.twotower.twotower_engine",
+            "datasource": {"params": {"app_name": "ml100k"}},
+            "algorithms": [{"name": "twotower", "params": {
+                "dim": 64, "batch_size": 1024, "epochs": 5}}]}, f)
+    tt = cli_train_and_deploy(cli, engine_json, "ml100k-tt", env,
+                              sub_env, store, queries, "two-tower")
+    model = tt["model"]
+    plan = model.kernel_plan
+    if not (plan["flash_ce"] and plan["embed_update"]):
+        fail(f"pio train did not run both kernels: {plan}")
+    if not model.train_losses[-1] < model.train_losses[0]:
+        fail(f"pio train losses did not fall: {model.train_losses}")
+
+    als_json = os.path.join(store, "engine-als.json")
+    with open(als_json, "w") as f:
+        json.dump({
+            "id": "default", "engineId": "ml100k-als",
+            "engineFactory": ("predictionio_torch.templates."
+                              "recommendation.recommendation_engine"),
+            "datasource": {"params": {"app_name": "ml100k"}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": 16, "num_iterations": 10}}]}, f)
+    als = cli_train_and_deploy(cli, als_json, "ml100k-als", env,
+                               sub_env, store, queries, "ALS")
+    als_model = als["model"]
+    if not (np.all(np.isfinite(als_model.user_factors))
+            and np.all(np.isfinite(als_model.item_factors))):
+        fail("pio train (ALS) stored factors that are not finite")
+
+    # the same events in an eventlog store, through the CLI too: pio
+    # train takes the binned lane (its log says so) and pio deploy
+    # serves the model
+    el_env = {"PIO_STORAGE_SOURCES_EL_TYPE": "eventlog",
+              "PIO_STORAGE_SOURCES_EL_PATH": os.path.join(store, "el")}
+    el_sub_env = {**os.environ, **el_env, "PYTHONPATH": root,
+                  "PIO_BIN_CACHE_DIR": os.path.join(store, "bin_cache")}
+    el_io = cli_app_with_events(cli, el_sub_env, store, "ml100k", jsonl,
+                                want, "eventlog")
+    el_json = os.path.join(store, "engine-als-eventlog.json")
+    with open(el_json, "w") as f:
+        json.dump({"id": "default", "engineId": "ml100k-als-el",
+                   "engineFactory": ("predictionio_torch.templates."
+                                     "recommendation."
+                                     "recommendation_engine"),
+                   "datasource": {"params": {"app_name": "ml100k"}},
+                   "algorithms": [{"name": "als", "params": {
+                       "rank": 16, "num_iterations": 10}}]}, f)
+    el = cli_train_and_deploy(cli, el_json, "ml100k-als-el", el_env,
+                              el_sub_env, store, queries,
+                              "ALS, eventlog")
+    lane = [line for line in el["train_log"].splitlines()
+            if "ALS trained on the binned lane" in line]
+    if len(lane) != 1:
+        fail(f"pio train on eventlog did not log the binned lane: "
+             f"{el['train_log'][-2000:]}")
+    if len(el["model"].user_ids) != len(als_model.user_ids):
+        fail("pio train on eventlog saw other users than on localfs")
+    return {"events": n, "cli_io": cli_io, "cli_io_eventlog": el_io,
+            "train_sec": tt["train_sec"],
+            "losses": model.train_losses, "kernel_plan": plan,
+            "queries": len(queries), "instance": tt["instance"],
+            "als": {"train_sec": als["train_sec"],
+                    "instance": als["instance"],
+                    "rank": int(als_model.item_factors.shape[1]),
+                    "queries": len(queries)},
+            "als_eventlog": {"train_sec": el["train_sec"],
+                             "instance": el["instance"],
+                             "train_log": lane[0][-600:],
+                             "queries": len(queries)}}
+
+
+# -- eval phase -----------------------------------------------------------------
+
+class LogRecords(logging.Handler):
+    """Keeps the records a logger emits while it is attached."""
+
+    def __init__(self, logger: str):
+        super().__init__(logging.INFO)
+        self.records = []
+        self.logger = logging.getLogger(logger)
+
+    def emit(self, record) -> None:
+        self.records.append(record)
+
+    def __enter__(self):
+        self.logger.addHandler(self)
+        self.logger.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.logger.removeHandler(self)
+
+
+def grid_phase(ratings, seq_rmse: float) -> dict:
+    """(a) ``ALSAlgorithm.grid_train`` of GRID_* on the ALS phase's
+    ratings and holdout, each candidate's held-out RMSE against its
+    sequential oracle; then a grid trainer of the same candidates,
+    profiled."""
+    import torch
+    from predictionio_torch.data.bimap import BiMap
+    from predictionio_torch.models.als import (ALSAlgorithm, ALSParams,
+                                               PreparedRatings)
+    from predictionio_torch.ops.als import (ALSConfig, ALSFactors,
+                                            ALSGridTrainer, predict_rmse)
+    from predictionio_torch.parallel.context import DeviceContext
+    from predictionio_torch.tools.als_timing import grid_profile
+
+    uu, ii, vals = ratings
+    hold = np.arange(ALS_RATINGS) % 20 == 0
+    train = (uu[~hold], ii[~hold], vals[~hold].astype(np.float32))
+    held = (uu[hold], ii[hold], vals[hold])
+    pd = PreparedRatings(
+        user_ids=BiMap.from_vocab([f"u{j}" for j in range(N_USERS)]),
+        item_ids=BiMap.from_vocab([f"i{j}" for j in range(N_ITEMS)]),
+        user_idx=train[0], item_idx=train[1], ratings=train[2])
+    params = [ALSParams(rank=RANK, num_iterations=it, lambda_=reg,
+                        cg_iters=cg, block_size=ALS_BLOCK)
+              for reg, it, cg in zip(GRID_REGS, GRID_ITERS, GRID_CG)]
+    ctx = DeviceContext("cuda")
+
+    def rmse_of(model) -> float:
+        return predict_rmse(ALSFactors(model.user_factors,
+                                       model.item_factors), held)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with LogRecords("predictionio_torch.models.als") as log:
+        t0 = time.perf_counter()
+        models = ALSAlgorithm.grid_train(ctx, pd, params)
+        wall_sec = time.perf_counter() - t0
+    peak_mem = torch.cuda.max_memory_allocated()
+    if models is None or len(models) != len(params):
+        fail("ALSAlgorithm.grid_train declined the grid")
+    costs = [r.args[1] for r in log.records
+             if r.getMessage().startswith("ALS grid of 4 candidates")]
+    if len(costs) != 1:
+        fail("ALSAlgorithm.grid_train did not log its costs")
+    rmses = [rmse_of(m) for m in models]
+    if not all(np.isfinite(rmses)):
+        fail(f"grid RMSEs not finite: {rmses}")
+    del models
+    if not RMSE_BAND[0] < rmses[0] < RMSE_BAND[1]:
+        fail(f"grid candidate 1 RMSE {rmses[0]} outside {RMSE_BAND}")
+    if abs(rmses[0] - seq_rmse) > 1e-2:
+        fail(f"grid candidate 1 RMSE {rmses[0]} is not within 1e-2 of the "
+             f"ALS phase's {seq_rmse}")
+    # candidate 4's sequential oracle: 3 iterations of 4 CG steps
+    t0 = time.perf_counter()
+    oracle = ALSAlgorithm(params[3]).train(ctx, pd)
+    oracle_sec = time.perf_counter() - t0
+    oracle_rmse = rmse_of(oracle)
+    del oracle
+    if abs(rmses[3] - oracle_rmse) > 1e-2:
+        fail(f"grid candidate 4 RMSE {rmses[3]} is not within 1e-2 of its "
+             f"sequential train's {oracle_rmse}")
+
+    # off the main path: the same grid as a trainer, timed and profiled
+    torch.cuda.empty_cache()
+    cfg = ALSConfig(rank=RANK, iterations=max(GRID_ITERS), reg=GRID_REGS[0],
+                    block_size=ALS_BLOCK, seed=params[0].seed)
+    trainer = ALSGridTrainer(train, N_USERS, N_ITEMS, cfg, regs=GRID_REGS,
+                             iterations=GRID_ITERS, cg_iters=GRID_CG,
+                             device="cuda").compile()
+    t0 = time.perf_counter()
+    trainer.step_n()
+    step_sec = time.perf_counter() - t0
+    profile = grid_profile(trainer, step_sec * 1e3 / max(GRID_ITERS))
+    layout = {"user_rows": int(trainer.sides()[0].idx.shape[0]),
+              "item_rows": int(trainer.sides()[1].idx.shape[0]),
+              "seg_len": [int(side.idx.shape[1])
+                          for side in trainer.sides()]}
+    del trainer
+    torch.cuda.empty_cache()
+    return {"candidates": {"lambda_": GRID_REGS, "iterations": GRID_ITERS,
+                           "cg_iters": GRID_CG},
+            "rmse_heldout": rmses, "seq_oracle_rmse": [seq_rmse, oracle_rmse],
+            "grid_train_wall_sec": wall_sec, "grid_train_costs": costs[0],
+            "oracle_train_sec": oracle_sec, "peak_mem_bytes": peak_mem,
+            "layout": layout, "step_n_sec": step_sec, "profile": profile}
+
+
+EVAL_MODULE = """
+from predictionio_torch.core.evaluation import (AverageMetric,
+                                                EngineParamsGenerator,
+                                                Evaluation)
+from predictionio_torch.core.params import EngineParams
+from predictionio_torch.models.als import ALSParams
+from predictionio_torch.templates.recommendation import (
+    RecoDataSourceParams, recommendation_engine)
+
+
+class RatingMSE(AverageMetric):
+    higher_is_better = False
+
+    def calculate_qpa(self, q, p, a):
+        match = [s["score"] for s in p["itemScores"] if s["item"] == a["item"]]
+        if not match:
+            return None
+        return (match[0] - a["rating"]) ** 2
+
+
+Eval = Evaluation(engine=recommendation_engine(), metric=RatingMSE())
+
+
+class Gen(EngineParamsGenerator):
+    def __init__(self):
+        super().__init__([EngineParams(
+            data_source_params=("", RecoDataSourceParams(
+                app_name="ml100k", columnar=False, eval_k=%d)),
+            algorithm_params_list=[("als", ALSParams(
+                rank=64, num_iterations=3, lambda_=reg,
+                compute_dtype="float32", cg_dtype="float32"))])
+            for reg in %r])
+"""
+
+
+def pio_eval_phase(store: str) -> dict:
+    """(b) ``cli eval`` over the ``pio train`` phase's eventlog events,
+    then the same candidates sequentially in this process."""
+    import importlib
+
+    from predictionio_torch.core.fast_eval import FastEvalEngineWorkflow
+    from predictionio_torch.data.storage import Storage, set_storage
+    from predictionio_torch.parallel.context import DeviceContext
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    el_env = {"PIO_STORAGE_SOURCES_EL_TYPE": "eventlog",
+              "PIO_STORAGE_SOURCES_EL_PATH": os.path.join(store, "el")}
+    with open(os.path.join(store, "pio_eval_ml100k.py"), "w") as f:
+        f.write(EVAL_MODULE % (EVAL_K, EVAL_REGS))
+    sub_env = {**os.environ, **el_env,
+               "PYTHONPATH": os.pathsep.join([root, store])}
+    cli = [sys.executable, "-m", "predictionio_torch.tools.cli"]
+    t0 = time.perf_counter()
+    out = run_cli(cli, ["eval", "pio_eval_ml100k.Eval", "pio_eval_ml100k.Gen",
+                        "--batch", "chip_smoke"], sub_env, store, "pio eval")
+    cli_sec = time.perf_counter() - t0
+    one_liner = out.stdout.strip().splitlines()[-1]
+    want_log = (f"grid tuning: {len(EVAL_REGS)} candidates trained in "
+                f"{EVAL_K} grid run(s)")
+    if want_log not in out.stderr or "falling back" in out.stderr:
+        fail(f"pio eval did not take the grid path: {out.stderr[-2000:]}")
+    done = Storage.from_env(el_env).evaluation_instances().get_completed()
+    if len(done) != 1 or done[0].evaluator_results != one_liner:
+        fail(f"pio eval left {len(done)} EVALCOMPLETED instances, or not "
+             f"the one-liner it printed ({one_liner!r})")
+    result = json.loads(done[0].evaluator_results_json)
+    cli_scores = [s["score"] for s in result["engineParamsScores"]]
+
+    # the sequential oracle: the same candidates, no prefetch, on the card
+    sys.path.insert(0, store)
+    storage = Storage.from_env(el_env)
+    set_storage(storage)
     try:
-        rng = np.random.default_rng(SEED + 3)
-        n_users, n_items, n = 943, 1682, 100_000
-        us = rng.integers(1, n_users + 1, n)
-        its = rng.integers(1, n_items + 1, n)
-        rs = rng.integers(1, 6, n)
-        t0 = dt.datetime(1998, 1, 1, tzinfo=dt.timezone.utc)
-        lines = [json.dumps({k: v for k, v in Event(
-            event="rate", entity_type="user", entity_id=f"u{u}",
-            target_entity_type="item", target_entity_id=f"i{i}",
-            properties={"rating": float(r)},
-            event_time=t0 + dt.timedelta(seconds=j)).to_dict(True).items()
-            if k not in ("eventId", "creationTime")}, sort_keys=True)
-            for j, (u, i, r) in enumerate(zip(us, its, rs))]
-        jsonl = os.path.join(store, "ml100k.jsonl")
-        with open(jsonl, "w") as f:
-            f.write("\n".join(lines) + "\n")
-        want = set(lines)
-        sub_env = {**os.environ, **env, "PYTHONPATH": root}
-        cli = [sys.executable, "-m", "predictionio_torch.tools.cli"]
-        # the events go in through the CLI: app new, import, export back
-        cli_io = cli_app_with_events(cli, sub_env, store, "ml100k", jsonl,
-                                     want, "localfs")
-        rng = np.random.default_rng(SEED + 4)
-        queries = [{"user": f"u{u}", "num": 10}
-                   for u in rng.integers(1, n_users + 1, 10)]
-        queries += [{"item": f"i{i}", "num": 5}
-                    for i in rng.integers(1, n_items + 1, 5)]
-
-        engine_json = os.path.join(store, "engine.json")
-        with open(engine_json, "w") as f:
-            json.dump({
-                "id": "default", "engineId": "ml100k-tt",
-                "engineFactory":
-                    "predictionio_torch.templates.twotower.twotower_engine",
-                "datasource": {"params": {"app_name": "ml100k"}},
-                "algorithms": [{"name": "twotower", "params": {
-                    "dim": 64, "batch_size": 1024, "epochs": 5}}]}, f)
-        tt = cli_train_and_deploy(cli, engine_json, "ml100k-tt", env,
-                                  sub_env, store, queries, "two-tower")
-        model = tt["model"]
-        plan = model.kernel_plan
-        if not (plan["flash_ce"] and plan["embed_update"]):
-            fail(f"pio train did not run both kernels: {plan}")
-        if not model.train_losses[-1] < model.train_losses[0]:
-            fail(f"pio train losses did not fall: {model.train_losses}")
-
-        als_json = os.path.join(store, "engine-als.json")
-        with open(als_json, "w") as f:
-            json.dump({
-                "id": "default", "engineId": "ml100k-als",
-                "engineFactory": ("predictionio_torch.templates."
-                                  "recommendation.recommendation_engine"),
-                "datasource": {"params": {"app_name": "ml100k"}},
-                "algorithms": [{"name": "als", "params": {
-                    "rank": 16, "num_iterations": 10}}]}, f)
-        als = cli_train_and_deploy(cli, als_json, "ml100k-als", env,
-                                   sub_env, store, queries, "ALS")
-        als_model = als["model"]
-        if not (np.all(np.isfinite(als_model.user_factors))
-                and np.all(np.isfinite(als_model.item_factors))):
-            fail("pio train (ALS) stored factors that are not finite")
-
-        # the same events in an eventlog store, through the CLI too: pio
-        # train takes the binned lane (its log says so) and pio deploy
-        # serves the model
-        el_env = {"PIO_STORAGE_SOURCES_EL_TYPE": "eventlog",
-                  "PIO_STORAGE_SOURCES_EL_PATH": os.path.join(store, "el")}
-        el_sub_env = {**os.environ, **el_env, "PYTHONPATH": root,
-                      "PIO_BIN_CACHE_DIR": os.path.join(store, "bin_cache")}
-        el_io = cli_app_with_events(cli, el_sub_env, store, "ml100k", jsonl,
-                                    want, "eventlog")
-        el_json = os.path.join(store, "engine-als-eventlog.json")
-        with open(el_json, "w") as f:
-            json.dump({"id": "default", "engineId": "ml100k-als-el",
-                       "engineFactory": ("predictionio_torch.templates."
-                                         "recommendation."
-                                         "recommendation_engine"),
-                       "datasource": {"params": {"app_name": "ml100k"}},
-                       "algorithms": [{"name": "als", "params": {
-                           "rank": 16, "num_iterations": 10}}]}, f)
-        el = cli_train_and_deploy(cli, el_json, "ml100k-als-el", el_env,
-                                  el_sub_env, store, queries,
-                                  "ALS, eventlog")
-        lane = [line for line in el["train_log"].splitlines()
-                if "ALS trained on the binned lane" in line]
-        if len(lane) != 1:
-            fail(f"pio train on eventlog did not log the binned lane: "
-                 f"{el['train_log'][-2000:]}")
-        if len(el["model"].user_ids) != len(als_model.user_ids):
-            fail("pio train on eventlog saw other users than on localfs")
-        return {"events": n, "cli_io": cli_io, "cli_io_eventlog": el_io,
-                "train_sec": tt["train_sec"],
-                "losses": model.train_losses, "kernel_plan": plan,
-                "queries": len(queries), "instance": tt["instance"],
-                "als": {"train_sec": als["train_sec"],
-                        "instance": als["instance"],
-                        "rank": int(als_model.item_factors.shape[1]),
-                        "queries": len(queries)},
-                "als_eventlog": {"train_sec": el["train_sec"],
-                                 "instance": el["instance"],
-                                 "train_log": lane[0][-600:],
-                                 "queries": len(queries)}}
+        module = importlib.import_module("pio_eval_ml100k")
+        evaluation, candidates = module.Eval, module.Gen().engine_params_list
+        t0 = time.perf_counter()
+        ctx = DeviceContext("cuda")
+        workflow = FastEvalEngineWorkflow(evaluation.engine, ctx)
+        seq_scores = [evaluation.metric.calculate(ctx, workflow.eval(ep))
+                      for ep in candidates]
+        seq_sec = time.perf_counter() - t0
     finally:
-        shutil.rmtree(store, ignore_errors=True)
+        set_storage(None)
+        storage.events().close()
+        sys.path.remove(store)
+    if workflow.counts["train"] != len(EVAL_REGS) or \
+            workflow.counts["grid_dispatches"]:
+        fail(f"the sequential oracle did not train one by one: "
+             f"{workflow.counts}")
+    diff = np.abs(np.array(cli_scores) - np.array(seq_scores))
+    if not np.allclose(cli_scores, seq_scores, rtol=1e-4, atol=1e-5) or \
+            np.argsort(cli_scores).tolist() != \
+            np.argsort(seq_scores).tolist():
+        fail(f"pio eval scores {cli_scores} do not match the sequential "
+             f"evaluation's {seq_scores}")
+    return {"cli_sec": cli_sec, "one_liner": one_liner,
+            "grid_log": [line for line in out.stderr.splitlines()
+                         if "grid tuning" in line or "ALS grid of" in line],
+            "scores": cli_scores, "sequential_scores": seq_scores,
+            "max_abs_diff": float(diff.max()), "sequential_sec": seq_sec,
+            "best_idx": result["bestIdx"]}
+
+
+def eval_phase(ratings, seq_rmse: float, store: str) -> dict:
+    t0 = time.perf_counter()
+    grid = grid_phase(ratings, seq_rmse)
+    t1 = time.perf_counter()
+    pio_eval = pio_eval_phase(store)
+    return {"grid": grid, "grid_phase_sec": t1 - t0, "pio_eval": pio_eval,
+            "pio_eval_phase_sec": time.perf_counter() - t1}
 
 
 def main() -> int:
@@ -2131,7 +2377,6 @@ def main() -> int:
     ingest = ingest_phase(ratings, als["profile"])
     print(json.dumps({"ingest": ingest}), flush=True)
     front_door = front_door_phase(ratings)
-    del ratings
     print(json.dumps({"front_door": {**front_door, "card": card}}),
           flush=True)
     topk["launches_by_path"] = {
@@ -2139,7 +2384,15 @@ def main() -> int:
         "als_train_deploy": als["topk_dot_launches"],
         "ingest_deploy": ingest["topk_dot_launches"],
         "front_door_deploy": front_door["topk_dot_launches"]}
-    print(json.dumps({"pio_train": pio_train_phase()}), flush=True)
+    store = tempfile.mkdtemp(prefix="pio_chip_smoke_ml100k_")
+    try:
+        print(json.dumps({"pio_train": pio_train_phase(store)}), flush=True)
+        evaluation = eval_phase(ratings, als["algorithm_rmse_heldout"],
+                                store)
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    del ratings
+    print(json.dumps({"eval": {**evaluation, "card": card}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [topk, flash, embed]}), flush=True)
     print(json.dumps({"ok": True, "device": {

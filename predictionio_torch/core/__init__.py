@@ -4,13 +4,15 @@
 from predictionio_torch.core.params import Params, EmptyParams, EngineParams
 from predictionio_torch.core.controller import (
     Algorithm,
+    AverageServing,
     DataSource,
     FirstServing,
+    IdentityPreparator,
     Preparator,
     SanityCheck,
     Serving,
 )
-from predictionio_torch.core.engine import Engine, EngineFactory
+from predictionio_torch.core.engine import Engine, EngineFactory, TrainResult
 
 __all__ = [
     "Params",
@@ -18,10 +20,13 @@ __all__ = [
     "EngineParams",
     "DataSource",
     "Preparator",
+    "IdentityPreparator",
     "SanityCheck",
     "Algorithm",
     "Serving",
     "FirstServing",
+    "AverageServing",
     "Engine",
     "EngineFactory",
+    "TrainResult",
 ]

@@ -5,10 +5,10 @@ that took a ``MeshContext`` takes a ``DeviceContext``. Behavior
 contracts from the reference controller layer:
 
   - DataSource  (ref: controller/PDataSource.scala:34, LDataSource.scala:35)
-  - Preparator  (ref: controller/PPreparator.scala:30)
+  - Preparator  (ref: controller/PPreparator.scala:30, IdentityPreparator.scala:31)
   - Algorithm   (ref: controller/PAlgorithm.scala:45, P2LAlgorithm.scala:42,
                  LAlgorithm.scala:41 — collapsed into one class)
-  - Serving     (ref: controller/LServing.scala:26 + LFirstServing)
+  - Serving     (ref: controller/LServing.scala:26 + LFirstServing/LAverageServing)
   - SanityCheck (ref: controller/SanityCheck.scala:24)
 """
 
@@ -61,11 +61,25 @@ class DataSource(Doer):
     def read_training(self, ctx: DeviceContext) -> Any:
         """ref: PDataSource.readTraining"""
 
+    def read_eval(self, ctx: DeviceContext
+                  ) -> List[Tuple[Any, Any, List[Tuple[Any, Any]]]]:
+        """k folds of (training data, eval info, (query, actual) pairs).
+
+        ref: PDataSource.readEval — default: no eval data."""
+        return []
+
 
 class Preparator(Doer):
     @abc.abstractmethod
     def prepare(self, ctx: DeviceContext, training_data: Any) -> Any:
         """ref: PPreparator.prepare"""
+
+
+class IdentityPreparator(Preparator):
+    """Pass-through (ref: IdentityPreparator.scala:31)."""
+
+    def prepare(self, ctx: DeviceContext, training_data):
+        return training_data
 
 
 class Algorithm(Doer):
@@ -84,6 +98,14 @@ class Algorithm(Doer):
                       ) -> List[Tuple[int, Any]]:
         """ref: P2LAlgorithm.batchPredict default — mapValues(predict)."""
         return [(i, self.predict(model, q)) for i, q in queries]
+
+    def make_persistent_model(self, model: Any) -> Any:
+        """The trained model -> its persisted form (ref:
+        PAlgorithm.makePersistentModel:98). Default: the model itself,
+        pickled into the Models repo; a ``PersistentModel``
+        (``core/persistent_model.py``) saves itself instead and leaves a
+        manifest there."""
+        return model
 
     def load_persistent_model(self, persisted: Any, ctx: DeviceContext) -> Any:
         """The persisted model -> the model that serves, at deploy time."""
@@ -113,3 +135,10 @@ class FirstServing(Serving):
 
     def serve(self, query, predictions):
         return predictions[0]
+
+
+class AverageServing(Serving):
+    """Arithmetic mean of numeric predictions (ref: LAverageServing.scala:25)."""
+
+    def serve(self, query, predictions):
+        return sum(predictions) / len(predictions)

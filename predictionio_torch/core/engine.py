@@ -1,11 +1,13 @@
 """The Engine: named DASE component maps + variant parsing.
 
-Counterpart of ``predictionio_tpu/core/engine.py`` for what ``pio
-train`` and ``pio deploy`` need (ref: controller/Engine.scala): an
-Engine holds maps of named component classes per DASE slot; an
-EngineParams picks one name per slot; engine.json variants become
-EngineParams; ``train`` reads, prepares and fits (ref: object
-Engine.train:583). ``eval`` waits for the evaluation slice.
+Counterpart of ``predictionio_tpu/core/engine.py`` (ref:
+controller/Engine.scala): an Engine holds maps of named component
+classes per DASE slot; an EngineParams picks one name per slot;
+engine.json variants become EngineParams; ``train`` reads, prepares and
+fits (ref: object Engine.train:583); ``eval`` does the same per fold of
+the DataSource's eval data, batch-predicts each algorithm over the
+fold's queries, regroups the predictions per query and serves them
+(ref: object Engine.eval:688).
 
 ``resolve_engine_factory`` reads factory paths written for either
 package: a path under ``predictionio_tpu.`` resolves to the same path
@@ -147,6 +149,30 @@ class Engine:
             _sanity(model, wp, f"model {i}")
             models.append(model)
         return TrainResult(models=models, training_data=td, prepared_data=pd)
+
+    def eval(self, ctx: DeviceContext, engine_params: EngineParams,
+             workflow_params: Optional[WorkflowParams] = None
+             ) -> List[Tuple[Any, List[Tuple[Any, Any, Any]]]]:
+        """Per fold: (eval info, [(query, prediction, actual)])."""
+        data_source = self.make_data_source(engine_params)
+        preparator = self.make_preparator(engine_params)
+        algorithms = self.make_algorithms(engine_params)
+        serving = self.make_serving(engine_params)
+        results = []
+        for td, ei, qa_pairs in data_source.read_eval(ctx):
+            pd = preparator.prepare(ctx, td)
+            models = [algo.train(ctx, pd) for algo in algorithms]
+            indexed_queries = [(i, q) for i, (q, _a) in enumerate(qa_pairs)]
+            # one batch predict per algorithm, regrouped per query index
+            # (ref: Engine.scala:737-750 union + groupByKey)
+            per_query: Dict[int, List[Any]] = {i: [] for i, _ in
+                                               indexed_queries}
+            for algo, model in zip(algorithms, models):
+                for i, p in algo.batch_predict(model, indexed_queries):
+                    per_query[i].append(p)
+            results.append((ei, [(q, serving.serve(q, per_query[i]), a)
+                                 for i, (q, a) in enumerate(qa_pairs)]))
+        return results
 
     # -- variant JSON -> EngineParams (ref: Engine.jValueToEngineParams:328) --
     def engine_params_from_variant(self, variant: Dict[str, Any]) -> EngineParams:

@@ -909,6 +909,9 @@ class EventLogStorageClient(S.StorageClient):
     def engine_instances(self):
         return self._meta.engine_instances()
 
+    def evaluation_instances(self):
+        return self._meta.evaluation_instances()
+
     def models(self):
         return self._meta.models()
 

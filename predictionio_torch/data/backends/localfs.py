@@ -1,5 +1,5 @@
 """Local-filesystem storage backend: events, apps, access keys,
-channels, engine instances and model blobs.
+channels, engine and evaluation instances and model blobs.
 
 The on-disk format is ``predictionio_tpu/data/backends/localfs.py``'s,
 so the port reads what the JAX package wrote and the other way round:
@@ -9,15 +9,16 @@ so the port reads what the JAX package wrote and the other way round:
                 deletion as a ``{"__tombstone__": id}`` line (ref: hbase
                 tables ``events_<appId>[_<channelId>]``)
   - metadata -> one JSON document ``<root>/metadata.json``; apps,
-                access keys, channels and engine instances are its
-                ``"apps"``, ``"access_keys"``, ``"channels"`` and
-                ``"engine_instances"`` lists, id counters its
-                ``"sequences"`` (ref: elasticsearch indices)
+                access keys, channels, engine and evaluation instances
+                are its ``"apps"``, ``"access_keys"``, ``"channels"``,
+                ``"engine_instances"`` and ``"evaluation_instances"``
+                lists, id counters its ``"sequences"`` (ref:
+                elasticsearch indices)
   - models   -> blob files ``<root>/models/pio_<id>``
                 (ref: localfs/LocalFSModels.scala:29)
 
-Every other section of the metadata document (manifests, evaluation
-instances) is written back as it was read. Reads and writes hold the same
+Every other section of the metadata document (engine manifests) is
+written back as it was read. Reads and writes hold the same
 exclusive ``flock`` on ``<root>/.metadata.lock`` as the JAX backend, so
 processes of both packages can share one root; writes are atomic
 renames. An event log is read once per process and table and then kept
@@ -40,7 +41,8 @@ from predictionio_torch.data import storage as S
 from predictionio_torch.data.backends.memory import MemoryEventStore, table_key
 from predictionio_torch.data.event import Event
 from predictionio_torch.data.metadata import (AccessKey, App, Channel,
-                                              EngineInstance, Model,
+                                              EngineInstance,
+                                              EvaluationInstance, Model,
                                               dict_to_record, record_to_dict)
 
 log = logging.getLogger(__name__)
@@ -367,6 +369,26 @@ class LocalFSEngineInstancesRepo(S.EngineInstancesRepo):
         return self._doc.records("engine_instances", EngineInstance)
 
 
+class LocalFSEvaluationInstancesRepo(S.EvaluationInstancesRepo):
+    def __init__(self, doc: _MetadataDoc):
+        self._doc = doc
+
+    def insert(self, instance: EvaluationInstance) -> str:
+        if not instance.id:
+            instance.id = uuid.uuid4().hex
+        self._doc.upsert("evaluation_instances", "id", instance)
+        return instance.id
+
+    def get(self, id: str) -> Optional[EvaluationInstance]:
+        return next((r for r in self.get_all() if r.id == id), None)
+
+    def get_all(self) -> List[EvaluationInstance]:
+        return self._doc.records("evaluation_instances", EvaluationInstance)
+
+    def delete(self, id: str) -> None:
+        self._doc.remove("evaluation_instances", "id", id)
+
+
 class LocalFSStorageClient(S.StorageClient):
     """Directory-rooted storage source; ``PATH`` config key sets the root."""
 
@@ -379,6 +401,7 @@ class LocalFSStorageClient(S.StorageClient):
         self._access_keys = LocalFSAccessKeysRepo(doc)
         self._channels = LocalFSChannelsRepo(doc)
         self._engine_instances = LocalFSEngineInstancesRepo(doc)
+        self._evaluation_instances = LocalFSEvaluationInstancesRepo(doc)
         self._models = LocalFSModelsRepo(basedir)
 
     def events(self): return self._events
@@ -386,6 +409,7 @@ class LocalFSStorageClient(S.StorageClient):
     def access_keys(self): return self._access_keys
     def channels(self): return self._channels
     def engine_instances(self): return self._engine_instances
+    def evaluation_instances(self): return self._evaluation_instances
     def models(self): return self._models
 
 

@@ -1,5 +1,5 @@
 """In-memory storage backend: events, apps, access keys, channels,
-engine instances and model blobs.
+engine and evaluation instances and model blobs.
 
 Copy of the corresponding parts of
 ``predictionio_tpu/data/backends/memory.py``: plain dicts under one
@@ -17,7 +17,8 @@ from typing import Dict, List, Optional, Tuple
 from predictionio_torch.data import storage as S
 from predictionio_torch.data.event import Event
 from predictionio_torch.data.metadata import (AccessKey, App, Channel,
-                                              EngineInstance, Model)
+                                              EngineInstance,
+                                              EvaluationInstance, Model)
 
 
 def table_key(app_id: int, channel_id: Optional[int]
@@ -256,6 +257,27 @@ class MemoryEngineInstancesRepo(S.EngineInstancesRepo):
             return [copy.deepcopy(r) for r in self._records.values()]
 
 
+class MemoryEvaluationInstancesRepo(_RecordRepo, S.EvaluationInstancesRepo):
+    def insert(self, instance: EvaluationInstance) -> str:
+        with self._lock:
+            if not instance.id:
+                instance.id = uuid.uuid4().hex
+            self._put(instance.id, instance)
+            return instance.id
+
+    def get(self, id):
+        with self._lock:
+            return self._get(id)
+
+    def get_all(self):
+        with self._lock:
+            return [copy.deepcopy(r) for r in self._records.values()]
+
+    def delete(self, id):
+        with self._lock:
+            self._records.pop(id, None)
+
+
 class MemoryModelsRepo(S.ModelsRepo):
     def __init__(self, lock: threading.RLock):
         self._models: Dict[str, Model] = {}
@@ -281,6 +303,7 @@ class MemoryStorageClient(S.StorageClient):
         self._access_keys = MemoryAccessKeysRepo(lock)
         self._channels = MemoryChannelsRepo(sequences, lock)
         self._engine_instances = MemoryEngineInstancesRepo(lock)
+        self._evaluation_instances = MemoryEvaluationInstancesRepo(lock)
         self._models = MemoryModelsRepo(lock)
 
     def events(self): return self._events
@@ -288,6 +311,7 @@ class MemoryStorageClient(S.StorageClient):
     def access_keys(self): return self._access_keys
     def channels(self): return self._channels
     def engine_instances(self): return self._engine_instances
+    def evaluation_instances(self): return self._evaluation_instances
     def models(self): return self._models
 
 

@@ -1,9 +1,11 @@
-"""Metadata records: apps, channels, engine instances and model blobs.
+"""Metadata records: apps, channels, engine and evaluation instances
+and model blobs.
 
 Copy of ``predictionio_tpu/data/metadata.py`` trimmed to the records
-the event server, the app and access-key commands, ``pio train`` and
-``pio deploy`` use (ref: Apps.scala:27, AccessKeys.scala:27,
-Channels.scala:27, EngineInstances.scala:34, Models.scala:30). The
+the event server, the app and access-key commands, ``pio train``,
+``pio deploy`` and ``pio eval`` use (ref: Apps.scala:27,
+AccessKeys.scala:27, Channels.scala:27, EngineInstances.scala:34,
+EvaluationInstances.scala:38, Models.scala:30). The
 field names and the JSON form (``record_to_dict`` / ``dict_to_record``)
 are the storage format both packages share, so each reads what the
 other wrote.
@@ -77,6 +79,22 @@ class EngineInstance:
     preparator_params: str = ""
     algorithms_params: str = ""
     serving_params: str = ""
+
+
+@dataclass
+class EvaluationInstance:
+    """One evaluation run (ref: EvaluationInstances.scala:38)."""
+    id: str
+    status: str  # INIT | EVALUATING | EVALCOMPLETED | FAILED
+    start_time: _dt.datetime
+    end_time: _dt.datetime
+    evaluation_class: str = ""
+    engine_params_generator_class: str = ""
+    batch: str = ""
+    env: Dict[str, str] = field(default_factory=dict)
+    evaluator_results: str = ""
+    evaluator_results_html: str = ""
+    evaluator_results_json: str = ""
 
 
 @dataclass

@@ -2,11 +2,11 @@
 
 Copy of ``predictionio_tpu/data/storage.py`` trimmed to what the event
 server, the app and access-key commands, ``pio train`` and ``pio
-deploy`` use: the EVENTDATA repository (events:
+deploy`` and ``pio eval`` use: the EVENTDATA repository (events:
 appended one by one, in batches or as dict-encoded columns; read by id,
 by a filtered scan, as dict-encoded columns, or binned straight into the
 ALS layout by the native event log), the apps, access keys and channels that
-name an event table, engine instances and model blobs. The env-var
+name an event table, engine and evaluation instances and model blobs. The env-var
 contract is the same (ref: Storage.scala:40,151,183): sources are
 declared with ``PIO_STORAGE_SOURCES_<NAME>_TYPE`` (+ per-type config)
 and repositories are mapped onto them with
@@ -31,7 +31,8 @@ import numpy as np
 
 from predictionio_torch.data.event import Event
 from predictionio_torch.data.metadata import (AccessKey, App, Channel,
-                                              EngineInstance, Model)
+                                              EngineInstance,
+                                              EvaluationInstance, Model)
 
 log = logging.getLogger(__name__)
 
@@ -344,6 +345,30 @@ class EngineInstancesRepo(abc.ABC):
         return completed[0] if completed else None
 
 
+class EvaluationInstancesRepo(abc.ABC):
+    """ref: EvaluationInstances.scala"""
+
+    @abc.abstractmethod
+    def insert(self, instance: EvaluationInstance) -> str: ...
+    @abc.abstractmethod
+    def get(self, id: str) -> Optional[EvaluationInstance]: ...
+    @abc.abstractmethod
+    def get_all(self) -> List[EvaluationInstance]: ...
+    @abc.abstractmethod
+    def delete(self, id: str) -> None: ...
+
+    def update(self, instance: EvaluationInstance) -> None:
+        """Replace the record under its id (insert is an upsert)."""
+        self.insert(instance)
+
+    def get_completed(self) -> List[EvaluationInstance]:
+        """ref: EvaluationInstances.getCompleted — EVALCOMPLETED runs,
+        newest first."""
+        out = [i for i in self.get_all() if i.status == "EVALCOMPLETED"]
+        out.sort(key=lambda i: i.start_time, reverse=True)
+        return out
+
+
 class ModelsRepo(abc.ABC):
     """ref: Models.scala — model blobs keyed by engine-instance id."""
 
@@ -368,6 +393,8 @@ class StorageClient(abc.ABC):
     def channels(self) -> ChannelsRepo: ...
     @abc.abstractmethod
     def engine_instances(self) -> EngineInstancesRepo: ...
+    @abc.abstractmethod
+    def evaluation_instances(self) -> EvaluationInstancesRepo: ...
     @abc.abstractmethod
     def models(self) -> ModelsRepo: ...
 
@@ -441,6 +468,9 @@ class Storage:
 
     def engine_instances(self) -> EngineInstancesRepo:
         return self.client_for("METADATA").engine_instances()
+
+    def evaluation_instances(self) -> EvaluationInstancesRepo:
+        return self.client_for("METADATA").evaluation_instances()
 
     def models(self) -> ModelsRepo:
         return self.client_for("MODELDATA").models()

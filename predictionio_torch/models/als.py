@@ -23,6 +23,9 @@ Either way the layout cache (``ops/bincache.py``), keyed by the data
 fingerprint, lets a retrain on unchanged events skip the read and the
 binning. ALS trains through ``ops/als.py`` on the context's device; the
 two-tower model (``models/twotower.py``) trains on the same data.
+``ALSAlgorithm.grid_train`` trains the candidates of a ``pio eval``
+sweep that differ only in ``lambda_``, ``alpha``, ``num_iterations`` and
+``cg_iters`` at once (``ops.als.ALSGridTrainer``).
 """
 
 from __future__ import annotations
@@ -39,10 +42,10 @@ import torch
 from predictionio_torch.core import Algorithm, SanityCheck
 from predictionio_torch.core.params import Params
 from predictionio_torch.data.bimap import BiMap
-from predictionio_torch.ops.als import (ALSConfig, ALSTrainer,
-                                        als_row_cost_slots, layout_cache_key,
-                                        load_layout, save_layout,
-                                        side_layout_from_binned)
+from predictionio_torch.ops.als import (ALSConfig, ALSGridTrainer,
+                                        ALSTrainer, als_row_cost_slots,
+                                        layout_cache_key, load_layout,
+                                        save_layout, side_layout_from_binned)
 from predictionio_torch.ops.topk import TopKScorer
 from predictionio_torch.parallel.context import (DeviceContext, DeviceLike,
                                                  resolve_device)
@@ -367,21 +370,7 @@ class ALSAlgorithm(Algorithm):
         cache keeps under ``pd.fingerprint``. ``last_train`` then holds
         the lane taken and its one-time costs in seconds."""
         p: ALSParams = self.params
-        cfg = ALSConfig(
-            rank=p.rank,
-            iterations=p.num_iterations,
-            reg=p.lambda_,
-            implicit=p.implicit_prefs,
-            alpha=p.alpha,
-            block_size=p.block_size,
-            seed=p.seed,
-            seg_len=p.seg_len,
-            solver=p.solver,
-            cg_iters=p.cg_iters,
-            cg_precond=p.cg_precond,
-            cg_dtype=p.cg_dtype,
-            compute_dtype=p.compute_dtype,
-        )
+        cfg = self._config(p)
         if pd.binned_request is not None:
             return self._train_binned(ctx, pd, cfg)
         trainer = ALSTrainer(
@@ -391,6 +380,70 @@ class ALSAlgorithm(Algorithm):
             max_ratings_per_item=p.max_ratings_per_item,
             cache_key=pd.fingerprint)
         return self._fit(trainer, "coo", pd.user_ids, pd.item_ids)
+
+    @staticmethod
+    def _config(p: ALSParams) -> ALSConfig:
+        return ALSConfig(rank=p.rank, iterations=p.num_iterations,
+                         reg=p.lambda_, implicit=p.implicit_prefs,
+                         alpha=p.alpha, block_size=p.block_size, seed=p.seed,
+                         seg_len=p.seg_len, solver=p.solver,
+                         cg_iters=p.cg_iters, cg_precond=p.cg_precond,
+                         cg_dtype=p.cg_dtype, compute_dtype=p.compute_dtype)
+
+    #: the params grid candidates may differ in
+    GRID_SCALARS = ("lambda_", "alpha", "num_iterations", "cg_iters")
+
+    @classmethod
+    def grid_train(cls, ctx: DeviceContext, pd: PreparedRatings,
+                   params_list: Sequence[ALSParams]
+                   ) -> Optional[List[ALSModel]]:
+        """Train every candidate at once when they differ only in
+        ``GRID_SCALARS`` (iteration counts and CG steps ride as
+        per-candidate budgets: the grid runs to the largest and freezes
+        a candidate once its budget is spent), on the context's device
+        (``ops.als.ALSGridTrainer``); the tuning path behind
+        MetricEvaluator (ref role: MetricEvaluator over engineParamsList,
+        MetricEvaluator.scala:177, which trains each candidate).
+
+        Returns one model per candidate, or None where the grid does not
+        apply: fewer than 2 candidates, the binned lane (no COO to build
+        the grid's layout from; sequential trains share the cached
+        layout instead), per-row rating caps (the grid's sides are
+        uncapped, and a grid must not train other data than the
+        sequential path), or params that differ in anything else. The
+        JAX package also declines a multi-device mesh; the port trains
+        on one device per process, so there is no such case here."""
+        if len(params_list) < 2 or pd.binned_request is not None:
+            return None
+        base = params_list[0]
+        for p in params_list:
+            if not isinstance(p, ALSParams):
+                return None
+            a, b = dict(vars(p)), dict(vars(base))
+            for k in cls.GRID_SCALARS:
+                a.pop(k), b.pop(k)
+            if a != b:
+                return None
+        if (base.max_ratings_per_user is not None
+                or base.max_ratings_per_item is not None):
+            return None
+        t0 = time.perf_counter()
+        trainer = ALSGridTrainer(
+            (pd.user_idx, pd.item_idx, pd.ratings), pd.n_users, pd.n_items,
+            cls._config(base), regs=[p.lambda_ for p in params_list],
+            alphas=[p.alpha for p in params_list],
+            iterations=[p.num_iterations for p in params_list],
+            cg_iters=[p.cg_iters for p in params_list], device=ctx.device)
+        t1 = time.perf_counter()
+        factors = trainer.run()
+        log.info("ALS grid of %d candidates trained: %s", len(params_list),
+                 {"bin_sec": trainer.bin_sec, "put_sec": trainer.put_sec,
+                  "setup_sec": t1 - t0,
+                  "train_sec": time.perf_counter() - t1})
+        return [ALSModel(f.user_factors, f.item_factors, pd.user_ids,
+                         pd.item_ids, index_backend=base.index_backend,
+                         index_kernel=base.index_kernel).to(trainer.device)
+                for f in factors]
 
     def _train_binned(self, ctx: DeviceContext, pd: PreparedRatings,
                       cfg: ALSConfig) -> ALSModel:
@@ -452,9 +505,11 @@ class ALSAlgorithm(Algorithm):
             "put_sec": trainer.put_sec,
             "train_sec": time.perf_counter() - t0}
         log.info("ALS trained on the %s lane: %s", lane, self.last_train)
+        # the model serves from the device it trained on (Engine.eval
+        # scores it there) until a deploy moves it
         return ALSModel(factors.user_factors, factors.item_factors,
                         user_ids, item_ids, index_backend=p.index_backend,
-                        index_kernel=p.index_kernel)
+                        index_kernel=p.index_kernel).to(trainer.device)
 
     def apply_patch(self, model: ALSModel, patch: dict) -> bool:
         return apply_rows_patch(model, patch)

@@ -34,10 +34,14 @@ native one-pass builder at scale, ``ops/ragged.py``), prebuilt by the
 event log's fused scan+bin (``ALSTrainer.from_sides``), or loaded from
 the layout cache (``ops/bincache.py``) under ``layout_cache_key``.
 
+Grid training (``als_grid_train``, ``ALSGridTrainer``) trains the
+candidates of a hyperparameter sweep at once, folded into the batch
+dimension of each half-step (``GridHalfStep``).
+
 Not ported here (ROADMAP.md, queue 1): the chunked double-buffered
-transfer, grid training (item 4), the streaming fold-in solve (item 5),
-the gather roof probe (item 3), the observability hooks (item 10) and
-the sharded half-step (item 12).
+transfer, the streaming fold-in solve (item 5), the gather roof probe
+(item 3), the observability hooks (item 10) and the sharded half-step
+(item 12).
 """
 
 from __future__ import annotations
@@ -121,10 +125,30 @@ def _build_side(
     )
 
 
+def _bmv(M: torch.Tensor, v: torch.Tensor, groups: int = 1) -> torch.Tensor:
+    """Batched matrix-vector product ``M [B, m, n] @ v [B, n]`` ->
+    ``[B, m]``, one call per group when the batch holds ``groups`` equal
+    groups (a grid's candidates). cuBLAS picks its batched
+    matrix-vector kernel by the batch count, so one call over G
+    candidates' systems rounds otherwise than a train of one candidate
+    (measured on an H100); a call per candidate gives a grid candidate
+    the bits of its sequential train."""
+    if groups == 1:
+        return torch.bmm(M, v.unsqueeze(-1)).squeeze(-1)
+    out = torch.empty((M.shape[0], M.shape[1], 1), dtype=M.dtype,
+                      device=M.device)
+    B = M.shape[0] // groups
+    for s in range(0, M.shape[0], B):
+        torch.bmm(M[s:s + B], v[s:s + B].unsqueeze(-1), out=out[s:s + B])
+    return out.squeeze(-1)
+
+
 def _batched_cg(A: torch.Tensor, b: torch.Tensor, iters: int,
                 x0: Optional[torch.Tensor] = None,
                 matvec_dtype: torch.dtype = torch.float32,
-                precond: str = "none") -> torch.Tensor:
+                precond: str = "none",
+                active_steps: Optional[torch.Tensor] = None,
+                groups: int = 1) -> torch.Tensor:
     """Batched conjugate gradient for SPD K x K systems ``A [B, K, K]``,
     ``b [B, K]``; ``x0`` warm-starts it.
 
@@ -136,12 +160,18 @@ def _batched_cg(A: torch.Tensor, b: torch.Tensor, iters: int,
 
     ``precond="jacobi"`` preconditions with M = diag(A), taken from the
     f32 A before the matvec's rounding: the reg * n_u shift spans orders
-    of magnitude, and bf16 would quantize the equalization."""
+    of magnitude, and bf16 would quantize the equalization.
+
+    ``active_steps`` (``[B]`` ints) gives each system a step budget, as
+    the grid's candidates need: steps past a system's budget are
+    computed, but its ``x``, ``r``, ``p`` and ``rs`` stay frozen, so a
+    system with budget 4 ends where a 4-step solve ends. ``groups``: the
+    systems are that many equal groups, whose matvecs go one call each
+    (``_bmv``)."""
     Am = A.to(matvec_dtype).float()
 
     def matvec(v):
-        return torch.bmm(Am, v.to(matvec_dtype).float().unsqueeze(-1)
-                         ).squeeze(-1)
+        return _bmv(Am, v.to(matvec_dtype).float(), groups)
 
     if precond == "jacobi":
         Minv = 1.0 / (torch.diagonal(A, dim1=-2, dim2=-1) + 1e-20)
@@ -165,15 +195,21 @@ def _batched_cg(A: torch.Tensor, b: torch.Tensor, iters: int,
     z = prec(r)
     p = z
     rs = (r * z).sum(-1)
-    for _ in range(iters):
+    for k in range(iters):
         Ap = matvec(p)
         alpha = rs / ((p * Ap).sum(-1) + 1e-20)
-        x = x + alpha[:, None] * p
-        r = r - alpha[:, None] * Ap
-        z = prec(r)
-        rs1 = (r * z).sum(-1)
-        p = z + (rs1 / (rs + 1e-20))[:, None] * p
-        rs = rs1
+        x1 = x + alpha[:, None] * p
+        r1 = r - alpha[:, None] * Ap
+        z = prec(r1)
+        rs1 = (r1 * z).sum(-1)
+        p1 = z + (rs1 / (rs + 1e-20))[:, None] * p
+        if active_steps is not None:
+            on = k < active_steps
+            x1 = torch.where(on[:, None], x1, x)
+            r1 = torch.where(on[:, None], r1, r)
+            p1 = torch.where(on[:, None], p1, p)
+            rs1 = torch.where(on, rs1, rs)
+        x, r, p, rs = x1, r1, p1, rs1
     return x
 
 
@@ -262,7 +298,7 @@ class HalfStep:
             else:
                 torch.bmm(YgT, Ygf, out=Ar[s:e])
                 rhs = val_b.to(cdt).float()
-            br[s:e] = torch.bmm(YgT, rhs.unsqueeze(-1)).squeeze(-1)
+            br[s:e] = _bmv(YgT, rhs)
         return Ar, br
 
     def segment_sum(self, Ar, br, seg):
@@ -844,6 +880,278 @@ def als_train(
         max_ratings_per_item=max_ratings_per_item,
         cache_key=cache_key,
     ).run()
+
+
+class GridHalfStep(HalfStep):
+    """The half-steps of G candidates that differ only in ``reg``,
+    ``alpha`` and the CG budget, over one side's uncompressed layout, at
+    once: the candidates ride the batch dimension, so a grid alternation
+    launches about what one train's does. Called as ``(Y, X_prev, idx,
+    val, mask, seg, counts)`` with ``Y [G, n_opposing, K]`` and ``X_prev
+    [G, groups, K]``; returns ``[G, groups, K]``.
+
+    Per row block, the G opposing tables are gathered as one flat
+    ``[G * n, K]`` table (candidate g's indexes offset by ``g * n``),
+    the G blocks of Gramians come from one ``bmm``, and one
+    ``index_add_`` sums them into ``[G * groups, K, K]`` (segment ids
+    offset by ``g * groups``) at once, so no ``[G, R, K, K]`` stack of
+    row partials is kept. The solve batches ``G * group_block`` systems,
+    with ALS-WR's shift ``reg[g] * n_u`` (or, implicit, ``Y_g^T Y_g +
+    reg[g] I``) per system and each candidate's CG budget as
+    ``active_steps``. The matrix-vector products (the rhs, the CG
+    matvec) go one call per candidate (``_bmv``)."""
+
+    def __init__(self, cfg: ALSConfig, row_block: int, group_block: int,
+                 groups_loc: int, regs: torch.Tensor, alphas: torch.Tensor,
+                 cg_active: Optional[torch.Tensor]):
+        super().__init__(cfg, row_block, group_block, groups_loc)
+        self.G = int(regs.shape[0])
+        self.regs = regs            # [G] f32
+        self.alphas = alphas        # [G] f32
+        self.cg_active = cg_active  # [G] int32, None: every budget is
+                                    # cfg.cg_iters
+
+    def __call__(self, Y, X_prev, idx, val, mask, seg, counts):
+        Yc = Y.to(self.cdt)
+        A, b = self.partial_sums(Yc, idx, val, mask, seg)
+        return self.solve(A, b, X_prev, counts, Yc)
+
+    def partial_sums(self, Yc, idx, val, mask, seg):
+        """Stages 1 and 2 for every candidate: ``A [G, groups, K, K]``
+        and ``b [G, groups, K]``, f32, from the opposing factors ``Yc``
+        (``[G, n, K]`` in ``compute_dtype``)."""
+        G, K, groups = self.G, self.rank, self.groups_loc
+        cdt = self.cdt
+        R, L = idx.shape
+        flat = Yc.reshape(-1, K)
+        g = torch.arange(G, dtype=idx.dtype, device=idx.device)
+        idx_off = (g * Yc.shape[1]).view(G, 1, 1)
+        seg_off = (g * groups).view(G, 1)
+        A = torch.zeros((G * groups, K, K), dtype=torch.float32,
+                        device=idx.device)
+        b = torch.zeros((G * groups, K), dtype=torch.float32,
+                        device=idx.device)
+        for s in range(0, R, self.row_block):
+            e = min(s + self.row_block, R)
+            B = e - s
+            val_b = val[s:e]
+            maskc = mask[s:e].to(cdt)
+            Yg = (flat.index_select(0, (idx[s:e] + idx_off).reshape(-1))
+                  .view(G, B, L, K) * maskc[..., None])
+            Ygf = Yg.float().view(G * B, L, K)
+            YgT = Ygf.transpose(1, 2)
+            if self.implicit:
+                w = val_b.to(cdt).float()
+                Ar = torch.bmm(YgT, Ygf * w.repeat(G, 1)[..., None])
+                Ar.view(G, B, K, K).mul_(self.alphas.view(G, 1, 1, 1))
+                rhs = ((1.0 + self.alphas.view(G, 1, 1) * val_b)
+                       * maskc.to(val_b.dtype)).to(cdt).float()
+            else:
+                Ar = torch.bmm(YgT, Ygf)
+                rhs = val_b.to(cdt).float().expand(G, B, L)
+            br = _bmv(YgT, rhs.reshape(G * B, L), G)
+            segs = (seg[s:e] + seg_off).reshape(-1)
+            A.index_add_(0, segs, Ar)
+            b.index_add_(0, segs, br)
+        return A.view(G, groups, K, K), b.view(G, groups, K)
+
+    def solve(self, A, b, X_prev, counts, Yc):
+        """Stage 3 for every candidate, ``G * group_block`` systems at a
+        time; groups with no ratings get exact zeros."""
+        G, K = self.G, self.rank
+        eye = torch.eye(K, dtype=torch.float32, device=A.device)
+        if self.implicit:
+            # one product per candidate, as a single train forms it
+            Ycf = Yc.float()
+            YtY = torch.stack([Ycf[g].T @ Ycf[g] for g in range(G)])
+        out = torch.empty((G, self.groups_loc, K), dtype=torch.float32,
+                          device=A.device)
+        for s in range(0, self.groups_loc, self.group_block):
+            e = min(s + self.group_block, self.groups_loc)
+            B = e - s
+            cnt_b = counts[s:e]
+            if self.implicit:
+                A_b = (A[:, s:e] + YtY[:, None]
+                       + self.regs.view(G, 1, 1, 1) * eye)
+            else:
+                # ALS-WR: reg[g] * n_u * I; empty groups stay nonsingular
+                n_u = cnt_b.float().clamp_min(1.0)
+                A_b = A[:, s:e] + (self.regs.view(G, 1) * n_u
+                                   ).view(G, B, 1, 1) * eye
+            A_b = A_b.reshape(G * B, K, K)
+            b_b = b[:, s:e].reshape(G * B, K)
+            if self.solver == "cg":
+                active = (None if self.cg_active is None
+                          else self.cg_active.repeat_interleave(B))
+                x = _batched_cg(A_b, b_b, self.cg_iters,
+                                x0=X_prev[:, s:e].reshape(G * B, K),
+                                matvec_dtype=self.cg_dtype,
+                                precond=self.cg_precond,
+                                active_steps=active, groups=G)
+            elif self.solver == "direct":
+                x = torch.linalg.solve(A_b, b_b.unsqueeze(-1)).squeeze(-1)
+            else:
+                raise ValueError(f"unknown solver {self.solver!r} "
+                                 "(expected 'cg' or 'direct')")
+            out[:, s:e] = torch.where((cnt_b > 0)[None, :, None],
+                                      x.view(G, B, K), 0.0)
+        return out
+
+
+class ALSGridTrainer:
+    """Every candidate of a hyperparameter grid trained at once on one
+    device (the JAX package's vmapped ``als_grid_train``). The candidates
+    share the config but ``reg``, ``alpha``, and the iteration and CG
+    step budgets; the layout is built and placed once (uncapped, in the
+    uncompressed form), the factors grow a leading grid axis ``[G, n,
+    K]``, and each alternation runs the G solves together
+    (``GridHalfStep``). The alternations run to the largest budget;
+    past its own, a candidate's ``X`` and ``Y`` stay frozen.
+
+    Candidate g starts from the factors a sequential ``ALSTrainer`` of
+    the same config draws (X, then Y, from one ``torch.Generator``
+    seeded with ``cfg.seed``), tiled G times, and does its sequential
+    train's arithmetic: on the CPU it ends with the same bits. On a card
+    ``index_add_`` sums a group's row partials with float atomics, so
+    where a group has more than two the order, and the last bits, vary
+    from run to run in either path: the two agree to a tolerance there
+    (the tests state it), and bit for bit elsewhere. Set ``X`` / ``Y``
+    (``[G, groups, K]``) to start from other factors."""
+
+    def __init__(self, user_coo: Tuple[np.ndarray, np.ndarray, np.ndarray],
+                 n_users: int, n_items: int, cfg: ALSConfig,
+                 regs: Sequence[float],
+                 alphas: Optional[Sequence[float]] = None,
+                 iterations: Optional[Sequence[int]] = None,
+                 cg_iters: Optional[Sequence[int]] = None,
+                 device: DeviceLike = None):
+        regs = np.asarray(regs, np.float32)
+        G = len(regs)
+        alphas = (np.full(G, cfg.alpha, np.float32) if alphas is None
+                  else np.asarray(alphas, np.float32))
+        iters_arr = (np.full(G, cfg.iterations, np.int64) if iterations is None
+                     else np.asarray(iterations, np.int64))
+        cg_arr = (np.full(G, cfg.cg_iters, np.int64) if cg_iters is None
+                  else np.asarray(cg_iters, np.int64))
+        # a real error, not an assert: a shorter list would train wrong
+        # candidates without a symptom
+        for name, arr in (("alphas", alphas), ("iterations", iters_arr),
+                          ("cg_iters", cg_arr)):
+            if len(arr) != G:
+                raise ValueError(
+                    f"als_grid_train: `{name}` has {len(arr)} entries but "
+                    f"`regs` defines {G} grid candidates — every "
+                    "per-candidate list must match len(regs)")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.n_users, self.n_items = n_users, n_items
+        self.G = G
+        #: each candidate's iteration budget (host copy)
+        self.iterations = iters_arr
+        max_cg = int(cg_arr.max(initial=0))
+        t0 = time.perf_counter()
+        u_idx, i_idx, vals = user_coo
+        by_user = _build_side(u_idx, i_idx, vals, n_users, cfg, 1, None)
+        by_item = _build_side(i_idx, u_idx, vals, n_items, cfg, 1, None)
+        #: host seconds spent binning both sides
+        self.bin_sec = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dev = self.device
+        step_cfg = dataclasses.replace(cfg, cg_iters=max_cg)
+        regs_t = torch.tensor(regs, device=dev)
+        alphas_t = torch.tensor(alphas, device=dev)
+        # budgets equal to the run's steps freeze nothing: no where()s
+        cg_active = (None if np.all(cg_arr == max_cg) else
+                     torch.tensor(cg_arr, dtype=torch.int32, device=dev))
+        self._user, self._item = (
+            DeviceSide(
+                step=GridHalfStep(step_cfg, side.row_block, side.group_block,
+                                  side.groups_per_shard, regs_t, alphas_t,
+                                  cg_active),
+                idx=torch.from_numpy(side.idx).to(dev),
+                val=torch.from_numpy(side.val).to(dev),
+                mask=torch.from_numpy(side.mask).to(dev),
+                seg=torch.from_numpy(side.seg).to(dev),
+                counts=torch.from_numpy(side.counts).to(dev),
+                n_groups=side.groups_per_shard)
+            for side in (by_user, by_item))
+        self.wait_device()
+        #: seconds of the host -> device puts
+        self.put_sec = time.perf_counter() - t0
+        gen = torch.Generator().manual_seed(cfg.seed)
+        #: the padded factor tables of every candidate, [G, groups, K]
+        self.X = _init_factors(gen, self._user.n_groups, n_users,
+                               cfg.rank).repeat(G, 1, 1).to(dev)
+        self.Y = _init_factors(gen, self._item.n_groups, n_items,
+                               cfg.rank).repeat(G, 1, 1).to(dev)
+
+    def sides(self) -> Tuple[DeviceSide, DeviceSide]:
+        """The user side (solves X against Y), then the item side."""
+        return self._user, self._item
+
+    def wait_device(self) -> "ALSGridTrainer":
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
+    def _alternate(self, X, Y, steps: range):
+        for t in steps:
+            X1 = self._user(Y, X)
+            Y1 = self._item(X1, Y)
+            on = t < self.iterations
+            if on.all():
+                X, Y = X1, Y1
+            else:
+                # past its budget a candidate's factors stay as they were
+                keep = torch.from_numpy(on).to(self.device).view(-1, 1, 1)
+                X = torch.where(keep, X1, X)
+                Y = torch.where(keep, Y1, Y)
+        return X, Y
+
+    def compile(self) -> "ALSGridTrainer":
+        """One warm alternation on copies of the factors (first-call
+        costs out of a timed run); the initial factors are left as they
+        were."""
+        t0 = time.perf_counter()
+        self._alternate(self.X.clone(), self.Y.clone(), range(1))
+        self.wait_device()
+        self.compile_sec = time.perf_counter() - t0
+        return self
+
+    def step_n(self) -> None:
+        """Alternate to the largest iteration budget, synced once at the
+        end; the factors stay on the device."""
+        self.X, self.Y = self._alternate(
+            self.X, self.Y, range(int(self.iterations.max(initial=0))))
+        self.wait_device()
+
+    def run(self) -> List[ALSFactors]:
+        """``step_n``, then one ``ALSFactors`` per candidate, in order."""
+        self.step_n()
+        Xh, Yh = self.X.cpu().numpy(), self.Y.cpu().numpy()
+        return [ALSFactors(user_factors=Xh[g, :self.n_users],
+                           item_factors=Yh[g, :self.n_items])
+                for g in range(self.G)]
+
+
+def als_grid_train(
+    user_coo: Tuple[np.ndarray, np.ndarray, np.ndarray],
+    n_users: int,
+    n_items: int,
+    cfg: ALSConfig,
+    regs: Sequence[float],
+    alphas: Optional[Sequence[float]] = None,
+    iterations: Optional[Sequence[int]] = None,
+    cg_iters: Optional[Sequence[int]] = None,
+    device: DeviceLike = None,
+) -> List[ALSFactors]:
+    """Train every grid candidate at once (``ALSGridTrainer``): beyond
+    ``regs``, candidates may differ in ``alphas`` (implicit confidence)
+    and in their ``iterations`` and ``cg_iters`` budgets. Returns one
+    ALSFactors per candidate, in order."""
+    return ALSGridTrainer(user_coo, n_users, n_items, cfg, regs,
+                          alphas=alphas, iterations=iterations,
+                          cg_iters=cg_iters, device=device).run()
 
 
 def predict_rmse(factors: ALSFactors, coo) -> float:

@@ -17,7 +17,8 @@ reads nothing: it hands the fit stage a ``BinnedReadRequest``, and
 layout with its own knobs, or loads that layout from the cache under the
 DataSource's ``data_fingerprint``. Other stores read through the
 columnar path. ``pio train`` then fits ALS (``ops/als.py``) on the
-card; the two-tower template trains on the same data.
+card; the two-tower template trains on the same data. ``read_eval``
+gives ``pio eval`` its k folds (``eval_k``) from the row read.
 """
 
 from __future__ import annotations
@@ -213,6 +214,24 @@ class RecoDataSource(DataSource):
         if p.columnar:
             return RatingsTD(columns=self._read_columnar(), fingerprint=fp)
         return RatingsTD(ratings=self._read(), fingerprint=fp)
+
+    def read_eval(self, ctx: DeviceContext):
+        """k folds split by row index ``% eval_k`` over the row read
+        (ref: CrossValidation.scala:33); each held-out rating is a
+        ``{"user", "num"}`` query with its ``{"item", "rating"}``."""
+        p: RecoDataSourceParams = self.params
+        if p.eval_k <= 1:
+            return []
+        all_ratings = self._read()
+        folds = []
+        for fold in range(p.eval_k):
+            train = [r for i, r in enumerate(all_ratings)
+                     if i % p.eval_k != fold]
+            qa = [({"user": r.user, "num": p.eval_query_num},
+                   {"item": r.item, "rating": r.rating})
+                  for i, r in enumerate(all_ratings) if i % p.eval_k == fold]
+            folds.append((RatingsTD(ratings=train), {"fold": fold}, qa))
+        return folds
 
 
 class RecoPreparator(Preparator):

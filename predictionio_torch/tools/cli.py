@@ -1,4 +1,5 @@
-"""The port's console: ``pio`` for apps, keys, events, train and deploy.
+"""The port's console: ``pio`` for apps, keys, events, train, deploy and
+eval.
 
     python -m predictionio_torch.tools.cli app new NAME [--description D]
     python -m predictionio_torch.tools.cli app list|show|delete|data-delete|
@@ -16,6 +17,8 @@
     python -m predictionio_torch.tools.cli deploy \\
         --engine-json engine.json [--engine-id ID] [--port 8000] \\
         [--ip 0.0.0.0] [--device cpu]
+    python -m predictionio_torch.tools.cli eval pkg.mod.MyEvaluation \\
+        [pkg.mod.MyParamsGenerator] [--batch B] [--device cpu]
 
 The app, access-key, server, import/export and status commands take the
 JAX console's arguments and print its lines (ref:
@@ -25,8 +28,12 @@ algorithms and stores a COMPLETED engine instance with its models.
 ``deploy`` serves the latest COMPLETED instance of the engine — trained
 by either package; an ``engineFactory`` under ``predictionio_tpu.``
 resolves under ``predictionio_torch.`` — on ``POST /queries.json`` until
-SIGTERM drains it (ref: Console.scala:830). Both run on the card;
-``--device cpu`` is the only way onto the CPU. Storage comes from the
+SIGTERM drains it (ref: Console.scala:830). ``eval`` runs an
+``Evaluation`` over the candidates of an ``EngineParamsGenerator``,
+stores an EvaluationInstance and prints the best score's one-liner (ref:
+Console.scala eval, CreateWorkflow.scala:263-276); dotted paths under
+``predictionio_tpu.`` resolve under ``predictionio_torch.``. The three
+run on the card; ``--device cpu`` is the only way onto the CPU. Storage comes from the
 ``PIO_STORAGE_*`` environment, as for ``pio``. The other commands stay
 with ``predictionio_tpu.tools.cli`` until their slices are ported
 (ROADMAP.md queue 1).
@@ -237,6 +244,48 @@ def cmd_deploy(args) -> int:
     return 0
 
 
+def cmd_eval(args) -> int:
+    import importlib
+
+    from predictionio_torch.core.engine import port_module
+    from predictionio_torch.core.evaluation import (EngineParamsGenerator,
+                                                    Evaluation)
+    from predictionio_torch.parallel.context import DeviceContext
+    from predictionio_torch.workflow.evaluate import run_evaluation
+
+    def resolve(dotted: str):
+        module_name, _, attr = dotted.rpartition(".")
+        if not module_name:
+            raise commands.CommandError(
+                f"{dotted!r} must be a dotted module.Attr path")
+        try:
+            obj = getattr(importlib.import_module(port_module(module_name)),
+                          attr)
+        except (ImportError, AttributeError) as e:
+            raise commands.CommandError(
+                f"cannot resolve {dotted!r}: {e}") from e
+        return obj() if isinstance(obj, type) else obj
+
+    evaluation = resolve(args.evaluation_class)
+    if not isinstance(evaluation, Evaluation):
+        raise commands.CommandError(
+            f"{args.evaluation_class} is not an Evaluation")
+    generator = None
+    if args.engine_params_generator_class:
+        generator = resolve(args.engine_params_generator_class)
+        if not isinstance(generator, EngineParamsGenerator):
+            raise commands.CommandError(
+                f"{args.engine_params_generator_class} is not an "
+                "EngineParamsGenerator")
+    result = run_evaluation(
+        evaluation, generator=generator,
+        evaluation_class=args.evaluation_class,
+        generator_class=args.engine_params_generator_class or "",
+        batch=args.batch, ctx=DeviceContext(args.device))
+    print(result.to_one_liner(), flush=True)
+    return 0
+
+
 # -- parser --------------------------------------------------------------------
 
 def build_parser() -> argparse.ArgumentParser:
@@ -314,6 +363,15 @@ def build_parser() -> argparse.ArgumentParser:
                        cmd_deploy)
     p.add_argument("--ip", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
+
+    p = sub.add_parser("eval", help="run an evaluation")
+    p.add_argument("evaluation_class")
+    p.add_argument("engine_params_generator_class", nargs="?", default=None)
+    p.add_argument("--batch", default="")
+    p.add_argument("--device", default=None,
+                   help="device (default: the CUDA card; 'cpu' to run on "
+                        "the CPU)")
+    p.set_defaults(func=cmd_eval)
     return parser
 
 

@@ -5,4 +5,8 @@
   train  — train an engine, store the instance and its models
            (ref: CoreWorkflow.runTrain:42)
   deploy — model reload for serving (ref: Engine.prepareDeploy:174)
+  evaluate — run an evaluation, store its EvaluationInstance
+           (ref: CoreWorkflow.runEvaluation:96)
+  fake   — run a function through the evaluation plumbing
+           (ref: FakeWorkflow.scala)
 """

@@ -4,7 +4,8 @@ Counterpart of ``predictionio_tpu/workflow/train.py`` for one process
 (ref: workflow/CoreWorkflow.runTrain:42 and CreateWorkflow.scala:232-255):
 create an EngineInstance row (INIT), run Engine.train on the context's
 device, pickle the per-algorithm models into the Models repo under the
-instance id, snapshot the full params into the instance, and mark it
+instance id (a ``PersistentModel`` saves itself and leaves a manifest
+there), snapshot the full params into the instance, and mark it
 COMPLETED — or FAILED on error. The JAX package's multi-host writer
 election, chaos seam, profiler capture and observability hooks are not
 ported (ROADMAP.md, queue 1 items 12 and 13).
@@ -22,6 +23,8 @@ from typing import Any, List, Optional
 
 from predictionio_torch.core.engine import Engine
 from predictionio_torch.core.params import EngineParams
+from predictionio_torch.core.persistent_model import (PersistentModel,
+                                                      manifest_for)
 from predictionio_torch.data.metadata import EngineInstance, Model
 from predictionio_torch.data.storage import Storage, get_storage
 from predictionio_torch.parallel.context import DeviceContext
@@ -40,6 +43,23 @@ def serialize_models(models: List[Any]) -> bytes:
     The port's models pickle without their device state; the deploy
     loader puts them back on its device."""
     return pickle.dumps(models)
+
+
+def persisted_models(engine: Engine, engine_params: EngineParams,
+                     models: List[Any], instance_id: str,
+                     ctx: DeviceContext) -> List[Any]:
+    """Each algorithm's persisted form of its model
+    (``Algorithm.make_persistent_model``); a ``PersistentModel`` saves
+    itself under the instance id and is replaced by its manifest (ref:
+    Engine.makeSerializableModels:260, PAlgorithm.makePersistentModel:98)."""
+    out = []
+    for algo, model in zip(engine.make_algorithms(engine_params), models):
+        pm = algo.make_persistent_model(model)
+        if isinstance(pm, PersistentModel):
+            pm.save(instance_id, algo.params, ctx)
+            pm = manifest_for(pm)
+        out.append(pm)
+    return out
 
 
 def run_train(engine: Engine, engine_params: EngineParams, engine_id: str,
@@ -78,7 +98,9 @@ def run_train(engine: Engine, engine_params: EngineParams, engine_id: str,
                               f"{result.stopped_after}]").strip()
         elif wp.save_model:
             storage.models().insert(Model(
-                id=instance.id, models=serialize_models(result.models)))
+                id=instance.id, models=serialize_models(persisted_models(
+                    engine, engine_params, result.models, instance.id,
+                    ctx))))
         instance.status = "COMPLETED"
         instance.end_time = _now()
         storage.engine_instances().update(instance)

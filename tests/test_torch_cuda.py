@@ -628,3 +628,182 @@ def test_events_posted_to_the_event_server_train_als_on_the_card(
         set_storage(None)
         server.stop()
         storage.events().close()
+
+
+# -- grid training and pio eval on the card -------------------------------------
+
+GRID = dict(regs=[0.05, 0.1, 0.2, 0.05], alphas=[0.5, 0.5, 0.3, 0.5],
+            iterations=[3, 3, 3, 2], cg_iters=[6, 6, 6, 4])
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+def test_als_grid_on_the_card_matches_the_cpu(cuda, implicit):
+    """The grid on the card against the grid on the CPU from the same
+    seed, in f32 with the direct solver (the same arithmetic, summed in
+    another order: ``index_add_``'s float atomics, cuBLAS's blocking).
+    Explicit: every candidate's factors to a relative Frobenius error of
+    1e-4 and its held-out RMSE to 1e-5, as
+    test_als_trainer_on_the_card_matches_the_cpu holds one train.
+    Implicit: on this data a 1e-6 nudge of the CPU grid's start moves
+    its user factors by more than 1e-4 after 3 iterations, so each
+    candidate must stay within 3x the spread the CPU grid shows against
+    itself under such a nudge (the largest of two, measured here)."""
+    n_users, n_items = 600, 70_000
+    u, i, r = _als_ratings(n_users, n_items, 20_000, seed=5)
+    hold = np.arange(len(r)) % 20 == 0
+    train = (u[~hold], i[~hold], r[~hold])
+    held = (u[hold], i[hold], r[hold])
+    cfg = als.ALSConfig(rank=16, iterations=3, reg=0.05, implicit=implicit,
+                        alpha=0.5, block_size=128,
+                        **ALS_PRECISION["direct-f32"])
+
+    def cpu_run(nudge=0.0, seed=0):
+        t = als.ALSGridTrainer(train, n_users, n_items, cfg, device="cpu",
+                               **GRID)
+        noise = np.random.default_rng(seed).normal(size=tuple(t.Y.shape))
+        t.Y = t.Y * (1.0 + nudge * torch.from_numpy(noise).float())
+        return t.run()
+
+    want = cpu_run()
+    got = als.als_grid_train(train, n_users, n_items, cfg, device=cuda,
+                             **GRID)
+    tol = {"user_factors": [1e-4] * 4, "item_factors": [1e-4] * 4}
+    if implicit:
+        spread = [cpu_run(1e-6, seed) for seed in range(2)]
+        tol = {k: [3 * max(_rel(getattr(f[g], k), getattr(want[g], k))
+                           for f in spread) for g in range(4)]
+               for k in tol}
+    for g, (a, b) in enumerate(zip(got, want)):
+        for k in tol:
+            assert _rel(getattr(a, k), getattr(b, k)) <= tol[k][g], (g, k)
+        if not implicit:
+            assert abs(als.predict_rmse(a, held)
+                       - als.predict_rmse(b, held)) <= 1e-5
+
+
+@pytest.mark.parametrize("precision", sorted(ALS_PRECISION))
+def test_als_grid_budget_freeze_on_the_card(cuda, precision):
+    """On the card each candidate ends near a sequential card train at
+    its own reg, iterations and CG steps, from the same seed (not bit
+    for bit: the atomics' order varies): direct/f32 to a relative
+    Frobenius error of 1e-4, CG/bf16 by held-out RMSE within 1e-2
+    (test_torch_als.py's CG/bf16 bound)."""
+    import dataclasses
+
+    n_users, n_items = 600, 2000
+    u, i, r = _als_ratings(n_users, n_items, 20_000, seed=23)
+    hold = np.arange(len(r)) % 20 == 0
+    train = (u[~hold], i[~hold], r[~hold])
+    held = (u[hold], i[hold], r[hold])
+    cfg = als.ALSConfig(rank=16, iterations=3, reg=0.05, block_size=128,
+                        **ALS_PRECISION[precision])
+    grid = als.als_grid_train(train, n_users, n_items, cfg, device=cuda,
+                              **GRID)
+    for g in range(4):
+        seq = als.als_train(train, n_users, n_items, dataclasses.replace(
+            cfg, reg=GRID["regs"][g], iterations=GRID["iterations"][g],
+            cg_iters=GRID["cg_iters"][g]), device=cuda)
+        if precision == "direct-f32":
+            assert _rel(grid[g].user_factors, seq.user_factors) <= 1e-4
+            assert _rel(grid[g].item_factors, seq.item_factors) <= 1e-4
+        else:
+            assert abs(als.predict_rmse(grid[g], held)
+                       - als.predict_rmse(seq, held)) <= 1e-2
+
+
+def test_run_evaluation_takes_the_grid_path_on_the_card(cuda, caplog):
+    """A 3-candidate lambda sweep through ``run_evaluation`` on a memory
+    store trains on the card's grid path (one grid run per fold, no
+    fallback) and stores an EVALCOMPLETED instance."""
+    import datetime as dt
+    import logging
+
+    from predictionio_torch.core.evaluation import AverageMetric, Evaluation
+    from predictionio_torch.core.fast_eval import FastEvalEngineWorkflow
+    from predictionio_torch.core.params import EngineParams
+    from predictionio_torch.data.event import Event
+    from predictionio_torch.data.storage import Storage, set_storage
+    from predictionio_torch.parallel.context import DeviceContext
+    from predictionio_torch.templates import recommendation as reco
+    from predictionio_torch.workflow.evaluate import run_evaluation
+
+    class RatingMSE(AverageMetric):
+        higher_is_better = False
+
+        def calculate_qpa(self, q, p, a):
+            match = [s["score"] for s in p["itemScores"]
+                     if s["item"] == a["item"]]
+            return (match[0] - a["rating"]) ** 2 if match else None
+
+    storage = Storage.from_env({"PIO_STORAGE_SOURCES_M_TYPE": "memory"})
+    app = storage.apps().insert("grid-app")
+    storage.events().init(app.id)
+    u, i, r = _als_ratings(300, 400, 6000, seed=25)
+    t0 = dt.datetime(2026, 1, 1, tzinfo=dt.timezone.utc)
+    storage.events().insert_batch([Event(
+        event="rate", entity_type="user", entity_id=f"u{int(a)}",
+        target_entity_type="item", target_entity_id=f"i{int(b)}",
+        properties={"rating": float(c)},
+        event_time=t0 + dt.timedelta(seconds=j))
+        for j, (a, b, c) in enumerate(zip(u, i, r))], app.id)
+    candidates = [EngineParams(
+        data_source_params=("", reco.RecoDataSourceParams(
+            app_name="grid-app", columnar=False, eval_k=3,
+            eval_query_num=400)),
+        algorithm_params_list=[("als", ALSParams(
+            rank=8, num_iterations=5, lambda_=reg, block_size=256))])
+        for reg in (0.05, 0.1, 0.5)]
+    evaluation = Evaluation(engine=reco.recommendation_engine(),
+                            metric=RatingMSE())
+    set_storage(storage)
+    try:
+        with caplog.at_level(logging.INFO):
+            result = run_evaluation(evaluation, engine_params_list=candidates,
+                                    ctx=DeviceContext(cuda), storage=storage)
+        seq = FastEvalEngineWorkflow(evaluation.engine, DeviceContext(cuda))
+        seq_scores = [RatingMSE().calculate(None, seq.eval(ep))
+                      for ep in candidates]
+    finally:
+        set_storage(None)
+    assert any("grid tuning: 3 candidates trained in 3 grid run(s)"
+               in rec.message for rec in caplog.records)
+    assert not any("falling back" in rec.message for rec in caplog.records)
+    assert seq.counts["train"] == 3 and seq.counts["grid_dispatches"] == 0
+    scores = [s.score for s in result.engine_params_scores]
+    assert np.all(np.isfinite(scores))
+    np.testing.assert_allclose(np.sqrt(scores), np.sqrt(seq_scores),
+                               atol=1e-2)
+    (inst,) = storage.evaluation_instances().get_completed()
+    assert inst.evaluator_results == result.to_one_liner()
+
+
+def test_als_grid_equals_sequential_trains_bit_for_bit(cuda):
+    """Where no group sums more than two nonzero row partials (so
+    ``index_add_``'s atomic order cannot change a sum), a grid candidate
+    on the card has the bits of its sequential train: the Gramians come
+    from the same GEMMs, and the rhs and the CG matvecs go one call per
+    candidate (``ops.als._bmv``). MovieLens-100K-shaped ratings (943
+    users, 1,682 items, uniform), rank 64, f32, 3 iterations."""
+    import dataclasses
+
+    from predictionio_torch.data.bimap import BiMap
+    from predictionio_torch.models.als import PreparedRatings
+    from predictionio_torch.parallel.context import DeviceContext
+
+    rng = np.random.default_rng(31)
+    u = rng.integers(0, 943, 66_000)
+    i = rng.integers(0, 1682, 66_000)
+    r = rng.integers(1, 6, 66_000).astype(np.float32)
+    pd = PreparedRatings(user_ids=BiMap.from_vocab([f"u{j}" for j in range(943)]),
+                         item_ids=BiMap.from_vocab([f"i{j}" for j in range(1682)]),
+                         user_idx=u, item_idx=i, ratings=r)
+    base = ALSParams(rank=64, num_iterations=3, compute_dtype="float32",
+                     cg_dtype="float32")
+    params = [dataclasses.replace(base, lambda_=reg)
+              for reg in (0.01, 0.1, 1.0)]
+    ctx = DeviceContext(cuda)
+    grid = ALSAlgorithm.grid_train(ctx, pd, params)
+    for model, p in zip(grid, params):
+        seq = ALSAlgorithm(p).train(ctx, pd)
+        np.testing.assert_array_equal(model.user_factors, seq.user_factors)
+        np.testing.assert_array_equal(model.item_factors, seq.item_factors)

@@ -82,13 +82,35 @@ DATA_LANE = ("predictionio_torch.native",
              "predictionio_torch.tools.cli")
 
 
-def test_the_data_lane_modules_are_walked_and_import_no_jax():
+#: the evaluation half's modules (``pio eval``, grid tuning)
+EVALUATION = ("predictionio_torch.core.controller",
+              "predictionio_torch.core.engine",
+              "predictionio_torch.core.persistent_model",
+              "predictionio_torch.core.cross_validation",
+              "predictionio_torch.core.evaluation",
+              "predictionio_torch.core.fast_eval",
+              "predictionio_torch.data.metadata",
+              "predictionio_torch.data.storage",
+              "predictionio_torch.data.backends.memory",
+              "predictionio_torch.data.backends.localfs",
+              "predictionio_torch.ops.als",
+              "predictionio_torch.models.als",
+              "predictionio_torch.templates.recommendation",
+              "predictionio_torch.workflow.train",
+              "predictionio_torch.workflow.evaluate",
+              "predictionio_torch.workflow.fake",
+              "predictionio_torch.tools.cli")
+
+
+def _walk_and_import(want) -> dict:
+    """In a fresh interpreter: which of ``want`` the package walk misses,
+    and which forbidden modules importing ``want`` loaded."""
     code = (
         "import importlib, json, pkgutil, sys\n"
         "import predictionio_torch as pkg\n"
         "names = {m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "'predictionio_torch.')}\n"
-        f"want = {DATA_LANE!r}\n"
+        f"want = {tuple(want)!r}\n"
         "for n in want: importlib.import_module(n)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(json.dumps({'missing': sorted(set(want) - names), "
@@ -98,5 +120,12 @@ def test_the_data_lane_modules_are_walked_and_import_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    result = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert result == {"missing": [], "bad": []}
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_the_data_lane_modules_are_walked_and_import_no_jax():
+    assert _walk_and_import(DATA_LANE) == {"missing": [], "bad": []}
+
+
+def test_the_evaluation_modules_are_walked_and_import_no_jax():
+    assert _walk_and_import(EVALUATION) == {"missing": [], "bad": []}
