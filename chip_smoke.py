@@ -186,11 +186,40 @@ exits non-zero before printing any result.
    EVALCOMPLETED EvaluationInstance whose JSON scores match an
    in-process sequential ``FastEvalEngineWorkflow`` on the card (rtol
    1e-4, atol 1e-5, the same ranking).
+11. Stream phase, the freshness lane over the ingest phase's 20M-event
+   log before it is removed, counters reset just before: the
+   warm-trained model becomes a COMPLETED instance of that store,
+   served by the port's ``EngineServer`` on ``cuda`` and patched by a
+   ``StreamUpdater`` on ``cuda`` (``workflow/stream.py``), with
+   ``bench.py`` ``_stream_stage``'s traffic: a warm fold of 1 event; a
+   throughput fold of 1,000 ratings from 100 new users over 8 existing
+   items drawn with ``default_rng(11)``; a fresh user's one rating,
+   empty before the fold and answered after it (event to servable),
+   the answer checked against a float64 host top-k of the served
+   tables and the folded factor within ``FOLD_REL_TOL`` of a float64
+   solve of its normal equations; an existing user's one more rating,
+   its factor against a float64 solve of its full history over the
+   fixed item factors; a new item rated by 5 existing users, appended
+   to the served index, its ``{"item": ...}`` answer checked and the
+   first query after the patch timed against warm ones; one fold
+   published over HTTP to ``POST /model/patch``; the recall probe over
+   the patched index at 1.0 (ties within ``topk_dot``'s tolerance
+   excepted). Each fold's split (native tail read, history scans,
+   solves, publish) is timed around those calls; every solve must run
+   on ``cuda:0``. Then ``online_delta_step`` on the train phase's
+   stretch tables (1M x 1M x 128) with a 4,096-pair delta and 4 steps:
+   losses falling, only the delta's rows returned, within
+   ``TT_ONLINE_ATOL``/``TT_ONLINE_RTOL`` of the same call on the CPU.
+   ``topk_dot`` must have launched on this path. After the ``pio
+   train`` phase: ``cli deploy`` of its eventlog ALS engine, ``cli
+   stream --once --url`` against it (exit 0, its stats printed), ``cli
+   undeploy`` (the server's process exits 0).
 
 Output: the card's name and power limit (``nvidia-smi``), a ``serve``,
 a ``train``, an ``als_train``, an ``ingest``, a ``front_door`` (with
-the card's line), a ``pio_train`` and an ``eval`` line,
-the ``kernels`` line, and last ``{"ok": true, "device": ...}``.
+the card's line), a ``pio_train``, a ``stream`` (with the card's line)
+and an ``eval`` line, the ``kernels`` line, and last ``{"ok": true,
+"device": ...}``.
 """
 
 from __future__ import annotations
@@ -250,6 +279,23 @@ FD_DRAIN_TIMEOUT = 30
 GRID_REGS, GRID_ITERS, GRID_CG = (0.05, 0.02, 0.1, 0.05), (5, 5, 5, 3), \
     (6, 6, 6, 4)
 EVAL_REGS, EVAL_K = (0.01, 0.05, 0.1, 0.5, 1.0, 5.0), 3
+# the stream phase: bench.py _stream_stage's throughput fold (STREAM_EVENTS
+# ratings from STREAM_USERS new users over STREAM_HOT existing items),
+# the ratings row whose user gets one more rating, the two-tower online
+# step's delta (4,096 pairs: 64 MB of dense [P, P] logits) and steps
+STREAM_ENGINE = "als-stream"
+STREAM_EVENTS, STREAM_USERS, STREAM_HOT = 1000, 100, 8
+STREAM_EXISTING_ROW = 12_345
+STREAM_TT_PAIRS, STREAM_TT_STEPS = 4096, 4
+# a folded factor against a float64 solve of the same normal equations
+# (relative L2): the fold is f32 with 16 Jacobi-CG steps (ops/als.py
+# FOLD_IN_CG_ITERS), which stop short of an exact solve at rank 64 (the
+# card test test_fold_in_solve_on_the_card_matches_the_cpu holds the same
+# bound)
+FOLD_REL_TOL = 1e-3
+# the online step on the card against the CPU: f32 products summed in
+# another order (vectors: absolute; losses: relative)
+TT_ONLINE_ATOL, TT_ONLINE_RTOL = 1e-5, 1e-5
 
 
 def fail(msg: str) -> None:
@@ -1074,6 +1120,7 @@ def train_phase() -> dict:
     truth = Truth(model.user_factors, model.item_factors, user_names,
                   item_names)
     epoch_sec = [float(x) for x in model.train_epoch_seconds]
+    tables = (model.user_factors, model.item_factors)
     del model
     served = deploy_and_check(twotower_engine(), storage, "tt-stretch", truth,
                               tt_queries(truth, np.random.default_rng(SEED),
@@ -1098,7 +1145,7 @@ def train_phase() -> dict:
         "topk_dot_launches": topk_launches, "kernel_plan": plan,
         "peak_train_mem_bytes": peak_mem, "serve": served,
         "step_profile": profiled,
-    }
+    }, tables
 
 
 # -- ALS train phase -----------------------------------------------------------
@@ -1290,12 +1337,13 @@ def temp_store(prefix: str, need: int) -> str:
     return root
 
 
-def ingest_phase(ratings, coo_profile: dict) -> dict:
+def ingest_phase(ratings, coo_profile: dict, tt_tables):
     """The north star's data lane at bench.py's cold-stage width: the
     ALS phase's 20M ratings into a port eventlog store, the row lane,
     the fused scan+bin, a trainer from the binned sides, then the main
     path through ALSAlgorithm (cold, then warm from the layout cache),
-    deployed and answered through topk_dot."""
+    deployed and answered through topk_dot. Then the stream phase runs
+    over the same store. -> (ingest, stream)."""
     import torch
     from predictionio_torch.data.storage import EventColumns, Storage
     from predictionio_torch.data.storage import set_storage
@@ -1465,6 +1513,8 @@ def ingest_phase(ratings, coo_profile: dict) -> dict:
                  "phase")
         if fce.launches.value or eu.launches.value:
             fail("the ingest phase launched a two-tower kernel")
+        streamed = stream_phase(storage, app.id, model, params, ratings,
+                                tt_tables)
         return {
             "events": n, "ingest_sec": ingest_sec,
             "ingest_events_per_sec": n / ingest_sec,
@@ -1477,7 +1527,7 @@ def ingest_phase(ratings, coo_profile: dict) -> dict:
             "algorithm": runs,
             "events_to_model_sec": ingest_sec + runs["cold"]["sec"],
             "topk_dot_launches": topk_launches, "serve": served,
-        }
+        }, streamed
     finally:
         set_storage(None)
         events.close()
@@ -1486,6 +1536,336 @@ def ingest_phase(ratings, coo_profile: dict) -> dict:
             os.environ.pop("PIO_BIN_CACHE_DIR", None)
         else:
             os.environ["PIO_BIN_CACHE_DIR"] = old_cache
+
+
+# -- stream phase ----------------------------------------------------------------
+
+def served_truth(server) -> Truth:
+    """The served ALS model's tables and vocabularies, in float64."""
+    m = server.deployment.models[0]
+    return Truth(m.user_factors, m.item_factors, list(m.user_ids.keys()),
+                 list(m.item_ids.keys()))
+
+
+def host_fold(Y: np.ndarray, item_ids, history, reg: float) -> np.ndarray:
+    """The explicit ALS-WR fold-in of one user in float64 on the host:
+    ``(sum y y^T + reg * n * I) x = sum r y`` over its rated items'
+    factors ``Y`` (rows named by ``item_ids``)."""
+    rows = np.array([item_ids[name] for name, _ in history], np.int64)
+    r = np.array([v for _, v in history], np.float64)
+    Yg = np.asarray(Y, np.float64)[rows]
+    A = Yg.T @ Yg + reg * len(rows) * np.eye(Yg.shape[1])
+    return np.linalg.solve(A, Yg.T @ r)
+
+
+def rel_err(got, want) -> float:
+    return float(np.linalg.norm(np.asarray(got, np.float64) - want)
+                 / np.linalg.norm(want))
+
+
+def stream_phase(storage, app_id: int, model, params, ratings,
+                 tt_tables) -> dict:
+    """The streaming freshness lane over the ingest phase's 20M-event
+    log: the warm-trained model as a COMPLETED instance of that store,
+    served by an in-process EngineServer on the card, a StreamUpdater on
+    the card patching it; the folds of bench.py's ``_stream_stage``,
+    each answer and folded factor checked on the host; then the
+    two-tower online step at the train phase's stretch width."""
+    import datetime as dt
+
+    import torch
+    from predictionio_torch.data.event import Event
+    from predictionio_torch.data.metadata import EngineInstance, Model
+    from predictionio_torch.index.recall import recall_at_k
+    from predictionio_torch.ops.kernels import embed_update as eu
+    from predictionio_torch.ops.kernels import flash_ce as fce
+    from predictionio_torch.ops.kernels import topk_dot as tkd
+    from predictionio_torch.ops.twotower import online_delta_step
+    from predictionio_torch.parallel.context import DeviceContext
+    from predictionio_torch.serving.engine_server import EngineServer
+    from predictionio_torch.templates.recommendation import (
+        recommendation_engine)
+    from predictionio_torch.workflow import stream
+    from predictionio_torch.workflow.train import serialize_models
+
+    phase_t0 = time.perf_counter()
+    now = dt.datetime.now(tz=dt.timezone.utc)
+    storage.engine_instances().insert(EngineInstance(
+        id=STREAM_ENGINE, status="COMPLETED", start_time=now, end_time=now,
+        engine_id=STREAM_ENGINE, engine_version="0",
+        engine_variant="default",
+        engine_factory=("predictionio_torch.templates.recommendation."
+                        "recommendation_engine"),
+        data_source_params=json.dumps({"name": "", "params": {
+            "app_name": "ml20m"}}),
+        preparator_params=json.dumps({"name": "", "params": {}}),
+        algorithms_params=json.dumps([{"name": "als", "params":
+                                       dataclasses.asdict(params)}]),
+        serving_params=json.dumps({"name": "", "params": {}})))
+    storage.models().insert(Model(id=STREAM_ENGINE,
+                                  models=serialize_models([model])))
+    events = storage.events()
+    inv_items = model.item_ids.inverse()
+    engine = recommendation_engine()
+
+    def rate(user, item, value, k=0):
+        return Event(event="rate", entity_type="user", entity_id=user,
+                     target_entity_type="item", target_entity_id=item,
+                     properties={"rating": float(value)},
+                     event_time=now + dt.timedelta(seconds=k))
+
+    # the main path: counters reset, serve, stream, fold, answer
+    solve = stream.fold_in_solve
+    for counter in (fce.launches, eu.launches, tkd.launches):
+        counter.reset()
+    t0 = time.perf_counter()
+    server = EngineServer(engine, STREAM_ENGINE, host="127.0.0.1", port=0,
+                          storage=storage, device="cuda").start()
+    deploy_sec = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        updater = stream.StreamUpdater(
+            engine, STREAM_ENGINE, storage=storage,
+            ctx=DeviceContext("cuda"), patch_servers=[server])
+        bind_sec = time.perf_counter() - t0
+        folder = updater._folders[0]
+        if folder.device.type != "cuda" or updater.device.type != "cuda":
+            fail(f"the fold lane is on {folder.device}, not the card")
+        local = folder.model
+
+        # the fold's split: the native tail read, the targeted history
+        # scans, the solves and the publish, timed around each call
+        split = {}
+        solve_devices = set()
+
+        def timed(obj, name, key):
+            fn = getattr(obj, name)
+
+            def wrapper(*args, **kwargs):
+                if key == "solve_sec":
+                    solve_devices.add(str(kwargs.get("device")))
+                t = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    split[key] += time.perf_counter() - t
+
+            setattr(obj, name, wrapper)
+
+        timed(events, "find_columnar_since", "tail_sec")
+        timed(folder, "_fetch_history", "history_sec")
+        timed(stream, "fold_in_solve", "solve_sec")
+        timed(updater, "_publish", "publish_sec")
+
+        def fold(what: str, n_events: int) -> dict:
+            for key in ("tail_sec", "history_sec", "solve_sec",
+                        "publish_sec"):
+                split[key] = 0.0
+            skipped = dict(updater.groups_skipped)
+            stats = updater.poll_once()
+            if stats["events"] != n_events or not stats["published"]:
+                fail(f"stream phase, {what}: {stats}")
+            return {**stats, "split": dict(split),
+                    "other_sec": stats["seconds"] - sum(split.values()),
+                    "groups_skipped": {
+                        k: v - skipped[k]
+                        for k, v in updater.groups_skipped.items()}}
+
+        # each existing item a fold touches is scanned for its whole
+        # history (and skipped past PIO_STREAM_MAX_GROUP rows after that)
+        uu, ii, vals = ratings
+
+        def rows_of(item: str) -> int:
+            return int(np.count_nonzero(ii == int(item[1:])))
+
+        # 1. warm fold: one event
+        events.insert_batch([rate("stream_warm_u", inv_items[0], 4.0)],
+                            app_id)
+        warm = fold("warm fold", 1)
+        warm["item_history"] = rows_of(inv_items[0])
+
+        # 2. throughput: 1,000 ratings from 100 new users over 8
+        # existing items (bench.py _stream_stage)
+        rng = np.random.default_rng(11)
+        hot = [inv_items[int(i)]
+               for i in rng.integers(0, len(inv_items), size=STREAM_HOT)]
+        batch = [rate(f"stream_tp_u{k % STREAM_USERS}", hot[k % STREAM_HOT],
+                      float(rng.integers(1, 11)) / 2.0, k)
+                 for k in range(STREAM_EVENTS)]
+        events.insert_batch(batch, app_id)
+        tp = fold("throughput fold", STREAM_EVENTS)
+        if (tp["touched_users"] != STREAM_USERS
+                or tp["touched_items"] != len(set(hot))):
+            fail(f"stream phase, throughput fold touched {tp}")
+        tp["events_per_sec"] = STREAM_EVENTS / tp["seconds"]
+        tp["item_history"] = sorted(rows_of(name) for name in set(hot))
+
+        # 3. event to servable: a fresh user's one rating
+        user = "stream_fresh_u"
+        q = {"user": user, "num": 10}
+        if post(server.port, q)["itemScores"]:
+            fail("stream phase: the fresh user answered before its fold")
+        t0 = time.perf_counter()
+        events.insert_batch([rate(user, inv_items[1], 5.0)], app_id)
+        e2s = fold("event to servable", 1)
+        answer = post(server.port, q)
+        e2s["event_to_servable_ms"] = (time.perf_counter() - t0) * 1e3
+        e2s["item_history"] = rows_of(inv_items[1])
+        if not answer["itemScores"]:
+            fail("stream phase: the fresh user's answer is empty")
+        truth = served_truth(server)
+        check_answer(truth, q, answer, "stream phase, event to servable")
+        served_row = truth.U[truth.users[user]]
+        folded = local.user_factors[local.user_ids[user]]
+        if not np.array_equal(served_row, folded):
+            fail("stream phase: the served row is not the folded row")
+        e2s["rel_err_vs_f64"] = rel_err(folded, host_fold(
+            local.item_factors, local.item_ids, [(inv_items[1], 5.0)],
+            params.lambda_))
+        if e2s["rel_err_vs_f64"] > FOLD_REL_TOL:
+            fail(f"stream phase: the fresh user's folded factor is "
+                 f"{e2s['rel_err_vs_f64']} from the float64 solve")
+
+        # 4. an existing user's one more rating: its factor against a
+        # float64 solve of its full history over the fixed item factors
+        j = int(uu[STREAM_EXISTING_ROW])
+        mine = uu == j
+        rare_item = inv_items[len(inv_items) - 1]
+        events.insert_batch([rate(f"u{j}", rare_item, 4.5)], app_id)
+        existing = fold("existing user", 1)
+        history = [(f"i{int(k)}", float(v))
+                   for k, v in zip(ii[mine], vals[mine])] + [(rare_item, 4.5)]
+        want = host_fold(local.item_factors, local.item_ids, history,
+                         params.lambda_)
+        got = local.user_factors[local.user_ids[f"u{j}"]]
+        existing.update(user=f"u{j}", history=len(history),
+                        rel_err_vs_f64=rel_err(got, want))
+        if existing["rel_err_vs_f64"] > FOLD_REL_TOL:
+            fail(f"stream phase: u{j}'s folded factor is "
+                 f"{existing['rel_err_vs_f64']} from the float64 solve")
+        truth = served_truth(server)
+        if not np.array_equal(truth.U[truth.users[f"u{j}"]], got):
+            fail("stream phase: the served row is not the folded row")
+        for qq in ({"user": f"u{j}", "num": 10}, {"item": rare_item,
+                                                  "num": 10}):
+            check_answer(truth, qq, post(server.port, qq),
+                         "stream phase, existing user")
+
+        # 5. a new item rated by 5 existing users: an appended index row
+        index_rows = len(server.deployment.models[0].retrieval_index())
+        raters = list(dict.fromkeys(f"u{int(u)}" for u in uu[:50]))[:5]
+        item = "stream_new_item"
+        events.insert_batch([rate(u, item, 3.0 + k % 3, k)
+                             for k, u in enumerate(raters)], app_id)
+        new = fold("new item", len(raters))
+        served_index = server.deployment.models[0].retrieval_index()
+        if len(served_index) != index_rows + 1:
+            fail(f"the served index has {len(served_index)} rows after the "
+                 f"new item, {index_rows} before")
+        q = {"item": item, "num": 10}
+        t0 = time.perf_counter()
+        first = post(server.port, q)
+        new["first_query_ms"] = (time.perf_counter() - t0) * 1e3
+        warm_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            again = post(server.port, q)
+            warm_ms.append((time.perf_counter() - t0) * 1e3)
+        new["warm_query_ms"] = sorted(warm_ms)[len(warm_ms) // 2]
+        truth = served_truth(server)
+        check_answer(truth, q, first, "stream phase, new item (first)")
+        check_answer(truth, q, again, "stream phase, new item (warm)")
+        if not first["itemScores"]:
+            fail("stream phase: the new item answered nothing")
+
+        # 6. the HTTP lane: one fold published to POST /model/patch
+        updater.patch_servers = []
+        updater.patch_urls = [f"http://127.0.0.1:{server.port}"]
+        applied = server.patches["applied"]
+        user = "stream_http_u"
+        events.insert_batch([rate(user, inv_items[2], 4.0)], app_id)
+        http = fold("HTTP lane", 1)
+        if server.patches["applied"] != applied + 1:
+            fail(f"the HTTP patch did not land: {server.patches}")
+        q = {"user": user, "num": 10}
+        check_answer(served_truth(server), q, post(server.port, q),
+                     "stream phase, HTTP lane")
+        updater.patch_servers, updater.patch_urls = [server], []
+
+        # 7. the recall probe over the patched index, through topk_dot
+        recall = updater.probe_recall()
+        if recall != 1.0:
+            # ties excepted: a miss must score within topk_dot's
+            # tolerance of the k-th true score
+            sample = np.random.default_rng(0x5CA1E).choice(
+                len(local.user_ids), 16, replace=False)
+            qv = local.user_factors[sample]
+            tol = 1e-5 * float(np.linalg.norm(qv, axis=1).max()) * float(
+                np.linalg.norm(local.item_factors, axis=1).max())
+            if recall_at_k(local.retrieval_index(), qv, 10,
+                           vectors=local.item_factors, eps=tol) != 1.0:
+                fail(f"stream phase: recall@10 of the patched index "
+                     f"{recall}")
+        if solve_devices != {"cuda:0"}:
+            fail(f"fold_in_solve ran on {solve_devices}, not the card")
+
+        # 8. the two-tower online step at the stretch width
+        U, V = tt_tables
+        rng = np.random.default_rng(SEED + 8)
+        u_rows = rng.integers(0, len(U), STREAM_TT_PAIRS)
+        i_rows = rng.integers(0, len(V), STREAM_TT_PAIRS)
+        kw = dict(lr=0.05, steps=STREAM_TT_STEPS, temp=TEMP)
+        online_delta_step(U, V, u_rows, i_rows, device="cuda", **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tt_got = online_delta_step(U, V, u_rows, i_rows, device="cuda", **kw)
+        tt_ms = (time.perf_counter() - t0) * 1e3
+        launches = tkd.launches.value
+        if fce.launches.value or eu.launches.value:
+            fail("the stream phase launched a two-tower training kernel")
+    finally:
+        stream.fold_in_solve = solve
+        server.stop()
+    if launches < 1:
+        fail("topk_dot did not launch on the stream path")
+    tt_cpu = online_delta_step(U, V, u_rows, i_rows, device="cpu", **kw)
+    losses = tt_got[4]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"two-tower online losses not falling: {losses}")
+    if not (np.array_equal(tt_got[0], np.unique(u_rows))
+            and np.array_equal(tt_got[2], np.unique(i_rows))
+            and np.array_equal(tt_got[0], tt_cpu[0])
+            and np.array_equal(tt_got[2], tt_cpu[2])):
+        fail("two-tower online step: touched rows differ")
+    tt_err = max(float(np.abs(tt_got[1] - tt_cpu[1]).max()),
+                 float(np.abs(tt_got[3] - tt_cpu[3]).max()))
+    loss_err = float(np.max(np.abs(np.subtract(losses, tt_cpu[4]))
+                            / np.abs(tt_cpu[4])))
+    if tt_err > TT_ONLINE_ATOL or loss_err > TT_ONLINE_RTOL:
+        fail(f"two-tower online step on the card vs the CPU: vectors "
+             f"{tt_err}, losses {loss_err}")
+    for vecs in (tt_got[1], tt_got[3]):
+        if not np.all(np.abs(np.linalg.norm(vecs, axis=1) - 1.0) < 1e-4):
+            fail("two-tower online rows are not unit-norm")
+    return {
+        "engine": STREAM_ENGINE, "sec": time.perf_counter() - phase_t0,
+        "deploy_sec": deploy_sec,
+        "bind_sec": bind_sec, "warm": warm, "throughput": tp,
+        "events_per_sec": tp["events_per_sec"],
+        "event_to_servable": e2s,
+        "event_to_servable_ms": e2s["event_to_servable_ms"],
+        "existing_user": existing, "new_item": new, "http": http,
+        "patches": dict(server.patches), "recall": recall,
+        "fold_rel_tol": FOLD_REL_TOL,
+        "two_tower": {"pairs": STREAM_TT_PAIRS, "steps": STREAM_TT_STEPS,
+                      "table_rows": len(U), "dim": int(U.shape[1]),
+                      "ms": tt_ms, "losses": losses,
+                      "touched_users": len(tt_got[0]),
+                      "touched_items": len(tt_got[2]),
+                      "max_abs_err_vs_cpu": tt_err,
+                      "loss_rel_err_vs_cpu": loss_err},
+        "topk_dot_launches": launches,
+    }
 
 
 # -- front-door phase ----------------------------------------------------------
@@ -1994,6 +2374,61 @@ def cli_app_with_events(cli, sub_env: dict, cwd: str, app: str,
             "export_sec": t3 - t2}
 
 
+def ml100k_eventlog(store: str):
+    """(env, subprocess env, engine.json path) of the ``pio train``
+    phase's eventlog store and its ALS engine, ``ml100k-als-el``."""
+    env = {"PIO_STORAGE_SOURCES_EL_TYPE": "eventlog",
+           "PIO_STORAGE_SOURCES_EL_PATH": os.path.join(store, "el")}
+    sub_env = {**os.environ, **env,
+               "PYTHONPATH": os.path.dirname(os.path.abspath(__file__)),
+               "PIO_BIN_CACHE_DIR": os.path.join(store, "bin_cache")}
+    return env, sub_env, os.path.join(store, "engine-als-eventlog.json")
+
+
+def stream_cli_phase(store: str) -> dict:
+    """``cli deploy`` of the ``pio train`` phase's eventlog ALS engine,
+    ``cli stream --once --url`` against it (from the tail: it folds
+    nothing, and must exit 0 with its stats), then ``cli undeploy``,
+    after which the server's process must exit 0."""
+    _, sub_env, el_json = ml100k_eventlog(store)
+    cli = [sys.executable, "-m", "predictionio_torch.tools.cli"]
+    port = free_port()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        cli + ["deploy", "--engine-json", el_json, "--ip", "127.0.0.1",
+               "--port", str(port)],
+        env=sub_env, cwd=store, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        wait_healthy(port, proc, "pio deploy (stream)")
+        deploy_sec = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = run_cli(cli, ["stream", "--engine-json", el_json, "--once",
+                            "--url", f"http://127.0.0.1:{port}"],
+                      sub_env, store, "stream --once")
+        stream_sec = time.perf_counter() - t0
+        stats = json.loads(out.stdout.strip().splitlines()[-1])
+        if stats.get("rebased") is not False or stats.get("events") != 0:
+            fail(f"pio stream --once: {out.stdout[-500:]}")
+        t0 = time.perf_counter()
+        out = run_cli(cli, ["undeploy", "--port", str(port)], sub_env,
+                      store, "undeploy")
+        if "stopping" not in out.stdout:
+            fail(f"pio undeploy: {out.stdout[-500:]}")
+        code = proc.wait(timeout=60)
+        stop_sec = time.perf_counter() - t0
+        if code != 0:
+            fail(f"the undeployed server exited {code}: "
+                 f"{proc.stdout.read()[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return {"deploy_sec": deploy_sec, "stream_once": stats,
+            "stream_once_sec": stream_sec, "undeploy_sec": stop_sec,
+            "server_exit": code}
+
+
 def pio_train_phase(store: str) -> dict:
     """In the directory ``store``, which the caller removes: the eval
     phase reads the eventlog events this phase imports."""
@@ -2069,13 +2504,9 @@ def pio_train_phase(store: str) -> dict:
     # the same events in an eventlog store, through the CLI too: pio
     # train takes the binned lane (its log says so) and pio deploy
     # serves the model
-    el_env = {"PIO_STORAGE_SOURCES_EL_TYPE": "eventlog",
-              "PIO_STORAGE_SOURCES_EL_PATH": os.path.join(store, "el")}
-    el_sub_env = {**os.environ, **el_env, "PYTHONPATH": root,
-                  "PIO_BIN_CACHE_DIR": os.path.join(store, "bin_cache")}
+    el_env, el_sub_env, el_json = ml100k_eventlog(store)
     el_io = cli_app_with_events(cli, el_sub_env, store, "ml100k", jsonl,
                                 want, "eventlog")
-    el_json = os.path.join(store, "engine-als-eventlog.json")
     with open(el_json, "w") as f:
         json.dump({"id": "default", "engineId": "ml100k-als-el",
                    "engineFactory": ("predictionio_torch.templates."
@@ -2364,7 +2795,7 @@ def main() -> int:
     serve = serve_phase()
     topk["launches"] = serve["launches"]
     print(json.dumps({"serve": serve, "build_sec": build_sec}), flush=True)
-    train = train_phase()
+    train, tt_tables = train_phase()
     flash["launches"] = train["flash_ce_launches"]
     embed["launches"] = train["embed_update_launches"]
     print(json.dumps({"train": train}), flush=True)
@@ -2374,7 +2805,8 @@ def main() -> int:
     als = als_train_phase(ratings)
     print(json.dumps({"als_train": {**als, "synth_sec": synth_sec}}),
           flush=True)
-    ingest = ingest_phase(ratings, als["profile"])
+    ingest, streamed = ingest_phase(ratings, als["profile"], tt_tables)
+    del tt_tables
     print(json.dumps({"ingest": ingest}), flush=True)
     front_door = front_door_phase(ratings)
     print(json.dumps({"front_door": {**front_door, "card": card}}),
@@ -2383,10 +2815,14 @@ def main() -> int:
         "serve": serve["launches"], "train_deploy": train["topk_dot_launches"],
         "als_train_deploy": als["topk_dot_launches"],
         "ingest_deploy": ingest["topk_dot_launches"],
-        "front_door_deploy": front_door["topk_dot_launches"]}
+        "front_door_deploy": front_door["topk_dot_launches"],
+        "stream": streamed["topk_dot_launches"]}
     store = tempfile.mkdtemp(prefix="pio_chip_smoke_ml100k_")
     try:
         print(json.dumps({"pio_train": pio_train_phase(store)}), flush=True)
+        streamed["cli"] = stream_cli_phase(store)
+        print(json.dumps({"stream": {**streamed, "card": card}}),
+              flush=True)
         evaluation = eval_phase(ratings, als["algorithm_rmse_heldout"],
                                 store)
     finally:

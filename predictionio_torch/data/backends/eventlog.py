@@ -129,6 +129,21 @@ def _load() -> ctypes.CDLL:
         ctypes.POINTER(u64p), ctypes.POINTER(u64p),       # dict offsets
         ctypes.POINTER(u64p),
     ]
+    lib.el_find_columnar_since.restype = ctypes.c_int64
+    lib.el_find_columnar_since.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(_FindReq), ctypes.c_char_p,
+        ctypes.c_uint64, ctypes.c_uint64,                 # since gen/rec
+        u64p, u64p,                                       # out gen/rec
+        ctypes.POINTER(ctypes.c_int32),                   # out rebased
+        i32pp, i32pp, i32pp,                              # ent/tgt/name codes
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_double)),  # values
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),   # times_us
+        u8pp, u64p, ctypes.POINTER(ctypes.c_int64),       # ent dict
+        u8pp, u64p, ctypes.POINTER(ctypes.c_int64),       # tgt dict
+        u8pp, u64p, ctypes.POINTER(ctypes.c_int64),       # name dict
+        ctypes.POINTER(u64p), ctypes.POINTER(u64p),       # dict offsets
+        ctypes.POINTER(u64p),
+    ]
     lib.el_append_json.restype = ctypes.c_int64
     lib.el_append_json.argtypes = [
         ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint64,
@@ -691,6 +706,75 @@ class EventLogEventStore(S.EventStore):
         if n < 0:
             raise S.StorageError("columnar find failed in native event log")
         return out.take(n)
+
+    # -- streaming delta reads ---------------------------------------------
+    @staticmethod
+    def _parse_cursor(cursor: str) -> Tuple[int, int]:
+        try:
+            gen_s, rec_s = cursor.split(":", 1)
+            if gen_s[0] != "g" or rec_s[0] != "r":
+                raise ValueError
+            return int(gen_s[1:]), int(rec_s[1:])
+        except (ValueError, IndexError):
+            raise ValueError(
+                f"malformed delta cursor {cursor!r} (expected 'g<gen>:r<rec>')"
+            ) from None
+
+    def delta_cursor(self, app_id, channel_id=None) -> str:
+        """The current tail position as an opaque cursor string:
+        ``find_columnar_since`` from here returns only rows appended
+        AFTER this call. Built on el_fingerprint's generation and record
+        counters, so it stays valid across process restarts and between
+        the two packages (the log format is shared)."""
+        h = self._handle(app_id, channel_id)
+        out = (ctypes.c_uint64 * 4)()
+        self._lib.el_fingerprint(h, out)
+        return f"g{out[0]}:r{out[2]}"
+
+    def find_columnar_since(
+        self,
+        app_id,
+        channel_id=None,
+        *,
+        cursor: str,
+        value_property: Optional[str] = None,
+        **find_kwargs,
+    ) -> Tuple[S.EventColumns, str, bool]:
+        """Delta read: the live rows appended since ``cursor`` that
+        match the filters, dict-encoded, in ARRIVAL order (one native
+        pass over only the new records: the streaming tailer's lane).
+
+        Returns ``(columns, new_cursor, rebased)``. ``rebased=True``
+        means the cursor could not be mapped onto this log (a
+        compaction renumbered records, or a crash truncated appends the
+        cursor had seen): the returned columns are then a RESYNC of the
+        entire live row set, not a delta, and callers should treat it
+        as "full retrain needed", not fold it in."""
+        unknown = set(find_kwargs) - _FIND_FILTERS
+        if unknown:
+            # as find_columnar: a mistyped filter must never widen the
+            # delta; limit / reversed are not accepted, since a delta
+            # is exactly the new rows
+            raise TypeError(
+                f"find_columnar_since() got unexpected filters "
+                f"{sorted(unknown)}")
+        gen, rec = self._parse_cursor(cursor)
+        h = self._handle(app_id, channel_id)
+        req = self._build_req(**find_kwargs)
+        out_gen = ctypes.c_uint64()
+        out_rec = ctypes.c_uint64()
+        out_rebased = ctypes.c_int32()
+        out = _ColumnarOut(self._lib)
+        n = self._lib.el_find_columnar_since(
+            h, ctypes.byref(req),
+            value_property.encode() if value_property is not None else None,
+            gen, rec, ctypes.byref(out_gen), ctypes.byref(out_rec),
+            ctypes.byref(out_rebased), *out.argrefs())
+        if n < 0:
+            raise S.StorageError("delta columnar read failed in native "
+                                 "event log")
+        return (out.take(n), f"g{out_gen.value}:r{out_rec.value}",
+                bool(out_rebased.value))
 
     def bin_columnar(self, app_id, channel_id=None, *,
                      value_property: Optional[str] = None,

@@ -1,9 +1,10 @@
 """Retrieval indexes: top-k by dot product over an item table.
 
-Counterpart of ``predictionio_tpu/index/__init__.py``. This slice ports
+Counterpart of ``predictionio_tpu/index/__init__.py``. The port has
 the exact backend (``index/exact.py``: the ``topk_dot`` Hopper kernel,
-with ``ops.topk.TopKScorer`` for shapes outside the kernel's caps). The
-IVF backend and the Prometheus gauges wait for later slices.
+with ``ops.topk.TopKScorer`` for shapes outside the kernel's caps) and
+``index/recall.py``'s recall@k. The IVF backend and the Prometheus
+gauges wait for later slices.
 """
 
 from __future__ import annotations

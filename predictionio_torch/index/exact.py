@@ -96,6 +96,11 @@ class ExactIndex(AnnIndex):
     def __len__(self) -> int:
         return int(self._vectors.shape[0])
 
+    @property
+    def vectors(self) -> np.ndarray:
+        """The host table (what ``index.recall.recall_at_k`` reads)."""
+        return self._vectors
+
     # -- kernel selection -----------------------------------------------------
     def _plan_kernel(self) -> None:
         flag = resolve_flag(self.kernel_flag, "PIO_INDEX_KERNEL")

@@ -1,0 +1,63 @@
+"""Recall@k against brute force: the retrieval indexes' one measure.
+
+Copy of ``predictionio_tpu/index/recall.py``. Of the true top-k items
+under exact dot-product scoring, what fraction did the index return?
+The streaming updater's drift probe (``StreamUpdater.probe_recall``)
+reads a PATCHED index with it.
+
+Ties count for the index: a retrieved item counts if its TRUE score is
+>= the k-th true score (minus a float epsilon), so an index returning a
+different but equal-scoring item is not punished for the arbitrary half
+of a tie.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from predictionio_torch.ops.topk import TopKScorer
+
+
+def brute_force_topk(vectors: np.ndarray, queries: np.ndarray, k: int):
+    """(scores [B, k], idx [B, k]) by exact dot product on the host: one
+    matmul into the scorer's own partial sort
+    (``TopKScorer._host_topk``), so recall is measured against the
+    order the scorer defines."""
+    queries = np.atleast_2d(np.asarray(queries, np.float32))
+    scores = queries @ np.asarray(vectors, np.float32).T    # [B, I]
+    k = min(int(k), scores.shape[1])
+    if k <= 0:
+        return (np.zeros((queries.shape[0], 0), np.float32),
+                np.zeros((queries.shape[0], 0), np.int64))
+    return TopKScorer._host_topk(scores, k)
+
+
+def recall_at_k(index, queries: np.ndarray, k: int,
+                vectors: Optional[np.ndarray] = None,
+                eps: float = 1e-6) -> float:
+    """Mean recall@k of ``index.search`` against brute force over
+    ``vectors`` (default: the index's own table; pass the authoritative
+    factor table when probing a PATCHED index for drift)."""
+    queries = np.atleast_2d(np.asarray(queries, np.float32))
+    if vectors is None:
+        vectors = index.vectors
+    vectors = np.asarray(vectors, np.float32)
+    n = vectors.shape[0]
+    k = min(int(k), n)
+    if k == 0 or queries.shape[0] == 0:
+        return 1.0
+    true_s, _ = brute_force_topk(vectors, queries, k)
+    _, got_i = index.search(queries, k)
+    hits = 0
+    total = queries.shape[0] * k
+    for b in range(queries.shape[0]):
+        kth = true_s[b, -1]
+        got = got_i[b]
+        got = got[(got >= 0) & (got < n)]
+        if got.size == 0:
+            continue
+        got_true_scores = vectors[got] @ queries[b]
+        hits += int(np.sum(got_true_scores >= kth - eps))
+    return hits / total

@@ -592,7 +592,7 @@ struct DictEncoder {
 };
 
 // Copy accumulated column vectors + dictionaries into malloc'd outputs
-// (the tail of el_find_columnar). On
+// (the shared tail of el_find_columnar / el_find_columnar_since). On
 // allocation failure everything allocated so far is freed and -1 comes
 // back; otherwise the row count.
 int64_t finish_columns(
@@ -2143,6 +2143,71 @@ int64_t el_find_columnar(
                &ent_v, &tgt_v, &name_v, &val_v, &time_v);
   }
 
+  return finish_columns(
+      ents, tgts, names, ent_v, tgt_v, name_v, val_v, time_v,
+      ent_codes_out, tgt_codes_out, name_codes_out, values_out, times_us_out,
+      ent_dict_out, ent_dict_bytes, n_ent,
+      tgt_dict_out, tgt_dict_bytes, n_tgt,
+      name_dict_out, name_dict_bytes, n_names,
+      ent_offsets_out, tgt_offsets_out, name_offsets_out);
+}
+
+// Sequence-offset columnar read — the streaming delta lane
+// (find_columnar_since): live records [since_rec, end) of generation
+// ``since_gen`` matching ``req``, dict-encoded like el_find_columnar
+// but in ARRIVAL order with no sort and no limit (the tailer's
+// contract is "exactly the live rows appended since the cursor"). The
+// advancing cursor
+// comes back as (*out_gen, *out_rec) = (generation, record count) —
+// the same primitives el_fingerprint exposes — so a cursor survives
+// process restarts: reopening replays/loads the index to the same
+// record count (a torn tail truncates PAST records away, which the
+// past-the-end check below turns into a rebase, never silent loss).
+// A cursor from another generation (a compaction renumbered records)
+// or past the current end (a crash dropped unsynced appends) cannot be
+// mapped onto this log: the scan restarts from record 0 with
+// *out_rebased = 1, telling the caller these rows are a RESYNC of the
+// whole live set, not a delta.
+int64_t el_find_columnar_since(
+    void* h, const FindReq* req, const char* value_prop,
+    uint64_t since_gen, uint64_t since_rec,
+    uint64_t* out_gen, uint64_t* out_rec, int32_t* out_rebased,
+    int32_t** ent_codes_out, int32_t** tgt_codes_out,
+    int32_t** name_codes_out, double** values_out, int64_t** times_us_out,
+    uint8_t** ent_dict_out, uint64_t* ent_dict_bytes, int64_t* n_ent,
+    uint8_t** tgt_dict_out, uint64_t* tgt_dict_bytes, int64_t* n_tgt,
+    uint8_t** name_dict_out, uint64_t* name_dict_bytes, int64_t* n_names,
+    uint64_t** ent_offsets_out, uint64_t** tgt_offsets_out,
+    uint64_t** name_offsets_out) {
+  Log* log = static_cast<Log*>(h);
+  ensure_index_for_scan(log);
+  std::shared_lock lk(log->mu);
+  if (log->broken) return -1;
+
+  uint64_t start = since_rec;
+  *out_rebased = 0;
+  if (since_gen != log->generation || since_rec > log->recs.size()) {
+    start = 0;
+    *out_rebased = 1;
+  }
+  const double nan = std::numeric_limits<double>::quiet_NaN();
+  DictEncoder ents, tgts, names;
+  std::vector<int32_t> ent_v, tgt_v, name_v;
+  std::vector<double> val_v;
+  std::vector<int64_t> time_v;
+  FilterCtx ctx = make_filter_ctx(req);
+  Header hd;
+  const uint64_t nrec = log->recs.size();
+  for (uint64_t i = start; i < nrec; ++i) {
+    if (!match_rec(log, req, ctx, i, &hd)) continue;
+    ent_v.push_back(ents.encode(hd.eid, hd.len_eid));
+    tgt_v.push_back(hd.tid ? tgts.encode(hd.tid, hd.len_tid) : -1);
+    name_v.push_back(names.encode(hd.event, hd.len_event));
+    time_v.push_back(hd.time_us);
+    val_v.push_back(value_prop ? header_value(hd, value_prop) : nan);
+  }
+  *out_gen = log->generation;
+  *out_rec = nrec;
   return finish_columns(
       ents, tgts, names, ent_v, tgt_v, name_v, val_v, time_v,
       ent_codes_out, tgt_codes_out, name_codes_out, values_out, times_us_out,

@@ -36,12 +36,13 @@ the layout cache (``ops/bincache.py``) under ``layout_cache_key``.
 
 Grid training (``als_grid_train``, ``ALSGridTrainer``) trains the
 candidates of a hyperparameter sweep at once, folded into the batch
-dimension of each half-step (``GridHalfStep``).
+dimension of each half-step (``GridHalfStep``). The streaming lane's
+``fold_in_solve`` solves a handful of touched groups against fixed
+opposing factors with the same Gramian and CG.
 
 Not ported here (ROADMAP.md, queue 1): the chunked double-buffered
-transfer, the streaming fold-in solve (item 5), the gather roof probe
-(item 3), the observability hooks (item 10) and the sharded half-step
-(item 12).
+transfer, the gather roof probe (item 3), the observability hooks (item
+10) and the sharded half-step (item 12).
 """
 
 from __future__ import annotations
@@ -1152,6 +1153,87 @@ def als_grid_train(
     return ALSGridTrainer(user_coo, n_users, n_items, cfg, regs,
                           alphas=alphas, iterations=iterations,
                           cg_iters=cg_iters, device=device).run()
+
+
+# ---------------------------------------------------------------------------
+# streaming fold-in: solve a handful of touched groups against the FIXED
+# opposing factors (the classic implicit/explicit ALS fold-in, one exact
+# half-step for the touched rows) with the train's Gramian and CG
+# ---------------------------------------------------------------------------
+
+#: fold-in CG floor: the full train warm-starts from the last
+#: iteration's factors so 6 steps suffice; a fold-in may solve COLD
+#: groups (new users), which need ~16 Jacobi-CG steps at K=64
+FOLD_IN_CG_ITERS = 16
+
+
+def fold_in_solve(
+    Y,
+    rows: "List[Tuple[np.ndarray, np.ndarray]]",
+    cfg: ALSConfig,
+    x0: Optional[np.ndarray] = None,
+    device: DeviceLike = None,
+) -> np.ndarray:
+    """Solve ``len(rows)`` groups' factors against fixed opposing
+    factors ``Y`` [n_opposing, K] (numpy or a tensor) on ``device``
+    (the card unless the caller asks for the CPU).
+
+    ``rows[i] = (opp_idx, values)``: group i's COMPLETE rating set
+    (opposing-side row indices and ratings). For a new user this is
+    its delta events, and the solve is the exact conditional ALS
+    optimum given Y; for an existing user the caller supplies the full
+    history, so the fold-in matches a half-step of the full train.
+    ``x0`` [B, K] warm-starts the CG from the groups' current factors
+    (zeros for new groups); a group with no rows keeps ``x0``.
+
+    Everything runs in float32, as in the JAX package. The groups are
+    padded to the longest one with masked slots, which add nothing to
+    the sums; the JAX package's further padding to pow2 buckets only
+    bounds its compile cache. ``cfg.solver`` picks Jacobi CG with
+    ``max(cfg.cg_iters, FOLD_IN_CG_ITERS)`` steps or a direct solve.
+    Returns the solved [B, K] float32 factors."""
+    B = len(rows)
+    if B == 0:
+        return np.zeros((0, cfg.rank), np.float32)
+    device = resolve_device(device)
+    L = max(1, max(len(idx) for idx, _ in rows))
+    idx = np.zeros((B, L), np.int64)
+    val = np.zeros((B, L), np.float32)
+    mask = np.zeros((B, L), np.float32)
+    counts = np.zeros(B, np.float32)
+    for i, (gi, gv) in enumerate(rows):
+        n = len(gi)
+        idx[i, :n] = gi
+        val[i, :n] = gv
+        mask[i, :n] = 1.0
+        counts[i] = n
+    x0_arr = np.zeros((B, cfg.rank), np.float32)
+    if x0 is not None:
+        x0_arr[:] = np.asarray(x0, np.float32)
+
+    def put(a):
+        return torch.as_tensor(a, device=device)
+
+    Yt = torch.as_tensor(Y, dtype=torch.float32, device=device)
+    maskf, valt, cnt, x0t = put(mask), put(val), put(counts), put(x0_arr)
+    Yg = Yt[put(idx)] * maskf[..., None]             # [B, L, K], pads zeroed
+    eye = torch.eye(cfg.rank, dtype=torch.float32, device=device)
+    if cfg.implicit:
+        A = cfg.alpha * torch.bmm(Yg.transpose(1, 2), Yg * valt[..., None])
+        b = _bmv(Yg.transpose(1, 2), (1.0 + cfg.alpha * valt) * maskf)
+        A = A + Yt.T @ Yt + cfg.reg * eye
+    else:
+        A = torch.bmm(Yg.transpose(1, 2), Yg)
+        b = _bmv(Yg.transpose(1, 2), valt)
+        A = A + (cfg.reg * torch.clamp(cnt, min=1.0))[:, None, None] * eye
+    if cfg.solver == "cg":
+        x = _batched_cg(A, b, max(cfg.cg_iters, FOLD_IN_CG_ITERS), x0=x0t,
+                        matvec_dtype=torch.float32, precond="jacobi")
+    else:
+        x = torch.linalg.solve(A, b)
+    # an empty group keeps its warm start: a zero-rating solve would
+    # drag an existing factor toward zero
+    return torch.where((cnt > 0)[:, None], x, x0t).cpu().numpy()
 
 
 def predict_rmse(factors: ALSFactors, coo) -> float:

@@ -28,9 +28,13 @@ version on a CPU tensor is the torch form), so its flag only shows in
 any device. There is no probe and no fallback: a kernel that cannot run
 raises.
 
+The streaming lane's ``online_delta_step`` takes a few SGD steps of the
+dense in-batch CE on a delta of pairs, for the touched rows of the
+serving tables only.
+
 Not in this port yet: meshes and sharded tables (ROADMAP.md queue 1
-item 12), mid-training checkpoints (item 2), the streaming online step
-(item 7) and the device-side observability hooks (item 13).
+item 12), mid-training checkpoints (item 4) and the device-side
+observability hooks (item 10).
 """
 
 from __future__ import annotations
@@ -248,7 +252,7 @@ class TwoTowerTrainer:
             raise NotImplementedError(
                 "checkpoint_dir: mid-training checkpoints "
                 "(core/checkpoint.py) are not ported to predictionio_torch "
-                "yet (ROADMAP.md, queue 1 item 2)")
+                "yet (ROADMAP.md, queue 1 item 4)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.cdt = compute_dtype(cfg)
@@ -436,8 +440,66 @@ def twotower_train(positives, n_users: int, n_items: int,
     return trainer.embeddings(trainer.run())
 
 
-def online_delta_step(*_args, **_kwargs):
-    """The streaming two-tower step of the JAX package's fold-in lane."""
-    raise NotImplementedError(
-        "online_delta_step: the streaming fold-in lane is not ported to "
-        "predictionio_torch yet (ROADMAP.md, queue 1 item 7)")
+def online_delta_step(
+    user_vecs: np.ndarray,
+    item_vecs: np.ndarray,
+    u_rows: np.ndarray,
+    i_rows: np.ndarray,
+    weight: Optional[np.ndarray] = None,
+    lr: float = 0.05,
+    steps: int = 4,
+    temp: float = 0.05,
+    device: DeviceLike = None,
+):
+    """``steps`` SGD steps of the in-batch softmax CE over the delta
+    pairs ``(u_rows[p], i_rows[p])`` on ``device`` (the card unless the
+    caller asks for the CPU), updating ONLY the touched rows of the
+    serving embedding tables.
+
+    A served two-tower model carries only its final L2-normalized
+    vectors, so the touched rows are free embeddings: each step
+    descends the dense CE (``dense_softmax_ce`` in f32, as the JAX
+    package's ``_dense_softmax_ce``; its ``[P, P]`` logits bound the
+    delta's size) and renormalizes the rows onto the serving sphere.
+    Each step's loss is taken before its update.
+
+    Returns ``(touched_u_rows, new_u_vecs, touched_i_rows, new_i_vecs,
+    losses)``: the unique touched row indices and their updated vectors,
+    directly a model patch. The JAX package pads the delta to pow2
+    buckets for its compile cache; zero-weight padding adds nothing to
+    the loss, so the port runs the delta as it is."""
+    u_rows = np.asarray(u_rows, np.int32)
+    i_rows = np.asarray(i_rows, np.int32)
+    d = user_vecs.shape[1]
+    if len(u_rows) == 0:
+        return (np.zeros(0, np.int32), np.zeros((0, d), np.float32),
+                np.zeros(0, np.int32), np.zeros((0, d), np.float32), [])
+    device = resolve_device(device)
+    uu, pos_u = np.unique(u_rows, return_inverse=True)
+    ii, pos_i = np.unique(i_rows, return_inverse=True)
+
+    def put(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    U = put(np.asarray(user_vecs, np.float32)[uu], torch.float32)
+    V = put(np.asarray(item_vecs, np.float32)[ii], torch.float32)
+    pu, pi = put(pos_u, torch.int64), put(pos_i, torch.int64)
+    w = put(np.ones(len(u_rows), np.float32) if weight is None
+            else np.asarray(weight, np.float32), torch.float32)
+
+    def renorm(t):
+        return t / torch.clamp(torch.linalg.norm(t, dim=-1, keepdim=True),
+                               min=1e-8)
+
+    losses = []
+    for _ in range(int(steps)):
+        U = U.detach().requires_grad_(True)
+        V = V.detach().requires_grad_(True)
+        loss = dense_softmax_ce(U[pu], V[pi], pu, pi, w, temp, torch.float32)
+        gU, gV = torch.autograd.grad(loss, (U, V))
+        losses.append(loss.detach())
+        with torch.no_grad():
+            U, V = renorm(U - lr * gU), renorm(V - lr * gV)
+    return (uu.astype(np.int32), U.detach().cpu().numpy(),
+            ii.astype(np.int32), V.detach().cpu().numpy(),
+            [float(x) for x in torch.stack(losses).cpu()] if losses else [])

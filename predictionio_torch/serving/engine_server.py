@@ -14,7 +14,15 @@ serving slice. Behavior contract from the reference
     stats: the ``topk_dot`` kernel plan and its launch count
   - ``GET /reload`` hot-swaps to the latest completed instance (:592);
     404 when there is none, 500 when loading or warming it fails
+  - ``POST /stop`` stops the server (``pio undeploy``, :600)
   - bind retry x3 with 1s backoff (:340-350)
+
+``POST /model/patch`` is the streaming lane's (``workflow/stream.py``):
+a fold-in's rows land in the live models between queries, under the
+deployment lock, through each algorithm's ``apply_patch``; it answers
+401 without the ``PIO_ADMIN_TOKEN`` bearer (when one is set), 400 for a
+malformed or unsupported patch, 409 when the patch names another
+instance than the one deployed, 500 when applying it fails.
 
 Concurrent queries are micro-batched as in the JAX package: handler
 threads queue payloads and one worker answers whatever is queued. A
@@ -24,8 +32,9 @@ retrieval index -> the kernel; a batch of more than one goes through
 failed batch is re-run one query at a time.
 
 Warm-up failures are not swallowed: a deployment whose kernel cannot
-build or launch does not go live. Admission control, SLOs, feedback,
-model patches over HTTP and the obs surface come with later slices.
+build or launch does not go live. Admission control, SLOs, feedback and
+the obs surface come with later slices; the outcomes of model patches
+are a plain per-server count (``GET /`` ``patches``).
 """
 
 from __future__ import annotations
@@ -42,7 +51,9 @@ from urllib.parse import parse_qs, urlparse
 from predictionio_torch.core.engine import Engine
 from predictionio_torch.data.storage import Storage, get_storage
 from predictionio_torch.parallel.context import DeviceContext, DeviceLike
-from predictionio_torch.serving.http import HTTPServerBase, JSONRequestHandler
+from predictionio_torch.serving.http import (HTTPServerBase,
+                                             JSONRequestHandler,
+                                             _admin_authorized)
 from predictionio_torch.workflow.deploy import Deployment, prepare_deploy
 
 log = logging.getLogger(__name__)
@@ -239,6 +250,9 @@ class EngineServer(HTTPServerBase):
         self.storage = storage or get_storage()
         self.stats = ServingStats()
         self._deployment_lock = threading.Lock()
+        #: model patches by outcome (``apply_patch``)
+        self.patches = {"applied": 0, "rejected": 0, "stale": 0}
+        self._patches_lock = threading.Lock()
         self.deployment: Deployment = self._load(None)
         self._batcher: Optional[MicroBatcher] = (
             MicroBatcher(self._query_batch_now, self._query_now)
@@ -284,6 +298,62 @@ class EngineServer(HTTPServerBase):
             self.deployment = deployment
         return deployment.instance.id
 
+    # -- streaming model patches (workflow/stream.py) -----------------------
+    class StalePatch(RuntimeError):
+        """The patch targets an instance this server no longer serves."""
+
+    def _count_patch(self, outcome: str) -> None:
+        with self._patches_lock:
+            self.patches[outcome] += 1
+
+    def apply_patch(self, payload: dict) -> dict:
+        """Apply a streaming fold-in patch to the live deployment: the
+        light freshness lane between full reloads. Applied under the
+        deployment lock (between queries); each algorithm's
+        ``apply_patch`` swaps rows copy-on-write, so in-flight queries
+        see old or new tables, never torn rows.
+
+        Raises :class:`StalePatch` when ``instanceId`` names another
+        instance (the caller should resync), ValueError on malformed or
+        unsupported blocks. Returns {"applied": n_blocks}."""
+        instance_id = payload.get("instanceId")
+        blocks = payload.get("algorithms")
+        if not isinstance(blocks, list) or not blocks:
+            self._count_patch("rejected")
+            raise ValueError("patch needs a non-empty 'algorithms' list")
+        with self._deployment_lock:
+            deployment = self.deployment
+            if instance_id and instance_id != deployment.instance.id:
+                self._count_patch("stale")
+                raise self.StalePatch(
+                    f"patch targets instance {instance_id} but "
+                    f"{deployment.instance.id} is deployed")
+            applied = 0
+            for block in blocks:
+                if not isinstance(block, dict):
+                    self._count_patch("rejected")
+                    raise ValueError("each algorithm block must be an object")
+                idx = block.get("index", 0)
+                if not isinstance(idx, int) or not (
+                        0 <= idx < len(deployment.algorithms)):
+                    self._count_patch("rejected")
+                    raise ValueError(f"algorithm index {idx!r} out of range")
+                algo = deployment.algorithms[idx]
+                model = deployment.models[idx]
+                try:
+                    ok = algo.apply_patch(model, block)
+                except ValueError:
+                    self._count_patch("rejected")
+                    raise
+                if not ok:
+                    self._count_patch("rejected")
+                    raise ValueError(
+                        f"algorithm {type(algo).__name__} does not "
+                        "support model patches — use /reload")
+                applied += 1
+        self._count_patch("applied")
+        return {"applied": applied}
+
     # -- query path ---------------------------------------------------------
     def _query_now(self, payload: Any) -> Any:
         with self._deployment_lock:
@@ -327,6 +397,7 @@ class EngineServer(HTTPServerBase):
             "stats": self.stats.snapshot(),
             "batcher": (self._batcher.histogram()
                         if self._batcher is not None else None),
+            "patches": dict(self.patches),
             # each model's BUILT retrieval index (kernel plan + launches)
             "retrieval": [m.retrieval_stats()
                           if hasattr(m, "retrieval_stats") else None
@@ -358,9 +429,18 @@ class _EngineRequestHandler(JSONRequestHandler):
             self._send(404, {"message": "Not Found"})
 
     def do_POST(self):
-        if urlparse(self.path).path != "/queries.json":
+        path = urlparse(self.path).path
+        if path == "/queries.json":
+            self._query()
+        elif path == "/model/patch":
+            self._patch()
+        elif path == "/stop":
+            self._send(200, {"message": "stopping"})
+            self.server_ref.stop()
+        else:
             self._send(404, {"message": "Not Found"})
-            return
+
+    def _query(self):
         try:
             payload = self._read_json()
         except json.JSONDecodeError as e:
@@ -377,6 +457,33 @@ class _EngineRequestHandler(JSONRequestHandler):
             self._send(500, {"message": f"{type(e).__name__}: {e}"})
             return
         self._send(200, result)
+
+    def _patch(self):
+        # a patch MUTATES the served model: the admin bearer gate
+        if not _admin_authorized(self):
+            self._send(401, {"message": "missing or invalid bearer "
+                                        "token (PIO_ADMIN_TOKEN)"},
+                       extra_headers={"WWW-Authenticate": "Bearer"})
+            return
+        try:
+            payload = self._read_json()
+        except json.JSONDecodeError as e:
+            self._send(400, {"message": f"invalid JSON: {e}"})
+            return
+        try:
+            result = self.server_ref.apply_patch(payload)
+        except EngineServer.StalePatch as e:
+            self._send(409, {"message": str(e)})
+            return
+        except (ValueError, TypeError, KeyError) as e:
+            self._send(400, {"message": f"bad patch: {e}"})
+            return
+        except Exception as e:  # noqa: BLE001 — a failing patch must
+            # answer 500, never crash the keep-alive connection
+            log.exception("model patch failed")
+            self._send(500, {"message": str(e)})
+            return
+        self._send(200, {"message": "patched", **result})
 
 
 def deploy(engine: Engine, engine_id: str, engine_version: str = "0",

@@ -1,17 +1,19 @@
 """Shared HTTP plumbing: JSON handler, bind retries, thread lifecycle,
-liveness and the SIGTERM drain.
+liveness, the admin bearer gate and the SIGTERM drain.
 
-Copy of ``JSONRequestHandler``, ``HTTPServerBase``, ``drain_timeout``
-and ``install_drain_handler`` from ``predictionio_tpu/serving/http.py``,
-with the operator routes trimmed to ``GET /healthz`` and the in-flight
-gauge to a plain per-server counter (the rest of the observability and
-admin surface comes with its own slice). Each server is a stdlib
-``ThreadingHTTPServer`` with HTTP/1.1 keep-alive.
+Copy of ``JSONRequestHandler``, ``HTTPServerBase``, ``_admin_authorized``,
+``drain_timeout`` and ``install_drain_handler`` from
+``predictionio_tpu/serving/http.py``, with the operator routes trimmed
+to ``GET /healthz`` and the in-flight gauge to a plain per-server
+counter (the rest of the observability and admin surface comes with its
+own slice). Each server is a stdlib ``ThreadingHTTPServer`` with
+HTTP/1.1 keep-alive.
 """
 
 from __future__ import annotations
 
 import functools
+import hmac
 import json
 import logging
 import os
@@ -128,6 +130,18 @@ class JSONRequestHandler(BaseHTTPRequestHandler):
     # /healthz and 404 everything else
     do_GET = _instrument(_not_found)
     do_POST = _instrument(_not_found)
+
+
+def _admin_authorized(handler) -> bool:
+    """Bearer-token gate for the routes that change a server (``POST
+    /model/patch``): with ``PIO_ADMIN_TOKEN`` unset everything stays
+    open (the trusted-network default); once set, requests must carry
+    ``Authorization: Bearer <token>`` (constant-time compare)."""
+    token = os.environ.get("PIO_ADMIN_TOKEN")
+    if not token:
+        return True
+    supplied = handler.headers.get("Authorization") or ""
+    return hmac.compare_digest(supplied, f"Bearer {token}")
 
 
 class _ThreadingHTTPServer(ThreadingHTTPServer):

@@ -1,5 +1,5 @@
-"""The port's console: ``pio`` for apps, keys, events, train, deploy and
-eval.
+"""The port's console: ``pio`` for apps, keys, events, train, deploy,
+stream and eval.
 
     python -m predictionio_torch.tools.cli app new NAME [--description D]
     python -m predictionio_torch.tools.cli app list|show|delete|data-delete|
@@ -17,6 +17,10 @@ eval.
     python -m predictionio_torch.tools.cli deploy \\
         --engine-json engine.json [--engine-id ID] [--port 8000] \\
         [--ip 0.0.0.0] [--device cpu]
+    python -m predictionio_torch.tools.cli undeploy [--ip IP] [--port 8000]
+    python -m predictionio_torch.tools.cli stream \\
+        --engine-json engine.json [--url http://HOST:8000[,...]] \\
+        [--once | --interval SEC] [--device cpu]
     python -m predictionio_torch.tools.cli eval pkg.mod.MyEvaluation \\
         [pkg.mod.MyParamsGenerator] [--batch B] [--device cpu]
 
@@ -28,12 +32,16 @@ algorithms and stores a COMPLETED engine instance with its models.
 ``deploy`` serves the latest COMPLETED instance of the engine — trained
 by either package; an ``engineFactory`` under ``predictionio_tpu.``
 resolves under ``predictionio_torch.`` — on ``POST /queries.json`` until
-SIGTERM drains it (ref: Console.scala:830). ``eval`` runs an
-``Evaluation`` over the candidates of an ``EngineParamsGenerator``,
-stores an EvaluationInstance and prints the best score's one-liner (ref:
-Console.scala eval, CreateWorkflow.scala:263-276); dotted paths under
-``predictionio_tpu.`` resolve under ``predictionio_torch.``. The three
-run on the card; ``--device cpu`` is the only way onto the CPU. Storage comes from the
+SIGTERM drains it or ``undeploy`` (``POST /stop``) stops it (ref:
+Console.scala:830). ``stream`` tails the engine's event log and folds
+new events into the deployed model, patching the servers named by
+``--url`` (``workflow/stream.py``; ``--once`` runs one cycle and prints
+its stats). ``eval`` runs an ``Evaluation`` over the candidates of an
+``EngineParamsGenerator``, stores an EvaluationInstance and prints the
+best score's one-liner (ref: Console.scala eval,
+CreateWorkflow.scala:263-276); dotted paths under ``predictionio_tpu.``
+resolve under ``predictionio_torch.``. These four run on the card;
+``--device cpu`` is the only way onto the CPU. Storage comes from the
 ``PIO_STORAGE_*`` environment, as for ``pio``. The other commands stay
 with ``predictionio_tpu.tools.cli`` until their slices are ported
 (ROADMAP.md queue 1).
@@ -244,6 +252,53 @@ def cmd_deploy(args) -> int:
     return 0
 
 
+def cmd_undeploy(args) -> int:
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://{args.ip}:{args.port}/stop", method="POST", data=b"")
+    with urllib.request.urlopen(req, timeout=10) as resp:
+        print(resp.read().decode(), flush=True)
+    return 0
+
+
+def cmd_stream(args) -> int:
+    """`pio stream`: tail the event log since the last fold, fold deltas
+    into the deployed model (ALS fold-in / two-tower online steps) and
+    patch live engine servers; ``--once`` runs one cycle."""
+    from predictionio_torch.parallel.context import DeviceContext
+    from predictionio_torch.workflow.stream import (StreamUnsupported,
+                                                    StreamUpdater)
+
+    if args.reload_url:
+        raise commands.CommandError(
+            "--reload-url: the drift-band reload trigger needs the "
+            "shadow-quality probe (obs/quality.py), which is not ported "
+            "to predictionio_torch yet (ROADMAP.md, queue 1 item 10)")
+    engine, variant = engine_from_json(args.engine_json)
+    engine_id = _engine_id(args, variant)
+    urls = [u.strip() for u in (args.url or "").split(",") if u.strip()]
+    try:
+        updater = StreamUpdater(
+            engine, engine_id, engine_version=args.engine_version,
+            engine_variant=variant.get("id", "default"),
+            ctx=DeviceContext(args.device), patch_urls=urls)
+    except StreamUnsupported as e:
+        raise commands.CommandError(str(e)) from e
+    if args.once:
+        print(json.dumps(updater.poll_once()), flush=True)
+        return 0
+    print(f"streaming fold-in for engine {engine_id} "
+          f"(instance {updater.instance_id}, cursor {updater.cursor}) -> "
+          f"{', '.join(urls) if urls else 'local model only'}; Ctrl-C "
+          "stops", flush=True)
+    try:
+        updater.run_forever(interval=args.interval)
+    except KeyboardInterrupt:
+        print("stream stopped", flush=True)
+    return 0
+
+
 def cmd_eval(args) -> int:
     import importlib
 
@@ -363,6 +418,28 @@ def build_parser() -> argparse.ArgumentParser:
                        cmd_deploy)
     p.add_argument("--ip", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
+
+    p = sub.add_parser("undeploy", help="stop a deployed engine server")
+    p.add_argument("--ip", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    p.set_defaults(func=cmd_undeploy)
+
+    p = engine_command(
+        "stream", "streaming events->model: tail the event log, fold "
+        "deltas into the deployed model, POST /model/patch to engine "
+        "servers (interval: PIO_STREAM_INTERVAL_SEC)", cmd_stream)
+    p.add_argument("--url", default=None,
+                   help="comma-separated engine-server base URLs to patch "
+                        "(e.g. http://127.0.0.1:8000); omit to fold the "
+                        "local model copy only")
+    p.add_argument("--interval", type=float, default=None,
+                   help="poll seconds (default PIO_STREAM_INTERVAL_SEC "
+                        "or 1.0)")
+    p.add_argument("--once", action="store_true",
+                   help="one tail->fold->publish cycle, print stats JSON")
+    p.add_argument("--reload-url", default=None,
+                   help="not ported yet (ROADMAP.md queue 1 item 10): "
+                        "the drift-band reload trigger")
 
     p = sub.add_parser("eval", help="run an evaluation")
     p.add_argument("evaluation_class")

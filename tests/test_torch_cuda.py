@@ -22,6 +22,7 @@ from predictionio_torch.ops.kernels import flash_ce as fce
 from predictionio_torch.ops import als
 from predictionio_torch.ops.kernels import topk_dot as tkd
 from predictionio_torch.ops.topk import TopKScorer
+from predictionio_torch.ops import twotower as tt
 from predictionio_torch.ops.twotower import TwoTowerConfig, TwoTowerTrainer
 
 pytestmark = pytest.mark.cuda
@@ -807,3 +808,171 @@ def test_als_grid_equals_sequential_trains_bit_for_bit(cuda):
         seq = ALSAlgorithm(p).train(ctx, pd)
         np.testing.assert_array_equal(model.user_factors, seq.user_factors)
         np.testing.assert_array_equal(model.item_factors, seq.item_factors)
+
+
+# -- the streaming freshness lane on the card ------------------------------------
+
+def _host_fold(Y, rows, x0, cfg):
+    """fold_in_solve's normal equations solved in float64 on the host (an
+    empty group keeps its warm start)."""
+    Y = np.asarray(Y, np.float64)
+    K = Y.shape[1]
+    out = np.array(x0, np.float64)
+    for g, (idx, val) in enumerate(rows):
+        if len(idx) == 0:
+            continue
+        Yg, r = Y[idx], np.asarray(val, np.float64)
+        if cfg.implicit:
+            A = (cfg.alpha * (Yg * r[:, None]).T @ Yg + Y.T @ Y
+                 + cfg.reg * np.eye(K))
+            b = Yg.T @ (1.0 + cfg.alpha * r)
+        else:
+            A = Yg.T @ Yg + cfg.reg * len(idx) * np.eye(K)
+            b = Yg.T @ r
+        out[g] = np.linalg.solve(A, b)
+    return out
+
+
+@pytest.mark.parametrize("solver", ["cg", "direct"])
+@pytest.mark.parametrize("implicit", [False, True])
+def test_fold_in_solve_on_the_card_matches_the_cpu(cuda, implicit, solver):
+    """At rank 64: every folded factor within a relative L2 error of 1e-3
+    of the float64 solve of the same normal equations (the CG is f32 with
+    16 Jacobi steps), and the card's factors within a relative Frobenius
+    error of 1e-4 of the CPU's (the sums run in another order)."""
+    rng = np.random.default_rng(17)
+    Y = (rng.normal(size=(3000, 64)) * 0.3).astype(np.float32)
+    rows = [(rng.integers(0, 3000, n).astype(np.int32),
+             (rng.integers(1, 11, n) / 2.0).astype(np.float32))
+            for n in list(rng.integers(1, 400, 40)) + [0, 1, 8192]]
+    x0 = (rng.normal(size=(len(rows), 64)) * 0.1).astype(np.float32)
+    cfg = als.ALSConfig(rank=64, reg=0.05, implicit=implicit, alpha=0.5,
+                        solver=solver)
+    got = als.fold_in_solve(Y, rows, cfg, x0=x0, device=cuda)
+    cpu = als.fold_in_solve(Y, rows, cfg, x0=x0, device="cpu")
+    want = _host_fold(Y, rows, x0, cfg)
+    err = (np.linalg.norm(got - want, axis=1)
+           / np.linalg.norm(want, axis=1))
+    assert float(err.max()) <= 1e-3
+    np.testing.assert_array_equal(got[-3], x0[-3])
+    assert np.linalg.norm(got - cpu) <= 1e-4 * np.linalg.norm(cpu)
+
+
+def test_online_delta_step_on_the_card_matches_the_cpu(cuda):
+    """Touched rows equal; vectors within atol 1e-5, losses within rtol
+    1e-5 of the CPU run (f32 products summed in another order)."""
+    rng = np.random.default_rng(19)
+
+    def unit(n, d):
+        v = rng.normal(size=(n, d)).astype(np.float32)
+        return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+    U, V = unit(20_000, 128), unit(30_000, 128)
+    u_rows = rng.integers(0, 20_000, 2048)
+    i_rows = rng.integers(0, 30_000, 2048)
+    w = rng.random(2048).astype(np.float32)
+    got = tt.online_delta_step(U, V, u_rows, i_rows, weight=w, steps=4,
+                               temp=0.07, device=cuda)
+    cpu = tt.online_delta_step(U, V, u_rows, i_rows, weight=w, steps=4,
+                               temp=0.07, device="cpu")
+    np.testing.assert_array_equal(got[0], cpu[0])
+    np.testing.assert_array_equal(got[2], cpu[2])
+    np.testing.assert_allclose(got[1], cpu[1], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got[3], cpu[3], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got[4], cpu[4], rtol=1e-5)
+    assert got[4][-1] < got[4][0]
+
+
+def _check_top(model, q, got, k):
+    """A served answer against the float64 host top-k of the served
+    tables: scores within 1e-5 * |q| * max|item|, items equal except
+    across near-ties."""
+    U = model.user_factors.astype(np.float64)
+    V = model.item_factors.astype(np.float64)
+    names = model.item_ids.inverse()
+    if "user" in q:
+        qv = U[model.user_ids[q["user"]]]
+        allowed = np.arange(len(V))
+    else:
+        row = model.item_ids[q["item"]]
+        qv = V[row]
+        allowed = np.delete(np.arange(len(V)), row)
+    scores = V @ qv
+    want = allowed[np.lexsort((allowed, -scores[allowed]))][:k]
+    tol = 1e-5 * np.linalg.norm(qv) * np.linalg.norm(V, axis=1).max()
+    served = got["itemScores"]
+    assert len(served) == k
+    for entry, j in zip(served, want):
+        assert abs(entry["score"] - scores[j]) <= tol
+        assert entry["item"] == names[int(j)] or abs(
+            scores[model.item_ids[entry["item"]]] - scores[j]) <= tol
+
+
+def test_a_folded_model_answers_through_topk_dot_on_the_card(
+        cuda, tmp_path, monkeypatch):
+    """An ALS engine trained on the card, served by an EngineServer on the
+    card and patched by a StreamUpdater whose folds run on the card: the
+    new user's and the new item's answers come through ``topk_dot`` and
+    are the float64 host top-k of the patched tables."""
+    import datetime as dt
+
+    from predictionio_torch.data.event import Event
+    from predictionio_torch.data.storage import Storage, set_storage
+    from predictionio_torch.parallel.context import DeviceContext
+    from predictionio_torch.serving.engine_server import EngineServer
+    from predictionio_torch.templates.recommendation import (
+        recommendation_engine)
+    from predictionio_torch.workflow import stream
+    from predictionio_torch.workflow.train import run_train
+
+    monkeypatch.setenv("PIO_BIN_CACHE_DIR", str(tmp_path / "bc"))
+    storage = Storage.from_env({
+        "PIO_STORAGE_SOURCES_EL_TYPE": "eventlog",
+        "PIO_STORAGE_SOURCES_EL_PATH": str(tmp_path / "el")})
+    app = storage.apps().insert("card")
+    storage.events().init(app.id)
+    u, i, r = _als_ratings(300, 2000, 8000, seed=23)
+    t0 = dt.datetime(2026, 1, 1, tzinfo=dt.timezone.utc)
+
+    def rate(user, item, value, k=0):
+        return Event(event="rate", entity_type="user", entity_id=user,
+                     target_entity_type="item", target_entity_id=item,
+                     properties={"rating": float(value)},
+                     event_time=t0 + dt.timedelta(seconds=k))
+
+    storage.events().insert_batch(
+        [rate(f"u{a}", f"i{b}", c, k)
+         for k, (a, b, c) in enumerate(zip(u, i, r))], app.id)
+    set_storage(storage)
+    engine = recommendation_engine()
+    ctx = DeviceContext(cuda)
+    server = None
+    try:
+        instance = run_train(engine, engine.engine_params_from_variant({
+            "datasource": {"params": {"app_name": "card"}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": 16, "num_iterations": 5, "lambda_": 0.05}}]}),
+            engine_id="card", ctx=ctx, storage=storage)
+        server = EngineServer(engine, "card", host="127.0.0.1", port=0,
+                              storage=storage, device=cuda).start()
+        updater = stream.StreamUpdater(engine, "card", storage=storage,
+                                       ctx=ctx, instance=instance,
+                                       patch_servers=[server])
+        assert updater._folders[0].device.type == "cuda"
+        old = [f"u{int(a)}" for a in u[:3]]
+        storage.events().insert_batch(
+            [rate("card_new_u", f"i{int(b)}", 4.5) for b in i[:4]]
+            + [rate(name, "card_new_i", 4.0) for name in old], app.id)
+        before = tkd.launches.value
+        stats = updater.poll_once()
+        assert stats["published"] and stats["events"] == 7
+        model = server.deployment.models[0]
+        for q in ({"user": "card_new_u", "num": 10},
+                  {"item": "card_new_i", "num": 10}):
+            _check_top(model, q, server.deployment.query(q), 10)
+        assert tkd.launches.value >= before + 2
+    finally:
+        set_storage(None)
+        if server is not None:
+            server.stop()
+        storage.events().close()

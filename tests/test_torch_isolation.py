@@ -102,6 +102,14 @@ EVALUATION = ("predictionio_torch.core.controller",
               "predictionio_torch.tools.cli")
 
 
+#: the streaming freshness lane's modules (``pio stream``, fold-in)
+STREAM = ("predictionio_torch.workflow.stream",
+          "predictionio_torch.index.recall",
+          "predictionio_torch.serving.engine_server",
+          "predictionio_torch.serving.http",
+          "predictionio_torch.ops.twotower")
+
+
 def _walk_and_import(want) -> dict:
     """In a fresh interpreter: which of ``want`` the package walk misses,
     and which forbidden modules importing ``want`` loaded."""
@@ -129,3 +137,7 @@ def test_the_data_lane_modules_are_walked_and_import_no_jax():
 
 def test_the_evaluation_modules_are_walked_and_import_no_jax():
     assert _walk_and_import(EVALUATION) == {"missing": [], "bad": []}
+
+
+def test_the_stream_modules_are_walked_and_import_no_jax():
+    assert _walk_and_import(STREAM) == {"missing": [], "bad": []}

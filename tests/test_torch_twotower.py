@@ -176,13 +176,12 @@ def test_kernel_plan_on_a_cuda_device_ignores_the_flags(monkeypatch):
 
 def test_unported_options_raise_naming_their_roadmap_item():
     u, i, n_users, n_items = _positives()
-    for opt, item in (({"shard_embeddings": True}, "item 12"),
-                      ({"checkpoint_dir": "/nonexistent"}, "item 2")):
+    for opt, item in (({"shard_embeddings": True}, r"queue 1 item 12\)"),
+                      ({"checkpoint_dir": "/nonexistent"},
+                       r"queue 1 item 4\)")):
         with pytest.raises(NotImplementedError, match=item):
             tt.TwoTowerTrainer((u, i, None), n_users, n_items,
                                tt.TwoTowerConfig(dim=8, **opt), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tt.online_delta_step(None, None, [], [])
 
 
 # -- data path -----------------------------------------------------------------
