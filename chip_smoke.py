@@ -215,11 +215,53 @@ exits non-zero before printing any result.
    stream --once --url`` against it (exit 0, its stats printed), ``cli
    undeploy`` (the server's process exits 0).
 
+12. Project phase, the engine-project path. (a) Two-tower
+   checkpoint/resume at the train phase's stretch configuration: three
+   uninterrupted runs, then a run with ``checkpoint_dir`` dropped after
+   ``CKPT_STOP_EPOCH`` and a new trainer that restores it on ``cuda``
+   (counters reset just before) and runs to epoch 3. The restored
+   tables, accumulators and epoch-order generator state must equal what
+   was saved byte for byte, the resumed epochs must walk the
+   uninterrupted runs' orders, every kernel launch of the resumed steps
+   counted, and the resumed tables and step losses must sit within 2x
+   the uninterrupted runs' spread (L2 from their mean against the
+   largest L2 between two of them: ``embed_update`` combines duplicate
+   rows with float atomics). The checkpoint's bytes, save and restore
+   seconds are printed; the directory must have room for two kept
+   checkpoints and the one being written. (b) The similar-product
+   Quick Start in a new temporary ``eventlog`` store at MovieLens-20M
+   widths: a ``$set`` for every user and item (items with 1-3 of
+   ``PROJECT_CATEGORIES`` categories), the ALS phase's 20M pairs as
+   ``view`` events and every ``PROJECT_LIKE_EVERY``-th as ``like``
+   (rating >= 3.5) or ``dislike``; then ``cli template get
+   similarproduct``, ``app_name`` set in the project's engine.json with
+   both algorithms at the template defaults (rank 10, 20 iterations),
+   ``cli build`` (its manifest stored), ``cli train`` (on ``cuda:0``,
+   per its log) and ``cli deploy`` (on ``cuda:0``, per its deploy line),
+   asked exclusion-only, two-item, blacklist, ``num`` 1, category and
+   whitelist queries and an unknown item. Each answer is checked against
+   ``StandardizingServing`` over float64 top-ks of the stored models'
+   normalized tables; queries are drawn until float32 rounding cannot
+   change their answer (no near-tie at a cut). ``topk_dot``'s launches
+   in the server's ``GET /`` must rise by 2 per index query, and the
+   D=10 kernel on those tables and queries is held against its plain
+   version and timed. (c) The e-commerce Quick Start in another new
+   store: the same ``$set`` events and the 20M ratings as ``rate``
+   events; ``cli template get ecommercerecommendation``, ``cli build``,
+   ``cli train`` (``unseen_only`` on, template defaults otherwise);
+   then, from the stored model, a known user's views of 5 of its best
+   items, a constraint ``$set`` of another user's 3 best items and a new
+   user's 5 views are written, and ``cli deploy`` answers a known user,
+   the viewing user (unseenOnly), a category, a blacklist, the
+   constrained user and the new user (recent views), each checked
+   against a float64 masked top-k of the stored factors. Both stores
+   are removed at the end, pass or fail.
+
 Output: the card's name and power limit (``nvidia-smi``), a ``serve``,
 a ``train``, an ``als_train``, an ``ingest``, a ``front_door`` (with
-the card's line), a ``pio_train``, a ``stream`` (with the card's line)
-and an ``eval`` line, the ``kernels`` line, and last ``{"ok": true,
-"device": ...}``.
+the card's line), a ``pio_train``, a ``stream`` (with the card's line),
+an ``eval`` and a ``project`` line (both with the card's line), the
+``kernels`` line, and last ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -296,6 +338,13 @@ FOLD_REL_TOL = 1e-3
 # the online step on the card against the CPU: f32 products summed in
 # another order (vectors: absolute; losses: relative)
 TT_ONLINE_ATOL, TT_ONLINE_RTOL = 1e-5, 1e-5
+# the project phase: the epoch after which the checkpointed two-tower run
+# is dropped; the categories an item draws 1-3 of and every how many
+# view pairs is also a like or dislike; the e-commerce constraint's
+# size (a user's best items) and the views of the seen and the new user
+CKPT_STOP_EPOCH = 1
+PROJECT_CATEGORIES, PROJECT_LIKE_EVERY = 20, 10
+ECOM_UNAVAILABLE, ECOM_SEEN_VIEWS, ECOM_NEW_USER_VIEWS = 3, 5, 5
 
 
 def fail(msg: str) -> None:
@@ -2761,6 +2810,709 @@ def eval_phase(ratings, seq_rmse: float, store: str) -> dict:
             "pio_eval_phase_sec": time.perf_counter() - t1}
 
 
+# -- project phase -----------------------------------------------------------------
+
+def checkpoint_phase() -> dict:
+    """(a) Two-tower checkpoint/resume at the stretch configuration:
+    three uninterrupted runs measure the run-to-run spread (the table
+    update combines duplicate rows with float atomics); a run with
+    ``checkpoint_dir`` stops after ``CKPT_STOP_EPOCH`` and is dropped; a
+    new trainer restores it on the card and runs to the end. The restored
+    state must equal what was saved byte for byte, the remaining epochs
+    must walk the uninterrupted runs' orders, and the resumed step losses
+    and tables must sit within 2x the spread."""
+    import itertools
+
+    import torch
+    from predictionio_torch.ops.kernels import embed_update as eu
+    from predictionio_torch.ops.kernels import flash_ce as fce
+    from predictionio_torch.ops.twotower import (SIDES, TwoTowerConfig,
+                                                 TwoTowerTrainer)
+
+    uu, ii = synth_positives()
+    cfg = TwoTowerConfig(dim=TT_DIM, batch_size=TT_BATCH, epochs=TT_EPOCHS,
+                         learning_rate=3e-3, seed=11, temperature=TEMP)
+    est_bytes = (2 * TT_IDS * TT_DIM + 2 * TT_IDS) * 4
+    # two kept checkpoints and the next one being written
+    root = temp_store("pio_chip_smoke_ckpt_", 3 * est_bytes)
+    free = shutil.disk_usage(root).free
+
+    def trainer(ckdir=None):
+        """A trainer whose epoch orders and step losses are recorded."""
+        t = TwoTowerTrainer((uu, ii, None), TT_IDS, TT_IDS,
+                            dataclasses.replace(cfg, checkpoint_dir=ckdir),
+                            device="cuda")
+        seen = {"orders": [], "steps": []}
+        draw, step = t.epoch_order, t._step
+
+        def epoch_order(perm=None):
+            order = draw(perm)
+            seen["orders"].append(order.clone())
+            return order
+
+        def record_step(rows):
+            loss = step(rows)
+            seen["steps"].append(loss)
+            return loss
+        t.epoch_order, t._step = epoch_order, record_step
+        return t, seen
+
+    def snapshot(t):
+        return torch.cat([t.tables[side].flatten() for side in SIDES])
+
+    try:
+        runs = []
+        for _ in range(3):
+            t, seen = trainer()
+            t0 = time.perf_counter()
+            losses = t.run()
+            torch.cuda.synchronize()
+            runs.append({"losses": losses, "tables": snapshot(t),
+                         "orders": seen["orders"],
+                         "steps": torch.stack(seen["steps"]),
+                         "sec": time.perf_counter() - t0})
+            del t
+        ckdir = os.path.join(root, "tt")
+        first, first_seen = trainer(ckdir)
+        first_orders = first_seen["orders"]
+        first.run(epochs=CKPT_STOP_EPOCH)
+        saved = ({side: first.tables[side].clone() for side in SIDES},
+                 {side: first.acc[side].clone() for side in SIDES},
+                 first._perm_gen.get_state().clone())
+        save_sec = first.checkpoint_seconds[-1]
+        ckpt_bytes = os.path.getsize(
+            os.path.join(ckdir, f"ckpt_{CKPT_STOP_EPOCH}.pkl"))
+        del first
+        if not torch.equal(first_orders[0], runs[0]["orders"][0]):
+            fail("the checkpointed run's first epoch took another order")
+
+        # the resumed run is the counted path: both kernels, counts reset
+        for counter in (fce.launches, eu.launches):
+            counter.reset()
+        t0 = time.perf_counter()
+        resumed, resumed_seen = trainer(ckdir)
+        resumed_orders = resumed_seen["orders"]
+        construct_sec = time.perf_counter() - t0
+        if resumed._epochs_done != CKPT_STOP_EPOCH:
+            fail(f"the resumed trainer restored {resumed._epochs_done} "
+                 f"epochs, not {CKPT_STOP_EPOCH}")
+        placed = {resumed.device.type, resumed._perm_gen.device.type,
+                  *(resumed.tables[s].device.type for s in SIDES),
+                  *(resumed.acc[s].device.type for s in SIDES)}
+        if placed != {"cuda"}:
+            fail(f"the checkpoint restored onto {sorted(placed)}, not the "
+                 "card")
+        tables, acc, gen = saved
+        for side in SIDES:
+            if not (torch.equal(resumed.tables[side], tables[side])
+                    and torch.equal(resumed.acc[side], acc[side])):
+                fail(f"the restored {side} table or accumulator differs "
+                     "from what was saved")
+        if not torch.equal(resumed._perm_gen.get_state(), gen):
+            fail("the restored epoch-order generator state differs")
+        t0 = time.perf_counter()
+        resumed_losses = resumed.run()
+        torch.cuda.synchronize()
+        resume_run_sec = time.perf_counter() - t0
+        flash_launches, embed_launches = fce.launches.value, eu.launches.value
+        steps = resumed.steps_per_epoch * (TT_EPOCHS - CKPT_STOP_EPOCH)
+        if flash_launches != 3 * steps or embed_launches != 2 * steps:
+            fail(f"the resumed {steps} steps launched flash_ce "
+                 f"{flash_launches} and embed_update {embed_launches} times")
+        if len(resumed_orders) != TT_EPOCHS - CKPT_STOP_EPOCH or not all(
+                torch.equal(a, b) for a, b in zip(
+                    resumed_orders, runs[0]["orders"][CKPT_STOP_EPOCH:])):
+            fail("the resumed epochs walked other orders than the "
+                 "uninterrupted run")
+        kept = sorted(os.listdir(ckdir))
+        if kept != [f"ckpt_{e}.pkl" for e in (TT_EPOCHS - 1, TT_EPOCHS)]:
+            fail(f"checkpoints kept: {kept}")
+        resumed_tables = snapshot(resumed)
+        resumed_steps = torch.stack(resumed_seen["steps"])
+        restore_sec = resumed.restore_seconds
+        resume_saves = list(resumed.checkpoint_seconds)
+        del resumed
+
+        # the spread: the largest L2 distance between two uninterrupted
+        # runs, over every table entry and over every step loss of the
+        # resumed epochs; the resumed run's distance from their mean must
+        # be at most twice that (for one noise, 0.82x on average)
+        skip = CKPT_STOP_EPOCH * len(runs[0]["steps"]) // TT_EPOCHS
+        spread, err, max_abs = {}, {}, {}
+        for key, resumed_value in (("tables", resumed_tables),
+                                   ("step_losses", resumed_steps)):
+            vals = [r[key] if key == "tables" else r["steps"][skip:]
+                    for r in runs]
+            spread[key] = max(float((a.double() - b.double()).norm())
+                              for a, b in itertools.combinations(vals, 2))
+            mean = torch.stack(vals).double().mean(dim=0)
+            err[key] = float((resumed_value.double() - mean).norm())
+            max_abs[key] = max(float((resumed_value - v).abs().max())
+                               for v in vals)
+            if err[key] > 2 * spread[key]:
+                fail(f"the resumed run's {key} sit {err[key]} from the "
+                     f"uninterrupted runs' mean, beyond 2x their spread "
+                     f"{spread[key]}")
+        if not (all(np.isfinite(resumed_losses))
+                and resumed_losses[-1] < resumed_losses[0]):
+            fail(f"resumed losses not finite and falling: {resumed_losses}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {
+        "config": {"users": TT_IDS, "items": TT_IDS, "positives": TT_POS,
+                   "dim": TT_DIM, "batch": TT_BATCH, "epochs": TT_EPOCHS,
+                   "stop_after": CKPT_STOP_EPOCH},
+        "checkpoint_bytes": ckpt_bytes, "free_bytes": free,
+        "save_sec": save_sec, "resume_save_sec": resume_saves,
+        "restore_sec": restore_sec, "construct_sec": construct_sec,
+        "resume_run_sec": resume_run_sec,
+        "uninterrupted_sec": [r["sec"] for r in runs],
+        "losses": [r["losses"] for r in runs],
+        "resumed_losses": resumed_losses,
+        "spread_l2": spread, "resumed_l2_from_mean": err,
+        "resumed_max_abs": max_abs,
+        "flash_ce_launches": flash_launches,
+        "embed_update_launches": embed_launches,
+    }
+
+
+def put_entities(events, app_id: int, rng) -> dict:
+    """A ``$set`` for every user and every item, each item with 1-3 of
+    ``PROJECT_CATEGORIES`` categories, through the JSON row lane. ->
+    item name -> categories."""
+    from predictionio_torch.data.event import Event
+
+    cats = {f"i{j}": sorted({f"c{c}" for c in rng.integers(
+        0, PROJECT_CATEGORIES, 1 + j % 3)}) for j in range(N_ITEMS)}
+    rows = ([{"event": "$set", "entityType": "user", "entityId": f"u{j}",
+              "eventTime": "2025-12-31T00:00:00.000Z"}
+             for j in range(N_USERS)]
+            + [{"event": "$set", "entityType": "item", "entityId": name,
+                "properties": {"categories": c},
+                "eventTime": "2025-12-31T00:00:00.000Z"}
+               for name, c in cats.items()])
+    try:
+        _, codes, _, _ = events.insert_json_batch(json.dumps(rows).encode(),
+                                                  app_id)
+        if any(codes):
+            fail("the JSON row lane rejected a $set")
+    except Exception as e:  # noqa: BLE001 — the per-row lane takes all
+        if type(e).__name__ != "JsonRowsUnsupported":
+            raise
+        events.insert_batch([Event.from_dict(r) for r in rows], app_id)
+    return cats
+
+
+def interactions(uu, ii, names, name_codes, times_us, value=None):
+    from predictionio_torch.data.storage import EventColumns
+
+    return EventColumns(
+        entity_codes=uu.astype(np.int32), target_codes=ii.astype(np.int32),
+        name_codes=name_codes.astype(np.int32),
+        values=(np.full(len(uu), np.nan) if value is None else value),
+        times_us=times_us, entity_vocab=[f"u{j}" for j in range(N_USERS)],
+        target_vocab=[f"i{j}" for j in range(N_ITEMS)], names=names)
+
+
+def quick_start(cli, sub_env: dict, root: str, template: str, app: str,
+                algorithms: list, what: str) -> dict:
+    """``cli template get``, ``app_name`` set in the project's
+    engine.json, ``cli build``, ``cli train`` (which must run on
+    ``cuda:0``). -> the engine.json path, seconds of each step, the
+    stored instance's models."""
+    from predictionio_torch.data.storage import Storage
+    from predictionio_torch.workflow.deploy import load_blob
+
+    proj = os.path.join(root, "project")
+    secs = {}
+    t0 = time.perf_counter()
+    run_cli(cli, ["template", "get", template, proj], sub_env, root, what)
+    secs["template_get_sec"] = time.perf_counter() - t0
+    ej = os.path.join(proj, "engine.json")
+    with open(ej) as f:
+        variant = json.load(f)
+    variant["datasource"] = {"params": {"app_name": app}}
+    variant["algorithms"] = algorithms
+    with open(ej, "w") as f:
+        json.dump(variant, f)
+    t0 = time.perf_counter()
+    run_cli(cli, ["build", "--engine-json", ej], sub_env, root, what)
+    secs["build_sec"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = run_cli(cli, ["train", "--engine-json", ej], sub_env, root, what,
+                  timeout=900)
+    secs["train_sec"] = time.perf_counter() - t0
+    if "on cuda:0" not in out.stderr:
+        fail(f"pio train ({what}) did not train on cuda:0: "
+             f"{out.stderr[-1500:]}")
+    storage = Storage.from_env({k: v for k, v in sub_env.items()
+                                if k.startswith("PIO_STORAGE_")})
+    engine_id = variant["engineFactory"]
+    if storage.engine_manifests().get(engine_id, "0") is None:
+        fail(f"pio build ({what}) registered no manifest")
+    instance = storage.engine_instances().get_latest_completed(
+        engine_id, "0", "default")
+    if instance is None:
+        fail(f"pio train ({what}) stored no COMPLETED instance")
+    models = load_blob(storage.models().get(instance.id).models)
+    return {"engine_json": ej, "secs": secs, "models": models,
+            "train_log": [line[-500:] for line in out.stderr.splitlines()
+                          if any(key in line for key in (
+                              "training read:", "trained:", "took"))]}
+
+
+def serve_and_check(cli, ej: str, sub_env: dict, root: str, queries,
+                    check, what: str) -> dict:
+    """``cli deploy`` of the project (which must serve on ``cuda:0``);
+    every query's answer goes to ``check(q, answer, label)``; ``GET /``'s
+    retrieval block before and after the queries; SIGTERM."""
+    port = free_port()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        cli + ["deploy", "--engine-json", ej, "--ip", "127.0.0.1", "--port",
+               str(port)],
+        env=sub_env, cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        wait_healthy(port, proc, f"pio deploy ({what})")
+        deploy_sec = time.perf_counter() - t0
+        while True:
+            line = proc.stdout.readline()
+            if not line:
+                fail(f"pio deploy ({what}) printed no deploy line")
+            if " deployed on " in line:
+                break
+        if "(cuda:0)" not in line:
+            fail(f"pio deploy ({what}) does not serve on cuda:0: {line}")
+        before = get_json(port, "/")["retrieval"]
+        lat = []
+        for j, q in enumerate(queries):
+            t1 = time.perf_counter()
+            got = post(port, q)
+            lat.append(1e3 * (time.perf_counter() - t1))
+            check(q, got, f"pio deploy ({what}) query {j}")
+        after = get_json(port, "/")["retrieval"]
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    return {"deploy_sec": deploy_sec, "query_ms": lat,
+            "retrieval_before": before, "retrieval_after": after}
+
+
+def top_rows(scores: np.ndarray, allowed: np.ndarray, num: int):
+    """Rows of the ``num + 1`` best allowed scores under (score
+    descending, row ascending)."""
+    cand = np.flatnonzero(allowed)
+    return cand[np.lexsort((cand, -scores[cand]))[:num + 1]]
+
+
+def ambiguous(scores: np.ndarray, top: np.ndarray, num: int,
+              tol: float) -> bool:
+    """Whether float32 rounding could change which rows a top-``num``
+    with ``score > 0`` keeps: a near-tie at the cut, or a kept score
+    near 0."""
+    s = scores[top]
+    return bool((len(s) > num and s[num - 1] - s[num] <= 4 * tol)
+                or np.any(np.abs(s[:num]) <= 4 * tol))
+
+
+def check_ranked(expected, ctol: float, got: dict, what: str, q) -> None:
+    """``expected``: [(item, score)] in order; the served list must match
+    it slot for slot within ``ctol``, an item swapped only with one whose
+    expected score is within ``ctol`` of the slot's."""
+    served = got["itemScores"]
+    if len(served) != len(expected):
+        fail(f"{what}: {len(served)} items served, {len(expected)} "
+             f"expected for {q}")
+    exp = dict(expected)
+    for j, (entry, (item, score)) in enumerate(zip(served, expected)):
+        if abs(entry["score"] - score) > ctol:
+            fail(f"{what}: slot {j} score {entry['score']} vs {score} "
+                 f"for {q}")
+        if entry["item"] != item and (
+                entry["item"] not in exp
+                or abs(exp[entry["item"]] - score) > ctol):
+            fail(f"{what}: slot {j} item {entry['item']} vs {item} for {q}")
+
+
+class SimTruth:
+    """A similar-product model's row-normalized table in float64."""
+
+    def __init__(self, model):
+        self.N = np.asarray(model._normalized, np.float64)
+        self.names = list(model.item_ids.keys())
+        self.rows = {n: j for j, n in enumerate(self.names)}
+        self.cats = model.item_categories
+
+    def answer(self, q):
+        """(the algorithm's [(item, score)], its score tolerance, whether
+        the answer is ambiguous in float32)."""
+        num = int(q.get("num", 10))
+        rows = [self.rows[x] for x in q["items"] if x in self.rows]
+        if not rows:
+            return [], 0.0, False
+        qvec = self.N[rows].sum(axis=0)
+        scores = self.N @ qvec
+        allowed = np.ones(len(self.names), bool)
+        allowed[rows] = False
+        if q.get("whiteList"):
+            wl = np.zeros(len(self.names), bool)
+            wl[[self.rows[x] for x in q["whiteList"] if x in self.rows]] = True
+            allowed &= wl
+        allowed[[self.rows[x] for x in q.get("blackList", ())
+                 if x in self.rows]] = False
+        if q.get("categories"):
+            want = set(q["categories"])
+            allowed &= np.array([bool(want & set(self.cats.get(n, ())))
+                                 for n in self.names])
+        tol = 1e-5 * float(np.linalg.norm(qvec))
+        top = top_rows(scores, allowed, num)
+        keep = [j for j in top[:num] if scores[j] > 0.0]
+        return ([(self.names[j], float(scores[j])) for j in keep], tol,
+                ambiguous(scores, top, num, tol))
+
+
+def standardized(q, answers):
+    """StandardizingServing over the algorithms' float64 answers ->
+    ([(item, score)], the combined tolerance)."""
+    num = int(q.get("num", 10))
+    combined, ctol = {}, 0.0
+    for items, tol in answers:
+        vals = np.array([s for _, s in items], np.float64)
+        if num == 1 or not len(vals):
+            z, ztol = vals, tol
+        else:
+            std = vals.std(ddof=1) if len(vals) > 1 else 0.0
+            z = (np.zeros_like(vals) if std == 0
+                 else (vals - vals.mean()) / std)
+            ztol = (0.0 if std == 0 else
+                    2 * tol * (1 + float(np.abs(z).max())) / std)
+        ctol += ztol
+        for (item, _), zs in zip(items, z):
+            combined[item] = combined.get(item, 0.0) + float(zs)
+    top = sorted(combined.items(), key=lambda kv: -kv[1])[:num]
+    return top, ctol + 1e-9
+
+
+def similar_product_phase(ratings) -> dict:
+    """(b) The similar-product Quick Start at MovieLens-20M widths."""
+    import torch
+    from predictionio_torch.data.storage import Storage
+    from predictionio_torch.models.similarproduct import SimilarProductModel
+    from predictionio_torch.ops.kernels import topk_dot as tkd
+
+    uu, ii, vals = ratings
+    n = len(uu)
+    root = temp_store("pio_chip_smoke_simprod_", INGEST_DISK_BYTES)
+    env = {"PIO_STORAGE_SOURCES_EL_TYPE": "eventlog",
+           "PIO_STORAGE_SOURCES_EL_PATH": os.path.join(root, "el")}
+    sub_env = {**os.environ, **env,
+               "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+    cli = [sys.executable, "-m", "predictionio_torch.tools.cli"]
+    rng = np.random.default_rng(SEED + 12)
+    try:
+        storage = Storage.from_env(env)
+        events = storage.events()
+        app = storage.apps().insert("ml20m-sp")
+        events.init(app.id)
+        t0 = time.perf_counter()
+        put_entities(events, app.id, rng)
+        times = np.arange(n, dtype=np.int64) * 1_000_000
+        events.insert_columnar(
+            interactions(uu, ii, ["view"], np.zeros(n), times), app.id,
+            entity_type="user", target_entity_type="item")
+        sel = np.arange(0, n, PROJECT_LIKE_EVERY)
+        likes = vals[sel] >= 3.5
+        events.insert_columnar(
+            interactions(uu[sel], ii[sel], ["like", "dislike"], ~likes,
+                         times[sel]), app.id,
+            entity_type="user", target_entity_type="item")
+        events.close()
+        ingest_sec = time.perf_counter() - t0
+
+        qs = quick_start(cli, sub_env, root, "similarproduct", "ml20m-sp",
+                         [{"name": "als", "params": {}},
+                          {"name": "likealgo", "params": {}}],
+                         "similar product")
+        models = qs["models"]
+        if len(models) != 2 or not all(
+                isinstance(m, SimilarProductModel) for m in models):
+            fail(f"pio train stored {[type(m).__name__ for m in models]}")
+        for m in models:
+            if m.item_factors.shape != (N_ITEMS, 10) or not np.all(
+                    np.isfinite(m.item_factors)):
+                fail(f"similar-product factors {m.item_factors.shape} not "
+                     f"finite at rank 10 over {N_ITEMS} items")
+        truths = [SimTruth(m) for m in models]
+
+        # queries whose float64 answer float32 cannot change
+        popular = [f"i{j}" for j in rng.permutation(min(2000, N_ITEMS))]
+        names = truths[0].names
+        kinds = {
+            "exclusion": lambda a, b: {"items": [a], "num": 10},
+            "two items": lambda a, b: {"items": [a, b], "num": 10},
+            "blacklist": lambda a, b: {
+                "items": [a], "num": 10,
+                "blackList": [x for x, _ in truths[0].answer(
+                    {"items": [a], "num": 5})[0]]},
+            "num 1": lambda a, b: {"items": [a], "num": 1},
+            "categories": lambda a, b: {
+                "items": [a], "num": 10,
+                "categories": sorted(truths[0].cats.get(a, ["c0"]))[:1]},
+            "whitelist": lambda a, b: {
+                "items": [a], "num": 10,
+                "whiteList": [names[j] for j in
+                              rng.choice(len(names), 300, replace=False)]},
+        }
+        queries, expected, skipped = [], [], 0
+        for kind, make in kinds.items():
+            for a, b in zip(popular[::2], popular[1::2]):
+                q = make(a, b)
+                answers = [t.answer(q) for t in truths]
+                if any(amb for _, _, amb in answers) or not any(
+                        ans for ans, _, _ in answers):
+                    skipped += 1
+                    continue
+                queries.append(q)
+                expected.append(standardized(q, [(ans, tol) for ans, tol, _
+                                                 in answers]))
+                break
+            else:
+                fail(f"no unambiguous {kind} query among the popular "
+                     "items")
+        queries.append({"items": ["no-such-item"], "num": 10})
+        expected.append(([], 1e-9))
+        index_queries = sum(1 for q in queries if not q.get("whiteList")
+                            and not q.get("categories")
+                            and q["items"][0] in truths[0].rows)
+        answers = dict(zip(map(json.dumps, queries), expected))
+
+        def check(q, got, what):
+            exp, ctol = answers[json.dumps(q)]
+            check_ranked(exp, ctol, got, what, q)
+
+        served = serve_and_check(cli, qs["engine_json"], sub_env, root,
+                                 queries, check, "similar product")
+        launches = (max(r["kernel_launches"] for r in
+                        served["retrieval_after"] if r)
+                    - max(r["kernel_launches"] for r in
+                          served["retrieval_before"] if r))
+        if launches < 2 * index_queries:
+            fail(f"topk_dot launched {launches} times for {index_queries} "
+                 "exclusion-only queries over two models")
+        plans = [r["kernel"] for r in served["retrieval_after"] if r]
+        if not all(p["engaged"] and p["device"] == "cuda:0" for p in plans):
+            fail(f"the similar-product index did not plan the kernel on "
+                 f"the card: {plans}")
+
+        # the D=10 kernel on this path's tables and queries, against its
+        # plain version, then timed
+        dev = torch.device("cuda")
+        items = torch.tensor(models[0]._normalized, device=dev)
+        errs = []
+        for q in queries:
+            rows = [truths[0].rows[x] for x in q["items"]
+                    if x in truths[0].rows]
+            if not rows or q.get("whiteList") or q.get("categories"):
+                continue
+            excl = rows + [truths[0].rows[x] for x in q.get("blackList", ())]
+            qv = items[rows].sum(dim=0, keepdim=True)
+            ex = torch.tensor([excl], dtype=torch.int32, device=dev)
+            s, i = tkd.topk_dot(qv, items, ex, 16)
+            errs.append(check_topk(qv, items, ex, 16, s, i,
+                                   "similar product D=10"))
+        timing = time_topk(qv, items, ex, 16,
+                           (1, N_ITEMS, items.shape[1], 16, ex.shape[1]))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"events": {"views": n, "likes": int(len(sel)),
+                       "sets": N_USERS + N_ITEMS},
+            "ingest_sec": ingest_sec, **qs["secs"],
+            "train_log": qs["train_log"], "queries": len(queries),
+            "skipped_ambiguous": skipped, "index_queries": index_queries,
+            "topk_dot_launches": launches, **{
+                k: served[k] for k in ("deploy_sec", "query_ms")},
+            "kernel_d10": {"max_abs_err": max(errs), **timing}}
+
+
+class EcomTruth:
+    """An e-commerce model's tables in float64, and the events written
+    around its training: each user's views, the unavailable items."""
+
+    def __init__(self, model, seen: dict, unavailable: set):
+        self.U = np.asarray(model.user_factors, np.float64)
+        self.V = np.asarray(model.item_factors, np.float64)
+        from predictionio_torch.ops.topk import cosine_normalize
+
+        self.N = np.asarray(cosine_normalize(model.item_factors), np.float64)
+        self.users = {n: j for j, n in enumerate(model.user_ids.keys())}
+        self.names = list(model.item_ids.keys())
+        self.rows = {n: j for j, n in enumerate(self.names)}
+        self.rated_users = model.rated_users
+        self.rated_items = model.rated_items
+        self.cats = model.item_categories
+        self.seen, self.unavailable = seen, unavailable
+        self.vmax = float(np.linalg.norm(self.V, axis=1).max())
+
+    def answer(self, q):
+        num = int(q.get("num", 10))
+        user = q["user"]
+        black = (set(q.get("blackList", ())) | self.seen.get(user, set())
+                 | self.unavailable)
+        allowed = self.rated_items.copy()
+        allowed[[self.rows[x] for x in black if x in self.rows]] = False
+        if q.get("categories"):
+            want = set(q["categories"])
+            allowed &= np.array([bool(want & set(self.cats.get(n, ())))
+                                 for n in self.names])
+        row = self.users.get(user)
+        if row is not None and self.rated_users[row]:
+            scores = self.V @ self.U[row]
+            tol = 1e-5 * float(np.linalg.norm(self.U[row])) * self.vmax
+        else:
+            recent = [self.rows[x] for x in self.seen.get(user, ())
+                      if x in self.rows]
+            if not recent:
+                return [], 0.0, False
+            qvec = self.N[recent].sum(axis=0)
+            scores = self.N @ qvec
+            tol = 1e-5 * float(np.linalg.norm(qvec))
+        top = top_rows(scores, allowed, num)
+        keep = [j for j in top[:num] if scores[j] > 0.0]
+        return ([(self.names[j], float(scores[j])) for j in keep], tol,
+                ambiguous(scores, top, num, tol))
+
+
+def ecommerce_phase(ratings) -> dict:
+    """(c) The e-commerce Quick Start at MovieLens-20M widths."""
+    import datetime as dt
+
+    from predictionio_torch.data.event import Event
+    from predictionio_torch.data.storage import Storage
+    from predictionio_torch.models.ecommerce import ECommModel
+
+    uu, ii, vals = ratings
+    n = len(uu)
+    root = temp_store("pio_chip_smoke_ecom_", INGEST_DISK_BYTES)
+    env = {"PIO_STORAGE_SOURCES_EL_TYPE": "eventlog",
+           "PIO_STORAGE_SOURCES_EL_PATH": os.path.join(root, "el")}
+    sub_env = {**os.environ, **env,
+               "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+    cli = [sys.executable, "-m", "predictionio_torch.tools.cli"]
+    rng = np.random.default_rng(SEED + 13)
+    try:
+        storage = Storage.from_env(env)
+        events = storage.events()
+        app = storage.apps().insert("ml20m-ec")
+        events.init(app.id)
+        t0 = time.perf_counter()
+        put_entities(events, app.id, rng)
+        events.insert_columnar(
+            interactions(uu, ii, ["rate"], np.zeros(n),
+                         np.arange(n, dtype=np.int64) * 1_000_000,
+                         value=vals), app.id, entity_type="user",
+            target_entity_type="item", value_property="rating")
+        events.close()
+        ingest_sec = time.perf_counter() - t0
+
+        qs = quick_start(cli, sub_env, root, "ecommercerecommendation",
+                         "ml20m-ec", [{"name": "als", "params": {
+                             "app_name": "ml20m-ec", "unseen_only": True}}],
+                         "e-commerce")
+        (model,) = qs["models"]
+        if not isinstance(model, ECommModel) or model.user_factors.shape \
+                != (N_USERS, 10) or not np.all(
+                    np.isfinite(model.item_factors)):
+            fail("pio train stored no finite rank-10 e-commerce model")
+
+        # the serve-time events, written once the model exists: a known
+        # user's views (unseenOnly), the constraint on another user's
+        # best items, a new user's views
+        base = EcomTruth(model, {}, set())
+        users = [f"u{j}" for j in rng.permutation(N_USERS)]
+        picked = []
+        for user in users:
+            ans, _, amb = base.answer({"user": user, "num": 10})
+            if not amb and len(ans) == 10:
+                picked.append((user, [x for x, _ in ans]))
+            if len(picked) == 3:
+                break
+        (known, _), (seen_user, seen_top), (unavail_user, unavail_top) = \
+            picked
+        seen = {seen_user: set(seen_top[:ECOM_SEEN_VIEWS]),
+                "u-new": {f"i{j}" for j in range(ECOM_NEW_USER_VIEWS)}}
+        unavailable = set(unavail_top[:ECOM_UNAVAILABLE])
+        t1 = dt.datetime(2027, 1, 1, tzinfo=dt.timezone.utc)
+        extra = [Event(event="view", entity_type="user", entity_id=user,
+                       target_entity_type="item", target_entity_id=item,
+                       event_time=t1 + dt.timedelta(seconds=k))
+                 for user, items in seen.items()
+                 for k, item in enumerate(sorted(items))]
+        extra.append(Event(event="$set", entity_type="constraint",
+                           entity_id="unavailableItems",
+                           properties={"items": sorted(unavailable)},
+                           event_time=t1))
+        events = Storage.from_env(env).events()
+        events.insert_batch(extra, app.id)
+        events.close()
+
+        truth = EcomTruth(model, seen, unavailable)
+        cats = sorted(model.item_categories.get(
+            truth.answer({"user": known, "num": 1})[0][0][0], ["c0"]))[:1]
+        queries = [{"user": known, "num": 10},
+                   {"user": seen_user, "num": 10},
+                   {"user": known, "num": 10, "categories": cats},
+                   {"user": known, "num": 10,
+                    "blackList": [x for x, _ in truth.answer(
+                        {"user": known, "num": 3})[0]]},
+                   {"user": unavail_user, "num": 10},
+                   {"user": "u-new", "num": 10}]
+        expected = []
+        for q in queries:
+            ans, tol, amb = truth.answer(q)
+            if amb:
+                fail(f"e-commerce query {q} is ambiguous in float32")
+            if not ans:
+                fail(f"e-commerce query {q} expects no items")
+            expected.append((ans, tol))
+        answers = dict(zip(map(json.dumps, queries), expected))
+
+        def check(q, got, what):
+            exp, tol = answers[json.dumps(q)]
+            check_ranked(exp, tol, got, what, q)
+            served = {e["item"] for e in got["itemScores"]}
+            if served & (truth.seen.get(q["user"], set()) | unavailable):
+                fail(f"{what}: a seen or unavailable item was served "
+                     f"for {q}")
+
+        served = serve_and_check(cli, qs["engine_json"], sub_env, root,
+                                 queries, check, "e-commerce")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"events": {"rates": n, "sets": N_USERS + N_ITEMS,
+                       "serve_time": len(extra)},
+            "ingest_sec": ingest_sec, **qs["secs"],
+            "train_log": qs["train_log"], "queries": len(queries),
+            **{k: served[k] for k in ("deploy_sec", "query_ms")}}
+
+
+def project_phase(ratings) -> dict:
+    t0 = time.perf_counter()
+    ckpt = checkpoint_phase()
+    t1 = time.perf_counter()
+    similar = similar_product_phase(ratings)
+    t2 = time.perf_counter()
+    ecom = ecommerce_phase(ratings)
+    return {"checkpoint": ckpt, "checkpoint_phase_sec": t1 - t0,
+            "similar_product": similar, "similar_product_phase_sec": t2 - t1,
+            "ecommerce": ecom,
+            "ecommerce_phase_sec": time.perf_counter() - t2}
+
+
 def main() -> int:
     try:
         import torch
@@ -2827,8 +3579,19 @@ def main() -> int:
                                 store)
     finally:
         shutil.rmtree(store, ignore_errors=True)
-    del ratings
     print(json.dumps({"eval": {**evaluation, "card": card}}), flush=True)
+    project = project_phase(ratings)
+    del ratings
+    print(json.dumps({"project": {**project, "card": card}}), flush=True)
+    similar = project["similar_product"]
+    topk["launches_by_path"]["similar_product_cli_deploy"] = similar[
+        "topk_dot_launches"]
+    topk["similar_product_d10"] = similar["kernel_d10"]
+    for entry, key in ((flash, "flash_ce_launches"),
+                       (embed, "embed_update_launches")):
+        entry["launches_by_path"] = {
+            "train": entry["launches"],
+            "checkpoint_resume": project["checkpoint"][key]}
     print(card, flush=True)
     print(json.dumps({"kernels": [topk, flash, embed]}), flush=True)
     print(json.dumps({"ok": True, "device": {

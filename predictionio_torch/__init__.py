@@ -27,7 +27,10 @@ update) kernels, and ``pio train`` of the Recommendation (ALS) engine
 (``ops/als.py``: the segmented layout, the gather+Gramian half-step and
 the Jacobi CG solve in PyTorch), over the native event log's fused
 scan+bin and the layout cache when the events are in an ``eventlog``
-store. What remains is in ROADMAP.md.
+store; the front door, ``pio eval`` and ``pio stream``; and the
+engine-project path (``pio template get`` and ``pio build``, engine
+variants with their project modules, two-tower checkpoints, and the
+similar-product and e-commerce engines). What remains is in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

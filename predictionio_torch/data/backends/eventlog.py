@@ -990,6 +990,9 @@ class EventLogStorageClient(S.StorageClient):
     def channels(self):
         return self._meta.channels()
 
+    def engine_manifests(self):
+        return self._meta.engine_manifests()
+
     def engine_instances(self):
         return self._meta.engine_instances()
 

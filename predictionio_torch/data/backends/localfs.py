@@ -1,5 +1,6 @@
 """Local-filesystem storage backend: events, apps, access keys,
-channels, engine and evaluation instances and model blobs.
+channels, engine manifests, engine and evaluation instances and model
+blobs.
 
 The on-disk format is ``predictionio_tpu/data/backends/localfs.py``'s,
 so the port reads what the JAX package wrote and the other way round:
@@ -9,16 +10,17 @@ so the port reads what the JAX package wrote and the other way round:
                 deletion as a ``{"__tombstone__": id}`` line (ref: hbase
                 tables ``events_<appId>[_<channelId>]``)
   - metadata -> one JSON document ``<root>/metadata.json``; apps,
-                access keys, channels, engine and evaluation instances
+                access keys, channels, engine manifests (one per
+                ``(id, version)``), engine and evaluation instances
                 are its ``"apps"``, ``"access_keys"``, ``"channels"``,
-                ``"engine_instances"`` and ``"evaluation_instances"``
-                lists, id counters its ``"sequences"`` (ref:
-                elasticsearch indices)
+                ``"engine_manifests"``, ``"engine_instances"`` and
+                ``"evaluation_instances"`` lists, id counters its
+                ``"sequences"`` (ref: elasticsearch indices)
   - models   -> blob files ``<root>/models/pio_<id>``
                 (ref: localfs/LocalFSModels.scala:29)
 
-Every other section of the metadata document (engine manifests) is
-written back as it was read. Reads and writes hold the same
+Every other section of the metadata document is written back as it
+was read. Reads and writes hold the same
 exclusive ``flock`` on ``<root>/.metadata.lock`` as the JAX backend, so
 processes of both packages can share one root; writes are atomic
 renames. An event log is read once per process and table and then kept
@@ -41,7 +43,7 @@ from predictionio_torch.data import storage as S
 from predictionio_torch.data.backends.memory import MemoryEventStore, table_key
 from predictionio_torch.data.event import Event
 from predictionio_torch.data.metadata import (AccessKey, App, Channel,
-                                              EngineInstance,
+                                              EngineInstance, EngineManifest,
                                               EvaluationInstance, Model,
                                               dict_to_record, record_to_dict)
 
@@ -242,19 +244,25 @@ class _MetadataDoc:
     def records(self, section: str, cls) -> list:
         return [dict_to_record(cls, rd) for rd in self.rows(section)]
 
-    def upsert(self, section: str, field: str, record) -> None:
-        """Replace the row whose ``field`` equals the record's, or add
-        it."""
+    def upsert(self, section: str, field, record) -> None:
+        """Replace the row whose ``field`` (a name, or a tuple of names
+        for a composite key) equals the record's, or add it."""
         rd = record_to_dict(record)
+        fields = field if isinstance(field, tuple) else (field,)
         with self.changing() as doc:
             rows = [r for r in doc.get(section, [])
-                    if r[field] != rd[field]]
+                    if any(r[f] != rd[f] for f in fields)]
             doc[section] = rows + [rd]
 
-    def remove(self, section: str, field: str, value) -> None:
+    def remove(self, section: str, field, value) -> None:
+        """Drop the rows whose ``field`` equals ``value`` (tuples of
+        names and values for a composite key)."""
+        fields = field if isinstance(field, tuple) else (field,)
+        values = value if isinstance(field, tuple) else (value,)
         with self.changing() as doc:
             doc[section] = [r for r in doc.get(section, [])
-                            if r[field] != value]
+                            if any(r[f] != v for f, v in zip(fields,
+                                                              values))]
 
     @staticmethod
     def next_id(doc: dict, sequence: str) -> int:
@@ -352,6 +360,31 @@ class LocalFSChannelsRepo(S.ChannelsRepo):
         self._doc.remove("channels", "id", int(channel_id))
 
 
+class LocalFSEngineManifestsRepo(S.EngineManifestsRepo):
+    """Keyed on (id, version), as the JAX backend keys them."""
+
+    _KEY = ("id", "version")
+
+    def __init__(self, doc: _MetadataDoc):
+        self._doc = doc
+
+    def insert(self, manifest: EngineManifest) -> None:
+        self._doc.upsert("engine_manifests", self._KEY, manifest)
+
+    def get(self, id: str, version: str) -> Optional[EngineManifest]:
+        return next((m for m in self.get_all()
+                     if (m.id, m.version) == (id, version)), None)
+
+    def get_all(self) -> List[EngineManifest]:
+        return self._doc.records("engine_manifests", EngineManifest)
+
+    def update(self, manifest: EngineManifest) -> None:
+        self.insert(manifest)
+
+    def delete(self, id: str, version: str) -> None:
+        self._doc.remove("engine_manifests", self._KEY, (id, version))
+
+
 class LocalFSEngineInstancesRepo(S.EngineInstancesRepo):
     def __init__(self, doc: _MetadataDoc):
         self._doc = doc
@@ -400,6 +433,7 @@ class LocalFSStorageClient(S.StorageClient):
         self._apps = LocalFSAppsRepo(doc)
         self._access_keys = LocalFSAccessKeysRepo(doc)
         self._channels = LocalFSChannelsRepo(doc)
+        self._engine_manifests = LocalFSEngineManifestsRepo(doc)
         self._engine_instances = LocalFSEngineInstancesRepo(doc)
         self._evaluation_instances = LocalFSEvaluationInstancesRepo(doc)
         self._models = LocalFSModelsRepo(basedir)
@@ -408,6 +442,7 @@ class LocalFSStorageClient(S.StorageClient):
     def apps(self): return self._apps
     def access_keys(self): return self._access_keys
     def channels(self): return self._channels
+    def engine_manifests(self): return self._engine_manifests
     def engine_instances(self): return self._engine_instances
     def evaluation_instances(self): return self._evaluation_instances
     def models(self): return self._models

@@ -235,6 +235,29 @@ class MemoryChannelsRepo(_RecordRepo, S.ChannelsRepo):
             self._records.pop(int(channel_id), None)
 
 
+class MemoryEngineManifestsRepo(_RecordRepo, S.EngineManifestsRepo):
+    """Keyed on (id, version)."""
+
+    def insert(self, manifest):
+        with self._lock:
+            self._put((manifest.id, manifest.version), manifest)
+
+    def get(self, id, version):
+        with self._lock:
+            return self._get((id, version))
+
+    def get_all(self):
+        with self._lock:
+            return [copy.deepcopy(m) for m in self._records.values()]
+
+    def update(self, manifest):
+        self.insert(manifest)
+
+    def delete(self, id, version):
+        with self._lock:
+            self._records.pop((id, version), None)
+
+
 class MemoryEngineInstancesRepo(S.EngineInstancesRepo):
     def __init__(self, lock: threading.RLock):
         self._records: Dict[str, EngineInstance] = {}
@@ -302,6 +325,7 @@ class MemoryStorageClient(S.StorageClient):
         self._apps = MemoryAppsRepo(sequences, lock)
         self._access_keys = MemoryAccessKeysRepo(lock)
         self._channels = MemoryChannelsRepo(sequences, lock)
+        self._engine_manifests = MemoryEngineManifestsRepo(lock)
         self._engine_instances = MemoryEngineInstancesRepo(lock)
         self._evaluation_instances = MemoryEvaluationInstancesRepo(lock)
         self._models = MemoryModelsRepo(lock)
@@ -310,6 +334,7 @@ class MemoryStorageClient(S.StorageClient):
     def apps(self): return self._apps
     def access_keys(self): return self._access_keys
     def channels(self): return self._channels
+    def engine_manifests(self): return self._engine_manifests
     def engine_instances(self): return self._engine_instances
     def evaluation_instances(self): return self._evaluation_instances
     def models(self): return self._models

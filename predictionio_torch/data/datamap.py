@@ -1,13 +1,16 @@
 """Typed JSON property bags.
 
-Copy of ``predictionio_tpu/data/datamap.py`` trimmed to ``DataMap``
-(ref: data/.../storage/DataMap.scala:38): an immutable map of field
-name -> JSON value with typed accessors — ``get`` raising on a missing
-field, ``get_opt`` returning None.
+Copy of ``predictionio_tpu/data/datamap.py`` (ref:
+data/.../storage/DataMap.scala:38, PropertyMap.scala): ``DataMap`` is an
+immutable map of field name -> JSON value with typed accessors — ``get``
+raising on a missing field, ``get_opt`` returning None; ``PropertyMap``
+adds the first and last update times that folding an entity's
+``$set``/``$unset``/``$delete`` events gives (``data/aggregation.py``).
 """
 
 from __future__ import annotations
 
+import datetime as _dt
 from typing import Any, Iterator, Mapping, Optional
 
 _MISSING = object()
@@ -42,6 +45,12 @@ class DataMap:
 
     def __contains__(self, key: object) -> bool:
         return key in self._fields
+
+    def items(self):
+        return self._fields.items()
+
+    def keyset(self) -> set:
+        return set(self._fields)
 
     def __eq__(self, other: object) -> bool:
         if isinstance(other, DataMap):
@@ -83,3 +92,27 @@ class DataMap:
 
     def to_dict(self) -> dict:
         return dict(self._fields)
+
+
+class PropertyMap(DataMap):
+    """DataMap + first/last update times (ref: PropertyMap.scala)."""
+
+    __slots__ = ("first_updated", "last_updated")
+
+    def __init__(self, fields: Optional[Mapping[str, Any]],
+                 first_updated: _dt.datetime, last_updated: _dt.datetime):
+        super().__init__(fields)
+        self.first_updated = first_updated
+        self.last_updated = last_updated
+
+    def __repr__(self) -> str:
+        return (f"PropertyMap({self.to_dict()!r}, "
+                f"first_updated={self.first_updated}, "
+                f"last_updated={self.last_updated})")
+
+    def __eq__(self, other: object) -> bool:
+        if isinstance(other, PropertyMap):
+            return (self.to_dict() == other.to_dict()
+                    and self.first_updated == other.first_updated
+                    and self.last_updated == other.last_updated)
+        return super().__eq__(other)

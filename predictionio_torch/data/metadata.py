@@ -2,9 +2,10 @@
 and model blobs.
 
 Copy of ``predictionio_tpu/data/metadata.py`` trimmed to the records
-the event server, the app and access-key commands, ``pio train``,
-``pio deploy`` and ``pio eval`` use (ref: Apps.scala:27,
-AccessKeys.scala:27, Channels.scala:27, EngineInstances.scala:34,
+the event server, the app and access-key commands, ``pio build``,
+``pio train``, ``pio deploy`` and ``pio eval`` use (ref: Apps.scala:27,
+AccessKeys.scala:27, Channels.scala:27, EngineManifests.scala:33,
+EngineInstances.scala:34,
 EvaluationInstances.scala:38, Models.scala:30). The
 field names and the JSON form (``record_to_dict`` / ``dict_to_record``)
 are the storage format both packages share, so each reads what the
@@ -59,6 +60,17 @@ class Channel:
     @staticmethod
     def is_valid_name(name: str) -> bool:
         return bool(CHANNEL_NAME_RE.match(name))
+
+
+@dataclass
+class EngineManifest:
+    """ref: EngineManifests.scala:33 — a registered engine build."""
+    id: str
+    version: str
+    name: str
+    description: Optional[str] = None
+    files: List[str] = field(default_factory=list)
+    engine_factory: str = ""
 
 
 @dataclass

@@ -1,12 +1,14 @@
 """Storage abstraction + env-configured registry.
 
 Copy of ``predictionio_tpu/data/storage.py`` trimmed to what the event
-server, the app and access-key commands, ``pio train`` and ``pio
-deploy`` and ``pio eval`` use: the EVENTDATA repository (events:
+server, the app and access-key commands, ``pio build``, ``pio train``,
+``pio deploy`` and ``pio eval`` use: the EVENTDATA repository (events:
 appended one by one, in batches or as dict-encoded columns; read by id,
 by a filtered scan, as dict-encoded columns, or binned straight into the
-ALS layout by the native event log), the apps, access keys and channels that
-name an event table, engine and evaluation instances and model blobs. The env-var
+ALS layout by the native event log; entity properties folded from
+``$set``/``$unset``/``$delete`` events), the apps, access keys and
+channels that name an event table, engine manifests, engine and
+evaluation instances and model blobs. The env-var
 contract is the same (ref: Storage.scala:40,151,183): sources are
 declared with ``PIO_STORAGE_SOURCES_<NAME>_TYPE`` (+ per-type config)
 and repositories are mapped onto them with
@@ -29,9 +31,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from predictionio_torch.data.datamap import PropertyMap
 from predictionio_torch.data.event import Event
 from predictionio_torch.data.metadata import (AccessKey, App, Channel,
-                                              EngineInstance,
+                                              EngineInstance, EngineManifest,
                                               EvaluationInstance, Model)
 
 log = logging.getLogger(__name__)
@@ -265,6 +268,25 @@ class EventStore(abc.ABC):
         reclaim and return None; the native event log overrides."""
         return None
 
+    def aggregate_properties(
+        self, app_id: int, entity_type: str,
+        channel_id: Optional[int] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        required: Optional[List[str]] = None,
+    ) -> Dict[str, PropertyMap]:
+        """Materialize entity properties from their ``$set`` /
+        ``$unset`` / ``$delete`` events (ref:
+        PEvents.aggregateProperties:95)."""
+        from predictionio_torch.data.aggregation import (
+            aggregate_properties_from_events)
+
+        events = self.find(app_id, channel_id=channel_id,
+                           start_time=start_time, until_time=until_time,
+                           entity_type=entity_type,
+                           event_names=["$set", "$unset", "$delete"])
+        return aggregate_properties_from_events(events, required=required)
+
 
 class AppsRepo(abc.ABC):
     """ref: Apps.scala"""
@@ -312,6 +334,21 @@ class ChannelsRepo(abc.ABC):
     def get_by_app_id(self, app_id: int) -> List[Channel]: ...
     @abc.abstractmethod
     def delete(self, channel_id: int) -> None: ...
+
+
+class EngineManifestsRepo(abc.ABC):
+    """ref: EngineManifests.scala"""
+
+    @abc.abstractmethod
+    def insert(self, manifest: EngineManifest) -> None: ...
+    @abc.abstractmethod
+    def get(self, id: str, version: str) -> Optional[EngineManifest]: ...
+    @abc.abstractmethod
+    def get_all(self) -> List[EngineManifest]: ...
+    @abc.abstractmethod
+    def update(self, manifest: EngineManifest) -> None: ...
+    @abc.abstractmethod
+    def delete(self, id: str, version: str) -> None: ...
 
 
 class EngineInstancesRepo(abc.ABC):
@@ -392,6 +429,8 @@ class StorageClient(abc.ABC):
     @abc.abstractmethod
     def channels(self) -> ChannelsRepo: ...
     @abc.abstractmethod
+    def engine_manifests(self) -> EngineManifestsRepo: ...
+    @abc.abstractmethod
     def engine_instances(self) -> EngineInstancesRepo: ...
     @abc.abstractmethod
     def evaluation_instances(self) -> EvaluationInstancesRepo: ...
@@ -465,6 +504,9 @@ class Storage:
 
     def channels(self) -> ChannelsRepo:
         return self.client_for("METADATA").channels()
+
+    def engine_manifests(self) -> EngineManifestsRepo:
+        return self.client_for("METADATA").engine_manifests()
 
     def engine_instances(self) -> EngineInstancesRepo:
         return self.client_for("METADATA").engine_instances()

@@ -1,17 +1,20 @@
 """Engine-facing event-store API.
 
-Copy of ``predictionio_tpu/data/store.py`` trimmed to the training read
-(ref: store/PEventStore.scala:30, store/Common.scala:28): engines
-address data by app name (+ optional channel name); the store resolves
-the (app id, channel id) pair from metadata and raises if the app or
-channel does not exist.
+Copy of ``predictionio_tpu/data/store.py`` (ref: store/PEventStore.scala:30,
+store/LEventStore.scala:60, store/Common.scala:28) without
+``extract_entity_map``: engines address data by app name (+ optional
+channel name); the store resolves the (app id, channel id) pair from
+metadata and raises if the app or channel does not exist. ``find``,
+``find_columnar``, ``bin_columnar`` and ``aggregate_properties`` are
+the training read; ``find_by_entity`` is the serve-time lookup.
 """
 
 from __future__ import annotations
 
 import datetime as _dt
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
+from predictionio_torch.data.datamap import PropertyMap
 from predictionio_torch.data.event import Event
 from predictionio_torch.data.storage import (UNSET, BinnedInteractions,
                                              EventColumns, Storage,
@@ -104,3 +107,37 @@ def data_fingerprint(app_name: str, channel_name: Optional[str] = None,
     app_id, channel_id = resolve_app(app_name, channel_name, storage)
     fn = getattr(storage.events(), "data_fingerprint", None)
     return None if fn is None else fn(app_id, channel_id)
+
+
+def aggregate_properties(app_name: str, entity_type: str,
+                         channel_name: Optional[str] = None,
+                         start_time: Optional[_dt.datetime] = None,
+                         until_time: Optional[_dt.datetime] = None,
+                         required: Optional[List[str]] = None,
+                         storage: Optional[Storage] = None
+                         ) -> Dict[str, PropertyMap]:
+    """ref: PEventStore.aggregateProperties."""
+    storage = storage or get_storage()
+    app_id, channel_id = resolve_app(app_name, channel_name, storage)
+    return storage.events().aggregate_properties(
+        app_id, entity_type, channel_id=channel_id, start_time=start_time,
+        until_time=until_time, required=required)
+
+
+def find_by_entity(app_name: str, entity_type: str, entity_id: str,
+                   channel_name: Optional[str] = None,
+                   event_names: Optional[List[str]] = None,
+                   target_entity_type: Any = UNSET,
+                   target_entity_id: Any = UNSET,
+                   start_time: Optional[_dt.datetime] = None,
+                   until_time: Optional[_dt.datetime] = None,
+                   limit: Optional[int] = None, latest: bool = True,
+                   storage: Optional[Storage] = None) -> List[Event]:
+    """Serve-time entity lookup, newest first unless ``latest`` is
+    False (ref: LEventStore.findByEntity:60)."""
+    return find(app_name, channel_name=channel_name, start_time=start_time,
+                until_time=until_time, entity_type=entity_type,
+                entity_id=entity_id, event_names=event_names,
+                target_entity_type=target_entity_type,
+                target_entity_id=target_entity_id, limit=limit,
+                reversed=latest, storage=storage)

@@ -32,9 +32,19 @@ The streaming lane's ``online_delta_step`` takes a few SGD steps of the
 dense in-batch CE on a delta of pairs, for the touched rows of the
 serving tables only.
 
+Mid-training checkpoints (``checkpoint_dir``, ``checkpoint_every``;
+``core/checkpoint.py``): the trainer restores the newest checkpoint of
+its run at construction and saves after each due epoch — the tables,
+the Adagrad accumulators, the dense weights, the AdamW state dict, the
+losses and the state of the generator that draws each epoch's order,
+so a resumed run trains its remaining epochs on the same orders as an
+uninterrupted one. That state belongs to a generator on the trainer's
+device type: a checkpoint written on a card restores on a card, and a
+trainer on the other device type raises rather than resume on other
+orders.
+
 Not in this port yet: meshes and sharded tables (ROADMAP.md queue 1
-item 12), mid-training checkpoints (item 4) and the device-side
-observability hooks (item 10).
+item 12) and the device-side observability hooks (item 10).
 """
 
 from __future__ import annotations
@@ -47,6 +57,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from predictionio_torch.core.checkpoint import (TrainCheckpointer,
+                                                train_fingerprint)
 from predictionio_torch.ops.kernels import resolve_flag
 from predictionio_torch.ops.kernels import embed_update as _embed
 from predictionio_torch.ops.kernels import flash_ce as _flash
@@ -75,8 +87,8 @@ class TwoTowerConfig:
     loss_chunk: Optional[int] = 2048   # blockwise CE column tile; engages
                                        # when batch >= 2*chunk (None: dense)
     shard_embeddings: bool = False     # not ported (ROADMAP queue 1 item 12)
-    checkpoint_dir: Optional[str] = None  # not ported (queue 1 item 2)
-    checkpoint_every: int = 1
+    checkpoint_dir: Optional[str] = None  # mid-training checkpoint/resume
+    checkpoint_every: int = 1             # epochs between checkpoints
     flash_ce_kernel: str = "auto"      # CPU only: "on" = the kernel's plain
                                        # version; env PIO_TT_FLASH_CE
     embed_update_kernel: str = "off"   # CPU only, as above; env
@@ -248,11 +260,6 @@ class TwoTowerTrainer:
                 "shard_embeddings: sharded tables and meshes are not "
                 "ported to predictionio_torch yet (ROADMAP.md, queue 1 "
                 "item 12)")
-        if cfg.checkpoint_dir:
-            raise NotImplementedError(
-                "checkpoint_dir: mid-training checkpoints "
-                "(core/checkpoint.py) are not ported to predictionio_torch "
-                "yet (ROADMAP.md, queue 1 item 4)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.cdt = compute_dtype(cfg)
@@ -282,6 +289,24 @@ class TwoTowerTrainer:
         #: host wall time of each epoch run, ending when its mean loss
         #: reached the host (the JAX package's train-step observation)
         self.epoch_seconds: List[float] = []
+        #: seconds spent writing checkpoints, and restoring one here
+        self.checkpoint_seconds: List[float] = []
+        self.restore_seconds = 0.0
+        self._ckpt = None
+        if cfg.checkpoint_dir:
+            t0 = time.perf_counter()
+            # the JAX trainer's parts, plus the package: a directory the
+            # JAX trainer wrote is another run here
+            fp = train_fingerprint(cfg, n_users, n_items, self.n_pos,
+                                   u[:4096], u[-4096:], i[:4096], w[:4096],
+                                   "predictionio_torch")
+            self._ckpt = TrainCheckpointer(cfg.checkpoint_dir,
+                                           every=cfg.checkpoint_every,
+                                           fingerprint=fp)
+            restored = self._ckpt.restore()
+            if restored is not None:
+                self._restore(*restored)
+                self.restore_seconds = time.perf_counter() - t0
 
     # -- state ---------------------------------------------------------------
 
@@ -328,6 +353,53 @@ class TwoTowerTrainer:
                             "step": torch.tensor(float(state.adam_count)),
                             "exp_avg": mu[k].to(self.device).clone(),
                             "exp_avg_sq": nu[k].to(self.device).clone()}
+
+    def _checkpoint_state(self) -> dict:
+        """What a checkpoint holds (``core/checkpoint.py`` copies the
+        tensors to the host)."""
+        return {"tables": self.tables, "acc": self.acc,
+                "dense": self.dense,
+                "opt": (self._opt.state_dict() if self._opt is not None
+                        else None),
+                "perm_gen": self._perm_gen.get_state(),
+                "perm_gen_device": self.device.type,
+                "losses": list(self._losses)}
+
+    def _restore(self, epoch: int, state: dict) -> None:
+        if state["perm_gen_device"] != self.device.type:
+            raise ValueError(
+                f"checkpoint in {self.cfg.checkpoint_dir!r} was written by "
+                f"a trainer on {state['perm_gen_device']}: its epoch-order "
+                f"generator state does not restore on {self.device.type} "
+                "(resume on the same device type, or use another "
+                "checkpoint_dir)")
+
+        def t(a):
+            return torch.from_numpy(np.asarray(a)).to(self.device)
+
+        self.tables = {side: t(state["tables"][side]).contiguous()
+                       for side in SIDES}
+        self.acc = {side: t(state["acc"][side]).contiguous()
+                    for side in SIDES}
+        self.dense = {side: [{k: t(a).requires_grad_(True)
+                              for k, a in layer.items()}
+                             for layer in state["dense"][side]]
+                      for side in SIDES}
+        params = self._dense_params()
+        self._opt = (torch.optim.AdamW(params, lr=self.cfg.learning_rate,
+                                       weight_decay=self.cfg.weight_decay)
+                     if params else None)
+        if self._opt is not None:
+            opt = state["opt"]
+            self._opt.load_state_dict({
+                "state": {k: {name: torch.from_numpy(np.asarray(v))
+                              for name, v in st.items()}
+                          for k, st in opt["state"].items()},
+                "param_groups": opt["param_groups"]})
+        self._perm_gen.set_state(
+            torch.from_numpy(np.asarray(state["perm_gen"])))
+        self._epochs_done = int(epoch)
+        self._losses = list(state["losses"])
 
     def _dense_params(self) -> List[torch.Tensor]:
         return [p for side in SIDES for layer in self.dense[side]
@@ -401,6 +473,11 @@ class TwoTowerTrainer:
             self._losses.append(float(losses.mean()))   # waits for the epoch
             self.epoch_seconds.append(time.perf_counter() - t0)
             self._epochs_done += 1
+            if self._ckpt is not None:
+                t0 = time.perf_counter()
+                if self._ckpt.maybe_save(self._epochs_done,
+                                         self._checkpoint_state()):
+                    self.checkpoint_seconds.append(time.perf_counter() - t0)
         return list(self._losses)
 
     # -- serving tables ------------------------------------------------------

@@ -1,5 +1,5 @@
-"""The port's console: ``pio`` for apps, keys, events, train, deploy,
-stream and eval.
+"""The port's console: ``pio`` for apps, keys, events, templates, build,
+train, deploy, stream and eval.
 
     python -m predictionio_torch.tools.cli app new NAME [--description D]
     python -m predictionio_torch.tools.cli app list|show|delete|data-delete|
@@ -12,6 +12,10 @@ stream and eval.
     python -m predictionio_torch.tools.cli import --appname APP --input F
     python -m predictionio_torch.tools.cli export --appname APP --output F
     python -m predictionio_torch.tools.cli status
+    python -m predictionio_torch.tools.cli template list
+    python -m predictionio_torch.tools.cli template get NAME DIRECTORY
+    python -m predictionio_torch.tools.cli build \\
+        --engine-json engine.json [--engine-id ID] [--engine-version V]
     python -m predictionio_torch.tools.cli train \\
         --engine-json engine.json [--engine-id ID] [--device cpu]
     python -m predictionio_torch.tools.cli deploy \\
@@ -27,13 +31,25 @@ stream and eval.
 The app, access-key, server, import/export and status commands take the
 JAX console's arguments and print its lines (ref:
 tools/.../console/Console.scala:128-735); they touch no device and
-import no torch. ``train`` reads the engine's events, trains its
-algorithms and stores a COMPLETED engine instance with its models.
-``deploy`` serves the latest COMPLETED instance of the engine — trained
-by either package; an ``engineFactory`` under ``predictionio_tpu.``
-resolves under ``predictionio_torch.`` — on ``POST /queries.json`` until
-SIGTERM drains it or ``undeploy`` (``POST /stop``) stops it (ref:
-Console.scala:830). ``stream`` tails the engine's event log and folds
+import no torch. ``template list`` names every template the JAX console
+offers and whether the port has it; ``template get`` scaffolds a project
+directory from the port's template source (an editable
+``<name>_engine.py``, an ``engine.json`` whose factory resolves from the
+directory, a README; ref: console/Template.scala:198-415, egress-free).
+``build`` loads the engine.json's engine and registers its
+EngineManifest (ref: RegisterEngine.scala:50; engines are Python, so
+there is no compile step). The engine commands read an engine.json as
+an ``EngineVariant`` (``workflow/variant.py``): a factory module beside
+it loads from the project directory, one scaffolded by either package.
+``train`` reads the engine's events, trains its algorithms and stores a
+COMPLETED engine instance with its models. ``deploy`` serves the latest
+COMPLETED instance of the engine — trained by either package; an
+``engineFactory`` under ``predictionio_tpu.`` resolves under
+``predictionio_torch.`` — on ``POST /queries.json`` until SIGTERM
+drains it or ``undeploy`` (``POST /stop``) stops it (ref:
+Console.scala:830); a variant that declares an ``"slo"`` block is
+refused until SLOs are ported (ROADMAP.md queue 1 item 6). ``stream``
+tails the engine's event log and folds
 new events into the deployed model, patching the servers named by
 ``--url`` (``workflow/stream.py``; ``--once`` runs one cycle and prints
 its stats). ``eval`` runs an ``Evaluation`` over the candidates of an
@@ -189,23 +205,122 @@ def cmd_status(args) -> int:
     return 1
 
 
-# -- train / deploy ------------------------------------------------------------
+# -- templates -----------------------------------------------------------------
+
+#: every template the JAX console offers -> (the port's module, its
+#: factory), or the ROADMAP.md queue 1 item that ports it
+TEMPLATES = {
+    "recommendation": ("predictionio_torch.templates.recommendation",
+                       "recommendation_engine"),
+    "similarproduct": ("predictionio_torch.templates.similarproduct",
+                       "similar_product_engine"),
+    "ecommercerecommendation": ("predictionio_torch.templates.ecommerce",
+                                "ecommerce_engine"),
+    "twotower": ("predictionio_torch.templates.twotower",
+                 "twotower_engine"),
+    "twotower-hybrid": ("predictionio_torch.templates.twotower",
+                        "twotower_hybrid_engine"),
+    "classification": 8,
+    "regression": 8,
+    "vanilla": 8,
+    "sessionrec": 11,
+}
+
+
+def cmd_template(args) -> int:
+    if args.template_command == "list":
+        for name, entry in sorted(TEMPLATES.items()):
+            where = (entry[0] if isinstance(entry, tuple) else
+                     f"not ported yet (ROADMAP.md, queue 1 item {entry})")
+            print(f"{name:28} {where}")
+        return 0
+    # template get NAME DIR: a working engine project — the port's
+    # template source copied in as editable code, plus an engine.json
+    # whose factory resolves from the project directory
+    import importlib
+    import inspect
+    import os
+    import shutil
+
+    name = args.name
+    entry = TEMPLATES.get(name)
+    if entry is None:
+        raise commands.CommandError(
+            f"Unknown template {name!r} (available: {sorted(TEMPLATES)})")
+    if not isinstance(entry, tuple):
+        raise commands.CommandError(
+            f"template {name!r} is not ported to predictionio_torch yet "
+            f"(ROADMAP.md, queue 1 item {entry})")
+    module_name, factory = entry
+    src = inspect.getsourcefile(importlib.import_module(module_name))
+    os.makedirs(args.directory, exist_ok=True)
+    mod_name = f"{name.replace('-', '_')}_engine"
+    shutil.copyfile(src, os.path.join(args.directory, f"{mod_name}.py"))
+    path = os.path.join(args.directory, "engine.json")
+    with open(path, "w") as f:
+        json.dump({"id": "default",
+                   "description": f"{name} template (scaffolded from "
+                                  f"{module_name})",
+                   "engineFactory": f"{mod_name}.{factory}"}, f, indent=2)
+        f.write("\n")
+    with open(os.path.join(args.directory, "README.md"), "w") as f:
+        f.write(
+            f"# {name} engine\n\n"
+            f"Scaffolded from `{module_name}`.\n\n"
+            f"- `{mod_name}.py` — your engine source (DataSource/"
+            "Preparator/Algorithm/Serving + factory). Edit freely; it\n"
+            "  is resolved from this directory, not the installed "
+            "package.\n"
+            "- `engine.json` — the variant: fill the per-component "
+            "`{\"name\": ..., \"params\": {...}}` blocks (e.g. the "
+            "datasource's `app_name`).\n\n"
+            "Run `python -m predictionio_torch.tools.cli build|train|deploy "
+            "--engine-json engine.json`.\n")
+    print(f"Created {args.directory}: {mod_name}.py (editable engine "
+          "source), engine.json, README.md")
+    print(f"Edit params, then `pio train --engine-json {path}`.")
+    return 0
+
+
+# -- build / train / deploy -----------------------------------------------------
+
+def load_variant(path: str):
+    from predictionio_torch.workflow.variant import EngineVariant
+
+    return EngineVariant.load(path)
+
 
 def engine_from_json(path: str):
     """(engine, variant dict) of an engine.json."""
-    from predictionio_torch.core.engine import resolve_engine_factory
-
-    with open(path) as f:
-        variant = json.load(f)
-    if "engineFactory" not in variant:
-        raise ValueError(f"{path}: engine variant requires 'engineFactory'")
-    engine = resolve_engine_factory(variant["engineFactory"])()
-    return engine, variant
+    variant = load_variant(path)
+    return variant.create_engine(), variant.raw
 
 
-def _engine_id(args, variant: dict) -> str:
-    return (args.engine_id or variant.get("engineId")
-            or variant["engineFactory"])
+def _engine_id(args, variant) -> str:
+    return (args.engine_id or variant.raw.get("engineId")
+            or variant.engine_factory)
+
+
+def cmd_build(args) -> int:
+    """Load the engine (an engine.json whose engine does not load fails
+    here, not at train) and register its manifest."""
+    from predictionio_torch.data.metadata import EngineManifest
+
+    variant = load_variant(args.engine_json)
+    variant.create_engine()
+    engine_id = _engine_id(args, variant)
+    manifests = get_storage().engine_manifests()
+    manifest = EngineManifest(
+        id=engine_id, version=args.engine_version, name=variant.id,
+        description=variant.description, files=[args.engine_json],
+        engine_factory=variant.engine_factory)
+    if manifests.get(engine_id, args.engine_version) is None:
+        manifests.insert(manifest)
+    else:
+        manifests.update(manifest)
+    print(f"Registered engine {engine_id} {args.engine_version} "
+          f"({variant.engine_factory})")
+    return 0
 
 
 def cmd_train(args) -> int:
@@ -213,17 +328,20 @@ def cmd_train(args) -> int:
     from predictionio_torch.workflow.config import WorkflowParams
     from predictionio_torch.workflow.train import run_train
 
-    engine, variant = engine_from_json(args.engine_json)
+    variant = load_variant(args.engine_json)
+    engine = variant.create_engine()
     wp = WorkflowParams(batch=args.batch,
                         skip_sanity_check=args.skip_sanity_check,
                         stop_after_read=args.stop_after_read,
                         stop_after_prepare=args.stop_after_prepare)
-    instance = run_train(engine, engine.engine_params_from_variant(variant),
+    instance = run_train(engine, variant.engine_params(engine),
                          engine_id=_engine_id(args, variant),
                          engine_version=args.engine_version,
-                         engine_variant=variant.get("id", "default"),
-                         engine_factory=variant["engineFactory"],
-                         batch=args.batch, ctx=DeviceContext(args.device),
+                         engine_variant=variant.id,
+                         engine_factory=variant.engine_factory,
+                         batch=args.batch,
+                         ctx=DeviceContext(args.device,
+                                           config=variant.runtime_conf()),
                          workflow_params=wp)
     print(f"Training completed: engine instance {instance.id} "
           f"({instance.status})", flush=True)
@@ -234,11 +352,18 @@ def cmd_deploy(args) -> int:
     from predictionio_torch.serving.engine_server import EngineServer
     from predictionio_torch.serving.http import install_drain_handler
 
-    engine, variant = engine_from_json(args.engine_json)
+    variant = load_variant(args.engine_json)
+    if variant.slo_conf() is not None:
+        raise commands.CommandError(
+            'the engine variant declares an "slo" block: SLO objectives '
+            "and load shedding (obs/slo.py, the admission controller) are "
+            "not ported to predictionio_torch yet (ROADMAP.md, queue 1 "
+            "item 6); remove the block to deploy without them")
+    engine = variant.create_engine()
     engine_id = _engine_id(args, variant)
     server = EngineServer(engine, engine_id=engine_id,
                           engine_version=args.engine_version,
-                          engine_variant=variant.get("id", "default"),
+                          engine_variant=variant.id,
                           host=args.ip, port=args.port, device=args.device)
     # SIGTERM drains the queries in flight, then stops the server (on
     # the drain's own thread, which the interpreter waits for)
@@ -275,13 +400,14 @@ def cmd_stream(args) -> int:
             "--reload-url: the drift-band reload trigger needs the "
             "shadow-quality probe (obs/quality.py), which is not ported "
             "to predictionio_torch yet (ROADMAP.md, queue 1 item 10)")
-    engine, variant = engine_from_json(args.engine_json)
+    variant = load_variant(args.engine_json)
+    engine = variant.create_engine()
     engine_id = _engine_id(args, variant)
     urls = [u.strip() for u in (args.url or "").split(",") if u.strip()]
     try:
         updater = StreamUpdater(
             engine, engine_id, engine_version=args.engine_version,
-            engine_variant=variant.get("id", "default"),
+            engine_variant=variant.id,
             ctx=DeviceContext(args.device), patch_urls=urls)
     except StreamUnsupported as e:
         raise commands.CommandError(str(e)) from e
@@ -397,17 +523,29 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("status", help="verify storage configuration")
     p.set_defaults(func=cmd_status)
 
-    def engine_command(name, help, func):
+    p_tpl = sub.add_parser("template", help="engine templates")
+    tpl_sub = p_tpl.add_subparsers(dest="template_command", required=True)
+    tpl_sub.add_parser("list")
+    p = tpl_sub.add_parser("get")
+    p.add_argument("name")
+    p.add_argument("directory")
+    p_tpl.set_defaults(func=cmd_template)
+
+    def engine_command(name, help, func, device=True):
         p = sub.add_parser(name, help=help)
         p.add_argument("--engine-json", default="engine.json")
         p.add_argument("--engine-id", default=None)
         p.add_argument("--engine-version", default="0")
-        p.add_argument("--device", default=None,
-                       help="device (default: the CUDA card; 'cpu' runs "
-                            "the kernels' plain versions on the CPU)")
+        if device:
+            p.add_argument("--device", default=None,
+                           help="device (default: the CUDA card; 'cpu' "
+                                "runs the kernels' plain versions on the "
+                                "CPU)")
         p.set_defaults(func=func)
         return p
 
+    engine_command("build", "register the engine manifest", cmd_build,
+                   device=False)
     p = engine_command("train", "train the engine and store an instance",
                        cmd_train)
     p.add_argument("--batch", default="")

@@ -976,3 +976,114 @@ def test_a_folded_model_answers_through_topk_dot_on_the_card(
         if server is not None:
             server.stop()
         storage.events().close()
+
+
+# -- the engine-project path: similar products at rank 10, checkpoints -----------
+
+@pytest.mark.parametrize("D", [10, 6])
+@pytest.mark.parametrize("B,k,E", [(1, 16, 2), (1, 8, 1), (4, 16, 64)])
+def test_kernel_at_a_rank_not_a_multiple_of_4_matches_plain(cuda, D, B, k, E):
+    """The similar-product model serves its exclusion-only queries at
+    its ALS rank (10 by default): ranks that are not a multiple of 4
+    take the kernel's scalar-load path. Row-normalized items, as that
+    model's table is."""
+    rng = np.random.default_rng(D * 100 + k + E)
+    items = rng.normal(size=(26_744, D)).astype(np.float32)
+    items /= np.linalg.norm(items, axis=1, keepdims=True)
+    q = torch.tensor(items[rng.integers(0, 26_744, (B, 3))].sum(axis=1),
+                     device=cuda)
+    items = torch.tensor(items, device=cuda)
+    excl = torch.tensor(rng.integers(-1, 26_744, size=(B, E)),
+                        dtype=torch.int32, device=cuda)
+    before = tkd.launches.value
+    s, i = tkd.topk_dot(q, items, excl, k)
+    torch.cuda.synchronize()
+    assert tkd.launches.value == before + 1
+    _assert_matches_plain(q, items, excl, k, s, i)
+
+
+def test_similar_product_model_serves_through_the_kernel(cuda):
+    from predictionio_torch.data.bimap import BiMap
+    from predictionio_torch.models.similarproduct import SimilarProductModel
+
+    rng = np.random.default_rng(4)
+    names = [f"i{j}" for j in range(3000)]
+    model = SimilarProductModel(
+        rng.normal(size=(3000, 10)).astype(np.float32),
+        BiMap.from_vocab(names), {n: ["a"] for n in names[::2]}).to(cuda)
+    cpu = SimilarProductModel(model.item_factors, model.item_ids,
+                              model.item_categories).to("cpu")
+    before = tkd.launches.value
+    for q in ({"items": ["i1", "i7"], "num": 10, "black_list": {"i3"}},
+              {"items": ["i5"], "num": 1}):
+        got = model.similar(q["items"], q["num"],
+                            black_list=q.get("black_list"))
+        want = cpu.similar(q["items"], q["num"],
+                           black_list=q.get("black_list"))
+        assert [g[0] for g in got] == [w[0] for w in want]
+        np.testing.assert_allclose([g[1] for g in got],
+                                   [w[1] for w in want], atol=1e-5)
+    assert tkd.launches.value == before + 2
+    assert model.retrieval_stats()["kernel"]["engaged"]
+    # a category query takes the masked scorer, on the card
+    got = model.similar(["i1"], 5, categories={"a"})
+    assert got and all(int(n[1:]) % 2 == 0 for n, _ in got)
+    assert model.scorer().item_factors.device.type == "cuda"
+
+
+def test_twotower_resume_on_the_card_restores_the_generator(cuda, tmp_path):
+    """A run stopped after epoch 1 and resumed on the card: the restored
+    tables, accumulators and generator state equal what was saved, and
+    the remaining epochs walk the uninterrupted run's orders. The table
+    update combines duplicate rows with float atomics, so two
+    uninterrupted runs differ in rounding: the resumed tables must sit
+    within 2x that spread (L2 from the two runs' mean against the L2
+    between them)."""
+    rng = np.random.default_rng(3)
+    u, i = rng.integers(0, 400, 6000), rng.integers(0, 300, 6000)
+    kw = dict(dim=16, epochs=3, batch_size=256, seed=4)
+    orders = {}
+
+    def record(trainer, key):
+        draw = trainer.epoch_order
+
+        def epoch_order(perm=None):
+            order = draw(perm)
+            orders.setdefault(key, []).append(order.cpu())
+            return order
+        trainer.epoch_order = epoch_order
+        return trainer
+
+    def tables(trainer):
+        return torch.cat([trainer.tables[s].flatten().double().cpu()
+                          for s in ("user", "item")])
+
+    straight = []
+    for key in ("a", "b"):
+        t = record(TwoTowerTrainer((u, i, None), 400, 300,
+                                   TwoTowerConfig(**kw), device=cuda), key)
+        straight.append((t.run(), tables(t)))
+    cfg = TwoTowerConfig(**kw, checkpoint_dir=str(tmp_path))
+    first = TwoTowerTrainer((u, i, None), 400, 300, cfg, device=cuda)
+    first_losses = first.run(epochs=1)
+    saved = {side: (first.tables[side].cpu(), first.acc[side].cpu())
+             for side in ("user", "item")}
+    gen = first._perm_gen.get_state()
+    resumed = record(TwoTowerTrainer((u, i, None), 400, 300, cfg,
+                                     device=cuda), "resumed")
+    assert resumed._epochs_done == 1
+    assert resumed.tables["user"].device.type == "cuda"
+    assert torch.equal(resumed._perm_gen.get_state(), gen)
+    for side, (table, acc) in saved.items():
+        assert torch.equal(resumed.tables[side].cpu(), table)
+        assert torch.equal(resumed.acc[side].cpu(), acc)
+    resumed_losses = resumed.run()
+    assert len(orders["resumed"]) == 2
+    for a, b in zip(orders["resumed"], orders["a"][1:]):
+        assert torch.equal(a, b)
+    # epoch 1's loss is the checkpointed run's, restored
+    assert resumed_losses[0] == first_losses[0]
+    np.testing.assert_allclose(resumed_losses, straight[0][0], rtol=1e-3)
+    (_, ta), (_, tb) = straight
+    spread = float((ta - tb).norm())
+    assert float((tables(resumed) - (ta + tb) / 2).norm()) <= 2 * spread
