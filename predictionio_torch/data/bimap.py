@@ -9,8 +9,9 @@ them onto this class, so the two must keep the same attributes
 Behavior contract from the reference's BiMap
 (data/.../storage/BiMap.scala:25,96+): an immutable bidirectional map
 from string keys to contiguous integers 0..n-1 — the bridge between
-entity ids and dense factor-matrix rows: lookups both ways,
-``string_int`` (first-seen order) and ``from_vocab``.
+entity ids and dense factor-matrix rows: lookups both ways, the
+keys, values and items views, ``string_int`` (first-seen order) and
+``from_vocab``.
 """
 
 from __future__ import annotations
@@ -55,6 +56,12 @@ class BiMap(Generic[K, V]):
 
     def keys(self):
         return self._f.keys()
+
+    def values(self):
+        return self._f.values()
+
+    def items(self):
+        return self._f.items()
 
     # -- constructors (ref: BiMap.scala stringInt) ---------------------------
     @staticmethod

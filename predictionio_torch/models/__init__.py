@@ -7,4 +7,34 @@
              (views and likes; ref: scala-parallel-similarproduct)
   ecommerce — explicit ALS with serve-time business rules (ref:
              scala-parallel-ecommercerecommendation)
+  sessionrec — causal-transformer next-item recommendation
+  classification — multinomial naive Bayes and softmax regression (ref:
+             scala-parallel-classification)
+  regression — SGD and ridge linear regression (ref: the regression
+             examples)
+  naive_bayes — categorical naive Bayes (ref: e2 CategoricalNaiveBayes)
+  markov   — top-N transition chains (ref: e2 MarkovChain)
+
+The JAX package's transfer hooks (``jaxmon.record_transfer``) are left
+out here (ROADMAP.md, queue 1 item 10).
 """
+
+from typing import Any, Callable, List, Sequence, Tuple
+
+import numpy as np
+
+
+def batch_predict_dense(
+    model: Any,
+    queries: Sequence[Tuple[int, Any]],
+    wrap: Callable[[float], Any] = float,
+) -> List[Tuple[int, Any]]:
+    """Shared glue for algorithms over dense ``{"features": [...]}``
+    queries: stack the batch into one ``[B, D]`` matrix, score it with
+    the model's vectorized ``predict_batch``, and wrap each output.
+    Handles the empty fold ``engine.eval`` can produce."""
+    if not queries:
+        return []
+    feats = np.array([q["features"] for _, q in queries], dtype=np.float32)
+    preds = model.predict_batch(feats)
+    return [(i, wrap(p)) for (i, _q), p in zip(queries, preds)]

@@ -59,3 +59,27 @@ class DeviceContext:
 
     def data_parallel_size(self) -> int:
         return 1
+
+
+class OnDevice:
+    """Mixin for a model that keeps numpy arrays (as a blob of either
+    package holds them) and computes on a device chosen at train or
+    deploy time: ``to(device)`` picks it, ``serving_device()`` is that
+    device or, when none was picked, the card. The device never
+    pickles."""
+
+    device: Optional[torch.device] = None
+
+    def to(self, device: DeviceLike):
+        self.device = resolve_device(device)
+        return self
+
+    def serving_device(self) -> torch.device:
+        if self.device is None:
+            self.to(None)   # the card, or RuntimeError without CUDA
+        return self.device
+
+    def __getstate__(self):
+        d = dict(self.__dict__)
+        d.pop("device", None)
+        return d

@@ -1,0 +1,189 @@
+"""Sequential-recommendation engine template (next-item prediction).
+
+Counterpart of ``predictionio_tpu/templates/sessionrec.py``. The data
+contract is the recommendation template's (rate/buy/view events between
+user and item entities, ref: examples/scala-parallel-recommendation
+DataSource.scala:31) plus the one thing the reference never uses: the
+event TIME. Histories are ordered by ``event_time``; the model predicts
+what each user does next.
+
+The training read is one dict-encoded bulk scan (``_columnar.py``);
+``columnar=False`` reads event rows instead, to the same prepared data.
+Evaluation is leave-last-out: each user's chronologically final event is
+held out and the query is the user's history (the reference's k-fold
+split would leak future events into training here).
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from dataclasses import dataclass, field
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from predictionio_torch.core import (DataSource, Engine, FirstServing,
+                                     Preparator, SanityCheck)
+from predictionio_torch.core.params import EngineParams, Params
+from predictionio_torch.data import store
+from predictionio_torch.data.bimap import BiMap
+from predictionio_torch.models.sessionrec import (PreparedSequences,
+                                                  SessionRecAlgorithm,
+                                                  SessionRecParams)
+from predictionio_torch.parallel.context import DeviceContext
+from predictionio_torch.templates._columnar import read_interactions
+
+log = logging.getLogger(__name__)
+
+
+@dataclass
+class SeqEvent:
+    user: str
+    item: str
+    time: float          # epoch seconds
+
+
+@dataclass
+class SequenceColumns:
+    """Columnar interactions: vocab lists + dense code/time arrays."""
+
+    user_vocab: List[str]
+    item_vocab: List[str]
+    user_idx: np.ndarray    # int into user_vocab, [n]
+    item_idx: np.ndarray    # int into item_vocab, [n]
+    times: np.ndarray       # float64 epoch seconds, [n]
+
+
+@dataclass
+class SequencesTD(SanityCheck):
+    events: List[SeqEvent] = field(default_factory=list)
+    columns: Optional[SequenceColumns] = None
+
+    def sanity_check(self) -> None:
+        if not self.events and (self.columns is None
+                                or not len(self.columns.times)):
+            raise ValueError(
+                "SequencesTD is empty — no interaction events found")
+
+
+@dataclass
+class SeqDataSourceParams(Params):
+    app_name: str = ""
+    channel_name: Optional[str] = None
+    event_names: Tuple[str, ...] = ("view", "buy", "rate")
+    eval_query_num: int = 10
+    eval_enabled: bool = False
+    columnar: bool = True    # bulk dict-encoded read; False reads rows
+
+
+class SeqDataSource(DataSource):
+    """Timestamped (user -> item) interactions from the event store."""
+
+    def __init__(self, params: SeqDataSourceParams):
+        super().__init__(params)
+
+    def _read(self) -> List[SeqEvent]:
+        p: SeqDataSourceParams = self.params
+        events = store.find(p.app_name, channel_name=p.channel_name,
+                            entity_type="user",
+                            event_names=list(p.event_names),
+                            target_entity_type="item")
+        return [SeqEvent(user=e.entity_id, item=e.target_entity_id,
+                         time=e.event_time.timestamp()) for e in events]
+
+    def _read_columnar(self) -> SequenceColumns:
+        p: SeqDataSourceParams = self.params
+        cols = read_interactions(p.app_name, p.channel_name, "user",
+                                 p.event_names, "item")
+        return SequenceColumns(user_vocab=cols.entity_vocab,
+                               item_vocab=cols.target_vocab,
+                               user_idx=cols.entity_idx,
+                               item_idx=cols.target_idx, times=cols.times)
+
+    def read_training(self, ctx: DeviceContext) -> SequencesTD:
+        p: SeqDataSourceParams = self.params
+        t0 = time.perf_counter()
+        td = (SequencesTD(columns=self._read_columnar()) if p.columnar
+              else SequencesTD(events=self._read()))
+        n = len(td.columns.times) if td.columns is not None else len(td.events)
+        log.info("sessionrec training read: %d events in %.3f s", n,
+                 time.perf_counter() - t0)
+        return td
+
+    def read_eval(self, ctx: DeviceContext):
+        """Leave-last-out, one fold: hold out each user's final event
+        (a lexsort and a last-of-run mask over the columnar read)."""
+        p: SeqDataSourceParams = self.params
+        if not p.eval_enabled:
+            return []
+        c = self._read_columnar()
+        n = len(c.times)
+        if n == 0:
+            return [(SequencesTD(columns=c), {"protocol": "leave-last-out"},
+                     [])]
+        order = np.lexsort((c.times, c.user_idx))
+        u_sorted = c.user_idx[order]
+        is_last = np.ones(n, dtype=bool)
+        is_last[:-1] = u_sorted[1:] != u_sorted[:-1]
+        held = order[is_last]
+        train_rows = order[~is_last]
+        train = SequencesTD(columns=SequenceColumns(
+            user_vocab=c.user_vocab, item_vocab=c.item_vocab,
+            user_idx=c.user_idx[train_rows], item_idx=c.item_idx[train_rows],
+            times=c.times[train_rows]))
+        # users with a single event have no history left to query from
+        train_users = set(np.unique(c.user_idx[train_rows]).tolist())
+        qa = [({"user": c.user_vocab[int(c.user_idx[r])],
+                "num": p.eval_query_num},
+               {"item": c.item_vocab[int(c.item_idx[r])]})
+              for r in held if int(c.user_idx[r]) in train_users]
+        qa.sort(key=lambda pair: pair[0]["user"])
+        return [(train, {"protocol": "leave-last-out"}, qa)]
+
+
+class SeqPreparator(Preparator):
+    """String ids -> dense indices, times kept. The columnar TD arrives
+    dict-encoded: indexing wraps the vocabularies."""
+
+    def prepare(self, ctx: DeviceContext, td: SequencesTD
+                ) -> PreparedSequences:
+        if td.columns is not None:
+            c = td.columns
+            return PreparedSequences(
+                user_ids=BiMap.from_vocab(c.user_vocab),
+                item_ids=BiMap.from_vocab(c.item_vocab),
+                user_idx=c.user_idx.astype(np.int64, copy=False),
+                item_idx=c.item_idx.astype(np.int64, copy=False),
+                times=c.times)
+        users = BiMap.string_int(e.user for e in td.events)
+        items = BiMap.string_int(e.item for e in td.events)
+        n = len(td.events)
+        return PreparedSequences(
+            user_ids=users, item_ids=items,
+            user_idx=np.fromiter((users[e.user] for e in td.events),
+                                 np.int64, count=n),
+            item_idx=np.fromiter((items[e.item] for e in td.events),
+                                 np.int64, count=n),
+            times=np.fromiter((e.time for e in td.events), np.float64,
+                              count=n))
+
+
+def default_engine_params(app_name: str,
+                          channel_name: Optional[str] = None,
+                          algo_params: Optional[SessionRecParams] = None,
+                          ds_params: Optional[SeqDataSourceParams] = None,
+                          ) -> EngineParams:
+    return EngineParams(
+        data_source_params=("", ds_params or SeqDataSourceParams(
+            app_name=app_name, channel_name=channel_name)),
+        algorithm_params_list=[("sessionrec",
+                                algo_params or SessionRecParams())])
+
+
+def sessionrec_engine() -> Engine:
+    """Engine factory: causal-transformer next-item recommender."""
+    return Engine(data_source_classes=SeqDataSource,
+                  preparator_classes=SeqPreparator,
+                  algorithm_classes={"sessionrec": SessionRecAlgorithm},
+                  serving_classes=FirstServing)

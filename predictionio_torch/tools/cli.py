@@ -32,7 +32,7 @@ The app, access-key, server, import/export and status commands take the
 JAX console's arguments and print its lines (ref:
 tools/.../console/Console.scala:128-735); they touch no device and
 import no torch. ``template list`` names every template the JAX console
-offers and whether the port has it; ``template get`` scaffolds a project
+offers and the port's module of each; ``template get`` scaffolds a project
 directory from the port's template source (an editable
 ``<name>_engine.py``, an ``engine.json`` whose factory resolves from the
 directory, a README; ref: console/Template.scala:198-415, egress-free).
@@ -208,7 +208,7 @@ def cmd_status(args) -> int:
 # -- templates -----------------------------------------------------------------
 
 #: every template the JAX console offers -> (the port's module, its
-#: factory), or the ROADMAP.md queue 1 item that ports it
+#: factory)
 TEMPLATES = {
     "recommendation": ("predictionio_torch.templates.recommendation",
                        "recommendation_engine"),
@@ -220,25 +220,25 @@ TEMPLATES = {
                  "twotower_engine"),
     "twotower-hybrid": ("predictionio_torch.templates.twotower",
                         "twotower_hybrid_engine"),
-    "classification": 8,
-    "regression": 8,
-    "vanilla": 8,
-    "sessionrec": 11,
+    "classification": ("predictionio_torch.templates.classification",
+                       "classification_engine"),
+    "regression": ("predictionio_torch.templates.regression",
+                   "regression_engine"),
+    "vanilla": ("predictionio_torch.templates.vanilla", "vanilla_engine"),
+    "sessionrec": ("predictionio_torch.templates.sessionrec",
+                   "sessionrec_engine"),
 }
 
 
 def cmd_template(args) -> int:
     if args.template_command == "list":
-        for name, entry in sorted(TEMPLATES.items()):
-            where = (entry[0] if isinstance(entry, tuple) else
-                     f"not ported yet (ROADMAP.md, queue 1 item {entry})")
-            print(f"{name:28} {where}")
+        for name, (module_name, _factory) in sorted(TEMPLATES.items()):
+            print(f"{name:28} {module_name}")
         return 0
     # template get NAME DIR: a working engine project — the port's
     # template source copied in as editable code, plus an engine.json
     # whose factory resolves from the project directory
-    import importlib
-    import inspect
+    import importlib.util
     import os
     import shutil
 
@@ -247,12 +247,10 @@ def cmd_template(args) -> int:
     if entry is None:
         raise commands.CommandError(
             f"Unknown template {name!r} (available: {sorted(TEMPLATES)})")
-    if not isinstance(entry, tuple):
-        raise commands.CommandError(
-            f"template {name!r} is not ported to predictionio_torch yet "
-            f"(ROADMAP.md, queue 1 item {entry})")
     module_name, factory = entry
-    src = inspect.getsourcefile(importlib.import_module(module_name))
+    # the source file's path, found without importing the module (and
+    # torch with it)
+    src = importlib.util.find_spec(module_name).origin
     os.makedirs(args.directory, exist_ok=True)
     mod_name = f"{name.replace('-', '_')}_engine"
     shutil.copyfile(src, os.path.join(args.directory, f"{mod_name}.py"))

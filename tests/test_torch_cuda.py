@@ -1087,3 +1087,112 @@ def test_twotower_resume_on_the_card_restores_the_generator(cuda, tmp_path):
     (_, ta), (_, tb) = straight
     spread = float((ta - tb).norm())
     assert float((tables(resumed) - (ta + tb) / 2).norm()) <= 2 * spread
+
+
+
+# -- the session recommender ---------------------------------------------------------
+
+def _sessionrec_trainer(device, dropout=0.0, seed=0):
+    from predictionio_torch.ops import sessionrec as sr
+
+    rng = np.random.default_rng(seed)
+    n_users, n_items = 300, 500
+    users = np.repeat(np.arange(n_users), 40)
+    items = rng.integers(0, n_items, len(users))
+    times = np.tile(np.arange(40.0), n_users)
+    cfg = sr.SessionRecConfig(dim=64, heads=2, layers=2, max_len=32,
+                              dropout=dropout, batch_size=64, epochs=1)
+    return sr.SessionRecTrainer((users, items, times), n_users, n_items, cfg,
+                                device=device)
+
+
+@pytest.mark.parametrize("attn_block", [0, 8])
+def test_sessionrec_forward_and_step_on_the_card_match_the_cpu(cuda,
+                                                                attn_block):
+    """The encoder's forward, loss and gradients on the card against the
+    same carried weights on the CPU (f32, TF32 off): hidden states within
+    1e-4, the loss within rtol 1e-5, the gradient norm within rtol
+    1e-4."""
+    import dataclasses
+
+    from predictionio_torch.ops import sessionrec as sr
+
+    cpu = _sessionrec_trainer("cpu")
+    cfg = dataclasses.replace(cpu.cfg, attn_block=attn_block)
+    params = sr.params_to_flax(cpu.encoder)
+    seq = torch.from_numpy(cpu.inputs[:64])
+    tgt = torch.from_numpy(cpu.targets[:64])
+    out = []
+    for dev in (torch.device("cpu"), cuda):
+        enc = sr.SessionEncoder(cpu.n_items, cfg)
+        enc.load_state_dict(sr.params_from_flax(params))
+        enc.to(dev)
+        h = enc(seq.to(dev))
+        loss = sr.tied_loss(enc, seq.to(dev), tgt.to(dev), None)
+        loss.backward()
+        gnorm = torch.sqrt(sum(p.grad.double().square().sum()
+                               for p in enc.parameters()))
+        out.append((h.detach().cpu().numpy(), loss.item(), gnorm.item()))
+    (h0, l0, g0), (h1, l1, g1) = out
+    np.testing.assert_allclose(h1, h0, atol=1e-4)
+    assert l1 == pytest.approx(l0, rel=1e-5)
+    assert g1 == pytest.approx(g0, rel=1e-4)
+
+
+def test_sessionrec_trains_on_the_card(cuda):
+    trainer = _sessionrec_trainer(cuda, dropout=0.1)
+    losses = trainer.run(epochs=3)
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    assert trainer.encoder.item_embed.weight.device.type == "cuda"
+
+
+def _longer(state, max_len):
+    """``state`` with a position table of ``max_len`` rows (the new rows
+    zero), so a session can hold more than 64 seen items."""
+    import copy
+    import dataclasses
+
+    params = copy.deepcopy(state.params)
+    pos = params["params"]["pos_embed"]
+    params["params"]["pos_embed"] = np.concatenate(
+        [pos, np.zeros((max_len - len(pos), pos.shape[1]), pos.dtype)])
+    return dataclasses.replace(
+        state, params=params,
+        cfg=dataclasses.replace(state.cfg, max_len=max_len))
+
+
+def test_sessionrec_scorer_through_topk_dot_matches_the_masked_route(cuda):
+    """On the card a lone query goes through ``topk_dot`` (one launch a
+    call); its answers equal a full masked product's top-k, with and
+    without the seen items excluded. A session of more than 64 seen
+    items takes the masked route (no launch) and excludes them all."""
+    from predictionio_torch.ops import sessionrec as sr
+    from predictionio_torch.ops.topk import NEG_INF, ordered_topk
+
+    trainer = _sessionrec_trainer(cuda)
+    trainer.run(epochs=1)
+    state = trainer.state()
+    scorer = sr.SessionScorer(state, device=cuda)
+    items = torch.tensor(state.params["params"]["item_embed"]["embedding"][1:],
+                         device=cuda)
+    for row in state.sequences[:6]:
+        for exclude in (False, True):
+            before = tkd.launches.value
+            s, i = scorer.top_k(row[None], 16, exclude_seen=exclude)
+            torch.cuda.synchronize()
+            assert tkd.launches.value == before + 1
+            scores = scorer.hidden(row[None]) @ items.T
+            if exclude:
+                seen = torch.tensor(np.unique(row[row > 0]) - 1, device=cuda)
+                scores[0, seen.long()] = float(NEG_INF)
+            rs, ri = ordered_topk(scores, 16)
+            tol = 1e-5 * float(scores.abs().max())
+            np.testing.assert_allclose(s, rs.cpu().numpy(), atol=tol)
+            assert (np.asarray(i) == ri.cpu().numpy()).mean() >= 0.9
+    wide = sr.SessionScorer(_longer(state, 80), device=cuda)
+    row = np.zeros((1, 80), np.int32)
+    row[0, :70] = np.arange(1, 71)
+    before = tkd.launches.value
+    s, i = wide.top_k(row, 16, exclude_seen=True)
+    assert tkd.launches.value == before
+    assert len(i[0]) == 16 and not set(i[0].tolist()) & set(range(70))

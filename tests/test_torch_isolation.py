@@ -110,6 +110,23 @@ STREAM = ("predictionio_torch.workflow.stream",
           "predictionio_torch.ops.twotower")
 
 
+#: the model families (sessionrec, classification, regression, vanilla,
+#: the e2 models)
+MODEL_FAMILIES = ("predictionio_torch.ops.attention",
+                  "predictionio_torch.ops.sessionrec",
+                  "predictionio_torch.models",
+                  "predictionio_torch.models.sessionrec",
+                  "predictionio_torch.models.classification",
+                  "predictionio_torch.models.regression",
+                  "predictionio_torch.models.naive_bayes",
+                  "predictionio_torch.models.markov",
+                  "predictionio_torch.templates.sessionrec",
+                  "predictionio_torch.templates.classification",
+                  "predictionio_torch.templates.regression",
+                  "predictionio_torch.templates.vanilla",
+                  "predictionio_torch.tools.cli")
+
+
 def _walk_and_import(want) -> dict:
     """In a fresh interpreter: which of ``want`` the package walk misses,
     and which forbidden modules importing ``want`` loaded."""
@@ -141,3 +158,7 @@ def test_the_evaluation_modules_are_walked_and_import_no_jax():
 
 def test_the_stream_modules_are_walked_and_import_no_jax():
     assert _walk_and_import(STREAM) == {"missing": [], "bad": []}
+
+
+def test_the_model_family_modules_are_walked_and_import_no_jax():
+    assert _walk_and_import(MODEL_FAMILIES) == {"missing": [], "bad": []}

@@ -21,6 +21,7 @@ The same events go into a JAX memory store and a port memory store.
   and scores within 1e-5 of the JAX deployment's, through the masked
   scorer and through the retrieval index (``topk_dot``'s plain version
   with ``PIO_INDEX_KERNEL=on``).
+- The vanilla template trains and answers as the JAX one does.
 """
 
 import dataclasses
@@ -38,6 +39,7 @@ from predictionio_tpu.ops import als as jax_als
 from predictionio_tpu.parallel.mesh import MeshContext
 from predictionio_tpu.templates import ecommerce as jax_ecom_t
 from predictionio_tpu.templates import similarproduct as jax_simprod_t
+from predictionio_tpu.templates import vanilla as jax_vanilla_t
 from predictionio_tpu.workflow.deploy import (
     prepare_deploy as jax_prepare_deploy)
 from predictionio_tpu.workflow.train import run_train as jax_run_train
@@ -48,6 +50,7 @@ from predictionio_torch.ops import als
 from predictionio_torch.parallel.context import DeviceContext
 from predictionio_torch.templates import ecommerce as ecom_t
 from predictionio_torch.templates import similarproduct as simprod_t
+from predictionio_torch.templates import vanilla as vanilla_t
 from predictionio_torch.workflow.deploy import prepare_deploy
 
 torch.set_num_threads(2)
@@ -562,3 +565,22 @@ def test_jax_trained_blob_answers_like_the_jax_deployment(
     if template == "similarproduct" and kernel == "on":
         plan = got.models[0].retrieval_stats()["kernel"]
         assert plan["engaged"] and plan["device"] == "cpu"
+
+
+# -- the vanilla scaffold --------------------------------------------------------
+
+@pytest.mark.parametrize("mult", [1, 3])
+def test_vanilla_engine_answers_like_jax(mult):
+    result = vanilla_t.vanilla_engine().train(
+        ctx, vanilla_t.default_engine_params(app_name="v", mult=mult))
+    jax_result = jax_vanilla_t.vanilla_engine().train(
+        jax_ctx, jax_vanilla_t.default_engine_params(app_name="v",
+                                                     mult=mult))
+    assert result.models == jax_result.models == [{"mult": mult}]
+    algo = vanilla_t.VanillaAlgorithm(vanilla_t.VanillaAlgoParams(mult=mult))
+    jax_algo = jax_vanilla_t.VanillaAlgorithm(
+        jax_vanilla_t.VanillaAlgoParams(mult=mult))
+    for q in ({"q": 2.0}, {"q": -1.5}, {}):
+        assert algo.predict(result.models[0], q) == jax_algo.predict(
+            jax_result.models[0], q)
+    assert algo.predict(result.models[0], {"q": 2.0}) == {"p": 2.0 * mult}

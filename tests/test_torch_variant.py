@@ -3,8 +3,8 @@
 Mirrors the JAX package's ``tests/test_workflow.py::
 test_engine_variant_loading``, ``tests/test_tools.py::
 test_app_and_template_commands`` / ``test_build_train_via_cli`` (with
-``recommendation`` in place of ``vanilla``, which is not ported) and
-``TestTemplateScaffold``, and covers:
+``recommendation`` in place of ``vanilla``) and ``TestTemplateScaffold``,
+and covers:
 
 - ``EngineManifest`` through each port backend's repo (memory, localfs,
   eventlog), a manifest the JAX package wrote to a localfs store read
@@ -20,8 +20,9 @@ test_app_and_template_commands`` / ``test_build_train_via_cli`` (with
   in ``sys.modules`` at exit;
 - the project module's path-keyed name shared with the JAX package, so
   a model class defined there unpickles in either package;
-- templates that are not ported yet and a variant's ``"slo"`` block
-  raising with their ROADMAP.md items.
+- the classification, regression, vanilla and sessionrec scaffolds
+  trained and answering, and a variant's ``"slo"`` block raising with
+  its ROADMAP.md item.
 """
 
 import datetime as dt
@@ -324,14 +325,82 @@ def test_app_and_template_commands(memory_store, tmp_path, capsys):
     assert os.path.exists(f"{tdir}/README.md")
 
 
-@pytest.mark.parametrize("name,item", [("classification", 8),
-                                       ("regression", 8), ("vanilla", 8),
-                                       ("sessionrec", 11)])
+def _family_project(name, storage, tmp_path):
+    """Events (or a data file) for template ``name`` and the engine.json
+    blocks that train it small, with a query and a check of its answer."""
+    t0 = dt.datetime(2026, 1, 1, tzinfo=UTC)
+    if name in ("classification", "sessionrec"):
+        app = storage.apps().insert("fam")
+        storage.events().init(app.id)
+    if name == "classification":
+        rows = [(f"u{n}", float(n % 2), [8.0, 1.0, 1.0] if n % 2 == 0
+                 else [1.0, 1.0, 8.0]) for n in range(21)]
+        storage.events().insert_batch([
+            Event(event="$set", entity_type="user", entity_id=u,
+                  properties={"plan": lbl, **{f"attr{j}": v
+                                              for j, v in enumerate(f)}},
+                  event_time=t0) for u, lbl, f in rows], app.id)
+        return ({"app_name": "fam"},
+                [{"name": "naive", "params": {}},
+                 {"name": "logistic", "params": {"iterations": 50}}],
+                {"features": [1.0, 1.0, 8.0]},
+                lambda answer: answer == {"label": 1.0})
+    if name == "sessionrec":
+        storage.events().insert_batch([
+            Event(event="view", entity_type="user", entity_id=f"u{u}",
+                  target_entity_type="item", target_entity_id=f"i{(u + t) % 6}",
+                  event_time=t0 + dt.timedelta(seconds=t))
+            for u in range(12) for t in range(6)], app.id)
+        return ({"app_name": "fam"},
+                [{"name": "sessionrec", "params": {
+                    "dim": 8, "heads": 2, "layers": 1, "max_len": 6,
+                    "epochs": 2, "batch_size": 8}}],
+                {"user": "u0", "num": 3},
+                lambda answer: len(answer["itemScores"]) == 3)
+    if name == "regression":
+        rng = np.random.default_rng(0)
+        x = rng.normal(size=(60, 3))
+        path = tmp_path / "lr_data.txt"
+        path.write_text("".join(
+            f"{r @ [2.0, -1.0, 0.5]} {r[0]} {r[1]} {r[2]}\n" for r in x))
+        return ({"filepath": str(path)},
+                [{"name": "sgd", "params": {"iterations": 300,
+                                            "step_size": 0.2}},
+                 {"name": "ridge", "params": {}}],
+                {"features": [1.0, 1.0, 1.0]},
+                lambda answer: abs(answer - 1.5) < 0.1)
+    return ({}, [{"name": "algo", "params": {"mult": 3}}], {"q": 2.0},
+            lambda answer: answer == {"p": 6.0})
+
+
+@pytest.mark.parametrize("name", ["classification", "regression", "vanilla",
+                                  "sessionrec"])
 def test_unported_templates_raise_naming_their_roadmap_item(
-        tmp_path, capsys, name, item):
-    assert cli.main(["template", "get", name, str(tmp_path / "t")]) == 1
-    assert f"queue 1 item {item})" in capsys.readouterr().err
-    assert not (tmp_path / "t").exists()
+        memory_store, tmp_path, capsys, name):
+    """Formerly "not ported" (ROADMAP.md items 8 and 11): each template's
+    scaffold now builds, trains on the CPU and answers through the
+    port's deploy path."""
+    from predictionio_torch.workflow.deploy import prepare_deploy
+
+    assert cli.main(["template", "list"]) == 0
+    assert "not ported" not in capsys.readouterr().out
+    tdir = tmp_path / "t"
+    assert cli.main(["template", "get", name, str(tdir)]) == 0
+    ds, algos, query, check = _family_project(name, memory_store, tmp_path)
+    ej = tdir / "engine.json"
+    v = json.loads(ej.read_text())
+    v["datasource"] = {"params": ds}
+    v["algorithms"] = algos
+    ej.write_text(json.dumps(v))
+    assert cli.main(["build", "--engine-json", str(ej)]) == 0
+    assert cli.main(["train", "--engine-json", str(ej),
+                     "--device", "cpu"]) == 0
+    assert "COMPLETED" in capsys.readouterr().out
+    engine, _ = cli.engine_from_json(str(ej))
+    instance = memory_store.engine_instances().get_latest_completed(
+        v["engineFactory"], "0", "default")
+    deployment = prepare_deploy(engine, instance, ctx, memory_store)
+    assert check(deployment.query(query)), deployment.query(query)
 
 
 def test_deploy_of_a_variant_with_an_slo_block_raises(tmp_path, capsys):
