@@ -21,6 +21,7 @@ from __future__ import annotations
 import abc
 import importlib
 import logging
+import time
 import typing
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple, Type, Union
@@ -29,6 +30,7 @@ from predictionio_torch.core.controller import (Algorithm, DataSource,
                                                 Preparator, SanityCheck,
                                                 Serving)
 from predictionio_torch.core.params import EngineParams, Params, params_from_dict
+from predictionio_torch.obs import perfacct
 from predictionio_torch.parallel.context import DeviceContext
 from predictionio_torch.workflow.config import WorkflowParams
 
@@ -132,22 +134,32 @@ class Engine:
               ) -> TrainResult:
         """read -> sanity check -> [stop after read] -> prepare -> sanity
         check -> [stop after prepare] -> train each algorithm -> sanity
-        check each model (ref: object Engine.train:583)."""
+        check each model (ref: object Engine.train:583). The read,
+        prepare and fit stages go to the data-path ledger
+        (obs/perfacct.py), and the freshness horizon is taken at the read's
+        START (an event landing mid-read may miss it)."""
         wp = workflow_params or WorkflowParams()
+        perfacct.LEDGER.note_train_read()
+        t0 = time.perf_counter()
         td = self.make_data_source(engine_params).read_training(ctx)
+        perfacct.LEDGER.note_stage("read", time.perf_counter() - t0)
         _sanity(td, wp, "training data")
         if wp.stop_after_read:
             return TrainResult(stopped_after="read", training_data=td)
+        t0 = time.perf_counter()
         pd = self.make_preparator(engine_params).prepare(ctx, td)
+        perfacct.LEDGER.note_stage("prepare", time.perf_counter() - t0)
         _sanity(pd, wp, "prepared data")
         if wp.stop_after_prepare:
             return TrainResult(stopped_after="prepare", training_data=td,
                                prepared_data=pd)
         models = []
+        t0 = time.perf_counter()
         for i, algo in enumerate(self.make_algorithms(engine_params)):
             model = algo.train(ctx, pd)
             _sanity(model, wp, f"model {i}")
             models.append(model)
+        perfacct.LEDGER.note_stage("fit", time.perf_counter() - t0)
         return TrainResult(models=models, training_data=td, prepared_data=pd)
 
     def eval(self, ctx: DeviceContext, engine_params: EngineParams,

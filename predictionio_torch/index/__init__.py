@@ -1,10 +1,21 @@
 """Retrieval indexes: top-k by dot product over an item table.
 
-Counterpart of ``predictionio_tpu/index/__init__.py``. The port has
-the exact backend (``index/exact.py``: the ``topk_dot`` Hopper kernel,
-with ``ops.topk.TopKScorer`` for shapes outside the kernel's caps) and
-``index/recall.py``'s recall@k. The IVF backend and the Prometheus
-gauges wait for later slices.
+Counterpart of ``predictionio_tpu/index/__init__.py``:
+
+  ``index/exact.py``   exact retrieval: the ``topk_dot`` Hopper kernel,
+                       with ``ops.topk.TopKScorer`` for shapes outside
+                       the kernel's caps.
+  ``index/ivf.py``     approximate host retrieval: a copy of the JAX
+                       package's IVF (k-means coarse quantizer, the
+                       recall-gated ``nprobe`` autotune, int8 with a
+                       full-precision re-rank, upsert). It stays numpy
+                       on the host, as in the JAX package.
+  ``index/recall.py``  recall@k against brute force.
+
+Both backends export the JAX families ``pio_index_build_seconds``,
+``pio_index_size_items``, ``pio_index_queries_total`` and
+``pio_index_recall`` (``MEASURED_RECALL``), and price their tables in
+the device-memory ledger under their owning model's label.
 """
 
 from __future__ import annotations
@@ -14,6 +25,30 @@ import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+from predictionio_torch.obs import metrics
+
+BUILD_SECONDS = metrics.gauge(
+    "pio_index_build_seconds",
+    "Wall seconds of the last ANN index build, per backend",
+    ("backend",),
+)
+SIZE_ITEMS = metrics.gauge(
+    "pio_index_size_items",
+    "Items currently held by the ANN index, per backend",
+    ("backend",),
+)
+QUERIES_TOTAL = metrics.counter(
+    "pio_index_queries_total",
+    "ANN index search calls, per backend",
+    ("backend",),
+)
+MEASURED_RECALL = metrics.gauge(
+    "pio_index_recall",
+    "Last measured recall@k of the index against brute force, per "
+    "backend (exact backends pin 1.0; IVF measures at build)",
+    ("backend",),
+)
 
 BACKENDS = ("exact", "ivf")
 
@@ -28,6 +63,11 @@ class AnnIndex(abc.ABC):
     rebuild; ``stats()`` is the operator surface."""
 
     backend: str = "abstract"
+
+    #: device-memory ledger attribution (obs/memacct.py): the owning
+    #: model sets this to ITS label before build, so the index's bytes
+    #: land under pio_model_device_bytes{model=<owner>,component=index}
+    mem_model: Optional[str] = None
 
     @abc.abstractmethod
     def build(self, item_vectors: np.ndarray) -> None:
@@ -49,6 +89,23 @@ class AnnIndex(abc.ABC):
     def stats(self) -> Dict[str, object]:
         return {"backend": self.backend, "size": len(self)}
 
+    # -- shared bookkeeping ---------------------------------------------------
+    def _note_build(self, seconds: float) -> None:
+        BUILD_SECONDS.labels(self.backend).set(seconds)
+        SIZE_ITEMS.labels(self.backend).set(float(len(self)))
+
+    def _register_mem(self, nbytes: int) -> None:
+        """Price this index's resident tables in the device-memory
+        ledger, re-pricing under the same owner."""
+        from predictionio_torch.obs import memacct
+
+        memacct.LEDGER.register(
+            self, self.mem_model or f"index:{self.backend}", "index",
+            int(nbytes))
+
+    def _note_query(self) -> None:
+        QUERIES_TOTAL.labels(self.backend).inc()
+
 
 def resolve_backend(backend: Optional[str] = None) -> str:
     """``PIO_INDEX_BACKEND`` beats the argument; ``auto`` -> exact."""
@@ -69,18 +126,35 @@ def make_index(item_vectors: Optional[np.ndarray] = None,
     later). ``kernel`` is the exact backend's ``topk_dot`` flag
     (on/off/auto, ``PIO_INDEX_KERNEL`` overrides; it chooses on the CPU
     only, since on a card the kernel always serves); ``kwargs`` go to
-    the backend (``device``, ``max_exclude``)."""
+    the backend: ``device`` and ``max_exclude`` to the exact one (the
+    IVF index lives on the host and takes neither), ``mem_model`` (the
+    ledger label) to both, the rest (``nlist``, ``nprobe``,
+    ``quantize``, ...) to IVF."""
     name = resolve_backend(backend)
-    if name != "exact":
-        raise NotImplementedError(
-            f"index backend {name!r} is not ported yet (ROADMAP.md); "
-            "use 'exact'")
-    from predictionio_torch.index.exact import ExactIndex
+    mem_model = kwargs.pop("mem_model", None)
+    if name == "exact":
+        from predictionio_torch.index.exact import ExactIndex
 
-    index = ExactIndex(kernel=kernel, **kwargs)
+        index: AnnIndex = ExactIndex(kernel=kernel, **kwargs)
+    else:
+        from predictionio_torch.index.ivf import IVFIndex
+
+        kwargs.pop("device", None)
+        kwargs.pop("max_exclude", None)
+        index = IVFIndex(**kwargs)
+    index.mem_model = mem_model
     if item_vectors is not None:
-        index.build(item_vectors)
+        index.build(np.asarray(item_vectors, np.float32))
     return index
 
 
-__all__ = ["AnnIndex", "BACKENDS", "make_index", "resolve_backend"]
+__all__ = [
+    "AnnIndex",
+    "BACKENDS",
+    "make_index",
+    "resolve_backend",
+    "BUILD_SECONDS",
+    "SIZE_ITEMS",
+    "QUERIES_TOTAL",
+    "MEASURED_RECALL",
+]

@@ -28,7 +28,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from predictionio_torch.index import AnnIndex
+from predictionio_torch.index import MEASURED_RECALL, AnnIndex
 from predictionio_torch.ops.kernels import resolve_flag
 from predictionio_torch.ops.kernels import topk_dot as tkd
 from predictionio_torch.ops.topk import (TopKScorer, _as_numpy,
@@ -70,6 +70,9 @@ class ExactIndex(AnnIndex):
             self._plan_kernel()
         self._device_table()   # the table lives on the device from build on
         self.build_seconds = time.perf_counter() - t0
+        self._note_build(self.build_seconds)
+        self._register_mem(self._mem_nbytes())
+        MEASURED_RECALL.labels(self.backend).set(1.0)  # exact by design
 
     def upsert(self, rows: np.ndarray, vectors: np.ndarray) -> None:
         """Overwrite/append rows copy-on-write: readers see the old or
@@ -92,9 +95,20 @@ class ExactIndex(AnnIndex):
             self._vectors = table
             self._scorer = None
             self._table = None
+            self._note_build(self.build_seconds)
+        self._register_mem(self._mem_nbytes())
 
     def __len__(self) -> int:
         return int(self._vectors.shape[0])
+
+    def _mem_nbytes(self) -> int:
+        """Resident bytes this index owns: the host table plus, once
+        made, its device copy."""
+        table = self._table
+        on_device = table is not None and table.device.type != "cpu"
+        return int(self._vectors.nbytes
+                   + (table.numel() * table.element_size()
+                      if on_device else 0))
 
     @property
     def vectors(self) -> np.ndarray:
@@ -131,7 +145,11 @@ class ExactIndex(AnnIndex):
             if table is None:
                 table = torch.as_tensor(self._vectors, device=self.device)
                 self._table = table
-            return table
+            else:
+                return table
+        # a new long-lived device allocation: re-price the ledger
+        self._register_mem(self._mem_nbytes())
+        return table
 
     def _fallback(self) -> TopKScorer:
         with self._lock:
@@ -144,6 +162,7 @@ class ExactIndex(AnnIndex):
     # -- search ---------------------------------------------------------------
     def search(self, query_vecs, k: int, exclude: Optional[np.ndarray] = None,
                ) -> Tuple[np.ndarray, np.ndarray]:
+        self._note_query()
         self.searches += 1
         table = self._device_table()   # one consistent (old-or-new) table
         n = int(table.shape[0])

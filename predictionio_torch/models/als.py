@@ -42,6 +42,7 @@ import torch
 from predictionio_torch.core import Algorithm, SanityCheck
 from predictionio_torch.core.params import Params
 from predictionio_torch.data.bimap import BiMap
+from predictionio_torch.obs import memacct, perfacct
 from predictionio_torch.ops.als import (ALSConfig, ALSGridTrainer,
                                         ALSTrainer, als_row_cost_slots,
                                         layout_cache_key, load_layout,
@@ -121,7 +122,13 @@ class ALSParams(Params):
 
 
 class ALSModel:
-    """Factor matrices + id maps, with device-side serving state."""
+    """Factor matrices + id maps, with device-side serving state. Its
+    tables are priced in the device-memory ledger (obs/memacct.py) at
+    construction, load (unpickle) and every patch, under
+    :attr:`memacct_model`, which the index it builds shares."""
+
+    #: ledger attribution label; TwoTowerModel overrides
+    memacct_model = "als"
 
     def __init__(self, user_factors: np.ndarray, item_factors: np.ndarray,
                  user_ids: BiMap, item_ids: BiMap,
@@ -133,6 +140,19 @@ class ALSModel:
         self.index_backend = index_backend
         self.index_kernel = index_kernel
         self._init_device_state()
+        self._register_memory()
+
+    def _register_memory(self) -> None:
+        """(Re-)price the factor tables and (an estimate of) the id maps
+        under this owner; a grown table re-prices itself."""
+        memacct.LEDGER.register(
+            self, self.memacct_model, "factors",
+            int(self.user_factors.nbytes + self.item_factors.nbytes))
+        # id maps: a structural estimate (dict slot + key + inverse list
+        # entry), attribution rather than malloc truth
+        memacct.LEDGER.register(
+            self, self.memacct_model, "id_maps",
+            (len(self.user_ids) + len(self.item_ids)) * 24)
 
     def _init_device_state(self) -> None:
         self.device: Optional[torch.device] = None
@@ -156,6 +176,7 @@ class ALSModel:
         d.setdefault("index_kernel", "auto")
         self.__dict__.update(d)
         self._init_device_state()
+        self._register_memory()
 
     def to(self, device: DeviceLike) -> "ALSModel":
         """Serve from ``device``: the user table is put there now; the
@@ -204,7 +225,8 @@ class ALSModel:
                 self._index = make_index(self.item_factors,
                                          backend=self.index_backend,
                                          kernel=self.index_kernel,
-                                         device=device)
+                                         device=device,
+                                         mem_model=self.memacct_model)
             return self._index
 
     def retrieval_stats(self) -> Optional[dict]:
@@ -263,6 +285,8 @@ class ALSModel:
                 touched = np.fromiter((ids[iid] for iid, _ in item_rows),
                                       np.int64, count=len(item_rows))
                 index.upsert(touched, factors[touched])
+        if user_rows or item_rows:
+            self._register_memory()
         return new_users, new_items
 
     def recommend(self, user_id: str, num: int,
@@ -489,6 +513,9 @@ class ALSAlgorithm(Algorithm):
         # the native bytes are on the device now; release them
         del user_side, item_side
         scan = {"scan_sec": binned.scan_sec, "native_bin_sec": binned.bin_sec}
+        # data-path ledger: the native call's scan and fill shares
+        perfacct.LEDGER.note_stage("read", binned.scan_sec)
+        perfacct.LEDGER.note_stage("bin", binned.bin_sec)
         del binned
         return self._fit(trainer, "binned", BiMap.from_vocab(users),
                          BiMap.from_vocab(items), **scan)

@@ -62,6 +62,9 @@ class TwoTowerModel(ALSModel):
     scorer and retrieval index; the vectors are L2-normalized, so
     scores are cosine similarities."""
 
+    #: device-memory ledger attribution (obs/memacct.py)
+    memacct_model = "twotower"
+
 
 class TwoTowerAlgorithm(Algorithm):
     """DASE wrapper over ``ops.twotower``."""

@@ -1,0 +1,64 @@
+"""obs: the telemetry and diagnostics core of the port.
+
+Counterpart of ``predictionio_tpu/obs/__init__.py``, one registry:
+
+  obs.metrics   — Counter/Gauge/Histogram with labels in a process-global
+                  Registry, Prometheus text exposition (``GET /metrics``
+                  on every server, serving/http.py)
+  obs.trace     — trace ids + spans with ``X-PIO-Trace-Id`` propagation,
+                  the span ring (``GET /admin/spans``, ``/admin/trace``)
+  obs.torchmon  — PyTorch runtime bridge: kernel builds, transfer bytes,
+                  train-step timing, device memory gauges (jaxmon's part)
+  obs.flight    — the flight recorder: completed request records, metric
+                  snapshots, slow-request log, error dumps
+                  (``GET /admin/flight``)
+  obs.profiler  — on-demand torch.profiler windows on the card
+                  (``POST /admin/profile``) and their device-time summary
+  obs.logging   — structured JSON log lines carrying the trace id
+  obs.health    — the probes behind ``GET /readyz`` and the stall
+                  watchdogs
+  obs.journal   — the ops journal (``GET /admin/journal``)
+  obs.perfacct  — MFU/roofline gauges on the card's peaks, the data-path
+                  ledger and staleness clock, tail attribution
+  obs.memacct   — the device-memory ledger, train peaks and preflight
+                  (``GET /admin/memory``)
+
+Not ported yet (ROADMAP item 10 and item 6): slo, push, timeline,
+quality, anomaly, collect (the fleet federation), contprof, dataobs.
+
+Importing this package imports no torch and starts no thread: the
+journal's writer and the watchdog monitor start on first use.
+"""
+
+from predictionio_torch.obs import (flight, health, journal, memacct,
+                                    metrics, perfacct, profiler, torchmon,
+                                    trace)
+from predictionio_torch.obs import logging as obs_logging
+from predictionio_torch.obs.metrics import (
+    CONTENT_TYPE,
+    REGISTRY,
+    counter,
+    gauge,
+    histogram,
+)
+from predictionio_torch.obs.trace import TRACE_HEADER, span
+
+__all__ = [
+    "CONTENT_TYPE",
+    "REGISTRY",
+    "TRACE_HEADER",
+    "counter",
+    "flight",
+    "gauge",
+    "health",
+    "histogram",
+    "journal",
+    "memacct",
+    "metrics",
+    "obs_logging",
+    "perfacct",
+    "profiler",
+    "span",
+    "torchmon",
+    "trace",
+]

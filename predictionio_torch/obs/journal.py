@@ -1,0 +1,358 @@
+"""Ops journal: the durable record of operational state changes.
+
+Copy of ``predictionio_tpu/obs/journal.py`` with three changes: a
+:class:`Journal` stamps its events from ``clock=`` (an object with
+``time()`` and ``monotonic()``, the ``time`` module by default, which
+is what the JAX copy reads); its writer thread, started by the first
+event that has a file to go to, ends in :meth:`Journal.close`, which
+joins it; and the shed-episode aggregator stays with the admission
+controller it serves (ROADMAP item 6). What follows is the JAX
+module's account.
+
+The reference kept its operational history in external stores — an
+admin could always ask "what deployed when" because the metadata
+outlived every JVM (PAPER.md §0). This tree's obs planes (metrics,
+traces, flight, SLO, timelines, contprof) all answer "what is the
+system doing"; none answers "what did an operator / supervisor DO and
+when" — reloads, patches, canary verdicts, breaker flips, shed
+episodes and watchdog stalls died with the process logs. This module
+is that record: a process-global, append-only journal of structured
+operational events, held in a bounded in-memory ring (what
+``GET /admin/journal`` serves) and — when ``PIO_JOURNAL_PATH`` is set
+— appended as JSONL to disk by a background writer thread so the
+history survives the process.
+
+Design constraints:
+
+  - the emit path rides SERVING code (a breaker flip happens inside a
+    request): it must cost microseconds — build the dict, append to
+    the ring, enqueue for the writer; no syscall, no flush, no lock
+    shared with the file handle (the bench pins
+    ``key.journal_append_us``)
+  - durability is the WRITER's job: a daemon thread drains the queue,
+    appends, flushes; the file is size-capped with ONE ``.1`` roll
+    (same discipline as PIO_TRACE_LOG — current + rolled bound the
+    disk at ~2x ``PIO_JOURNAL_MAX_BYTES``)
+  - read-back tolerates a torn tail: a process killed mid-append
+    leaves a partial last line; :func:`read_back` skips unparseable
+    lines and counts them instead of refusing the file
+  - every event is stamped with wall time (``ts`` — a record, joins
+    against other members' journals), monotonic time (``mono`` — safe
+    deltas within one process), the active trace id when there is one
+    (the event joins the flight recorder / span ring), and the
+    emitting server/replica name when the caller knows it
+
+Event kinds (the taxonomy the anomaly sentinel and ``pio journal``
+filter on): ``reload``, ``patch``, ``fold``, ``resync``,
+``canary_start``, ``canary_verdict``, ``canary_promote``,
+``canary_rollback``, ``swap``, ``replica_state``, ``breaker``,
+``slo_alert``, ``watchdog_stall``, ``shed_episode``,
+``preflight_refused``, ``drift_breach``, ``auto_reload``, ``chaos``,
+``anomaly``, ``anomaly_resolved``, ``schema_change`` (the event
+stream's live schema drifted from the trained-against profile —
+obs/dataobs.py), ``data_breach`` (entity-skew / unknown-entity
+threshold crossed).
+
+Config (env, read per call so tests can monkeypatch):
+  PIO_JOURNAL_PATH        JSONL sink (unset = ring only, no disk)
+  PIO_JOURNAL_MAX_BYTES   size cap before the one .1 roll
+                          (default 16 MiB; <= 0 disables rotation)
+  PIO_JOURNAL_RING        in-memory events kept (default 1024)
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import logging
+import os
+import threading
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+from predictionio_torch.obs import metrics, trace
+
+log = logging.getLogger(__name__)
+
+DEFAULT_RING = 1024
+DEFAULT_MAX_BYTES = 16 * 1024 * 1024
+#: writer-queue bound: a dead disk must cost dropped journal lines
+#: (counted), never unbounded memory on the serving process
+QUEUE_CAP = 4096
+
+_EVENTS_TOTAL = metrics.counter(
+    "pio_journal_events_total",
+    "Ops-journal events emitted, by kind",
+    ("kind",),
+)
+
+_ROTATIONS_TOTAL = metrics.counter(
+    "pio_journal_rotations_total",
+    "PIO_JOURNAL_PATH size-based rotations (each drops the previously "
+    "rolled file's events)",
+)
+
+_DROPPED_TOTAL = metrics.counter(
+    "pio_journal_dropped_total",
+    "Events dropped before reaching the journal file (writer queue "
+    "full or sink unwritable) — the in-memory ring still has them",
+)
+
+_WRITER_ERRORS_TOTAL = metrics.counter(
+    "pio_journal_writer_errors_total",
+    "Journal writer-thread failures (bad sink path, full disk)",
+)
+
+
+def ring_capacity() -> int:
+    return max(8, metrics.env_int("PIO_JOURNAL_RING", DEFAULT_RING))
+
+
+def max_bytes() -> int:
+    return metrics.env_int("PIO_JOURNAL_MAX_BYTES", DEFAULT_MAX_BYTES)
+
+
+class Journal:
+    """Process-global ops journal: bounded ring + buffered disk writer."""
+
+    def __init__(self, clock: Any = time):
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._ring: "collections.deque[Dict[str, Any]]" = (
+            collections.deque(maxlen=ring_capacity()))
+        # writer side: its own lock + condition so the emit path never
+        # waits on a file syscall
+        self._q_lock = threading.Lock()
+        self._q_cond = threading.Condition(self._q_lock)
+        self._queue: "collections.deque[str]" = collections.deque()
+        self._writer: Optional[threading.Thread] = None
+        self._writer_file = None
+        self._writer_path: Optional[str] = None
+        self._pending = 0  # queued + in-flight lines (flush barrier)
+        self._closing = False
+
+    # -- emit (the hot path) ------------------------------------------------
+    def emit(self, kind: str, **fields: Any) -> Dict[str, Any]:
+        """Record one operational event. Fire-and-forget: the ring
+        append and queue push are the whole cost; disk I/O happens on
+        the writer thread. Returns the event dict (tests and callers
+        that want the stamped record)."""
+        event: Dict[str, Any] = {
+            "ts": round(self._clock.time(), 3),
+            "mono": round(self._clock.monotonic(), 3),
+            "kind": str(kind),
+        }
+        trace_id = trace.current_trace_id()
+        if trace_id is not None:
+            event["trace"] = trace_id
+        for key, value in fields.items():
+            if value is not None:
+                event[key] = value
+        _EVENTS_TOTAL.labels(event["kind"]).inc()
+        cap = ring_capacity()
+        with self._lock:
+            ring = self._ring
+            if ring.maxlen != cap:
+                ring = collections.deque(ring, maxlen=cap)
+                self._ring = ring
+            ring.append(event)
+        if os.environ.get("PIO_JOURNAL_PATH"):
+            line = json.dumps(event, sort_keys=True)
+            with self._q_cond:
+                if len(self._queue) >= QUEUE_CAP:
+                    _DROPPED_TOTAL.inc()
+                else:
+                    self._queue.append(line)
+                    self._pending += 1
+                    self._ensure_writer_locked()
+                    self._q_cond.notify()
+        return event
+
+    # -- writer thread ------------------------------------------------------
+    def _ensure_writer_locked(self) -> None:
+        if self._writer is not None and self._writer.is_alive():
+            return
+        self._closing = False
+        self._writer = threading.Thread(
+            target=self._drain_forever, daemon=True,
+            name="pio-journal-writer")
+        self._writer.start()
+
+    def _drain_forever(self) -> None:
+        while True:
+            try:
+                with self._q_cond:
+                    while not self._queue and not self._closing:
+                        # timed wait: a spurious-wakeup loop, and the
+                        # thread stays parkable forever without pinning
+                        # a dead queue
+                        self._q_cond.wait(1.0)
+                    if not self._queue:
+                        return   # close(): everything queued is written
+                    batch = list(self._queue)
+                    self._queue.clear()
+                try:
+                    self._write_batch(batch)
+                except Exception:  # noqa: BLE001 — a sink failure must
+                    # cost dropped lines (counted), never the writer
+                    # thread: the next deploy event still deserves an
+                    # append attempt
+                    _WRITER_ERRORS_TOTAL.inc()
+                    _DROPPED_TOTAL.inc(len(batch))
+                    log.exception(
+                        "journal writer failed (%d lines dropped)",
+                        len(batch))
+                with self._q_cond:
+                    self._pending -= len(batch)
+                    self._q_cond.notify_all()
+            except Exception:  # noqa: BLE001 — the journal writer dying
+                # silently would turn every later emit into an
+                # unbounded queue; log and keep draining
+                log.exception("journal writer iteration failed")
+
+    def _write_batch(self, batch: List[str]) -> None:
+        path = os.environ.get("PIO_JOURNAL_PATH")
+        if not path:
+            # the sink was unset after these lines were queued: the
+            # ring still has the events; the file contract is off
+            _DROPPED_TOTAL.inc(len(batch))
+            return
+        if path != self._writer_path:
+            if self._writer_file is not None:
+                self._writer_file.close()
+            self._writer_file = open(path, "a", encoding="utf-8")
+            self._writer_path = path
+        limit = max_bytes()
+        for line in batch:
+            if limit > 0 and self._writer_file.tell() >= limit:
+                # keep current + ONE rolled file (the PIO_TRACE_LOG
+                # discipline): an unbounded ops journal on a serving
+                # host eventually fills the disk. tell() is our own
+                # append offset — no stat() per event.
+                self._writer_file.close()
+                os.replace(path, path + ".1")
+                self._writer_file = open(path, "a", encoding="utf-8")
+                _ROTATIONS_TOTAL.inc()
+            self._writer_file.write(line + "\n")
+        self._writer_file.flush()
+
+    def flush(self, timeout: float = 5.0) -> bool:
+        """Block until every queued line reached the sink (or timeout).
+        The durability barrier tests and graceful shutdown use — the
+        emit path itself never waits."""
+        deadline = time.monotonic() + timeout
+        with self._q_cond:
+            while self._pending > 0:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return False
+                self._q_cond.wait(timeout=remaining)
+        return True
+
+    def close(self, timeout: float = 5.0) -> bool:
+        """Write what is queued, stop the writer thread and close the
+        file. True when the thread has ended within ``timeout``; the
+        next event with a file to go to starts a new writer."""
+        with self._q_cond:
+            self._closing = True
+            self._q_cond.notify_all()
+            writer = self._writer
+        if writer is not None:
+            writer.join(timeout)
+            if writer.is_alive():
+                return False
+        with self._q_cond:
+            self._writer = None
+        handle, self._writer_file, self._writer_path = (
+            self._writer_file, None, None)
+        if handle is not None:
+            handle.close()
+        return True
+
+    # -- reading ------------------------------------------------------------
+    def recent(self, n: Optional[int] = None, kind: Optional[str] = None,
+               since: Optional[float] = None) -> List[Dict[str, Any]]:
+        """The ring's events oldest-first, filtered by ``kind`` (exact)
+        and ``since`` (wall ts >=), then trimmed to the ``n`` newest.
+        ``n <= 0`` is an explicit "none"."""
+        with self._lock:
+            out = list(self._ring)
+        if kind:
+            out = [e for e in out if e.get("kind") == kind]
+        if since is not None:
+            out = [e for e in out if e.get("ts", 0.0) >= since]
+        if n is None:
+            return out
+        return out[-n:] if n > 0 else []
+
+    def page(self, n: Optional[int] = None, kind: Optional[str] = None,
+             since: Optional[float] = None) -> Dict[str, Any]:
+        """The ``GET /admin/journal`` payload."""
+        events = self.recent(n=n, kind=kind, since=since)
+        return {
+            "capacity": ring_capacity(),
+            "path": os.environ.get("PIO_JOURNAL_PATH") or None,
+            "dropped_total": _DROPPED_TOTAL.value,
+            "events": events,
+        }
+
+    def reset(self) -> None:
+        """Tests: drop the ring and queue, close the sink handle (so a
+        monkeypatched PIO_JOURNAL_PATH takes effect cleanly). Callers
+        flush() first when they care about queued lines; the handle is
+        owned by the writer thread, which treats a closed file as a
+        writer error and reopens on the next batch."""
+        with self._lock:
+            self._ring.clear()
+        with self._q_cond:
+            self._pending -= len(self._queue)
+            self._queue.clear()
+            self._q_cond.notify_all()
+        handle, self._writer_file, self._writer_path = (
+            self._writer_file, None, None)
+        if handle is not None:
+            try:
+                handle.close()
+            except OSError:
+                pass
+
+
+def read_back(path: Optional[str] = None) -> Tuple[List[Dict[str, Any]], int]:
+    """Parse the journal file(s) — the ``.1`` roll first, then the
+    current file — into (events, corrupt_line_count). A torn tail (the
+    process died mid-append) or a corrupt middle line is SKIPPED and
+    counted, never fatal: the journal's value is the lines that did
+    land."""
+    path = path or os.environ.get("PIO_JOURNAL_PATH")
+    events: List[Dict[str, Any]] = []
+    corrupt = 0
+    if not path:
+        return events, corrupt
+    for candidate in (path + ".1", path):
+        try:
+            with open(candidate, "r", encoding="utf-8",
+                      errors="replace") as f:
+                for line in f:
+                    line = line.strip()
+                    if not line:
+                        continue
+                    try:
+                        event = json.loads(line)
+                    except ValueError:
+                        corrupt += 1
+                        continue
+                    if isinstance(event, dict):
+                        events.append(event)
+                    else:
+                        corrupt += 1
+        except OSError:
+            continue
+    return events, corrupt
+
+
+#: the process-global journal every subsystem emits into
+JOURNAL = Journal()
+
+def emit(kind: str, **fields: Any) -> Dict[str, Any]:
+    """Module-level convenience: ``journal.emit("reload", ...)``."""
+    return JOURNAL.emit(kind, **fields)

@@ -1,0 +1,503 @@
+"""Device-memory accounting: the per-model device-memory ledger, train
+high-water tracking, and the OOM preflight.
+
+Port of ``predictionio_tpu/obs/memacct.py``. The ledger (``register`` /
+``release`` by owning object, held by weak reference), the train peaks,
+the preflight and ``GET /admin/memory``'s report are copies. The
+device statistics come from ``torch.cuda`` instead of
+``jax.Device.memory_stats()``:
+
+  bytes_in_use       ``memory_stats()["allocated_bytes.all.current"]``
+  peak_bytes_in_use  ``memory_stats()["allocated_bytes.all.peak"]``
+  bytes_limit        ``mem_get_info()[1]`` (the card's total memory)
+
+and land on ``pio_device_memory_bytes{device,kind}``. The JAX module
+only looks at an already-imported jax; this one only looks at CUDA
+devices in a process where CUDA is initialised
+(``torch.cuda.is_initialized()``), so a gauge refresh never starts
+CUDA in an event server or a CPU deployment. Where no card reports,
+capacity is ``PIO_PEAK_HBM_BYTES`` when set, else unknown (None): the
+headroom gauge stays unset, the probe says so, and the preflight lets
+the deploy through as ``unknown_size`` does. Trainers note their peak
+from ``torch.cuda.max_memory_allocated`` or an analytic estimate
+(``note_train_peak``).
+
+Env knobs:
+  PIO_PEAK_HBM_BYTES       accounting capacity where no card reports
+  PIO_MEM_HEADROOM_FLOOR   headroom fraction of capacity below which
+                           the device_memory probe is DEGRADED
+                           (default 0.05)
+  PIO_MEM_PREFLIGHT        0 disables the deploy preflight (default on)
+  PIO_MEM_ESTIMATE_SCALE   blob-bytes -> resident-bytes factor for the
+                           preflight estimate (default 2.0)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import sys
+import threading
+import weakref
+from typing import Any, Dict, List, Optional, Set, Tuple
+
+from predictionio_torch.obs import flight, health, metrics
+
+log = logging.getLogger(__name__)
+
+MODEL_DEVICE_BYTES = metrics.gauge(
+    "pio_model_device_bytes",
+    "Ledger-attributed device-memory residency per model and "
+    "component (factors / id_maps / index / params / opt_state / "
+    "train_data)",
+    ("model", "component"),
+)
+DEVICE_HEADROOM_BYTES = metrics.gauge(
+    "pio_device_headroom_bytes",
+    "Device-memory capacity minus in-use bytes (worst device): the "
+    "card's total memory minus torch's allocated bytes where a card "
+    "reports, else PIO_PEAK_HBM_BYTES minus the ledger total",
+)
+TRAIN_PEAK_BYTES = metrics.gauge(
+    "pio_train_peak_bytes",
+    "Peak device bytes of the last training run per model "
+    "(torch.cuda.max_memory_allocated on a card, else the trainer's "
+    "analytic estimate)",
+    ("model",),
+)
+DEVICE_MEMORY_BYTES = metrics.gauge(
+    "pio_device_memory_bytes",
+    "Per-device allocator stats (bytes_in_use / peak_bytes_in_use / "
+    "bytes_limit) of the CUDA cards this process has initialised "
+    "(owned here; obs/torchmon.py delegates)",
+    ("device", "kind"),
+)
+PREFLIGHT_TOTAL = metrics.counter(
+    "pio_mem_preflight_total",
+    "OOM preflight decisions on the deploy lanes, by result "
+    "(allowed / refused / forced / unknown_size)",
+    ("result",),
+)
+
+
+def headroom_floor_fraction() -> float:
+    """Headroom below this fraction of capacity flags the
+    ``device_memory`` probe DEGRADED (``PIO_MEM_HEADROOM_FLOOR``)."""
+    return max(0.0, metrics.env_float("PIO_MEM_HEADROOM_FLOOR", 0.05))
+
+
+def preflight_enabled() -> bool:
+    return metrics.env_int("PIO_MEM_PREFLIGHT", 1) > 0
+
+
+def estimate_scale() -> float:
+    """Stored-blob bytes -> resident bytes: the pickled factor tables
+    land on host ~1:1, and serving adds device copies (scorer + index)
+    of the item side (``PIO_MEM_ESTIMATE_SCALE``)."""
+    return max(1.0, metrics.env_float("PIO_MEM_ESTIMATE_SCALE", 2.0))
+
+
+# -- residency ledger ----------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Footprint:
+    """One long-lived device allocation, attributed."""
+
+    model: str
+    component: str
+    nbytes: int
+    device: str = "0"
+
+    def as_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+class MemLedger:
+    """Process-global registry of who owns which resident bytes.
+
+    ``register(owner, ...)`` keys the entry by the owning object and
+    component; re-registering the same (owner, component) replaces the
+    previous footprint (a grown factor table re-prices itself). Owners
+    are held by WEAK reference — a garbage-collected owner's entries
+    are swept on the next read, so even a seam that forgets to
+    ``release()`` cannot leak a gauge forever; the deliberate retire
+    paths (``/reload`` hot-swap, fleet replica stop, stream rebind)
+    call :meth:`release` so the gauges drop with the swap, not with
+    the GC.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._entries: Dict[Tuple[int, str],
+                            Tuple[weakref.ref, Footprint]] = {}
+        #: serializes whole exports (state read + gauge writes): two
+        #: racing register/release exports must not interleave, or the
+        #: older one's stale-diff could remove a gauge child the newer
+        #: state (and a live owner) backs
+        self._export_lock = threading.Lock()
+        self._exported: Set[Tuple[str, str]] = set()
+
+    def register(self, owner: Any, model: str, component: str,
+                 nbytes: int, device: str = "0") -> Footprint:
+        fp = Footprint(model=str(model), component=str(component),
+                       nbytes=int(nbytes), device=str(device))
+        try:
+            ref = weakref.ref(owner)
+        except TypeError:
+            # a non-weakrefable owner (slots without __weakref__) still
+            # accounts; it can only be retired via release()
+            ref = lambda _o=owner: _o  # noqa: E731
+        with self._lock:
+            self._entries[(id(owner), fp.component)] = (ref, fp)
+        self._export()
+        return fp
+
+    def release(self, owner: Any) -> int:
+        """Drop every footprint registered by ``owner`` (the hot-swap /
+        replica-stop seam); returns how many entries were retired."""
+        oid = id(owner)
+        with self._lock:
+            stale = [k for k in self._entries if k[0] == oid]
+            for k in stale:
+                del self._entries[k]
+        if stale:
+            self._export()
+        return len(stale)
+
+    def _sweep_locked(self) -> None:
+        dead = [k for k, (ref, _) in self._entries.items()
+                if ref() is None]
+        for k in dead:
+            del self._entries[k]
+
+    def footprints(self) -> List[Footprint]:
+        with self._lock:
+            self._sweep_locked()
+            return [fp for _, fp in self._entries.values()]
+
+    def model_bytes(self) -> Dict[str, Dict[str, int]]:
+        """{model: {component: summed bytes}} over live owners."""
+        out: Dict[str, Dict[str, int]] = {}
+        for fp in self.footprints():
+            comp = out.setdefault(fp.model, {})
+            comp[fp.component] = comp.get(fp.component, 0) + fp.nbytes
+        return out
+
+    def model_totals(self) -> Dict[str, int]:
+        return {model: sum(components.values())
+                for model, components in self.model_bytes().items()}
+
+    def total_bytes(self) -> int:
+        return sum(fp.nbytes for fp in self.footprints())
+
+    def _export(self) -> None:
+        """Refresh ``pio_model_device_bytes`` from the live entries and
+        RETIRE children no live owner backs — a swapped-out instance
+        must stop exporting, not freeze at its last value. The export
+        lock serializes state read + gauge writes end to end: an older
+        export interleaving a newer one could otherwise remove a child
+        a live owner backs, or overwrite fresh values with stale ones."""
+        with self._export_lock:
+            sums = self.model_bytes()  # takes (and releases) _lock
+            live: Set[Tuple[str, str]] = set()
+            for model, components in sums.items():
+                for component, nbytes in components.items():
+                    MODEL_DEVICE_BYTES.labels(model, component).set(
+                        float(nbytes))
+                    live.add((model, component))
+            with self._lock:
+                stale = self._exported - live
+                self._exported = live
+            for model, component in stale:
+                MODEL_DEVICE_BYTES.remove(model, component)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+        self._export()
+
+
+#: the process-global ledger every residency seam registers into
+LEDGER = MemLedger()
+
+
+def release_model(model: Any) -> int:
+    """Retire a served model AND the satellite objects it owns that
+    registered under their own identity (the built retrieval index,
+    the cached scorer) — the ``/reload`` hot-swap, replica-stop and
+    stream-rebind seams call this so every component's gauge drops
+    with the swap; the weakref sweep remains the backstop."""
+    released = LEDGER.release(model)
+    for attr in ("_index", "_scorer"):
+        owned = getattr(model, attr, None)
+        if owned is not None:
+            released += LEDGER.release(owned)
+    return released
+
+
+# -- device capacity / headroom ------------------------------------------------
+
+def _cuda_device_stats() -> List[Dict[str, Any]]:
+    """Per-card allocator statistics, in the JAX module's keys, for
+    every CUDA device of a process that has initialised CUDA; empty
+    otherwise (torch not loaded, no card, CUDA not started). Never
+    starts CUDA: it only looks where the process already went."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_available():
+        return []
+    if not torch.cuda.is_initialized():
+        return []
+    out: List[Dict[str, Any]] = []
+    for index in range(torch.cuda.device_count()):
+        stats = torch.cuda.memory_stats(index)
+        out.append({
+            "device": str(index),
+            "platform": "gpu",
+            "bytes_in_use": int(stats.get("allocated_bytes.all.current", 0)),
+            "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak",
+                                               0)),
+            "bytes_limit": int(torch.cuda.mem_get_info(index)[1]),
+        })
+    return out
+
+
+def update_device_memory_gauges() -> int:
+    """Refresh ``pio_device_memory_bytes``; returns the number of cards
+    reporting (0 in a process without initialised CUDA). The single
+    owner of the gauge; obs/torchmon.py delegates."""
+    devices = _cuda_device_stats()
+    for entry in devices:
+        for kind in ("bytes_in_use", "peak_bytes_in_use", "bytes_limit"):
+            if kind in entry:
+                DEVICE_MEMORY_BYTES.labels(entry["device"], kind).set(
+                    float(entry[kind]))
+    return len(devices)
+
+
+def capacity_report() -> Dict[str, Any]:
+    """Capacity / in-use / headroom with their basis, refreshing
+    ``pio_device_headroom_bytes``. Basis ``memory_stats`` when a card
+    reports (headroom = the WORST card); else ``env``: the
+    ``PIO_PEAK_HBM_BYTES`` capacity with the ledger total as in-use, or
+    capacity and headroom None where that is unset."""
+    devices = _cuda_device_stats()
+    limited = [d for d in devices if "bytes_limit" in d]
+    if limited:
+        worst = min(limited, key=lambda d: (d["bytes_limit"]
+                                            - d.get("bytes_in_use", 0)))
+        capacity = int(worst["bytes_limit"])
+        in_use = int(worst.get("bytes_in_use", 0))
+        basis = "memory_stats"
+    else:
+        env_capacity = metrics.env_float("PIO_PEAK_HBM_BYTES", -1.0)
+        capacity = int(env_capacity) if env_capacity > 0 else None
+        in_use = LEDGER.total_bytes()
+        basis = "env"
+    headroom = None if capacity is None else capacity - in_use
+    if headroom is not None:
+        DEVICE_HEADROOM_BYTES.set(float(headroom))
+    return {
+        "basis": basis,
+        "capacity_bytes": capacity,
+        "in_use_bytes": in_use,
+        "headroom_bytes": headroom,
+        "devices": devices,
+    }
+
+
+def refresh() -> int:
+    """One full gauge refresh: per-card allocator stats (where CUDA is
+    initialised), ledger export (sweeps dead owners), headroom. Rides
+    the flight-recorder snapshot cadence so serving processes report
+    continuously; workflow/train.py calls it post-train."""
+    n = update_device_memory_gauges()
+    LEDGER._export()
+    capacity_report()
+    return n
+
+
+# continuous reporting: the same cadence the SLO sampler and timeline
+# ride (obs/flight.py) — no thread of our own
+flight.add_snapshot_listener(refresh, name="memacct")
+
+
+def device_memory_probe() -> health.ProbeResult:
+    """The ``device_memory`` readiness probe: DEGRADED when headroom
+    falls under ``PIO_MEM_HEADROOM_FLOOR`` x capacity — still serving,
+    but the next deploy/index-build is what tips it over."""
+    report = capacity_report()
+    headroom = report["headroom_bytes"]
+    if headroom is None:
+        return health.ok("capacity unknown: no card reports and "
+                         "PIO_PEAK_HBM_BYTES is unset")
+    floor = headroom_floor_fraction() * report["capacity_bytes"]
+    if headroom < floor:
+        return health.degraded(
+            f"device-memory headroom {headroom} B under the floor "
+            f"{floor:.0f} B ({headroom_floor_fraction():.0%} of "
+            f"{report['capacity_bytes']} B, basis {report['basis']}) — "
+            "deploys will be preflight-refused; spill or retire a model")
+    return health.ok(
+        f"headroom {headroom} B of {report['capacity_bytes']} B "
+        f"(basis {report['basis']})")
+
+
+# -- train high-water tracking -------------------------------------------------
+
+_peaks_lock = threading.Lock()
+_TRAIN_PEAKS: Dict[str, Dict[str, Any]] = {}
+
+
+def note_train_peak(model: str, peak_bytes: int,
+                    source: str = "analytic") -> None:
+    """Record a trainer's peak device bytes (gauge + the
+    ``/admin/memory`` / bench ``detail.memacct`` record)."""
+    peak = int(peak_bytes)
+    TRAIN_PEAK_BYTES.labels(model).set(float(peak))
+    with _peaks_lock:
+        _TRAIN_PEAKS[model] = {"bytes": peak, "source": source}
+
+
+def train_peaks() -> Dict[str, Dict[str, Any]]:
+    with _peaks_lock:
+        return {k: dict(v) for k, v in _TRAIN_PEAKS.items()}
+
+
+# -- OOM preflight -------------------------------------------------------------
+
+class PreflightRefused(RuntimeError):
+    """The deploy would exceed device-memory headroom. ``decision``
+    carries the machine-readable reason the routes serve as the 507
+    body."""
+
+    def __init__(self, decision: Dict[str, Any]):
+        self.decision = decision
+        super().__init__(
+            "insufficient device memory for instance "
+            f"{decision.get('instance')}: estimated "
+            f"{decision.get('estimated_bytes')} B against "
+            f"{decision.get('headroom_bytes')} B headroom "
+            "(force=true overrides)")
+
+
+_last_lock = threading.Lock()
+_LAST_PREFLIGHT: Optional[Dict[str, Any]] = None
+
+
+def estimate_instance_bytes(instance_id: str,
+                            storage: Any) -> Optional[int]:
+    """Price a COMPLETED instance from its STORED model blob — no
+    unpickle, no warm-up, no device allocation: the blob length (the
+    serialized factor tables land on host ~1:1) times
+    ``PIO_MEM_ESTIMATE_SCALE`` for the device copies serving adds.
+    The length comes from ``ModelsRepo.size`` — a metadata read
+    (stat / SELECT length) on the native backends, so the preflight
+    never downloads the blob the deploy is about to fetch anyway.
+    None when the blob is absent or unreadable (an unknown size must
+    not block a deploy — the ledger will price it after load)."""
+    try:
+        repo = storage.models()
+        sizer = getattr(repo, "size", None)
+        if callable(sizer):
+            nbytes = sizer(instance_id)
+        else:  # external repo predating the size() contract
+            blob = repo.get(instance_id)
+            nbytes = (len(blob.models)
+                      if blob is not None and blob.models else None)
+    except Exception as e:  # noqa: BLE001 — the preflight must degrade
+        # to "unknown", never convert a storage blip into a refusal
+        log.debug("preflight size read failed for %s: %s",
+                  instance_id, e)
+        return None
+    if not nbytes:
+        return None
+    return int(nbytes * estimate_scale())
+
+
+def preflight_check(instance_id: str, storage: Any,
+                    force: bool = False) -> Dict[str, Any]:
+    """The deploy-lane gate: raises :class:`PreflightRefused` when the
+    instance's estimated residency exceeds current headroom (while
+    ``PIO_MEM_PREFLIGHT`` is on and ``force`` is not). Returns the
+    decision record either way; the last one shows on
+    ``GET /admin/memory``."""
+    report = capacity_report()
+    enabled = preflight_enabled()
+    # the estimate costs a blob read — with the kill switch off, skip
+    # it entirely rather than paying the fetch for a foregone verdict
+    est = (estimate_instance_bytes(instance_id, storage)
+           if enabled else None)
+    decision: Dict[str, Any] = {
+        "instance": instance_id,
+        "enabled": enabled,
+        "estimated_bytes": est,
+        "estimate_scale": estimate_scale(),
+        "headroom_bytes": report["headroom_bytes"],
+        "capacity_bytes": report["capacity_bytes"],
+        "basis": report["basis"],
+        "forced": bool(force),
+        "allowed": True,
+    }
+    if not enabled:
+        result = "allowed"
+    elif est is None or report["headroom_bytes"] is None:
+        result = "unknown_size"
+    elif est > report["headroom_bytes"]:
+        if force:
+            result = "forced"
+        else:
+            decision["allowed"] = False
+            result = "refused"
+    else:
+        result = "allowed"
+    decision["result"] = result
+    PREFLIGHT_TOTAL.labels(result).inc()
+    global _LAST_PREFLIGHT
+    with _last_lock:
+        _LAST_PREFLIGHT = decision
+    if not decision["allowed"]:
+        raise PreflightRefused(decision)
+    return decision
+
+
+def last_preflight() -> Optional[Dict[str, Any]]:
+    with _last_lock:
+        return dict(_LAST_PREFLIGHT) if _LAST_PREFLIGHT else None
+
+
+# -- surfaces ------------------------------------------------------------------
+
+def report() -> Dict[str, Any]:
+    """The ``GET /admin/memory`` payload: capacity/headroom with their
+    basis, per-model component attribution off the ledger, train
+    peaks, and the preflight state."""
+    capacity = capacity_report()
+    models = {
+        model: {"components": components,
+                "total_bytes": sum(components.values())}
+        for model, components in LEDGER.model_bytes().items()
+    }
+    return {
+        **capacity,
+        "headroom_floor_fraction": headroom_floor_fraction(),
+        "models": models,
+        "total_model_bytes": sum(m["total_bytes"]
+                                 for m in models.values()),
+        "train_peaks": train_peaks(),
+        "preflight": {
+            "enabled": preflight_enabled(),
+            "estimate_scale": estimate_scale(),
+            "last": last_preflight(),
+        },
+    }
+
+
+def clear() -> None:
+    """Test hook: drop the ledger, peaks and preflight record."""
+    global _LAST_PREFLIGHT
+    LEDGER.clear()
+    with _peaks_lock:
+        _TRAIN_PEAKS.clear()
+    TRAIN_PEAK_BYTES.reset()
+    with _last_lock:
+        _LAST_PREFLIGHT = None

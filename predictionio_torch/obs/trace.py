@@ -1,0 +1,498 @@
+"""Request tracing: trace ids, spans, structured per-span records.
+
+Copy of ``predictionio_tpu/obs/trace.py``, plus the two pieces of
+``predictionio_tpu/obs/collect.py`` that serve this process's own
+spans: ``span_page`` (``GET /admin/spans``) and ``build_tree``, which
+``local_trace`` (``GET /admin/trace``) runs over the local ring only —
+the fleet federation that fans out to other processes is ROADMAP item
+10's. What follows is the JAX module's account.
+
+One slow query needs decomposing — was it serving (queue + dispatch),
+the storage round-trip, or device compute? The reference has nothing
+here (its answer is the Spark UI, which never sees the serving path).
+This module is a deliberately small tracer:
+
+  - a trace id is minted at the edge (the shared HTTP handler,
+    serving/http.py) or accepted from the ``X-PIO-Trace-Id`` request
+    header, and propagated to downstream storage-server calls by the
+    ``rest`` backend client (data/backends/rest.py)
+  - ``span("storage.find")`` wraps a unit of work; on exit a structured
+    record {trace, span, parent, name, start_unix, duration_ms, ...}
+    is appended to an in-process ring buffer, optionally mirrored as a
+    JSON line to the file named by ``PIO_TRACE_LOG`` (size-rotated:
+    current + one ``.1`` roll, threshold ``PIO_TRACE_LOG_MAX_BYTES``,
+    rolls counted in ``pio_trace_log_rotations_total``), and counted
+    in the ``pio_trace_spans_total{name=...}`` metric
+  - context travels in a contextvar; spans nest (parent ids) within a
+    thread, and ``current_context()``/``activate_context()`` hand the
+    trace across explicit thread hops (the serving micro-batcher)
+  - cross-process parenting: outbound intra-fleet calls attach the
+    active span id as ``X-PIO-Parent-Span`` (``traced_headers()``)
+    beside the trace id; the receiving edge (serving/http.py) parents
+    its span to it, so obs/collect.py can stitch the per-process rings
+    into one tree. The ring is sized by ``PIO_SPAN_RING`` and counts
+    evictions in ``pio_trace_spans_evicted_total`` — the collector's
+    "why is this trace partial" evidence.
+
+Spans only record while a trace is active — background work that no
+request asked about stays silent, so the ring buffer and trace log hold
+request-shaped evidence, not noise.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import contextvars
+import json
+import logging
+import math
+import os
+import re
+import threading
+import time
+import uuid
+from typing import Any, Dict, List, NamedTuple, Optional
+
+from predictionio_torch.obs import metrics
+
+log = logging.getLogger(__name__)
+
+#: propagation header, engine server -> storage client -> storage server
+TRACE_HEADER = "X-PIO-Trace-Id"
+
+#: the CALLER's active span id, riding beside the trace id on every
+#: intra-fleet request: the receiving server parents its edge span to
+#: it, so the federation collector (obs/collect.py) can stitch the
+#: per-process rings into ONE cross-process tree instead of a forest
+#: of per-process roots
+PARENT_HEADER = "X-PIO-Parent-Span"
+
+#: ids we mint are 32-hex; inbound ids must at least be id-SHAPED (hex
+#: + hyphens, bounded length) — anything else is discarded and re-minted
+#: at the edge, so untrusted header bytes never reach response headers,
+#: downstream requests or the span log
+_TRACE_ID_RE = re.compile(r"^[0-9a-fA-F-]{8,64}$")
+
+#: span ids we mint are 16-hex; same inbound-shape discipline as trace
+#: ids (an invalid parent is dropped, the edge span simply roots)
+_SPAN_ID_RE = re.compile(r"^[0-9a-fA-F]{8,32}$")
+
+
+def valid_trace_id(value: str) -> bool:
+    return bool(value and _TRACE_ID_RE.match(value))
+
+
+def valid_span_id(value: str) -> bool:
+    return bool(value and _SPAN_ID_RE.match(value))
+
+#: default ring buffer size: enough for a test run or a quick operator
+#: look-back; serving hosts size it via PIO_SPAN_RING (a fleet member
+#: whose ring evicts a trace's spans makes that trace PARTIAL at the
+#: collector — pio_trace_spans_evicted_total says why)
+RECENT_LIMIT = 4096
+
+
+def ring_capacity() -> int:
+    """The span ring size (``PIO_SPAN_RING``, default
+    :data:`RECENT_LIMIT`; read per emit so env changes and test
+    monkeypatching take effect without a restart)."""
+    try:
+        cap = int(os.environ.get("PIO_SPAN_RING", RECENT_LIMIT))
+    except ValueError:
+        return RECENT_LIMIT
+    return max(1, cap)
+
+#: PIO_TRACE_LOG rotation threshold: when the current file outgrows
+#: this many bytes it is rolled to ``<path>.1`` (replacing any previous
+#: roll) — current + one rolled file bound the disk footprint at ~2x
+_LOG_MAX_BYTES_DEFAULT = 64 * 1024 * 1024
+
+_SPANS_TOTAL = metrics.counter(
+    "pio_trace_spans_total",
+    "Spans recorded, by span name",
+    ("name",),
+)
+
+_LOG_ROTATIONS_TOTAL = metrics.counter(
+    "pio_trace_log_rotations_total",
+    "PIO_TRACE_LOG size-based rotations (each drops the previously "
+    "rolled file's spans)",
+)
+
+_SPANS_EVICTED_TOTAL = metrics.counter(
+    "pio_trace_spans_evicted_total",
+    "Span records evicted from the in-process ring (PIO_SPAN_RING) — "
+    "a trace the federation collector reports as partial lost its "
+    "spans here",
+)
+
+
+class SpanContext(NamedTuple):
+    """Immutable (trace id, active span id) — safe to hand across threads."""
+
+    trace_id: str
+    span_id: Optional[str]
+
+
+_ctx: "contextvars.ContextVar[Optional[SpanContext]]" = contextvars.ContextVar(
+    "pio_trace_ctx", default=None
+)
+
+_recent: "collections.deque[Dict[str, Any]]" = collections.deque(
+    maxlen=ring_capacity()
+)
+_emit_lock = threading.Lock()
+
+# the PIO_TRACE_LOG sink keeps one append-mode handle (re-opened only
+# when the env var changes): per-span open()/close() under a lock shared
+# by every handler thread would serialize the serving hot path on
+# filesystem syscalls
+_log_lock = threading.Lock()
+_log_file = None
+_log_path: Optional[str] = None
+_log_failed_path: Optional[str] = None
+
+
+def _write_log_line(line: str) -> None:
+    global _log_file, _log_path, _log_failed_path
+    path = os.environ.get("PIO_TRACE_LOG")
+    if not path or path == _log_failed_path:
+        # a sink that failed once stays off (until the env var changes):
+        # warning + failed syscall per span would flood a serving host
+        return
+    try:
+        max_bytes = int(os.environ.get("PIO_TRACE_LOG_MAX_BYTES",
+                                       _LOG_MAX_BYTES_DEFAULT))
+    except ValueError:
+        max_bytes = _LOG_MAX_BYTES_DEFAULT
+    try:
+        with _log_lock:
+            if path != _log_path:
+                if _log_file is not None:
+                    _log_file.close()
+                _log_file = open(path, "a", encoding="utf-8")
+                _log_path = path
+            elif max_bytes > 0 and _log_file.tell() >= max_bytes:
+                # size-based rotation: keep current + ONE rolled file —
+                # an unbounded span log on a serving host eventually
+                # fills the disk (the pre-rotation failure mode). tell()
+                # is the write offset of our own append handle, so no
+                # stat() syscall rides the span hot path.
+                _log_file.close()
+                os.replace(path, path + ".1")
+                _log_file = open(path, "a", encoding="utf-8")
+                _LOG_ROTATIONS_TOTAL.inc()
+            _log_file.write(line + "\n")
+            _log_file.flush()
+    except OSError as e:
+        _log_failed_path = path
+        log.warning("trace log %s unwritable, span sink disabled: %s",
+                    path, e)
+
+
+def new_trace_id() -> str:
+    return uuid.uuid4().hex
+
+
+def _new_span_id() -> str:
+    return uuid.uuid4().hex[:16]
+
+
+def current_context() -> Optional[SpanContext]:
+    return _ctx.get()
+
+
+def current_trace_id() -> Optional[str]:
+    ctx = _ctx.get()
+    return ctx.trace_id if ctx else None
+
+
+def activate(trace_id: str, span_id: Optional[str] = None):
+    """Install a trace context; returns a token for ``deactivate``."""
+    return _ctx.set(SpanContext(trace_id=trace_id, span_id=span_id))
+
+
+def activate_context(ctx: SpanContext):
+    return _ctx.set(ctx)
+
+
+def deactivate(token) -> None:
+    _ctx.reset(token)
+
+
+#: extra per-span consumers (the flight recorder routes spans into the
+#: request record they belong to). A sink must be fast and non-raising;
+#: a raising sink is dropped with a warning rather than poisoning the
+#: span exit path of every handler thread.
+_sinks: List[Any] = []
+
+
+def add_sink(fn) -> None:
+    """Register ``fn(record: dict)`` to be called for every emitted
+    span record (idempotent per function object)."""
+    with _emit_lock:
+        if fn not in _sinks:
+            _sinks.append(fn)
+
+
+def remove_sink(fn) -> None:
+    with _emit_lock:
+        if fn in _sinks:
+            _sinks.remove(fn)
+
+
+def _emit(record: Dict[str, Any]) -> None:
+    global _recent
+    _SPANS_TOTAL.labels(record["name"]).inc()
+    with _emit_lock:
+        cap = ring_capacity()
+        if _recent.maxlen != cap:
+            # PIO_SPAN_RING changed since the last emit: re-bound the
+            # ring in place (a shrink drops the oldest spans — those
+            # ARE evictions, the collector must be able to say so)
+            dropped = max(0, len(_recent) - cap)
+            _recent = collections.deque(_recent, maxlen=cap)
+            if dropped:
+                _SPANS_EVICTED_TOTAL.inc(dropped)
+        if len(_recent) == _recent.maxlen:
+            _SPANS_EVICTED_TOTAL.inc()
+        _recent.append(record)
+        sinks = list(_sinks)
+    for fn in sinks:
+        try:
+            fn(record)
+        except Exception:  # noqa: BLE001 — a sink must never break spans
+            log.exception("span sink %r failed; removing it", fn)
+            remove_sink(fn)
+    if os.environ.get("PIO_TRACE_LOG"):
+        _write_log_line(json.dumps(record, sort_keys=True))
+
+
+def recent_spans(n: Optional[int] = None,
+                 trace_id: Optional[str] = None) -> List[Dict[str, Any]]:
+    """The last ``n`` span records (optionally one trace's), oldest
+    first — the in-process view tests and `pio`-side tooling read."""
+    with _emit_lock:
+        records = list(_recent)
+    if trace_id is not None:
+        records = [r for r in records if r["trace"] == trace_id]
+    return records if n is None else records[-n:]
+
+
+def clear_recent() -> None:
+    with _emit_lock:
+        _recent.clear()
+
+
+@contextlib.contextmanager
+def new_trace():
+    """Activate a FRESH trace for the scope of a background job (a
+    stream fold cycle, a replay run): its spans and the trace headers
+    its outbound calls attach (:func:`traced_headers`) all correlate
+    under one minted id, so ``pio trace`` can follow the job across
+    the fleet. Yields the trace id."""
+    token = activate(new_trace_id())
+    try:
+        yield current_trace_id()
+    finally:
+        deactivate(token)
+
+
+def evicted_total() -> int:
+    """Spans this process's ring has evicted so far (the collector
+    quotes it when it reports a trace as partial)."""
+    return int(_SPANS_EVICTED_TOTAL.value)
+
+
+def traced_headers(headers: Optional[Dict[str, str]] = None
+                   ) -> Dict[str, str]:
+    """A copy of ``headers`` carrying the active trace context: the
+    trace id (``X-PIO-Trace-Id``) and, when a span is open, its id as
+    the ``X-PIO-Parent-Span`` the receiving server parents its edge
+    span to. No active trace -> the headers pass through untouched
+    (background probes and daemons stay silent) — so every intra-fleet
+    call site can attach propagation unconditionally."""
+    out = dict(headers or {})
+    ctx = _ctx.get()
+    if ctx is not None:
+        out[TRACE_HEADER] = ctx.trace_id
+        if ctx.span_id:
+            out[PARENT_HEADER] = ctx.span_id
+    return out
+
+
+@contextlib.contextmanager
+def span(name: str, **attrs: Any):
+    """Record one unit of work under the active trace.
+
+    No active trace -> no-op (zero allocation beyond the context var
+    read), so library code can span unconditionally. Attributes must be
+    JSON-serializable scalars; the span record is emitted on exit even
+    when the body raises (the error is noted, then propagates)."""
+    parent = _ctx.get()
+    if parent is None:
+        yield None
+        return
+    span_id = _new_span_id()
+    token = _ctx.set(SpanContext(trace_id=parent.trace_id, span_id=span_id))
+    start_unix = time.time()
+    t0 = time.perf_counter()
+    error: Optional[str] = None
+    try:
+        yield span_id
+    except BaseException as e:
+        error = f"{type(e).__name__}: {e}"
+        raise
+    finally:
+        _ctx.reset(token)
+        record: Dict[str, Any] = {
+            "trace": parent.trace_id,
+            "span": span_id,
+            "parent": parent.span_id,
+            "name": name,
+            "start_unix": round(start_unix, 6),
+            "duration_ms": round((time.perf_counter() - t0) * 1e3, 3),
+        }
+        if error is not None:
+            record["error"] = error
+        if attrs:
+            record.update(attrs)
+        _emit(record)
+
+
+# -- this process's span surface (from obs/collect.py) -------------------------
+
+def span_page(server: str, trace_id: Optional[str] = None,
+              n: Optional[int] = None) -> Dict[str, Any]:
+    """The ``GET /admin/spans`` payload of THIS process: the ring's
+    records (one trace's when ``trace_id``), the ring capacity and the
+    eviction count."""
+    return {
+        "server": server,
+        "ring_capacity": ring_capacity(),
+        "evicted_total": evicted_total(),
+        "spans": recent_spans(n=n, trace_id=trace_id),
+    }
+
+
+def build_tree(trace_id: str, spans: List[Dict[str, Any]],
+               members: Optional[List[Dict[str, Any]]] = None
+               ) -> Dict[str, Any]:
+    """Assemble span records into one annotated tree (copy of
+    ``collect.build_tree``). A parent id that was never collected
+    becomes a placeholder node (``missing: true``) with a note quoting
+    the members' eviction counts; a cycle of parent links is broken at
+    its earliest span. Each node gets its ``process`` (the nearest
+    ancestor-or-self ``server`` attribute, else the member) and
+    ``edge_ms``, its start offset from its parent."""
+    nodes: Dict[str, Dict[str, Any]] = {}
+    for record in spans:
+        span_id = record.get("span")
+        if span_id:
+            nodes[span_id] = dict(record, children=[])
+    evictions = {m["name"]: m.get("evicted_total")
+                 for m in (members or []) if m.get("ok")}
+    missing: List[str] = []
+    roots: List[Dict[str, Any]] = []
+    placeholders: Dict[str, Dict[str, Any]] = {}
+    for node in list(nodes.values()):
+        parent_id = node.get("parent")
+        if parent_id is None:
+            roots.append(node)
+            continue
+        parent = nodes.get(parent_id)
+        if parent is None:
+            placeholder = placeholders.get(parent_id)
+            if placeholder is None:
+                placeholder = placeholders[parent_id] = {
+                    "span": parent_id,
+                    "missing": True,
+                    "note": ("parent span not collected — evicted from "
+                             "a member's ring (PIO_SPAN_RING; member "
+                             f"evictions: {evictions or 'unknown'}) or "
+                             "recorded in a process outside the member "
+                             "list"),
+                    "children": [],
+                }
+                missing.append(parent_id)
+                roots.append(placeholder)
+            parent = placeholder
+        parent["children"].append(node)
+    cycles: List[str] = []
+    visited: set = set()
+
+    def visit(node: Dict[str, Any]) -> None:
+        if id(node) in visited:
+            return
+        visited.add(id(node))
+        for child in node["children"]:
+            visit(child)
+
+    for root in roots:
+        visit(root)
+    remaining = [n for n in nodes.values() if id(n) not in visited]
+    while remaining:
+        entry = min(remaining,
+                    key=lambda n: n.get("start_unix") or math.inf)
+        for other in nodes.values():
+            if entry in other["children"]:
+                other["children"].remove(entry)
+                break
+        entry["cycle"] = True
+        entry["note"] = ("parent link forms a cycle (malformed span "
+                         "payload) — broken here")
+        cycles.append(entry.get("span"))
+        roots.append(entry)
+        visit(entry)
+        remaining = [n for n in nodes.values() if id(n) not in visited]
+
+    def annotate(node: Dict[str, Any], process: Optional[str],
+                 replica: Optional[str],
+                 parent_start: Optional[float]) -> None:
+        if not node.get("missing"):
+            process = node.get("server") or process or node.get("member")
+            replica = node.get("replica") or replica
+            node["process"] = process
+            if replica is not None:
+                node["replica"] = replica
+            start = node.get("start_unix")
+            if parent_start is not None and isinstance(
+                    start, (int, float)):
+                node["edge_ms"] = round((start - parent_start) * 1e3, 3)
+        else:
+            start = parent_start
+        node["children"].sort(
+            key=lambda c: c.get("start_unix") or math.inf)
+        for child in node["children"]:
+            annotate(child, process, replica,
+                     start if not node.get("missing") else None)
+
+    roots.sort(key=lambda r: r.get("start_unix") or math.inf)
+    for root in roots:
+        annotate(root, None, None, None)
+    processes = sorted({n["process"] for n in nodes.values()
+                        if n.get("process")})
+    return {
+        "trace": trace_id,
+        "span_count": len(nodes),
+        "processes": processes,
+        "complete": not missing and not cycles,
+        "missing_spans": missing,
+        "cyclic_spans": cycles,
+        "roots": roots,
+    }
+
+
+def local_trace(trace_id: str, server: str = "local") -> Dict[str, Any]:
+    """The ``GET /admin/trace?id=`` document over THIS process's ring:
+    the shape ``collect.stitch_trace`` answers, with this process as
+    its one member (the port has no fleet to fan out to)."""
+    page = span_page(server, trace_id)
+    spans = [dict(r, member="local") for r in page["spans"]]
+    members = [{"name": "local", "url": None, "role": "local", "ok": True,
+                "evicted_total": page["evicted_total"], "server": server,
+                "spans": len(spans)}]
+    doc = build_tree(trace_id, spans, members=members)
+    doc["members"] = members
+    return doc

@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from predictionio_torch.data.storage import pack_vocab, unpack_vocab
+from predictionio_torch.obs import memacct, perfacct
 from predictionio_torch.ops import bincache
 from predictionio_torch.ops.ragged import (SegmentedGroups,
                                            build_compressed_segmented,
@@ -688,6 +689,7 @@ class ALSTrainer:
                     device)
         #: host seconds spent binning both sides
         self.bin_sec = bin_sec
+        perfacct.LEDGER.note_stage("bin", bin_sec)
 
     @classmethod
     def from_sides(cls, user_side: SideLayout, item_side: SideLayout,
@@ -739,6 +741,13 @@ class ALSTrainer:
         self.transfer_bytes = (user_side.transfer_bytes
                                + item_side.transfer_bytes)
         self._slot_bytes = (user_side.slot_bytes, item_side.slot_bytes)
+        # the data-path ledger's transfer stage, and the device-memory
+        # ledger's train_data footprint (swept when the trainer goes)
+        perfacct.LEDGER.note_stage("transfer", self.put_sec)
+        memacct.LEDGER.register(self, "als", "train_data",
+                                int(self.transfer_bytes))
+        #: the MFU/roofline accountant, made on the first timed run
+        self._acct: Optional[perfacct.StepAccountant] = None
 
         gen = torch.Generator().manual_seed(cfg.seed)
         #: the padded factor tables on the device; set them to start
@@ -810,6 +819,7 @@ class ALSTrainer:
         self.wait_device()
         #: seconds of the warm alternation
         self.compile_sec = time.perf_counter() - t0
+        perfacct.LEDGER.note_stage("compile", self.compile_sec)
         return self
 
     def step_n(self, iterations: Optional[int] = None) -> None:
@@ -817,8 +827,24 @@ class ALSTrainer:
         the end; the factors stay on the device (``factors()`` fetches
         them)."""
         n = iterations if iterations is not None else self.cfg.iterations
+        t0 = time.perf_counter()
         self.X, self.Y = self._alternate(self.X, self.Y, n)
         self.wait_device()
+        seconds = time.perf_counter() - t0
+        # live MFU/roofline gauges (obs/perfacct.py) on the analytic
+        # work_model, and the train peak (obs/memacct.py): the layout
+        # plus both factor tables twice (the JAX trainer's estimate)
+        if self._acct is None:
+            wm = self.work_model()
+            self._acct = perfacct.StepAccountant(
+                "als", wm["flops_per_iter"], wm["hbm_bytes_per_iter"],
+                device=self.device)
+            memacct.note_train_peak(
+                "als", int(self.transfer_bytes) + 2 * (
+                    self.X.numel() * self.X.element_size()
+                    + self.Y.numel() * self.Y.element_size()),
+                source="analytic")
+        self._acct.observe(seconds, steps=n)
 
     def run(self, iterations: Optional[int] = None) -> ALSFactors:
         self.step_n(iterations)

@@ -12,6 +12,12 @@ kernel or raises (a failed build, a refused launch and a non-zero
 ``cudaGetLastError`` all raise). The plain PyTorch version of each
 kernel, kept beside it, runs only for tensors that lie on the CPU.
 
+Each library request reports to ``obs/torchmon.py``
+(``pio_kernel_build_total{kernel,result="built"|"cached"}`` and
+``pio_kernel_build_seconds{kernel}``), and :func:`requested_kernels` /
+:func:`loaded_kernels` feed the ``/readyz`` kernel-library probe
+(``obs/health.py``).
+
 ``resolve_flag`` keeps the on/off/auto flag and its environment
 override (``PIO_INDEX_KERNEL``). It chooses only on the CPU (between a
 kernel's plain version and the scorer); on a CUDA device the kernel
@@ -28,6 +34,7 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict, List, Optional
 
 log = logging.getLogger(__name__)
@@ -113,6 +120,21 @@ def _library_path(name: str) -> str:
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _libs_lock = threading.Lock()
+#: every kernel whose library this process asked for (load_library)
+_requested: set = set()
+
+
+def requested_kernels() -> List[str]:
+    """Kernels whose library this process asked for (a warm-up that
+    launched a kernel asked first)."""
+    with _libs_lock:
+        return sorted(_requested)
+
+
+def loaded_kernels() -> List[str]:
+    """Kernels whose library is loaded in this process."""
+    with _libs_lock:
+        return sorted(_libs)
 
 
 def build_all(names: Optional[List[str]] = None) -> List[str]:
@@ -120,14 +142,18 @@ def build_all(names: Optional[List[str]] = None) -> List[str]:
     is missing, with one ``nvcc`` per source, all started together; each
     output goes to a temporary name renamed into place on success.
     Returns the names."""
+    from predictionio_torch.obs import torchmon
+
     if names is None:
         names = sorted(f[:-3] for f in os.listdir(CSRC_DIR)
                        if f.endswith(".cu"))
     with _libs_lock:
         builds = []
+        t0 = time.perf_counter()
         for name in names:
             out = _library_path(name)
             if os.path.exists(out):
+                torchmon.record_kernel_build(name, None)
                 continue
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{out}.{os.getpid()}.tmp"
@@ -146,6 +172,7 @@ def build_all(names: Optional[List[str]] = None) -> List[str]:
             with open(f"{out}.log", "w") as f:
                 f.write(output)
             os.replace(tmp, out)
+            torchmon.record_kernel_build(name, time.perf_counter() - t0)
     return names
 
 
@@ -199,6 +226,8 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is not None:
         return lib
+    with _libs_lock:
+        _requested.add(name)
     build_all([name])
     with _libs_lock:
         lib = _libs.get(name)

@@ -41,9 +41,16 @@ is ever dropped: a session with more than ``topk_dot.MAX_EXCLUDE``
 distinct seen items goes to the index's masked full product. Excluded items come back at ``NEG_INF``
 (finite), where the JAX scorer gives ``-inf``; callers drop both.
 
-Not in this port yet: ring attention over a mesh (``seq_axis``; ROADMAP.md
-queue 1 item 12) and the device-side observability hooks
-(``jaxmon.record_transfer``, ``jaxmon.observe_train_step``; item 10).
+Observability: each epoch's wall time (it ends when the step losses
+reach the host) goes to ``torchmon.observe_train_step`` (the JAX
+trainer observes each step, which it syncs; here the steps run
+asynchronously, so the epoch is the timed unit), and the
+``sessionrec`` MFU gauge counts the epoch's steps of
+``perfacct.sessionrec_step_flops``. The batches move no bytes from the
+host (the sequences live on the device), so no transfer is recorded.
+
+Not in this port yet: ring attention over a mesh (``seq_axis``;
+ROADMAP.md queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -62,6 +69,7 @@ from torch import nn
 from predictionio_torch.core.checkpoint import (TrainCheckpointer,
                                                 train_fingerprint)
 from predictionio_torch.index import make_index
+from predictionio_torch.obs import perfacct, torchmon
 from predictionio_torch.ops.attention import (blockwise_attention,
                                               mha_reference)
 from predictionio_torch.ops.kernels.topk_dot import MAX_EXCLUDE
@@ -347,6 +355,11 @@ class SessionRecTrainer:
             cfg.seed + 1)
         self._epochs_done = 0
         self._losses: List[float] = []
+        #: MFU accounting (obs/perfacct.py) over the analytic step count
+        self._acct = perfacct.StepAccountant(
+            "sessionrec", perfacct.sessionrec_step_flops(
+                self.batch, cfg.max_len, n_items + 1, cfg.dim, cfg.layers,
+                cfg.heads, cfg.ffn_mult), device=dev)
         #: host wall time of each epoch, ending when its losses reached
         #: the host; steps per epoch
         self.epoch_seconds: List[float] = []
@@ -445,6 +458,9 @@ class SessionRecTrainer:
             self._losses.append(total / max(len(step_losses), 1))
             self._epochs_done += 1
             self.epoch_seconds.append(time.perf_counter() - t0)
+            torchmon.observe_train_step(self.epoch_seconds[-1])
+            self._acct.observe(self.epoch_seconds[-1],
+                               steps=len(step_losses))
             log.info("sessionrec epoch %d: loss %.6f, %.3f s, %d steps "
                      "(%.3f ms a step)", self._epochs_done, self._losses[-1],
                      self.epoch_seconds[-1], len(step_losses),

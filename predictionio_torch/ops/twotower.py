@@ -59,6 +59,7 @@ import torch
 
 from predictionio_torch.core.checkpoint import (TrainCheckpointer,
                                                 train_fingerprint)
+from predictionio_torch.obs import memacct, perfacct, torchmon
 from predictionio_torch.ops.kernels import resolve_flag
 from predictionio_torch.ops.kernels import embed_update as _embed
 from predictionio_torch.ops.kernels import flash_ce as _flash
@@ -245,6 +246,10 @@ def plan_kernels(cfg: TwoTowerConfig, batch: int,
     return plan
 
 
+def _tensor_bytes(tensors) -> int:
+    return int(sum(t.numel() * t.element_size() for t in tensors))
+
+
 class TwoTowerTrainer:
     """Prepared training run over positive (user, item, weight) triples:
     state and kernel plan in the constructor, :meth:`run` drives the
@@ -282,10 +287,31 @@ class TwoTowerTrainer:
                          if cfg.table_learning_rate is not None
                          else 10.0 * cfg.learning_rate)
         self.kernel_plan = plan_kernels(cfg, self.batch, self.device)
+        torchmon.record_kernel_plan(self.kernel_plan)
         self._perm_gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
         self._set_state(state if state is not None else self._init_state())
         self._epochs_done = 0
         self._losses: List[float] = []
+        # device-memory ledger (obs/memacct.py): the run's residents —
+        # tables and tails as params, adagrad accumulators and AdamW
+        # state as opt_state, the positives as train_data — priced once,
+        # swept when the trainer is dropped
+        self._param_bytes = _tensor_bytes(
+            list(self.tables.values()) + self._dense_params())
+        self._opt_bytes = _tensor_bytes(
+            list(self.acc.values()) + [
+                t for st in (self._opt.state.values() if self._opt else ())
+                for t in st.values() if isinstance(t, torch.Tensor)])
+        self._data_bytes = _tensor_bytes([self._u, self._i, self._w])
+        memacct.LEDGER.register(self, "twotower", "params",
+                                self._param_bytes)
+        memacct.LEDGER.register(self, "twotower", "opt_state",
+                                self._opt_bytes)
+        memacct.LEDGER.register(self, "twotower", "train_data",
+                                self._data_bytes)
+        #: MFU accounting (obs/perfacct.py): one epoch is the timed unit
+        self._acct = perfacct.StepAccountant(
+            "twotower", self.matmul_flops_per_step(), device=self.device)
         #: host wall time of each epoch run, ending when its mean loss
         #: reached the host (the JAX package's train-step observation)
         self.epoch_seconds: List[float] = []
@@ -472,6 +498,15 @@ class TwoTowerTrainer:
             losses = torch.stack([self._step(rows) for rows in order])
             self._losses.append(float(losses.mean()))   # waits for the epoch
             self.epoch_seconds.append(time.perf_counter() - t0)
+            # per-epoch wall time onto pio_train_step_seconds (beats the
+            # train-step watchdog) and the MFU gauge over the epoch's
+            # steps; the peak is the JAX trainer's analytic floor
+            torchmon.observe_train_step(self.epoch_seconds[-1])
+            self._acct.observe(self.epoch_seconds[-1],
+                               steps=self.steps_per_epoch)
+            memacct.note_train_peak(
+                "twotower", 2 * self._param_bytes + self._opt_bytes
+                + self._data_bytes, source="analytic")
             self._epochs_done += 1
             if self._ckpt is not None:
                 t0 = time.perf_counter()
@@ -502,11 +537,10 @@ class TwoTowerTrainer:
     def matmul_flops_per_step(self) -> float:
         """Matmul FLOPs of one training step (forward and backward): the
         ``[B, B]`` logits and their two rank-D gradient products, plus
-        the tail MLPs (the JAX package's ``twotower_matmul_flops``)."""
-        B, D = float(self.batch), float(self.cfg.dim)
-        widths = tail_widths(self.cfg)
-        per_row = sum(2.0 * a * b for a, b in zip(widths[:-1], widths[1:]))
-        return 3 * 2.0 * B * B * D + 2 * 3 * per_row * B
+        the tail MLPs (``obs.perfacct.twotower_matmul_flops``, the one
+        copy of the formula)."""
+        return perfacct.twotower_matmul_flops(self.batch, self.cfg.dim,
+                                              tail_widths(self.cfg))
 
 
 def twotower_train(positives, n_users: int, n_items: int,

@@ -32,9 +32,28 @@ retrieval index -> the kernel; a batch of more than one goes through
 failed batch is re-run one query at a time.
 
 Warm-up failures are not swallowed: a deployment whose kernel cannot
-build or launch does not go live. Admission control, SLOs, feedback and
-the obs surface come with later slices; the outcomes of model patches
-are a plain per-server count (``GET /`` ``patches``).
+build or launch does not go live.
+
+Observability (the JAX package's hooks, ``obs/``): every query lands in
+``pio_serving_request_seconds{engine}`` (the status page's p50/p99 read
+the same series); a lone dispatch runs under its request's trace
+(``serve.query`` / ``serve.dispatch`` spans), a batch under a
+``serve.batch`` span naming its members, and each request's flight
+record gets its queue and dispatch stages (a failed one its error).
+Dispatches run under the ``serving_dispatch`` stall watchdog, and the
+batcher's queue depth is a ``/readyz`` probe. ``/readyz``'s storage
+probe is :meth:`EngineServer.storage_readyz_probe` (storage loss is
+DEGRADED while a model answers, and answers then carry
+``X-PIO-Degraded``); the device probe checks the deployment's card.
+Loaded models are priced in the device-memory ledger (the model
+classes register), ``/reload`` runs the memory preflight first (507
+when the instance would not fit, ``?force=1`` overrides) and releases
+the old deployment's footprints, ``stop`` releases the live one's.
+Reloads and patches go to the ops journal and
+``pio_model_patches_total``; ``GET /`` ``patches`` keeps its per-server
+counts. Not here yet: admission control, SLOs, the feedback loop and
+the remote log (ROADMAP item 6), and the query-coverage probe of
+``obs/dataobs.py`` (item 10).
 """
 
 from __future__ import annotations
@@ -45,11 +64,14 @@ import logging
 import queue as _queue
 import threading
 import time
+import weakref
 from typing import Any, Callable, List, Optional
 from urllib.parse import parse_qs, urlparse
 
 from predictionio_torch.core.engine import Engine
 from predictionio_torch.data.storage import Storage, get_storage
+from predictionio_torch.obs import (flight, health, journal, memacct,
+                                    metrics, trace)
 from predictionio_torch.parallel.context import DeviceContext, DeviceLike
 from predictionio_torch.serving.http import (HTTPServerBase,
                                              JSONRequestHandler,
@@ -63,22 +85,54 @@ BIND_RETRIES = 3     # ref: CreateServer.scala:340-350
 UTC = _dt.timezone.utc
 
 
+#: the one serving-latency series: the status page's count/avg/p50/p99
+#: and the /metrics histogram read the SAME child
+_SERVING_SECONDS = metrics.histogram(
+    "pio_serving_request_seconds",
+    "End-to-end serve time per query (queue wait + dispatch), recorded "
+    "inside the engine server",
+    ("engine",),
+)
+
+#: stall detection over micro-batch dispatches: armed once enough
+#: dispatches have built a trailing median, fires when one exceeds
+#: PIO_STALL_FACTOR x that median (floor 1s x factor)
+_DISPATCH_WATCHDOG = health.Watchdog("serving_dispatch")
+
+#: streaming model patches: applied / stale-instance-rejected /
+#: unsupported-or-malformed
+_MODEL_PATCHES = metrics.counter(
+    "pio_model_patches_total",
+    "Streaming model patches received by outcome (applied / stale / "
+    "rejected)",
+    ("result",),
+)
+
+
 class InstanceNotFound(RuntimeError):
     """No COMPLETED engine instance to deploy: ``GET /reload`` answers
     404, while a failure to load or warm the instance answers 500."""
 
 
 class ServingStats:
-    """Request bookkeeping (ref: CreateServer.scala:552-559)."""
+    """Request bookkeeping (ref: CreateServer.scala:552-559). Every
+    record lands in the engine-wide ``pio_serving_request_seconds``
+    histogram (the status page's percentiles read it); counts and
+    totals are per server."""
 
-    def __init__(self):
+    def __init__(self, engine_id: str = "default"):
         self._lock = threading.Lock()
+        self._hist = _SERVING_SECONDS.labels(engine_id)
         self._count = 0
         self._sum = 0.0
         self._last = 0.0
         self.start_time = _dt.datetime.now(tz=UTC)
 
     def record(self, seconds: float) -> None:
+        # the request's trace id rides along as an OpenMetrics exemplar
+        trace_id = trace.current_trace_id()
+        self._hist.observe(
+            seconds, exemplar={"trace_id": trace_id} if trace_id else None)
         with self._lock:
             self._count += 1
             self._sum += seconds
@@ -90,11 +144,15 @@ class ServingStats:
         return {"startTime": self.start_time.isoformat(),
                 "requestCount": count,
                 "avgServingSec": total / count if count else 0.0,
-                "lastServingSec": last}
+                "lastServingSec": last,
+                # bucket-interpolated over the engine-wide series
+                "p50ServingSec": self._hist.quantile(0.50),
+                "p99ServingSec": self._hist.quantile(0.99)}
 
 
 class _Pending:
-    __slots__ = ("payload", "event", "result", "error", "abandoned")
+    __slots__ = ("payload", "event", "result", "error", "abandoned",
+                 "t_submit", "trace_ctx")
 
     def __init__(self, payload):
         self.payload = payload
@@ -102,6 +160,10 @@ class _Pending:
         self.result = None
         self.error: Optional[BaseException] = None
         self.abandoned = False  # submitter timed out; skip the work
+        self.t_submit = time.perf_counter()
+        # contextvars do not cross to the worker thread: the submitter's
+        # trace context rides along
+        self.trace_ctx = trace.current_context()
 
 
 class MicroBatcher:
@@ -112,7 +174,9 @@ class MicroBatcher:
     batch with ``run_batch``. No wait window: a lone request is served
     at once, and batches form while the worker is busy. A failing batch
     falls back to per-item evaluation so one malformed query fails
-    alone."""
+    alone. Each dispatch runs under the ``serving_dispatch`` watchdog,
+    and the queue depth is a readiness probe (``PIO_QUEUE_DEPTH_LIMIT``,
+    default 8 x ``max_batch``)."""
 
     def __init__(self, run_batch: Callable[[List[Any]], List[Any]],
                  run_one: Callable[[Any], Any], max_batch: int = 64):
@@ -120,6 +184,14 @@ class MicroBatcher:
         self._run_one = run_one
         self._max_batch = max_batch
         self._queue: "_queue.Queue[_Pending]" = _queue.Queue()
+        # readiness probe over the queue depth (weakref: a dropped
+        # batcher must not be kept alive by the health registry)
+        queue_ref = weakref.ref(self._queue)
+        self._queue_probe = health.queue_depth_probe(
+            lambda: (q.qsize() if (q := queue_ref()) is not None
+                     else None),
+            max(1, metrics.env_int("PIO_QUEUE_DEPTH_LIMIT", max_batch * 8)))
+        health.REGISTRY.register("serving_queue", self._queue_probe)
         self._hist_lock = threading.Lock()
         self._hist: dict = {}
         self._stop = False
@@ -148,6 +220,8 @@ class MicroBatcher:
                 return
             self._stop = True
             self._queue.put(_Pending(None))  # wake the worker
+        # only OUR probe: a newer batcher's live probe survives this stop
+        health.REGISTRY.unregister("serving_queue", self._queue_probe)
         self._worker.join(timeout=60)
 
     def _loop(self) -> None:
@@ -164,7 +238,8 @@ class MicroBatcher:
                 except _queue.Empty:
                     break
             try:
-                self._answer(batch)
+                with _DISPATCH_WATCHDOG.watch():
+                    self._answer(batch)
             except Exception as e:  # noqa: BLE001 — a dead worker starves
                 # every later submitter; fail THIS batch, keep looping
                 log.exception("batch worker iteration failed")
@@ -198,16 +273,37 @@ class MicroBatcher:
             return
         with self._hist_lock:
             self._hist[len(batch)] = self._hist.get(len(batch), 0) + 1
+        t_start = time.perf_counter()
         if len(batch) == 1:
             p = batch[0]
+            token = (trace.activate_context(p.trace_ctx)
+                     if p.trace_ctx is not None else None)
             try:
-                p.result = self._run_one(p.payload)
+                with trace.span("serve.dispatch", batch_size=1):
+                    p.result = self._run_one(p.payload)
             except BaseException as e:  # noqa: BLE001 — relayed to caller
                 p.error = e
+            finally:
+                if token is not None:
+                    trace.deactivate(token)
+            self._record_splits(batch, t_start)
             p.event.set()
             return
+        # a multi-query dispatch gets its own span, under a minted trace
+        # id, naming every member's trace; each member's flight record
+        # learns the dispatch size it shared
+        members = [p.trace_ctx.trace_id for p in batch
+                   if p.trace_ctx is not None]
+        for tid in members:
+            flight.note_field("batch_size", len(batch), trace_id=tid)
         try:
-            results = self._run_batch([p.payload for p in batch])
+            batch_token = trace.activate(trace.new_trace_id())
+            try:
+                with trace.span("serve.batch", batch_size=len(batch),
+                                members=members):
+                    results = self._run_batch([p.payload for p in batch])
+            finally:
+                trace.deactivate(batch_token)
             for p, r in zip(batch, results):
                 p.result = r
         except BaseException as e:  # noqa: BLE001 — isolate the poison query
@@ -215,12 +311,32 @@ class MicroBatcher:
                         "re-running individually", len(batch),
                         type(e).__name__, e)
             for p in batch:
+                token = (trace.activate_context(p.trace_ctx)
+                         if p.trace_ctx is not None else None)
                 try:
-                    p.result = self._run_one(p.payload)
+                    with trace.span("serve.dispatch", batch_size=1,
+                                    fallback=True):
+                        p.result = self._run_one(p.payload)
                 except BaseException as e1:  # noqa: BLE001
                     p.error = e1
+                finally:
+                    if token is not None:
+                        trace.deactivate(token)
+        self._record_splits(batch, t_start)
         for p in batch:
             p.event.set()
+
+    @staticmethod
+    def _record_splits(batch: List[_Pending], t_start: float) -> None:
+        """Each request's queue wait and dispatch time, attributed to its
+        flight record."""
+        t_done = time.perf_counter()
+        for p in batch:
+            if p.abandoned or p.trace_ctx is None:
+                continue
+            tid = p.trace_ctx.trace_id
+            flight.note_stage("queue", t_start - p.t_submit, trace_id=tid)
+            flight.note_stage("dispatch", t_done - t_start, trace_id=tid)
 
 
 class EngineServer(HTTPServerBase):
@@ -248,7 +364,10 @@ class EngineServer(HTTPServerBase):
         self.engine_variant = engine_variant
         self.ctx = DeviceContext(device)
         self.storage = storage or get_storage()
-        self.stats = ServingStats()
+        self.stats = ServingStats(engine_id)
+        #: the reason of the last failed /readyz storage probe (None
+        #: while storage answers): the server is then serving degraded
+        self._storage_down: Optional[str] = None
         self._deployment_lock = threading.Lock()
         #: model patches by outcome (``apply_patch``)
         self.patches = {"applied": 0, "rejected": 0, "stale": 0}
@@ -259,6 +378,8 @@ class EngineServer(HTTPServerBase):
             if micro_batch else None)
         super().__init__(host, port, _EngineRequestHandler,
                          bind_retries=BIND_RETRIES)
+        # the devices probe checks this deployment's card from now on
+        health.register_device(self.ctx.device)
 
     # -- deployment management ----------------------------------------------
     def _resolve_instance(self, instance_id: Optional[str]):
@@ -289,13 +410,32 @@ class EngineServer(HTTPServerBase):
         log.info("serve warm-up done in %.2fs", time.perf_counter() - t0)
         return deployment
 
-    def reload(self, instance_id: Optional[str] = None) -> str:
+    def reload(self, instance_id: Optional[str] = None,
+               force: bool = False) -> str:
         """Hot-swap to the latest (or the named) completed instance
         (ref: /reload :592); the swap happens once the new deployment is
-        warm, so live traffic never waits on it."""
-        deployment = self._load(instance_id)
+        warm, so live traffic never waits on it.
+
+        The memory preflight (obs/memacct.py) prices the instance from
+        its stored blob first and raises :class:`memacct.
+        PreflightRefused` when it would exceed the device's headroom,
+        unless ``force``. The swap releases the old deployment's
+        ledger footprints."""
+        instance = self._resolve_instance(instance_id)
+        try:
+            memacct.preflight_check(instance.id, self.storage, force=force)
+        except memacct.PreflightRefused as e:
+            journal.emit("preflight_refused", instance=instance.id,
+                         detail=str(e)[:200])
+            raise
+        deployment = self._load(instance.id)
         with self._deployment_lock:
-            self.deployment = deployment
+            old, self.deployment = self.deployment, deployment
+        journal.emit("reload", instance=deployment.instance.id,
+                     prev=old.instance.id, requested=instance_id,
+                     forced=force or None)
+        for model in old.models:
+            memacct.release_model(model)
         return deployment.instance.id
 
     # -- streaming model patches (workflow/stream.py) -----------------------
@@ -305,6 +445,7 @@ class EngineServer(HTTPServerBase):
     def _count_patch(self, outcome: str) -> None:
         with self._patches_lock:
             self.patches[outcome] += 1
+        _MODEL_PATCHES.labels(outcome).inc()
 
     def apply_patch(self, payload: dict) -> dict:
         """Apply a streaming fold-in patch to the live deployment: the
@@ -325,6 +466,9 @@ class EngineServer(HTTPServerBase):
             deployment = self.deployment
             if instance_id and instance_id != deployment.instance.id:
                 self._count_patch("stale")
+                journal.emit("patch", outcome="stale",
+                             instance=instance_id,
+                             deployed=deployment.instance.id)
                 raise self.StalePatch(
                     f"patch targets instance {instance_id} but "
                     f"{deployment.instance.id} is deployed")
@@ -352,7 +496,39 @@ class EngineServer(HTTPServerBase):
                         "support model patches — use /reload")
                 applied += 1
         self._count_patch("applied")
+        journal.emit("patch", outcome="ok", applied=applied,
+                     instance=instance_id)
         return {"applied": applied}
+
+    # -- degraded mode ------------------------------------------------------
+    def degraded_reason(self) -> Optional[str]:
+        """Non-None while serving degraded: the last storage probe
+        failed, so the last-loaded model answers but reloads cannot be
+        trusted. The string is the ``X-PIO-Degraded`` response header.
+        (The JAX server also opens a circuit breaker here; the breaker
+        is ``resilience/``, ROADMAP item 13.)"""
+        if self._storage_down is None:
+            return None
+        with self._deployment_lock:
+            instance_id = self.deployment.instance.id
+        return ("storage unavailable; serving last-loaded instance "
+                f"{instance_id}")
+
+    def storage_readyz_probe(self) -> health.ProbeResult:
+        """The engine server's ``/readyz`` storage probe: storage loss
+        while a model is loaded is DEGRADED, not FAILED — the server can
+        still answer queries; it cannot reload."""
+        try:
+            result = health.storage_probe(self.storage)
+        except Exception as e:  # noqa: BLE001 — a raising probe IS the finding
+            result = health.failed(f"{type(e).__name__}: {e}")
+        if result.status == health.FAILED:
+            self._storage_down = result.reason
+            return health.degraded(
+                f"{result.reason}; serving degraded from the last-loaded "
+                "model")
+        self._storage_down = None
+        return result
 
     # -- query path ---------------------------------------------------------
     def _query_now(self, payload: Any) -> Any:
@@ -367,16 +543,27 @@ class EngineServer(HTTPServerBase):
 
     def query(self, payload: Any) -> Any:
         t0 = time.perf_counter()
-        if self._batcher is not None:
-            result = self._batcher.submit(payload)
-        else:
-            result = self._query_now(payload)
+        with trace.span("serve.query", engine=self.engine_id):
+            if self._batcher is not None:
+                result = self._batcher.submit(payload)
+            else:
+                t_disp = time.perf_counter()
+                result = self._query_now(payload)
+                flight.note_stage("dispatch", time.perf_counter() - t_disp)
         self.stats.record(time.perf_counter() - t0)
         return result
 
     def stop(self) -> None:
         if self._batcher is not None:
             self._batcher.stop()
+        # retire this server's residency from the memory ledger and its
+        # card from the devices probe
+        with self._deployment_lock:
+            models = list(self.deployment.models)
+        for model in models:
+            memacct.release_model(model)
+        if not self._stopped.is_set():
+            health.unregister_device(self.ctx.device)
         super().stop()
 
     def status(self) -> dict:
@@ -398,6 +585,7 @@ class EngineServer(HTTPServerBase):
             "batcher": (self._batcher.histogram()
                         if self._batcher is not None else None),
             "patches": dict(self.patches),
+            "degraded": self.degraded_reason(),
             # each model's BUILT retrieval index (kernel plan + launches)
             "retrieval": [m.retrieval_stats()
                           if hasattr(m, "retrieval_stats") else None
@@ -413,11 +601,20 @@ class _EngineRequestHandler(JSONRequestHandler):
         if url.path == "/":
             self._send(200, self.server_ref.status())
         elif url.path == "/reload":
-            target = (parse_qs(url.query).get("instance") or [None])[0]
+            params = parse_qs(url.query)
+            target = (params.get("instance") or [None])[0]
+            force = (params.get("force") or ["0"])[0].lower() in ("1",
+                                                                  "true")
             try:
-                instance_id = self.server_ref.reload(target)
+                instance_id = self.server_ref.reload(target, force=force)
             except InstanceNotFound as e:
                 self._send(404, {"message": str(e)})
+                return
+            except memacct.PreflightRefused as e:
+                # 507: the instance would exceed device-memory headroom;
+                # refused before any load, the serving model untouched
+                self._send(507, {"message": str(e),
+                                 "preflight": e.decision})
                 return
             except Exception as e:  # noqa: BLE001 — load or warm-up failed
                 log.exception("reload failed")
@@ -446,6 +643,10 @@ class _EngineRequestHandler(JSONRequestHandler):
         except json.JSONDecodeError as e:
             self._send(400, {"message": f"invalid JSON: {e}"})
             return
+        # opt-in replay capture (PIO_FLIGHT_PAYLOADS)
+        flight.record_payload(
+            "/queries.json", payload,
+            nbytes=int(self.headers.get("Content-Length") or 0))
         try:
             result = self.server_ref.query(payload)
         except (KeyError, TypeError, ValueError) as e:
@@ -454,9 +655,15 @@ class _EngineRequestHandler(JSONRequestHandler):
             return
         except Exception as e:  # noqa: BLE001 — answer 500, keep serving
             log.exception("query failed")
+            # the answered-500 path never raises through the wrapper: the
+            # flight record must carry WHAT failed
+            flight.note_field("error", f"{type(e).__name__}: {e}")
             self._send(500, {"message": f"{type(e).__name__}: {e}"})
             return
-        self._send(200, result)
+        degraded = self.server_ref.degraded_reason()
+        self._send(200, result,
+                   extra_headers=({"X-PIO-Degraded": degraded}
+                                  if degraded else None))
 
     def _patch(self):
         # a patch MUTATES the served model: the admin bearer gate

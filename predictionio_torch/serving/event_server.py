@@ -26,10 +26,14 @@ data/.../api/EventAPI.scala):
     (form) via the connector registry; GET checks connector existence
     (EventAPI.scala:352-454)
 
-The JAX server's observability hooks (the ingest clock, the data-plane
-observer, the flight recorder's error field, structured logging) are
-not ported yet (ROADMAP.md queue 1 item 10). The server touches no
-device and imports no torch.
+Observability, as in the JAX server: an accepted single event moves
+the ingest freshness clock (``perfacct.note_ingest``), a request
+answered 500 names its error in its flight record, and ``main`` sets
+up structured JSON logging (``obs/logging.py``); the shared routes
+(``/readyz``, ``/metrics``, ``/admin/*``) come from serving/http.py.
+The data-plane observer (``obs/dataobs.py``) is not ported yet
+(ROADMAP.md queue 1 item 10). The server touches no device and imports
+no torch.
 """
 
 from __future__ import annotations
@@ -48,6 +52,8 @@ from predictionio_torch.data.event import (Event, EventValidationError,
                                            _parse_time, validate_event)
 from predictionio_torch.data.storage import (UNSET, Storage, StorageError,
                                              get_storage)
+from predictionio_torch.obs import flight, perfacct
+from predictionio_torch.obs import logging as obs_logging
 from predictionio_torch.serving import webhooks as webhook_registry
 from predictionio_torch.serving.http import (HTTPServerBase,
                                              JSONRequestHandler,
@@ -128,6 +134,8 @@ class EventServerCore:
         except StorageError as e:
             return 500, {"message": str(e)}
         self.stats.update(auth.app_id, 201, event.event, event.entity_type)
+        # freshness clock (obs/perfacct.py): the single-event lane
+        perfacct.note_ingest()
         return 201, {"eventId": event_id}
 
     def create_events_batch(self, auth: AuthData,
@@ -391,6 +399,7 @@ class _EventRequestHandler(JSONRequestHandler):
             self._send(e.status, {"message": e.message})
         except Exception as e:  # noqa: BLE001 — answer 500, keep serving
             log.exception("event server error")
+            flight.note_field("error", f"{type(e).__name__}: {e}")
             self._send(500, {"message": str(e)})
 
     def do_GET(self):
@@ -421,7 +430,8 @@ def main(argv=None) -> None:
     parser.add_argument("--ip", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=DEFAULT_PORT)
     args = parser.parse_args(argv)
-    logging.basicConfig(level=logging.INFO)
+    # structured JSON log lines with trace-id correlation (obs/logging)
+    obs_logging.setup(level=logging.INFO)
     server = EventServer(host=args.ip, port=args.port)
     # SIGTERM closes the listening socket and drains in-flight events
     # before exit: a kill mid-request must not drop the connection

@@ -1,13 +1,34 @@
 """Shared HTTP plumbing: JSON handler, bind retries, thread lifecycle,
-liveness, the admin bearer gate and the SIGTERM drain.
+the operator routes, the admin bearer gate and the SIGTERM drain.
 
-Copy of ``JSONRequestHandler``, ``HTTPServerBase``, ``_admin_authorized``,
-``drain_timeout`` and ``install_drain_handler`` from
-``predictionio_tpu/serving/http.py``, with the operator routes trimmed
-to ``GET /healthz`` and the in-flight gauge to a plain per-server
-counter (the rest of the observability and admin surface comes with its
-own slice). Each server is a stdlib ``ThreadingHTTPServer`` with
-HTTP/1.1 keep-alive.
+Copy of ``predictionio_tpu/serving/http.py`` for what the port has.
+Every server inherits, from the ``_instrument`` wrapper:
+
+  GET  /healthz          liveness (cheap, no probes)
+  GET  /readyz           readiness (health probes; 503 on any FAILED)
+  GET  /metrics          Prometheus text, or OpenMetrics with exemplars
+                         under ``Accept: application/openmetrics-text``
+  GET  /admin/flight     flight-recorder dump         } bearer-token
+  POST /admin/profile    torch.profiler window and    } guarded when
+                         its device-time summary      } PIO_ADMIN_TOKEN
+  GET  /admin/spans      this process's span ring     } is set
+  GET  /admin/trace      this process's spans of one  }
+                         trace as a tree              }
+  GET  /admin/journal    ops journal ring             }
+  GET  /admin/memory     device-memory accounting     }
+
+and the request telemetry: a trace context per request (an accepted
+or minted ``X-PIO-Trace-Id``, echoed on the response), a flight record,
+``pio_http_requests_total``, ``pio_http_request_duration_seconds`` and
+the ``pio_http_requests_in_flight`` gauge. The gauge is labelled by
+server class, as in the JAX package; the drain and the 503 gate of a
+stopped server keep a count per server instance, since one process
+may run two servers of a class (an engine server per deployment).
+
+The JAX admin routes of modules not ported yet answer 501 with a JSON
+error naming their ROADMAP item (:data:`UNPORTED_ADMIN`). The
+continuous host profiler, the env-driven pusher, alert sink, SLO and
+chaos services a JAX server starts are not ported either.
 """
 
 from __future__ import annotations
@@ -17,29 +38,279 @@ import hmac
 import json
 import logging
 import os
+import re
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Optional
-from urllib.parse import urlparse
+from urllib.parse import parse_qs, urlparse
+
+from predictionio_torch.obs import (flight, health, journal, memacct,
+                                    metrics, profiler, trace)
 
 log = logging.getLogger(__name__)
 
+_REQUESTS_TOTAL = metrics.counter(
+    "pio_http_requests_total",
+    "HTTP requests answered, by server, method, route and status",
+    ("server", "method", "route", "status"),
+)
+_REQUEST_SECONDS = metrics.histogram(
+    "pio_http_request_duration_seconds",
+    "HTTP request handling wall time (request parsed -> response written)",
+    ("server", "method", "route"),
+)
+_IN_FLIGHT = metrics.gauge(
+    "pio_http_requests_in_flight",
+    "Requests currently being handled, by server",
+    ("server",),
+)
+
+#: the JAX package's admin routes whose modules are not ported yet,
+#: each with the ROADMAP.md item (queue 1) that ports it
+UNPORTED_ADMIN = {
+    "/admin/slo": 6, "/admin/fleet": 6, "/admin/fleet/metrics": 6,
+    "/admin/fleet/tail": 6, "/admin/fleet/prof": 6,
+    "/admin/fleet/journal": 6, "/admin/fleet/anomaly": 6,
+    "/admin/fleet/data": 6,
+    "/admin/timeline": 10, "/admin/tail": 10, "/admin/prof": 10,
+    "/admin/anomaly": 10, "/admin/data": 10, "/admin/quality": 10,
+    "/admin/chaos": 13, "/admin/resilience": 13,
+}
+
+#: path segments that are data ids (event/model/scan ids, uuid hexes):
+#: collapsed to ":id" so metric label cardinality stays bounded
+_ID_SEGMENT = re.compile(r"^[0-9a-fA-F-]{16,}$")
+
+#: hard cap on distinct route labels per process: beyond this, new
+#: paths (scanners probing random 404s) collapse to ":other"
+_MAX_ROUTES = 64
+_routes_seen: set = set()
+
+
+def metrics_route(path: str) -> str:
+    """A bounded-cardinality route label for a request path."""
+    out = []
+    for seg in path.split("/"):
+        if not seg:
+            continue
+        stem, dot, ext = seg.rpartition(".")
+        base = stem if dot else seg
+        if _ID_SEGMENT.match(base) or len(base) > 48:
+            seg = ":id" + (dot + ext if dot else "")
+        out.append(seg)
+    route = "/" + "/".join(out)
+    if route in _routes_seen:
+        return route
+    if len(_routes_seen) < _MAX_ROUTES:  # benign race: cap is approximate
+        _routes_seen.add(route)
+        return route
+    return ":other"
+
+
+def _admin_authorized(handler) -> bool:
+    """Bearer-token gate for the ``/admin/*`` routes and the routes that
+    change a server (``POST /model/patch``): with ``PIO_ADMIN_TOKEN``
+    unset everything stays open (the trusted-network default); once
+    set, requests must carry ``Authorization: Bearer <token>``
+    (constant-time compare)."""
+    token = os.environ.get("PIO_ADMIN_TOKEN")
+    if not token:
+        return True
+    supplied = handler.headers.get("Authorization") or ""
+    return hmac.compare_digest(supplied, f"Bearer {token}")
+
+
+def _server_storage(server_ref) -> Any:
+    """The serving object's storage, wherever the server keeps it (the
+    event server nests it inside its core)."""
+    storage = getattr(server_ref, "storage", None)
+    if storage is None:
+        storage = getattr(getattr(server_ref, "core", None), "storage", None)
+    return storage
+
+
+def _serve_readyz(handler) -> None:
+    """``GET /readyz``: run the process health probes plus THIS
+    server's storage probe; 200 while nothing FAILED, 503 with the same
+    per-probe detail otherwise. A server may override its storage probe
+    with a ``storage_readyz_probe`` method (the engine server does:
+    storage loss is DEGRADED while a model is loaded)."""
+    health.install_default_probes()
+    override = getattr(handler.server_ref, "storage_readyz_probe", None)
+    if override is not None:
+        extra = {"storage": override}
+    else:
+        storage = _server_storage(handler.server_ref)
+        extra = {"storage": lambda: health.storage_probe(storage)}
+    overall, detail = health.REGISTRY.run(extra=extra)
+    status = 503 if overall == health.FAILED else 200
+    handler._send(status, {"status": overall, "probes": detail})
+
+
+def _serve_metrics(handler, query: str) -> None:
+    """``GET /metrics``: Prometheus text by default; the OpenMetrics
+    document under ``Accept: application/openmetrics-text`` or
+    ``?format=openmetrics``. Device-memory gauges are refreshed first
+    (where CUDA is initialised), so a scrape reads the allocator now."""
+    memacct.update_device_memory_gauges()
+    accept = handler.headers.get("Accept") or ""
+    fmt = (parse_qs(query).get("format") or [""])[0]
+    if "application/openmetrics-text" in accept or fmt == "openmetrics":
+        handler._send(200, metrics.REGISTRY.render_openmetrics(),
+                      content_type=metrics.OPENMETRICS_CONTENT_TYPE)
+    else:
+        handler._send(200, metrics.REGISTRY.render(),
+                      content_type=metrics.CONTENT_TYPE)
+
+
+def _serve_admin_flight(handler, query: str) -> None:
+    """``GET /admin/flight``: the flight-recorder dump as JSON.
+    ``?n=N`` limits to the last N records, ``?slow=1`` keeps only
+    slow/errored ones. Captured query payloads are included only when an
+    admin token is configured (and so was presented)."""
+    params = parse_qs(query)
+    try:
+        n = int(params["n"][0]) if "n" in params else None
+    except ValueError:
+        handler._send(400, {"message": "n must be an integer"})
+        return
+    slow_only = (params.get("slow") or ["0"])[0].lower() in ("1", "true")
+    include_payloads = bool(os.environ.get("PIO_ADMIN_TOKEN"))
+    handler._send(200, flight.RECORDER.dump(
+        n, slow_only=slow_only, include_payloads=include_payloads))
+
+
+def _serve_admin_profile(handler, query: str) -> None:
+    """``POST /admin/profile?seconds=N``: record a torch.profiler window
+    of THIS process and answer the trace's path and its device-time
+    summary (kernel launch counts and times, the idle share); 501
+    without a card, 409 while a capture is running. The handler thread
+    sleeps through the window: the capture is of the OTHER threads."""
+    params = parse_qs(query)
+    try:
+        seconds = float((params.get("seconds") or ["3"])[0])
+    except ValueError:
+        handler._send(400, {"message": "seconds must be a number"})
+        return
+    seconds = profiler.clamp_seconds(seconds)
+    try:
+        result = profiler.capture(seconds)
+    except profiler.ProfilerUnavailable as e:
+        handler._send(501, {"message": str(e),
+                            "backend": profiler.backend()})
+        return
+    except profiler.ProfilerBusy as e:
+        handler._send(409, {"message": str(e)})
+        return
+    handler._send(200, {"artifact": result["artifact"], "seconds": seconds,
+                        "backend": profiler.backend(),
+                        "summary": result["summary"]})
+
+
+def _serve_admin_spans(handler, query: str) -> None:
+    """``GET /admin/spans?trace=<id>&n=N``: THIS process's span ring,
+    with the ring capacity and the eviction counter."""
+    params = parse_qs(query)
+    trace_id = (params.get("trace") or [None])[0]
+    if trace_id is not None and not trace.valid_trace_id(trace_id):
+        handler._send(400, {"message": "trace must be id-shaped"})
+        return
+    try:
+        n = int(params["n"][0]) if "n" in params else None
+    except ValueError:
+        handler._send(400, {"message": "n must be an integer"})
+        return
+    server = handler.server_version.split("/", 1)[0]
+    handler._send(200, trace.span_page(server, trace_id, n))
+
+
+def _serve_admin_trace(handler, query: str) -> None:
+    """``GET /admin/trace?id=<trace>``: this process's spans of one
+    trace assembled into an annotated tree (the JAX route also fans out
+    to a fleet's members; the port has no fleet, ROADMAP item 6)."""
+    params = parse_qs(query)
+    trace_id = (params.get("id") or params.get("trace") or [None])[0]
+    if not trace_id or not trace.valid_trace_id(trace_id):
+        handler._send(400, {"message": "need an id-shaped ?id=<trace>"})
+        return
+    server = handler.server_version.split("/", 1)[0]
+    handler._send(200, trace.local_trace(trace_id, server))
+
+
+def _serve_admin_journal(handler, query: str) -> None:
+    """``GET /admin/journal?n=&kind=&since=``: this process's ops
+    journal ring, newest last; ``kind`` filters one event kind exactly,
+    ``since`` is a unix-seconds floor, ``n`` caps the page (200)."""
+    params = parse_qs(query)
+    try:
+        n = int((params.get("n") or ["200"])[0])
+        since = float(params["since"][0]) if "since" in params else None
+    except ValueError as e:
+        handler._send(400, {"message": f"bad n/since: {e}"})
+        return
+    kind = (params.get("kind") or [None])[0]
+    handler._send(200, journal.JOURNAL.page(n=n, kind=kind, since=since))
+
+
+def _serve_admin(handler, path: str, query: str) -> bool:
+    """The ``/admin/*`` routes; False when ``path`` is none of them."""
+    command = handler.command
+    if command == "GET" and path == "/admin/flight":
+        _serve_admin_flight(handler, query)
+    elif command == "POST" and path == "/admin/profile":
+        _serve_admin_profile(handler, query)
+    elif command == "GET" and path == "/admin/spans":
+        _serve_admin_spans(handler, query)
+    elif command == "GET" and path == "/admin/trace":
+        _serve_admin_trace(handler, query)
+    elif command == "GET" and path == "/admin/journal":
+        _serve_admin_journal(handler, query)
+    elif command == "GET" and path == "/admin/memory":
+        handler._send(200, memacct.report())
+    elif path in UNPORTED_ADMIN:
+        item = UNPORTED_ADMIN[path]
+        handler._send(501, {
+            "message": f"{path} is not ported to predictionio_torch yet "
+                       f"(ROADMAP.md, queue 1 item {item})",
+            "roadmap_item": item})
+    else:
+        return False
+    return True
+
 
 def _instrument(fn):
-    """Wrap a ``do_METHOD`` handler: answer ``GET /healthz`` before any
-    routing or auth, and count the request as in flight on its server
-    while the handler runs (what the drain waits for). Applied once to
-    every handler class through ``__init_subclass__``."""
+    """Wrap a ``do_METHOD`` handler: serve the shared routes before any
+    per-server routing or auth, then run the handler under the request's
+    trace context with a flight record, the request metrics and this
+    server's in-flight count (what the drain waits for). Applied once
+    to every handler class through ``__init_subclass__``."""
     if getattr(fn, "_pio_instrumented", False):
         return fn
 
     @functools.wraps(fn)
     def wrapper(self):
-        if self.command == "GET" and urlparse(self.path).path == "/healthz":
+        parsed = urlparse(self.path)
+        path = parsed.path
+        server_label = self.server_version.split("/", 1)[0]
+        if self.command == "GET" and path == "/healthz":
             # liveness: no probes, no locks beyond _send
             self._send(200, {"status": "alive"})
             return
+        if self.command == "GET" and path == "/readyz":
+            _serve_readyz(self)
+            return
+        if self.command == "GET" and path == "/metrics":
+            _serve_metrics(self, parsed.query)
+            return
+        if path.startswith("/admin/"):
+            if not _admin_authorized(self):
+                self._send(401, {"message": "missing or invalid bearer "
+                                            "token (PIO_ADMIN_TOKEN)"},
+                           extra_headers={"WWW-Authenticate": "Bearer"})
+                return
+            if _serve_admin(self, path, parsed.query):
+                return
         server = self.server_ref
         if not server._enter():
             # stopped: what it holds (an event log, a batcher) may be
@@ -47,18 +318,51 @@ def _instrument(fn):
             self.close_connection = True
             self._send(503, {"message": "server is stopping"})
             return
+        # the inbound id is untrusted: anything not id-shaped is
+        # re-minted, never echoed into headers or span logs
+        raw_id = self.headers.get(trace.TRACE_HEADER, "")
+        accepted = trace.valid_trace_id(raw_id)
+        trace_id = raw_id if accepted else trace.new_trace_id()
+        raw_parent = self.headers.get(trace.PARENT_HEADER, "")
+        parent_span = raw_parent if (
+            accepted and trace.valid_span_id(raw_parent)) else None
+        token = trace.activate(trace_id, parent_span)
+        route = metrics_route(path)
+        fkey = flight.begin(trace_id, server_label, self.command, route)
+        inflight = _IN_FLIGHT.labels(server_label)
+        inflight.inc()
+        t0 = time.perf_counter()
+        name = server_label.lower()
+        name = name.removeprefix("pio") or name
+        error: Optional[str] = None
         try:
-            fn(self)
+            with trace.span(f"http.{name}", method=self.command,
+                            route=route, server=name):
+                fn(self)
+        except BaseException as e:
+            error = f"{type(e).__name__}: {e}"
+            raise
         finally:
+            inflight.dec()
             server._exit()
+            status = getattr(self, "_metrics_status", None)
+            flight.finish(fkey, status, error)
+            trace.deactivate(token)
+            if status is not None:
+                _REQUESTS_TOTAL.labels(server_label, self.command, route,
+                                       str(status)).inc()
+                _REQUEST_SECONDS.labels(server_label, self.command,
+                                        route).observe(
+                    time.perf_counter() - t0,
+                    exemplar={"trace_id": trace_id})
 
     wrapper._pio_instrumented = True
     return wrapper
 
 
 class JSONRequestHandler(BaseHTTPRequestHandler):
-    """Base handler: JSON responses, body parsing, quiet logging,
-    ``GET /healthz`` and the in-flight count on every ``do_METHOD``."""
+    """Base handler: JSON responses, body parsing, quiet logging, and
+    the shared routes and request telemetry on every ``do_METHOD``."""
 
     server_version = "PIOServer/0.1"
     server_ref: Any = None  # set via subclass attribute by each server
@@ -74,11 +378,19 @@ class JSONRequestHandler(BaseHTTPRequestHandler):
 
     def handle_one_request(self):
         self._body_consumed = False  # per request, not per connection
+        self._metrics_status = None  # captured by send_response
         super().handle_one_request()
+
+    def send_response(self, code, message=None):
+        # every response path funnels through here: the one place the
+        # final status is always known for the request metrics
+        self._metrics_status = code
+        super().send_response(code, message)
 
     def _send(self, status: int, body: Any,
               content_type: str = "application/json; charset=UTF-8",
               extra_headers: Optional[dict] = None) -> None:
+        t_ser = time.perf_counter()
         if isinstance(body, bytes):
             data = body
         elif isinstance(body, str):
@@ -100,17 +412,27 @@ class JSONRequestHandler(BaseHTTPRequestHandler):
         self.send_response(status)
         self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(data)))
+        trace_id = trace.current_trace_id()
+        if trace_id:
+            # echo the request's trace id so clients can join their logs
+            self.send_header(trace.TRACE_HEADER, trace_id)
         if self.close_connection:
             self.send_header("Connection", "close")
         for name, value in (extra_headers or {}).items():
             self.send_header(name, value)
         self.end_headers()
         self.wfile.write(data)
+        # response encode+write billed to the request's flight record
+        # (no-op when no record is open, e.g. the shared /metrics route)
+        flight.note_stage("serialize", time.perf_counter() - t_ser)
 
     def _read_body(self) -> bytes:
+        t0 = time.perf_counter()
         length = int(self.headers.get("Content-Length", 0))
         self._body_consumed = True
-        return self.rfile.read(length) if length else b""
+        data = self.rfile.read(length) if length else b""
+        flight.note_stage("parse", time.perf_counter() - t0)
+        return data
 
     def _read_json(self) -> Any:
         """Parsed JSON body; raises json.JSONDecodeError."""
@@ -126,22 +448,10 @@ class JSONRequestHandler(BaseHTTPRequestHandler):
     def _not_found(self):
         self._send(404, {"message": "Not Found"})
 
-    # servers without a do_GET / do_POST of their own still answer
-    # /healthz and 404 everything else
+    # servers without a do_GET / do_POST of their own still answer the
+    # shared routes and 404 everything else
     do_GET = _instrument(_not_found)
     do_POST = _instrument(_not_found)
-
-
-def _admin_authorized(handler) -> bool:
-    """Bearer-token gate for the routes that change a server (``POST
-    /model/patch``): with ``PIO_ADMIN_TOKEN`` unset everything stays
-    open (the trusted-network default); once set, requests must carry
-    ``Authorization: Bearer <token>`` (constant-time compare)."""
-    token = os.environ.get("PIO_ADMIN_TOKEN")
-    if not token:
-        return True
-    supplied = handler.headers.get("Authorization") or ""
-    return hmac.compare_digest(supplied, f"Bearer {token}")
 
 
 class _ThreadingHTTPServer(ThreadingHTTPServer):
@@ -257,12 +567,8 @@ DEFAULT_DRAIN_TIMEOUT_SEC = 30.0
 def drain_timeout() -> float:
     """The SIGTERM drain window: ``PIO_DRAIN_TIMEOUT`` seconds, the
     default when unset or not a number."""
-    try:
-        value = float(os.environ.get("PIO_DRAIN_TIMEOUT",
-                                     DEFAULT_DRAIN_TIMEOUT_SEC))
-    except ValueError:
-        value = DEFAULT_DRAIN_TIMEOUT_SEC
-    return max(0.0, value)
+    return max(0.0, metrics.env_float("PIO_DRAIN_TIMEOUT",
+                                      DEFAULT_DRAIN_TIMEOUT_SEC))
 
 
 def install_drain_handler(*servers, timeout: Optional[float] = None):

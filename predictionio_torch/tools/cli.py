@@ -590,7 +590,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO)
+    # structured logging with trace-id correlation (obs/logging.py): the
+    # console stays human-readable unless PIO_LOG_JSON opts in; server
+    # subcommands inherit the same handler
+    from predictionio_torch.obs import logging as obs_logging
+
+    obs_logging.setup(level=logging.DEBUG if args.verbose else logging.INFO,
+                      default_json=False)
     try:
         return args.func(args)
     except (RuntimeError, FileNotFoundError, ValueError) as e:

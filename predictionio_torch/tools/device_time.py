@@ -81,20 +81,33 @@ def profile_call(fn, iters: int = 100, cold: bool = False) -> dict:
                 flush.bitwise_not_()
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and "bitwise_not" not in e.key]
-    split: dict = {}
-    for e in events:
-        name = kernel_name(e.key)
-        split[name] = split.get(name, 0.0) + (
-            e.self_device_time_total / iters / 1e3)
+    traced = device_split(prof, skip="bitwise_not")
+    split = {name: v["ms"] / iters for name, v in traced.items()}
     if sum(split.values()) <= 0:
         raise RuntimeError("torch.profiler traced no device time")
-    memsets = sum(e.count for e in events if "memset" in e.key.lower())
+    memsets = sum(v["count"] for name, v in traced.items()
+                  if "memset" in name.lower())
+    launched = sum(v["count"] for v in traced.values())
     return {"ms": sum(split.values()), "split": split,
-            "kernels_per_call": (sum(e.count for e in events) - memsets)
-            / iters,
+            "kernels_per_call": (launched - memsets) / iters,
             "memsets_per_call": memsets / iters,
-            "kernels": sorted({kernel_name(e.key) for e in events
-                               if "memset" not in e.key.lower()})}
+            "kernels": sorted(name for name in split
+                              if "memset" not in name.lower())}
+
+
+def device_split(prof, skip: str = "") -> dict:
+    """Device work a finished ``torch.profiler.profile`` traced, by
+    short kernel name: ``{name: {"count": launches, "ms": summed self
+    device time}}``; events whose name contains ``skip`` (when given)
+    are left out. The one reader of a trace's device events, shared by
+    the timing helpers here and ``obs/profiler.py``'s capture summary."""
+    out: dict = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if skip and skip in e.key:
+            continue
+        entry = out.setdefault(kernel_name(e.key), {"count": 0, "ms": 0.0})
+        entry["count"] += e.count
+        entry["ms"] += e.self_device_time_total / 1e3
+    return out

@@ -46,13 +46,21 @@ Every ``PIO_STREAM_RECALL_EVERY`` applied folds the updater measures
 recall@k of its PATCHED retrieval index against brute force over the
 current factor tables (``probe_recall``).
 
-The JAX package's counters, gauges, journal events, staleness horizon,
-trace headers and profiler hooks belong to its ``obs/`` plane, which is
-not ported (ROADMAP.md queue 1 item 10), nor is its shadow-quality
-probe with the reload trigger it fires; the counts it exports stay
-plain attributes of the updater (``folds``, ``fold_events``,
+Observability, as in the JAX updater: the ``pio_stream_*`` counters
+and gauges (folds by outcome, folded events, the last fold's seconds,
+patch failures, skipped groups by reason, the probe's recall and its
+breaches), ``journal`` events (``resync``, ``fold`` by outcome), the
+freshness horizon (``perfacct.LEDGER.note_train_read`` at a delta
+read's start, ``note_publish`` after a published fold, withheld while a
+truncated or rebased delta leaves staleness debt that only a newly
+bound instance clears), a fresh trace per cycle and its headers on the
+HTTP patch lane. The counters are process-wide; the updater also keeps
+its own counts as attributes (``folds``, ``fold_events``,
 ``groups_skipped``, ``patch_failures``, ``index_recall``,
-``recall_breaches``, ``last_fold_seconds``).
+``recall_breaches``, ``last_fold_seconds``). Not ported yet (ROADMAP.md
+queue 1 item 10): ``dataobs.observe_tail``, the continuous profiler
+around ``run_forever``, and the shadow-quality probe with the reload
+trigger it fires.
 
 Config (env), the JAX package's names and defaults:
   PIO_STREAM_INTERVAL_SEC   daemon poll cadence (1.0)
@@ -87,6 +95,7 @@ from predictionio_torch.data.store import resolve_app
 from predictionio_torch.index.recall import recall_at_k
 from predictionio_torch.models.als import ALSAlgorithm
 from predictionio_torch.models.twotower import TwoTowerAlgorithm
+from predictionio_torch.obs import journal, metrics, perfacct, trace
 from predictionio_torch.ops.als import ALSConfig, fold_in_solve
 from predictionio_torch.ops.twotower import online_delta_step
 from predictionio_torch.parallel.context import DeviceContext
@@ -95,34 +104,54 @@ from predictionio_torch.workflow.deploy import prepare_deploy
 
 log = logging.getLogger(__name__)
 
+_FOLDS = metrics.counter(
+    "pio_stream_folds_total",
+    "Streaming fold cycles by outcome (ok / empty / rebased / "
+    "patch_failed)",
+    ("result",),
+)
+_FOLD_EVENTS = metrics.counter(
+    "pio_stream_fold_events_total",
+    "Delta events folded into the live model without a full retrain",
+)
+_FOLD_SECONDS = metrics.gauge(
+    "pio_stream_fold_seconds",
+    "Wall seconds of the last fold cycle (delta read + solves + patch)",
+)
+_PATCH_FAILURES = metrics.counter(
+    "pio_stream_patch_failures_total",
+    "Model-patch deliveries that failed (per target per cycle)",
+)
+_GROUPS_SKIPPED = metrics.counter(
+    "pio_stream_groups_skipped_total",
+    "Touched groups not re-solved, by reason (oversize = history "
+    "beyond PIO_STREAM_MAX_GROUP; truncated = user history capped to "
+    "the newest rows)",
+    ("reason",),
+)
+_INDEX_RECALL = metrics.gauge(
+    "pio_stream_index_recall",
+    "Last measured recall@k of the patched retrieval index vs brute "
+    "force over the current factors (worst across fold-capable "
+    "algorithms)",
+)
+_RECALL_BREACHES = metrics.counter(
+    "pio_stream_recall_breaches_total",
+    "Recall probes that landed below PIO_STREAM_RECALL_FLOOR",
+)
+
 
 class StreamUnsupported(RuntimeError):
     """The deployed engine or storage backend cannot stream: no
     sequence-offset delta reads, or no fold-capable algorithm."""
 
 
-def _env_float(name: str, default: float) -> float:
-    """A float env knob; unset or unparseable values give the default."""
-    try:
-        return float(os.environ.get(name, default))
-    except ValueError:
-        return default
-
-
-def _env_int(name: str, default: int) -> int:
-    """Integer twin of :func:`_env_float`."""
-    try:
-        return int(os.environ.get(name, default))
-    except ValueError:
-        return default
-
-
 def _max_group() -> int:
-    return _env_int("PIO_STREAM_MAX_GROUP", 8192)
+    return metrics.env_int("PIO_STREAM_MAX_GROUP", 8192)
 
 
 def _history_cache_cap() -> int:
-    return _env_int("PIO_STREAM_HISTORY_CACHE", 100_000)
+    return metrics.env_int("PIO_STREAM_HISTORY_CACHE", 100_000)
 
 
 def _buy_code(cols, ds) -> int:
@@ -330,8 +359,10 @@ class ALSFoldIn:
                         # a popular item's factor moves negligibly per
                         # event; re-solving it re-reads the world
                         self._skipped["oversize"] += 1
+                        _GROUPS_SKIPPED.labels("oversize").inc()
                         continue
                     self._skipped["truncated"] += 1
+                    _GROUPS_SKIPPED.labels("truncated").inc()
                     ids, vals = ids[-cap:], vals[-cap:]
                 # rows whose opposite id the model has never seen (and
                 # this delta does not introduce) carry zero factors:
@@ -421,8 +452,8 @@ class TwoTowerOnline:
         uu, new_uvecs, ii, new_ivecs, _losses = online_delta_step(
             model.user_factors, model.item_factors, u_rows, i_rows,
             weight=weight,
-            lr=_env_float("PIO_STREAM_TT_LR", 0.05),
-            steps=_env_int("PIO_STREAM_TT_STEPS", 4),
+            lr=metrics.env_float("PIO_STREAM_TT_LR", 0.05),
+            steps=metrics.env_int("PIO_STREAM_TT_STEPS", 4),
             temp=float(getattr(p, "temperature", 0.07)),
             device=self.device,
         )
@@ -505,6 +536,10 @@ class StreamUpdater:
         #: the last probe's recall@k, and the probes below the floor
         self.index_recall: Optional[float] = None
         self.recall_breaches = 0
+        #: a truncated or rebased delta left work no fold may credit to
+        #: the freshness horizon; a newly bound instance clears it
+        self._staleness_debt = False
+        self.instance_id: Optional[str] = None
 
         if instance is None:
             instance = self.storage.engine_instances().get_latest_completed(
@@ -546,6 +581,8 @@ class StreamUpdater:
             raise StreamUnsupported(
                 "no fold-capable algorithm in the deployed engine "
                 "(ALS fold-in / two-tower online steps)")
+        if instance.id != self.instance_id:
+            self._staleness_debt = False
         self.instance_id = instance.id
         self._ds = ds
         self._app_id, self._channel_id = app_id, channel_id
@@ -567,11 +604,28 @@ class StreamUpdater:
             raise StreamUnsupported(
                 f"no COMPLETED instance for engine {self.engine_id}")
         self._bind_instance(instance)
+        journal.emit("resync", instance=self.instance_id)
+
+    def _count_fold(self, outcome: str) -> None:
+        self.folds[outcome] += 1
+        _FOLDS.labels(outcome).inc()
+
+    def _patch_failed(self) -> None:
+        self.patch_failures += 1
+        _PATCH_FAILURES.inc()
 
     # -- one cycle -----------------------------------------------------------
     def poll_once(self) -> Dict[str, Any]:
-        """One tail -> fold -> publish cycle; returns its stats dict."""
+        """One tail -> fold -> publish cycle; returns its stats dict.
+        Each cycle runs under its own trace, which the HTTP patch lane
+        carries to the servers it patches."""
+        with trace.new_trace():
+            return self._poll_once_traced()
+
+    def _poll_once_traced(self) -> Dict[str, Any]:
         t0 = time.perf_counter()
+        # freshness horizon at read START, as in Engine.train
+        perfacct.LEDGER.note_train_read()
         cols, new_cursor, rebased = self._events.find_columnar_since(
             self._app_id, self._channel_id,
             cursor=self.cursor,
@@ -586,7 +640,9 @@ class StreamUpdater:
             # Reset to the tail; a full retrain (rolling /reload) owns
             # reconciling what happened before it
             self.cursor = new_cursor
-            self.folds["rebased"] += 1
+            self._staleness_debt = True
+            self._count_fold("rebased")
+            journal.emit("fold", outcome="rebased")
             log.warning(
                 "delta cursor rebased (compaction or truncated appends): "
                 "skipping fold; run a full retrain to reconcile")
@@ -594,15 +650,17 @@ class StreamUpdater:
                     "seconds": time.perf_counter() - t0}
         prev_cursor = self.cursor
         self.cursor = new_cursor
-        max_delta = _env_int("PIO_STREAM_MAX_DELTA", 200_000)
+        max_delta = metrics.env_int("PIO_STREAM_MAX_DELTA", 200_000)
         n = len(cols)
         truncated = n > max_delta
         if truncated:
             # fold only the newest rows (recent activity stays fresh);
             # the dropped backlog is work only a full retrain
-            # reconciles. Cached histories go too: the dropped rows
+            # reconciles, so no later fold may credit the horizon
+            # either. Cached histories go too: the dropped rows
             # never extended them, so every entry past this gap would
             # re-solve against missing data
+            self._staleness_debt = True
             for folder in self._folders:
                 if hasattr(folder, "invalidate_history"):
                     folder.invalidate_history()
@@ -623,7 +681,7 @@ class StreamUpdater:
             vals.append(_decode_value(cols, k, buy_code,
                                       self._ds.buy_rating))
         if not users:
-            self.folds["empty"] += 1
+            self._count_fold("empty")
             return {"events": 0, "rebased": False,
                     "seconds": time.perf_counter() - t0}
 
@@ -647,11 +705,22 @@ class StreamUpdater:
             raise
         seconds = time.perf_counter() - t0
         self.last_fold_seconds = seconds
+        _FOLD_SECONDS.set(seconds)
+        if published and not self._staleness_debt:
+            # the fold is servable and covers the whole delta: move the
+            # freshness horizon as run_train's publish does
+            perfacct.LEDGER.note_publish()
         if published:
-            self.folds["ok"] += 1
+            self._count_fold("ok")
             self.fold_events += len(users)
+            _FOLD_EVENTS.inc(len(users))
+            journal.emit("fold", outcome="ok", events=len(users),
+                         seconds=round(seconds, 3),
+                         truncated=truncated or None)
         else:
-            self.folds["patch_failed"] += 1
+            self._count_fold("patch_failed")
+            journal.emit("fold", outcome="patch_failed",
+                         events=len(users))
         out = {
             "events": len(users),
             "rebased": False,
@@ -662,8 +731,8 @@ class StreamUpdater:
             "seconds": seconds,
         }
         self._folds_since_probe += 1
-        if self._folds_since_probe >= _env_int("PIO_STREAM_RECALL_EVERY",
-                                               20):
+        if self._folds_since_probe >= metrics.env_int(
+                "PIO_STREAM_RECALL_EVERY", 20):
             self._folds_since_probe = 0
             recall = self.probe_recall()
             if recall is not None:
@@ -678,8 +747,8 @@ class StreamUpdater:
         corrupts index freshness shows here before users see it.
         Returns the worst recall across fold-capable algorithms, or None
         when nothing is probeable."""
-        sample_n = _env_int("PIO_STREAM_RECALL_SAMPLE", 16)
-        k_cfg = _env_int("PIO_STREAM_RECALL_K", 10)
+        sample_n = metrics.env_int("PIO_STREAM_RECALL_SAMPLE", 16)
+        k_cfg = metrics.env_int("PIO_STREAM_RECALL_K", 10)
         rng = np.random.default_rng(0x5CA1E)
         worst: Optional[float] = None
         for folder in self._folders:
@@ -699,9 +768,11 @@ class StreamUpdater:
         if worst is None:
             return None
         self.index_recall = worst
-        floor = _env_float("PIO_STREAM_RECALL_FLOOR", 0.95)
+        _INDEX_RECALL.set(worst)
+        floor = metrics.env_float("PIO_STREAM_RECALL_FLOOR", 0.95)
         if worst < floor:
             self.recall_breaches += 1
+            _RECALL_BREACHES.inc()
             log.warning(
                 "patched retrieval index recall@k %.3f fell below the "
                 "floor %.2f — the fold-in lane is drifting from the "
@@ -726,13 +797,13 @@ class StreamUpdater:
                 log.warning("in-process model patch rejected (stale "
                             "instance); resyncing to the latest "
                             "COMPLETED instance")
-                self.patch_failures += 1
+                self._patch_failed()
                 ok = False
                 resync_needed = True
             except Exception:  # noqa: BLE001 — one dead target must not
                 # stop the others; the failure is counted and logged
                 log.exception("in-process model patch failed")
-                self.patch_failures += 1
+                self._patch_failed()
                 ok = False
         if resync_needed:
             try:
@@ -742,11 +813,12 @@ class StreamUpdater:
         if not self.patch_urls:
             return ok
         body = json.dumps(payload).encode()
-        headers = {"Content-Type": "application/json"}
+        # the cycle's trace rides along: the patched server's spans join
+        headers = trace.traced_headers({"Content-Type": "application/json"})
         token = os.environ.get("PIO_ADMIN_TOKEN")
         if token:
             headers["Authorization"] = f"Bearer {token}"
-        timeout = _env_float("PIO_STREAM_PATCH_TIMEOUT", 10.0)
+        timeout = metrics.env_float("PIO_STREAM_PATCH_TIMEOUT", 10.0)
         for url in self.patch_urls:
             try:
                 req = urllib.request.Request(
@@ -756,7 +828,7 @@ class StreamUpdater:
                     resp.read()
             except urllib.error.HTTPError as e:
                 e.read()
-                self.patch_failures += 1
+                self._patch_failed()
                 ok = False
                 if e.code == 409:
                     # the server moved to a newer instance (a retrain
@@ -774,7 +846,7 @@ class StreamUpdater:
             except Exception as e:  # noqa: BLE001 — a network failure is
                 # a counted outcome, not a crash of the fold loop
                 log.warning("model patch to %s failed: %s", url, e)
-                self.patch_failures += 1
+                self._patch_failed()
                 ok = False
         return ok
 
@@ -783,7 +855,7 @@ class StreamUpdater:
                     stop: Optional[threading.Event] = None) -> None:
         """Poll until ``stop`` is set (the ``pio stream`` daemon)."""
         interval = (interval if interval is not None
-                    else _env_float("PIO_STREAM_INTERVAL_SEC", 1.0))
+                    else metrics.env_float("PIO_STREAM_INTERVAL_SEC", 1.0))
         stop = stop or threading.Event()
         while not stop.is_set():
             try:

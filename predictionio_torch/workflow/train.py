@@ -6,9 +6,19 @@ create an EngineInstance row (INIT), run Engine.train on the context's
 device, pickle the per-algorithm models into the Models repo under the
 instance id (a ``PersistentModel`` saves itself and leaves a manifest
 there), snapshot the full params into the instance, and mark it
-COMPLETED — or FAILED on error. The JAX package's multi-host writer
-election, chaos seam, profiler capture and observability hooks are not
-ported (ROADMAP.md, queue 1 items 12 and 13).
+COMPLETED — or FAILED on error.
+
+Observability, as in the JAX workflow: the run's data-path stages
+accumulate in ``perfacct.LEDGER`` under the instance id (Engine.train
+notes read/prepare/fit, the trainers their own stages, this function
+the whole ``train``), ``engine.train`` runs under the train-step
+deadman watchdog (the trainers beat it through
+``torchmon.observe_train_step``), the whole-train wall time lands in
+``pio_train_seconds{engine}``, the device-memory gauges refresh after
+the train, and a completed instance moves the freshness horizon
+(``note_publish``) and logs the stage split in one line. The JAX
+package's multi-host writer election, chaos seam and profiler capture
+are not ported (ROADMAP.md, queue 1 items 12 and 13).
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ from predictionio_torch.core.persistent_model import (PersistentModel,
                                                       manifest_for)
 from predictionio_torch.data.metadata import EngineInstance, Model
 from predictionio_torch.data.storage import Storage, get_storage
+from predictionio_torch.obs import health, memacct, perfacct, torchmon
 from predictionio_torch.parallel.context import DeviceContext
 from predictionio_torch.workflow.config import WorkflowParams
 
@@ -86,12 +97,18 @@ def run_train(engine: Engine, engine_params: EngineParams, engine_id: str,
     storage.engine_instances().insert(instance)
     log.info("training instance %s (engine %s) on %s", instance.id,
              engine_id, ctx.device)
+    perfacct.LEDGER.start_run(instance.id)
     try:
         instance.status = "TRAINING"
         storage.engine_instances().update(instance)
         t0 = time.perf_counter()
-        result = engine.train(ctx, engine_params, wp)
-        log.info("engine.train took %.2f s", time.perf_counter() - t0)
+        with health.TRAIN_WATCHDOG.deadman():
+            result = engine.train(ctx, engine_params, wp)
+        train_sec = time.perf_counter() - t0
+        log.info("engine.train took %.2f s", train_sec)
+        torchmon.TRAIN_SECONDS.labels(engine_id).observe(train_sec)
+        perfacct.LEDGER.note_stage("train", train_sec)
+        memacct.refresh()
         if result.stopped_after:
             # debug interruption (ref: Engine.scala:624-648): no model
             instance.batch = (instance.batch + f" [stopped after "
@@ -104,6 +121,16 @@ def run_train(engine: Engine, engine_params: EngineParams, engine_id: str,
         instance.status = "COMPLETED"
         instance.end_time = _now()
         storage.engine_instances().update(instance)
+        # the model is servable: move the freshness horizon
+        perfacct.LEDGER.note_publish()
+        runs = perfacct.LEDGER.snapshot().get("runs") or []
+        if runs:
+            stages = runs[-1].get("stages") or {}
+            log.info("events->model stages (sec): %s",
+                     " ".join(f"{k}={v:.2f}"
+                              for k, v in sorted(stages.items())),
+                     extra={"pio": {"instance": instance.id,
+                                    "datapath_stages": stages}})
         log.info("training completed: instance %s", instance.id)
         return instance
     except Exception:

@@ -1196,3 +1196,116 @@ def test_sessionrec_scorer_through_topk_dot_matches_the_masked_route(cuda):
     s, i = wide.top_k(row, 16, exclude_seen=True)
     assert tkd.launches.value == before
     assert len(i[0]) == 16 and not set(i[0].tolist()) & set(range(70))
+
+
+# -- the observability core on the card ------------------------------------------
+
+@pytest.fixture()
+def card_server(cuda, tmp_path, monkeypatch):
+    """An ALS engine trained on the card and served by an EngineServer
+    on the card, from a localfs store under ``tmp_path``."""
+    from predictionio_torch.data.event import Event
+    from predictionio_torch.data.storage import Storage, set_storage
+    from predictionio_torch.parallel.context import DeviceContext
+    from predictionio_torch.serving.engine_server import EngineServer
+    from predictionio_torch.templates.recommendation import (
+        recommendation_engine)
+    from predictionio_torch.workflow.train import run_train
+
+    monkeypatch.setenv("PIO_BIN_CACHE_DIR", str(tmp_path / "bc"))
+    env = {"PIO_STORAGE_SOURCES_S_TYPE": "localfs",
+           "PIO_STORAGE_SOURCES_S_PATH": str(tmp_path / "store")}
+    for repo, name in (("METADATA", "meta"), ("EVENTDATA", "events"),
+                       ("MODELDATA", "models")):
+        env[f"PIO_STORAGE_REPOSITORIES_{repo}_NAME"] = name
+        env[f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE"] = "S"
+    storage = Storage.from_env(env)
+    app = storage.apps().insert("obs")
+    storage.events().init(app.id)
+    u, i, r = _als_ratings(200, 500, 4000, seed=31)
+    storage.events().insert_batch(
+        [Event(event="rate", entity_type="user", entity_id=f"u{a}",
+               target_entity_type="item", target_entity_id=f"i{b}",
+               properties={"rating": float(c)})
+         for a, b, c in zip(u, i, r)], app.id)
+    engine = recommendation_engine()
+    set_storage(storage)     # the data source reads the process storage
+    server = None
+    try:
+        run_train(engine, engine.engine_params_from_variant({
+            "datasource": {"params": {"app_name": "obs"}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": 16, "num_iterations": 3}}]}),
+            engine_id="obs", ctx=DeviceContext(cuda), storage=storage)
+        server = EngineServer(engine, "obs", host="127.0.0.1", port=0,
+                              storage=storage, device=cuda,
+                              micro_batch=False).start()
+        yield server
+    finally:
+        set_storage(None)
+        if server is not None:
+            server.stop()
+
+
+def test_device_memory_gauges_equal_memory_stats(cuda):
+    from predictionio_torch.obs import memacct, metrics
+
+    keep = torch.empty(1 << 22, device=cuda)    # something allocated
+    n = memacct.update_device_memory_gauges()
+    stats = torch.cuda.memory_stats(0)
+    limit = torch.cuda.mem_get_info(0)[1]
+    assert n == torch.cuda.device_count() >= 1
+    gauge = metrics.REGISTRY.get("pio_device_memory_bytes")
+    assert gauge.labels("0", "bytes_in_use").value == \
+        stats["allocated_bytes.all.current"] >= keep.numel() * 4
+    assert gauge.labels("0", "peak_bytes_in_use").value == \
+        stats["allocated_bytes.all.peak"]
+    assert gauge.labels("0", "bytes_limit").value == limit
+    assert memacct.capacity_report()["basis"] == "memory_stats"
+
+
+def test_readyz_of_a_card_deployment_names_the_card(card_server):
+    import json
+    import urllib.request
+
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{card_server.port}/readyz", timeout=60) as r:
+        assert r.status == 200
+        body = json.loads(r.read())
+    devices = body["probes"]["devices"]
+    assert devices["status"] == "ok"
+    assert torch.cuda.get_device_name(0) in devices["reason"]
+    assert body["probes"]["kernels"]["status"] == "ok"
+    assert "topk_dot" in body["probes"]["kernels"]["reason"]
+
+
+def test_profiler_counts_the_lone_queries_kernels(card_server, tmp_path):
+    from predictionio_torch.obs import profiler
+
+    card_server.query({"user": "u1", "num": 10})      # warm
+    before = tkd.launches.value
+    with profiler.trace_capture(str(tmp_path / "prof")) as result:
+        for k in range(10):
+            card_server.query({"user": f"u{k}", "num": 10})
+    launched = tkd.launches.value - before
+    assert launched == 10
+    assert profiler.kernel_count(result["summary"], "topk_dot") == launched
+    assert 0.0 <= result["summary"]["idle_share"] <= 1.0
+    assert (tmp_path / "prof" / "trace.json").is_file()
+
+
+def test_train_mfu_is_set_after_five_twotower_steps(cuda, monkeypatch):
+    from predictionio_torch.obs import metrics
+
+    monkeypatch.delenv("PIO_PEAK_FLOPS", raising=False)
+    rng = np.random.default_rng(8)
+    n_pos = 5 * 256
+    trainer = TwoTowerTrainer(
+        (rng.integers(0, 400, n_pos), rng.integers(0, 300, n_pos), None),
+        400, 300, TwoTowerConfig(dim=32, batch_size=256, epochs=1),
+        device=cuda)
+    assert trainer.steps_per_epoch == 5
+    trainer.run(1)
+    mfu = metrics.REGISTRY.get("pio_train_mfu").labels("twotower").value
+    assert 0.0 < mfu <= 1.0
+    assert mfu == trainer._acct.last_mfu

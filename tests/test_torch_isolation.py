@@ -162,3 +162,50 @@ def test_the_stream_modules_are_walked_and_import_no_jax():
 
 def test_the_model_family_modules_are_walked_and_import_no_jax():
     assert _walk_and_import(MODEL_FAMILIES) == {"missing": [], "bad": []}
+
+
+#: the observability core and the IVF index
+OBSERVABILITY = ("predictionio_torch.obs",
+                 "predictionio_torch.obs.metrics",
+                 "predictionio_torch.obs.trace",
+                 "predictionio_torch.obs.logging",
+                 "predictionio_torch.obs.flight",
+                 "predictionio_torch.obs.journal",
+                 "predictionio_torch.obs.perfacct",
+                 "predictionio_torch.obs.memacct",
+                 "predictionio_torch.obs.health",
+                 "predictionio_torch.obs.torchmon",
+                 "predictionio_torch.obs.profiler",
+                 "predictionio_torch.index",
+                 "predictionio_torch.index.exact",
+                 "predictionio_torch.index.ivf",
+                 "predictionio_torch.serving.http",
+                 "predictionio_torch.serving.event_server",
+                 "predictionio_torch.tools.device_time")
+
+
+def test_the_observability_modules_are_walked_and_import_no_jax():
+    assert _walk_and_import(OBSERVABILITY) == {"missing": [], "bad": []}
+
+
+def test_importing_the_observability_core_starts_nothing():
+    """The obs package and the event server import no torch and start
+    no thread: the journal writer and the watchdog monitor start on
+    first use, and no log or signal handler is installed at import."""
+    code = (
+        "import json, logging, signal, sys, threading\n"
+        "before = (list(logging.getLogger().handlers),\n"
+        "          signal.getsignal(signal.SIGTERM))\n"
+        "import predictionio_torch.obs, predictionio_torch.serving.event_server\n"
+        "print(json.dumps({'torch': 'torch' in sys.modules,\n"
+        "                  'threads': threading.active_count(),\n"
+        "                  'same_handlers': before == (\n"
+        "                      list(logging.getLogger().handlers),\n"
+        "                      signal.getsignal(signal.SIGTERM))}))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {
+        "torch": False, "threads": 1, "same_handlers": True}
