@@ -12,7 +12,8 @@ exits non-zero before printing any result.
 1. Build every kernel under ``predictionio_torch/ops/kernels/csrc/``
    with ``nvcc`` for sm_90a, one process per source, all started
    together. Meanwhile phase 13's (b) and (c), which launch no kernel,
-   run, and the ALS phase's ratings are made.
+   run, and the ALS phase's ratings and phase 12's cut of them are
+   made.
 2. Kernel phase: the ``topk_dot`` kernel against its plain version
    ``topk_dot_reference`` on the card, over I in {513, 26744, 66000},
    D in {32, 64, 128}, B in {1, 8, 64, 128}, k in {8, 16, 128},
@@ -76,6 +77,40 @@ exits non-zero before printing any result.
    right after its training and holds it, in (0, 1], to the analytic
    FLOPs over its own last-epoch step time at the card's bf16 peak. One
    ``{"obs": ...}`` line prints before ``phase_wall_sec``.
+3c. Fleet phase, over phase 3's store while its server still runs: two
+   replica processes of the port's ``cli deploy --replicas 1`` (built
+   by ``deploy_fleet_argv``, so on the card) share ``cuda:0`` under a
+   ``FleetSupervisor``, behind an in-process ``QueryRouter``. (a) Lone
+   user and item queries through the router are checked against float64
+   as in phase 3; both replicas must be named in ``X-PIO-Replica``, and
+   the sum of the replicas' ``GET /`` ``topk_dot`` launch counts must
+   rise by at least the number of queries routed. (b) The queries phase
+   3's server captured (``PIO_FLIGHT_PAYLOADS``) are replayed with
+   ``workflow/replay.py``, phase 3's server the reference and the router
+   the candidate: top-10 overlap exactly 1.0, mean score delta within
+   the kernel's tolerance. (c) A second COMPLETED instance from other
+   seeded factors goes into the store; ``GET /reload`` on the router
+   answers 202, the rolling swap ends ``ok`` with every replica on the
+   second instance, and none of the queries a thread sends through the
+   swap fails (each answer is the first instance's or the second's).
+   (d) ``POST /admin/chaos`` on replica r1 sets
+   ``batcher@r1:hang``: its attempts time out at the router
+   (``PIO_ROUTER_TIMEOUT``), which opens r1's breaker, while hedges
+   answer every query 200 from r0; no query is placed on r1 once the
+   breaker is open, and it closes again after the rule is cleared. (A
+   ``batcher`` error rule would make r1 answer 500, which the router
+   passes through as the replica's answer, as the JAX router does: only
+   a transport failure charges a replica's breaker.) (e) The replicas
+   run with ``PIO_SHED_QUEUE_DEPTH=1``: a concurrent burst of 128
+   queries, while a ``batcher:latency:50ms`` rule slows every dispatch,
+   gets 429s with ``Retry-After`` and 200s only, each 200 checked
+   against float64, and the replicas' ``/admin/resilience`` count the
+   sheds; their ``/admin/slo`` states are recorded (its burn windows
+   need two samples 60 s apart, so in this phase they read no_data). (f) A
+   ``kill -9`` of r0: the next 20 queries answer 200, and the
+   supervisor restarts r0 into rotation on the second instance. One
+   ``{"fleet": ...}`` line (the phase's wall, each replica's start
+   time, the routed p50, the launch counts) prints after ``serve``'s.
 
 4. Two-tower kernel phase: the ``flash_ce`` kernels (the forward, and
    the backward kernel twice: du, then dv with the roles swapped)
@@ -250,7 +285,9 @@ exits non-zero before printing any result.
    checkpoints and the one being written. (b) The similar-product
    Quick Start in a new temporary ``eventlog`` store at MovieLens-20M
    widths: a ``$set`` for every user and item (items with 1-3 of
-   ``PROJECT_CATEGORIES`` categories), the ALS phase's 20M pairs as
+   ``PROJECT_CATEGORIES`` categories), the project phase's pairs (every
+   ``PROJECT_STRIDE``-th of the ALS phase's 20M, plus each user's and
+   each item's first, so both widths stay whole: ~5.1M) as
    ``view`` events and every ``PROJECT_LIKE_EVERY``-th as ``like``
    (rating >= 3.5) or ``dislike``; then ``cli template get
    similarproduct``, ``app_name`` set in the project's engine.json with
@@ -265,8 +302,8 @@ exits non-zero before printing any result.
    in the server's ``GET /`` must rise by 2 per index query, and the
    D=10 kernel on those tables and queries is held against its plain
    version and timed. (c) The e-commerce Quick Start in another new
-   store: the same ``$set`` events and the 20M ratings as ``rate``
-   events; ``cli template get ecommercerecommendation``, ``cli build``,
+   store: the same ``$set`` events and the project phase's ratings as
+   ``rate`` events; ``cli template get ecommercerecommendation``, ``cli build``,
    ``cli train`` (``unseen_only`` on, template defaults otherwise);
    then, from the stored model, a known user's views of 5 of its best
    items, a constraint ``$set`` of another user's 3 best items and a new
@@ -278,7 +315,7 @@ exits non-zero before printing any result.
    are removed at the end, pass or fail.
 13. Families phase, the engine families beyond recommendation. (a) The
    session recommender over phase 12's e-commerce store before it is
-   removed (20M ratings; 138,493 users; 26,744 items): ``cli template get
+   removed (its ratings; 138,493 users; 26,744 items): ``cli template get
    sessionrec``, ``cli train`` on ``cuda:0`` at the
    template defaults (dim 64, 2 heads, 2 layers, max_len 64, dropout
    0.1, batch 256, 5 epochs: 541 steps an epoch): its log's read and
@@ -314,7 +351,7 @@ exits non-zero before printing any result.
    chain (2,000 states, top 16) on the card against float64.
 
 Output: the card's name and power limit (``nvidia-smi``), a ``serve``,
-a ``train``, an ``als_train``, an ``ingest``, a ``front_door`` (with
+a ``fleet``, a ``train``, an ``als_train``, an ``ingest``, a ``front_door`` (with
 the card's line), a ``pio_train``, a ``stream`` (with the card's line),
 an ``eval``, a ``project`` and a ``families`` line (each with the
 card's line), the ``kernels`` line, and last ``{"ok": true, "device":
@@ -402,6 +439,11 @@ TT_ONLINE_ATOL, TT_ONLINE_RTOL = 1e-5, 1e-5
 # view pairs is also a like or dislike; the e-commerce constraint's
 # size (a user's best items) and the views of the seen and the new user
 CKPT_STOP_EPOCH = 1
+# the similar-product and e-commerce stores (and so the session
+# recommender) hold every PROJECT_STRIDE-th rating of the 20M, plus each
+# user's and each item's first: a cut of depth for the script's time
+# limit, widths kept (PERF.md §4)
+PROJECT_STRIDE = 4
 PROJECT_CATEGORIES, PROJECT_LIKE_EVERY = 20, 10
 ECOM_UNAVAILABLE, ECOM_SEEN_VIEWS, ECOM_NEW_USER_VIEWS = 3, 5, 5
 ECOM_APP = "ml20m-ec"
@@ -420,6 +462,15 @@ CLS_BASES = np.array([[8.0, 1.0, 1.0], [1.0, 8.0, 1.0], [1.0, 1.0, 8.0],
                       [4.0, 4.0, 4.0]])
 REG_ROWS = 1_000_000
 REG_TRUE_W = np.array([2.0, -1.0, 0.5], dtype=np.float32)
+# phase 3c, the fleet: phase 3's captured payloads (its capture ring),
+# replica processes, their admission queue limit, routed lone queries,
+# the chaos check's hang, router timeout and breaker re-test delay, the
+# concurrent burst and the dispatch latency a chaos rule adds during it,
+# the queries right after the kill
+FLEET_CAPTURE, FLEET_REPLICAS, FLEET_SHED_QUEUE_DEPTH = 256, 2, 1
+FLEET_LONE_USERS, FLEET_LONE_ITEMS = 20, 8
+FLEET_HANG_SEC, FLEET_ROUTER_TIMEOUT, FLEET_BREAKER_RESET_SEC = 2, 1.0, 2
+FLEET_BURST, FLEET_BURST_LATENCY_MS, FLEET_KILL_QUERIES = 128, 50, 20
 
 
 def fail(msg: str) -> None:
@@ -732,51 +783,71 @@ def check_answer(t: Truth, q: dict, got: dict, what: str) -> None:
                      f"{t.item_names[ids[j]]} for {q}")
 
 
-def serve_phase(after=None) -> dict:
-    """Phase 3. ``after(server, truth)``, when given, runs on the live
-    deployment once the serve path's own checks and counts are done
-    (phase 3b, the observability phase), before the server stops."""
-    import torch
+def ml20m_factors(rng):
+    """Random factors at MovieLens-20M widths from ``rng``, and names."""
+    U = (0.3 * rng.standard_normal((N_USERS, RANK))).astype(np.float32)
+    V = (0.3 * rng.standard_normal((N_ITEMS, RANK))).astype(np.float32)
+    return (U, V, [f"u{j}" for j in range(N_USERS)],
+            [f"i{j}" for j in range(N_ITEMS)])
+
+
+def store_ml20m_instance(storage, instance_id: str, U, V, user_names,
+                         item_names) -> None:
+    """A COMPLETED ``ml20m`` instance of the recommendation engine, its
+    ALS model made from the factors, through the port's storage."""
     from predictionio_torch.data.metadata import EngineInstance, Model
-    from predictionio_torch.data.storage import Storage
     from predictionio_torch.models.als import ALSParams, als_model_from_arrays
+    import datetime as dt
+
+    model = als_model_from_arrays(U, V, user_names, item_names, rank=RANK)
+    now = dt.datetime.now(tz=dt.timezone.utc)
+    storage.engine_instances().insert(EngineInstance(
+        id=instance_id, status="COMPLETED", start_time=now,
+        end_time=now, engine_id="ml20m", engine_version="0",
+        engine_variant="default",
+        engine_factory=("predictionio_torch.templates.recommendation."
+                        "recommendation_engine"),
+        data_source_params=json.dumps(
+            {"name": "", "params": {"app_name": "ml20m"}}),
+        preparator_params=json.dumps({"name": "", "params": {}}),
+        algorithms_params=json.dumps([{"name": "als", "params":
+            dataclasses.asdict(ALSParams(rank=RANK))}]),
+        serving_params=json.dumps({"name": "", "params": {}})))
+    storage.models().insert(Model(id=instance_id,
+                                  models=pickle.dumps([model])))
+
+
+def serve_phase(after=None) -> dict:
+    """Phase 3. ``after(server, truth, store_env)``, when given, runs on
+    the live deployment once the serve path's own checks and counts are
+    done (phase 3b, the observability phase, then phase 3c, the fleet),
+    before the server stops; ``store_env`` names the localfs store that
+    holds the served instance. The server captures its query payloads
+    (``PIO_FLIGHT_PAYLOADS``) for phase 3c's replay."""
+    import torch
+    from predictionio_torch.data.storage import Storage
     from predictionio_torch.ops.kernels import topk_dot as tkd
     from predictionio_torch.serving.engine_server import EngineServer
     from predictionio_torch.templates.recommendation import (
         recommendation_engine)
-    import dataclasses
-    import datetime as dt
 
     rng = np.random.default_rng(SEED)
-    U = (0.3 * rng.standard_normal((N_USERS, RANK))).astype(np.float32)
-    V = (0.3 * rng.standard_normal((N_ITEMS, RANK))).astype(np.float32)
-    user_names = [f"u{j}" for j in range(N_USERS)]
-    item_names = [f"i{j}" for j in range(N_ITEMS)]
+    U, V, user_names, item_names = ml20m_factors(rng)
     truth = Truth(U, V, user_names, item_names)
-    model = als_model_from_arrays(U, V, user_names, item_names, rank=RANK)
 
     store = tempfile.mkdtemp(prefix="pio_chip_smoke_")
     server = None
+    os.environ["PIO_FLIGHT_PAYLOADS"] = str(FLEET_CAPTURE)
     try:
-        storage = Storage.from_env({
-            "PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
-            "PIO_STORAGE_SOURCES_FS_PATH": store})
-        now = dt.datetime.now(tz=dt.timezone.utc)
-        storage.engine_instances().insert(EngineInstance(
-            id="ml20m-rank64", status="COMPLETED", start_time=now,
-            end_time=now, engine_id="ml20m", engine_version="0",
-            engine_variant="default",
-            engine_factory=("predictionio_torch.templates.recommendation."
-                            "recommendation_engine"),
-            data_source_params=json.dumps(
-                {"name": "", "params": {"app_name": "ml20m"}}),
-            preparator_params=json.dumps({"name": "", "params": {}}),
-            algorithms_params=json.dumps([{"name": "als", "params":
-                dataclasses.asdict(ALSParams(rank=RANK))}]),
-            serving_params=json.dumps({"name": "", "params": {}})))
-        storage.models().insert(Model(id="ml20m-rank64",
-                                      models=pickle.dumps([model])))
-        del model
+        store_env = {"PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
+                     "PIO_STORAGE_SOURCES_FS_PATH": store}
+        for repo in ("METADATA", "EVENTDATA", "MODELDATA"):
+            store_env[f"PIO_STORAGE_REPOSITORIES_{repo}_NAME"] = (
+                repo.lower())
+            store_env[f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE"] = "FS"
+        storage = Storage.from_env(store_env)
+        store_ml20m_instance(storage, "ml20m-rank64", U, V, user_names,
+                             item_names)
 
         pick = rng.integers(0, N_USERS, size=40)
         pick_items = rng.integers(0, N_ITEMS, size=12)
@@ -861,7 +932,7 @@ def serve_phase(after=None) -> dict:
         lat_ms = sorted(1e3 * x for x in lat[:kernel_queries])
         peak_mem = torch.cuda.max_memory_allocated()
         if after is not None:
-            after(server, truth)
+            after(server, truth, store_env)
         return {
             "launches": launches, "lone_queries": len(lone),
             "lone_kernel_queries": kernel_queries,
@@ -874,6 +945,7 @@ def serve_phase(after=None) -> dict:
             "peak_mem_bytes": peak_mem,
         }
     finally:
+        os.environ.pop("PIO_FLIGHT_PAYLOADS", None)
         if server is not None:
             server.stop()
         shutil.rmtree(store, ignore_errors=True)
@@ -1070,6 +1142,386 @@ def obs_phase(server, truth: Truth) -> dict:
             os.environ["PIO_INDEX_BACKEND"] = prev
     out["phase_sec"] = time.perf_counter() - t_phase
     return out
+
+
+# -- fleet phase -------------------------------------------------------------
+
+def post_routed(port: int, payload: dict, timeout: float = 60):
+    """(status, parsed body or None, headers) of one routed query."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/queries.json",
+        data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read()), dict(resp.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, None, dict(e.headers)
+
+
+def admin_json(port: int, path: str, body=None):
+    """(status, parsed body) of an admin GET, or a POST of ``body``."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"null")
+
+
+def replica_launches(fleet) -> int:
+    """The sum of the replicas' ``topk_dot`` launch counts, read from
+    each replica process's ``GET /``."""
+    total = 0
+    for replica in fleet.replicas:
+        _, page = admin_json(replica.port, "/")
+        total += int(page["retrieval"][0]["kernel_launches"])
+    return total
+
+
+def wait_until(predicate, timeout: float, what: str):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        value = predicate()
+        if value:
+            return value
+        time.sleep(0.05)
+    fail(f"fleet: timed out waiting for {what}")
+
+
+def fleet_phase(server, truth: Truth, store_env: dict,
+                device=None) -> dict:
+    """Phase 3c, beside phase 3's live deployment and over its store: two
+    replica processes of ``cli deploy`` on the card behind the query
+    router (see the module docstring)."""
+    from predictionio_torch.data.storage import Storage
+    from predictionio_torch.obs import flight, metrics
+    from predictionio_torch.resilience.policy import breaker_for
+    from predictionio_torch.serving.fleet import (READY, FleetSupervisor,
+                                                  deploy_fleet_argv,
+                                                  subprocess_fleet)
+    from predictionio_torch.serving.router import QueryRouter
+    from predictionio_torch.workflow import replay as replay_mod
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 7)
+    root = tempfile.mkdtemp(prefix="pio_chip_smoke_fleet_")
+    engine_json = os.path.join(root, "engine.json")
+    with open(engine_json, "w") as f:
+        json.dump({"id": "default", "engineId": "ml20m",
+                   "engineFactory": "predictionio_torch.templates."
+                                    "recommendation.recommendation_engine",
+                   "datasource": {"params": {"app_name": "ml20m"}},
+                   "algorithms": [{"name": "als",
+                                   "params": {"rank": RANK}}]}, f)
+    child_env = {**store_env, "PIO_FLIGHT_PAYLOADS": "0",
+                 "PIO_SHED_QUEUE_DEPTH": str(FLEET_SHED_QUEUE_DEPTH),
+                 "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+    # the router's breakers: two failures open one, 2 s re-tests it
+    router_env = {"PIO_BREAKER_THRESHOLD": "2",
+                  "PIO_BREAKER_RESET_SEC": str(FLEET_BREAKER_RESET_SEC)}
+    saved = {k: os.environ.get(k) for k in (*router_env,
+                                            "PIO_ROUTER_TIMEOUT")}
+    os.environ.update(router_env)
+    out = {}
+    fleet = router = None
+    try:
+        # -- boot: two `cli deploy --replicas 1` processes on the card
+        argv = deploy_fleet_argv(engine_json, device=device)
+        members = subprocess_fleet(FLEET_REPLICAS, argv, env=child_env)
+        t0 = time.perf_counter()
+        fleet = FleetSupervisor(members, probe_interval=0.05).start()
+        ready_at = {}
+
+        def all_ready():
+            for r in fleet.replicas:
+                if r.state == READY and r.name not in ready_at:
+                    ready_at[r.name] = round(time.perf_counter() - t0, 3)
+            return len(ready_at) == len(fleet.replicas)
+
+        wait_until(all_ready, 180, "the replicas' first readiness")
+        router = QueryRouter(fleet, host="127.0.0.1", port=0).start()
+        out["replica_start_sec"] = ready_at
+        out["replica_pids"] = {r.name: r.proc.pid for r in fleet.replicas}
+        for r in fleet.replicas:
+            _, page = admin_json(r.port, "/")
+            if not page["device"].startswith(
+                    "cuda" if device is None else str(device)):
+                fail(f"fleet: replica {r.name} serves on {page['device']}")
+
+        # (a) routed lone queries against float64, on both replicas
+        users = rng.integers(0, N_USERS, size=FLEET_LONE_USERS)
+        items = rng.integers(0, N_ITEMS, size=FLEET_LONE_ITEMS)
+        lone = ([{"user": f"u{u}", "num": 10} for u in users]
+                + [{"item": f"i{i}", "num": 10} for i in items])
+        before = replica_launches(fleet)
+        placed, lat = {}, []
+        for j, q in enumerate(lone):
+            t_q = time.perf_counter()
+            status, got, headers = post_routed(router.port, q)
+            lat.append(time.perf_counter() - t_q)
+            if status != 200:
+                fail(f"fleet (a): routed query {j} answered {status}")
+            check_answer(truth, q, got, f"fleet routed query {j}")
+            name = headers.get("X-PIO-Replica")
+            placed[name] = placed.get(name, 0) + 1
+        routed_launches = replica_launches(fleet) - before
+        if set(placed) != {r.name for r in fleet.replicas}:
+            fail(f"fleet (a): queries placed on {placed} only")
+        if routed_launches < len(lone):
+            fail(f"fleet (a): the replicas launched topk_dot "
+                 f"{routed_launches} times for {len(lone)} routed queries")
+        lat_ms = sorted(1e3 * x for x in lat)
+        out["answers"] = {"queries": len(lone), "placed": placed,
+                          "topk_dot_launches": routed_launches,
+                          "routed_ms_p50": lat_ms[len(lat_ms) // 2],
+                          "routed_ms_max": lat_ms[-1]}
+
+        # (b) phase 3's captured queries replayed: phase 3's server is
+        # the reference, the router the candidate
+        payloads = [p for p in flight.RECORDER.payloads()
+                    if p["route"] == "/queries.json"]
+        if len(payloads) < 50:
+            fail(f"fleet (b): {len(payloads)} captured payloads")
+        report = replay_mod.replay(
+            payloads, candidate=replay_mod.http_target(
+                f"http://127.0.0.1:{router.port}"),
+            baseline=replay_mod.http_target(
+                f"http://127.0.0.1:{server.port}"), k=10)
+        tol = 1e-5 * float(np.linalg.norm(truth.U, axis=1).max()) * \
+            truth.vmax
+        if (report["errors"] != {"baseline": 0, "candidate": 0}
+                or report["diffed"] != len(payloads)
+                or report["mean_overlap"] != 1.0
+                or report["worst_overlap"] != 1.0
+                or report["mean_score_delta"] > tol):
+            fail(f"fleet (b): replay {report['n']} payloads, diffed "
+                 f"{report['diffed']}, errors {report['errors']}, overlap "
+                 f"{report['mean_overlap']} (worst "
+                 f"{report['worst_overlap']}), score delta "
+                 f"{report['mean_score_delta']}")
+        out["replay"] = {k: report[k] for k in (
+            "n", "diffed", "mean_overlap", "worst_overlap",
+            "mean_score_delta", "latency_ms")}
+
+        # (c) a rolling hot-swap onto a second instance, under traffic
+        U2, V2, user_names, item_names = ml20m_factors(
+            np.random.default_rng(SEED + 8))
+        truth2 = Truth(U2, V2, user_names, item_names)
+        storage = Storage.from_env(store_env)
+        store_ml20m_instance(storage, "ml20m-rank64-b", U2, V2, user_names,
+                             item_names)
+        del U2, V2
+        swap_errors, swap_answers = [], []
+        stop = threading.Event()
+
+        def loader():
+            k = 0
+            while not stop.is_set():
+                q = {"user": f"u{users[k % len(users)]}", "num": 10}
+                k += 1
+                status, got, _ = post_routed(router.port, q)
+                if status != 200:
+                    swap_errors.append(status)
+                else:
+                    swap_answers.append((q, got))
+
+        loading = threading.Thread(target=loader)
+        loading.start()
+        try:
+            t_swap = time.perf_counter()
+            code, _ = admin_json(router.port, "/reload")
+            if code != 202:
+                fail(f"fleet (c): GET /reload answered {code}")
+            snap = wait_until(lambda: (lambda s: s if (
+                not s["swap"]["active"] and s["swap"]["last"])
+                else None)(fleet.snapshot()), 120, "the rolling swap")
+            swap_sec = time.perf_counter() - t_swap
+        finally:
+            stop.set()
+            loading.join(timeout=120)
+        if snap["swap"]["last"]["outcome"] != "ok" or swap_errors:
+            fail(f"fleet (c): swap {snap['swap']['last']}, failed "
+                 f"queries {swap_errors[:5]}")
+        versions = {r.name: admin_json(r.port, "/")[1]["engineInstanceId"]
+                    for r in fleet.replicas}
+        if set(versions.values()) != {"ml20m-rank64-b"}:
+            fail(f"fleet (c): replicas serve {versions} after the swap")
+        # an answer during the swap is the first instance's or the
+        # second's; every answer after it the second's
+        for q, got in swap_answers:
+            try:
+                check_answer(truth2, q, got, "fleet swap")
+            except SystemExit:     # not the second's: the first's then
+                check_answer(truth, q, got, "fleet swap")
+        for j, u in enumerate(users[:8]):
+            q = {"user": f"u{u}", "num": 10}
+            status, got, _ = post_routed(router.port, q)
+            if status != 200:
+                fail(f"fleet (c): query after the swap answered {status}")
+            check_answer(truth2, q, got, f"fleet query {j} after the swap")
+        out["rolling_reload"] = {"swap_sec": round(swap_sec, 3),
+                                 "queries_during": len(swap_answers),
+                                 "failed_during": len(swap_errors),
+                                 "swapped": snap["swap"]["last"]["swapped"]}
+
+        # (d) a chaos rule tagged to r1: its dispatches hang, its attempts
+        # time out at the router and open its breaker; the hedge answers
+        # from r0 meanwhile
+        os.environ["PIO_ROUTER_TIMEOUT"] = str(FLEET_ROUTER_TIMEOUT)
+        hung = fleet.replicas[1]
+        hedges = metrics.REGISTRY.get("pio_router_hedges_total").value
+        rescues = metrics.REGISTRY.get(
+            "pio_router_hedge_rescues_total").value
+        code, rules = admin_json(hung.port, "/admin/chaos", {
+            "spec": f"batcher@{hung.name}:hang:{FLEET_HANG_SEC}s"})
+        if code != 200 or not rules["enabled"]:
+            fail(f"fleet (d): POST /admin/chaos answered {code} {rules}")
+        breaker = breaker_for(f"replica:{hung.name}")
+        chaos_statuses, chaos_placed = [], {}
+        t_chaos = time.perf_counter()
+
+        def chaos_query():
+            status, got, headers = post_routed(
+                router.port, {"user": f"u{users[0]}", "num": 10})
+            chaos_statuses.append(status)
+            name = headers.get("X-PIO-Replica")
+            chaos_placed[name] = chaos_placed.get(name, 0) + 1
+            return breaker.state == "open"
+
+        wait_until(chaos_query, 60, f"{hung.name}'s breaker to open")
+        open_sec = time.perf_counter() - t_chaos
+        after_open = dict(chaos_placed)
+        for _ in range(10):
+            chaos_query()
+        served_after = {k: chaos_placed[k] - after_open.get(k, 0)
+                        for k in chaos_placed}
+        admin_json(hung.port, "/admin/chaos", {"clear": True})
+        os.environ.pop("PIO_ROUTER_TIMEOUT")
+        if set(chaos_statuses) != {200} or served_after.get(hung.name):
+            fail(f"fleet (d): statuses {chaos_statuses}, placed after "
+                 f"the breaker opened {served_after}")
+        wait_until(lambda: not chaos_query() and breaker.state == "closed",
+                   60, f"{hung.name}'s breaker to close")
+        out["chaos"] = {
+            "rule": f"batcher@{hung.name}:hang:{FLEET_HANG_SEC}s",
+            "breaker_open_sec": round(open_sec, 3),
+            "queries": len(chaos_statuses),
+            "hedges": metrics.REGISTRY.get(
+                "pio_router_hedges_total").value - hedges,
+            "hedge_rescues": metrics.REGISTRY.get(
+                "pio_router_hedge_rescues_total").value - rescues}
+        if set(chaos_statuses) != {200}:
+            fail(f"fleet (d): statuses while recovering {chaos_statuses}")
+
+        # (e) admission: a concurrent burst past the replicas' low queue
+        # limit, with every dispatch slowed by a chaos latency rule (the
+        # overload), is shed with 429 + Retry-After, never a 5xx
+        for r in fleet.replicas:
+            code, _ = admin_json(r.port, "/admin/chaos", {
+                "spec": f"batcher:latency:{FLEET_BURST_LATENCY_MS}ms"})
+            if code != 200:
+                fail(f"fleet (e): POST /admin/chaos answered {code}")
+        burst_queries = [{"user": f"u{u}", "num": 10} for u in
+                         rng.integers(0, N_USERS, size=FLEET_BURST)]
+        burst = [None] * FLEET_BURST
+        go = threading.Event()
+
+        def send(j):
+            go.wait()
+            burst[j] = post_routed(router.port, burst_queries[j])
+
+        threads = [threading.Thread(target=send, args=(j,))
+                   for j in range(FLEET_BURST)]
+        for t in threads:
+            t.start()
+        go.set()
+        for t in threads:
+            t.join(timeout=120)
+        for r in fleet.replicas:
+            admin_json(r.port, "/admin/chaos", {"clear": True})
+        statuses = [b[0] if b else None for b in burst]
+        shed = [b for b in burst if b and b[0] == 429]
+        if (not shed or set(statuses) - {200, 429}
+                or any("Retry-After" not in b[2] for b in shed)):
+            fail(f"fleet (e): burst statuses {sorted(map(str, statuses))}")
+        for j, b in enumerate(burst):
+            if b[0] == 200:
+                check_answer(truth2, burst_queries[j], b[1],
+                             f"fleet burst query {j}")
+        resilience = {r.name: admin_json(r.port, "/admin/resilience")[1]
+                      for r in fleet.replicas}
+        slo_reports = {r.name: admin_json(r.port, "/admin/slo")[1]
+                       for r in fleet.replicas}
+        shed_total = sum(v["admission"]["shedTotal"]
+                         for v in resilience.values())
+        if shed_total < len(shed):
+            fail(f"fleet (e): /admin/resilience counts {shed_total} sheds "
+                 f"for {len(shed)} 429s")
+        out["admission"] = {
+            "burst": FLEET_BURST, "dispatch_latency_ms": FLEET_BURST_LATENCY_MS,
+            "ok": statuses.count(200),
+            "shed_429": len(shed),
+            "retry_after": sorted({b[2]["Retry-After"] for b in shed}),
+            "shed_total": shed_total,
+            "limits": resilience[fleet.replicas[0].name]["admission"][
+                "limits"],
+            "slo": {name: {e["name"]: e["state"] for e in rep["slos"]}
+                    for name, rep in slo_reports.items()}}
+
+        # (f) kill -9 of a replica: queries stay 200, the supervisor
+        # restarts it into rotation
+        victim = fleet.replicas[0]
+        old_pid = victim.proc.pid
+        os.kill(old_pid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        kill_statuses = []
+        for j in range(FLEET_KILL_QUERIES):
+            status, got, _ = post_routed(
+                router.port, {"user": f"u{users[j]}", "num": 10})
+            kill_statuses.append(status)
+            if status == 200:
+                check_answer(truth2, {"user": f"u{users[j]}", "num": 10},
+                             got, f"fleet query {j} after the kill")
+        if set(kill_statuses) != {200}:
+            fail(f"fleet (f): statuses after the kill {kill_statuses}")
+        wait_until(lambda: victim.restarts >= 1 and victim.state == READY,
+                   180, f"{victim.name}'s restart")
+        restart_sec = time.perf_counter() - t_kill
+        if victim.proc.pid == old_pid:
+            fail("fleet (f): the restarted replica kept the killed pid")
+        _, page = admin_json(victim.port, "/")
+        if page["engineInstanceId"] != "ml20m-rank64-b":
+            fail(f"fleet (f): the restarted replica serves "
+                 f"{page['engineInstanceId']}")
+        status, got, headers = post_routed(
+            victim.port, {"user": f"u{users[1]}", "num": 10})
+        if status != 200:
+            fail(f"fleet (f): the restarted replica answered {status}")
+        check_answer(truth2, {"user": f"u{users[1]}", "num": 10}, got,
+                     "fleet restarted replica")
+        out["restart"] = {"restart_sec": round(restart_sec, 3),
+                          "queries_after_kill": len(kill_statuses),
+                          "restarts": victim.restarts}
+        out["snapshot"] = {r["name"]: {k: r[k] for k in (
+            "state", "version", "restarts")}
+            for r in fleet.snapshot()["replicas"]}
+        out["phase_sec"] = round(time.perf_counter() - t_phase, 3)
+        return out
+    finally:
+        if router is not None:
+            router.stop()
+        if fleet is not None:
+            fleet.stop()
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # -- two-tower kernel phase ---------------------------------------------------
@@ -3807,6 +4259,18 @@ def ecommerce_phase(ratings, root: str) -> dict:
             **{k: served[k] for k in ("deploy_sec", "query_ms")}}
 
 
+def project_ratings(ratings):
+    """The project phase's depth: every ``PROJECT_STRIDE``-th rating
+    plus each user's and each item's first, so that every user and item
+    still appears."""
+    uu, ii, vals = ratings
+    keep = np.zeros(len(uu), bool)
+    keep[::PROJECT_STRIDE] = True
+    keep[np.unique(uu, return_index=True)[1]] = True
+    keep[np.unique(ii, return_index=True)[1]] = True
+    return uu[keep], ii[keep], vals[keep]
+
+
 def project_phase(ratings, ecom_root: str) -> dict:
     """Phase 12; the e-commerce Quick Start in the store at
     ``ecom_root``."""
@@ -4352,6 +4816,7 @@ def main() -> int:
         rest_sec = time.perf_counter() - t0
         t0 = time.perf_counter()
         ratings = synth_ratings()
+        project_cut = project_ratings(ratings)
         synth_sec = time.perf_counter() - t0
         built, build_sec = build.result()
     mark("build_with_families_rest_and_ratings")
@@ -4364,16 +4829,19 @@ def main() -> int:
     print(f"flash_ce: {flash['cases']} cases agree", flush=True)
     embed = embed_update_phase()
     print("embed_update: 3 cases agree", flush=True)
-    obs = {}
+    obs, fleet = {}, {}
 
-    def observe(server, truth):
+    def observe(server, truth, store_env):
         mark("kernels_and_serve")
         obs.update(obs_phase(server, truth))
+        mark("obs")
+        fleet.update(fleet_phase(server, truth, store_env))
 
     serve = serve_phase(after=observe)
-    mark("obs")
+    mark("fleet")
     topk["launches"] = serve["launches"]
     print(json.dumps({"serve": serve, "build_sec": build_sec}), flush=True)
+    print(json.dumps({"fleet": {**fleet, "card": card}}), flush=True)
     train, tt_tables = train_phase()
     obs["train_mfu"] = train["train_mfu"]
     flash["launches"] = train["flash_ce_launches"]
@@ -4398,7 +4866,8 @@ def main() -> int:
         "ingest_deploy": ingest["topk_dot_launches"],
         "front_door_deploy": front_door["topk_dot_launches"],
         "stream": streamed["topk_dot_launches"],
-        "obs_profile": obs["profile"]["launches"]}
+        "obs_profile": obs["profile"]["launches"],
+        "fleet_replicas": fleet["answers"]["topk_dot_launches"]}
     store = tempfile.mkdtemp(prefix="pio_chip_smoke_ml100k_")
     try:
         print(json.dumps({"pio_train": pio_train_phase(store)}), flush=True)
@@ -4416,13 +4885,13 @@ def main() -> int:
     # phase 13's session recommender trains on phase 12's e-commerce store
     ecom_root = temp_store("pio_chip_smoke_ecom_", INGEST_DISK_BYTES)
     try:
-        project = project_phase(ratings, ecom_root)
+        project = project_phase(project_cut, ecom_root)
         print(json.dumps({"project": {**project, "card": card}}), flush=True)
         mark("project")
-        sessionrec = sessionrec_phase(ecom_root, ratings)
+        sessionrec = sessionrec_phase(ecom_root, project_cut)
     finally:
         shutil.rmtree(ecom_root, ignore_errors=True)
-    del ratings
+    del ratings, project_cut
     mark("sessionrec")
     families = {"sessionrec": sessionrec, **families_rest,
                 "phase_sec": sessionrec["phase_sec"] + rest_sec,

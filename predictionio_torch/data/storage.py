@@ -36,6 +36,7 @@ from predictionio_torch.data.event import Event
 from predictionio_torch.data.metadata import (AccessKey, App, Channel,
                                               EngineInstance, EngineManifest,
                                               EvaluationInstance, Model)
+from predictionio_torch.resilience import chaos
 
 log = logging.getLogger(__name__)
 
@@ -478,6 +479,10 @@ class Storage:
         self._lock = threading.Lock()
 
     def client_for(self, repo: str) -> StorageClient:
+        # the chaos harness's storage seam: every repository access
+        # (DAO lookups, health probes, model loads) funnels through here
+        # (resilience/chaos.py; ChaosError is a ConnectionError)
+        chaos.inject("storage")
         source = self._repo_to_source.get(repo.upper())
         if source is None or source not in self._sources:
             raise StorageError(f"repository {repo} has no configured source")

@@ -22,9 +22,14 @@ Counterpart of ``predictionio_tpu/obs/__init__.py``, one registry:
                   ledger and staleness clock, tail attribution
   obs.memacct   — the device-memory ledger, train peaks and preflight
                   (``GET /admin/memory``)
+  obs.slo       — declarative SLOs and multi-window burn-rate alerts
+                  (``GET /admin/slo``)
+  obs.timeline  — bounded metric-timeline rings (``GET /admin/timeline``)
+  obs.quality   — answer diffs, canary verdicts and drift reports
+                  (``GET/POST /admin/quality``)
 
-Not ported yet (ROADMAP item 10 and item 6): slo, push, timeline,
-quality, anomaly, collect (the fleet federation), contprof, dataobs.
+Not ported yet (ROADMAP item 10): push, anomaly, collect (the fleet
+federation), contprof, dataobs.
 
 Importing this package imports no torch and starts no thread: the
 journal's writer and the watchdog monitor start on first use.

@@ -1,13 +1,12 @@
 """Ops journal: the durable record of operational state changes.
 
-Copy of ``predictionio_tpu/obs/journal.py`` with three changes: a
-:class:`Journal` stamps its events from ``clock=`` (an object with
-``time()`` and ``monotonic()``, the ``time`` module by default, which
-is what the JAX copy reads); its writer thread, started by the first
-event that has a file to go to, ends in :meth:`Journal.close`, which
-joins it; and the shed-episode aggregator stays with the admission
-controller it serves (ROADMAP item 6). What follows is the JAX
-module's account.
+Copy of ``predictionio_tpu/obs/journal.py`` with two changes: a
+:class:`Journal` (and a :class:`ShedEpisodes` over it) stamps its
+events from ``clock=`` (an object with ``time()`` and ``monotonic()``,
+the ``time`` module by default, which is what the JAX copy reads); and
+its writer thread, started by the first event that has a file to go
+to, ends in :meth:`Journal.close`, which joins it. What follows is the
+JAX module's account.
 
 The reference kept its operational history in external stores — an
 admin could always ask "what deployed when" because the metadata
@@ -350,9 +349,99 @@ def read_back(path: Optional[str] = None) -> Tuple[List[Dict[str, Any]], int]:
     return events, corrupt
 
 
+class ShedEpisodes:
+    """Aggregate per-request 429s into journaled shed EPISODES.
+
+    The admission controller sheds per request — journaling each 429
+    would make the journal a request log. This helper journals the
+    EPISODE instead: the first shed opens it (``shed_episode`` /
+    ``phase=start``), and it closes (``phase=end``, with the total
+    count and duration) once no shed has happened for
+    ``PIO_SHED_EPISODE_IDLE_SEC`` (checked from the admit path and the
+    snapshot cadence — both already run; no thread of our own)."""
+
+    DEFAULT_IDLE_SEC = 5.0
+
+    def __init__(self, journal: "Journal", clock: Any = None):
+        self._journal = journal
+        #: ``monotonic()`` source; the journal's clock by default
+        self._clock = clock if clock is not None else journal._clock
+        self._lock = threading.Lock()
+        self._active = False
+        self._reason: Optional[str] = None
+        self._server: Optional[str] = None
+        self._count = 0
+        self._started_mono = 0.0
+        self._last_mono = 0.0
+
+    def idle_sec(self) -> float:
+        return max(0.1, metrics.env_float("PIO_SHED_EPISODE_IDLE_SEC",
+                                          self.DEFAULT_IDLE_SEC))
+
+    def note_shed(self, reason: str,
+                  now_mono: Optional[float] = None,
+                  server: Optional[str] = None) -> None:
+        now_mono = self._clock.monotonic() if now_mono is None else now_mono
+        start = False
+        with self._lock:
+            if not self._active:
+                self._active = True
+                self._reason = reason
+                self._server = server
+                self._count = 0
+                self._started_mono = now_mono
+                start = True
+            self._count += 1
+            self._last_mono = now_mono
+        if start:
+            self._journal.emit("shed_episode", phase="start",
+                               reason=reason, server=server)
+
+    def maybe_close(self, now_mono: Optional[float] = None) -> bool:
+        """Close the episode if it has been idle long enough; returns
+        whether it closed. Cheap when inactive (one attribute read)."""
+        if not self._active:
+            return False
+        now_mono = self._clock.monotonic() if now_mono is None else now_mono
+        with self._lock:
+            if not self._active:
+                return False
+            if now_mono - self._last_mono < self.idle_sec():
+                return False
+            self._active = False
+            reason, count = self._reason, self._count
+            server = self._server
+            duration = round(self._last_mono - self._started_mono, 3)
+        self._journal.emit("shed_episode", phase="end", reason=reason,
+                           server=server, sheds=count,
+                           duration_sec=duration)
+        return True
+
+    def reset(self) -> None:
+        with self._lock:
+            self._active = False
+            self._reason = None
+            self._server = None
+            self._count = 0
+
+
 #: the process-global journal every subsystem emits into
 JOURNAL = Journal()
+
+#: the process-global shed-episode aggregator (resilience/admission.py
+#: notes sheds; the flight snapshot cadence closes idle episodes)
+SHED_EPISODES = ShedEpisodes(JOURNAL)
+
 
 def emit(kind: str, **fields: Any) -> Dict[str, Any]:
     """Module-level convenience: ``journal.emit("reload", ...)``."""
     return JOURNAL.emit(kind, **fields)
+
+
+# an idle shed episode must close even when no request is admitted
+# afterwards (total overload ends with silence, not an admit): the
+# flight snapshot cadence sweeps it shut
+from predictionio_torch.obs import flight  # noqa: E402 — cadence wiring
+
+flight.add_snapshot_listener(lambda: SHED_EPISODES.maybe_close(),
+                             name="shed_episodes")

@@ -492,6 +492,17 @@ def report() -> Dict[str, Any]:
     }
 
 
+def timeline_points(_now: float) -> Dict[str, float]:
+    """The ``mem.*`` timeline series (obs/timeline.py samples this on
+    the shared cadence): the headroom, where a capacity is known, plus
+    per-model ledger totals."""
+    headroom = capacity_report()["headroom_bytes"]
+    out = {} if headroom is None else {"mem.headroom": float(headroom)}
+    for model, total in LEDGER.model_totals().items():
+        out[f"mem.model_bytes.{model}"] = float(total)
+    return out
+
+
 def clear() -> None:
     """Test hook: drop the ledger, peaks and preflight record."""
     global _LAST_PREFLIGHT

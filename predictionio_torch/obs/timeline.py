@@ -1,0 +1,296 @@
+"""Metric timelines: a bounded in-process time-series ring.
+
+Copy of ``predictionio_tpu/obs/timeline.py`` without the continuous
+profiler's ``prof.overhead`` series and the data plane's series: their
+modules (``obs/contprof.py``, ``obs/dataobs.py``) are not ported
+(ROADMAP.md, queue 1 item 10). What follows is the JAX module's
+account.
+
+``GET /metrics`` answers "what is the value now"; a bench run answers
+"what was it that one time". Neither answers the operator question
+"what has the MFU / staleness / serving p99 done over the last hour?"
+without an external TSDB. This module keeps a small history in the
+process itself: on a configurable cadence, a fixed set of collectors
+samples selected gauges and histogram quantiles out of the obs
+registry into per-series rings — enough for the dashboard's
+sparklines, ``GET /admin/timeline``, and the live ``pio top`` view,
+with zero external dependencies and a hard memory bound.
+
+Sampling rides the flight recorder's snapshot hook (obs/flight.py
+wakes on that cadence while requests flow — no thread of our own), and
+every ``/admin/timeline`` read also ticks the sampler (rate-limited by
+the interval), so an idle server still builds history while someone is
+watching.
+
+Default series: per-model MFU (``mfu.<model>``), model staleness
+(``staleness_sec``), serving p50/p99 per engine
+(``serve_p50_ms.<engine>`` / ``serve_p99_ms.<engine>``), the HTTP
+request rate (``http_rps``), in-flight count (``inflight``), the
+device-memory plane (``mem.headroom`` / ``mem.model_bytes.<model>`` —
+obs/memacct.py's headroom and per-model ledger totals), and the
+model-quality drift gauges (``quality.recall`` /
+``quality.rmse_drift`` — obs/quality.py's recall-vs-retrain and
+normalized rmse drift, the dashboard ``/quality`` sparklines).
+
+Config (all env, read per sample so tests can monkeypatch):
+  PIO_TIMELINE_INTERVAL_SEC   minimum spacing between samples
+                              (default 15; 0 = sample on every tick)
+  PIO_TIMELINE_CAPACITY       samples kept per series (default 360 —
+                              90 min at the default cadence)
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from predictionio_torch.obs import flight, metrics
+
+DEFAULT_INTERVAL_SEC = 15.0
+DEFAULT_CAPACITY = 360
+
+#: hard bound on distinct series (labeled collectors are bounded —
+#: engines, models — but a bug must not grow rings forever)
+MAX_SERIES = 64
+
+#: the unicode ramp sparklines are drawn with (shared by `pio top`
+#: and the dashboard panel)
+_SPARK_BLOCKS = " ▁▂▃▄▅▆▇█"
+
+
+def sparkline(values: List[float], width: int = 32) -> str:
+    """Render ``values`` (oldest first) as a unicode sparkline of at
+    most ``width`` characters, min-max normalized; constant series draw
+    as a low flat line so "no movement" stays visually distinct from
+    "no data" (empty string)."""
+    vals = [float(v) for v in values][-width:]
+    if not vals:
+        return ""
+    lo, hi = min(vals), max(vals)
+    if hi <= lo:
+        return _SPARK_BLOCKS[1] * len(vals)
+    span = hi - lo
+    out = []
+    for v in vals:
+        idx = 1 + int((v - lo) / span * (len(_SPARK_BLOCKS) - 2))
+        out.append(_SPARK_BLOCKS[min(idx, len(_SPARK_BLOCKS) - 1)])
+    return "".join(out)
+
+
+Collector = Callable[[float], Dict[str, float]]
+
+
+def gauge_collector(family_name: str, series: str) -> Collector:
+    """Sample every child of a gauge family: the unlabeled child lands
+    as ``series``, labeled children as ``series.<label values>``."""
+
+    def collect(_now: float) -> Dict[str, float]:
+        family = metrics.REGISTRY.get(family_name)
+        if family is None:
+            return {}
+        out: Dict[str, float] = {}
+        for values, child in family.children():
+            name = series if not values else f"{series}.{'/'.join(values)}"
+            out[name] = child.value
+        return out
+
+    return collect
+
+
+def quantile_collector(family_name: str, q: float, series: str,
+                       scale: float = 1.0) -> Collector:
+    """Sample a histogram family's bucket-interpolated quantile per
+    child (the same estimate PromQL's histogram_quantile gives)."""
+
+    def collect(_now: float) -> Dict[str, float]:
+        family = metrics.REGISTRY.get(family_name)
+        if family is None:
+            return {}
+        out: Dict[str, float] = {}
+        for values, child in family.children():
+            if child.count == 0:
+                continue
+            name = series if not values else f"{series}.{'/'.join(values)}"
+            out[name] = child.quantile(q) * scale
+        return out
+
+    return collect
+
+
+def rate_collector(family_name: str, series: str) -> Collector:
+    """Per-second rate of a counter family's summed children between
+    consecutive samples (first sample yields nothing — a rate needs
+    two points)."""
+    state: Dict[str, Tuple[float, float]] = {}
+
+    def collect(now: float) -> Dict[str, float]:
+        family = metrics.REGISTRY.get(family_name)
+        if family is None:
+            return {}
+        total = sum(child.value for _, child in family.children())
+        prev = state.get("v")
+        state["v"] = (now, total)
+        if prev is None or now <= prev[0]:
+            return {}
+        return {series: max(0.0, (total - prev[1]) / (now - prev[0]))}
+
+    return collect
+
+
+def staleness_collector(series: str = "staleness_sec") -> Collector:
+    """Sample the data-path ledger's freshness clock by ASKING it (not
+    by reading the gauge): staleness grows with wall time while events
+    wait, so the passive gauge would freeze at its last note — this
+    collector recomputes it at the sample instant, which also refreshes
+    ``pio_model_staleness_seconds`` for plain /metrics scrapes."""
+
+    def collect(now: float) -> Dict[str, float]:
+        from predictionio_torch.obs import perfacct
+
+        return {series: perfacct.LEDGER.staleness_seconds(now)}
+
+    return collect
+
+
+def memacct_collector() -> Collector:
+    """Sample the device-memory plane by ASKING it (obs/memacct.py):
+    ``mem.headroom`` plus per-model ``mem.model_bytes.<model>`` ledger
+    totals — recomputed at the sample instant so the headroom gauge is
+    also fresh for plain /metrics scrapes (same stance as
+    :func:`staleness_collector`)."""
+
+    def collect(now: float) -> Dict[str, float]:
+        from predictionio_torch.obs import memacct
+
+        return memacct.timeline_points(now)
+
+    return collect
+
+
+def default_collectors() -> List[Collector]:
+    return [
+        gauge_collector("pio_train_mfu", "mfu"),
+        staleness_collector(),
+        memacct_collector(),
+        quantile_collector("pio_serving_request_seconds", 0.50,
+                           "serve_p50_ms", scale=1e3),
+        quantile_collector("pio_serving_request_seconds", 0.99,
+                           "serve_p99_ms", scale=1e3),
+        rate_collector("pio_http_requests_total", "http_rps"),
+        gauge_collector("pio_http_requests_in_flight", "inflight"),
+        # model-quality drift vs the shadow retrain (obs/quality.py):
+        # the dashboard /quality panel's sparklines ride these
+        gauge_collector("pio_model_quality_recall_vs_retrain",
+                        "quality.recall"),
+        gauge_collector("pio_model_quality_rmse_drift",
+                        "quality.rmse_drift"),
+    ]
+
+
+class Timeline:
+    """Per-series bounded rings of (unix_ts, value) samples."""
+
+    def __init__(self, interval: Optional[float] = None,
+                 capacity: Optional[int] = None,
+                 collectors: Optional[List[Collector]] = None):
+        self._interval = interval
+        self._capacity = capacity
+        self._collectors = (collectors if collectors is not None
+                            else default_collectors())
+        self._lock = threading.Lock()
+        self._series: Dict[str, "collections.deque"] = {}
+        self._last_sample = 0.0
+
+    def interval_sec(self) -> float:
+        """The sampling cadence (env read per call: monkeypatched test
+        cadences take effect immediately, like PIO_SLOW_MS)."""
+        if self._interval is not None:
+            return self._interval
+        return max(0.0, metrics.env_float("PIO_TIMELINE_INTERVAL_SEC",
+                                          DEFAULT_INTERVAL_SEC))
+
+    def capacity(self) -> int:
+        if self._capacity is not None:
+            return self._capacity
+        return max(2, metrics.env_int("PIO_TIMELINE_CAPACITY",
+                                      DEFAULT_CAPACITY))
+
+    def add_collector(self, fn: Collector) -> None:
+        with self._lock:
+            if fn not in self._collectors:
+                self._collectors.append(fn)
+
+    def remove_collector(self, fn: Collector) -> None:
+        """Deregister a collector (no-op when absent). Transient
+        sources (a fleet supervisor, a test fixture) must remove
+        themselves on stop, or the timeline pins them — and everything
+        they reference — for process lifetime while their dead series
+        clobber a successor's samples."""
+        with self._lock:
+            if fn in self._collectors:
+                self._collectors.remove(fn)
+
+    def sample(self, now: Optional[float] = None,
+               force: bool = False) -> bool:
+        """Take one sample of every collector (rate-limited by the
+        interval unless ``force``). Returns whether a sample was
+        recorded. Collector failures are isolated — one broken probe
+        must not stop the others' history."""
+        now = time.time() if now is None else now
+        with self._lock:
+            if not force and now - self._last_sample < self.interval_sec():  # graftlint: disable=JT15 — cadence and ring timestamps must share the injectable clock (tests drive synthetic now); splitting them onto monotonic would desynchronize spacing from the recorded ts
+                return False
+            self._last_sample = now
+            collectors = list(self._collectors)
+        points: Dict[str, float] = {}
+        for fn in collectors:
+            try:
+                points.update(fn(now))
+            except Exception:  # noqa: BLE001 — per-collector best effort
+                import logging
+
+                logging.getLogger(__name__).exception(
+                    "timeline collector %r failed", fn)
+        cap = self.capacity()
+        with self._lock:
+            for name, value in points.items():
+                ring = self._series.get(name)
+                if ring is None:
+                    if len(self._series) >= MAX_SERIES:
+                        continue
+                    ring = self._series[name] = collections.deque(
+                        maxlen=cap)
+                elif ring.maxlen != cap:
+                    ring = collections.deque(ring, maxlen=cap)
+                    self._series[name] = ring
+                # significant figures, not decimal places: a CPU-scale
+                # MFU of 1e-9 must not flatten to 0 in the ring
+                ring.append((round(now, 3), float(f"{float(value):.6g}")))
+        return True
+
+    def series(self) -> Dict[str, Any]:
+        """The payload ``GET /admin/timeline`` serves."""
+        with self._lock:
+            data = {name: [[ts, v] for ts, v in ring]
+                    for name, ring in sorted(self._series.items())}
+        return {
+            "interval_sec": self.interval_sec(),
+            "capacity": self.capacity(),
+            "series": data,
+        }
+
+    def clear(self) -> None:
+        with self._lock:
+            self._series.clear()
+            self._last_sample = 0.0
+
+
+#: the process-global timeline every server serves at /admin/timeline
+TIMELINE = Timeline()
+
+# ride the flight recorder's snapshot cadence (no thread of our own);
+# /admin/timeline reads also tick, so idle servers build history while
+# someone is watching
+flight.add_snapshot_listener(lambda: TIMELINE.sample(), name="timeline")

@@ -1,0 +1,372 @@
+"""Outbound-call policies: deadline, retry budget, circuit breaker.
+
+Copy of ``predictionio_tpu/resilience/policy.py`` with one change: a
+:class:`CircuitBreaker` reads its clock from ``clock=`` (an object with
+``time()`` and ``monotonic()``; the ``time`` module by default, which
+is what the JAX copy reads), so a test steps it instead of sleeping.
+What follows is the JAX module's account.
+
+Every outbound network call in the framework (storage REST transport,
+metrics pusher, alert webhook) runs under a :class:`Policy`:
+
+  deadline   per-attempt timeout the caller hands to its transport —
+             a hung peer can never strand the calling thread
+  retries    bounded retry budget for idempotent calls, exponential
+             backoff with FULL jitter (delay ~ U(0, min(cap,
+             base * 2^attempt)) — the AWS-architecture result: under
+             contention, full jitter spreads the retry storm instead
+             of synchronizing it)
+  breaker    per-target circuit breaker: after ``failure_threshold``
+             consecutive connection-level failures the circuit OPENS
+             and calls fail fast (no connect attempt, no timeout
+             wait); after ``reset_timeout`` one HALF-OPEN probe is let
+             through — success closes the circuit, failure re-opens it
+
+Breaker state is exported as the ``pio_circuit_state`` gauge
+(0 closed / 1 half-open / 2 open) and surfaced as the
+``circuit_breakers`` health probe (DEGRADED while any circuit is
+open), so an operator sees WHICH dependency is being routed around.
+
+Config (env, read at breaker creation):
+  PIO_BREAKER_THRESHOLD   consecutive failures before opening (default 5)
+  PIO_BREAKER_RESET_SEC   open -> half-open probe delay (default 15)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import random
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple, Type
+
+from predictionio_torch.obs import health, journal, metrics
+
+log = logging.getLogger(__name__)
+
+CLOSED = "closed"
+HALF_OPEN = "half_open"
+OPEN = "open"
+
+_STATE_RANK = {CLOSED: 0, HALF_OPEN: 1, OPEN: 2}
+
+_CIRCUIT_STATE = metrics.gauge(
+    "pio_circuit_state",
+    "Circuit breaker state per target (0 closed / 1 half-open / 2 open)",
+    ("target",),
+)
+_CIRCUIT_TRANSITIONS = metrics.counter(
+    "pio_circuit_transitions_total",
+    "Circuit breaker state transitions, by target and new state",
+    ("target", "state"),
+)
+_RETRY_TOTAL = metrics.counter(
+    "pio_retry_total",
+    "Policy-driven retry attempts (beyond the first try), by target",
+    ("target",),
+)
+_RETRY_EXHAUSTED = metrics.counter(
+    "pio_retry_exhausted_total",
+    "Calls that exhausted their retry budget, by target",
+    ("target",),
+)
+
+DEFAULT_BREAKER_THRESHOLD = 5
+DEFAULT_BREAKER_RESET_SEC = 15.0
+
+
+class CircuitOpenError(ConnectionError):
+    """Raised (fail-fast, no connect attempt) while a target's circuit
+    is open. ``retry_after`` is the seconds until the next half-open
+    probe is allowed — callers answering clients can forward it."""
+
+    def __init__(self, target: str, retry_after: float):
+        super().__init__(
+            f"circuit open for {target}: failing fast for another "
+            f"{retry_after:.1f}s (half-open probe then re-tests it)")
+        self.target = target
+        self.retry_after = retry_after
+
+
+class RetryBudgetExceeded(ConnectionError):
+    """Marker mixin-style error: ``Policy.run`` re-raises the LAST
+    underlying failure on exhaustion (callers keep their error
+    taxonomy); this type exists for callers that pass
+    ``raise_exhausted=True`` and want the budget itself named."""
+
+    def __init__(self, target: str, attempts: int, last: BaseException):
+        super().__init__(
+            f"retry budget exhausted for {target or 'call'} after "
+            f"{attempts} attempt(s): {type(last).__name__}: {last}")
+        self.attempts = attempts
+        self.last = last
+
+
+class CircuitBreaker:
+    """Per-target circuit breaker with half-open probing.
+
+    Consecutive-failure counting (not a rate): ``failure_threshold``
+    connection-level failures in a row open the circuit; any success
+    resets the count. While OPEN, ``allow()`` is False until
+    ``reset_timeout`` elapses, then exactly ``half_open_probes`` calls
+    are let through as probes — a probe success closes the circuit, a
+    probe failure re-opens it and re-arms the timer."""
+
+    def __init__(self, target: str,
+                 failure_threshold: Optional[int] = None,
+                 reset_timeout: Optional[float] = None,
+                 half_open_probes: int = 1, clock: Any = time):
+        self.target = target
+        self._clock = clock
+        self.failure_threshold = max(1, int(
+            failure_threshold if failure_threshold is not None
+            else metrics.env_int("PIO_BREAKER_THRESHOLD",
+                                 DEFAULT_BREAKER_THRESHOLD)))
+        self.reset_timeout = max(0.001, float(
+            reset_timeout if reset_timeout is not None
+            else metrics.env_float("PIO_BREAKER_RESET_SEC",
+                                   DEFAULT_BREAKER_RESET_SEC)))
+        self.half_open_probes = max(1, int(half_open_probes))
+        self._lock = threading.Lock()
+        self._state = CLOSED
+        self._failures = 0
+        self._opened_at = 0.0        # monotonic
+        self._half_open_at = 0.0     # monotonic
+        self._probes_in_flight = 0
+        self._last_change_unix = self._clock.time()
+        _CIRCUIT_STATE.labels(target).set(0.0)
+
+    # -- state machine ------------------------------------------------------
+    def _transition(self, state: str) -> None:
+        # lock held by caller
+        if state == self._state:
+            return
+        self._state = state
+        self._last_change_unix = self._clock.time()
+        _CIRCUIT_STATE.labels(self.target).set(float(_STATE_RANK[state]))
+        _CIRCUIT_TRANSITIONS.labels(self.target, state).inc()
+        # the ops journal gets every flip (fire-and-forget ring/queue
+        # append — safe under this lock): a breaker opening is exactly
+        # the causal event the anomaly sentinel joins a latency shift to
+        journal.emit("breaker", target=self.target, state=state,
+                     failures=self._failures)
+        log.log(logging.WARNING if state == OPEN else logging.INFO,
+                "circuit %s: %s (failures=%d)", self.target, state,
+                self._failures)
+
+    def allow(self) -> bool:
+        """Whether a call may proceed right now (OPEN circuits start
+        letting half-open probes through once the reset timer lapses)."""
+        with self._lock:
+            if self._state == CLOSED:
+                return True
+            now = self._clock.monotonic()
+            if self._state == OPEN:
+                if now - self._opened_at < self.reset_timeout:
+                    return False
+                self._transition(HALF_OPEN)
+                self._half_open_at = now
+                self._probes_in_flight = 0
+            # half-open: a bounded number of concurrent probes. A probe
+            # that never reported a verdict (abandoned stream, crashed
+            # caller) must not wedge the circuit half-open forever:
+            # after another reset_timeout of silence the slots recycle.
+            if self._probes_in_flight >= self.half_open_probes:
+                if now - self._half_open_at < self.reset_timeout:
+                    return False
+                self._half_open_at = now
+                self._probes_in_flight = 0
+            self._probes_in_flight += 1
+            return True
+
+    def record_success(self) -> None:
+        with self._lock:
+            self._failures = 0
+            self._probes_in_flight = 0
+            if self._state != CLOSED:
+                self._transition(CLOSED)
+
+    def record_failure(self) -> None:
+        with self._lock:
+            self._failures += 1
+            if self._state == HALF_OPEN or (
+                    self._state == CLOSED
+                    and self._failures >= self.failure_threshold):
+                self._opened_at = self._clock.monotonic()
+                self._probes_in_flight = 0
+                self._transition(OPEN)
+
+    # -- introspection ------------------------------------------------------
+    @property
+    def state(self) -> str:
+        with self._lock:
+            return self._state
+
+    def retry_after(self) -> float:
+        """Seconds until the next half-open probe may run (0 when the
+        circuit is not open)."""
+        with self._lock:
+            if self._state != OPEN:
+                return 0.0
+            return max(0.0, self.reset_timeout
+                       - (self._clock.monotonic() - self._opened_at))
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "target": self.target,
+                "state": self._state,
+                "consecutive_failures": self._failures,
+                "failure_threshold": self.failure_threshold,
+                "reset_timeout_sec": self.reset_timeout,
+                "since_unix": round(self._last_change_unix, 3),
+            }
+
+
+# -- process-global breaker registry ------------------------------------------
+
+_breakers: Dict[str, CircuitBreaker] = {}
+_breakers_lock = threading.Lock()
+
+
+def _circuit_probe() -> health.ProbeResult:
+    """Health probe over every breaker: an OPEN circuit is DEGRADED —
+    the dependency is being routed around, serving continues (the
+    dependency's own probe says FAILED if the server truly cannot
+    work without it)."""
+    broken = sorted(b.target for b in breakers() if b.state == OPEN)
+    if broken:
+        return health.degraded(
+            f"circuit open: {', '.join(broken)} — calls fail fast until "
+            "a half-open probe succeeds")
+    n = len(_breakers)
+    return health.ok(f"{n} circuit(s) closed" if n else "no circuits yet")
+
+
+def breaker_for(target: str, **kwargs) -> CircuitBreaker:
+    """The process-wide breaker for ``target`` (one per outbound
+    endpoint), created on first use. First use also registers the
+    ``circuit_breakers`` health probe so ``/readyz`` reports open
+    circuits without per-server wiring."""
+    with _breakers_lock:
+        breaker = _breakers.get(target)
+        if breaker is None:
+            if not _breakers:
+                health.REGISTRY.register("circuit_breakers", _circuit_probe)
+            breaker = CircuitBreaker(target, **kwargs)
+            _breakers[target] = breaker
+        return breaker
+
+
+def breakers() -> List[CircuitBreaker]:
+    with _breakers_lock:
+        return list(_breakers.values())
+
+
+def breakers_snapshot() -> List[Dict[str, Any]]:
+    return [b.snapshot() for b in breakers()]
+
+
+def reset_breakers() -> None:
+    """Drop every breaker (tests; each test starts with closed
+    circuits instead of inheriting a previous test's open one)."""
+    with _breakers_lock:
+        for b in _breakers.values():
+            _CIRCUIT_STATE.labels(b.target).set(0.0)
+        _breakers.clear()
+
+
+# -- the policy ----------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Policy:
+    """One outbound call's resilience contract.
+
+    ``deadline`` is the per-attempt transport timeout — ``run`` does
+    not enforce it itself (urllib/socket do), it carries it so every
+    call site reads its deadline from one object instead of scattering
+    magic numbers. ``retries`` is the budget BEYOND the first attempt,
+    spent only when the caller marks the call idempotent."""
+
+    deadline: float = 10.0
+    retries: int = 3
+    backoff_base: float = 0.2
+    backoff_cap: float = 10.0
+
+    def backoff_seconds(self, attempt: int,
+                        rng: Optional[random.Random] = None) -> float:
+        """Full-jitter backoff for retry number ``attempt`` (0-based):
+        uniform over [0, min(cap, base * 2^attempt)]."""
+        ceiling = min(self.backoff_cap, self.backoff_base * (2 ** attempt))
+        return (rng or random).uniform(0.0, ceiling)
+
+    def run(
+        self,
+        fn: Callable[[], Any],
+        *,
+        target: str = "",
+        idempotent: bool = True,
+        retry_on: Tuple[Type[BaseException], ...] = (ConnectionError,
+                                                     TimeoutError, OSError),
+        breaker: Optional[CircuitBreaker] = None,
+        sleep: Callable[[float], None] = time.sleep,
+        raise_exhausted: bool = False,
+    ) -> Any:
+        """Run ``fn`` under this policy.
+
+        Exceptions matching ``retry_on`` are connection-class failures:
+        they count against the target's breaker and, for idempotent
+        calls, against the retry budget (with jittered backoff between
+        attempts). Anything else is an APPLICATION answer (an HTTP
+        error body, a validation failure): it propagates immediately
+        and leaves the breaker alone. On budget exhaustion the last
+        failure re-raises (or :class:`RetryBudgetExceeded` when
+        ``raise_exhausted``). While the breaker is open, calls raise
+        :class:`CircuitOpenError` without attempting the transport."""
+        if breaker is None and target:
+            breaker = breaker_for(target)
+        # the breaker gates ADMISSION, not individual attempts: a call
+        # admitted while the circuit was closed keeps its whole retry
+        # budget even if its own failures open the circuit mid-call —
+        # otherwise a recovering target could never be reached by the
+        # very retries meant to ride out its blip (each failure still
+        # feeds the breaker, so NEW calls fail fast immediately)
+        if breaker is not None and not breaker.allow():
+            raise CircuitOpenError(breaker.target, breaker.retry_after())
+        attempts = 1 + (max(0, self.retries) if idempotent else 0)
+        last: Optional[BaseException] = None
+        for attempt in range(attempts):
+            if attempt:
+                _RETRY_TOTAL.labels(target or "call").inc()
+                sleep(self.backoff_seconds(attempt - 1))
+            try:
+                result = fn()
+            except retry_on as e:
+                if breaker is not None:
+                    breaker.record_failure()
+                last = e
+                continue
+            except Exception:
+                # an application-level answer (HTTP error body, a
+                # validation failure): the target IS reachable — count
+                # it as breaker success so a half-open probe slot is
+                # never stranded — and propagate without retrying.
+                # BaseException (KeyboardInterrupt, SystemExit) says
+                # nothing about the target: it propagates with no
+                # breaker verdict (an orphaned half-open probe slot
+                # recycles after reset_timeout).
+                if breaker is not None:
+                    breaker.record_success()
+                raise
+            if breaker is not None:
+                breaker.record_success()
+            return result
+        if attempts > 1:
+            # only calls that HAD a retry budget count as exhausting
+            # one — a failed non-retrying call is just a failure
+            _RETRY_EXHAUSTED.labels(target or "call").inc()
+        assert last is not None  # attempts >= 1, loop only falls through on error
+        if raise_exhausted:
+            raise RetryBudgetExceeded(target, attempts, last) from last
+        raise last

@@ -51,9 +51,34 @@ when the instance would not fit, ``?force=1`` overrides) and releases
 the old deployment's footprints, ``stop`` releases the live one's.
 Reloads and patches go to the ops journal and
 ``pio_model_patches_total``; ``GET /`` ``patches`` keeps its per-server
-counts. Not here yet: admission control, SLOs, the feedback loop and
-the remote log (ROADMAP item 6), and the query-coverage probe of
-``obs/dataobs.py`` (item 10).
+counts.
+
+The operator contract (the JAX server's resilience hooks):
+
+  - admission control (``resilience/admission.py``): ``POST
+    /queries.json`` is checked BEFORE its body is read; an overloaded
+    server answers 429 with ``Retry-After`` from its queue depth, its
+    in-flight count or the serving-latency SLO's burn, and notes the
+    shed in the request's flight record. Thresholds: the
+    ``PIO_SHED_*`` environment, then ``PIO_SLO_FILE``'s ``shed`` block,
+    then the engine variant's ``slo.shed`` block (``slo_conf``), whose
+    objectives are layered over the file's (``obs/slo.py``);
+  - the storage circuit breaker (``breaker_for("storage:<engine>")``)
+    behind ``degraded_reason`` and the ``/readyz`` storage probe: two
+    failed probes or reloads open it, and while it is open the probe
+    fails fast and answers carry ``X-PIO-Degraded``;
+  - ``chaos_tag`` (or ``PIO_CHAOS_TAG``) names this server's
+    ``batcher`` chaos seam, so a rule can fault one fleet replica;
+  - the feedback loop (ref: CreateServer.scala:488-550): with
+    ``feedback_url`` and ``feedback_access_key`` every answer object
+    gets a ``prId`` and a ``predict`` event goes, on a thread of its
+    own, to ``{feedback_url}/events.json?accessKey=...`` with the
+    request's trace headers;
+  - ``remote_log`` (ref: CreateServer.scala:413-424): a query's 500 and
+    a failed reload POST an error line to ``log_url``.
+
+The query-coverage probe of ``obs/dataobs.py`` is not ported (ROADMAP
+item 10).
 """
 
 from __future__ import annotations
@@ -61,18 +86,27 @@ from __future__ import annotations
 import datetime as _dt
 import json
 import logging
+import os
 import queue as _queue
 import threading
 import time
+import urllib.request
+import uuid
 import weakref
 from typing import Any, Callable, List, Optional
 from urllib.parse import parse_qs, urlparse
 
 from predictionio_torch.core.engine import Engine
-from predictionio_torch.data.storage import Storage, get_storage
+from predictionio_torch.data.storage import (Storage, StorageError,
+                                             get_storage)
 from predictionio_torch.obs import (flight, health, journal, memacct,
                                     metrics, trace)
+from predictionio_torch.obs import slo as slo_mod
 from predictionio_torch.parallel.context import DeviceContext, DeviceLike
+from predictionio_torch.resilience import chaos
+from predictionio_torch.resilience.admission import AdmissionController
+from predictionio_torch.resilience.policy import CLOSED as _BREAKER_CLOSED
+from predictionio_torch.resilience.policy import breaker_for
 from predictionio_torch.serving.http import (HTTPServerBase,
                                              JSONRequestHandler,
                                              _admin_authorized)
@@ -175,14 +209,18 @@ class MicroBatcher:
     at once, and batches form while the worker is busy. A failing batch
     falls back to per-item evaluation so one malformed query fails
     alone. Each dispatch runs under the ``serving_dispatch`` watchdog,
-    and the queue depth is a readiness probe (``PIO_QUEUE_DEPTH_LIMIT``,
-    default 8 x ``max_batch``)."""
+    with the ``batcher`` chaos seam (tagged ``chaos_tag``) inside its
+    window, and the queue depth is a readiness probe
+    (``PIO_QUEUE_DEPTH_LIMIT``, default 8 x ``max_batch``), named per
+    replica when tagged."""
 
     def __init__(self, run_batch: Callable[[List[Any]], List[Any]],
-                 run_one: Callable[[Any], Any], max_batch: int = 64):
+                 run_one: Callable[[Any], Any], max_batch: int = 64,
+                 chaos_tag: Optional[str] = None):
         self._run_batch = run_batch
         self._run_one = run_one
         self._max_batch = max_batch
+        self._chaos_tag = chaos_tag
         self._queue: "_queue.Queue[_Pending]" = _queue.Queue()
         # readiness probe over the queue depth (weakref: a dropped
         # batcher must not be kept alive by the health registry)
@@ -191,7 +229,11 @@ class MicroBatcher:
             lambda: (q.qsize() if (q := queue_ref()) is not None
                      else None),
             max(1, metrics.env_int("PIO_QUEUE_DEPTH_LIMIT", max_batch * 8)))
-        health.REGISTRY.register("serving_queue", self._queue_probe)
+        # threaded fleet replicas share the process registry: each
+        # tagged batcher registers a probe of its own
+        self._probe_name = ("serving_queue" if chaos_tag is None
+                            else f"serving_queue:{chaos_tag}")
+        health.REGISTRY.register(self._probe_name, self._queue_probe)
         self._hist_lock = threading.Lock()
         self._hist: dict = {}
         self._stop = False
@@ -221,7 +263,7 @@ class MicroBatcher:
             self._stop = True
             self._queue.put(_Pending(None))  # wake the worker
         # only OUR probe: a newer batcher's live probe survives this stop
-        health.REGISTRY.unregister("serving_queue", self._queue_probe)
+        health.REGISTRY.unregister(self._probe_name, self._queue_probe)
         self._worker.join(timeout=60)
 
     def _loop(self) -> None:
@@ -239,6 +281,10 @@ class MicroBatcher:
                     break
             try:
                 with _DISPATCH_WATCHDOG.watch():
+                    # chaos seam: an injected hang lands inside the
+                    # watchdog's window, an injected error fails this
+                    # batch's waiters
+                    chaos.inject("batcher", tag=self._chaos_tag)
                     self._answer(batch)
             except Exception as e:  # noqa: BLE001 — a dead worker starves
                 # every later submitter; fail THIS batch, keep looping
@@ -257,6 +303,11 @@ class MicroBatcher:
             if p.payload is not None and not p.event.is_set():
                 p.error = RuntimeError("serving batcher stopped")
                 p.event.set()
+
+    def queue_depth(self) -> int:
+        """Requests waiting for the worker now (the admission
+        controller's first shed signal)."""
+        return self._queue.qsize()
 
     def histogram(self) -> dict:
         """Dispatch-size distribution since start: {"1": lone requests,
@@ -344,7 +395,7 @@ class EngineServer(HTTPServerBase):
 
     ``device`` says where the models serve from: ``None`` means the card
     and raises without CUDA; ``"cpu"`` runs the plain versions on the
-    CPU."""
+    CPU. The other arguments are the JAX server's (module docstring)."""
 
     def __init__(
         self,
@@ -357,6 +408,13 @@ class EngineServer(HTTPServerBase):
         storage: Optional[Storage] = None,
         micro_batch: bool = True,
         device: DeviceLike = None,
+        feedback_url: Optional[str] = None,
+        feedback_access_key: Optional[str] = None,
+        log_url: Optional[str] = None,
+        bind_retries: int = BIND_RETRIES,
+        max_batch: int = 64,
+        slo_conf: Optional[dict] = None,
+        chaos_tag: Optional[str] = None,
     ):
         self.engine = engine
         self.engine_id = engine_id
@@ -364,20 +422,50 @@ class EngineServer(HTTPServerBase):
         self.engine_variant = engine_variant
         self.ctx = DeviceContext(device)
         self.storage = storage or get_storage()
+        self.feedback_url = feedback_url
+        self.feedback_access_key = feedback_access_key
+        self.log_url = log_url
         self.stats = ServingStats(engine_id)
         #: the reason of the last failed /readyz storage probe (None
         #: while storage answers): the server is then serving degraded
         self._storage_down: Optional[str] = None
+        # the degraded-mode circuit, fed by the readiness storage probe
+        # and by reloads: while it is not closed the last-loaded model
+        # answers with X-PIO-Degraded and /readyz says DEGRADED
+        self._storage_breaker = breaker_for(f"storage:{engine_id}",
+                                            failure_threshold=2)
         self._deployment_lock = threading.Lock()
         #: model patches by outcome (``apply_patch``)
         self.patches = {"applied": 0, "rejected": 0, "stale": 0}
         self._patches_lock = threading.Lock()
         self.deployment: Deployment = self._load(None)
+        # a fleet replica is tagged by its supervisor (a subprocess
+        # replica through PIO_CHAOS_TAG); a lone server stays untagged
+        self.chaos_tag = chaos_tag or os.environ.get("PIO_CHAOS_TAG") or None
         self._batcher: Optional[MicroBatcher] = (
-            MicroBatcher(self._query_batch_now, self._query_now)
+            MicroBatcher(self._query_batch_now, self._query_now,
+                         max_batch=max_batch, chaos_tag=self.chaos_tag)
             if micro_batch else None)
+        # admission control: the env defaults, then PIO_SLO_FILE's
+        # "shed" block, then the variant's "slo.shed" (most specific
+        # wins); the variant's objectives are layered over the file's
+        file_conf = slo_mod.configure_from_env() or {}
+        if slo_conf:
+            slo_mod.configure({**file_conf, **slo_conf})
+        self.admission = AdmissionController(
+            "engine",
+            queue_depth=lambda: (self._batcher.queue_depth()
+                                 if self._batcher is not None else None),
+            inflight=lambda: float(self.inflight_count()),
+            max_queue_depth=metrics.env_int("PIO_SHED_QUEUE_DEPTH",
+                                            max_batch * 4),
+        )
+        for conf in (file_conf, slo_conf or {}):
+            shed = conf.get("shed") if isinstance(conf, dict) else None
+            if shed:
+                self.admission.configure(shed)
         super().__init__(host, port, _EngineRequestHandler,
-                         bind_retries=BIND_RETRIES)
+                         bind_retries=bind_retries)
         # the devices probe checks this deployment's card from now on
         health.register_device(self.ctx.device)
 
@@ -420,15 +508,27 @@ class EngineServer(HTTPServerBase):
         its stored blob first and raises :class:`memacct.
         PreflightRefused` when it would exceed the device's headroom,
         unless ``force``. The swap releases the old deployment's
-        ledger footprints."""
-        instance = self._resolve_instance(instance_id)
+        ledger footprints. A reload that fails on storage feeds the
+        degraded-mode circuit; one that succeeds closes it."""
+        try:
+            instance = self._resolve_instance(instance_id)
+        except (StorageError, ConnectionError):
+            self._storage_breaker.record_failure()
+            raise
+        # a refused preflight is a capacity verdict, not a storage
+        # failure: outside the breaker's accounting
         try:
             memacct.preflight_check(instance.id, self.storage, force=force)
         except memacct.PreflightRefused as e:
             journal.emit("preflight_refused", instance=instance.id,
                          detail=str(e)[:200])
             raise
-        deployment = self._load(instance.id)
+        try:
+            deployment = self._load(instance.id)
+        except (StorageError, ConnectionError):
+            self._storage_breaker.record_failure()
+            raise
+        self._storage_breaker.record_success()
         with self._deployment_lock:
             old, self.deployment = self.deployment, deployment
         journal.emit("reload", instance=deployment.instance.id,
@@ -502,12 +602,12 @@ class EngineServer(HTTPServerBase):
 
     # -- degraded mode ------------------------------------------------------
     def degraded_reason(self) -> Optional[str]:
-        """Non-None while serving degraded: the last storage probe
-        failed, so the last-loaded model answers but reloads cannot be
-        trusted. The string is the ``X-PIO-Degraded`` response header.
-        (The JAX server also opens a circuit breaker here; the breaker
-        is ``resilience/``, ROADMAP item 13.)"""
-        if self._storage_down is None:
+        """Non-None while serving degraded: the storage circuit is not
+        closed, or the last storage probe failed, so the last-loaded
+        model answers but reloads and feedback cannot be trusted. The
+        string is the ``X-PIO-Degraded`` response header."""
+        if (self._storage_down is None
+                and self._storage_breaker.state == _BREAKER_CLOSED):
             return None
         with self._deployment_lock:
             instance_id = self.deployment.instance.id
@@ -517,17 +617,27 @@ class EngineServer(HTTPServerBase):
     def storage_readyz_probe(self) -> health.ProbeResult:
         """The engine server's ``/readyz`` storage probe: storage loss
         while a model is loaded is DEGRADED, not FAILED — the server can
-        still answer queries; it cannot reload."""
+        still answer queries; it cannot reload. The probe feeds the
+        degraded-mode circuit: consecutive failures open it (probes then
+        fail fast instead of stalling on a dead backend), and the
+        half-open probe's success closes it."""
+        breaker = self._storage_breaker
+        if not breaker.allow():
+            return health.degraded(
+                f"storage circuit open (next probe in "
+                f"{breaker.retry_after():.0f}s); {self.degraded_reason()}")
         try:
             result = health.storage_probe(self.storage)
         except Exception as e:  # noqa: BLE001 — a raising probe IS the finding
             result = health.failed(f"{type(e).__name__}: {e}")
         if result.status == health.FAILED:
             self._storage_down = result.reason
+            breaker.record_failure()
             return health.degraded(
                 f"{result.reason}; serving degraded from the last-loaded "
                 "model")
         self._storage_down = None
+        breaker.record_success()
         return result
 
     # -- query path ---------------------------------------------------------
@@ -551,7 +661,64 @@ class EngineServer(HTTPServerBase):
                 result = self._query_now(payload)
                 flight.note_stage("dispatch", time.perf_counter() - t_disp)
         self.stats.record(time.perf_counter() - t0)
+        if self.feedback_url and self.feedback_access_key:
+            # prId lets follow-up events join back to this prediction
+            pr_id = uuid.uuid4().hex
+            if isinstance(result, dict):
+                result = {**result, "prId": pr_id}
+            with self._deployment_lock:
+                instance_id = self.deployment.instance.id
+            threading.Thread(
+                target=self._send_feedback,
+                args=(payload, result, pr_id, instance_id,
+                      trace.traced_headers()),
+                daemon=True, name="pio-feedback").start()
         return result
+
+    @staticmethod
+    def _post_json(url: str, payload: Any, what: str,
+                   headers: dict) -> None:
+        """One best-effort JSON POST (the feedback loop and the remote
+        error log; failures are logged, never raised). ``headers`` are
+        the trace headers of the request it reports on, taken on that
+        request's thread."""
+        try:
+            req = urllib.request.Request(
+                url, data=json.dumps(payload).encode(),
+                headers={"Content-Type": "application/json", **headers},
+                method="POST")
+            urllib.request.urlopen(req, timeout=5).close()
+        except Exception as e:  # noqa: BLE001 — best-effort
+            log.warning("%s POST failed: %s", what, e)
+
+    def remote_log(self, message: str, level: str = "ERROR") -> None:
+        """POST an error line to ``log_url`` on a thread of its own
+        (fire-and-forget: a dead log endpoint never affects serving)."""
+        if not self.log_url:
+            return
+        payload = {"level": level, "message": message,
+                   "engineId": self.engine_id,
+                   "engineVariant": self.engine_variant}
+        threading.Thread(
+            target=self._post_json,
+            args=(self.log_url, payload, "remote log",
+                  trace.traced_headers()),
+            daemon=True, name="pio-remote-log").start()
+
+    def _send_feedback(self, query: Any, prediction: Any, pr_id: str,
+                       instance_id: str, headers: dict) -> None:
+        """The asynchronous ``predict`` event of the feedback loop."""
+        event = {
+            "event": "predict",
+            "entityType": "pio_pr",
+            "entityId": instance_id,
+            "prId": pr_id,
+            "properties": {"query": query, "prediction": prediction},
+        }
+        self._post_json(
+            f"{self.feedback_url}/events.json?accessKey="
+            f"{self.feedback_access_key}", event, "feedback loop",
+            headers=headers)
 
     def stop(self) -> None:
         if self._batcher is not None:
@@ -585,7 +752,11 @@ class EngineServer(HTTPServerBase):
             "batcher": (self._batcher.histogram()
                         if self._batcher is not None else None),
             "patches": dict(self.patches),
+            # the resilience surface: shed limits and counts, degraded
+            # mode, the storage circuit
+            "admission": self.admission.snapshot(),
             "degraded": self.degraded_reason(),
+            "storageCircuit": self._storage_breaker.snapshot(),
             # each model's BUILT retrieval index (kernel plan + launches)
             "retrieval": [m.retrieval_stats()
                           if hasattr(m, "retrieval_stats") else None
@@ -608,6 +779,7 @@ class _EngineRequestHandler(JSONRequestHandler):
             try:
                 instance_id = self.server_ref.reload(target, force=force)
             except InstanceNotFound as e:
+                self.server_ref.remote_log(f"reload failed: {e}")
                 self._send(404, {"message": str(e)})
                 return
             except memacct.PreflightRefused as e:
@@ -618,6 +790,8 @@ class _EngineRequestHandler(JSONRequestHandler):
                 return
             except Exception as e:  # noqa: BLE001 — load or warm-up failed
                 log.exception("reload failed")
+                self.server_ref.remote_log(
+                    f"reload failed: {type(e).__name__}: {e}")
                 self._send(500, {"message": f"{type(e).__name__}: {e}"})
                 return
             self._send(200, {"message": "reloaded",
@@ -638,6 +812,18 @@ class _EngineRequestHandler(JSONRequestHandler):
             self._send(404, {"message": "Not Found"})
 
     def _query(self):
+        # admission control first, before the body is read: an
+        # overloaded server's cheapest work is saying no
+        decision = self.server_ref.admission.check()
+        if decision is not None:
+            flight.note_field("shed", decision.reason)
+            self._send(
+                429,
+                {"message": "overloaded — retry after the advised delay",
+                 "reason": decision.reason, "detail": decision.detail,
+                 "retryAfterSec": decision.retry_after},
+                extra_headers={"Retry-After": str(decision.retry_after)})
+            return
         try:
             payload = self._read_json()
         except json.JSONDecodeError as e:
@@ -658,6 +844,8 @@ class _EngineRequestHandler(JSONRequestHandler):
             # the answered-500 path never raises through the wrapper: the
             # flight record must carry WHAT failed
             flight.note_field("error", f"{type(e).__name__}: {e}")
+            self.server_ref.remote_log(
+                f"query failed: {type(e).__name__}: {e}")
             self._send(500, {"message": f"{type(e).__name__}: {e}"})
             return
         degraded = self.server_ref.degraded_reason()

@@ -16,6 +16,14 @@ Every server inherits, from the ``_instrument`` wrapper:
                          trace as a tree              }
   GET  /admin/journal    ops journal ring             }
   GET  /admin/memory     device-memory accounting     }
+  GET  /admin/slo        SLO burn-rate evaluation     }
+  GET/POST /admin/chaos  fault-injection rule set     }
+  GET  /admin/resilience breaker/admission/chaos      }
+  GET  /admin/timeline   metric timelines + the       }
+                         data-path ledger             }
+  GET/POST /admin/quality model-quality report        }
+  GET/POST /admin/fleet  replica fleet snapshot and   }
+                         control (404 without a fleet)}
 
 and the request telemetry: a trace context per request (an accepted
 or minted ``X-PIO-Trace-Id``, echoed on the response), a flight record,
@@ -26,9 +34,12 @@ stopped server keep a count per server instance, since one process
 may run two servers of a class (an engine server per deployment).
 
 The JAX admin routes of modules not ported yet answer 501 with a JSON
-error naming their ROADMAP item (:data:`UNPORTED_ADMIN`). The
-continuous host profiler, the env-driven pusher, alert sink, SLO and
-chaos services a JAX server starts are not ported either.
+error naming their ROADMAP item (:data:`UNPORTED_ADMIN`). A server's
+``start()`` starts the environment's process services, as a JAX
+server's does: the SLO alert webhook sink (``PIO_ALERT_WEBHOOK_URL``),
+the SLO objectives (``PIO_SLO_FILE``) and the chaos rules
+(``PIO_CHAOS``). The continuous host profiler and the metrics pusher
+are not ported (ROADMAP.md, queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -46,7 +57,10 @@ from typing import Any, Optional
 from urllib.parse import parse_qs, urlparse
 
 from predictionio_torch.obs import (flight, health, journal, memacct,
-                                    metrics, profiler, trace)
+                                    metrics, perfacct, profiler, slo,
+                                    timeline, trace)
+from predictionio_torch.resilience import alerts, chaos
+from predictionio_torch.resilience import policy as respolicy
 
 log = logging.getLogger(__name__)
 
@@ -67,15 +81,14 @@ _IN_FLIGHT = metrics.gauge(
 )
 
 #: the JAX package's admin routes whose modules are not ported yet,
-#: each with the ROADMAP.md item (queue 1) that ports it
+#: each with the ROADMAP.md item (queue 1) that ports it: the fleet
+#: federation routes go through ``obs/collect.py``
 UNPORTED_ADMIN = {
-    "/admin/slo": 6, "/admin/fleet": 6, "/admin/fleet/metrics": 6,
-    "/admin/fleet/tail": 6, "/admin/fleet/prof": 6,
-    "/admin/fleet/journal": 6, "/admin/fleet/anomaly": 6,
-    "/admin/fleet/data": 6,
-    "/admin/timeline": 10, "/admin/tail": 10, "/admin/prof": 10,
-    "/admin/anomaly": 10, "/admin/data": 10, "/admin/quality": 10,
-    "/admin/chaos": 13, "/admin/resilience": 13,
+    "/admin/fleet/metrics": 10, "/admin/fleet/tail": 10,
+    "/admin/fleet/prof": 10, "/admin/fleet/journal": 10,
+    "/admin/fleet/anomaly": 10, "/admin/fleet/data": 10,
+    "/admin/tail": 10, "/admin/prof": 10, "/admin/anomaly": 10,
+    "/admin/data": 10,
 }
 
 #: path segments that are data ids (event/model/scan ids, uuid hexes):
@@ -228,7 +241,8 @@ def _serve_admin_spans(handler, query: str) -> None:
 def _serve_admin_trace(handler, query: str) -> None:
     """``GET /admin/trace?id=<trace>``: this process's spans of one
     trace assembled into an annotated tree (the JAX route also fans out
-    to a fleet's members; the port has no fleet, ROADMAP item 6)."""
+    to a fleet's members through ``obs/collect.py``, ROADMAP item 10;
+    a threaded fleet's replicas share this process's span ring)."""
     params = parse_qs(query)
     trace_id = (params.get("id") or params.get("trace") or [None])[0]
     if not trace_id or not trace.valid_trace_id(trace_id):
@@ -253,6 +267,115 @@ def _serve_admin_journal(handler, query: str) -> None:
     handler._send(200, journal.JOURNAL.page(n=n, kind=kind, since=since))
 
 
+def _serve_admin_quality(handler) -> None:
+    """``GET /admin/quality``: the model-quality report (obs/quality.py
+    STATE): the latest drift probe and replay comparison, the canary's
+    progress and verdict. ``POST /admin/quality`` with ``{"replay":
+    {...}}`` and/or ``{"drift": {...}}`` registers a report computed
+    elsewhere (``pio replay`` pushes its result here)."""
+    from predictionio_torch.obs import quality
+
+    if handler.command == "GET":
+        handler._send(200, quality.STATE.report())
+        return
+    if handler.command != "POST":
+        handler._send(405, {"message": "GET or POST"})
+        return
+    try:
+        payload = handler._read_json()
+    except json.JSONDecodeError as e:
+        handler._send(400, {"message": f"invalid JSON: {e}"})
+        return
+    registered = []
+    if isinstance(payload, dict):
+        if isinstance(payload.get("replay"), dict):
+            quality.STATE.set_replay(payload["replay"])
+            registered.append("replay")
+        if isinstance(payload.get("drift"), dict):
+            quality.STATE.set_drift(payload["drift"])
+            registered.append("drift")
+    if not registered:
+        handler._send(400, {"message": 'body needs a "replay" and/or '
+                                       '"drift" object'})
+        return
+    handler._send(200, {"message": "registered: " + ", ".join(registered)})
+
+
+def _serve_admin_chaos(handler) -> None:
+    """``GET /admin/chaos``: the active fault-injection rule set.
+    ``POST /admin/chaos``: ``{"spec": "..."}`` replaces it, ``{"add":
+    "..."}`` appends, ``{"clear": true | "site"}`` drops
+    (resilience/chaos.py spec grammar)."""
+    if handler.command == "GET":
+        handler._send(200, chaos.describe())
+        return
+    if handler.command != "POST":
+        handler._send(405, {"message": "GET or POST"})
+        return
+    try:
+        payload = handler._read_json()
+        result = chaos.apply_admin(payload)
+    except (json.JSONDecodeError, ValueError) as e:
+        handler._send(400, {"message": str(e)})
+        return
+    handler._send(200, result)
+
+
+def _serve_admin_timeline(handler) -> None:
+    """``GET /admin/timeline``: the metric-timeline rings
+    (obs/timeline.py) plus the data-path ledger and staleness clock
+    (obs/perfacct.py). The read ticks the sampler (rate-limited by the
+    cadence), so watching a server builds its history."""
+    timeline.TIMELINE.sample()
+    payload = timeline.TIMELINE.series()
+    payload["datapath"] = perfacct.LEDGER.snapshot()
+    handler._send(200, payload)
+
+
+def _serve_admin_fleet(handler) -> None:
+    """``GET /admin/fleet``: the replica fleet's snapshot (states,
+    versions, restart counts, swap and canary progress). ``POST
+    /admin/fleet``: ``{"reload": true}`` starts a rolling hot-swap,
+    ``{"drain"|"readmit": "<replica>"}`` moves a replica out of or back
+    into rotation, ``{"canary": "start"|"promote"|"rollback"}`` drives
+    the canary lane. 404 on a server that supervises no fleet."""
+    fleet = getattr(handler.server_ref, "fleet", None)
+    if fleet is None:
+        handler._send(404, {"message": "no fleet supervised by this "
+                                       "server"})
+        return
+    if handler.command == "GET":
+        handler._send(200, fleet.snapshot())
+        return
+    if handler.command != "POST":
+        handler._send(405, {"message": "GET or POST"})
+        return
+    try:
+        result = fleet.apply_admin(handler._read_json())
+    except (json.JSONDecodeError, ValueError) as e:
+        handler._send(400, {"message": str(e)})
+        return
+    if "started" in result:
+        # as the router's GET /reload: 202 for a swap started now, 409
+        # when one is running already
+        handler._send(202 if result["started"] else 409, result)
+        return
+    handler._send(200, result)
+
+
+def _serve_admin_resilience(handler) -> None:
+    """``GET /admin/resilience``: the circuit breakers, this server's
+    admission controller (None where it has none) and the active chaos
+    rules: the degraded-mode diagnosis on one page."""
+    admission = getattr(handler.server_ref, "admission", None)
+    handler._send(200, {
+        "circuits": respolicy.breakers_snapshot(),
+        "admission": (admission.snapshot()
+                      if admission is not None else None),
+        "chaos": chaos.describe(),
+    })
+
+
 def _serve_admin(handler, path: str, query: str) -> bool:
     """The ``/admin/*`` routes; False when ``path`` is none of them."""
     command = handler.command
@@ -268,6 +391,18 @@ def _serve_admin(handler, path: str, query: str) -> bool:
         _serve_admin_journal(handler, query)
     elif command == "GET" and path == "/admin/memory":
         handler._send(200, memacct.report())
+    elif command == "GET" and path == "/admin/slo":
+        handler._send(200, slo.MONITOR.report())
+    elif path == "/admin/chaos":
+        _serve_admin_chaos(handler)
+    elif command == "GET" and path == "/admin/resilience":
+        _serve_admin_resilience(handler)
+    elif command == "GET" and path == "/admin/timeline":
+        _serve_admin_timeline(handler)
+    elif path == "/admin/quality":
+        _serve_admin_quality(handler)
+    elif path == "/admin/fleet":
+        _serve_admin_fleet(handler)
     elif path in UNPORTED_ADMIN:
         item = UNPORTED_ADMIN[path]
         handler._send(501, {
@@ -506,10 +641,20 @@ class HTTPServerBase:
     def port(self) -> int:
         return self.httpd.server_address[1]
 
+    @staticmethod
+    def _start_env_services() -> None:
+        """The environment's process services every server start wires
+        up: the SLO alert webhook sink, the declarative SLO objectives
+        and the chaos rules (each a no-op without its variable)."""
+        alerts.start_from_env()
+        slo.configure_from_env()
+        chaos.configure_from_env()
+
     def start(self):
         # flag set BEFORE the thread runs, so a racing stop() still calls
         # shutdown() instead of closing the socket under the serve loop
         self._serving = True
+        self._start_env_services()
         self._thread = threading.Thread(target=self.httpd.serve_forever,
                                         daemon=True)
         self._thread.start()
@@ -518,6 +663,7 @@ class HTTPServerBase:
 
     def serve_forever(self) -> None:
         self._serving = True
+        self._start_env_services()
         self.httpd.serve_forever()
 
     def wait_stopped(self, timeout: float) -> bool:

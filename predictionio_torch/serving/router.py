@@ -1,0 +1,756 @@
+"""Health-routed query router: the fleet's public front door.
+
+Copy of ``predictionio_tpu/serving/router.py``.
+
+One process on the public port places ``POST /queries.json`` across
+the supervisor's replicas (serving/fleet.py):
+
+  placement    power-of-two-choices least-loaded: sample two ready
+               replicas, send to the one with fewer outstanding
+               router requests — near-best-of-N balance at O(1) cost,
+               and a hung replica's growing outstanding count
+               deprioritizes it automatically
+  breakers     each replica sits behind its own CircuitBreaker
+               (``replica:<name>``, resilience/policy.py): transport
+               failures open it and the router routes around the
+               replica until a half-open probe succeeds
+  reroute      a transport-level failure (connection refused, reset —
+               a crashed replica) is retried ONCE against a different
+               replica; with >=2 replicas a single crash costs zero
+               client-visible 5xx. ``X-PIO-Non-Idempotent`` requests
+               reroute only on provably-unsent failures (connection
+               refused) — a reset mid-exchange may already have
+               executed the query's side effect
+  hedging      when a reply exceeds the trailing-quantile hedge
+               deadline (``PIO_HEDGE_QUANTILE`` of the recent latency
+               window, floored at ``PIO_HEDGE_MIN_MS``), a second
+               request races on another replica and the first answer
+               wins — the direct lever on the straggler-set p99
+               (idempotent queries only: ``X-PIO-Non-Idempotent: 1``
+               or ``PIO_HEDGE_QUANTILE=0`` opts out)
+  canary lane  while the fleet runs a canary (serving/fleet.py), every
+               2xx answer is also observed into the per-lane
+               ``pio_canary_request_seconds{lane}`` histogram
+               (baseline vs canary), and every
+               ``PIO_CANARY_SAMPLE_EVERY``-th baseline-served
+               idempotent query is SHADOWED to the canary replica
+               after the client is answered: the paired answers are
+               diffed through obs/quality.py's comparer and feed the
+               promote/rollback verdict — the client never waits on
+               the shadow
+  passthrough  a replica's application answer is the client's answer:
+               ``429 Retry-After`` (admission shed) and
+               ``X-PIO-Degraded`` pass through UN-retried — retrying
+               shed traffic amplifies the overload it signals —
+               counted in ``pio_router_passthrough_total{reason}``
+
+Forwarded attempts (and hedges) run on a small REUSABLE worker pool
+(``PIO_ROUTER_POOL_SIZE``, default 16) instead of a fresh thread per
+proxied query; when every worker is busy the attempt runs on a one-off
+overflow thread (a hedge timer must not queue behind a stalled fleet)
+and ``pio_router_pool_saturated_total`` counts it.
+
+Everything else of the operator surface (``/healthz``, ``/readyz``
+with a fleet-readiness probe, ``/metrics``, ``/admin/fleet``, ...)
+is inherited from serving/http.py. ``GET /reload`` starts the
+fleet-coordinated rolling hot-swap (202; progress at /admin/fleet) —
+the multi-replica analogue of the single server's reload contract.
+"""
+
+from __future__ import annotations
+
+import collections
+import http.client
+import json
+import logging
+import os
+import queue
+import random
+import threading
+import time
+from typing import Any, Dict, List, Optional, Tuple
+from urllib.parse import urlparse
+
+from predictionio_torch.obs import health, metrics, quality, trace
+from predictionio_torch.resilience.policy import breaker_for
+from predictionio_torch.serving.fleet import FleetSupervisor, Replica
+from predictionio_torch.serving.http import (HTTPServerBase,
+                                           JSONRequestHandler,
+                                           _admin_authorized)
+
+log = logging.getLogger(__name__)
+
+DEFAULT_PORT = 8000
+
+_HEDGES = metrics.counter(
+    "pio_router_hedges_total",
+    "Hedged second requests issued after the hedge deadline",
+)
+_REROUTES = metrics.counter(
+    "pio_router_reroutes_total",
+    "Requests rerouted to another replica after a transport failure",
+)
+_PASSTHROUGH = metrics.counter(
+    "pio_router_passthrough_total",
+    "Replica answers passed through un-retried, by reason "
+    "(shed = 429 Retry-After, degraded = X-PIO-Degraded)",
+    ("reason",),
+)
+_NO_REPLICA = metrics.counter(
+    "pio_router_no_replica_total",
+    "Requests answered 503 because no ready replica was selectable",
+)
+_HEDGE_DEADLINE = metrics.gauge(
+    "pio_router_hedge_deadline_seconds",
+    "Current trailing-quantile hedge deadline (0 while unarmed)",
+)
+_HEDGE_RESCUES = metrics.counter(
+    "pio_router_hedge_rescues_total",
+    "Hedged requests whose hedge answer won while the primary attempt "
+    "was still in flight: the client got a timely answer, so the "
+    "serving-latency SLO credits these as good even though the slow "
+    "primary's eventual completion lands an over-threshold histogram "
+    "observation (obs/slo.py good_credit_metric)",
+)
+_POOL_SATURATED = metrics.counter(
+    "pio_router_pool_saturated_total",
+    "route_query submissions that found every pooled worker busy and "
+    "ran on a one-off overflow thread instead (raise "
+    "PIO_ROUTER_POOL_SIZE if this grows under steady load)",
+)
+
+
+class _WorkerPool:
+    """Reusable worker threads for the router's forwarded attempts
+    (ROADMAP item B follow-up): every proxied query used to spawn a
+    fresh thread — and a hedge a second one — putting thread-spawn
+    cost and churn on the hot path at real qps. ``size`` long-lived
+    workers (started lazily) drain a task queue instead. When every
+    worker is occupied, the task runs on a one-off overflow thread
+    rather than queueing — a hedge fired at the deadline must not wait
+    behind a stalled fleet's attempts — and the saturation is counted
+    in ``pio_router_pool_saturated_total``."""
+
+    def __init__(self, size: int):
+        self._size = max(1, size)
+        self._q: "queue.SimpleQueue" = queue.SimpleQueue()
+        self._lock = threading.Lock()
+        self._outstanding = 0   # tasks queued or running on pool workers
+        self._started = 0
+        self._stopped = False
+
+    def _worker(self) -> None:
+        while True:
+            task = self._q.get()
+            if task is None:
+                return
+            fn, args = task
+            try:
+                fn(*args)
+            except Exception:  # noqa: BLE001 — a task error must not
+                # kill the shared worker (attempts report their own
+                # failures through the results queue)
+                log.exception("router pool task failed")
+            finally:
+                with self._lock:
+                    self._outstanding -= 1
+
+    def submit(self, fn, *args) -> None:
+        overflow = False
+        with self._lock:
+            if self._stopped:
+                overflow = True
+            elif self._outstanding >= self._size:
+                overflow = True
+            else:
+                self._outstanding += 1
+                if self._started < min(self._outstanding, self._size):
+                    self._started += 1
+                    threading.Thread(
+                        target=self._worker, daemon=True,
+                        name=f"router-pool-{self._started}").start()
+        if overflow:
+            _POOL_SATURATED.inc()
+            threading.Thread(target=self._run_overflow, args=(fn, args),
+                             daemon=True,
+                             name="router-pool-overflow").start()
+        else:
+            self._q.put((fn, args))
+
+    @staticmethod
+    def _run_overflow(fn, args) -> None:
+        try:
+            fn(*args)
+        except Exception:  # noqa: BLE001 — same contract as _worker
+            log.exception("router overflow task failed")
+
+    def outstanding(self) -> int:
+        with self._lock:
+            return self._outstanding
+
+    def stop(self) -> None:
+        with self._lock:
+            self._stopped = True
+            started = self._started
+        for _ in range(started):
+            self._q.put(None)
+
+
+class HedgeClock:
+    """Trailing latency window -> the hedge deadline.
+
+    Armed only once ``min_samples`` replies have built a trustworthy
+    quantile (hedging off a cold window would hedge everything);
+    floored at ``PIO_HEDGE_MIN_MS`` so scheduler noise at microsecond
+    latencies cannot turn every request into two.
+
+    ``deadline()`` runs on every routed query: the window sort is
+    amortized by caching the quantile estimate and recomputing only
+    after ``RECALC_EVERY`` new observations (the trailing quantile is
+    an estimate already — a <=16-sample-stale one changes nothing)."""
+
+    WINDOW = 512
+    RECALC_EVERY = 16
+
+    def __init__(self, min_samples: int = 20):
+        self._lock = threading.Lock()
+        self._window: collections.deque = collections.deque(
+            maxlen=self.WINDOW)
+        self.min_samples = min_samples
+        self._dirty = 0
+        self._cached: Optional[Tuple[float, float]] = None  # (q, estimate)
+
+    def observe(self, seconds: float) -> None:
+        with self._lock:
+            self._window.append(seconds)
+            self._dirty += 1
+
+    def deadline(self) -> Optional[float]:
+        q = metrics.env_float("PIO_HEDGE_QUANTILE", 0.95)
+        if q <= 0.0:
+            return None
+        q = min(q, 1.0)
+        with self._lock:
+            n = len(self._window)
+            if n < self.min_samples:
+                _HEDGE_DEADLINE.set(0.0)
+                return None
+            if (self._cached is None or self._cached[0] != q
+                    or self._dirty >= self.RECALC_EVERY):
+                values = sorted(self._window)
+                self._cached = (q, values[min(n - 1, int(n * q))])
+                self._dirty = 0
+            estimate = self._cached[1]
+        floor = metrics.env_float("PIO_HEDGE_MIN_MS", 10.0) / 1e3
+        deadline = max(estimate, floor)
+        _HEDGE_DEADLINE.set(deadline)
+        return deadline
+
+
+class ReplicaTransportError(ConnectionError):
+    """Transport failure talking to a replica. ``maybe_executed`` is
+    False only when the request provably never reached the replica
+    (connection refused) — the reroute/replay decision for
+    non-idempotent queries hangs on it."""
+
+    def __init__(self, message: str, maybe_executed: bool = True):
+        super().__init__(message)
+        self.maybe_executed = maybe_executed
+
+
+class _ReplicaClient:
+    """A keep-alive connection pool to one replica address (pooled
+    per (name, port): a restarted replica lands on a new port and
+    therefore a fresh pool)."""
+
+    def __init__(self, host: str, port: int):
+        self.host = host
+        self.port = port
+        self._lock = threading.Lock()
+        self._idle: List[http.client.HTTPConnection] = []
+
+    def request(self, method: str, path: str, body: Optional[bytes],
+                headers: Dict[str, str], timeout: float,
+                replay_safe: bool = True):
+        """(status, body bytes, headers dict); transport problems raise
+        ReplicaTransportError so the policy/breaker taxonomy applies.
+
+        A POOLED connection that dies before yielding any response is
+        retried ONCE on a fresh connection silently: the replica's
+        handler legitimately closes idle keep-alives after its read
+        timeout, and a post-lull burst popping a stack of stale sockets
+        must not read as replica failures (it would open the breaker of
+        a perfectly healthy replica). Only the fresh-connection verdict
+        escapes to the caller/breaker. With ``replay_safe=False``
+        (non-idempotent queries) the silent replay only happens when
+        the pooled attempt provably never sent (connection refused) —
+        a mid-exchange death may have executed the query already."""
+        with self._lock:
+            conn = self._idle.pop() if self._idle else None
+        pooled = conn is not None
+        if conn is None:
+            conn = http.client.HTTPConnection(self.host, self.port,
+                                              timeout=timeout)
+        try:
+            return self._one_request(conn, method, path, body, headers,
+                                     timeout)
+        except (OSError, http.client.HTTPException) as e:
+            conn.close()
+            # never replay a TIMEOUT: the stale-keepalive failures the
+            # replay exists for (reset/BadStatusLine on a dead socket)
+            # surface instantly, while a timeout already consumed the
+            # full attempt budget — replaying would spend it twice on a
+            # hung replica AND queue a duplicate query there, doubling
+            # the breaker's failure-detection window
+            if pooled and not isinstance(e, TimeoutError) and (
+                    replay_safe or isinstance(e, ConnectionRefusedError)):
+                fresh = http.client.HTTPConnection(self.host, self.port,
+                                                   timeout=timeout)
+                try:
+                    return self._one_request(fresh, method, path, body,
+                                             headers, timeout)
+                except (OSError, http.client.HTTPException) as e2:
+                    fresh.close()
+                    e = e2
+            raise ReplicaTransportError(
+                f"replica {self.host}:{self.port}: "
+                f"{type(e).__name__}: {e}",
+                maybe_executed=not isinstance(e, ConnectionRefusedError),
+            ) from e
+
+    def _one_request(self, conn, method, path, body, headers, timeout):
+        if conn.sock is not None:
+            conn.sock.settimeout(timeout)
+        else:
+            conn.timeout = timeout
+        conn.request(method, path, body=body, headers=headers)
+        resp = conn.getresponse()
+        data = resp.read()
+        resp_headers = dict(resp.headers)
+        if resp.will_close:
+            conn.close()
+        else:
+            with self._lock:
+                if len(self._idle) < 32:
+                    self._idle.append(conn)
+                    conn = None
+            if conn is not None:
+                conn.close()
+        return resp.status, data, resp_headers
+
+    def close(self) -> None:
+        with self._lock:
+            idle, self._idle = self._idle, []
+        for conn in idle:
+            conn.close()
+
+
+class _RouterRequestHandler(JSONRequestHandler):
+    server_version = "PIORouter/0.1"
+
+    def do_GET(self):
+        path = urlparse(self.path).path
+        if path == "/":
+            self._send(200, self.server_ref.status())
+        elif path == "/reload":
+            # same bearer gate as POST /admin/fleet {"reload": true} —
+            # an unauthenticated route to the identical fleet-wide
+            # drain+recompile would bypass the token one route over
+            if not _admin_authorized(self):
+                self._send(401, {"message": "missing or invalid bearer "
+                                            "token (PIO_ADMIN_TOKEN)"},
+                           extra_headers={"WWW-Authenticate": "Bearer"})
+                return
+            from urllib.parse import parse_qs
+
+            force = (parse_qs(urlparse(self.path).query)
+                     .get("force") or ["0"])[0].lower() in ("1", "true")
+            started = self.server_ref.fleet.start_rolling_reload(
+                force=force)
+            self._send(
+                202 if started else 409,
+                {"message": ("rolling reload started — progress at "
+                             "/admin/fleet" if started else
+                             "a rolling reload is already running")})
+        else:
+            self._send(404, {"message": "Not Found"})
+
+    def do_POST(self):
+        path = urlparse(self.path).path
+        if path == "/queries.json":
+            body = self._read_body()
+            idempotent = (self.headers.get("X-PIO-Non-Idempotent")
+                          or "").lower() not in ("1", "true")
+            status, data, extra, ctype = self.server_ref.route_query(
+                body, idempotent=idempotent)
+            self._send(status, data, content_type=ctype,
+                       extra_headers=extra)
+        else:
+            self._send(404, {"message": "Not Found"})
+
+
+class QueryRouter(HTTPServerBase):
+    """The fleet's public HTTP front door (one per fleet)."""
+
+    def __init__(
+        self,
+        fleet: FleetSupervisor,
+        host: str = "0.0.0.0",
+        port: int = DEFAULT_PORT,
+        bind_retries: int = 3,
+        rng: Optional[random.Random] = None,
+    ):
+        self.fleet = fleet
+        self.storage = None  # the router holds no storage of its own
+        self.hedge = HedgeClock()
+        self._rng = rng or random.Random()
+        self._pools: Dict[Tuple[str, int], _ReplicaClient] = {}
+        self._pools_lock = threading.Lock()
+        # hot-path worker pool: forwarded attempts (and hedges) run on
+        # reusable threads instead of a fresh spawn per query
+        self._worker_pool = _WorkerPool(
+            metrics.env_int("PIO_ROUTER_POOL_SIZE", 16))
+        # canary paired-sampling cadence (every Nth baseline answer
+        # shadows to the canary replica)
+        self._pair_lock = threading.Lock()
+        self._pair_counter = 0
+        super().__init__(host, port, _RouterRequestHandler,
+                         bind_retries=bind_retries)
+
+    # -- readiness: the router is ready while it can place a query ----------
+    def storage_readyz_probe(self) -> health.ProbeResult:
+        n, size = self.fleet.ready_count(), self.fleet.size()
+        if n == 0:
+            return health.failed("no ready replicas to route to")
+        if n < size:
+            return health.degraded(f"{n}/{size} replicas in rotation")
+        return health.ok(f"{n}/{size} replicas in rotation")
+
+    # -- replica selection ---------------------------------------------------
+    def _client(self, replica: Replica) -> _ReplicaClient:
+        key = ("127.0.0.1", replica.port)
+        with self._pools_lock:
+            client = self._pools.get(key)
+            if client is None:
+                client = self._pools[key] = _ReplicaClient(*key)
+                # prune pools for ports no replica listens on anymore
+                # (restarts move ports; dead pools pin dead sockets)
+                live = {("127.0.0.1", r.port) for r in self.fleet.replicas}
+                for stale in [k for k in self._pools if k not in live]:
+                    self._pools.pop(stale).close()
+        return client
+
+    def _select(self, exclude: set) -> Optional[Replica]:
+        """Power-of-two-choices among ready, breaker-admitted
+        replicas not yet tried for this request."""
+        candidates = [r for r in self.fleet.ready_replicas()
+                      if r.name not in exclude]
+        while candidates:
+            if len(candidates) == 1:
+                pick = candidates[0]
+            else:
+                a, b = self._rng.sample(candidates, 2)
+                pick = a if a.outstanding() <= b.outstanding() else b
+            if breaker_for(f"replica:{pick.name}").allow():
+                return pick
+            candidates.remove(pick)
+        return None
+
+    # -- the forwarding core -------------------------------------------------
+    def _attempt(self, replica: Replica, body: bytes,
+                 headers: Dict[str, str], deadline: float,
+                 results: "queue.Queue",
+                 idempotent: bool = True,
+                 ctx: Optional[trace.SpanContext] = None,
+                 hedge: bool = False) -> None:
+        """One forwarded request; its verdict lands in ``results`` as
+        (replica, (status, data, headers)) or (replica, exception).
+
+        Each attempt runs under its OWN ``router.attempt`` span (the
+        request's trace context is re-activated on this pool thread):
+        a hedged second attempt is a SIBLING span marked ``hedge``, and
+        the replica's edge span parents to the attempt via the headers
+        ``trace.traced_headers`` attaches — the federation collector
+        (obs/collect.py) stitches the whole placement decision into one
+        tree."""
+        breaker = breaker_for(f"replica:{replica.name}")
+        replica.begin_request()
+        token = trace.activate_context(ctx) if ctx is not None else None
+        t0 = time.perf_counter()
+        try:
+            attrs = {"replica": replica.name}
+            if hedge:
+                attrs["hedge"] = True
+            with trace.span("router.attempt", **attrs):
+                answer = self._client(replica).request(
+                    "POST", "/queries.json", body,
+                    trace.traced_headers(headers),
+                    timeout=max(0.05, deadline - time.monotonic()),
+                    replay_safe=idempotent)
+        except ConnectionError as e:
+            breaker.record_failure()
+            results.put((replica, e))
+            return
+        except Exception as e:  # noqa: BLE001 — an attempt thread
+            # dying silently would strand the waiting handler
+            log.exception("attempt against %s failed", replica.name)
+            results.put((replica, e))
+            return
+        finally:
+            replica.end_request()
+            if token is not None:
+                trace.deactivate(token)
+        breaker.record_success()
+        # only SERVED answers train the hedge clock: sub-millisecond
+        # 429 sheds (or error fast-paths) under overload would collapse
+        # the deadline to its floor and make every admitted query hedge
+        # a duplicate onto the overloaded fleet — the amplification the
+        # 429 passthrough exists to prevent
+        if 200 <= answer[0] < 300:
+            elapsed = time.perf_counter() - t0
+            self.hedge.observe(elapsed)
+            # canary analysis: the same served answers, tagged by lane,
+            # feed the verdict's latency gate (obs/quality.py reads the
+            # buckets back through the SLO burn math)
+            canary_name = self.fleet.canary_replica_name()
+            if canary_name is not None:
+                quality.CANARY_SECONDS.labels(
+                    quality.LANE_CANARY if replica.name == canary_name
+                    else quality.LANE_BASELINE).observe(elapsed)
+        results.put((replica, answer))
+
+    def route_query(self, body: bytes, idempotent: bool = True):
+        """Place one query: select, forward, hedge past the deadline,
+        reroute transport failures, pass application answers through.
+        Returns (status, payload, extra_headers, content_type) for the
+        handler's ``_send``."""
+        total = metrics.env_float("PIO_ROUTER_TIMEOUT", 30.0)
+        deadline = time.monotonic() + total
+        headers = {"Content-Type": "application/json"}
+        # the trace context travels to the attempt's pool thread, where
+        # each attempt opens its own span and attaches the trace/parent
+        # headers (trace.TRACE_HEADER propagation lives there now)
+        ctx = trace.current_context()
+        results: "queue.Queue" = queue.Queue()
+        tried: set = set()
+
+        def launch(replica: Replica, hedge: bool = False) -> None:
+            tried.add(replica.name)
+            self._worker_pool.submit(
+                self._attempt, replica, body, headers, deadline, results,
+                idempotent, ctx, hedge)
+
+        first = self._select(tried)
+        if first is None:
+            _NO_REPLICA.inc()
+            return (503, {"message": "no ready replicas"},
+                    {"Retry-After": "1"}, "application/json; charset=UTF-8")
+        launch(first)
+        hedge_after = self.hedge.deadline() if idempotent else None
+        hedge_at = (time.monotonic() + hedge_after
+                    if hedge_after is not None else None)
+        outstanding = 1
+        hedge_name: Optional[str] = None
+        last_error: Optional[BaseException] = None
+        # first non-2xx application answer, held while another attempt
+        # is still in flight (see below)
+        held = None
+        while outstanding:
+            now = time.monotonic()
+            wait = deadline - now
+            if hedge_at is not None:
+                wait = min(wait, hedge_at - now)
+            try:
+                replica, outcome = results.get(timeout=max(0.001, wait))
+            except queue.Empty:
+                if hedge_at is not None and time.monotonic() >= hedge_at:
+                    # slow first answer: race a second replica; first
+                    # answer (either one) wins. One hedge per request —
+                    # a second timer tick must not fan out further.
+                    hedge_at = None
+                    second = self._select(tried)
+                    if second is not None:
+                        _HEDGES.inc()
+                        hedge_name = second.name
+                        launch(second, hedge=True)
+                        outstanding += 1
+                    continue
+                if time.monotonic() >= deadline:
+                    break  # total deadline expired
+                continue
+            if isinstance(outcome, BaseException):
+                outstanding -= 1
+                last_error = outcome
+                # transport failure: reroute once to a fresh replica
+                # (bounded fan-out: primary + hedge + one reroute).
+                # Non-idempotent queries only reroute when the failed
+                # attempt provably never reached a replica — a
+                # mid-exchange death may have executed the side effect
+                maybe_executed = getattr(outcome, "maybe_executed", True)
+                if (held is None and len(tried) < 3
+                        and (idempotent or not maybe_executed)):
+                    retry = self._select(tried)
+                    if retry is not None:
+                        _REROUTES.inc()
+                        launch(retry)
+                        outstanding += 1
+                continue
+            status, data, replica_headers = outcome
+            outstanding -= 1
+            if 200 <= status < 300 or not outstanding:
+                if 200 <= status < 300 and idempotent:
+                    # canary paired sampling: AFTER the client has its
+                    # answer in hand (the shadow runs on the worker
+                    # pool, never on this request's latency budget)
+                    self._maybe_canary_pair(replica, body, data)
+                if (200 <= status < 300 and outstanding
+                        and replica.name == hedge_name):
+                    # the hedge SAVED this request: its answer returns
+                    # while the slow primary is still in flight. The
+                    # primary's eventual completion will land an
+                    # over-threshold serving-latency observation the
+                    # client never experienced — this counter credits
+                    # it back in the SLO burn accounting (obs/slo.py)
+                    _HEDGE_RESCUES.inc()
+                return self._passthrough(replica, status, data,
+                                         replica_headers)
+            # a non-2xx racer answer must not beat a primary attempt
+            # that may yet succeed: a hedge landing on a shedding
+            # replica answers 429 in sub-milliseconds, and returning it
+            # immediately would convert a would-be-success into a
+            # client-visible error. Hold it; it is the answer only if
+            # nothing better arrives before the deadline.
+            if held is None:
+                held = (replica, outcome)
+        if held is not None:
+            replica, (status, data, replica_headers) = held
+            return self._passthrough(replica, status, data,
+                                     replica_headers)
+        if last_error is not None:
+            message = (f"all {len(tried)} attempted replica(s) failed: "
+                       f"{type(last_error).__name__}: {last_error}")
+        else:
+            message = (f"no replica answered within {total:g}s "
+                       f"({len(tried)} attempted)")
+        return (502, {"message": message}, None,
+                "application/json; charset=UTF-8")
+
+    def _passthrough(self, replica: Replica, status: int, data: bytes,
+                     replica_headers: Dict[str, str]):
+        """A replica's application answer IS the client's answer —
+        shed (429) and degraded responses especially travel un-retried,
+        headers intact."""
+        extra: Dict[str, str] = {"X-PIO-Replica": replica.name}
+        if status == 429:
+            _PASSTHROUGH.labels("shed").inc()
+            retry_after = replica_headers.get("Retry-After")
+            if retry_after:
+                extra["Retry-After"] = retry_after
+        degraded = replica_headers.get("X-PIO-Degraded")
+        if degraded:
+            _PASSTHROUGH.labels("degraded").inc()
+            extra["X-PIO-Degraded"] = degraded
+        ctype = replica_headers.get(
+            "Content-Type", "application/json; charset=UTF-8")
+        return status, data, extra, ctype
+
+    # -- canary paired sampling ----------------------------------------------
+    def _maybe_canary_pair(self, replica: Replica, body: bytes,
+                           base_data: bytes) -> None:
+        """While a canary is active: every ``PIO_CANARY_SAMPLE_EVERY``-th
+        baseline-served 2xx answer re-plays the SAME query against the
+        canary replica on a pool worker and feeds the answer diff into
+        obs/quality.py's paired accumulators — the online analogue of
+        the offline replay harness, through the identical differ."""
+        canary_name = self.fleet.canary_replica_name()
+        if canary_name is None or replica.name == canary_name:
+            return
+        every = max(1, metrics.env_int("PIO_CANARY_SAMPLE_EVERY", 4))
+        with self._pair_lock:
+            self._pair_counter += 1
+            if self._pair_counter % every:
+                return
+        canary_replica = next(
+            (r for r in self.fleet.replicas if r.name == canary_name), None)
+        if canary_replica is None:
+            return
+        self._worker_pool.submit(self._canary_shadow, canary_replica,
+                                 body, base_data, trace.current_context())
+
+    def _canary_shadow(self, canary_replica: Replica, body: bytes,
+                       base_data: bytes,
+                       ctx: Optional[trace.SpanContext] = None) -> None:
+        timeout = metrics.env_float("PIO_ROUTER_TIMEOUT", 30.0)
+        canary_replica.begin_request()  # shadow load is real load:
+        # p2c must see it, or paired sampling would overload the canary
+        # invisibly
+        # the shadow rides the ORIGINAL request's trace as its own
+        # marked sibling span: a stitched trace shows exactly which
+        # query was shadow-sampled and what the canary did with it
+        token = trace.activate_context(ctx) if ctx is not None else None
+        t0 = time.perf_counter()
+        try:
+            with trace.span("router.shadow", replica=canary_replica.name,
+                            shadow=True):
+                status, data, _headers = self._client(
+                    canary_replica).request(
+                    "POST", "/queries.json", body,
+                    trace.traced_headers(
+                        {"Content-Type": "application/json"}),
+                    timeout=timeout)
+        except Exception as e:  # noqa: BLE001 — a failing canary IS the
+            # evidence: counted as a paired error, never raised
+            quality.STATE.add_paired(None, error=f"{type(e).__name__}: {e}")
+            return
+        finally:
+            canary_replica.end_request()
+            if token is not None:
+                trace.deactivate(token)
+        if not 200 <= status < 300:
+            quality.STATE.add_paired(None,
+                                     error=f"canary answered {status}")
+            return
+        quality.CANARY_SECONDS.labels(quality.LANE_CANARY).observe(
+            time.perf_counter() - t0)
+        try:
+            diff = quality.compare_answers(json.loads(base_data or b"null"),
+                                           json.loads(data or b"null"))
+        except ValueError as e:
+            quality.STATE.add_paired(None, error=f"unparseable answer: {e}")
+            return
+        quality.STATE.add_paired(diff)
+
+    # -- operator surface ----------------------------------------------------
+    def status(self) -> Dict[str, Any]:
+        deadline = self.hedge.deadline()
+        # once the operator gates /admin/fleet behind PIO_ADMIN_TOKEN,
+        # the public status page must not hand out the byte-identical
+        # snapshot (replica ports, instance ids, probe verdicts) one
+        # route over — shrink it to the aggregate counts
+        if os.environ.get("PIO_ADMIN_TOKEN"):
+            fleet_view: Dict[str, Any] = {
+                "size": self.fleet.size(),
+                "ready": self.fleet.ready_count(),
+            }
+        else:
+            fleet_view = self.fleet.snapshot()
+        return {
+            "status": "alive",
+            "role": "router",
+            "fleet": fleet_view,
+            "hedge": {
+                "deadlineMs": (None if deadline is None
+                               else round(deadline * 1e3, 2)),
+                "quantile": metrics.env_float("PIO_HEDGE_QUANTILE", 0.95),
+                "hedges": int(_HEDGES.value),
+                "reroutes": int(_REROUTES.value),
+            },
+        }
+
+    def stop(self) -> None:
+        super().stop()
+        self._worker_pool.stop()
+        with self._pools_lock:
+            pools, self._pools = list(self._pools.values()), {}
+        for pool in pools:
+            pool.close()

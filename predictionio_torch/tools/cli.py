@@ -1,5 +1,6 @@
 """The port's console: ``pio`` for apps, keys, events, templates, build,
-train, deploy, stream and eval.
+train, deploy, stream and eval, and the operator commands slo, chaos,
+replay, canary and fleet.
 
     python -m predictionio_torch.tools.cli app new NAME [--description D]
     python -m predictionio_torch.tools.cli app list|show|delete|data-delete|
@@ -20,13 +21,25 @@ train, deploy, stream and eval.
         --engine-json engine.json [--engine-id ID] [--device cpu]
     python -m predictionio_torch.tools.cli deploy \\
         --engine-json engine.json [--engine-id ID] [--port 8000] \\
-        [--ip 0.0.0.0] [--device cpu]
+        [--ip 0.0.0.0] [--device cpu] [--replicas N] \\
+        [--replica-mode subprocess|thread] [--canary] \\
+        [--feedback-url URL --accesskey KEY] [--log-url URL]
     python -m predictionio_torch.tools.cli undeploy [--ip IP] [--port 8000]
     python -m predictionio_torch.tools.cli stream \\
         --engine-json engine.json [--url http://HOST:8000[,...]] \\
         [--once | --interval SEC] [--device cpu]
     python -m predictionio_torch.tools.cli eval pkg.mod.MyEvaluation \\
         [pkg.mod.MyParamsGenerator] [--batch B] [--device cpu]
+    python -m predictionio_torch.tools.cli slo [--url URL] [--json]
+    python -m predictionio_torch.tools.cli chaos --url URL \\
+        [--set SPEC | --add SPEC | --clear [SITE]] [--json]
+    python -m predictionio_torch.tools.cli replay --url CANDIDATE \\
+        [--baseline URL] [--flight-url URL] [-n N] [--k K] \\
+        [--no-push] [--fail-under X] [--json]
+    python -m predictionio_torch.tools.cli canary [--url ROUTER] \\
+        [--start | --promote | --rollback] [--json]
+    python -m predictionio_torch.tools.cli fleet [--url ROUTER] \\
+        [--reload [--force] | --drain R | --readmit R] [--json]
 
 The app, access-key, server, import/export and status commands take the
 JAX console's arguments and print its lines (ref:
@@ -47,8 +60,11 @@ COMPLETED instance of the engine — trained by either package; an
 ``engineFactory`` under ``predictionio_tpu.`` resolves under
 ``predictionio_torch.`` — on ``POST /queries.json`` until SIGTERM
 drains it or ``undeploy`` (``POST /stop``) stops it (ref:
-Console.scala:830); a variant that declares an ``"slo"`` block is
-refused until SLOs are ported (ROADMAP.md queue 1 item 6). ``stream``
+Console.scala:830), with the variant's ``"slo"`` block's objectives and
+shed thresholds; ``--replicas N`` serves from N replicas (subprocesses
+running this CLI's ``deploy --replicas 1`` on the parent's device, or
+threads) behind the query router (``serving/{fleet,router}.py``).
+``stream``
 tails the engine's event log and folds
 new events into the deployed model, patching the servers named by
 ``--url`` (``workflow/stream.py``; ``--once`` runs one cycle and prints
@@ -57,7 +73,10 @@ its stats). ``eval`` runs an ``Evaluation`` over the candidates of an
 best score's one-liner (ref: Console.scala eval,
 CreateWorkflow.scala:263-276); dotted paths under ``predictionio_tpu.``
 resolve under ``predictionio_torch.``. These four run on the card;
-``--device cpu`` is the only way onto the CPU. Storage comes from the
+``--device cpu`` is the only way onto the CPU. ``slo``, ``chaos``,
+``replay``, ``canary`` and ``fleet`` talk to a running server's admin
+routes (sending the ``PIO_ADMIN_TOKEN`` bearer when set) with the JAX
+console's arguments and exit codes. Storage comes from the
 ``PIO_STORAGE_*`` environment, as for ``pio``. The other commands stay
 with ``predictionio_tpu.tools.cli`` until their slices are ported
 (ROADMAP.md queue 1).
@@ -347,22 +366,31 @@ def cmd_train(args) -> int:
 
 
 def cmd_deploy(args) -> int:
+    from predictionio_torch.obs import metrics
     from predictionio_torch.serving.engine_server import EngineServer
     from predictionio_torch.serving.http import install_drain_handler
 
-    variant = load_variant(args.engine_json)
-    if variant.slo_conf() is not None:
+    replicas = (args.replicas if args.replicas is not None
+                else metrics.env_int("PIO_REPLICAS", 1))
+    if args.canary and replicas <= 1:
         raise commands.CommandError(
-            'the engine variant declares an "slo" block: SLO objectives '
-            "and load shedding (obs/slo.py, the admission controller) are "
-            "not ported to predictionio_torch yet (ROADMAP.md, queue 1 "
-            "item 6); remove the block to deploy without them")
+            "--canary needs a fleet (--replicas >= 2): a canary is one "
+            "replica serving the candidate while the rest serve the "
+            "baseline")
+    if replicas > 1:
+        return _deploy_fleet(args, replicas)
+    variant = load_variant(args.engine_json)
     engine = variant.create_engine()
     engine_id = _engine_id(args, variant)
     server = EngineServer(engine, engine_id=engine_id,
                           engine_version=args.engine_version,
                           engine_variant=variant.id,
-                          host=args.ip, port=args.port, device=args.device)
+                          host=args.ip, port=args.port, device=args.device,
+                          feedback_url=args.feedback_url,
+                          feedback_access_key=args.accesskey,
+                          log_url=args.log_url,
+                          # the variant's objectives and shed thresholds
+                          slo_conf=variant.slo_conf())
     # SIGTERM drains the queries in flight, then stops the server (on
     # the drain's own thread, which the interpreter waits for)
     install_drain_handler(server)
@@ -372,6 +400,83 @@ def cmd_deploy(args) -> int:
         server.serve_forever()
     except KeyboardInterrupt:
         server.stop()
+    return 0
+
+
+def _deploy_fleet(args, replicas: int) -> int:
+    """``deploy --replicas N``: N single-server children on ephemeral
+    ports behind the query router on the public port (``--replica-mode
+    thread``: in-process servers, the same wiring in one process)."""
+    import time
+
+    from predictionio_torch.serving.fleet import (FleetSupervisor,
+                                                  deploy_fleet_argv,
+                                                  subprocess_fleet,
+                                                  threaded_fleet)
+    from predictionio_torch.serving.http import (drain_timeout,
+                                                 install_drain_handler)
+    from predictionio_torch.serving.router import QueryRouter
+    from predictionio_torch.workflow.deploy import (
+        latest_completed_instance_id)
+
+    variant = load_variant(args.engine_json)
+    engine_id = _engine_id(args, variant)
+    if args.replica_mode == "thread":
+        from predictionio_torch.serving.engine_server import EngineServer
+
+        engine = variant.create_engine()
+
+        def factory(name):
+            return EngineServer(
+                engine, engine_id=engine_id,
+                engine_version=args.engine_version,
+                engine_variant=variant.id, host="127.0.0.1", port=0,
+                device=args.device, feedback_url=args.feedback_url,
+                feedback_access_key=args.accesskey, log_url=args.log_url,
+                slo_conf=variant.slo_conf(), chaos_tag=name)
+
+        members = threaded_fleet(replicas, factory)
+    else:
+        argv = deploy_fleet_argv(args.engine_json, device=args.device)
+        if args.engine_id:
+            argv += ["--engine-id", args.engine_id]
+        if args.engine_version != "0":
+            argv += ["--engine-version", args.engine_version]
+        # the per-server wiring survives the subprocess hop
+        if args.feedback_url:
+            argv += ["--feedback-url", args.feedback_url]
+        if args.accesskey:
+            argv += ["--accesskey", args.accesskey]
+        if args.log_url:
+            argv += ["--log-url", args.log_url]
+        members = subprocess_fleet(replicas, argv)
+    storage = get_storage()
+    fleet = FleetSupervisor(
+        members,
+        version_source=lambda: latest_completed_instance_id(
+            storage, engine_id, args.engine_version, variant.id),
+        canary_mode=True if args.canary else None).start()
+    router = QueryRouter(fleet, host=args.ip, port=args.port)
+    install_drain_handler(router)
+    lane = (" (CANARY mode: new COMPLETED instances land on one replica "
+            "and are promoted or rolled back by verdict)"
+            if args.canary else "")
+    print(f"Engine {engine_id} deployed: {replicas} {args.replica_mode} "
+          f"replica(s) behind router on {args.ip}:{router.port} (fleet "
+          f"status: /admin/fleet; rolling hot-swap: GET /reload){lane}",
+          flush=True)
+    try:
+        router.serve_forever()
+    finally:
+        # serve_forever returns when the SIGTERM drain stops the router
+        # ACCEPTING; its admitted requests still drain on the pio-drain
+        # thread and need live replicas, so the fleet outlives them
+        # (bounded by the drain window)
+        deadline = time.monotonic() + drain_timeout() + 5.0
+        while (router.inflight_count() > 0
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        fleet.stop()
     return 0
 
 
@@ -467,6 +572,318 @@ def cmd_eval(args) -> int:
 
 # -- parser --------------------------------------------------------------------
 
+def _add_admin_auth(req) -> None:
+    """Attach the PIO_ADMIN_TOKEN bearer header to an /admin/* request
+    when the operator has one configured — the servers 401 those
+    routes without it (serving/http.py)."""
+    import os
+
+    token = os.environ.get("PIO_ADMIN_TOKEN")
+    if token:
+        req.add_header("Authorization", f"Bearer {token}")
+
+
+def cmd_slo(args) -> int:
+    """SLO burn-rate evaluation (obs/slo.py): from a running server's
+    ``GET /admin/slo`` when --url is given (sending the
+    ``PIO_ADMIN_TOKEN`` bearer header when set), otherwise evaluated
+    in-process against this process's registry. ``--json`` dumps the
+    raw report; default output is one line per SLO with its state and
+    the worst-window burn."""
+    import urllib.error
+    import urllib.request
+
+    if args.url:
+        url = args.url.rstrip("/") + "/admin/slo"
+        req = urllib.request.Request(url)
+        _add_admin_auth(req)
+        try:
+            with urllib.request.urlopen(req, timeout=10) as resp:
+                report = json.load(resp)
+        except urllib.error.HTTPError as e:
+            raise commands.CommandError(
+                f"slo request failed ({e.code}): "
+                f"{e.read().decode(errors='replace')[:200]}")
+        except urllib.error.URLError as e:
+            raise commands.CommandError(f"cannot reach {args.url}: {e.reason}")
+    else:
+        from predictionio_torch.obs import slo as _slo
+
+        report = _slo.MONITOR.report()
+    if args.json:
+        json.dump(report, sys.stdout, indent=1, sort_keys=True)
+        sys.stdout.write("\n")
+        return 0
+    firing = 0
+    for entry in report["slos"]:
+        burns = {w: b for w, b in entry["burn_rates"].items()
+                 if b is not None}
+        worst = max(burns.values()) if burns else None
+        target = f"{entry['objective']:.3%}"
+        if entry.get("threshold_ms") is not None:
+            target += f" <= {entry['threshold_ms']:g}ms"
+        print(f"{entry['name']:>20} [{entry['kind']}] objective {target}  "
+           f"state={entry['state']}  "
+           + (f"worst-window burn {worst:.2f}" if worst is not None
+              else "no data"))
+        for alert, info in entry["alerts"].items():
+            if info["firing"]:
+                print(f"{'':>20} {alert} page FIRING "
+                   f"(burn >= {info['threshold']} over "
+                   f"{' and '.join(info['windows'])})")
+        firing += entry["state"] == "firing"
+    return 1 if firing else 0
+
+
+def cmd_chaos(args) -> int:
+    """Inspect or toggle a live server's fault injection
+    (``/admin/chaos``, resilience/chaos.py): with no mutation flags,
+    print the active rule set; ``--set``/``--add``/``--clear`` change
+    it. The server applies changes process-wide — every seam (storage,
+    batcher, train) sees them immediately."""
+    import urllib.error
+    import urllib.request
+
+    body = {}
+    if args.clear is not None:
+        body["clear"] = args.clear
+    if args.set_spec is not None:
+        body["spec"] = args.set_spec
+    if args.add is not None:
+        body["add"] = args.add
+    url = args.url.rstrip("/") + "/admin/chaos"
+    if body:
+        req = urllib.request.Request(
+            url, data=json.dumps(body).encode(), method="POST",
+            headers={"Content-Type": "application/json"})
+    else:
+        req = urllib.request.Request(url)
+    _add_admin_auth(req)
+    try:
+        with urllib.request.urlopen(req, timeout=10) as resp:
+            state = json.load(resp)
+    except urllib.error.HTTPError as e:
+        raise commands.CommandError(
+            f"chaos request failed ({e.code}): "
+            f"{e.read().decode(errors='replace')[:200]}")
+    except urllib.error.URLError as e:
+        raise commands.CommandError(f"cannot reach {args.url}: {e.reason}")
+    if args.json:
+        json.dump(state, sys.stdout, indent=1, sort_keys=True)
+        sys.stdout.write("\n")
+        return 0
+    if not state["enabled"]:
+        print("chaos: no active rules")
+        return 0
+    print(f"chaos ACTIVE ({len(state['rules'])} rule(s)): {state['spec']}")
+    for rule in state["rules"]:
+        unit = "" if rule["kind"] == "error" else "s"
+        print(f"  {rule['site']:>10} {rule['kind']:<8} {rule['amount']:g}{unit}")
+    return 0
+
+
+def cmd_replay(args) -> int:
+    """`pio replay`: re-play logged query payloads (the flight
+    recorder's PIO_FLIGHT_PAYLOADS capture) against a candidate
+    instance, diffing every answer against the baseline (top-k overlap,
+    score deltas, latency — workflow/replay.py); prints the
+    machine-readable report and registers it on the baseline's
+    ``/admin/quality`` surface unless --no-push. Exit 1 when
+    --fail-under is given and the mean overlap lands below it."""
+    import urllib.error
+
+    from predictionio_torch.workflow import replay as replay_mod
+
+    baseline = args.baseline or args.flight_url
+    flight_url = args.flight_url or baseline
+    if not baseline:
+        raise commands.CommandError("--baseline (or --flight-url) is required: "
+                           "the diff needs a reference lane")
+    try:
+        report = replay_mod.replay_urls(
+            args.url, baseline, flight_url=flight_url, n=args.n,
+            k=args.k)
+    except urllib.error.URLError as e:
+        raise commands.CommandError(f"replay failed: {e.reason}") from e
+    except RuntimeError as e:
+        raise commands.CommandError(str(e)) from e
+    if not args.no_push:
+        try:
+            replay_mod.push_report(report, baseline)
+        except Exception as e:  # noqa: BLE001 — the report is already
+            # in hand; a failed push must not eat it
+            print(f"(report push to {baseline} failed: {e})")
+    if args.json:
+        json.dump(report, sys.stdout, indent=1, sort_keys=True)
+        sys.stdout.write("\n")
+    else:
+        print(f"replayed {report['n']} logged quer(ies): "
+           f"{report['diffed']} diffed, errors {report['errors']}")
+        print(f"  mean top-{report['k']} overlap {report['mean_overlap']}, "
+           f"worst {report['worst_overlap']}, mean |score delta| "
+           f"{report['mean_score_delta']}")
+        for lane in ("baseline", "candidate"):
+            lat = report["latency_ms"].get(lane) or {}
+            if lat:
+                print(f"  {lane:>9}: p50 {lat['p50_ms']} ms, "
+                   f"p99 {lat['p99_ms']} ms")
+    if (args.fail_under is not None
+            and (report["mean_overlap"] is None
+                 or report["mean_overlap"] < args.fail_under)):
+        print(f"FAIL: mean overlap below --fail-under {args.fail_under:g}")
+        return 1
+    return 0
+
+
+def cmd_canary(args) -> int:
+    """`pio canary`: drive/inspect the fleet's canary lane through the
+    router. Default output renders the quality surface's verdict
+    (``GET /admin/quality`` — drift gauges, replay report and canary
+    analysis all read obs/quality.py's one state); --start/--promote/
+    --rollback POST the action to ``/admin/fleet``. Exit 1 while an
+    active canary's verdict says rollback."""
+    import urllib.error
+    import urllib.request
+
+    base = args.url.rstrip("/")
+    action = ("start" if args.start else "promote" if args.promote
+              else "rollback" if args.rollback else None)
+    if action:
+        req = urllib.request.Request(
+            base + "/admin/fleet",
+            data=json.dumps({"canary": action}).encode(), method="POST",
+            headers={"Content-Type": "application/json"})
+        _add_admin_auth(req)
+        try:
+            with urllib.request.urlopen(req, timeout=10) as resp:
+                body = json.load(resp)
+        except urllib.error.HTTPError as e:
+            raise commands.CommandError(
+                f"canary {action} failed ({e.code}): "
+                f"{e.read().decode(errors='replace')[:200]}")
+        except urllib.error.URLError as e:
+            raise commands.CommandError(f"cannot reach {args.url}: {e.reason}")
+        print(body.get("message") or json.dumps(body))
+        return 0
+    req = urllib.request.Request(base + "/admin/quality")
+    _add_admin_auth(req)
+    try:
+        with urllib.request.urlopen(req, timeout=10) as resp:
+            report = json.load(resp)
+    except urllib.error.HTTPError as e:
+        raise commands.CommandError(
+            f"quality request failed ({e.code}): "
+            f"{e.read().decode(errors='replace')[:200]}")
+    except urllib.error.URLError as e:
+        raise commands.CommandError(f"cannot reach {args.url}: {e.reason}")
+    if args.json:
+        json.dump(report, sys.stdout, indent=1, sort_keys=True)
+        sys.stdout.write("\n")
+        canary = report.get("canary") or {}
+        verdict = (canary.get("verdict") or {}).get("verdict")
+        return 1 if (canary.get("active") and verdict == "rollback") else 0
+    drift = report.get("drift")
+    if drift:
+        breached = drift.get("breached") or []
+        print(f"drift (band {report['band']:g}, shadow "
+           f"{str(drift.get('shadow_instance'))[:16]}): "
+           f"recall_vs_retrain={drift.get('recall_vs_retrain')} "
+           f"rmse_drift={drift.get('rmse_drift')} "
+           f"factor_drift={drift.get('factor_drift')}"
+           + (f"  BREACHED: {', '.join(breached)}" if breached else ""))
+    else:
+        print("drift: no probe yet (run `pio stream` against a trained "
+           "instance)")
+    rep = report.get("replay")
+    if rep:
+        print(f"replay: {rep.get('n')} queries, mean overlap "
+           f"{rep.get('mean_overlap')}, worst {rep.get('worst_overlap')}")
+    canary = report.get("canary") or {}
+    if not canary:
+        print("canary: none")
+        return 0
+    state = "ACTIVE" if canary.get("active") else (
+        canary.get("outcome") or "inactive")
+    print(f"canary [{state}]: replica {canary.get('replica')} candidate "
+       f"{str(canary.get('candidate_version'))[:16]} vs baseline "
+       f"{str(canary.get('baseline_version'))[:16]}")
+    paired = canary.get("paired") or {}
+    if paired:
+        print(f"  paired samples: {paired.get('n')} "
+           f"(errors {paired.get('errors')}), mean overlap "
+           f"{paired.get('mean_overlap')}, worst "
+           f"{paired.get('worst_overlap')}")
+    verdict = canary.get("verdict") or {}
+    if verdict:
+        print(f"  verdict: {verdict.get('verdict', '?').upper()}")
+        for lane, info in (verdict.get("latency") or {}).items():
+            print(f"    {lane:>9}: {info.get('answers')} answers, "
+               f"over-threshold rate {info.get('over_threshold_rate')} "
+               f"(burn {info.get('burn')})")
+        for reason in verdict.get("reasons") or []:
+            print(f"    - {reason}")
+    return 1 if (canary.get("active")
+                 and verdict.get("verdict") == "rollback") else 0
+
+
+def cmd_fleet(args) -> int:
+    """Inspect or control a serving fleet through its router's
+    ``/admin/fleet`` (serving/fleet.py): default output is one line per
+    replica (state, version, restarts, outstanding); ``--reload``
+    starts the rolling zero-downtime hot-swap, ``--drain``/``--readmit``
+    move one replica out of / into rotation."""
+    import urllib.error
+    import urllib.request
+
+    body = {}
+    if args.reload:
+        body["reload"] = True
+        if getattr(args, "force", False):
+            # acknowledge a 507 preflight refusal: the operator owns
+            # the OOM risk now (obs/memacct.py)
+            body["force"] = True
+    if args.drain is not None:
+        body["drain"] = args.drain
+    if args.readmit is not None:
+        body["readmit"] = args.readmit
+    url = args.url.rstrip("/") + "/admin/fleet"
+    if body:
+        req = urllib.request.Request(
+            url, data=json.dumps(body).encode(), method="POST",
+            headers={"Content-Type": "application/json"})
+    else:
+        req = urllib.request.Request(url)
+    _add_admin_auth(req)
+    try:
+        with urllib.request.urlopen(req, timeout=10) as resp:
+            state = json.load(resp)
+    except urllib.error.HTTPError as e:
+        raise commands.CommandError(
+            f"fleet request failed ({e.code}): "
+            f"{e.read().decode(errors='replace')[:200]}")
+    except urllib.error.URLError as e:
+        raise commands.CommandError(f"cannot reach {args.url}: {e.reason}")
+    if args.json:
+        json.dump(state, sys.stdout, indent=1, sort_keys=True)
+        sys.stdout.write("\n")
+        return 0
+    if body:
+        print(state.get("message") or json.dumps(state))
+        return 0
+    print(f"fleet: {state['ready']}/{state['size']} ready, serving "
+       f"version {state['version'] or '(mixed/none)'}")
+    for r in state["replicas"]:
+        print(f"  {r['name']:>6} {r['state']:<9} port={r['port'] or '-':<6} "
+           f"version={r['version'] or '-':<34} restarts={r['restarts']} "
+           f"outstanding={r['outstanding']}")
+    from predictionio_torch.serving.fleet import format_swap
+
+    swap = state.get("swap") or {}
+    if swap.get("active") or swap.get("last"):
+        print(format_swap(swap))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m predictionio_torch.tools.cli",
@@ -554,6 +971,27 @@ def build_parser() -> argparse.ArgumentParser:
                        cmd_deploy)
     p.add_argument("--ip", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--feedback-url", default=None,
+                   help="event server base URL for the feedback loop's "
+                        "predict events (with --accesskey)")
+    p.add_argument("--accesskey", default=None)
+    p.add_argument("--log-url", default=None,
+                   help="POST serve errors to this URL "
+                        "(ref: CreateServer.scala:413-424)")
+    p.add_argument("--replicas", type=int, default=None,
+                   help="serve from N engine-server replicas behind a "
+                        "health-routed query router on --port "
+                        "(default: PIO_REPLICAS or 1 = a single server)")
+    p.add_argument("--replica-mode", choices=["subprocess", "thread"],
+                   default="subprocess",
+                   help="replica isolation: subprocesses on ephemeral "
+                        "ports, or in-process threaded servers")
+    p.add_argument("--canary", action="store_true",
+                   help="canary mode (needs --replicas >= 2): a new "
+                        "COMPLETED instance lands on ONE replica and the "
+                        "verdict promotes or rolls it back "
+                        "(PIO_CANARY_* knobs; watch cadence "
+                        "PIO_FLEET_WATCH_SEC)")
 
     p = sub.add_parser("undeploy", help="stop a deployed engine server")
     p.add_argument("--ip", default="127.0.0.1")
@@ -585,6 +1023,116 @@ def build_parser() -> argparse.ArgumentParser:
                    help="device (default: the CUDA card; 'cpu' to run on "
                         "the CPU)")
     p.set_defaults(func=cmd_eval)
+
+    p = sub.add_parser(
+        "slo",
+        help="SLO burn-rate evaluation (from a server's /admin/slo with "
+             "--url, else the in-process registry); exit 1 when firing",
+    )
+    p.add_argument("--url", default=None,
+                   help="base URL of any PIO server, e.g. "
+                        "http://127.0.0.1:8000 (sends the "
+                        "PIO_ADMIN_TOKEN bearer header when set)")
+    p.add_argument("--json", action="store_true",
+                   help="dump the raw evaluation report")
+    p.set_defaults(func=cmd_slo)
+
+    p = sub.add_parser(
+        "chaos",
+        help="inspect or toggle fault injection on a live server "
+             "(GET/POST /admin/chaos; resilience/chaos.py spec grammar "
+             "like storage:latency:50ms,storage:error:0.1)",
+    )
+    p.add_argument("--url", required=True,
+                   help="base URL of any PIO server (sends the "
+                        "PIO_ADMIN_TOKEN bearer header when set)")
+    p.add_argument("--set", dest="set_spec", default=None, metavar="SPEC",
+                   help="replace the active rule set with SPEC "
+                        "('' clears everything)")
+    p.add_argument("--add", default=None, metavar="SPEC",
+                   help="append SPEC's rules to the active set")
+    p.add_argument("--clear", nargs="?", const=True, default=None,
+                   metavar="SITE",
+                   help="drop every rule, or only SITE's")
+    p.add_argument("--json", action="store_true",
+                   help="dump the raw rule-set JSON")
+    p.set_defaults(func=cmd_chaos)
+
+    p = sub.add_parser(
+        "fleet",
+        help="inspect or control a serving fleet through its router "
+             "(GET/POST /admin/fleet; serving/fleet.py): replica "
+             "states, rolling hot-swap, drain/readmit",
+    )
+    p.add_argument("--url", default="http://127.0.0.1:8000",
+                   help="base URL of the fleet's router (sends the "
+                        "PIO_ADMIN_TOKEN bearer header when set)")
+    p.add_argument("--reload", action="store_true",
+                   help="start a rolling zero-downtime hot-swap onto "
+                        "the newest COMPLETED instance")
+    p.add_argument("--drain", default=None, metavar="REPLICA",
+                   help="take REPLICA out of rotation")
+    p.add_argument("--readmit", default=None, metavar="REPLICA",
+                   help="put REPLICA back into rotation (readiness "
+                        "probes permitting)")
+    p.add_argument("--force", action="store_true",
+                   help="with --reload: override the replicas' "
+                        "device-memory preflight (a 507-refused swap)")
+    p.add_argument("--json", action="store_true",
+                   help="dump the raw fleet snapshot JSON")
+    p.set_defaults(func=cmd_fleet)
+
+    p = sub.add_parser(
+        "replay",
+        help="re-play captured query payloads (PIO_FLIGHT_PAYLOADS) "
+             "against a candidate instance and diff the answers vs the "
+             "baseline (workflow/replay.py); report lands on "
+             "/admin/quality",
+    )
+    p.add_argument("--url", required=True,
+                   help="base URL of the CANDIDATE server")
+    p.add_argument("--baseline", default=None,
+                   help="base URL of the baseline server (default: "
+                        "--flight-url)")
+    p.add_argument("--flight-url", default=None,
+                   help="server whose /admin/flight holds the captured "
+                        "payloads (default: --baseline; requires "
+                        "PIO_ADMIN_TOKEN — payloads only travel under "
+                        "the bearer gate)")
+    p.add_argument("-n", type=int, default=None,
+                   help="replay only the newest N captured payloads")
+    p.add_argument("--k", type=int, default=None,
+                   help="top-k depth for the overlap diff (default "
+                        "PIO_QUALITY_K)")
+    p.add_argument("--no-push", action="store_true",
+                   help="do not register the report on the baseline's "
+                        "/admin/quality")
+    p.add_argument("--fail-under", type=float, default=None,
+                   help="exit 1 when mean overlap is below this floor")
+    p.add_argument("--json", action="store_true",
+                   help="dump the raw comparison report")
+    p.set_defaults(func=cmd_replay)
+
+    p = sub.add_parser(
+        "canary",
+        help="inspect or drive the fleet's canary lane through the "
+             "router (GET /admin/quality, POST /admin/fleet): paired "
+             "answer diffs, per-lane latency burn, promote/rollback",
+    )
+    p.add_argument("--url", default="http://127.0.0.1:8000",
+                   help="base URL of the fleet's router (sends the "
+                        "PIO_ADMIN_TOKEN bearer header when set)")
+    p.add_argument("--start", action="store_true",
+                   help="deploy the newest COMPLETED instance onto one "
+                        "replica as the canary")
+    p.add_argument("--promote", action="store_true",
+                   help="roll the whole fleet onto the candidate")
+    p.add_argument("--rollback", action="store_true",
+                   help="restore the canary replica to the baseline "
+                        "instance")
+    p.add_argument("--json", action="store_true",
+                   help="dump the raw /admin/quality report")
+    p.set_defaults(func=cmd_canary)
     return parser
 
 

@@ -1,0 +1,231 @@
+"""Logged-traffic replay harness: re-play captured queries, diff answers.
+
+Copy of ``predictionio_tpu/workflow/replay.py``.
+
+The evaluation story (ROADMAP item D / PAPER.md L4's MetricEvaluator)
+needs real request shapes, not synthetic ones — the flight recorder's
+opt-in payload capture (``PIO_FLIGHT_PAYLOADS``, obs/flight.py) keeps
+the last N ``/queries.json`` bodies exactly as clients sent them. This
+module re-plays those payloads against a CANDIDATE instance and a
+BASELINE (normally the instance currently serving), diffing every
+answer through obs/quality.py's one comparison currency:
+
+  - top-k overlap of the ranked item ids (the ``index/recall.py``
+    notion of "did the candidate retrieve what the baseline ranked"),
+  - mean |score delta| over the shared ids,
+  - per-lane latency (p50/p99/mean) of the replayed queries.
+
+The aggregate lands as a machine-readable report in
+``obs.quality.STATE`` — served by ``GET /admin/quality`` — and the
+``pio replay`` CLI can push the same report onto a remote fleet's
+quality surface (``POST /admin/quality``). The canary analysis reads
+the identical differ on its live paired samples, so offline replay and
+online canary can never disagree about what "answers changed" means.
+
+Config (env):
+  PIO_REPLAY_TIMEOUT   per-query HTTP timeout seconds (default 10)
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import time
+import urllib.error
+import urllib.request
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+from predictionio_torch.obs import metrics, quality, trace
+
+log = logging.getLogger(__name__)
+
+#: per-query examples carried in the report (bounded — the report is
+#: served over HTTP and stored in memory)
+MAX_QUERY_EXAMPLES = 64
+
+Target = Callable[[Any], Tuple[Any, float]]
+
+
+def _replay_timeout() -> float:
+    return metrics.env_float("PIO_REPLAY_TIMEOUT", 10.0)
+
+
+def http_target(base_url: str) -> Target:
+    """A replay target posting to a live server's ``/queries.json``;
+    returns (parsed answer, seconds). HTTP/transport failures raise —
+    the harness counts them per lane."""
+    url = base_url.rstrip("/") + "/queries.json"
+
+    def query(payload: Any) -> Tuple[Any, float]:
+        body = json.dumps(payload).encode()
+        req = urllib.request.Request(
+            url, data=body, method="POST",
+            headers=trace.traced_headers(
+                {"Content-Type": "application/json"}))
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=_replay_timeout()) as resp:
+            answer = json.loads(resp.read() or b"null")
+        return answer, time.perf_counter() - t0
+
+    return query
+
+
+def server_target(server: Any) -> Target:
+    """A replay target over an in-process EngineServer (bench/tests):
+    same differ, no HTTP hop."""
+
+    def query(payload: Any) -> Tuple[Any, float]:
+        t0 = time.perf_counter()
+        answer = server.query(payload)
+        return answer, time.perf_counter() - t0
+
+    return query
+
+
+def fetch_payloads(flight_url: str, n: Optional[int] = None,
+                   timeout: float = 10.0) -> List[Dict[str, Any]]:
+    """Pull the captured payload ring off a server's flight dump.
+    Raises RuntimeError with the two fixable causes spelled out when
+    the dump carries no payload bodies (capture off, or no admin token
+    configured/presented — the dump redacts bodies without one)."""
+    import os
+
+    url = flight_url.rstrip("/") + "/admin/flight"
+    req = urllib.request.Request(url, headers=trace.traced_headers())
+    token = os.environ.get("PIO_ADMIN_TOKEN")
+    if token:
+        req.add_header("Authorization", f"Bearer {token}")
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        dump = json.load(resp)
+    payloads = dump.get("payloads")
+    if payloads is None:
+        capture = dump.get("payload_capture") or {}
+        raise RuntimeError(
+            "flight dump carries no payload bodies "
+            f"(capture capacity {capture.get('capacity', 0)}, "
+            f"{capture.get('captured', 0)} captured): set "
+            "PIO_FLIGHT_PAYLOADS>0 on the server to capture, and "
+            "PIO_ADMIN_TOKEN on both ends — payloads are user data and "
+            "only travel under the bearer gate")
+    out = [p for p in payloads if isinstance(p, dict) and "payload" in p]
+    if n is not None:
+        out = out[-n:]
+    return out
+
+
+def _latency_summary(seconds: List[float]) -> Dict[str, float]:
+    if not seconds:
+        return {}
+    ordered = sorted(seconds)
+
+    def pct(q: float) -> float:
+        return ordered[min(len(ordered) - 1, int(len(ordered) * q))]
+
+    return {
+        "p50_ms": round(pct(0.50) * 1e3, 3),
+        "p99_ms": round(pct(0.99) * 1e3, 3),
+        "mean_ms": round(sum(ordered) / len(ordered) * 1e3, 3),
+    }
+
+
+def replay(payloads: Sequence[Dict[str, Any]], candidate: Target,
+           baseline: Target, k: Optional[int] = None,
+           register: bool = True) -> Dict[str, Any]:
+    """Re-play every captured payload against both targets and diff the
+    answers per query. Returns the machine-readable comparison report
+    (and registers it in obs.quality.STATE unless ``register`` is
+    False, so ``GET /admin/quality`` of THIS process serves it).
+
+    The whole run rides ONE minted trace: both lanes' HTTP targets
+    attach it (traced_headers), so a surprising diff can be followed
+    into both servers' span rings with ``pio trace``."""
+    with trace.new_trace():
+        return _replay_traced(payloads, candidate, baseline, k, register)
+
+
+def _replay_traced(payloads: Sequence[Dict[str, Any]], candidate: Target,
+                   baseline: Target, k: Optional[int],
+                   register: bool) -> Dict[str, Any]:
+    overlaps: List[float] = []
+    score_deltas: List[float] = []
+    base_secs: List[float] = []
+    cand_secs: List[float] = []
+    errors = {"baseline": 0, "candidate": 0}
+    examples: List[Dict[str, Any]] = []
+    for entry in payloads:
+        payload = entry.get("payload") if isinstance(entry, dict) else entry
+        base_answer = cand_answer = None
+        try:
+            base_answer, sec = baseline(payload)
+            base_secs.append(sec)
+        except Exception as e:  # noqa: BLE001 — a failing lane is a
+            # counted verdict, not a crash of the harness
+            errors["baseline"] += 1
+            log.warning("replay baseline query failed: %s", e)
+        try:
+            cand_answer, sec = candidate(payload)
+            cand_secs.append(sec)
+        except Exception as e:  # noqa: BLE001 — same contract
+            errors["candidate"] += 1
+            log.warning("replay candidate query failed: %s", e)
+        if base_answer is None or cand_answer is None:
+            continue
+        diff = quality.compare_answers(base_answer, cand_answer, k=k)
+        overlaps.append(diff["overlap"])
+        score_deltas.append(diff["score_delta"])
+        if len(examples) < MAX_QUERY_EXAMPLES:
+            examples.append({"payload": payload, **diff})
+    diffed = len(overlaps)
+    report: Dict[str, Any] = {
+        "n": len(payloads),
+        "diffed": diffed,
+        "errors": errors,
+        "k": quality._k() if k is None else int(k),
+        "mean_overlap": (round(sum(overlaps) / diffed, 4)
+                         if diffed else None),
+        "worst_overlap": round(min(overlaps), 4) if diffed else None,
+        "mean_score_delta": (round(sum(score_deltas) / diffed, 6)
+                             if diffed else None),
+        "latency_ms": {
+            "baseline": _latency_summary(base_secs),
+            "candidate": _latency_summary(cand_secs),
+        },
+        "queries": examples,
+        "generated_unix": round(time.time(), 3),
+    }
+    if register:
+        quality.STATE.set_replay(report)
+    return report
+
+
+def replay_urls(candidate_url: str, baseline_url: str,
+                flight_url: Optional[str] = None, n: Optional[int] = None,
+                k: Optional[int] = None) -> Dict[str, Any]:
+    """The CLI's whole flow: fetch captured payloads (from
+    ``flight_url``, default the baseline), replay against both live
+    servers, return the report."""
+    payloads = fetch_payloads(flight_url or baseline_url, n=n)
+    if not payloads:
+        raise RuntimeError("no captured payloads to replay — send "
+                           "traffic with PIO_FLIGHT_PAYLOADS>0 first")
+    return replay(payloads, http_target(candidate_url),
+                  http_target(baseline_url), k=k)
+
+
+def push_report(report: Dict[str, Any], base_url: str,
+                timeout: float = 10.0) -> None:
+    """Register a replay report on a remote server's quality surface
+    (``POST /admin/quality``) so its ``GET /admin/quality`` — and the
+    dashboard riding it — serves the comparison."""
+    import os
+
+    req = urllib.request.Request(
+        base_url.rstrip("/") + "/admin/quality",
+        data=json.dumps({"replay": report}).encode(), method="POST",
+        headers=trace.traced_headers(
+            {"Content-Type": "application/json"}))
+    token = os.environ.get("PIO_ADMIN_TOKEN")
+    if token:
+        req.add_header("Authorization", f"Bearer {token}")
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        resp.read()

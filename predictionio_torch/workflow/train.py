@@ -16,9 +16,10 @@ deadman watchdog (the trainers beat it through
 ``torchmon.observe_train_step``), the whole-train wall time lands in
 ``pio_train_seconds{engine}``, the device-memory gauges refresh after
 the train, and a completed instance moves the freshness horizon
-(``note_publish``) and logs the stage split in one line. The JAX
-package's multi-host writer election, chaos seam and profiler capture
-are not ported (ROADMAP.md, queue 1 items 12 and 13).
+(``note_publish``) and logs the stage split in one line. The chaos
+harness's ``train`` seam sits just before ``engine.train``. The JAX
+package's multi-host writer election and profiler capture are not
+ported (ROADMAP.md, queue 1 items 12 and 13).
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from predictionio_torch.data.metadata import EngineInstance, Model
 from predictionio_torch.data.storage import Storage, get_storage
 from predictionio_torch.obs import health, memacct, perfacct, torchmon
 from predictionio_torch.parallel.context import DeviceContext
+from predictionio_torch.resilience import chaos
 from predictionio_torch.workflow.config import WorkflowParams
 
 log = logging.getLogger(__name__)
@@ -103,6 +105,10 @@ def run_train(engine: Engine, engine_params: EngineParams, engine_id: str,
         storage.engine_instances().update(instance)
         t0 = time.perf_counter()
         with health.TRAIN_WATCHDOG.deadman():
+            # chaos seam: an injected train fault takes the FAILED
+            # instance path below; an injected hang sits under the
+            # deadman
+            chaos.inject("train")
             result = engine.train(ctx, engine_params, wp)
         train_sec = time.perf_counter() - t0
         log.info("engine.train took %.2f s", train_sec)

@@ -58,6 +58,8 @@ from predictionio_torch.tools import cli
 from predictionio_torch.workflow.deploy import prepare_deploy
 from predictionio_torch.workflow.train import run_train
 
+from tests.torch_operator_fixtures import port_operator_state  # noqa: F401
+
 torch.set_num_threads(2)
 
 UTC = dt.timezone.utc

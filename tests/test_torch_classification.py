@@ -44,6 +44,8 @@ from predictionio_torch.parallel.context import DeviceContext
 from predictionio_torch.templates import classification as cls_t
 from predictionio_torch.workflow.deploy import prepare_deploy
 
+from tests.torch_operator_fixtures import port_operator_state  # noqa: F401
+
 torch.set_num_threads(2)
 
 ctx = DeviceContext("cpu")

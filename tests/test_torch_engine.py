@@ -35,6 +35,7 @@ from tests import sample_engine as jax_sample
 from tests.torch_sample_engine import (Algo0, AlgoNoParams, AlgoPersistent,
                                        DataSource0, IdParams, Prediction,
                                        Preparator0, Query, Serving0)
+from tests.torch_operator_fixtures import port_operator_state  # noqa: F401
 
 ctx = DeviceContext("cpu")
 

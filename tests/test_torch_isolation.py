@@ -209,3 +209,50 @@ def test_importing_the_observability_core_starts_nothing():
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == {
         "torch": False, "threads": 1, "same_handlers": True}
+
+
+#: the deployed engine's operator contract: resilience, SLOs, quality,
+#: timelines, the fleet and its router, replay, and the modules they
+#: changed
+OPERATOR = ("predictionio_torch.resilience",
+            "predictionio_torch.resilience.policy",
+            "predictionio_torch.resilience.chaos",
+            "predictionio_torch.resilience.admission",
+            "predictionio_torch.resilience.alerts",
+            "predictionio_torch.obs.slo",
+            "predictionio_torch.obs.quality",
+            "predictionio_torch.obs.timeline",
+            "predictionio_torch.obs.journal",
+            "predictionio_torch.serving.fleet",
+            "predictionio_torch.serving.router",
+            "predictionio_torch.serving.engine_server",
+            "predictionio_torch.serving.http",
+            "predictionio_torch.workflow.replay",
+            "predictionio_torch.workflow.train",
+            "predictionio_torch.data.storage",
+            "predictionio_torch.tools.cli")
+
+
+def test_the_operator_modules_are_walked_and_import_no_jax():
+    assert _walk_and_import(OPERATOR) == {"missing": [], "bad": []}
+
+
+def test_importing_the_operator_modules_starts_nothing():
+    """The resilience layer, the SLO monitor, the fleet and the router
+    import no torch and start no thread at import: the alert sink, the
+    supervisor's monitor and the router's workers start on use."""
+    code = (
+        "import json, sys, threading\n"
+        "import predictionio_torch.resilience, predictionio_torch.obs.slo\n"
+        "import predictionio_torch.serving.fleet\n"
+        "import predictionio_torch.serving.router\n"
+        "import predictionio_torch.workflow.replay\n"
+        "print(json.dumps({'torch': 'torch' in sys.modules,\n"
+        "                  'threads': threading.active_count()}))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {
+        "torch": False, "threads": 1}

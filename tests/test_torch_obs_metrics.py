@@ -21,6 +21,8 @@ from predictionio_tpu.obs import metrics as jax_metrics
 from predictionio_tpu.obs import trace as jax_trace
 from predictionio_torch.obs import flight, health, journal, metrics, trace
 
+from tests.torch_operator_fixtures import port_operator_state  # noqa: F401
+
 
 class FakeClock:
     """``time``'s three clocks, advanced by hand."""

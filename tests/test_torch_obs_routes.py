@@ -3,9 +3,11 @@ server deployed with ``device="cpu"`` from one store.
 
 A tiny ALS model is trained once with the JAX package into a localfs
 store (as tests/test_torch_serving.py does), and both packages' engine
-servers deploy it. ``/readyz``, ``/admin/memory``, ``/admin/journal``
-and ``/admin/spans`` must answer with the same status codes and the
-same JSON keys, also with the store down (both serve DEGRADED). The
+servers deploy it. ``/readyz``, ``/admin/memory``, ``/admin/journal``,
+``/admin/spans`` and the operator routes (``/admin/{slo,chaos,
+resilience,timeline,quality}``) must answer with the same status codes
+and the same JSON keys, ``/readyz`` also with the store down (both
+serve DEGRADED). The
 port's unported admin routes answer 501 naming their ROADMAP item, the
 admin gate answers 401, and a query's trace shows at ``/admin/trace``.
 The ``/metrics`` families of the two packages, every module of each
@@ -36,39 +38,27 @@ from predictionio_torch.serving.engine_server import deploy
 from predictionio_torch.serving.http import UNPORTED_ADMIN
 
 from tests.test_storage import make_storage
+from tests.torch_operator_fixtures import port_operator_state  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENGINE_ID = "torch_obs_routes"
 JAX_FACTORY = "predictionio_tpu.templates.recommendation.recommendation_engine"
 
 #: the JAX families whose modules the port has not ported (ROADMAP
-#: queue 1 items 6, 10 and 13) or replaced: jax.monitoring's compile
-#: events and the Pallas flag became the port's kernel families
+#: queue 1 item 10) or replaced: jax.monitoring's compile events and the
+#: Pallas flag became the port's kernel families
 JAX_ONLY_FAMILIES = {
-    "pio_alert_webhook_total", "pio_anomaly_active",
-    "pio_anomaly_events_total", "pio_canary_request_seconds",
-    "pio_chaos_injections_total", "pio_circuit_state",
-    "pio_circuit_transitions_total", "pio_collect_member_errors_total",
-    "pio_data_batches_dropped_total", "pio_data_breaches_total",
-    "pio_data_entity_cardinality", "pio_data_entity_skew",
-    "pio_data_events_total", "pio_data_ingest_bytes_total",
-    "pio_data_schema_changes_total", "pio_data_tail_events_total",
-    "pio_fleet_ready_replicas", "pio_fleet_replica_up",
-    "pio_fleet_replica_version", "pio_fleet_restarts_total",
-    "pio_fleet_rolling_swaps_total", "pio_jax_compile_cache_total",
-    "pio_jax_compile_seconds", "pio_model_quality_breaches_total",
-    "pio_model_quality_factor_drift", "pio_model_quality_recall_vs_retrain",
-    "pio_model_quality_rmse_drift", "pio_pallas_kernel_enabled",
+    "pio_anomaly_active", "pio_anomaly_events_total",
+    "pio_collect_member_errors_total", "pio_data_batches_dropped_total",
+    "pio_data_breaches_total", "pio_data_entity_cardinality",
+    "pio_data_entity_skew", "pio_data_events_total",
+    "pio_data_ingest_bytes_total", "pio_data_schema_changes_total",
+    "pio_data_tail_events_total", "pio_jax_compile_cache_total",
+    "pio_jax_compile_seconds", "pio_pallas_kernel_enabled",
     "pio_prof_downshifts_total", "pio_prof_effective_hz",
     "pio_prof_overhead_ratio", "pio_prof_samples_total",
     "pio_prof_trie_evictions_total", "pio_push_total",
-    "pio_quality_reloads_total", "pio_query_unknown_entity_ratio",
-    "pio_retry_exhausted_total", "pio_retry_total",
-    "pio_router_hedge_deadline_seconds", "pio_router_hedge_rescues_total",
-    "pio_router_hedges_total", "pio_router_no_replica_total",
-    "pio_router_passthrough_total", "pio_router_pool_saturated_total",
-    "pio_router_reroutes_total", "pio_shed_total", "pio_slo_alert_firing",
-    "pio_slo_burn_rate",
+    "pio_query_unknown_entity_ratio",
 }
 #: the port's own: the nvcc builds and the kernel flag (obs/torchmon.py)
 PORT_ONLY_FAMILIES = {"pio_kernel_build_total", "pio_kernel_build_seconds",
@@ -155,7 +145,8 @@ def _call(port, path, method="GET", body=None, headers=None):
 
 
 ROUTES = ["/readyz", "/admin/memory", "/admin/journal?n=5",
-          "/admin/spans?n=5"]
+          "/admin/spans?n=5", "/admin/slo", "/admin/chaos",
+          "/admin/resilience", "/admin/timeline", "/admin/quality"]
 
 
 @pytest.mark.parametrize("path", ROUTES)
@@ -170,10 +161,11 @@ def test_routes_answer_like_jax(servers, path):
         # the same probe entries; the port checks kernel libraries where
         # the JAX server checks its compile cache
         # (a micro-batching server elsewhere in the process adds its
-        # queue's probe to the process registry)
+        # queue's probe to the process registry); the engine server's
+        # storage circuit registers the breakers' probe, as in JAX
         assert set(port_body["probes"]) - {"serving_queue"} == {
             "devices", "kernels", "flight_errors", "disk", "device_memory",
-            "storage"}
+            "storage", "circuit_breakers"}
         assert {"devices", "compile_cache", "flight_errors", "disk",
                 "device_memory", "storage"} <= set(jax_body["probes"])
         for name, entry in port_body["probes"].items():

@@ -39,6 +39,7 @@ from predictionio_torch.tools import cli
 from predictionio_torch.workflow.deploy import latest_completed_instance_id
 
 from tests.test_storage import make_storage
+from tests.torch_operator_fixtures import port_operator_state  # noqa: F401
 
 torch.set_num_threads(1)
 

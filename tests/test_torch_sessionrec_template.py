@@ -41,6 +41,7 @@ from predictionio_torch.parallel.context import DeviceContext
 from predictionio_torch.templates import sessionrec as seq_t
 from predictionio_torch.workflow.deploy import prepare_deploy
 from tests.test_torch_sessionrec import jitted_flax_init
+from tests.torch_operator_fixtures import port_operator_state  # noqa: F401
 
 torch.set_num_threads(2)
 

@@ -60,6 +60,7 @@ from predictionio_torch.workflow.stream import (StreamUnsupported,
 from predictionio_torch.workflow.train import run_train
 from tests.torch_sample_engine import (Algo0, DataSource0, IdParams,
                                        Preparator0)
+from tests.torch_operator_fixtures import port_operator_state  # noqa: F401
 
 torch.set_num_threads(2)
 

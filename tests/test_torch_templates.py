@@ -53,6 +53,8 @@ from predictionio_torch.templates import similarproduct as simprod_t
 from predictionio_torch.templates import vanilla as vanilla_t
 from predictionio_torch.workflow.deploy import prepare_deploy
 
+from tests.torch_operator_fixtures import port_operator_state  # noqa: F401
+
 torch.set_num_threads(2)
 
 UTC = dt.timezone.utc

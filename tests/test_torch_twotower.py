@@ -50,6 +50,7 @@ from predictionio_torch.workflow.deploy import prepare_deploy
 from predictionio_torch.workflow.train import run_train
 
 from tests.test_storage import make_storage
+from tests.torch_operator_fixtures import port_operator_state  # noqa: F401
 
 torch.set_num_threads(2)
 

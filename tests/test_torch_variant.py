@@ -54,6 +54,8 @@ from predictionio_torch.tools import cli
 from predictionio_torch.workflow import variant
 from predictionio_torch.workflow.variant import EngineVariant
 
+from tests.torch_operator_fixtures import port_operator_state  # noqa: F401
+
 torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -403,15 +405,54 @@ def test_unported_templates_raise_naming_their_roadmap_item(
     assert check(deployment.query(query)), deployment.query(query)
 
 
-def test_deploy_of_a_variant_with_an_slo_block_raises(tmp_path, capsys):
+def test_deploy_of_a_variant_with_an_slo_block_raises(memory_store, tmp_path,
+                                                     monkeypatch, capsys):
+    """A variant with an ``"slo"`` block once raised (SLOs were not
+    ported); now ``cli deploy`` serves it, its ``shed`` thresholds reach
+    the admission controller and its objectives ``/admin/slo``."""
+    from predictionio_torch.serving import http as port_http
+    from predictionio_torch.serving.engine_server import EngineServer
+
+    app = memory_store.apps().insert("reco")
+    memory_store.events().init(app.id)
+    memory_store.events().insert_batch(_rate_events(), app.id)
     path = tmp_path / "engine.json"
     path.write_text(json.dumps({
         "engineFactory": "predictionio_torch.templates.recommendation."
                          "recommendation_engine",
-        "slo": {"objectives": [{"name": "p99", "target": 0.99}]}}))
-    assert cli.main(["deploy", "--engine-json", str(path), "--port", "0",
-                     "--device", "cpu"]) == 1
-    assert "queue 1 item 6)" in capsys.readouterr().err
+        "datasource": {"params": {"app_name": "reco"}},
+        "algorithms": [{"name": "als", "params": {"rank": 4,
+                                                  "num_iterations": 2}}],
+        "slo": {"latency_ms": 50, "latency_objective": 0.995,
+                "availability_objective": 0.99,
+                "shed": {"queue_depth": 7, "inflight": 5, "burn": 9.0}}}))
+    assert cli.main(["train", "--engine-json", str(path),
+                     "--device", "cpu"]) == 0
+    seen = {}
+
+    def serve_once(server):
+        # in place of serving until SIGTERM: read the deployed server
+        server.start()
+        try:
+            seen["limits"] = server.admission.snapshot()["limits"]
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{server.port}/admin/slo",
+                    timeout=30) as resp:
+                seen["slo"] = {e["name"]: e for e in json.load(resp)["slos"]}
+        finally:
+            server.stop()
+
+    monkeypatch.setattr(EngineServer, "serve_forever", serve_once)
+    monkeypatch.setattr(port_http, "install_drain_handler",
+                        lambda *servers, **kw: None)
+    assert cli.main(["deploy", "--engine-json", str(path), "--ip",
+                     "127.0.0.1", "--port", "0", "--device", "cpu"]) == 0
+    assert "deployed on 127.0.0.1" in capsys.readouterr().out
+    assert seen["limits"] == {"queue_depth": 7, "inflight": 5, "burn": 9.0}
+    latency = seen["slo"]["serving-latency"]
+    assert latency["threshold_ms"] == 50.0
+    assert latency["objective"] == 0.995
+    assert seen["slo"]["http-availability"]["objective"] == 0.99
 
 
 def _rate_events(n=1200, n_users=40, n_items=30, seed=0):
