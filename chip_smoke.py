@@ -59,8 +59,22 @@ exits non-zero before printing any result.
    (score descending, item id ascending); the kernel's launch counter,
    reset just before the deploy, must have risen by at least the number
    of lone user and item queries.
-3b. Observability phase, on phase 3's live deployment before it stops:
-   ``GET /readyz`` must be 200, not failed, its ``devices`` probe
+3b. Observability phase, on phase 3's live deployment before it stops.
+   First the operator plane, held against the queries phase 3 sent:
+   ``GET /admin/data``'s ``unknown_ratio`` and ``queries_seen`` must be
+   the unknown user/item references over all references of those
+   queries; ``GET /admin/prof?endpoint=/queries.json`` must hold
+   ``[handler]`` samples (more checked lone queries are sent until the
+   25 Hz sampler has caught one) and ``pio_prof_overhead_ratio`` lie in
+   (0, 1] once it has sampled (the clock it meters its passes on is
+   reported: the thread CPU clock, or the wall clock where the thread
+   clock steps in scheduler ticks); ``GET /admin/anomaly`` must answer 200 with the JAX keys and
+   ``GET /admin/tail`` count at least one record a query; then ``cli
+   metrics``, ``flight``, ``trace <a query's id>``, ``prof``,
+   ``journal``, ``anomalies``, ``data``, ``mem`` and ``top --once`` run
+   in process (``cli.main``) against the server, each with the JAX
+   command's exit code (``anomalies``: 1 while the sentinel has an
+   active anomaly). Then ``GET /readyz`` must be 200, not failed, its ``devices`` probe
    naming the card and its ``kernels`` probe ok; ``GET /metrics`` must
    parse, with ``pio_device_memory_bytes{device="0",kind=...}`` equal
    to ``torch.cuda.memory_stats()`` (allocated current and peak) and
@@ -88,7 +102,15 @@ exits non-zero before printing any result.
    3's server captured (``PIO_FLIGHT_PAYLOADS``) are replayed with
    ``workflow/replay.py``, phase 3's server the reference and the router
    the candidate: top-10 overlap exactly 1.0, mean score delta within
-   the kernel's tolerance. (c) A second COMPLETED instance from other
+   the kernel's tolerance. Then the federation at the router:
+   ``/admin/fleet/metrics``' merged ``pio_http_requests_total`` of
+   ``/queries.json`` must equal the sum of the replicas' own
+   ``/metrics``; ``/admin/fleet/{tail,prof,journal,anomaly,data}``
+   answer 200 with both replicas and neither degraded; a routed query's
+   ``/admin/trace`` holds router and replica spans in one tree with no
+   placeholder; and the script's ``PIO_PUSH_URL`` sink (the replicas
+   push every second) must have received a replica's OpenMetrics
+   document. (c) A second COMPLETED instance from other
    seeded factors goes into the store; ``GET /reload`` on the router
    answers 202, the rolling swap ends ``ok`` with every replica on the
    second instance, and none of the queries a thread sends through the
@@ -189,11 +211,13 @@ exits non-zero before printing any result.
    against a float64 host top-k. The log and the cache are removed at
    the end, pass or fail.
 8. Front-door phase, the same main path from ``pio app new``, at the
-   ALS phase's width, uncut: in a new temporary ``eventlog`` store
+   ALS phase's width: in a new temporary ``eventlog`` store
    (``INGEST_DISK_BYTES`` free), ``cli app new ml20m`` and ``cli
-   accesskey new ml20m view``; the first 19,750,000 ratings in time
-   order by ``insert_columnar`` (the bulk lane, as history), the store
-   closed; ``cli eventserver`` then takes the last 250,000 as API
+   accesskey new ml20m view``; of the first 19,750,000 ratings in time
+   order, every ``PROJECT_STRIDE``-th plus each user's and each item's
+   first (``depth_cut``: ~5M, every width kept; phase 7 holds the uncut
+   20M lane) by ``insert_columnar`` (the bulk lane, as history), the
+   store closed; ``cli eventserver`` then takes the last 250,000 as API
    ``rate`` events: 248,000 in ``/batch/events.json`` bodies of 10,000
    over 4 keep-alive connections (every status 201) and 2,000 lone
    ``POST /events.json`` (201 with an ``eventId``); the whitelisted
@@ -203,7 +227,8 @@ exits non-zero before printing any result.
    what was sent. SIGTERM while a 10,000-event batch is in flight: the
    batch is answered and the server exits 0 within
    ``PIO_DRAIN_TIMEOUT``. ``cli train`` (bench's ALS knobs) must log
-   the binned lane with one scan of exactly 20,000,000 ratings; ``cli
+   the binned lane with one scan of exactly the log's ratings (the cut
+   history and the 250,000 live); ``cli
    deploy``'s 20 answers are checked against a float64 host top-k, and
    ``topk_dot``'s launches in its ``GET /`` rise by at least the lone
    queries; ``cli status`` exits 0. The batch route's per-event split
@@ -219,7 +244,11 @@ exits non-zero before printing any result.
    (ALS, rank 16) over the same events, and again over the same events
    imported into an ``eventlog`` store, where ``cli train``'s log must
    show the binned lane; queries are checked against each stored
-   model's factors.
+   model's factors. The three chains of CLI processes (the eventlog
+   store's import, train and deploy; once the localfs store holds the
+   events, the two-tower's and the ALS engine's train and deploy) run
+   side by side, and phase 11's stream commands run against the
+   eventlog chain's live deploy.
 10. Eval phase, the evaluation half (``pio eval``). (a) The ALS phase's
    ratings and holdout as ``PreparedRatings``; ``ALSAlgorithm.grid_train``
    on ``cuda`` trains G = 4 candidates at once (``lambda_`` 0.05, 0.02,
@@ -264,10 +293,23 @@ exits non-zero before printing any result.
    stretch tables (1M x 1M x 128) with a 4,096-pair delta and 4 steps:
    losses falling, only the delta's rows returned, within
    ``TT_ONLINE_ATOL``/``TT_ONLINE_RTOL`` of the same call on the CPU.
-   ``topk_dot`` must have launched on this path. After the ``pio
-   train`` phase: ``cli deploy`` of its eventlog ALS engine, ``cli
-   stream --once --url`` against it (exit 0, its stats printed), ``cli
-   undeploy`` (the server's process exits 0).
+   ``topk_dot`` must have launched on this path. From the existing
+   user's fold on, ``PIO_QUALITY_EVERY=1``: each fold runs the
+   shadow-quality probe, whose ``topk_dot`` launches are counted apart
+   (each probe at least one); after the HTTP lane's fold its
+   ``recall_vs_retrain`` must lie within the least and the most overlap
+   a float64 top-k of the folded tables against the shadow allows
+   (equal unless near-ties within ``topk_dot``'s tolerance straddle the
+   cut), and the server's ``/admin/quality`` must hold the pushed
+   report. Then ``PIO_QUALITY_DRIFT_BAND=0`` and the server as the
+   reload URL: two more folds breach the band, and the reload lane
+   fires once (one ``auto_reload`` in the journal, one in-place
+   ``reload`` of the server, one trigger logged). The reload's warm-up
+   launches are counted apart too, and the path's count holds neither.
+   In the ``pio train``
+   phase: ``cli deploy`` of its eventlog ALS engine, ``cli stream
+   --once --url U --reload-url U`` against it (exit 0, its stats
+   printed), ``cli undeploy`` (the server's process exits 0).
 
 12. Project phase, the engine-project path. (a) Two-tower
    checkpoint/resume at the train phase's stretch configuration: three
@@ -405,7 +447,8 @@ RMSE_BAND = (0.38, 0.48)
 # index snapshot and two layout-cache entries
 INGEST_DISK_BYTES = 6 << 30
 # the front-door phase: the ALS phase's ratings, of which the first
-# FD_HISTORY go in as history and the rest through the event server
+# FD_HISTORY, cut to depth_cut's rows, go in as history and the rest
+# through the event server
 # (batches of FD_BATCH over FD_CONNS connections, then FD_LONE lone
 # POSTs); a whitelisted key's batch of FD_VIEWS views and FD_DENIED
 # rates; FD_READS reads; the server's drain window
@@ -818,11 +861,13 @@ def store_ml20m_instance(storage, instance_id: str, U, V, user_names,
 
 
 def serve_phase(after=None) -> dict:
-    """Phase 3. ``after(server, truth, store_env)``, when given, runs on
+    """Phase 3. ``after(server, truth, store_env, sent)``, when given,
+    runs on
     the live deployment once the serve path's own checks and counts are
     done (phase 3b, the observability phase, then phase 3c, the fleet),
     before the server stops; ``store_env`` names the localfs store that
-    holds the served instance. The server captures its query payloads
+    holds the served instance, ``sent`` the queries the phase sent. The
+    server captures its query payloads
     (``PIO_FLIGHT_PAYLOADS``) for phase 3c's replay."""
     import torch
     from predictionio_torch.data.storage import Storage
@@ -932,7 +977,7 @@ def serve_phase(after=None) -> dict:
         lat_ms = sorted(1e3 * x for x in lat[:kernel_queries])
         peak_mem = torch.cuda.max_memory_allocated()
         if after is not None:
-            after(server, truth, store_env)
+            after(server, truth, store_env, lone + burst)
         return {
             "launches": launches, "lone_queries": len(lone),
             "lone_kernel_queries": kernel_queries,
@@ -969,12 +1014,131 @@ def http_json(port: int, path: str, method: str = "GET"):
         return code, raw.decode()
 
 
-def obs_phase(server, truth: Truth) -> dict:
-    """Phase 3b, on phase 3's live deployment: ``/readyz``, ``/metrics``
-    against the allocator, a ``POST /admin/profile`` capture over a
-    burst of lone queries, an IVF index over the served item factors
-    against ``topk_dot``'s exact answers, and a deploy with
-    ``PIO_INDEX_BACKEND=ivf``."""
+def operator_plane_checks(server, truth: Truth, sent) -> dict:
+    """Phase 3b's first checks, held against the queries phase 3 sent
+    (``sent``): ``/admin/data``'s unknown-entity ratio, ``/admin/prof``'s
+    handler samples under ``/queries.json``, ``/admin/anomaly``,
+    ``/admin/tail``, and the observability commands run in process
+    against the server, each with the JAX command's exit code."""
+    import contextlib
+    import io
+
+    from predictionio_torch.obs import anomaly, contprof
+    from predictionio_torch.tools import cli
+
+    t_checks = time.perf_counter()
+    out = {}
+    # the unknown-entity ratio over every ref phase 3's queries named
+    refs = unknown = 0
+    for q in sent:
+        for key, known in (("user", truth.users), ("item", truth.items)):
+            if key in q:
+                refs += 1
+                unknown += q[key] not in known
+    code, data = http_json(server.port, "/admin/data")
+    if (code != 200 or data["queries_seen"] != refs
+            or data["unknown_ratio"] != round(unknown / refs, 4)):
+        fail(f"/admin/data: {code}, {data.get('queries_seen')} refs and "
+             f"an unknown ratio of {data.get('unknown_ratio')}; phase 3 "
+             f"sent {refs} refs, {unknown} unknown")
+    out["data"] = {"refs": refs, "unknown": unknown,
+                   "unknown_ratio": data["unknown_ratio"]}
+
+    # the continuous profile: handler samples under /queries.json (more
+    # lone queries, each checked, until the sampler has caught one)
+    extra = 0
+    deadline = time.monotonic() + 30
+    while True:
+        code, prof = http_json(server.port,
+                               "/admin/prof?endpoint=/queries.json")
+        handler = sum(c["cpu"] + c["wait"] for stack, c in
+                      (prof.get("folded") or {}).items()
+                      if stack.startswith("[handler]"))
+        if code != 200 or handler or time.monotonic() > deadline:
+            break
+        q = sent[extra % len(sent)]
+        check_answer(truth, q, post(server.port, q), "profiled lone query")
+        extra += 1
+    code_all, whole = http_json(server.port, "/admin/prof")
+    ratio = whole.get("overhead_ratio") if code_all == 200 else None
+    # a sampler that has sampled has metered its own cost: a ratio of
+    # 0 is a clock too coarse to see a pass
+    if (code != 200 or not handler or ratio is None or not ratio <= 1
+            or not (ratio > 0 or whole["total_samples"] == 0)):
+        fail(f"/admin/prof: {code}, {handler} handler samples under "
+             f"/queries.json, overhead ratio {ratio} metered on "
+             f"{contprof.PROFILER.metering_clock()}")
+    out["prof"] = {"handler_samples": handler, "extra_queries": extra,
+                   "effective_hz": whole["effective_hz"],
+                   "overhead_ratio": ratio,
+                   "metering_clock": contprof.PROFILER.metering_clock(),
+                   "thread_clock_step_sec": contprof.clock_step(
+                       time.thread_time),
+                   "total_samples": whole["total_samples"]}
+
+    code, report = http_json(server.port, "/admin/anomaly")
+    if code != 200 or set(report) != {"window_sec", "active",
+                                      "recent_resolved", "scan_ms"}:
+        fail(f"/admin/anomaly: {code} {report}")
+    out["anomaly_active"] = sorted(report["active"])
+    code, tail = http_json(server.port, "/admin/tail")
+    if code != 200 or tail.get("total_count", 0) < len(sent):
+        fail(f"/admin/tail: {code}, {tail.get('total_count')} records for "
+             f"{len(sent)} queries")
+    out["tail"] = {"records": tail["total_count"],
+                   "dominant_tail_stage": tail.get("dominant_tail_stage")}
+
+    # the observability commands, in process, against this server
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{server.port}/queries.json",
+        data=json.dumps(sent[0]).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        trace_id = resp.headers["X-PIO-Trace-Id"]
+        check_answer(truth, sent[0], json.loads(resp.read()),
+                     "traced lone query")
+    url = f"http://127.0.0.1:{server.port}"
+    commands = {
+        "metrics": (["metrics", "--url", url, "--json"], 0),
+        "flight": (["flight", "--url", url, "-n", "5"], 0),
+        "trace": (["trace", trace_id, "--url", url], 0),
+        "prof": (["prof", "--url", url, "--endpoint", "/queries.json"], 0),
+        "journal": (["journal", "--url", url, "-n", "20"], 0),
+        "anomalies": (["anomalies", "--url", url],
+                      1 if anomaly.SENTINEL.scan()["active"] else 0),
+        "data": (["data", "--url", url], 0),
+        "mem": (["mem", "--url", url], 0),
+        "top": (["top", "--url", url, "--once"], 0),
+    }
+    root = logging.getLogger()
+    saved = (list(root.handlers), root.level)
+    exits = {}
+    try:
+        for name, (argv, want) in commands.items():
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                exits[name] = cli.main(argv)
+            if exits[name] != want or not buf.getvalue():
+                fail(f"pio {' '.join(argv[:2])} exited {exits[name]} "
+                     f"(want {want}): {buf.getvalue()[-500:]}")
+    finally:
+        # cli.main installs its console log handler on the root logger
+        for handler in list(root.handlers):
+            if handler not in saved[0]:
+                root.removeHandler(handler)
+        root.setLevel(saved[1])
+    out["cli_exits"] = exits
+    out["sec"] = time.perf_counter() - t_checks
+    return out
+
+
+def obs_phase(server, truth: Truth, sent) -> dict:
+    """Phase 3b, on phase 3's live deployment: the operator plane's
+    routes and commands (``operator_plane_checks``), ``/readyz``,
+    ``/metrics`` against the allocator, a ``POST /admin/profile``
+    capture over a burst of lone queries, an IVF index over the served
+    item factors against ``topk_dot``'s exact answers, and a deploy
+    with ``PIO_INDEX_BACKEND=ivf``."""
     import torch
     from predictionio_torch.index.ivf import IVFIndex
     from predictionio_torch.obs import metrics, profiler
@@ -986,7 +1150,8 @@ def obs_phase(server, truth: Truth) -> dict:
     t_phase = time.perf_counter()
     card = torch.cuda.get_device_name(0)
     rng = np.random.default_rng(SEED + 3)
-    out = {"card": card}
+    out = {"card": card,
+           "operator_plane": operator_plane_checks(server, truth, sent)}
 
     # (a) readiness: ready, and the device probe names the card
     code, ready = http_json(server.port, "/readyz")
@@ -1182,6 +1347,116 @@ def replica_launches(fleet) -> int:
     return total
 
 
+class PushSink:
+    """An HTTP sink for ``PIO_PUSH_URL``: keeps every pushed body."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.bodies = []
+        sink = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                length = int(self.headers.get("Content-Length") or 0)
+                sink.bodies.append(self.rfile.read(length))
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}/push"
+
+    def stop(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=10)
+
+
+def routed_requests(samples: dict) -> float:
+    """``pio_http_requests_total`` summed over the ``/queries.json``
+    route, from flat samples."""
+    return sum(v for k, v in samples.items()
+               if k.startswith("pio_http_requests_total{")
+               and 'route="/queries.json"' in k)
+
+
+def federation_checks(router, fleet, truth: Truth, sink) -> dict:
+    """Phase 3c's federation checks at the router: the merged request
+    count against the replicas' own ``/metrics``, every fleet-scoped
+    federation with both members and none degraded, one routed query's
+    trace stitched across the router and a replica, and a push from a
+    replica at the ``PIO_PUSH_URL`` sink."""
+    from predictionio_torch.obs import metrics
+
+    t0 = time.perf_counter()
+    out = {}
+    names = sorted(r.name for r in fleet.replicas)
+
+    def replicas_total():
+        total = 0.0
+        for r in fleet.replicas:
+            code, text = http_json(r.port, "/metrics")
+            if code != 200:
+                fail(f"fleet: {r.name}'s /metrics answered {code}")
+            total += routed_requests(metrics.samples_dict(text))
+        return total
+
+    for _ in range(3):
+        before = replicas_total()
+        code, merged = admin_json(router.port, "/admin/fleet/metrics")
+        after = replicas_total()
+        if before == after:
+            break
+    got = routed_requests(merged.get("samples") or {})
+    if code != 200 or got != after or not after:
+        fail(f"/admin/fleet/metrics: {code}, merged /queries.json "
+             f"requests {got} against the replicas' {after}")
+    out["metrics"] = {"queries_requests": got,
+                      "members": [m["name"] for m in merged["members"]]}
+    for route in ("tail", "prof", "journal", "anomaly", "data"):
+        code, report = admin_json(router.port, f"/admin/fleet/{route}")
+        members = {m["name"]: m["ok"] for m in report.get("members", [])}
+        if code != 200 or members != {n: True for n in names}:
+            fail(f"/admin/fleet/{route}: {code}, members {members}")
+    out["federations"] = ["metrics", "tail", "prof", "journal", "anomaly",
+                          "data"]
+
+    trace_id = os.urandom(16).hex()
+    q = {"user": next(iter(truth.users)), "num": 10}
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{router.port}/queries.json",
+        data=json.dumps(q).encode(),
+        headers={"Content-Type": "application/json",
+                 "X-PIO-Trace-Id": trace_id})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        check_answer(truth, q, json.loads(resp.read()), "traced routed query")
+    code, doc = admin_json(router.port, f"/admin/trace?id={trace_id}")
+    if (code != 200 or not doc.get("complete") or doc.get("missing_spans")
+            or not {"router", "engineserver"} <= set(doc.get("processes",
+                                                          []))):
+        fail(f"/admin/trace of a routed query: {code}, processes "
+             f"{doc.get('processes')}, complete {doc.get('complete')}, "
+             f"missing {doc.get('missing_spans')}")
+    out["trace"] = {"spans": doc["span_count"],
+                    "processes": doc["processes"]}
+
+    wait_until(lambda: sink.bodies, 10, "a push from a replica")
+    pushed = sink.bodies[-1].decode()
+    if "PIOEngineServer" not in pushed or not pushed.rstrip().endswith(
+            "# EOF"):
+        fail(f"the pushed document: {pushed[-300:]}")
+    out["pushes"] = len(sink.bodies)
+    out["sec"] = time.perf_counter() - t0
+    return out
+
+
 def wait_until(predicate, timeout: float, what: str):
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
@@ -1217,8 +1492,10 @@ def fleet_phase(server, truth: Truth, store_env: dict,
                    "datasource": {"params": {"app_name": "ml20m"}},
                    "algorithms": [{"name": "als",
                                    "params": {"rank": RANK}}]}, f)
+    sink = PushSink()
     child_env = {**store_env, "PIO_FLIGHT_PAYLOADS": "0",
                  "PIO_SHED_QUEUE_DEPTH": str(FLEET_SHED_QUEUE_DEPTH),
+                 "PIO_PUSH_URL": sink.url, "PIO_PUSH_INTERVAL_SEC": "1",
                  "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
     # the router's breakers: two failures open one, 2 s re-tests it
     router_env = {"PIO_BREAKER_THRESHOLD": "2",
@@ -1306,6 +1583,7 @@ def fleet_phase(server, truth: Truth, store_env: dict,
         out["replay"] = {k: report[k] for k in (
             "n", "diffed", "mean_overlap", "worst_overlap",
             "mean_score_delta", "latency_ms")}
+        out["federation"] = federation_checks(router, fleet, truth, sink)
 
         # (c) a rolling hot-swap onto a second instance, under traffic
         U2, V2, user_names, item_names = ml20m_factors(
@@ -1516,6 +1794,7 @@ def fleet_phase(server, truth: Truth, store_env: dict,
             router.stop()
         if fleet is not None:
             fleet.stop()
+        sink.stop()
         for key, value in saved.items():
             if value is None:
                 os.environ.pop(key, None)
@@ -2363,6 +2642,44 @@ def rel_err(got, want) -> float:
                  / np.linalg.norm(want))
 
 
+def quality_bounds(model, shadow, k: int, sample: int):
+    """The recall_vs_retrain a drift probe must report, from a float64
+    top-k of the live tables on the host: the users ``drift_report``
+    samples (its seed and order), the shadow's top-k as it computes it,
+    and, per user, the least and the most overlap any top-k within
+    ``topk_dot``'s score tolerance of the float64 one can have (equal
+    unless near-ties straddle the cut). -> (lowest, highest) mean."""
+    from predictionio_torch.index.recall import brute_force_topk
+
+    rng = np.random.default_rng(0xD81F7)
+    shared = [u for u in shadow.user_ids if u in model.user_ids]
+    picked = [shared[int(j)] for j in rng.choice(
+        len(shared), min(sample, len(shared)), replace=False)]
+    k = min(k, shadow.item_factors.shape[0])
+    shadow_vecs = np.stack([shadow.user_factors[shadow.user_ids[u]]
+                            for u in picked])
+    _, shadow_rows = brute_force_topk(shadow.item_factors, shadow_vecs, k)
+    inv_shadow = shadow.inv_items()
+    V = np.asarray(model.item_factors, np.float64)
+    inv_live = model.item_ids.inverse()
+    vmax = float(np.linalg.norm(V, axis=1).max())
+    lows, highs = [], []
+    for b, user in enumerate(picked):
+        want = {inv_shadow[int(r)] for r in shadow_rows[b]}
+        u = np.asarray(model.user_factors[model.user_ids[user]], np.float64)
+        scores = V @ u
+        kth = np.sort(scores)[-k]
+        tol = 1e-5 * float(np.linalg.norm(u)) * vmax
+        sure = {inv_live[int(r)] for r in np.flatnonzero(scores > kth + tol)}
+        tied = {inv_live[int(r)]
+                for r in np.flatnonzero(np.abs(scores - kth) <= tol)}
+        need = k - len(sure)
+        base = len(sure & want)
+        lows.append((base + max(0, need - len(tied - want))) / len(want))
+        highs.append((base + min(need, len(tied & want))) / len(want))
+    return float(np.mean(lows)), float(np.mean(highs))
+
+
 def stream_phase(storage, app_id: int, model, params, ratings,
                  tt_tables) -> dict:
     """The streaming freshness lane over the ingest phase's 20M-event
@@ -2377,6 +2694,7 @@ def stream_phase(storage, app_id: int, model, params, ratings,
     from predictionio_torch.data.event import Event
     from predictionio_torch.data.metadata import EngineInstance, Model
     from predictionio_torch.index.recall import recall_at_k
+    from predictionio_torch.obs import journal, quality
     from predictionio_torch.ops.kernels import embed_update as eu
     from predictionio_torch.ops.kernels import flash_ce as fce
     from predictionio_torch.ops.kernels import topk_dot as tkd
@@ -2415,7 +2733,7 @@ def stream_phase(storage, app_id: int, model, params, ratings,
                      event_time=now + dt.timedelta(seconds=k))
 
     # the main path: counters reset, serve, stream, fold, answer
-    solve = stream.fold_in_solve
+    solve, drift_report = stream.fold_in_solve, quality.drift_report
     for counter in (fce.launches, eu.launches, tkd.launches):
         counter.reset()
     t0 = time.perf_counter()
@@ -2456,17 +2774,32 @@ def stream_phase(storage, app_id: int, model, params, ratings,
         timed(folder, "_fetch_history", "history_sec")
         timed(stream, "fold_in_solve", "solve_sec")
         timed(updater, "_publish", "publish_sec")
+        timed(updater, "probe_quality", "quality_sec")
+        # the quality probe's own topk_dot launches (its drift reports),
+        # apart from the serving's and a breach's reload
+        probe_launches = []
+
+        def counted_report(*args, **kwargs):
+            before = tkd.launches.value
+            try:
+                return drift_report(*args, **kwargs)
+            finally:
+                probe_launches.append(tkd.launches.value - before)
+
+        quality.drift_report = counted_report
 
         def fold(what: str, n_events: int) -> dict:
             for key in ("tail_sec", "history_sec", "solve_sec",
-                        "publish_sec"):
+                        "publish_sec", "quality_sec"):
                 split[key] = 0.0
             skipped = dict(updater.groups_skipped)
             stats = updater.poll_once()
             if stats["events"] != n_events or not stats["published"]:
                 fail(f"stream phase, {what}: {stats}")
+            # the probe runs after the cycle's own clock stopped
             return {**stats, "split": dict(split),
-                    "other_sec": stats["seconds"] - sum(split.values()),
+                    "other_sec": stats["seconds"] - sum(
+                        v for k, v in split.items() if k != "quality_sec"),
                     "groups_skipped": {
                         k: v - skipped[k]
                         for k, v in updater.groups_skipped.items()}}
@@ -2525,6 +2858,10 @@ def stream_phase(storage, app_id: int, model, params, ratings,
         if e2s["rel_err_vs_f64"] > FOLD_REL_TOL:
             fail(f"stream phase: the fresh user's folded factor is "
                  f"{e2s['rel_err_vs_f64']} from the float64 solve")
+
+        # every fold from here on runs the shadow-quality probe (after
+        # the event-to-servable fold, whose time stays comparable)
+        os.environ["PIO_QUALITY_EVERY"] = "1"
 
         # 4. an existing user's one more rating: its factor against a
         # float64 solve of its full history over the fixed item factors
@@ -2592,6 +2929,29 @@ def stream_phase(storage, app_id: int, model, params, ratings,
                      "stream phase, HTTP lane")
         updater.patch_servers, updater.patch_urls = [server], []
 
+        # the probe of that fold: topk_dot's top-k of the folded tables
+        # against the shadow, held to a float64 top-k on the host; the
+        # HTTP lane pushed the same report to the server
+        report = http["quality"]
+        lo, hi = quality_bounds(local, updater._shadows[folder.index],
+                                quality._k(), quality._sample_n())
+        if not (round(lo, 4) - 1e-4 <= report["recall_vs_retrain"]
+                <= round(hi, 4) + 1e-4):
+            fail(f"stream phase: recall_vs_retrain "
+                 f"{report['recall_vs_retrain']} against [{lo}, {hi}] "
+                 "from float64")
+        if probe_launches != [1, 1, 1]:
+            fail(f"stream phase: topk_dot launches per quality probe "
+                 f"{probe_launches}")
+        code, pushed = http_json(server.port, "/admin/quality")
+        if code != 200 or (pushed.get("drift") or {}).get(
+                "recall_vs_retrain") != report["recall_vs_retrain"]:
+            fail(f"stream phase: the drift push: {code} {pushed}")
+        probed = {"report": report, "recall_f64": [lo, hi],
+                  "launches_per_probe": list(probe_launches),
+                  "quality_sec": [f["split"]["quality_sec"] for f in
+                                  (existing, new, http)]}
+
         # 7. the recall probe over the patched index, through topk_dot
         recall = updater.probe_recall()
         if recall != 1.0:
@@ -2609,6 +2969,42 @@ def stream_phase(storage, app_id: int, model, params, ratings,
         if solve_devices != {"cuda:0"}:
             fail(f"fold_in_solve ran on {solve_devices}, not the card")
 
+        # a drift band every fold breaches: the reload lane (the
+        # server's GET /reload) fires once, and not again for the same
+        # bound instance
+        os.environ["PIO_QUALITY_DRIFT_BAND"] = "0"
+        updater.reload_urls = [f"http://127.0.0.1:{server.port}"]
+        n_auto = len(journal.JOURNAL.recent(kind="auto_reload"))
+        n_reload = len(journal.JOURNAL.recent(kind="reload"))
+        n_launched = tkd.launches.value
+        with LogRecords("predictionio_torch.workflow.stream") as logs:
+            events.insert_batch([rate("stream_breach_u", inv_items[3],
+                                      4.0)], app_id)
+            breach = fold("drift breach", 1)
+            events.insert_batch([rate("stream_breach_v", inv_items[4],
+                                      4.0)], app_id)
+            again = fold("after the breach", 1)
+        # the breach's in-place reload warms the new model's index up:
+        # its launches are neither the stream path's nor the probes'
+        reload_launches = (tkd.launches.value - n_launched
+                           - sum(probe_launches[3:]))
+        triggered = [r.getMessage() for r in logs.records
+                     if "rolling reload triggered" in r.getMessage()]
+        auto = len(journal.JOURNAL.recent(kind="auto_reload")) - n_auto
+        reloads = len(journal.JOURNAL.recent(kind="reload")) - n_reload
+        if (not breach["quality"]["breached"]
+                or not again["quality"]["breached"] or auto != 1
+                or reloads != 1 or len(triggered) != 1
+                or probe_launches != [1] * 5):
+            fail(f"stream phase: a breach fired {auto} auto_reload, the "
+                 f"server reloaded {reloads} times, {len(triggered)} "
+                 f"triggers logged: {breach['quality']}")
+        probed["breach"] = {"breached": breach["quality"]["breached"],
+                            "auto_reloads": auto, "server_reloads": reloads,
+                            "probes": len(probe_launches)}
+        probed["launches"] = sum(probe_launches)
+        probed["reload_launches"] = reload_launches
+
         # 8. the two-tower online step at the stretch width
         U, V = tt_tables
         rng = np.random.default_rng(SEED + 8)
@@ -2620,11 +3016,16 @@ def stream_phase(storage, app_id: int, model, params, ratings,
         t0 = time.perf_counter()
         tt_got = online_delta_step(U, V, u_rows, i_rows, device="cuda", **kw)
         tt_ms = (time.perf_counter() - t0) * 1e3
-        launches = tkd.launches.value
+        # the stream path's own: the probes are counted apart
+        launches = (tkd.launches.value - probed["launches"]
+                    - reload_launches)
         if fce.launches.value or eu.launches.value:
             fail("the stream phase launched a two-tower training kernel")
     finally:
         stream.fold_in_solve = solve
+        quality.drift_report = drift_report
+        os.environ.pop("PIO_QUALITY_EVERY", None)
+        os.environ.pop("PIO_QUALITY_DRIFT_BAND", None)
         server.stop()
     if launches < 1:
         fail("topk_dot did not launch on the stream path")
@@ -2656,6 +3057,7 @@ def stream_phase(storage, app_id: int, model, params, ratings,
         "event_to_servable_ms": e2s["event_to_servable_ms"],
         "existing_user": existing, "new_item": new, "http": http,
         "patches": dict(server.patches), "recall": recall,
+        "quality_probe": probed,
         "fold_rel_tol": FOLD_REL_TOL,
         "two_tower": {"pairs": STREAM_TT_PAIRS, "steps": STREAM_TT_STEPS,
                       "table_rows": len(U), "dim": int(U.shape[1]),
@@ -2778,13 +3180,14 @@ def batch_lane_split(bodies) -> dict:
 
 def front_door_phase(ratings) -> dict:
     """The main path from its front door, at the ALS phase's width: ``cli
-    app new`` and ``accesskey new``; the first 19.75M ratings as history
-    by ``insert_columnar``; ``cli eventserver`` takes the last 250,000
-    as live traffic (batches over 4 keep-alive connections, lone POSTs), a
-    whitelisted key's batch (the per-row lane, 403s), reads and stats,
-    and drains an in-flight batch on SIGTERM; ``cli train`` scans all
-    20M ratings once on the binned lane, ``cli deploy`` answers through
-    ``topk_dot``, and ``cli status`` passes."""
+    app new`` and ``accesskey new``; the first 19.75M ratings cut to
+    ``depth_cut``'s rows as history by ``insert_columnar``; ``cli
+    eventserver`` takes the last 250,000 as live traffic (batches over 4
+    keep-alive connections, lone POSTs), a whitelisted key's batch (the
+    per-row lane, 403s), reads and stats, and drains an in-flight batch
+    on SIGTERM; ``cli train`` scans the log's every rating once on the
+    binned lane, ``cli deploy`` answers through ``topk_dot``, and ``cli
+    status`` passes."""
     import ast
     import http.client
 
@@ -2793,6 +3196,13 @@ def front_door_phase(ratings) -> dict:
     uu, ii, vals = ratings
     n = len(uu)
     hist = FD_HISTORY
+    # the history's depth is cut (widths kept; phase 7 holds the uncut
+    # 20M lane); in_log marks the ratings the log holds, each at its own
+    # second, as before the cut
+    in_log = depth_cut(uu, ii)
+    in_log[hist:] = True
+    hist_rows = np.flatnonzero(in_log[:hist])
+    n_logged = len(hist_rows) + (n - hist)
     root = temp_store("pio_chip_smoke_front_door_", INGEST_DISK_BYTES)
     env = {"PIO_STORAGE_SOURCES_EL_TYPE": "eventlog",
            "PIO_STORAGE_SOURCES_EL_PATH": root}
@@ -2818,16 +3228,17 @@ def front_door_phase(ratings) -> dict:
         storage = Storage.from_env(env)
         app = storage.apps().get_by_name("ml20m")
         cols = EventColumns(
-            entity_codes=uu[:hist].astype(np.int32),
-            target_codes=ii[:hist].astype(np.int32),
-            name_codes=np.zeros(hist, np.int32), values=vals[:hist],
-            times_us=np.arange(hist, dtype=np.int64) * 1_000_000,
+            entity_codes=uu[hist_rows].astype(np.int32),
+            target_codes=ii[hist_rows].astype(np.int32),
+            name_codes=np.zeros(len(hist_rows), np.int32),
+            values=vals[hist_rows],
+            times_us=hist_rows.astype(np.int64) * 1_000_000,
             entity_vocab=[f"u{j}" for j in range(N_USERS)],
             target_vocab=[f"i{j}" for j in range(N_ITEMS)], names=["rate"])
         t0 = time.perf_counter()
         if storage.events().insert_columnar(
                 cols, app.id, entity_type="user", target_entity_type="item",
-                value_property="rating") != hist:
+                value_property="rating") != len(hist_rows):
             fail("insert_columnar did not take every history row")
         history_sec = time.perf_counter() - t0
         storage.events().close()
@@ -2913,7 +3324,7 @@ def front_door_phase(ratings) -> dict:
             resp = conn.getresponse()
             got = json.loads(resp.read())
             read_ms.append(1e3 * (time.perf_counter() - t0))
-            rows = np.flatnonzero(uu == int(user[1:]))
+            rows = np.flatnonzero((uu == int(user[1:])) & in_log)
             want = sorted([("rate", f"i{int(ii[k])}", float(vals[k]),
                             iso_at(k)) for k in rows]
                           + [("view", f"i{i}", None, iso_at(sec))
@@ -2990,9 +3401,9 @@ def front_door_phase(ratings) -> dict:
         trained = ast.literal_eval(lines[0].split(" lane: ", 1)[1])
         if trained["cache_hit"] or "scan_sec" not in trained:
             fail(f"cli train did not scan the log once: {trained}")
-        if trained["ratings"] != n:
-            fail(f"cli train read {trained['ratings']} ratings of the {n} "
-                 "acknowledged")
+        if trained["ratings"] != n_logged:
+            fail(f"cli train read {trained['ratings']} ratings of the "
+                 f"{n_logged} in the log")
         before = served["retrieval_before"][0]
         after = served["retrieval_after"][0]
         launches = after["kernel_launches"] - before["kernel_launches"]
@@ -3006,7 +3417,8 @@ def front_door_phase(ratings) -> dict:
             fail(f"cli status: {out}")
         lone_ms.sort()
         return {
-            "events": n, "history_events": hist,
+            "events": n_logged, "history_events": len(hist_rows),
+            "history_cut_from": hist,
             "history_insert_sec": history_sec,
             "live_batch": {"events": n_batched,
                            "requests": len(range(0, n_batched, FD_BATCH)),
@@ -3092,14 +3504,17 @@ def get_json(port: int, path: str) -> dict:
 
 
 def cli_train_and_deploy(cli, engine_json: str, engine_id: str, env: dict,
-                         sub_env: dict, cwd: str, queries, what: str) -> dict:
+                         sub_env: dict, cwd: str, queries, what: str,
+                         after=None) -> dict:
     """``cli train`` then ``cli deploy`` of one engine.json in
     subprocesses; every query's answer (``queries``, or ``queries(truth)``
     when it is a function of the stored model) is checked against the
-    stored model's factors. -> the train's seconds and log, the stored
-    model and instance id, the wall-clock time of the first checked
-    answer, and ``GET /``'s retrieval block before and after the
-    queries."""
+    stored model's factors. ``after(port, proc, deploy_sec)``, when given,
+    then runs
+    against the live deployment, and owns stopping it. -> the train's
+    seconds and log, the stored model and instance id, the wall-clock
+    time of the first checked answer, ``GET /``'s retrieval block before
+    and after the queries, and what ``after`` returned."""
     from predictionio_torch.data.storage import Storage
     from predictionio_torch.workflow.deploy import load_blob
 
@@ -3118,13 +3533,16 @@ def cli_train_and_deploy(cli, engine_json: str, engine_id: str, env: dict,
     if callable(queries):
         queries = queries(truth)
     port = free_port()
+    t0 = time.perf_counter()
     proc = subprocess.Popen(
         cli + ["deploy", "--engine-json", engine_json, "--ip",
                "127.0.0.1", "--port", str(port)],
         env=sub_env, cwd=cwd, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
+    after_out = None
     try:
         wait_healthy(port, proc, f"pio deploy ({what})")
+        deploy_sec = time.perf_counter() - t0
         before = get_json(port, "/")["retrieval"]
         first_answer = None
         for j, q in enumerate(queries):
@@ -3132,9 +3550,12 @@ def cli_train_and_deploy(cli, engine_json: str, engine_id: str, env: dict,
                          f"pio deploy ({what}) query {j}")
             if first_answer is None:
                 first_answer = time.perf_counter()
-        after = get_json(port, "/")["retrieval"]
+        retrieval_after = get_json(port, "/")["retrieval"]
+        if after is not None:
+            after_out = after(port, proc, deploy_sec)
     finally:
-        proc.terminate()
+        if proc.poll() is None:
+            proc.terminate()
         try:
             proc.wait(timeout=60)
         except subprocess.TimeoutExpired:
@@ -3143,7 +3564,7 @@ def cli_train_and_deploy(cli, engine_json: str, engine_id: str, env: dict,
     return {"train_sec": train_sec, "model": model, "instance": instance.id,
             "train_log": out.stderr, "queries": queries,
             "first_answer_at": first_answer, "retrieval_before": before,
-            "retrieval_after": after}
+            "retrieval_after": retrieval_after, "after": after_out}
 
 
 def cli_app_with_events(cli, sub_env: dict, cwd: str, app: str,
@@ -3159,7 +3580,7 @@ def cli_app_with_events(cli, sub_env: dict, cwd: str, app: str,
     if f"Imported {len(want)} event(s)." not in out.stdout:
         fail(f"pio import ({what}): {out.stdout[-500:]}")
     t2 = time.perf_counter()
-    exported = jsonl + ".export"
+    exported = f"{jsonl}.{what}.export"
     run_cli(cli, ["export", "--appname", app, "--output", exported],
             sub_env, cwd, what)
     t3 = time.perf_counter()
@@ -3185,48 +3606,34 @@ def ml100k_eventlog(store: str):
     return env, sub_env, os.path.join(store, "engine-als-eventlog.json")
 
 
-def stream_cli_phase(store: str) -> dict:
-    """``cli deploy`` of the ``pio train`` phase's eventlog ALS engine,
-    ``cli stream --once --url`` against it (from the tail: it folds
-    nothing, and must exit 0 with its stats), then ``cli undeploy``,
-    after which the server's process must exit 0."""
-    _, sub_env, el_json = ml100k_eventlog(store)
-    cli = [sys.executable, "-m", "predictionio_torch.tools.cli"]
-    port = free_port()
+def stream_cli_checks(cli, sub_env: dict, store: str, el_json: str,
+                      port: int, proc, deploy_sec: float) -> dict:
+    """On the live ``cli deploy`` of the ``pio train`` phase's eventlog
+    ALS engine: ``cli stream --once --url U --reload-url U`` (from the
+    tail: it folds nothing, and must exit 0 with its stats), then ``cli
+    undeploy``, after which the server's process must exit 0."""
+    url = f"http://127.0.0.1:{port}"
     t0 = time.perf_counter()
-    proc = subprocess.Popen(
-        cli + ["deploy", "--engine-json", el_json, "--ip", "127.0.0.1",
-               "--port", str(port)],
-        env=sub_env, cwd=store, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
-    try:
-        wait_healthy(port, proc, "pio deploy (stream)")
-        deploy_sec = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        out = run_cli(cli, ["stream", "--engine-json", el_json, "--once",
-                            "--url", f"http://127.0.0.1:{port}"],
-                      sub_env, store, "stream --once")
-        stream_sec = time.perf_counter() - t0
-        stats = json.loads(out.stdout.strip().splitlines()[-1])
-        if stats.get("rebased") is not False or stats.get("events") != 0:
-            fail(f"pio stream --once: {out.stdout[-500:]}")
-        t0 = time.perf_counter()
-        out = run_cli(cli, ["undeploy", "--port", str(port)], sub_env,
-                      store, "undeploy")
-        if "stopping" not in out.stdout:
-            fail(f"pio undeploy: {out.stdout[-500:]}")
-        code = proc.wait(timeout=60)
-        stop_sec = time.perf_counter() - t0
-        if code != 0:
-            fail(f"the undeployed server exited {code}: "
-                 f"{proc.stdout.read()[-2000:]}")
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+    out = run_cli(cli, ["stream", "--engine-json", el_json, "--once",
+                        "--url", url, "--reload-url", url],
+                  sub_env, store, "stream --once")
+    stream_sec = time.perf_counter() - t0
+    stats = json.loads(out.stdout.strip().splitlines()[-1])
+    if stats.get("rebased") is not False or stats.get("events") != 0:
+        fail(f"pio stream --once: {out.stdout[-500:]}")
+    t0 = time.perf_counter()
+    out = run_cli(cli, ["undeploy", "--port", str(port)], sub_env,
+                  store, "undeploy")
+    if "stopping" not in out.stdout:
+        fail(f"pio undeploy: {out.stdout[-500:]}")
+    code = proc.wait(timeout=60)
+    stop_sec = time.perf_counter() - t0
+    if code != 0:
+        fail(f"the undeployed server exited {code}: "
+             f"{proc.stdout.read()[-2000:]}")
     return {"deploy_sec": deploy_sec, "stream_once": stats,
-            "stream_once_sec": stream_sec, "undeploy_sec": stop_sec,
-            "server_exit": code}
+            "stream_once_sec": stream_sec, "reload_url": url,
+            "undeploy_sec": stop_sec, "server_exit": code}
 
 
 def pio_train_phase(store: str) -> dict:
@@ -3258,15 +3665,11 @@ def pio_train_phase(store: str) -> dict:
     want = set(lines)
     sub_env = {**os.environ, **env, "PYTHONPATH": root}
     cli = [sys.executable, "-m", "predictionio_torch.tools.cli"]
-    # the events go in through the CLI: app new, import, export back
-    cli_io = cli_app_with_events(cli, sub_env, store, "ml100k", jsonl,
-                                 want, "localfs")
     rng = np.random.default_rng(SEED + 4)
     queries = [{"user": f"u{u}", "num": 10}
                for u in rng.integers(1, n_users + 1, 10)]
     queries += [{"item": f"i{i}", "num": 5}
                 for i in rng.integers(1, n_items + 1, 5)]
-
     engine_json = os.path.join(store, "engine.json")
     with open(engine_json, "w") as f:
         json.dump({
@@ -3276,15 +3679,6 @@ def pio_train_phase(store: str) -> dict:
             "datasource": {"params": {"app_name": "ml100k"}},
             "algorithms": [{"name": "twotower", "params": {
                 "dim": 64, "batch_size": 1024, "epochs": 5}}]}, f)
-    tt = cli_train_and_deploy(cli, engine_json, "ml100k-tt", env,
-                              sub_env, store, queries, "two-tower")
-    model = tt["model"]
-    plan = model.kernel_plan
-    if not (plan["flash_ce"] and plan["embed_update"]):
-        fail(f"pio train did not run both kernels: {plan}")
-    if not model.train_losses[-1] < model.train_losses[0]:
-        fail(f"pio train losses did not fall: {model.train_losses}")
-
     als_json = os.path.join(store, "engine-als.json")
     with open(als_json, "w") as f:
         json.dump({
@@ -3294,19 +3688,7 @@ def pio_train_phase(store: str) -> dict:
             "datasource": {"params": {"app_name": "ml100k"}},
             "algorithms": [{"name": "als", "params": {
                 "rank": 16, "num_iterations": 10}}]}, f)
-    als = cli_train_and_deploy(cli, als_json, "ml100k-als", env,
-                               sub_env, store, queries, "ALS")
-    als_model = als["model"]
-    if not (np.all(np.isfinite(als_model.user_factors))
-            and np.all(np.isfinite(als_model.item_factors))):
-        fail("pio train (ALS) stored factors that are not finite")
-
-    # the same events in an eventlog store, through the CLI too: pio
-    # train takes the binned lane (its log says so) and pio deploy
-    # serves the model
     el_env, el_sub_env, el_json = ml100k_eventlog(store)
-    el_io = cli_app_with_events(cli, el_sub_env, store, "ml100k", jsonl,
-                                want, "eventlog")
     with open(el_json, "w") as f:
         json.dump({"id": "default", "engineId": "ml100k-als-el",
                    "engineFactory": ("predictionio_torch.templates."
@@ -3315,9 +3697,54 @@ def pio_train_phase(store: str) -> dict:
                    "datasource": {"params": {"app_name": "ml100k"}},
                    "algorithms": [{"name": "als", "params": {
                        "rank": 16, "num_iterations": 10}}]}, f)
-    el = cli_train_and_deploy(cli, el_json, "ml100k-als-el", el_env,
-                              el_sub_env, store, queries,
-                              "ALS, eventlog")
+    walls = {}
+
+    def chain(name, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            walls[name] = time.perf_counter() - t0
+
+    def eventlog_lane():
+        # the same events in an eventlog store, through the CLI too:
+        # pio train takes the binned lane (its log says so), pio deploy
+        # serves the model, and pio stream and undeploy run against it
+        io = cli_app_with_events(cli, el_sub_env, store, "ml100k", jsonl,
+                                 want, "eventlog")
+        served = cli_train_and_deploy(
+            cli, el_json, "ml100k-als-el", el_env, el_sub_env, store,
+            queries, "ALS, eventlog",
+            after=lambda port, proc, deploy_sec: stream_cli_checks(
+                cli, el_sub_env, store, el_json, port, proc, deploy_sec))
+        return io, served
+
+    # three independent chains of CLI processes, side by side: the
+    # eventlog store's; and, once the localfs store holds the events,
+    # the two-tower's and the ALS engine's train and deploy over it
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        el_future = pool.submit(chain, "eventlog_chain", eventlog_lane)
+        cli_io = chain("localfs_io", cli_app_with_events, cli, sub_env,
+                       store, "ml100k", jsonl, want, "localfs")
+        tt_future = pool.submit(
+            chain, "twotower_chain", cli_train_and_deploy, cli,
+            engine_json, "ml100k-tt", env, sub_env, store, queries,
+            "two-tower")
+        als_future = pool.submit(
+            chain, "als_chain", cli_train_and_deploy, cli, als_json,
+            "ml100k-als", env, sub_env, store, queries, "ALS")
+        tt, als = tt_future.result(), als_future.result()
+        el_io, el = el_future.result()
+    model = tt["model"]
+    plan = model.kernel_plan
+    if not (plan["flash_ce"] and plan["embed_update"]):
+        fail(f"pio train did not run both kernels: {plan}")
+    if not model.train_losses[-1] < model.train_losses[0]:
+        fail(f"pio train losses did not fall: {model.train_losses}")
+    als_model = als["model"]
+    if not (np.all(np.isfinite(als_model.user_factors))
+            and np.all(np.isfinite(als_model.item_factors))):
+        fail("pio train (ALS) stored factors that are not finite")
     lane = [line for line in el["train_log"].splitlines()
             if "ALS trained on the binned lane" in line]
     if len(lane) != 1:
@@ -3336,7 +3763,8 @@ def pio_train_phase(store: str) -> dict:
             "als_eventlog": {"train_sec": el["train_sec"],
                              "instance": el["instance"],
                              "train_log": lane[0][-600:],
-                             "queries": len(queries)}}
+                             "queries": len(queries)},
+            "chain_walls_sec": walls, "stream_cli": el["after"]}
 
 
 # -- eval phase -----------------------------------------------------------------
@@ -4259,15 +4687,21 @@ def ecommerce_phase(ratings, root: str) -> dict:
             **{k: served[k] for k in ("deploy_sec", "query_ms")}}
 
 
-def project_ratings(ratings):
-    """The project phase's depth: every ``PROJECT_STRIDE``-th rating
+def depth_cut(uu, ii) -> np.ndarray:
+    """The rows a depth cut keeps: every ``PROJECT_STRIDE``-th rating
     plus each user's and each item's first, so that every user and item
     still appears."""
-    uu, ii, vals = ratings
     keep = np.zeros(len(uu), bool)
     keep[::PROJECT_STRIDE] = True
     keep[np.unique(uu, return_index=True)[1]] = True
     keep[np.unique(ii, return_index=True)[1]] = True
+    return keep
+
+
+def project_ratings(ratings):
+    """The project phase's depth (``depth_cut``)."""
+    uu, ii, vals = ratings
+    keep = depth_cut(uu, ii)
     return uu[keep], ii[keep], vals[keep]
 
 
@@ -4831,9 +5265,9 @@ def main() -> int:
     print("embed_update: 3 cases agree", flush=True)
     obs, fleet = {}, {}
 
-    def observe(server, truth, store_env):
+    def observe(server, truth, store_env, sent):
         mark("kernels_and_serve")
-        obs.update(obs_phase(server, truth))
+        obs.update(obs_phase(server, truth, sent))
         mark("obs")
         fleet.update(fleet_phase(server, truth, store_env))
 
@@ -4866,16 +5300,18 @@ def main() -> int:
         "ingest_deploy": ingest["topk_dot_launches"],
         "front_door_deploy": front_door["topk_dot_launches"],
         "stream": streamed["topk_dot_launches"],
+        "stream_quality_probe": streamed["quality_probe"]["launches"],
+        "stream_drift_reload": streamed["quality_probe"]["reload_launches"],
         "obs_profile": obs["profile"]["launches"],
         "fleet_replicas": fleet["answers"]["topk_dot_launches"]}
     store = tempfile.mkdtemp(prefix="pio_chip_smoke_ml100k_")
     try:
-        print(json.dumps({"pio_train": pio_train_phase(store)}), flush=True)
-        mark("pio_train")
-        streamed["cli"] = stream_cli_phase(store)
+        pio_train = pio_train_phase(store)
+        streamed["cli"] = pio_train.pop("stream_cli")
+        print(json.dumps({"pio_train": pio_train}), flush=True)
+        mark("pio_train_and_stream_cli")
         print(json.dumps({"stream": {**streamed, "card": card}}),
               flush=True)
-        mark("stream_cli")
         evaluation = eval_phase(ratings, als["algorithm_rmse_heldout"],
                                 store)
     finally:

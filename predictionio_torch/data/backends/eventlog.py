@@ -43,6 +43,7 @@ from predictionio_torch.data.backends.localfs import LocalFSStorageClient
 from predictionio_torch.data.datamap import DataMap
 from predictionio_torch.data.event import (Event, EventValidationError,
                                            validate_event)
+from predictionio_torch.obs import dataobs, perfacct
 
 UTC = _dt.timezone.utc
 _EPOCH = _dt.datetime(1970, 1, 1, tzinfo=UTC)
@@ -476,14 +477,21 @@ class EventLogEventStore(S.EventStore):
             shutil.rmtree(self._dir(app_id, channel_id), ignore_errors=True)
 
     def insert(self, event: Event, app_id, channel_id=None) -> str:
-        return self.insert_batch([event], app_id, channel_id)[0]
+        # observation stays off: the event server's 201 lane observed
+        # this event already, and single writes below the server are not
+        # observed
+        return self.insert_batch([event], app_id, channel_id,
+                                 _observe=False)[0]
 
-    def insert_batch(self, events, app_id, channel_id=None) -> List[str]:
+    def insert_batch(self, events, app_id, channel_id=None, *,
+                     _observe: bool = True) -> List[str]:
         """Row-lane bulk append: one Python pass collects per-field byte
         streams, numpy assembles the offset tables, and one native call
         (el_append_rows) packs every wire record and appends under one
         lock with the GIL released. Ids minted here keep the log's lazy
-        id index; caller-stamped ids pay the duplicate check."""
+        id index; caller-stamped ids pay the duplicate check. The
+        accepted batch moves the ingest clock once, and the data plane
+        gets the byte streams already built (enqueue only)."""
         h = self._handle(app_id, channel_id)
         events = list(events)
         n = len(events)
@@ -560,6 +568,14 @@ class EventLogEventStore(S.EventStore):
                 "a string field exceeds the 65534-byte wire-format limit")
         if rc != n:
             raise S.StorageError(f"append failed ({rc} of {n} written)")
+        # freshness clock: these rows now wait for a model publish
+        perfacct.note_ingest()
+        if _observe and dataobs.DATAOBS.enabled():
+            # the extra-record lengths stand in for the payload sizes
+            dataobs.DATAOBS.observe_batch(
+                app_id, ev_p, entity_ids=ei_p, target_ids=ti_p,
+                payload_lens=np.diff(ex_o.astype(np.int64)),
+                events=events)
         return out_ids
 
     def insert_json_batch(self, raw: bytes, app_id, channel_id=None, *,
@@ -615,6 +631,13 @@ class EventLogEventStore(S.EventStore):
         hex_all = ids_raw.hex()
         ids = [hex_all[32 * i:32 * i + 32] if codes[i] == 0 else None
                for i in range(n)]
+        if any(c == 0 for c in codes):
+            perfacct.note_ingest()
+            if dataobs.DATAOBS.enabled():
+                # the native lane surfaces names only (ids never become
+                # Python objects): count the accepted rows
+                dataobs.DATAOBS.observe_batch(
+                    app_id, [nm for nm, c in zip(names, codes) if c == 0])
         return ids, codes, names, etypes
 
     def get(self, event_id, app_id, channel_id=None) -> Optional[Event]:
@@ -929,6 +952,10 @@ class EventLogEventStore(S.EventStore):
             if wrote != m:
                 raise S.StorageError(
                     f"columnar append failed ({wrote} of {m} written)")
+        if n:
+            perfacct.note_ingest()
+            if dataobs.DATAOBS.enabled():
+                dataobs.DATAOBS.observe_columnar(app_id, cols)
         return n
 
     def data_fingerprint(self, app_id, channel_id=None) -> str:

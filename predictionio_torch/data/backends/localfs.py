@@ -71,7 +71,7 @@ class LocalFSEventStore(MemoryEventStore):
         if key in self._loaded or not os.path.exists(path):
             return
         tbl: Dict[str, Event] = {}
-        with open(path) as f:
+        with open(path) as f:  # graftlint: disable=JT21 — replay must be atomic with the table publish it guards: a writer appending mid-replay would be lost; one cold read per table lifetime
             lines = f.readlines()
         for lineno, line in enumerate(lines):
             line = line.strip()
@@ -100,14 +100,15 @@ class LocalFSEventStore(MemoryEventStore):
             self._ensure_loaded(app_id, channel_id)
             super().init(app_id, channel_id)
             self._loaded.add(table_key(app_id, channel_id))
-            open(self._path(app_id, channel_id), "a").close()
+            open(self._path(app_id, channel_id), "a").close()  # graftlint: disable=JT21 — exists-check and create must be one transaction under the store lock; a one-time touch on the init path
 
     def insert(self, event, app_id, channel_id=None) -> str:
-        return self.insert_batch([event], app_id, channel_id)[0]
+        return self._insert_many([event], app_id, channel_id)[0]
 
-    def insert_batch(self, events: List[Event], app_id,
+    def _insert_many(self, events: List[Event], app_id,
                      channel_id=None) -> List[str]:
-        """Append the events to the table and to its log in one write."""
+        """Append the events to the table and to its log in one write
+        (the base class's ``insert_batch`` does the bookkeeping)."""
         with self._lock:
             self._ensure_loaded(app_id, channel_id)
             ids = [super(LocalFSEventStore, self).insert(e, app_id,
@@ -117,7 +118,7 @@ class LocalFSEventStore(MemoryEventStore):
             lines = "".join(
                 json.dumps(tbl[i].to_dict(api_format=False), sort_keys=True)
                 + "\n" for i in ids)
-            with open(self._path(app_id, channel_id), "a") as f:
+            with open(self._path(app_id, channel_id), "a") as f:  # graftlint: disable=JT21 — the event-store lock exists to serialize this log: the JSONL append must land in the same order as the in-memory table update it rides with
                 f.write(lines)
             return ids
 
@@ -141,7 +142,7 @@ class LocalFSEventStore(MemoryEventStore):
             self._ensure_loaded(app_id, channel_id)
             found = super().delete(event_id, app_id, channel_id)
             if found:
-                with open(self._path(app_id, channel_id), "a") as f:
+                with open(self._path(app_id, channel_id), "a") as f:  # graftlint: disable=JT21 — the tombstone must land in the log in the same order as the in-memory delete it rides with, as the insert lane's append does
                     f.write(json.dumps({"__tombstone__": event_id},
                                        sort_keys=True) + "\n")
             return found
@@ -192,7 +193,7 @@ class _MetadataDoc:
 
     @contextlib.contextmanager
     def _flocked(self):
-        with self._lock, open(self._lock_path, "a+") as lockf:
+        with self._lock, open(self._lock_path, "a+") as lockf:  # graftlint: disable=JT21 — the thread lock and the flock together serialize the document's read-modify-write across threads and processes; localfs is the single-process dev backend, not a serving hot path
             fcntl.flock(lockf, fcntl.LOCK_EX)
             try:
                 yield

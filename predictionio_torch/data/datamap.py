@@ -46,6 +46,12 @@ class DataMap:
     def __contains__(self, key: object) -> bool:
         return key in self._fields
 
+    def keys(self):
+        return self._fields.keys()
+
+    def values(self):
+        return self._fields.values()
+
     def items(self):
         return self._fields.items()
 

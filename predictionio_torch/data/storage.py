@@ -36,6 +36,7 @@ from predictionio_torch.data.event import Event
 from predictionio_torch.data.metadata import (AccessKey, App, Channel,
                                               EngineInstance, EngineManifest,
                                               EvaluationInstance, Model)
+from predictionio_torch.obs import dataobs, perfacct
 from predictionio_torch.resilience import chaos
 
 log = logging.getLogger(__name__)
@@ -162,7 +163,20 @@ class EventStore(abc.ABC):
 
     def insert_batch(self, events: List[Event], app_id: int,
                      channel_id: Optional[int] = None) -> List[str]:
-        """Bulk append (ref: PEvents.write:124)."""
+        """Bulk append (ref: PEvents.write:124). An accepted batch moves
+        the ingest clock (``pio_model_staleness_seconds`` counts how long
+        its rows wait for a servable model) and is observed by the data
+        plane."""
+        ids = self._insert_many(events, app_id, channel_id)
+        if ids:
+            perfacct.note_ingest()
+            dataobs.DATAOBS.observe_events(app_id, events)
+        return ids
+
+    def _insert_many(self, events: List[Event], app_id: int,
+                     channel_id: Optional[int] = None) -> List[str]:
+        """The append step of ``insert_batch``: one ``insert`` per event
+        here; a store that writes a batch at once overrides it."""
         return [self.insert(e, app_id, channel_id) for e in events]
 
     @abc.abstractmethod

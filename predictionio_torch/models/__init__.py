@@ -14,14 +14,13 @@
              examples)
   naive_bayes — categorical naive Bayes (ref: e2 CategoricalNaiveBayes)
   markov   — top-N transition chains (ref: e2 MarkovChain)
-
-The JAX package's transfer hooks (``jaxmon.record_transfer``) are left
-out here (ROADMAP.md, queue 1 item 10).
 """
 
 from typing import Any, Callable, List, Sequence, Tuple
 
 import numpy as np
+
+from predictionio_torch.obs import torchmon
 
 
 def batch_predict_dense(
@@ -36,5 +35,7 @@ def batch_predict_dense(
     if not queries:
         return []
     feats = np.array([q["features"] for _, q in queries], dtype=np.float32)
+    torchmon.record_transfer(feats.nbytes, "h2d")
     preds = model.predict_batch(feats)
+    torchmon.record_transfer(getattr(preds, "nbytes", None), "d2h")
     return [(i, wrap(p)) for (i, _q), p in zip(queries, preds)]

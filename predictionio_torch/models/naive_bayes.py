@@ -19,8 +19,8 @@ table ``L[n_labels, n_slots, vocab+1]`` whose unseen and unknown entries
 hold the train-time ``default_likelihood``, so scoring a batch is one
 gather and a sum over slots, on the model's device. The tables are
 numpy (the stored form); their device copies are made at first use.
-The JAX package's memory-ledger registration (``memacct``) is left out
-(ROADMAP.md, queue 1 item 10).
+As in JAX, the model registers the tables' bytes in the device-memory
+ledger (``obs/memacct.py``) when it is built.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from predictionio_torch.data.bimap import BiMap
+from predictionio_torch.obs import memacct
 from predictionio_torch.parallel.context import DeviceLike, OnDevice
 
 DefaultLikelihood = Callable[[Sequence[float]], float]
@@ -79,6 +80,11 @@ class CategoricalNaiveBayesModel(OnDevice):
         self._seen = seen
         self._unk = likelihoods_arr.shape[-1] - 1  # sentinel column
         self._tables = None
+        # long-lived residency: these tables serve every query until the
+        # model retires
+        memacct.LEDGER.register(
+            self, "naive_bayes", "params",
+            int(self._priors.nbytes + self._likelihoods.nbytes))
 
     def to(self, device: DeviceLike) -> "CategoricalNaiveBayesModel":
         self._tables = None

@@ -52,7 +52,7 @@ def build_dir() -> str:
 @contextlib.contextmanager
 def _build_lock(directory: str):
     """Exclusive lock across processes for one build directory."""
-    with open(os.path.join(directory, ".lock"), "a") as f:
+    with open(os.path.join(directory, ".lock"), "a") as f:  # graftlint: disable=JT21 — this open IS the cross-process build lock (its flock); the module lock serializes in-process builds of one library, once per process
         fcntl.flock(f, fcntl.LOCK_EX)
         try:
             yield

@@ -28,16 +28,28 @@ Counterpart of ``predictionio_tpu/obs/__init__.py``, one registry:
   obs.quality   — answer diffs, canary verdicts and drift reports
                   (``GET/POST /admin/quality``)
 
-Not ported yet (ROADMAP item 10): push, anomaly, collect (the fleet
-federation), contprof, dataobs.
+  obs.push      — the ``PIO_PUSH_URL`` OpenMetrics pusher with backoff
+  obs.contprof  — the continuous host profiler: always-on stack
+                  sampling by thread role, request and endpoint
+                  (``GET /admin/prof``)
+  obs.dataobs   — data-plane sketches over the event stream: rates,
+                  heavy hitters and skew, cardinality, quantiles,
+                  schema drift, query coverage (``GET /admin/data``)
+  obs.anomaly   — the regression sentinel over the timelines, each
+                  change-point attributed to a journal event
+                  (``GET /admin/anomaly``)
+  obs.collect   — the federation: stitched traces and the fleet's
+                  merged metrics, tail, profile, journal, anomalies and
+                  data (``GET /admin/trace``, ``/admin/fleet/*``)
 
 Importing this package imports no torch and starts no thread: the
-journal's writer and the watchdog monitor start on first use.
+journal's writer, the watchdog monitor, the profiler's sampler, the
+data plane's worker and the pusher start on first use.
 """
 
 from predictionio_torch.obs import (flight, health, journal, memacct,
-                                    metrics, perfacct, profiler, torchmon,
-                                    trace)
+                                    metrics, perfacct, profiler, push,
+                                    torchmon, trace)
 from predictionio_torch.obs import logging as obs_logging
 from predictionio_torch.obs.metrics import (
     CONTENT_TYPE,
@@ -63,6 +75,7 @@ __all__ = [
     "obs_logging",
     "perfacct",
     "profiler",
+    "push",
     "span",
     "torchmon",
     "trace",

@@ -1,0 +1,743 @@
+"""Continuous host profiler: always-on wall-clock stack sampling.
+
+Copy of ``predictionio_tpu/obs/contprof.py``. On a card, a handler
+thread that waits inside a ``torch.cuda`` C call has no Python frame
+below the port's caller: its leaf is that caller, so the sample counts
+as on-CPU, as any native call does in the JAX package. What follows is
+the JAX module's account.
+
+The only profiler the repo had before this module (obs/profiler.py) is
+an on-demand DEVICE timeline capture that answers 501 on CPU — the
+interpreter time ROADMAP item D must attack (router threads, engine
+handler threads, per-request JSON) was invisible. This module is the
+host-side answer: one daemon thread per process walks
+``sys._current_frames()`` at ``PIO_PROF_HZ`` and folds every thread's
+stack into a bounded aggregation trie, continuously, in every PIO
+process (router, engine replicas, event/storage/dashboard servers, the
+``pio stream`` daemon).
+
+What a sample carries:
+
+  - the folded stack (outermost->leaf), rooted at a THREAD ROLE frame
+    (``[handler]``, ``[batcher]``, ``[router-pool]``, ``[watchdog]``,
+    ``[sampler]``, ...) inferred from the thread name and outer frames,
+    so one flame separates serving work from housekeeping;
+  - an on-CPU vs waiting classification: a leaf frame parked in a
+    wait/select/accept/socket-read bucket is off-CPU (the thread holds
+    no interpreter time there), anything else counts as on-CPU;
+  - — the part nothing off-the-shelf gives us — the ACTIVE trace id and
+    request endpoint of the sampled thread, registered by the HTTP edge
+    (serving/http.py) at request begin/end, so profiles slice
+    per-endpoint and the above-``PIO_SLOW_MS`` tail cohort gets its own
+    flame whose samples name trace ids the flight recorder also holds.
+
+Overhead self-governance: every sampling pass meters its own cost on
+the sampler thread's CPU clock (wall time would bill the GIL queueing a
+loaded server imposes ON the sampler as sampler cost and coarsen the
+profile exactly under the load it exists to explain); the
+busy/interval ratio (EMA) is exported as ``pio_prof_overhead_ratio``
+and the ``prof.overhead`` timeline series, and when it exceeds
+``PIO_PROF_MAX_OVERHEAD`` (default 1%) the sampler halves its own rate
+(downshift-only, floor 1 Hz) until it fits the budget. The first
+``PIO_PROF_WARMUP_TICKS`` passes are exempt and their EMA discarded —
+import-heavy process start makes sampling look 10-100x its steady-state
+cost, and a downshift-only governor must not park at the floor on that.
+Each downshift likewise discards the EMA and holds the next decision
+for a few re-seed ticks: one spike (a GC pause landing on the sampler's
+allocations) costs at most one halving, while a genuinely expensive
+steady state still steps down to where it fits. Where the thread CPU
+clock steps coarser than ``COARSE_CLOCK_SEC`` (a host that accounts
+thread time in 10 ms scheduler ticks reads a sub-millisecond pass as 0,
+or as a whole tick when one lands in it), the sampler meters its passes
+on the wall clock instead, read once when its thread starts.
+
+Config (all env):
+  PIO_PROF_HZ            sampling rate (default 25; 0 disables sampling
+                         while keeping the endpoint/CLI surfaces up)
+  PIO_PROF_MAX_OVERHEAD  self-cost budget as a ratio (default 0.01)
+  PIO_PROF_WARMUP_TICKS  governance grace at sampler start (default
+                         250, ~10s at the default rate)
+  PIO_PROF_MAX_NODES     aggregation-trie node cap (default 4096;
+                         overflow truncates stacks and counts an
+                         eviction, never grows unbounded)
+  PIO_PROF_MAX_ENDPOINTS per-endpoint trie cap (default 32; overflow
+                         endpoints fold into "(other)")
+
+Surfaces: ``GET /admin/prof`` on every server (serving/http.py;
+``?format=collapsed`` for external flamegraph tools, ``?endpoint=`` /
+``?slow=1`` slices), ``GET /admin/fleet/prof`` member-merged
+(obs/collect.py), dashboard ``/prof`` and ``pio prof`` — all through
+the one renderer pair here (:func:`format_flame`, :func:`hot_frames`).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import sys
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from predictionio_torch.obs import metrics
+
+log = logging.getLogger(__name__)
+
+DEFAULT_HZ = 25.0
+DEFAULT_MAX_OVERHEAD = 0.01
+DEFAULT_MAX_NODES = 4096
+DEFAULT_MAX_ENDPOINTS = 32
+#: auto-downshift floor: below 1 Hz a profile stops being a profile
+MIN_HZ = 1.0
+#: governance grace: ticks exempt from the downshift decision. Process
+#: start is import-heavy — cold code paths and GIL-holding imports make
+#: the first sampling passes look 10-100x their steady-state cost, and
+#: a downshift-only governor would pin every real server at the floor
+#: forever on that noise (the watchdog layer's arm-after-warm-up idiom).
+#: ~10s at the default rate: measured on a real event-server boot, the
+#: first seconds' passes fold 90-frame import stacks into a cold trie
+#: at ~1.7% CPU before settling near 0.3%
+DEFAULT_WARMUP_TICKS = 250
+#: EMA re-seed window after warm-up: the discarded EMA re-averages over
+#: this many ticks before the first downshift decision, so ONE unlucky
+#: pass (a GC pause, an allocation burst) cannot alone park the rate
+EMA_SEED_TICKS = 5
+#: a thread CPU clock stepping coarser than this cannot meter a
+#: sampling pass (a fraction of a millisecond); the sampler then meters
+#: on the wall clock
+COARSE_CLOCK_SEC = 1e-3
+#: stack frames kept per sample (leaf side wins; deeper is recursion)
+MAX_DEPTH = 96
+#: per-request leaf-frame histogram cap (dominant-frame attribution)
+MAX_REQ_FRAMES = 32
+#: slow-cohort trace ids kept for the ?slow=1 payload
+SLOW_RING = 256
+
+_SAMPLES_TOTAL = metrics.counter(
+    "pio_prof_samples_total",
+    "Thread stack samples folded by the continuous profiler, by "
+    "on-CPU vs waiting classification",
+    ("state",),
+)
+
+_OVERHEAD_RATIO = metrics.gauge(
+    "pio_prof_overhead_ratio",
+    "Continuous profiler self-cost: EMA of sampling-pass CPU time over "
+    "sampling interval (auto-downshifts above PIO_PROF_MAX_OVERHEAD)",
+)
+
+_EFFECTIVE_HZ = metrics.gauge(
+    "pio_prof_effective_hz",
+    "Continuous profiler sampling rate actually in effect "
+    "(PIO_PROF_HZ capped by overhead auto-downshift)",
+)
+
+_TRIE_EVICTIONS = metrics.counter(
+    "pio_prof_trie_evictions_total",
+    "Stack samples truncated because the aggregation trie hit "
+    "PIO_PROF_MAX_NODES (the sample still counts at the cut point)",
+)
+
+_DOWNSHIFTS = metrics.counter(
+    "pio_prof_downshifts_total",
+    "Automatic sampling-rate halvings taken because measured overhead "
+    "exceeded PIO_PROF_MAX_OVERHEAD",
+)
+
+
+def profiling_hz() -> float:
+    """The configured PIO_PROF_HZ (read per cycle so env changes and
+    test monkeypatching take effect without a restart)."""
+    return max(0.0, metrics.env_float("PIO_PROF_HZ", DEFAULT_HZ))
+
+
+def max_overhead() -> float:
+    return max(0.0, metrics.env_float("PIO_PROF_MAX_OVERHEAD",
+                                      DEFAULT_MAX_OVERHEAD))
+
+
+def clock_step(clock: Callable[[], float],
+               budget_sec: float = 0.05) -> float:
+    """The step ``clock`` moves by, read by spinning on it for at most
+    ``budget_sec`` of wall time (inf when it never moved). A quantized
+    clock's first change is a whole step."""
+    deadline = time.perf_counter() + budget_sec
+    last = clock()
+    while time.perf_counter() < deadline:
+        now = clock()
+        if now != last:
+            return now - last
+    return float("inf")
+
+
+def warmup_ticks() -> int:
+    return max(0, metrics.env_int("PIO_PROF_WARMUP_TICKS",
+                                  DEFAULT_WARMUP_TICKS))
+
+
+# -- classification vocabularies -----------------------------------------------
+
+#: leaf function names that mean "parked, not burning interpreter time"
+_WAIT_LEAF_FUNCS = frozenset({
+    "wait", "wait_for", "select", "poll", "accept", "connect",
+    "recv", "recvfrom", "recv_into", "readinto", "readline",
+    "send", "sendall", "acquire", "sleep", "getaddrinfo", "join",
+    "get", "put", "serve_forever", "epoll", "kqueue",
+})
+
+#: leaf frames inside these files are socket plumbing — off-CPU even
+#: when the function name is bespoke (threading.py/queue.py are NOT
+#: listed: their genuine waits are already named wait/acquire/get/put,
+#: while is_set/current_thread leaves there are real CPU time)
+_WAIT_LEAF_FILES = frozenset({
+    "socket.py", "selectors.py", "ssl.py", "socketserver.py",
+})
+
+#: thread-name prefix -> role (first match wins)
+_ROLE_PREFIXES: Tuple[Tuple[str, str], ...] = (
+    ("pio-contprof", "sampler"),
+    ("pio-watchdog", "watchdog"),
+    ("pio-batcher", "batcher"),
+    ("pio-drain", "drain"),
+    ("pio-collect", "collector"),
+    ("pio-upgrade", "housekeeping"),
+    ("router-pool", "router-pool"),
+    ("MainThread", "main"),
+)
+
+#: function names that mark a per-connection HTTP handler stack
+_HANDLER_FUNCS = frozenset({
+    "process_request_thread", "handle_one_request", "handle_request",
+})
+
+
+def _role_of(name: str, frames: List[Tuple[str, str]]) -> str:
+    """Thread role from its name, falling back to the outer frames
+    (``frames`` is (file basename, func) outermost->leaf)."""
+    for prefix, role in _ROLE_PREFIXES:
+        if name.startswith(prefix):
+            return role
+    for fname, func in frames:
+        if func in _HANDLER_FUNCS:
+            return "handler"
+        if func == "_loop" and fname == "engine_server.py":
+            return "batcher"
+    return "other"
+
+
+def _is_waiting(frames: List[Tuple[str, str]]) -> bool:
+    if not frames:
+        return False
+    fname, func = frames[-1]
+    return func in _WAIT_LEAF_FUNCS or fname in _WAIT_LEAF_FILES
+
+
+# -- the bounded aggregation trie ----------------------------------------------
+
+class _Trie:
+    """Folded-stack aggregation, node-capped. Each node holds terminal
+    cpu/wait counts; an insert that would exceed the budget truncates
+    at the deepest existing node and counts an eviction — memory stays
+    bounded no matter how pathological the stacks get."""
+
+    __slots__ = ("root", "nodes", "budget", "evictions", "cpu", "wait")
+
+    def __init__(self, budget: int) -> None:
+        self.root: Dict[str, Any] = {}
+        self.nodes = 0
+        self.budget = max(16, budget)
+        self.evictions = 0
+        self.cpu = 0
+        self.wait = 0
+
+    def add(self, stack: List[str], waiting: bool) -> None:
+        children = self.root
+        node = None
+        for frame in stack:
+            child = children.get(frame)
+            if child is None:
+                if self.nodes >= self.budget:
+                    self.evictions += 1
+                    _TRIE_EVICTIONS.inc()
+                    if node is None:
+                        # nothing in the tree matched even the root
+                        # frame: count the sample at the reserved
+                        # overflow terminal (one node past the budget)
+                        # rather than dropping it
+                        node = self.root.get("(evicted)")
+                        if node is None:
+                            node = {"c": {}, "cpu": 0, "wait": 0}
+                            self.root["(evicted)"] = node
+                            self.nodes += 1
+                    break
+                child = {"c": {}, "cpu": 0, "wait": 0}
+                children[frame] = child
+                self.nodes += 1
+            node = child
+            children = child["c"]
+        if node is None:
+            return
+        if waiting:
+            node["wait"] += 1
+            self.wait += 1
+        else:
+            node["cpu"] += 1
+            self.cpu += 1
+
+    def folded(self) -> Dict[str, Dict[str, int]]:
+        """``{"a;b;c": {"cpu": n, "wait": m}}`` for every terminal."""
+        out: Dict[str, Dict[str, int]] = {}
+        stack: List[Tuple[Dict[str, Any], List[str]]] = [
+            ({"c": self.root, "cpu": 0, "wait": 0}, [])]
+        while stack:
+            node, prefix = stack.pop()
+            if node["cpu"] or node["wait"]:
+                out[";".join(prefix)] = {"cpu": node["cpu"],
+                                         "wait": node["wait"]}
+            for frame in node["c"]:
+                stack.append((node["c"][frame], prefix + [frame]))
+        return out
+
+    def stats(self) -> Dict[str, int]:
+        return {"nodes": self.nodes, "budget": self.budget,
+                "evictions": self.evictions}
+
+
+# -- the profiler ---------------------------------------------------------------
+
+class ContProfiler:
+    """Process-global continuous sampler. Owners (servers, the stream
+    daemon) retain/release it; the sampler thread exists exactly while
+    at least one owner holds a reference — idempotent start, so a
+    ``/reload`` never spawns a second sampler."""
+
+    def __init__(self,
+                 clock: Callable[[], float] = time.perf_counter,
+                 cpu_clock: Optional[Callable[[], float]] = None) -> None:
+        self._clock = clock
+        #: the default clocks: the sampler thread reads the thread
+        #: clock's step once (an injected clock is taken as given)
+        self._check_cpu_clock = (cpu_clock is None
+                                 and clock is time.perf_counter)
+        if cpu_clock is None:
+            # busy is metered on the sampler thread's CPU clock: a wall
+            # measurement counts the GIL queueing a LOADED server's own
+            # threads impose on the sampling pass as sampler cost, and
+            # the governor would downshift the profile to the floor
+            # exactly when it is most needed. An injected (scripted)
+            # wall clock scripts busy too, so governance tests stay
+            # synchronous and deterministic.
+            cpu_clock = (getattr(time, "thread_time", clock)
+                         if clock is time.perf_counter else clock)
+        self._cpu_clock = cpu_clock
+        self._lock = threading.Lock()
+        self._owners: set = set()
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        self._hz_cap = float("inf")
+        self._overhead: Optional[float] = None
+        self._ticks = 0
+        self._last_shift = 0
+        self._samples = 0
+        max_nodes = max(16, metrics.env_int("PIO_PROF_MAX_NODES",
+                                            DEFAULT_MAX_NODES))
+        self._max_nodes = max_nodes
+        self._trie = _Trie(max_nodes)
+        self._slow_trie = _Trie(max_nodes)
+        self._endpoints: Dict[str, _Trie] = {}
+        #: thread ident -> {"trace", "route", "start", "frames"} for the
+        #: per-request attribution the HTTP edge registers
+        self._requests: Dict[int, Dict[str, Any]] = {}
+        self._slow_traces: List[str] = []
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def retain(self, owner: str) -> None:
+        """Register an owner and ensure the sampler runs (idempotent:
+        a second retain — a /reload, a second server in-process — never
+        starts a second thread)."""
+        with self._lock:
+            self._owners.add(owner)
+            if self._thread is not None and self._thread.is_alive():
+                return
+            self._stop = threading.Event()
+            self._thread = threading.Thread(
+                target=self._run, name="pio-contprof", daemon=True)
+            self._thread.start()
+
+    def release(self, owner: str) -> None:
+        """Drop an owner; the sampler stops when the last one leaves."""
+        with self._lock:
+            self._owners.discard(owner)
+            if self._owners:
+                return
+            thread = self._thread
+            self._thread = None
+            self._stop.set()
+        if thread is not None and thread.is_alive() \
+                and thread is not threading.current_thread():
+            thread.join(timeout=2.0)
+
+    def running(self) -> bool:
+        with self._lock:
+            return self._thread is not None and self._thread.is_alive()
+
+    def owners(self) -> List[str]:
+        with self._lock:
+            return sorted(self._owners)
+
+    # -- request attribution (called by the HTTP edge) ----------------------
+
+    def request_begin(self, trace_id: str, route: str) -> None:
+        entry = {"trace": trace_id, "route": route,
+                 "start": self._clock(), "frames": {}}
+        with self._lock:
+            self._requests[threading.get_ident()] = entry
+
+    def request_end(self) -> Optional[str]:
+        """Unregister the calling thread's request; returns the
+        dominant (most-sampled) leaf frame seen during its window, or
+        None when the sampler never caught it — the flight recorder
+        stamps this onto slow records so ``pio flight --slow`` names
+        code, not just stages."""
+        with self._lock:
+            entry = self._requests.pop(threading.get_ident(), None)
+        if entry is None or not entry["frames"]:
+            return None
+        frames: Dict[str, int] = entry["frames"]
+        return max(sorted(frames), key=lambda k: frames[k])
+
+    # -- sampling -----------------------------------------------------------
+
+    def effective_hz(self) -> float:
+        return min(profiling_hz(), self._hz_cap)
+
+    def overhead_ratio(self) -> float:
+        return self._overhead if self._overhead is not None else 0.0
+
+    def metering_clock(self) -> str:
+        """The name of the clock the governor meters passes on."""
+        return getattr(self._cpu_clock, "__name__", repr(self._cpu_clock))
+
+    def _run(self) -> None:
+        stop = self._stop
+        if self._check_cpu_clock:
+            self._check_cpu_clock = False
+            step = clock_step(self._cpu_clock)
+            if step > COARSE_CLOCK_SEC:
+                log.info("contprof: the thread CPU clock steps by %.3g s "
+                         "here; metering sampling passes on the wall "
+                         "clock", step)
+                self._cpu_clock = self._clock
+        while not stop.is_set():
+            try:
+                delay = self._tick()
+            except Exception:
+                # the profiler must never take a server down — and a
+                # silently dead sampler is a lying /admin/prof
+                log.exception("contprof sampler tick failed")
+                delay = 1.0
+            stop.wait(delay)
+
+    def _tick(self) -> float:
+        """One sample + governance cycle; returns the sleep until the
+        next (tests drive this synchronously with a synthetic clock)."""
+        hz = self.effective_hz()
+        _EFFECTIVE_HZ.set(hz)
+        if hz <= 0:
+            return 0.5
+        interval = 1.0 / hz
+        t0 = self._cpu_clock()
+        self._sample_once()
+        busy = max(0.0, self._cpu_clock() - t0)
+        ratio = busy / interval
+        self._ticks += 1
+        warmup = warmup_ticks()
+        if self._overhead is None or self._ticks == warmup + 1:
+            # the first GOVERNED tick discards the warm-up EMA:
+            # import-heavy startup passes are not evidence about
+            # steady-state sampling cost, and downshift-only governance
+            # must not act on them
+            self._overhead = ratio
+        else:
+            self._overhead = 0.7 * self._overhead + 0.3 * ratio
+        _OVERHEAD_RATIO.set(self._overhead)
+        budget = max_overhead()
+        grace = max(warmup, self._last_shift) + EMA_SEED_TICKS
+        if budget > 0 and self._ticks > grace \
+                and self._overhead > budget and hz > MIN_HZ:
+            self._hz_cap = max(MIN_HZ, hz / 2.0)
+            _DOWNSHIFTS.inc()
+            log.info("contprof overhead %.4f > %.4f: downshifting to "
+                     "%.3g Hz", self._overhead, budget, self._hz_cap)
+            # one spike, one halving: the EMA that justified this shift
+            # was measured against the OLD interval (and may be a single
+            # GC pause landing on the sampler's allocations) — discard
+            # it and re-average EMA_SEED_TICKS passes at the new rate
+            # before the next decision, instead of cascading to the
+            # floor while the same spike drains out of the EMA
+            self._last_shift = self._ticks
+            self._overhead = None
+        return max(0.0, interval - busy)
+
+    def _sample_once(self) -> None:
+        # imported here, not at module top: flight imports obs modules
+        # eagerly at process start; contprof must stay importable first
+        from predictionio_torch.obs import flight
+
+        now = self._clock()
+        slow_ms = flight.slow_threshold_ms()
+        names = {t.ident: t.name for t in threading.enumerate()}
+        current = sys._current_frames()
+        folded: List[Tuple[int, List[str], bool]] = []
+        for tid, frame in current.items():
+            frames: List[Tuple[str, str]] = []
+            f: Any = frame
+            while f is not None and len(frames) < MAX_DEPTH:
+                code = f.f_code
+                frames.append((os.path.basename(code.co_filename),
+                               code.co_name))
+                f = f.f_back
+            frames.reverse()
+            role = _role_of(names.get(tid, ""), frames)
+            waiting = _is_waiting(frames)
+            stack = [f"[{role}]"] + [f"{fn}:{fu}" for fn, fu in frames]
+            folded.append((tid, stack, waiting))
+        with self._lock:
+            for tid, stack, waiting in folded:
+                self._samples += 1
+                _SAMPLES_TOTAL.labels("wait" if waiting else "cpu").inc()
+                self._trie.add(stack, waiting)
+                req = self._requests.get(tid)
+                if req is None:
+                    continue
+                leaf = stack[-1]
+                counts = req["frames"]
+                if leaf in counts or len(counts) < MAX_REQ_FRAMES:
+                    counts[leaf] = counts.get(leaf, 0) + 1
+                self._endpoint_trie(req["route"]).add(stack, waiting)
+                if (now - req["start"]) * 1e3 >= slow_ms:
+                    self._slow_trie.add(stack, waiting)
+                    ring = self._slow_traces
+                    if not ring or ring[-1] != req["trace"]:
+                        ring.append(req["trace"])
+                        del ring[:-SLOW_RING]
+
+    def _endpoint_trie(self, route: str) -> _Trie:
+        # caller holds self._lock
+        trie = self._endpoints.get(route)
+        if trie is None:
+            limit = max(1, metrics.env_int("PIO_PROF_MAX_ENDPOINTS",
+                                           DEFAULT_MAX_ENDPOINTS))
+            if len(self._endpoints) >= limit and route != "(other)":
+                return self._endpoint_trie("(other)")
+            trie = _Trie(self._max_nodes)
+            self._endpoints[route] = trie
+        return trie
+
+    # -- reading ------------------------------------------------------------
+
+    def snapshot(self, endpoint: Optional[str] = None,
+                 slow: bool = False) -> Dict[str, Any]:
+        """The profile payload ``GET /admin/prof`` serves. ``slow``
+        selects the above-PIO_SLOW_MS tail cohort; ``endpoint`` one
+        route's trie; neither selects the whole-process flame."""
+        with self._lock:
+            if slow:
+                trie, which = self._slow_trie, "slow"
+            elif endpoint is not None:
+                trie = self._endpoints.get(endpoint) or _Trie(16)
+                which = f"endpoint:{endpoint}"
+            else:
+                trie, which = self._trie, "all"
+            out: Dict[str, Any] = {
+                "slice": which,
+                "hz": profiling_hz(),
+                "effective_hz": self.effective_hz(),
+                "overhead_ratio": round(self.overhead_ratio(), 6),
+                "max_overhead": max_overhead(),
+                "running": self._thread is not None
+                and self._thread.is_alive(),
+                "samples": {"cpu": trie.cpu, "wait": trie.wait},
+                "trie": trie.stats(),
+                "folded": trie.folded(),
+                "endpoints": sorted(self._endpoints),
+                "total_samples": self._samples,
+            }
+            if slow:
+                out["slow_trace_ids"] = list(self._slow_traces)
+        return out
+
+    def reset(self) -> None:
+        """Drop all aggregated samples (tests; ``?reset=1`` is
+        deliberately NOT offered — a continuous profile is shared)."""
+        with self._lock:
+            self._trie = _Trie(self._max_nodes)
+            self._slow_trie = _Trie(self._max_nodes)
+            self._endpoints.clear()
+            self._slow_traces = []
+            self._samples = 0
+            self._overhead = None
+            self._ticks = 0
+            self._last_shift = 0
+            self._hz_cap = float("inf")
+
+
+# -- renderers (the one shared surface: CLI, dashboard, fleet) -----------------
+
+def collapsed_text(payload: Dict[str, Any]) -> str:
+    """Brendan-Gregg folded form — one ``stack count`` line per
+    terminal, feedable to external flamegraph tooling."""
+    folded = payload.get("folded", {})
+    lines = [f"{stack} {c['cpu'] + c['wait']}"
+             for stack, c in sorted(folded.items())]
+    return "\n".join(lines) + ("\n" if lines else "")
+
+
+def hot_frames(payload: Dict[str, Any],
+               n: int = 10) -> List[Dict[str, Any]]:
+    """Top-N frames by SELF time (terminal sample counts)."""
+    acc: Dict[str, Dict[str, int]] = {}
+    for stack, c in payload.get("folded", {}).items():
+        leaf = stack.rsplit(";", 1)[-1]
+        slot = acc.setdefault(leaf, {"cpu": 0, "wait": 0})
+        slot["cpu"] += c["cpu"]
+        slot["wait"] += c["wait"]
+    ranked = sorted(acc.items(),
+                    key=lambda kv: -(kv[1]["cpu"] + kv[1]["wait"]))
+    return [{"frame": frame, "cpu": c["cpu"], "wait": c["wait"],
+             "total": c["cpu"] + c["wait"]}
+            for frame, c in ranked[:max(0, n)]]
+
+
+def merge_folded(payloads: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Member-merged profile: folded counts summed across payloads
+    (the fleet federation plane's reducer)."""
+    folded: Dict[str, Dict[str, int]] = {}
+    cpu = wait = 0
+    for p in payloads:
+        for stack, c in p.get("folded", {}).items():
+            slot = folded.setdefault(stack, {"cpu": 0, "wait": 0})
+            slot["cpu"] += c.get("cpu", 0)
+            slot["wait"] += c.get("wait", 0)
+        s = p.get("samples", {})
+        cpu += s.get("cpu", 0)
+        wait += s.get("wait", 0)
+    return {"slice": "fleet", "folded": folded,
+            "samples": {"cpu": cpu, "wait": wait}}
+
+
+def format_flame(payload: Dict[str, Any], top: int = 10,
+                 max_lines: int = 60) -> str:
+    """ASCII flame tree, heaviest branches first — the one renderer
+    behind ``pio prof`` and the dashboard ``/prof`` view."""
+    folded = payload.get("folded", {})
+    root: Dict[str, Any] = {"c": {}, "self": 0, "wait": 0, "total": 0}
+    for stack, c in folded.items():
+        count = c["cpu"] + c["wait"]
+        node = root
+        node["total"] += count
+        for frame in stack.split(";"):
+            node = node["c"].setdefault(
+                frame, {"c": {}, "self": 0, "wait": 0, "total": 0})
+            node["total"] += count
+        node["self"] += count
+        node["wait"] += c["wait"]
+    total = root["total"]
+    samples = payload.get("samples", {})
+    head = [
+        "continuous profile [{}]  samples: {} cpu / {} wait".format(
+            payload.get("slice", "all"),
+            samples.get("cpu", 0), samples.get("wait", 0)),
+    ]
+    if "effective_hz" in payload:
+        head.append(
+            "rate: {:.3g} Hz (configured {:.3g})  overhead: {:.3%} "
+            "(budget {:.1%})".format(
+                payload.get("effective_hz", 0.0), payload.get("hz", 0.0),
+                payload.get("overhead_ratio", 0.0),
+                payload.get("max_overhead", 0.0)))
+    lines: List[str] = []
+
+    def emit(node: Dict[str, Any], depth: int) -> None:
+        children = sorted(node["c"].items(),
+                          key=lambda kv: -kv[1]["total"])
+        for frame, child in children:
+            if len(lines) >= max_lines:
+                return
+            pct = 100.0 * child["total"] / total if total else 0.0
+            mark = " ~wait" if child["wait"] and not child["c"] else ""
+            lines.append("  {}{} {:5.1f}% ({}){}".format(
+                "  " * depth, frame, pct, child["total"], mark))
+            emit(child, depth + 1)
+
+    emit(root, 0)
+    if len(lines) >= max_lines:
+        lines.append(f"  ... (truncated at {max_lines} lines)")
+    out = head + ([""] + lines if lines else ["", "  (no samples yet)"])
+    hot = hot_frames(payload, top)
+    if hot:
+        out.append("")
+        out.append(f"hot frames (top {len(hot)}, self time):")
+        for h in hot:
+            out.append("  {:6d}  {}  ({} cpu / {} wait)".format(
+                h["total"], h["frame"], h["cpu"], h["wait"]))
+    return "\n".join(out) + "\n"
+
+
+#: serve-path interpreter-time buckets, by frame file basename — the
+#: bench profiling stage's parse/JSON/socket/dispatch breakdown
+_BREAKDOWN_FILES = {
+    "encoder.py": "json", "decoder.py": "json", "scanner.py": "json",
+    "socket.py": "socket", "selectors.py": "socket", "ssl.py": "socket",
+    "socketserver.py": "socket",
+    "server.py": "parse", "client.py": "parse", "http.py": "parse",
+    "engine_server.py": "dispatch", "engine.py": "dispatch",
+    "router.py": "dispatch",
+}
+
+
+def serve_path_breakdown(payload: Dict[str, Any]) -> Dict[str, float]:
+    """Shares of handler-thread self time by serve-path bucket
+    (parse / json / socket / dispatch / other) — ROADMAP item D's
+    first measured baseline."""
+    counts: Dict[str, int] = {}
+    total = 0
+    for stack, c in payload.get("folded", {}).items():
+        if not stack.startswith("[handler]"):
+            continue
+        leaf = stack.rsplit(";", 1)[-1]
+        fname = leaf.split(":", 1)[0]
+        bucket = _BREAKDOWN_FILES.get(fname, "other")
+        n = c["cpu"] + c["wait"]
+        counts[bucket] = counts.get(bucket, 0) + n
+        total += n
+    if not total:
+        return {}
+    return {bucket: round(n / total, 4)
+            for bucket, n in sorted(counts.items())}
+
+
+#: the process-global profiler every server/daemon retains
+PROFILER = ContProfiler()
+
+
+def retain(owner: str) -> None:
+    PROFILER.retain(owner)
+
+
+def release(owner: str) -> None:
+    PROFILER.release(owner)
+
+
+def request_begin(trace_id: str, route: str) -> None:
+    PROFILER.request_begin(trace_id, route)
+
+
+def request_end() -> Optional[str]:
+    return PROFILER.request_end()
+
+
+def snapshot(endpoint: Optional[str] = None,
+             slow: bool = False) -> Dict[str, Any]:
+    return PROFILER.snapshot(endpoint=endpoint, slow=slow)

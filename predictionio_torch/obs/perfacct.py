@@ -343,7 +343,7 @@ class DataPathLedger:
         now = time.time() if now is None else now
         with self._lock:
             first = self._first_unreflected
-        value = 0.0 if first is None else max(0.0, now - first)
+        value = 0.0 if first is None else max(0.0, now - first)  # graftlint: disable=JT15 — staleness spans processes: ingest horizons are wall timestamps serialized with the log, and tests drive synthetic ts/now clocks through the same arithmetic
         _MODEL_STALENESS.set(value)
         return value
 

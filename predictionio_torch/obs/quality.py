@@ -2,10 +2,10 @@
 
 Copy of ``predictionio_tpu/obs/quality.py``. ``_live_topk_ids`` goes
 through the port model's ``retrieval_index()`` (so ``topk_dot`` on a
-card) or ``index/recall.py``'s brute force. The stream's hooks that
-feed :func:`drift_report` (the shadow-quality probe, the drift push and
-the drift-band reload of ``pio stream --reload-url``) are not ported
-(ROADMAP.md, queue 1 item 10).
+card) or ``index/recall.py``'s brute force. The stream's
+shadow-quality probe (``StreamUpdater.probe_quality``) feeds
+:func:`drift_report`, pushes the drift to its patch targets and fires
+the drift-band reload of ``pio stream --reload-url``.
 
 The rest of ``obs/`` can say the system is fast (latency histograms)
 and up (health probes, fleet gauges) but not whether the model it is
@@ -172,7 +172,9 @@ def topk_overlap(got: Sequence[Any], want: Sequence[Any]) -> float:
 def _live_topk_ids(model: Any, user_vecs: np.ndarray, k: int) -> List[List[str]]:
     """The live model's top-k item ids per query row: through its
     retrieval index when one is built/buildable (the same lane serving
-    answers ride), else brute force over its item table."""
+    answers ride), else brute force over its item table. A model that
+    serves from a card never takes the host lane: its index failing to
+    build there (a device OOM) raises, as serving would."""
     from predictionio_torch.index.recall import brute_force_topk
 
     inv = model.item_ids.inverse() if hasattr(model.item_ids, "inverse") \
@@ -182,8 +184,12 @@ def _live_topk_ids(model: Any, user_vecs: np.ndarray, k: int) -> List[List[str]]
         try:
             idx = model.retrieval_index()
         except Exception:  # noqa: BLE001 — drift must still measure on
-            # models whose index backend cannot build here (CPU fallback
-            # covers it; brute force below is the last resort)
+            # models whose index backend cannot build on the CPU (brute
+            # force below is the last resort); on a card it must not
+            # quietly move to the host
+            if getattr(getattr(model, "device", None), "type",
+                       None) == "cuda":
+                raise
             idx = None
     if idx is not None:
         _, rows = idx.search(user_vecs, k)

@@ -1,10 +1,7 @@
 """Metric timelines: a bounded in-process time-series ring.
 
-Copy of ``predictionio_tpu/obs/timeline.py`` without the continuous
-profiler's ``prof.overhead`` series and the data plane's series: their
-modules (``obs/contprof.py``, ``obs/dataobs.py``) are not ported
-(ROADMAP.md, queue 1 item 10). What follows is the JAX module's
-account.
+Copy of ``predictionio_tpu/obs/timeline.py``. What follows is the JAX
+module's account.
 
 ``GET /metrics`` answers "what is the value now"; a bench run answers
 "what was it that one time". Neither answers the operator question
@@ -169,11 +166,39 @@ def memacct_collector() -> Collector:
     return collect
 
 
+def contprof_collector() -> Collector:
+    """Sample the continuous profiler's self-cost by ASKING it
+    (obs/contprof.py): ``prof.overhead`` is the sampler's busy/interval
+    EMA — the series an operator watches to confirm the auto-downshift
+    is honoring PIO_PROF_MAX_OVERHEAD."""
+
+    def collect(now: float) -> Dict[str, float]:
+        from predictionio_torch.obs import contprof
+
+        return {"prof.overhead": contprof.PROFILER.overhead_ratio()}
+
+    return collect
+
+
+def dataobs_collector() -> Collector:
+    """The data plane's series (obs/dataobs.py): ingest events/sec,
+    fitted entity Zipf skew and the unknown-entity coverage ratio —
+    the sample instant also refreshes the gauges for /metrics."""
+
+    def collect(now: float) -> Dict[str, float]:
+        from predictionio_torch.obs import dataobs
+
+        return dataobs.timeline_points(now)
+
+    return collect
+
+
 def default_collectors() -> List[Collector]:
     return [
         gauge_collector("pio_train_mfu", "mfu"),
         staleness_collector(),
         memacct_collector(),
+        contprof_collector(),
         quantile_collector("pio_serving_request_seconds", 0.50,
                            "serve_p50_ms", scale=1e3),
         quantile_collector("pio_serving_request_seconds", 0.99,
@@ -186,6 +211,7 @@ def default_collectors() -> List[Collector]:
                         "quality.recall"),
         gauge_collector("pio_model_quality_rmse_drift",
                         "quality.rmse_drift"),
+        dataobs_collector(),
     ]
 
 

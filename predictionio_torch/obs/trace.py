@@ -3,9 +3,9 @@
 Copy of ``predictionio_tpu/obs/trace.py``, plus the two pieces of
 ``predictionio_tpu/obs/collect.py`` that serve this process's own
 spans: ``span_page`` (``GET /admin/spans``) and ``build_tree``, which
-``local_trace`` (``GET /admin/trace``) runs over the local ring only —
-the fleet federation that fans out to other processes is ROADMAP item
-10's. What follows is the JAX module's account.
+the port's ``obs/collect.py`` runs over the spans it gathers from the
+members (``GET /admin/trace``). What follows is the JAX module's
+account.
 
 One slow query needs decomposing — was it serving (queue + dispatch),
 the storage round-trip, or device compute? The reference has nothing
@@ -171,7 +171,7 @@ def _write_log_line(line: str) -> None:
             if path != _log_path:
                 if _log_file is not None:
                     _log_file.close()
-                _log_file = open(path, "a", encoding="utf-8")
+                _log_file = open(path, "a", encoding="utf-8")  # graftlint: disable=JT21 — _log_lock exists to serialize this very handle; the open is once per path change, not per span
                 _log_path = path
             elif max_bytes > 0 and _log_file.tell() >= max_bytes:
                 # size-based rotation: keep current + ONE rolled file —
@@ -181,7 +181,7 @@ def _write_log_line(line: str) -> None:
                 # stat() syscall rides the span hot path.
                 _log_file.close()
                 os.replace(path, path + ".1")
-                _log_file = open(path, "a", encoding="utf-8")
+                _log_file = open(path, "a", encoding="utf-8")  # graftlint: disable=JT21 — rotation must be atomic with the handle swap the lock guards; once per PIO_TRACE_LOG_MAX_BYTES of spans
                 _LOG_ROTATIONS_TOTAL.inc()
             _log_file.write(line + "\n")
             _log_file.flush()
@@ -482,17 +482,3 @@ def build_tree(trace_id: str, spans: List[Dict[str, Any]],
         "cyclic_spans": cycles,
         "roots": roots,
     }
-
-
-def local_trace(trace_id: str, server: str = "local") -> Dict[str, Any]:
-    """The ``GET /admin/trace?id=`` document over THIS process's ring:
-    the shape ``collect.stitch_trace`` answers, with this process as
-    its one member (the port has no fleet to fan out to)."""
-    page = span_page(server, trace_id)
-    spans = [dict(r, member="local") for r in page["spans"]]
-    members = [{"name": "local", "url": None, "role": "local", "ok": True,
-                "evicted_total": page["evicted_total"], "server": server,
-                "spans": len(spans)}]
-    doc = build_tree(trace_id, spans, members=members)
-    doc["members"] = members
-    return doc

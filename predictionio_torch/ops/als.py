@@ -40,9 +40,10 @@ dimension of each half-step (``GridHalfStep``). The streaming lane's
 ``fold_in_solve`` solves a handful of touched groups against fixed
 opposing factors with the same Gramian and CG.
 
-Not ported here (ROADMAP.md, queue 1): the chunked double-buffered
-transfer, the gather roof probe (item 3), the observability hooks (item
-10) and the sharded half-step (item 12).
+The trainer carries the JAX trainer's observability hooks: the
+data-path stages, the MFU accounting and the memory ledger. Not ported
+here (ROADMAP.md, queue 1): the chunked double-buffered transfer, the
+gather roof probe (item 3) and the sharded half-step (item 12).
 """
 
 from __future__ import annotations

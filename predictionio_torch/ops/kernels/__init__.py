@@ -163,13 +163,13 @@ def build_all(names: Optional[List[str]] = None) -> List[str]:
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
         # wait for every nvcc before reporting a failure: none outlives us
-        outputs = [proc.communicate()[0] for *_, proc in builds]
+        outputs = [proc.communicate()[0] for *_, proc in builds]  # graftlint: disable=JT21 — _libs_lock exists to keep a second caller from starting the same nvcc builds; it waits for them, once per process per source
         for (name, tmp, out, proc), output in zip(builds, outputs):
             if proc.returncode != 0:
                 raise RuntimeError(
                     f"nvcc failed to build kernel {name!r} "
                     f"(exit {proc.returncode}):\n{output}")
-            with open(f"{out}.log", "w") as f:
+            with open(f"{out}.log", "w") as f:  # graftlint: disable=JT21 — the build log is written beside the library before it is renamed into place, under the same lock as the build; once per build
                 f.write(output)
             os.replace(tmp, out)
             torchmon.record_kernel_build(name, time.perf_counter() - t0)

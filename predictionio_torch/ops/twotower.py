@@ -43,8 +43,10 @@ device type: a checkpoint written on a card restores on a card, and a
 trainer on the other device type raises rather than resume on other
 orders.
 
-Not in this port yet: meshes and sharded tables (ROADMAP.md queue 1
-item 12) and the device-side observability hooks (item 10).
+The trainer carries the JAX trainer's observability hooks (step
+timing and the watchdog beat, the MFU accounting, the kernel plan and
+the memory ledger). Not in this port yet: meshes and sharded tables
+(ROADMAP.md queue 1 item 12).
 """
 
 from __future__ import annotations

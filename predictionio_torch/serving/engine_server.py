@@ -75,10 +75,10 @@ The operator contract (the JAX server's resilience hooks):
     own, to ``{feedback_url}/events.json?accessKey=...`` with the
     request's trace headers;
   - ``remote_log`` (ref: CreateServer.scala:413-424): a query's 500 and
-    a failed reload POST an error line to ``log_url``.
-
-The query-coverage probe of ``obs/dataobs.py`` is not ported (ROADMAP
-item 10).
+    a failed reload POST an error line to ``log_url``;
+  - query coverage (obs/dataobs.py): each answered query's user and
+    item references, and how many of them the served model has never
+    seen, feed ``pio_query_unknown_entity_ratio``.
 """
 
 from __future__ import annotations
@@ -99,8 +99,8 @@ from urllib.parse import parse_qs, urlparse
 from predictionio_torch.core.engine import Engine
 from predictionio_torch.data.storage import (Storage, StorageError,
                                              get_storage)
-from predictionio_torch.obs import (flight, health, journal, memacct,
-                                    metrics, trace)
+from predictionio_torch.obs import (dataobs, flight, health, journal,
+                                    memacct, metrics, trace)
 from predictionio_torch.obs import slo as slo_mod
 from predictionio_torch.parallel.context import DeviceContext, DeviceLike
 from predictionio_torch.resilience import chaos
@@ -274,12 +274,12 @@ class MicroBatcher:
                 leftover.append(first)
                 break
             batch = [first]
-            while len(batch) < self._max_batch:
-                try:
-                    batch.append(self._queue.get_nowait())
-                except _queue.Empty:
-                    break
             try:
+                while len(batch) < self._max_batch:
+                    try:
+                        batch.append(self._queue.get_nowait())
+                    except _queue.Empty:
+                        break
                 with _DISPATCH_WATCHDOG.watch():
                     # chaos seam: an injected hang lands inside the
                     # watchdog's window, an injected error fails this
@@ -293,16 +293,21 @@ class MicroBatcher:
                     if not p.event.is_set():
                         p.error = e
                         p.event.set()
-        # shutdown drain: answer everything still queued with an error
-        while True:
-            try:
-                leftover.append(self._queue.get_nowait())
-            except _queue.Empty:
-                break
-        for p in leftover:
-            if p.payload is not None and not p.event.is_set():
-                p.error = RuntimeError("serving batcher stopped")
-                p.event.set()
+        # shutdown drain: answer everything still queued with an error;
+        # a failed drain is logged, or its submitters would wait out
+        # their whole timeout with no symptom
+        try:
+            while True:
+                try:
+                    leftover.append(self._queue.get_nowait())
+                except _queue.Empty:
+                    break
+            for p in leftover:
+                if p.payload is not None and not p.event.is_set():
+                    p.error = RuntimeError("serving batcher stopped")
+                    p.event.set()
+        except Exception:  # noqa: BLE001 — see above
+            log.exception("batcher shutdown drain failed")
 
     def queue_depth(self) -> int:
         """Requests waiting for the worker now (the admission
@@ -661,6 +666,7 @@ class EngineServer(HTTPServerBase):
                 result = self._query_now(payload)
                 flight.note_stage("dispatch", time.perf_counter() - t_disp)
         self.stats.record(time.perf_counter() - t0)
+        self._note_query_coverage(payload)
         if self.feedback_url and self.feedback_access_key:
             # prId lets follow-up events join back to this prediction
             pr_id = uuid.uuid4().hex
@@ -674,6 +680,43 @@ class EngineServer(HTTPServerBase):
                       trace.traced_headers()),
                 daemon=True, name="pio-feedback").start()
         return result
+
+    def _note_query_coverage(self, payload: Any) -> None:
+        """Unknown-entity accounting at the query-decode seam
+        (obs/dataobs.py): how many user/item references this query
+        named, and how many the served model has never seen. Best
+        effort: accounting never breaks serving."""
+        try:
+            if not isinstance(payload, dict) or not dataobs.DATAOBS.enabled():
+                return
+            users = [payload["user"]] if payload.get("user") is not None \
+                else []
+            items = list(payload.get("items") or [])
+            if payload.get("item") is not None:
+                items.append(payload["item"])
+            if not users and not items:
+                return
+            with self._deployment_lock:
+                models = list(self.deployment.models)
+            user_maps = [m.user_ids for m in models
+                         if getattr(m, "user_ids", None) is not None]
+            item_maps = [m.item_ids for m in models
+                         if getattr(m, "item_ids", None) is not None]
+            refs = unknown = 0
+            if users and user_maps:
+                refs += len(users)
+                unknown += sum(
+                    1 for u in users
+                    if not any(str(u) in ids for ids in user_maps))
+            if items and item_maps:
+                refs += len(items)
+                unknown += sum(
+                    1 for i in items
+                    if not any(str(i) in ids for ids in item_maps))
+            if refs:
+                dataobs.DATAOBS.note_query(refs, unknown)
+        except Exception:  # noqa: BLE001
+            log.debug("query coverage accounting failed", exc_info=True)
 
     @staticmethod
     def _post_json(url: str, payload: Any, what: str,

@@ -31,9 +31,10 @@ the ingest freshness clock (``perfacct.note_ingest``), a request
 answered 500 names its error in its flight record, and ``main`` sets
 up structured JSON logging (``obs/logging.py``); the shared routes
 (``/readyz``, ``/metrics``, ``/admin/*``) come from serving/http.py.
-The data-plane observer (``obs/dataobs.py``) is not ported yet
-(ROADMAP.md queue 1 item 10). The server touches no device and imports
-no torch.
+An accepted single event is observed by the data plane
+(``obs/dataobs.py``: counts, entities, schema, payload bytes); the
+bulk lanes observe inside their storage writers. The server touches no
+device and imports no torch.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ from predictionio_torch.data.event import (Event, EventValidationError,
                                            _parse_time, validate_event)
 from predictionio_torch.data.storage import (UNSET, Storage, StorageError,
                                              get_storage)
-from predictionio_torch.obs import flight, perfacct
+from predictionio_torch.obs import dataobs, flight, perfacct
 from predictionio_torch.obs import logging as obs_logging
 from predictionio_torch.serving import webhooks as webhook_registry
 from predictionio_torch.serving.http import (HTTPServerBase,
@@ -110,7 +111,8 @@ class EventServerCore:
                         events=list(key.events))
 
     # -- event CRUD ---------------------------------------------------------
-    def create_event(self, auth: AuthData, payload: dict) -> Tuple[int, dict]:
+    def create_event(self, auth: AuthData, payload: dict,
+                     payload_bytes: Optional[int] = None) -> Tuple[int, dict]:
         if not isinstance(payload, dict):
             self.stats.update(auth.app_id, 400, "", "")
             return 400, {"message": "event must be a JSON object"}
@@ -134,8 +136,14 @@ class EventServerCore:
         except StorageError as e:
             return 500, {"message": str(e)}
         self.stats.update(auth.app_id, 201, event.event, event.entity_type)
-        # freshness clock (obs/perfacct.py): the single-event lane
+        # freshness clock (obs/perfacct.py): the single-event lane; the
+        # bulk lanes note inside their storage writers
         perfacct.note_ingest()
+        # data plane (obs/dataobs.py): the 201 lane observes at full
+        # fidelity (count, entities, schema, payload bytes); the storage
+        # insert below the server stays observation-off
+        dataobs.DATAOBS.observe_event(auth.app_id, event,
+                                      payload_bytes=payload_bytes)
         return 201, {"eventId": event_id}
 
     def create_events_batch(self, auth: AuthData,
@@ -338,12 +346,14 @@ class _EventRequestHandler(JSONRequestHandler):
             if path == "/events.json":
                 auth = self._auth(params)
                 if method == "POST":
+                    body = self._read_body()
                     try:
-                        payload = json.loads(self._read_body() or b"{}")
+                        payload = json.loads(body or b"{}")
                     except json.JSONDecodeError as e:
                         self._send(400, {"message": f"invalid JSON: {e}"})
                         return
-                    self._send(*self.core.create_event(auth, payload))
+                    self._send(*self.core.create_event(
+                        auth, payload, payload_bytes=len(body)))
                 elif method == "GET":
                     self._send(*self.core.query_events(auth, params))
                 else:

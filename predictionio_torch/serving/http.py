@@ -12,8 +12,9 @@ Every server inherits, from the ``_instrument`` wrapper:
   POST /admin/profile    torch.profiler window and    } guarded when
                          its device-time summary      } PIO_ADMIN_TOKEN
   GET  /admin/spans      this process's span ring     } is set
-  GET  /admin/trace      this process's spans of one  }
-                         trace as a tree              }
+  GET  /admin/trace      the stitched trace of one id }
+                         across the federation members}
+                         (obs/collect.py)             }
   GET  /admin/journal    ops journal ring             }
   GET  /admin/memory     device-memory accounting     }
   GET  /admin/slo        SLO burn-rate evaluation     }
@@ -21,9 +22,20 @@ Every server inherits, from the ``_instrument`` wrapper:
   GET  /admin/resilience breaker/admission/chaos      }
   GET  /admin/timeline   metric timelines + the       }
                          data-path ledger             }
+  GET  /admin/tail       tail-latency attribution     }
+  GET  /admin/prof       continuous host profiler     }
+                         flame (obs/contprof.py)      }
+  GET  /admin/anomaly    regression sentinel report   }
+  GET  /admin/data       data-plane report            }
+                         (obs/dataobs.py)             }
   GET/POST /admin/quality model-quality report        }
   GET/POST /admin/fleet  replica fleet snapshot and   }
                          control (404 without a fleet)}
+  GET  /admin/fleet/{metrics,tail,prof,journal,       }
+                    anomaly,data}                     }
+                         the members' answers merged  }
+                         (404 without a fleet or      }
+                         PIO_OBS_MEMBERS)             }
 
 and the request telemetry: a trace context per request (an accepted
 or minted ``X-PIO-Trace-Id``, echoed on the response), a flight record,
@@ -33,13 +45,14 @@ server class, as in the JAX package; the drain and the 503 gate of a
 stopped server keep a count per server instance, since one process
 may run two servers of a class (an engine server per deployment).
 
-The JAX admin routes of modules not ported yet answer 501 with a JSON
-error naming their ROADMAP item (:data:`UNPORTED_ADMIN`). A server's
+Every admin route of the JAX server answers here. A server's
 ``start()`` starts the environment's process services, as a JAX
-server's does: the SLO alert webhook sink (``PIO_ALERT_WEBHOOK_URL``),
-the SLO objectives (``PIO_SLO_FILE``) and the chaos rules
-(``PIO_CHAOS``). The continuous host profiler and the metrics pusher
-are not ported (ROADMAP.md, queue 1 item 10).
+server's does: the metrics pusher (``PIO_PUSH_URL``), the SLO alert
+webhook sink (``PIO_ALERT_WEBHOOK_URL``), the SLO objectives
+(``PIO_SLO_FILE``) and the chaos rules (``PIO_CHAOS``); and it holds
+the continuous host profiler (obs/contprof.py) from ``start()`` to
+``stop()``, whose samples of a handler thread carry its request's trace
+id and route.
 """
 
 from __future__ import annotations
@@ -56,8 +69,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Optional
 from urllib.parse import parse_qs, urlparse
 
-from predictionio_torch.obs import (flight, health, journal, memacct,
-                                    metrics, perfacct, profiler, slo,
+from predictionio_torch.obs import (anomaly, collect, contprof, dataobs,
+                                    flight, health, journal, memacct,
+                                    metrics, perfacct, profiler, push, slo,
                                     timeline, trace)
 from predictionio_torch.resilience import alerts, chaos
 from predictionio_torch.resilience import policy as respolicy
@@ -79,17 +93,6 @@ _IN_FLIGHT = metrics.gauge(
     "Requests currently being handled, by server",
     ("server",),
 )
-
-#: the JAX package's admin routes whose modules are not ported yet,
-#: each with the ROADMAP.md item (queue 1) that ports it: the fleet
-#: federation routes go through ``obs/collect.py``
-UNPORTED_ADMIN = {
-    "/admin/fleet/metrics": 10, "/admin/fleet/tail": 10,
-    "/admin/fleet/prof": 10, "/admin/fleet/journal": 10,
-    "/admin/fleet/anomaly": 10, "/admin/fleet/data": 10,
-    "/admin/tail": 10, "/admin/prof": 10, "/admin/anomaly": 10,
-    "/admin/data": 10,
-}
 
 #: path segments that are data ids (event/model/scan ids, uuid hexes):
 #: collapsed to ":id" so metric label cardinality stays bounded
@@ -239,32 +242,161 @@ def _serve_admin_spans(handler, query: str) -> None:
 
 
 def _serve_admin_trace(handler, query: str) -> None:
-    """``GET /admin/trace?id=<trace>``: this process's spans of one
-    trace assembled into an annotated tree (the JAX route also fans out
-    to a fleet's members through ``obs/collect.py``, ROADMAP item 10;
-    a threaded fleet's replicas share this process's span ring)."""
+    """``GET /admin/trace?id=<trace>``: the cross-process stitched
+    trace: this server fans out to its federation members (its fleet's
+    replicas, the active supervisors of this process, and the
+    ``PIO_OBS_MEMBERS`` extras), dedupes and assembles one annotated
+    tree (obs/collect.py)."""
     params = parse_qs(query)
     trace_id = (params.get("id") or params.get("trace") or [None])[0]
     if not trace_id or not trace.valid_trace_id(trace_id):
         handler._send(400, {"message": "need an id-shaped ?id=<trace>"})
         return
-    server = handler.server_version.split("/", 1)[0]
-    handler._send(200, trace.local_trace(trace_id, server))
+    members = collect.default_members(handler.server_ref)
+    handler._send(200, collect.stitch_trace(trace_id, members))
 
 
-def _serve_admin_journal(handler, query: str) -> None:
-    """``GET /admin/journal?n=&kind=&since=``: this process's ops
-    journal ring, newest last; ``kind`` filters one event kind exactly,
-    ``since`` is a unix-seconds floor, ``n`` caps the page (200)."""
+def _serve_admin_tail(handler, query: str) -> None:
+    """``GET /admin/tail?q=``: tail-latency attribution over the flight
+    recorder's stage timings: for requests above ``q`` (default 0.95),
+    which stage dominates against the median request."""
+    params = parse_qs(query)
+    try:
+        q = float((params.get("q") or ["0.95"])[0])
+        report = perfacct.tail_report(q=q)
+    except ValueError as e:
+        handler._send(400, {"message": str(e)})
+        return
+    handler._send(200, report)
+
+
+def _fleet_federation_members(handler):
+    """The members of the fleet-scoped federations: the supervised
+    fleet's replicas plus the ``PIO_OBS_MEMBERS`` extras, first
+    occurrence of a name or address winning (a replica scraped twice
+    would be summed twice); None (404) with neither."""
+    fleet = getattr(handler.server_ref, "fleet", None)
+    members = collect.fleet_members(fleet) + collect.env_members()
+    seen: set = set()
+    deduped = []
+    for m in members:
+        if m.name in seen or m.url in seen:
+            continue
+        seen.update((m.name, m.url))
+        deduped.append(m)
+    return deduped or None
+
+
+def _serve_fleet_metrics(handler, query: str, members) -> None:
+    """``GET /admin/fleet/metrics``: the members' /metrics merged
+    (counters sum, histograms bucket-wise, gauges keep a ``member``
+    label) with the fleet SLO burn; ``?format=prom`` answers the merged
+    document as Prometheus text."""
+    report = collect.federate_metrics(members)
+    merged = report.pop("_merged")
+    fmt = (parse_qs(query).get("format") or [""])[0]
+    if fmt in ("prom", "prometheus", "text"):
+        handler._send(200, collect.render_merged(merged),
+                      content_type=metrics.CONTENT_TYPE)
+        return
+    handler._send(200, report)
+
+
+def _serve_fleet_tail(handler, query: str, members) -> None:
+    """``GET /admin/fleet/tail?q=&n=``: tail attribution over every
+    member's flight recorder, with the per-member tail split."""
+    params = parse_qs(query)
+    try:
+        q = float((params.get("q") or ["0.95"])[0])
+        n = int(params["n"][0]) if "n" in params else None
+        report = collect.federate_tail(members, q=q, n=n)
+    except ValueError as e:
+        handler._send(400, {"message": str(e)})
+        return
+    handler._send(200, report)
+
+
+def _parse_prof_slices(query: str):
+    """``?slow=1``, ``?endpoint=`` and ``?format=`` of the profile
+    routes."""
+    params = parse_qs(query)
+    slow = (params.get("slow") or ["0"])[0].lower() in ("1", "true")
+    endpoint = (params.get("endpoint") or [None])[0]
+    fmt = (params.get("format") or [""])[0]
+    return slow, endpoint, fmt
+
+
+def _serve_admin_prof(handler, query: str) -> None:
+    """``GET /admin/prof``: the continuous host profiler's flame
+    (obs/contprof.py); ``?format=collapsed`` answers folded ``stack
+    count`` lines, ``?endpoint=`` one route's slice, ``?slow=1`` the
+    above-``PIO_SLOW_MS`` cohort with its trace ids."""
+    slow, endpoint, fmt = _parse_prof_slices(query)
+    payload = contprof.snapshot(endpoint=endpoint, slow=slow)
+    if fmt == "collapsed":
+        handler._send(200, contprof.collapsed_text(payload),
+                      content_type="text/plain; charset=UTF-8")
+        return
+    handler._send(200, payload)
+
+
+def _serve_fleet_prof(handler, query: str, members) -> None:
+    """``GET /admin/fleet/prof``: the members' profiles with their
+    folded stacks summed; the slices of ``/admin/prof``."""
+    slow, endpoint, fmt = _parse_prof_slices(query)
+    report = collect.federate_prof(members, endpoint=endpoint, slow=slow)
+    if fmt == "collapsed":
+        handler._send(200, contprof.collapsed_text(report["merged"]),
+                      content_type="text/plain; charset=UTF-8")
+        return
+    handler._send(200, report)
+
+
+def _journal_slices(handler, query: str):
+    """``(n, kind, since)`` of the journal routes; None after a 400."""
     params = parse_qs(query)
     try:
         n = int((params.get("n") or ["200"])[0])
         since = float(params["since"][0]) if "since" in params else None
     except ValueError as e:
         handler._send(400, {"message": f"bad n/since: {e}"})
+        return None
+    return n, (params.get("kind") or [None])[0], since
+
+
+def _serve_admin_journal(handler, query: str) -> None:
+    """``GET /admin/journal?n=&kind=&since=``: this process's ops
+    journal ring, newest last; ``kind`` filters one event kind exactly,
+    ``since`` is a unix-seconds floor, ``n`` caps the page (200)."""
+    slices = _journal_slices(handler, query)
+    if slices is not None:
+        n, kind, since = slices
+        handler._send(200, journal.JOURNAL.page(n=n, kind=kind,
+                                                since=since))
+
+
+def _serve_fleet_journal(handler, query: str, members) -> None:
+    """``GET /admin/fleet/journal``: the members' journals merged into
+    one member-annotated, time-ordered stream (the slices of
+    ``/admin/journal``)."""
+    slices = _journal_slices(handler, query)
+    if slices is not None:
+        n, kind, since = slices
+        handler._send(200, collect.federate_journal(members, n=n, kind=kind,
+                                                    since=since))
+
+
+def _serve_admin_data(handler, query: str) -> None:
+    """``GET /admin/data?top=``: the data plane's report
+    (obs/dataobs.py): ingest rates, entity heavy hitters and skew,
+    cardinalities, quantiles, schema drift and the unknown-entity
+    coverage ratio; ``top`` sizes the heavy-hitter table."""
+    try:
+        top = int((parse_qs(query).get("top") or ["20"])[0])
+    except ValueError as e:
+        handler._send(400, {"message": f"bad top: {e}"})
         return
-    kind = (params.get("kind") or [None])[0]
-    handler._send(200, journal.JOURNAL.page(n=n, kind=kind, since=since))
+    handler._send(200, dataobs.DATAOBS.report(top_n=top))
 
 
 def _serve_admin_quality(handler) -> None:
@@ -401,17 +533,42 @@ def _serve_admin(handler, path: str, query: str) -> bool:
         _serve_admin_timeline(handler)
     elif path == "/admin/quality":
         _serve_admin_quality(handler)
+    elif command == "GET" and path == "/admin/tail":
+        _serve_admin_tail(handler, query)
+    elif command == "GET" and path == "/admin/prof":
+        _serve_admin_prof(handler, query)
+    elif command == "GET" and path == "/admin/anomaly":
+        # the read scans, so an idle server still verdicts while someone
+        # is watching
+        handler._send(200, anomaly.SENTINEL.scan())
+    elif command == "GET" and path == "/admin/data":
+        _serve_admin_data(handler, query)
     elif path == "/admin/fleet":
         _serve_admin_fleet(handler)
-    elif path in UNPORTED_ADMIN:
-        item = UNPORTED_ADMIN[path]
-        handler._send(501, {
-            "message": f"{path} is not ported to predictionio_torch yet "
-                       f"(ROADMAP.md, queue 1 item {item})",
-            "roadmap_item": item})
+    elif command == "GET" and path in _FLEET_FEDERATIONS:
+        members = _fleet_federation_members(handler)
+        if members is None:
+            handler._send(404, {"message": "no fleet supervised by this "
+                                           "server and no PIO_OBS_MEMBERS "
+                                           "configured"})
+        else:
+            _FLEET_FEDERATIONS[path](handler, query, members)
     else:
         return False
     return True
+
+
+#: ``GET /admin/fleet/<name>``: each takes (handler, query, members)
+_FLEET_FEDERATIONS = {
+    "/admin/fleet/metrics": _serve_fleet_metrics,
+    "/admin/fleet/tail": _serve_fleet_tail,
+    "/admin/fleet/prof": _serve_fleet_prof,
+    "/admin/fleet/journal": _serve_fleet_journal,
+    "/admin/fleet/anomaly": lambda handler, query, members: handler._send(
+        200, collect.federate_anomaly(members)),
+    "/admin/fleet/data": lambda handler, query, members: handler._send(
+        200, collect.federate_data(members)),
+}
 
 
 def _instrument(fn):
@@ -464,6 +621,9 @@ def _instrument(fn):
         token = trace.activate(trace_id, parent_span)
         route = metrics_route(path)
         fkey = flight.begin(trace_id, server_label, self.command, route)
+        # samples of this handler thread carry the request's trace id
+        # and route (the profiler's per-endpoint and slow slices)
+        contprof.request_begin(trace_id, route)
         inflight = _IN_FLIGHT.labels(server_label)
         inflight.inc()
         t0 = time.perf_counter()
@@ -481,6 +641,11 @@ def _instrument(fn):
             inflight.dec()
             server._exit()
             status = getattr(self, "_metrics_status", None)
+            # the frame the sampler saw most in this request names code
+            # on a slow record, beside its stages
+            dominant = contprof.request_end()
+            if dominant is not None:
+                flight.note_field("dominant_frame", dominant)
             flight.finish(fkey, status, error)
             trace.deactivate(token)
             if status is not None:
@@ -619,6 +784,10 @@ class HTTPServerBase:
         self._inflight = 0
         self._inflight_lock = threading.Lock()
         self._stopped = threading.Event()
+        # this instance's hold on the process-wide continuous profiler:
+        # taken at start, given back once at stop
+        self._prof_owner = f"{type(self).__name__}:{id(self):#x}"
+        self._prof_retained = False
 
     def _enter(self) -> bool:
         """Count a request in; False once the server has stopped."""
@@ -641,14 +810,25 @@ class HTTPServerBase:
     def port(self) -> int:
         return self.httpd.server_address[1]
 
-    @staticmethod
-    def _start_env_services() -> None:
+    def _start_env_services(self) -> None:
         """The environment's process services every server start wires
-        up: the SLO alert webhook sink, the declarative SLO objectives
-        and the chaos rules (each a no-op without its variable)."""
+        up: the metrics pusher, the SLO alert webhook sink, the
+        declarative SLO objectives and the chaos rules (each a no-op
+        without its variable); and this server's hold on the continuous
+        profiler (refcounted, so one sampler serves every server of the
+        process and a restart never starts a second)."""
+        push.start_from_env()
         alerts.start_from_env()
         slo.configure_from_env()
         chaos.configure_from_env()
+        if not self._prof_retained:
+            self._prof_retained = True
+            contprof.retain(self._prof_owner)
+
+    def _release_profiler(self) -> None:
+        if self._prof_retained:
+            self._prof_retained = False
+            contprof.release(self._prof_owner)
 
     def start(self):
         # flag set BEFORE the thread runs, so a racing stop() still calls
@@ -680,6 +860,7 @@ class HTTPServerBase:
             self.httpd.shutdown()
             self._serving = False
         self.httpd.server_close()
+        self._release_profiler()
 
     def drain_stop(self, timeout: Optional[float] = None) -> bool:
         """Graceful shutdown: stop ACCEPTING first (serve loop halted,

@@ -268,6 +268,7 @@ class _ReplicaClient:
         self.port = port
         self._lock = threading.Lock()
         self._idle: List[http.client.HTTPConnection] = []
+        self._closed = False
 
     def request(self, method: str, path: str, body: Optional[bytes],
                 headers: Dict[str, str], timeout: float,
@@ -331,7 +332,7 @@ class _ReplicaClient:
             conn.close()
         else:
             with self._lock:
-                if len(self._idle) < 32:
+                if not self._closed and len(self._idle) < 32:
                     self._idle.append(conn)
                     conn = None
             if conn is not None:
@@ -339,7 +340,12 @@ class _ReplicaClient:
         return resp.status, data, resp_headers
 
     def close(self) -> None:
+        """Close the idle connections; an attempt still in flight closes
+        its own when it ends, rather than parking it in a pool nobody
+        will close (its socket would hold the replica's keep-alive
+        handler thread until a garbage collection found it)."""
         with self._lock:
+            self._closed = True
             idle, self._idle = self._idle, []
         for conn in idle:
             conn.close()

@@ -1,6 +1,7 @@
 """The port's console: ``pio`` for apps, keys, events, templates, build,
-train, deploy, stream and eval, and the operator commands slo, chaos,
-replay, canary and fleet.
+train, deploy, stream and eval, the operator commands slo, chaos,
+replay, canary and fleet, and the observability commands metrics,
+flight, trace, profile, prof, journal, anomalies, data, mem and top.
 
     python -m predictionio_torch.tools.cli app new NAME [--description D]
     python -m predictionio_torch.tools.cli app list|show|delete|data-delete|
@@ -27,7 +28,7 @@ replay, canary and fleet.
     python -m predictionio_torch.tools.cli undeploy [--ip IP] [--port 8000]
     python -m predictionio_torch.tools.cli stream \\
         --engine-json engine.json [--url http://HOST:8000[,...]] \\
-        [--once | --interval SEC] [--device cpu]
+        [--reload-url URL[,...]] [--once | --interval SEC] [--device cpu]
     python -m predictionio_torch.tools.cli eval pkg.mod.MyEvaluation \\
         [pkg.mod.MyParamsGenerator] [--batch B] [--device cpu]
     python -m predictionio_torch.tools.cli slo [--url URL] [--json]
@@ -40,6 +41,21 @@ replay, canary and fleet.
         [--start | --promote | --rollback] [--json]
     python -m predictionio_torch.tools.cli fleet [--url ROUTER] \\
         [--reload [--force] | --drain R | --readmit R] [--json]
+    python -m predictionio_torch.tools.cli metrics [--url URL] [--json]
+    python -m predictionio_torch.tools.cli flight --url URL [-n N] [--slow]
+    python -m predictionio_torch.tools.cli trace TRACE_ID [--url URL] [--json]
+    python -m predictionio_torch.tools.cli profile --url URL [--seconds S]
+    python -m predictionio_torch.tools.cli prof [--url URL] [--fleet] \\
+        [--collapsed] [--slow] [--endpoint ROUTE] [--top N] [--json]
+    python -m predictionio_torch.tools.cli journal [--url URL] [--fleet] \\
+        [-n N] [--kind K] [--since TS] [--follow] [--json]
+    python -m predictionio_torch.tools.cli anomalies [--url URL] [--fleet] \\
+        [--json]
+    python -m predictionio_torch.tools.cli data [--url URL] [--fleet] \\
+        [--top N] [--json]
+    python -m predictionio_torch.tools.cli mem [--url URL] [--json]
+    python -m predictionio_torch.tools.cli top [--url URL] [--fleet] \\
+        [--once [--json] | --interval SEC]
 
 The app, access-key, server, import/export and status commands take the
 JAX console's arguments and print its lines (ref:
@@ -64,19 +80,24 @@ Console.scala:830), with the variant's ``"slo"`` block's objectives and
 shed thresholds; ``--replicas N`` serves from N replicas (subprocesses
 running this CLI's ``deploy --replicas 1`` on the parent's device, or
 threads) behind the query router (``serving/{fleet,router}.py``).
-``stream``
-tails the engine's event log and folds
-new events into the deployed model, patching the servers named by
-``--url`` (``workflow/stream.py``; ``--once`` runs one cycle and prints
-its stats). ``eval`` runs an ``Evaluation`` over the candidates of an
-``EngineParamsGenerator``, stores an EvaluationInstance and prints the
+``stream`` tails the engine's event log and folds new events into the
+deployed model, patching the servers named by ``--url``
+(``workflow/stream.py``; ``--once`` runs one cycle and prints its
+stats; ``--reload-url`` names the reload lane a drift-band breach of
+its quality probe fires). ``eval`` runs an ``Evaluation`` over the
+candidates of an ``EngineParamsGenerator``, stores an EvaluationInstance and prints the
 best score's one-liner (ref: Console.scala eval,
 CreateWorkflow.scala:263-276); dotted paths under ``predictionio_tpu.``
 resolve under ``predictionio_torch.``. These four run on the card;
 ``--device cpu`` is the only way onto the CPU. ``slo``, ``chaos``,
 ``replay``, ``canary`` and ``fleet`` talk to a running server's admin
 routes (sending the ``PIO_ADMIN_TOKEN`` bearer when set) with the JAX
-console's arguments and exit codes. Storage comes from the
+console's arguments and exit codes, as do the observability commands;
+``metrics``, ``trace``, ``journal``, ``anomalies``, ``data``, ``mem``
+and ``top`` read this process's own state without ``--url``
+(``anomalies`` exits 1 while an anomaly is active, ``trace`` when no
+span of the id was found, ``profile`` where the server has no card).
+Storage comes from the
 ``PIO_STORAGE_*`` environment, as for ``pio``. The other commands stay
 with ``predictionio_tpu.tools.cli`` until their slices are ported
 (ROADMAP.md queue 1).
@@ -493,25 +514,25 @@ def cmd_undeploy(args) -> int:
 def cmd_stream(args) -> int:
     """`pio stream`: tail the event log since the last fold, fold deltas
     into the deployed model (ALS fold-in / two-tower online steps) and
-    patch live engine servers; ``--once`` runs one cycle."""
+    patch live engine servers; ``--once`` runs one cycle. A drift-band
+    breach of the quality probe fires ``GET /reload`` at each
+    ``--reload-url``."""
     from predictionio_torch.parallel.context import DeviceContext
     from predictionio_torch.workflow.stream import (StreamUnsupported,
                                                     StreamUpdater)
 
-    if args.reload_url:
-        raise commands.CommandError(
-            "--reload-url: the drift-band reload trigger needs the "
-            "shadow-quality probe (obs/quality.py), which is not ported "
-            "to predictionio_torch yet (ROADMAP.md, queue 1 item 10)")
     variant = load_variant(args.engine_json)
     engine = variant.create_engine()
     engine_id = _engine_id(args, variant)
     urls = [u.strip() for u in (args.url or "").split(",") if u.strip()]
+    reload_urls = [u.strip() for u in (args.reload_url or "").split(",")
+                   if u.strip()]
     try:
         updater = StreamUpdater(
             engine, engine_id, engine_version=args.engine_version,
             engine_variant=variant.id,
-            ctx=DeviceContext(args.device), patch_urls=urls)
+            ctx=DeviceContext(args.device), patch_urls=urls,
+            reload_urls=reload_urls)
     except StreamUnsupported as e:
         raise commands.CommandError(str(e)) from e
     if args.once:
@@ -583,6 +604,33 @@ def _add_admin_auth(req) -> None:
         req.add_header("Authorization", f"Bearer {token}")
 
 
+def _fetch_admin_json(url: str, timeout: float = 30.0):
+    """GET an /admin/* JSON payload with the bearer header; raises
+    CommandError with the server's message on failure."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url)
+    _add_admin_auth(req)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return json.load(resp)
+    except urllib.error.HTTPError as e:
+        body = e.read().decode(errors="replace")
+        try:
+            message = json.loads(body).get("message", body)
+        except json.JSONDecodeError:
+            message = body[:200]
+        raise commands.CommandError(f"request failed ({e.code}): {message}")
+    except urllib.error.URLError as e:
+        raise commands.CommandError(f"cannot reach {url}: {e.reason}")
+
+
+def _dump_json(payload) -> None:
+    json.dump(payload, sys.stdout, indent=1, sort_keys=True)
+    sys.stdout.write("\n")
+
+
 def cmd_slo(args) -> int:
     """SLO burn-rate evaluation (obs/slo.py): from a running server's
     ``GET /admin/slo`` when --url is given (sending the
@@ -590,29 +638,15 @@ def cmd_slo(args) -> int:
     in-process against this process's registry. ``--json`` dumps the
     raw report; default output is one line per SLO with its state and
     the worst-window burn."""
-    import urllib.error
-    import urllib.request
-
     if args.url:
-        url = args.url.rstrip("/") + "/admin/slo"
-        req = urllib.request.Request(url)
-        _add_admin_auth(req)
-        try:
-            with urllib.request.urlopen(req, timeout=10) as resp:
-                report = json.load(resp)
-        except urllib.error.HTTPError as e:
-            raise commands.CommandError(
-                f"slo request failed ({e.code}): "
-                f"{e.read().decode(errors='replace')[:200]}")
-        except urllib.error.URLError as e:
-            raise commands.CommandError(f"cannot reach {args.url}: {e.reason}")
+        report = _fetch_admin_json(args.url.rstrip("/") + "/admin/slo",
+                                   timeout=10)
     else:
         from predictionio_torch.obs import slo as _slo
 
         report = _slo.MONITOR.report()
     if args.json:
-        json.dump(report, sys.stdout, indent=1, sort_keys=True)
-        sys.stdout.write("\n")
+        _dump_json(report)
         return 0
     firing = 0
     for entry in report["slos"]:
@@ -669,8 +703,7 @@ def cmd_chaos(args) -> int:
     except urllib.error.URLError as e:
         raise commands.CommandError(f"cannot reach {args.url}: {e.reason}")
     if args.json:
-        json.dump(state, sys.stdout, indent=1, sort_keys=True)
-        sys.stdout.write("\n")
+        _dump_json(state)
         return 0
     if not state["enabled"]:
         print("chaos: no active rules")
@@ -714,8 +747,7 @@ def cmd_replay(args) -> int:
             # in hand; a failed push must not eat it
             print(f"(report push to {baseline} failed: {e})")
     if args.json:
-        json.dump(report, sys.stdout, indent=1, sort_keys=True)
-        sys.stdout.write("\n")
+        _dump_json(report)
     else:
         print(f"replayed {report['n']} logged quer(ies): "
            f"{report['diffed']} diffed, errors {report['errors']}")
@@ -777,8 +809,7 @@ def cmd_canary(args) -> int:
     except urllib.error.URLError as e:
         raise commands.CommandError(f"cannot reach {args.url}: {e.reason}")
     if args.json:
-        json.dump(report, sys.stdout, indent=1, sort_keys=True)
-        sys.stdout.write("\n")
+        _dump_json(report)
         canary = report.get("canary") or {}
         verdict = (canary.get("verdict") or {}).get("verdict")
         return 1 if (canary.get("active") and verdict == "rollback") else 0
@@ -864,8 +895,7 @@ def cmd_fleet(args) -> int:
     except urllib.error.URLError as e:
         raise commands.CommandError(f"cannot reach {args.url}: {e.reason}")
     if args.json:
-        json.dump(state, sys.stdout, indent=1, sort_keys=True)
-        sys.stdout.write("\n")
+        _dump_json(state)
         return 0
     if body:
         print(state.get("message") or json.dumps(state))
@@ -882,6 +912,651 @@ def cmd_fleet(args) -> int:
     if swap.get("active") or swap.get("last"):
         print(format_swap(swap))
     return 0
+
+
+# -- observability commands ----------------------------------------------------
+
+def cmd_metrics(args) -> int:
+    """Dump telemetry: a running server's ``GET /metrics`` with --url,
+    else this process's registry. Prometheus text by default; ``--json``
+    emits the flat ``{"name{labels}": value}`` object."""
+    from predictionio_torch.obs import metrics as obs_metrics
+
+    if args.url:
+        import urllib.request
+
+        url = args.url.rstrip("/")
+        if not url.endswith("/metrics"):
+            url += "/metrics"
+        with urllib.request.urlopen(url, timeout=10) as resp:
+            text = resp.read().decode()
+    else:
+        text = obs_metrics.REGISTRY.render()
+    if args.json:
+        _dump_json(obs_metrics.samples_dict(text))
+    else:
+        sys.stdout.write(text)
+    return 0
+
+
+def cmd_flight(args) -> int:
+    """A server's flight-recorder dump (``GET /admin/flight``): the last
+    completed request records with stage timings, span trees and trace
+    ids, pretty-printed."""
+    import urllib.parse
+
+    query = {}
+    if args.n is not None:
+        query["n"] = str(args.n)
+    if args.slow:
+        query["slow"] = "1"
+    url = args.url.rstrip("/") + "/admin/flight"
+    if query:
+        url += "?" + urllib.parse.urlencode(query)
+    _dump_json(_fetch_admin_json(url, timeout=10))
+    return 0
+
+
+def cmd_trace(args) -> int:
+    """One trace id stitched across processes (obs/collect.py) and
+    rendered as an annotated tree: by the server at --url (``GET
+    /admin/trace?id=``), else in this process from its own ring, its
+    active fleets and ``PIO_OBS_MEMBERS``. Exit 1 when no span of the
+    id was found."""
+    from predictionio_torch.obs import collect
+
+    if args.url:
+        doc = _fetch_admin_json(
+            args.url.rstrip("/") + "/admin/trace?id=" + args.trace_id)
+    else:
+        doc = collect.stitch_trace(args.trace_id, collect.default_members())
+    if args.json:
+        _dump_json(doc)
+    else:
+        print(collect.format_trace_tree(doc))
+    return 0 if doc.get("span_count") else 1
+
+
+def cmd_profile(args) -> int:
+    """A torch.profiler window on a live server (``POST
+    /admin/profile?seconds=N``, obs/profiler.py): prints the trace's
+    path and its device-time summary. Exit 1 when the server has no
+    card to profile (501)."""
+    import urllib.error
+    import urllib.request
+
+    url = (args.url.rstrip("/")
+           + f"/admin/profile?seconds={float(args.seconds)}")
+    req = urllib.request.Request(url, method="POST", data=b"")
+    _add_admin_auth(req)
+    try:
+        # the server sleeps through the capture window before answering
+        with urllib.request.urlopen(
+                req, timeout=float(args.seconds) + 30) as resp:
+            payload = json.load(resp)
+    except urllib.error.HTTPError as e:
+        body = e.read().decode(errors="replace")
+        try:
+            message = json.loads(body).get("message", body)
+        except json.JSONDecodeError:
+            message = body
+        if e.code == 501:
+            print(f"profiler unavailable on the server: {message}")
+            return 1
+        raise commands.CommandError(
+            f"profile request failed ({e.code}): {message}")
+    except urllib.error.URLError as e:
+        raise commands.CommandError(f"cannot reach {args.url}: {e.reason}")
+    print(f"profile captured ({payload['seconds']}s, "
+          f"backend {payload.get('backend', '?')})")
+    print(f"artifact: {payload['artifact']}")
+    summary = payload.get("summary") or {}
+    if summary:
+        print(json.dumps(summary, sort_keys=True))
+    return 0
+
+
+def cmd_prof(args) -> int:
+    """The continuous host profiler (obs/contprof.py): a server's flame
+    (``GET /admin/prof``; ``--fleet`` asks a router for the
+    member-merged ``GET /admin/fleet/prof``) as a flame tree and its
+    hot frames; ``--collapsed`` emits folded ``stack count`` lines."""
+    import urllib.parse
+
+    from predictionio_torch.obs import contprof
+
+    path = "/admin/fleet/prof" if args.fleet else "/admin/prof"
+    query = {}
+    if args.slow:
+        query["slow"] = "1"
+    if args.endpoint:
+        query["endpoint"] = args.endpoint
+    url = args.url.rstrip("/") + path
+    if query:
+        url += "?" + urllib.parse.urlencode(query)
+    payload = _fetch_admin_json(url)
+    if args.json:
+        _dump_json(payload)
+        return 0
+    flame = payload.get("merged", payload) if args.fleet else payload
+    if args.collapsed:
+        sys.stdout.write(contprof.collapsed_text(flame))
+        return 0
+    if args.fleet:
+        for member in payload.get("members") or []:
+            state = ("ok" if member.get("ok")
+                     else f"ERROR: {member.get('error')}")
+            detail = ""
+            if member.get("ok"):
+                detail = " ({} sample(s), {:.3g} Hz, overhead {})".format(
+                    member.get("samples", 0),
+                    member.get("effective_hz") or 0.0,
+                    member.get("overhead_ratio"))
+            print(f"member {member.get('name', '?'):<12} {state}{detail}")
+        print("")
+    sys.stdout.write(contprof.format_flame(flame, top=args.top))
+    if args.slow and payload.get("slow_trace_ids"):
+        print("slow-cohort trace ids (join with `pio flight --slow`):")
+        for tid in payload["slow_trace_ids"][-20:]:
+            print(f"  {tid}")
+    return 0
+
+
+def format_journal_event(event) -> str:
+    """One journal event as one line: local wall clock, kind, member
+    when federated, then the event's own fields."""
+    import datetime
+
+    ts = event.get("ts")
+    when = (datetime.datetime.fromtimestamp(ts).strftime("%H:%M:%S")
+            if isinstance(ts, (int, float)) else "--:--:--")
+    parts = [f"{when}  {event.get('kind', '?'):<18}"]
+    member = event.get("fleet_member")
+    if member:
+        parts.append(f"[{member}]")
+    for key, value in event.items():
+        if key in ("ts", "mono", "kind", "fleet_member"):
+            continue
+        if key == "trace":
+            value = str(value)[:8]
+        parts.append(f"{key}={value}")
+    return " ".join(parts)
+
+
+def cmd_journal(args) -> int:
+    """The ops journal (obs/journal.py): reloads, patches, canary
+    verdicts, breaker flips, SLO alerts, shed episodes, stalls and
+    anomalies, from ``GET /admin/journal`` (``--fleet``: the router's
+    member-merged ``/admin/fleet/journal``) with --url, else this
+    process's ring. ``--follow`` polls for new events until
+    interrupted."""
+    import time as _time
+    import urllib.parse
+
+    def fetch(since):
+        if args.url:
+            path = ("/admin/fleet/journal" if args.fleet
+                    else "/admin/journal")
+            query = {"n": str(args.n)}
+            if args.kind:
+                query["kind"] = args.kind
+            if since is not None:
+                query["since"] = repr(since)
+            return _fetch_admin_json(args.url.rstrip("/") + path + "?"
+                                     + urllib.parse.urlencode(query))
+        if args.fleet:
+            raise commands.CommandError("--fleet needs --url (the router "
+                                        "assembles the member merge)")
+        from predictionio_torch.obs import journal as _journal
+
+        return _journal.JOURNAL.page(n=args.n, kind=args.kind,
+                                     since=since)
+
+    payload = fetch(args.since)
+    if args.json and not args.follow:
+        _dump_json(payload)
+        return 0
+    events = payload.get("events") or []
+    for event in events:
+        print(json.dumps(event, sort_keys=True) if args.json
+              else format_journal_event(event))
+    if not events and not args.follow:
+        print("(journal is empty)")
+    if not args.follow:
+        return 0
+    # poll just past the newest event printed: ts is the join key across
+    # members, so a merged fleet stream tails as one process's does
+    last_ts = max((e.get("ts") or 0.0 for e in events), default=0.0)
+    try:
+        while True:
+            _time.sleep(args.interval)
+            payload = fetch(last_ts + 1e-3 if last_ts else None)
+            for event in payload.get("events") or []:
+                last_ts = max(last_ts, event.get("ts") or 0.0)
+                print(json.dumps(event, sort_keys=True) if args.json
+                      else format_journal_event(event), flush=True)
+    except KeyboardInterrupt:
+        return 0
+
+
+def cmd_anomalies(args) -> int:
+    """The regression sentinel (obs/anomaly.py): active change-points of
+    the metric timelines, each attributed to a journal event, and the
+    recently resolved ones, from ``GET /admin/anomaly`` (``--fleet``:
+    ``/admin/fleet/anomaly``) with --url, else this process's sentinel.
+    Exit 1 while any anomaly is active."""
+    if args.url:
+        path = "/admin/fleet/anomaly" if args.fleet else "/admin/anomaly"
+        report = _fetch_admin_json(args.url.rstrip("/") + path)
+    elif args.fleet:
+        raise commands.CommandError("--fleet needs --url (the router "
+                                    "assembles the member merge)")
+    else:
+        from predictionio_torch.obs import anomaly as _anomaly
+
+        report = _anomaly.SENTINEL.report()
+    active = report.get("active") or []
+    if isinstance(active, dict):
+        # one process keys its verdicts by series; the fleet merge
+        # already flattens them into member-stamped rows
+        active = [dict(entry, series=series)
+                  for series, entry in sorted(active.items())]
+    if args.json:
+        _dump_json(report)
+        return 1 if active else 0
+
+    def describe(entry) -> str:
+        line = (f"{entry.get('series', '?'):<28} "
+                f"{entry.get('mode', '?')}/{entry.get('direction', '?')} "
+                f"z={entry.get('z', 0):.1f} "
+                f"baseline={entry.get('baseline')} "
+                f"now={entry.get('recent')}")
+        member = entry.get("fleet_member")
+        if member:
+            line = f"[{member}] " + line
+        cause = entry.get("cause")
+        if cause:
+            line += (f"\n{'':<30}<- {cause.get('kind', '?')} "
+                     f"{cause.get('gap_sec', 0):+.1f}s "
+                     + " ".join(f"{k}={v}" for k, v in cause.items()
+                                if k not in ("kind", "gap_sec", "ts",
+                                             "trace")))
+        return line
+
+    if args.fleet:
+        for member in report.get("members") or []:
+            state = ("ok" if member.get("ok")
+                     else f"ERROR: {member.get('error')}")
+            print(f"member {member.get('name', '?'):<12} {state}  "
+                  f"active={member.get('active', '?')}")
+        print("")
+    if not active:
+        print("no active anomalies")
+    else:
+        print(f"{len(active)} ACTIVE anomal"
+              + ("y" if len(active) == 1 else "ies")
+              + f" (window {report.get('window_sec', '?')}s):")
+        for entry in active:
+            print("  " + describe(entry))
+    resolved = (report.get("recent_resolved") or []
+                if not args.fleet else [])
+    if resolved:
+        print("recently resolved:")
+        for entry in resolved[-5:]:
+            print(f"  {entry.get('series', '?'):<28} "
+                  f"lasted {entry.get('duration_sec', 0):.0f}s "
+                  f"(cause: {(entry.get('cause') or {}).get('kind', '-')})")
+    return 1 if active else 0
+
+
+def cmd_data(args) -> int:
+    """The data plane (obs/dataobs.py): ingest rates per (app, event),
+    entity heavy hitters and Zipf skew, cardinalities, quantiles,
+    schema drift and the unknown-entity coverage ratio, from ``GET
+    /admin/data`` (``--fleet``: ``/admin/fleet/data``) with --url, else
+    this process's plane."""
+    if args.url:
+        path = "/admin/fleet/data" if args.fleet else "/admin/data"
+        report = _fetch_admin_json(args.url.rstrip("/") + path)
+    elif args.fleet:
+        raise commands.CommandError("--fleet needs --url (the router "
+                                    "assembles the member merge)")
+    else:
+        from predictionio_torch.obs import dataobs
+
+        report = dataobs.DATAOBS.report(top_n=args.top)
+    if args.json:
+        _dump_json(report)
+        return 0
+
+    def render_one(rep: dict, indent: str = "") -> None:
+        print(f"{indent}events {int(rep.get('events_total') or 0)} "
+              f"({rep.get('eps', 0.0):g}/s)  "
+              f"tail {int(rep.get('tail_events_total') or 0)}  "
+              f"bytes {int(rep.get('bytes_total') or 0)}")
+        entities = rep.get("entities") or {}
+        card = entities.get("cardinality") or {}
+        print(f"{indent}entity skew {entities.get('skew', 0.0):g}  "
+              "cardinality " +
+              " ".join(f"{k}={v}" for k, v in sorted(card.items())))
+        print(f"{indent}unknown-entity ratio "
+              f"{rep.get('unknown_ratio', 0.0):g} "
+              f"(over {int(rep.get('queries_seen') or 0)} query refs)")
+        breaches = rep.get("breach_active") or {}
+        if breaches:
+            print(f"{indent}ACTIVE BREACH: "
+                  + ", ".join(sorted(k for k, v in breaches.items() if v)))
+        rates = rep.get("rates") or []
+        if rates:
+            print(f"{indent}rates:")
+            for row in rates[:10]:
+                print(f"{indent}  app {row.get('app'):>6} "
+                      f"{row.get('event', '?'):<20} {row.get('count')}")
+        top = entities.get("top") or []
+        if top:
+            print(f"{indent}hot entities:")
+            for row in top[:10]:
+                print(f"{indent}  {row.get('id', '?'):<24} "
+                      f"{row.get('count')} (±{row.get('err', 0)})")
+        quant = rep.get("quantiles") or {}
+        for name, summ in sorted(quant.items()):
+            if summ and summ.get("n"):
+                print(f"{indent}{name}: p50 {summ.get('p50')} "
+                      f"p90 {summ.get('p90')} p99 {summ.get('p99')} "
+                      f"(n={summ.get('n')})")
+        schema = rep.get("schema") or {}
+        changes = schema.get("changes") or []
+        if changes:
+            print(f"{indent}schema changes "
+                  f"({schema.get('changes_total', len(changes))} total, "
+                  "frozen at instance "
+                  f"{schema.get('frozen_instance') or '-'}):")
+            for ch in changes[-10:]:
+                member = ch.get("fleet_member")
+                print(f"{indent}  "
+                      + (f"[{member}] " if member else "")
+                      + f"{ch.get('event', '?')}.{ch.get('field', '?')} "
+                      f"{ch.get('change', '?')} "
+                      + " ".join(f"{k}={ch[k]}" for k in
+                                 ("old_type", "new_type") if ch.get(k)))
+
+    if args.fleet:
+        for member in report.get("members") or []:
+            state = ("ok" if member.get("ok")
+                     else f"ERROR: {member.get('error')}")
+            print(f"member {member.get('name', '?'):<12} {state}")
+        print("")
+        totals = report.get("totals") or {}
+        changes = report.get("schema_changes") or []
+        render_one({
+            "events_total": totals.get("events_total"),
+            "eps": totals.get("eps"),
+            "tail_events_total": totals.get("tail_events_total"),
+            "bytes_total": totals.get("bytes_total"),
+            "entities": {"skew": report.get("skew", 0.0)},
+            "unknown_ratio": report.get("unknown_ratio", 0.0),
+            "breach_active": report.get("breach_active") or {},
+            "schema": {"changes": changes, "changes_total": len(changes)},
+        })
+    else:
+        render_one(report)
+    return 0
+
+
+def _fmt_bytes(n) -> str:
+    """Binary-unit bytes for the mem report; None renders as '-'."""
+    if n is None:
+        return "-"
+    n = float(n)
+    sign = "-" if n < 0 else ""
+    n = abs(n)
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if n < 1024 or unit == "TiB":
+            return (f"{sign}{n:.0f} {unit}" if unit == "B"
+                    else f"{sign}{n:.2f} {unit}")
+        n /= 1024.0
+    return f"{sign}{n:.2f} TiB"
+
+
+def cmd_mem(args) -> int:
+    """Device-memory accounting (obs/memacct.py): headroom and its
+    basis, the per-model ledger, train peaks and the last preflight,
+    from ``GET /admin/memory`` with --url, else this process's
+    ledger."""
+    if args.url:
+        report = _fetch_admin_json(args.url.rstrip("/") + "/admin/memory",
+                                   timeout=10)
+    else:
+        from predictionio_torch.obs import memacct
+
+        report = memacct.report()
+    if args.json:
+        _dump_json(report)
+        return 0
+    print(f"device memory ({report['basis']} basis): "
+          f"{_fmt_bytes(report['in_use_bytes'])} in use of "
+          f"{_fmt_bytes(report['capacity_bytes'])} — headroom "
+          f"{_fmt_bytes(report['headroom_bytes'])}")
+    models = report.get("models") or {}
+    if not models:
+        print("  (no ledgered model residency in this process)")
+    for model in sorted(models):
+        block = models[model]
+        components = " ".join(
+            f"{name}={_fmt_bytes(nbytes)}"
+            for name, nbytes in sorted(block["components"].items()))
+        print(f"  {model:>12} {_fmt_bytes(block['total_bytes']):>12}  "
+              f"{components}")
+    peaks = report.get("train_peaks") or {}
+    for model in sorted(peaks):
+        peak = peaks[model]
+        print(f"  train peak {model}: {_fmt_bytes(peak['bytes'])} "
+              f"({peak['source']})")
+    pre = report.get("preflight") or {}
+    state = "on" if pre.get("enabled") else "OFF (PIO_MEM_PREFLIGHT=0)"
+    line = (f"preflight {state}, estimate scale "
+            f"x{pre.get('estimate_scale')}")
+    last = pre.get("last")
+    if last:
+        line += (f"; last: {last.get('result')} instance "
+                 f"{last.get('instance')} "
+                 f"(est {_fmt_bytes(last.get('estimated_bytes'))} vs "
+                 f"headroom {_fmt_bytes(last.get('headroom_bytes'))})")
+    print(line)
+    return 0
+
+
+def _fetch_timeline(url: Optional[str]) -> dict:
+    """One timeline payload: a server's ``GET /admin/timeline``, else
+    this process's rings (sampled now)."""
+    if url:
+        return _fetch_admin_json(url.rstrip("/") + "/admin/timeline",
+                                 timeout=10)
+    from predictionio_torch.obs import perfacct, timeline
+
+    timeline.TIMELINE.sample(force=True)
+    payload = timeline.TIMELINE.series()
+    payload["datapath"] = perfacct.LEDGER.snapshot()
+    return payload
+
+
+def _render_top_frame(payload: dict) -> str:
+    """One `pio top` frame: a sparkline and the latest value per series,
+    then the data-path ledger's summary."""
+    from predictionio_torch.obs.timeline import sparkline
+
+    lines = []
+    series = payload.get("series") or {}
+    if not series:
+        lines.append("(no samples yet — traffic or a train run feeds "
+                     "the timeline)")
+    width = max((len(n) for n in series), default=0)
+    for name in sorted(series):
+        points = series[name]
+        if not points:
+            continue
+        values = [p[1] for p in points]
+        lines.append(f"{name:>{width}}  {sparkline(values, 40):<40} "
+                     f"{values[-1]:>12.4g}  "
+                     f"(min {min(values):.4g} max {max(values):.4g}, "
+                     f"n={len(values)})")
+
+    def latest(name):
+        points = series.get(name) or []
+        return points[-1][1] if points else None
+
+    eps = latest("data.eps")
+    unknown = latest("data.unknown_ratio")
+    skew = latest("data.skew")
+    if any(v is not None for v in (eps, unknown, skew)):
+        lines.append("")
+        lines.append(
+            "ingest: {} ev/s  unknown-entity {}  skew {}".format(
+                "–" if eps is None else f"{eps:.4g}",
+                "–" if unknown is None else f"{unknown:.2%}",
+                "–" if skew is None else f"{skew:.3g}"))
+    datapath = payload.get("datapath") or {}
+    if datapath:
+        lines.append("")
+        lines.append(f"model staleness: "
+                     f"{datapath.get('staleness_seconds', 0.0):.1f}s")
+        runs = datapath.get("runs") or []
+        if runs:
+            last = runs[-1]
+            stages = " ".join(f"{k}={v:.2f}s"
+                              for k, v in sorted(last["stages"].items()))
+            lines.append(f"last run {last['run']}: {stages or '(no stages)'}")
+    return "\n".join(lines)
+
+
+def _render_fleet_frame(report: dict, history: Optional[dict] = None) -> str:
+    """One `pio top --fleet` frame: fleet percentiles off the merged
+    serving histogram, the fleet SLO burn and a per-member table;
+    ``history`` (the live loop's rings) adds sparklines."""
+    from predictionio_torch.obs import collect
+    from predictionio_torch.obs.timeline import sparkline
+
+    lines = []
+    samples = report.get("samples") or {}
+    slo = report.get("slo") or {}
+    p50 = collect.quantile_from_flat(
+        samples, "pio_serving_request_seconds", 0.5)
+    p99 = collect.quantile_from_flat(
+        samples, "pio_serving_request_seconds", 0.99)
+    requests = sum(v for k, v in samples.items()
+                   if k.startswith("pio_http_requests_total"))
+    if history is not None:
+        for name, value in (("fleet.srv_p50_ms",
+                             None if p50 is None else p50 * 1e3),
+                            ("fleet.srv_p99_ms",
+                             None if p99 is None else p99 * 1e3),
+                            ("fleet.http_requests", requests)):
+            if value is not None:
+                history.setdefault(name, []).append(value)
+                del history[name][:-120]
+    burn = slo.get("burn")
+    lines.append(
+        "fleet serving: p50 {} p99 {} — SLO burn {} "
+        "(<= {:g}ms objective {:.1%}, {} of {} good)".format(
+            "–" if p50 is None else f"{p50 * 1e3:.2f}ms",
+            "–" if p99 is None else f"{p99 * 1e3:.2f}ms",
+            "–" if burn is None else f"{burn:g}",
+            slo.get("threshold_ms", 0.0), slo.get("objective", 0.0),
+            int(slo.get("good") or 0), int(slo.get("total") or 0)))
+    # counters sum across the merge; skew and unknown take the fleet
+    # max (a hot key or a stale model on one replica is the fleet's)
+    ingest_events = sum(v for k, v in samples.items()
+                        if k.startswith("pio_data_events_total"))
+    fleet_skew = max((v for k, v in samples.items()
+                      if k.startswith("pio_data_entity_skew")),
+                     default=None)
+    fleet_unknown = max(
+        (v for k, v in samples.items()
+         if k.startswith("pio_query_unknown_entity_ratio")),
+        default=None)
+    if ingest_events or fleet_skew is not None \
+            or fleet_unknown is not None:
+        if history is not None:
+            history.setdefault("fleet.ingest_events", []).append(
+                ingest_events)
+            del history["fleet.ingest_events"][:-120]
+        lines.append(
+            "fleet ingest: events {:.0f}  unknown-entity {}  "
+            "skew {}".format(
+                ingest_events,
+                "–" if fleet_unknown is None else f"{fleet_unknown:.2%}",
+                "–" if fleet_skew is None else f"{fleet_skew:.3g}"))
+    if history:
+        width = max(len(n) for n in history)
+        for name in sorted(history):
+            values = history[name]
+            lines.append(f"{name:>{width}}  "
+                         f"{sparkline(values, 40):<40} "
+                         f"{values[-1]:>12.4g}")
+    lines.append("")
+    lines.append(f"{'member':>12} {'role':>10} {'status':>8} "
+                 f"{'http_reqs':>10} {'served':>8}")
+    for member in report.get("members") or []:
+        status = "ok" if member.get("ok") else "ERROR"
+        lines.append(
+            f"{member.get('name', '?'):>12} "
+            f"{member.get('role', ''):>10} {status:>8} "
+            f"{int(member.get('http_requests') or 0):>10} "
+            f"{int(member.get('serving_requests') or 0):>8}"
+            + (f"  ({member.get('error')})" if not member.get("ok")
+               else ""))
+    return "\n".join(lines)
+
+
+def cmd_top(args) -> int:
+    """Live view of the metric timelines (obs/timeline.py,
+    obs/perfacct.py) as sparklines, every ``--interval`` seconds;
+    ``--once`` prints one frame, ``--json`` (with --once) its raw
+    payload. ``--fleet`` drives the view from a router's ``GET
+    /admin/fleet/metrics``: merged percentiles, SLO burn and a
+    per-member table."""
+    if args.json and not args.once:
+        raise commands.CommandError(
+            "--json requires --once (one machine-readable frame; stream "
+            "consumers should poll /admin/timeline)")
+    if args.fleet and not args.url:
+        raise commands.CommandError("--fleet needs --url (the fleet's "
+                                    "router)")
+
+    def fetch_and_render(history=None):
+        if args.fleet:
+            report = _fetch_admin_json(
+                args.url.rstrip("/") + "/admin/fleet/metrics", timeout=10)
+            return report, _render_fleet_frame(report, history)
+        payload = _fetch_timeline(args.url)
+        return payload, _render_top_frame(payload)
+
+    if args.once:
+        payload, frame = fetch_and_render()
+        if args.json:
+            _dump_json(payload)
+        else:
+            print(frame)
+        return 0
+    import time as _time
+
+    history: dict = {}
+    try:
+        while True:
+            # a failed fetch (a server restarting) shows in the frame and
+            # the watch goes on; only --once fails hard
+            try:
+                _payload, frame = fetch_and_render(history)
+            except commands.CommandError as e:
+                frame = f"(fetch failed, retrying: {e})"
+            sys.stdout.write("\x1b[2J\x1b[H")
+            print(f"pio top — {args.url or 'in-process'}"
+                  f"{' [fleet]' if args.fleet else ''} "
+                  f"(interval {args.interval:g}s, ctrl-c to quit)\n")
+            print(frame, flush=True)
+            _time.sleep(max(0.2, args.interval))
+    except KeyboardInterrupt:
+        return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -1012,8 +1687,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--once", action="store_true",
                    help="one tail->fold->publish cycle, print stats JSON")
     p.add_argument("--reload-url", default=None,
-                   help="not ported yet (ROADMAP.md queue 1 item 10): "
-                        "the drift-band reload trigger")
+                   help="comma-separated base URLs whose GET /reload "
+                        "the drift-band breach auto-triggers (normally "
+                        "the fleet router; PIO_QUALITY_DRIFT_BAND sets "
+                        "the band)")
 
     p = sub.add_parser("eval", help="run an evaluation")
     p.add_argument("evaluation_class")
@@ -1133,6 +1810,184 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--json", action="store_true",
                    help="dump the raw /admin/quality report")
     p.set_defaults(func=cmd_canary)
+
+    p = sub.add_parser(
+        "metrics",
+        help="dump Prometheus metrics (from a server's /metrics with "
+             "--url, else the in-process registry)",
+    )
+    p.add_argument("--url", default=None,
+                   help="base URL of any PIO server, e.g. "
+                        "http://127.0.0.1:8000")
+    p.add_argument("--json", action="store_true",
+                   help="machine-readable flat {name{labels}: value} dump")
+    p.set_defaults(func=cmd_metrics)
+
+    p = sub.add_parser(
+        "flight",
+        help="dump a server's flight recorder (GET /admin/flight): the "
+             "last completed requests with stage timings + trace ids",
+    )
+    p.add_argument("--url", required=True,
+                   help="base URL of any PIO server, e.g. "
+                        "http://127.0.0.1:8000")
+    p.add_argument("-n", type=int, default=None,
+                   help="only the last N records")
+    p.add_argument("--slow", action="store_true",
+                   help="only slow/errored records")
+    p.set_defaults(func=cmd_flight)
+
+    p = sub.add_parser(
+        "trace",
+        help="stitch one trace id across the fleet (GET /admin/trace "
+             "via --url, else assembled in-process from this process's "
+             "ring + ACTIVE fleets + PIO_OBS_MEMBERS) and render the "
+             "annotated cross-process tree",
+    )
+    p.add_argument("trace_id",
+                   help="the trace id (X-PIO-Trace-Id of any response)")
+    p.add_argument("--url", default=None,
+                   help="base URL of the assembling server — normally "
+                        "the fleet's router (sends the PIO_ADMIN_TOKEN "
+                        "bearer header when set)")
+    p.add_argument("--json", action="store_true",
+                   help="dump the raw stitched-trace document")
+    p.set_defaults(func=cmd_trace)
+
+    p = sub.add_parser(
+        "profile",
+        help="capture a torch.profiler window on a live server (POST "
+             "/admin/profile); prints the trace's path and device-time "
+             "summary, exits 1 with a message where there is no card",
+    )
+    p.add_argument("--url", required=True,
+                   help="base URL of the server doing the device work")
+    p.add_argument("--seconds", type=float, default=3.0,
+                   help="capture window length (default 3)")
+    p.set_defaults(func=cmd_profile)
+
+    p = sub.add_parser(
+        "prof",
+        help="continuous host profiler (GET /admin/prof): the always-on "
+             "wall-clock flame of a live server — flame tree + hot "
+             "frames; --fleet for the member-merged view",
+    )
+    p.add_argument("--url", default="http://127.0.0.1:8000",
+                   help="base URL of any PIO server (sends the "
+                        "PIO_ADMIN_TOKEN bearer header when set)")
+    p.add_argument("--fleet", action="store_true",
+                   help="member-merged profile through the federation "
+                        "plane (GET /admin/fleet/prof on the router)")
+    p.add_argument("--collapsed", action="store_true",
+                   help="emit folded 'stack count' lines for external "
+                        "flamegraph tooling")
+    p.add_argument("--slow", action="store_true",
+                   help="only the above-PIO_SLOW_MS tail cohort's "
+                        "samples (also lists their trace ids)")
+    p.add_argument("--endpoint", default=None,
+                   help="one route's slice, e.g. /queries.json")
+    p.add_argument("--top", type=int, default=10,
+                   help="hot frames listed under the flame (default 10)")
+    p.add_argument("--json", action="store_true",
+                   help="dump the raw profile payload")
+    p.set_defaults(func=cmd_prof)
+
+    p = sub.add_parser(
+        "mem",
+        help="device-memory accounting (obs/memacct.py): per-model "
+             "ledger, headroom, train peaks and the OOM-preflight "
+             "state (GET /admin/memory)",
+    )
+    p.add_argument("--url", default=None,
+                   help="base URL of any PIO server (sends the "
+                        "PIO_ADMIN_TOKEN bearer header when set); "
+                        "default: this process's own ledger")
+    p.add_argument("--json", action="store_true",
+                   help="dump the raw /admin/memory payload")
+    p.set_defaults(func=cmd_mem)
+
+    p = sub.add_parser(
+        "top",
+        help="live terminal view of the metric timelines (MFU, "
+             "staleness, serving quantiles, request rate) from a "
+             "server's /admin/timeline or the in-process rings",
+    )
+    p.add_argument("--url", default=None,
+                   help="base URL of any PIO server (sends the "
+                        "PIO_ADMIN_TOKEN bearer header when set); "
+                        "default: this process's own timeline")
+    p.add_argument("--interval", type=float, default=2.0,
+                   help="refresh cadence in seconds (default 2)")
+    p.add_argument("--once", action="store_true",
+                   help="print one frame and exit")
+    p.add_argument("--json", action="store_true",
+                   help="with --once: dump the raw timeline payload")
+    p.add_argument("--fleet", action="store_true",
+                   help="drive the view from the router's federated "
+                        "GET /admin/fleet/metrics (requires --url): "
+                        "fleet-wide merged percentiles, SLO burn and "
+                        "a per-member table")
+    p.set_defaults(func=cmd_top)
+
+    p = sub.add_parser(
+        "journal",
+        help="the ops journal: what the system DID and when (reloads, "
+             "canary verdicts, breaker flips, shed episodes, anomaly "
+             "onsets) — one line per event, newest last",
+    )
+    p.add_argument("--url", default=None,
+                   help="server base URL (default: this process's ring)")
+    p.add_argument("--fleet", action="store_true",
+                   help="member-merged stream via the router's "
+                        "GET /admin/fleet/journal (requires --url)")
+    p.add_argument("-n", type=int, default=200,
+                   help="events to show (default 200)")
+    p.add_argument("--kind", default=None,
+                   help="only this event kind (reload, breaker, "
+                        "canary_verdict, shed_episode, anomaly, ...)")
+    p.add_argument("--since", type=float, default=None,
+                   help="unix-seconds floor")
+    p.add_argument("--follow", "-f", action="store_true",
+                   help="keep polling for new events until interrupted")
+    p.add_argument("--interval", type=float, default=2.0,
+                   help="--follow poll interval in seconds (default 2)")
+    p.add_argument("--json", action="store_true",
+                   help="raw JSON (one object per line with --follow)")
+    p.set_defaults(func=cmd_journal)
+
+    p = sub.add_parser(
+        "anomalies",
+        help="the regression sentinel: active metric change-points "
+             "attributed to journal events; exit 1 while any is active",
+    )
+    p.add_argument("--url", default=None,
+                   help="server base URL (default: this process's "
+                        "sentinel)")
+    p.add_argument("--fleet", action="store_true",
+                   help="per-member reports + the active union via the "
+                        "router's GET /admin/fleet/anomaly (requires "
+                        "--url)")
+    p.add_argument("--json", action="store_true",
+                   help="raw sentinel report")
+    p.set_defaults(func=cmd_anomalies)
+
+    p = sub.add_parser(
+        "data",
+        help="the data & ingest observability plane: ingest rates, "
+             "entity heavy hitters + Zipf skew, cardinality, schema "
+             "drift, unknown-entity coverage",
+    )
+    p.add_argument("--url", default=None,
+                   help="server base URL (default: this process's "
+                        "data plane)")
+    p.add_argument("--fleet", action="store_true",
+                   help="member-merged report via the router's "
+                        "GET /admin/fleet/data (requires --url)")
+    p.add_argument("--top", type=int, default=20,
+                   help="heavy-hitter rows to show (default 20)")
+    p.add_argument("--json", action="store_true",
+                   help="raw data-plane report")
+    p.set_defaults(func=cmd_data)
     return parser
 
 

@@ -57,10 +57,21 @@ bound instance clears), a fresh trace per cycle and its headers on the
 HTTP patch lane. The counters are process-wide; the updater also keeps
 its own counts as attributes (``folds``, ``fold_events``,
 ``groups_skipped``, ``patch_failures``, ``index_recall``,
-``recall_breaches``, ``last_fold_seconds``). Not ported yet (ROADMAP.md
-queue 1 item 10): ``dataobs.observe_tail``, the continuous profiler
-around ``run_forever``, and the shadow-quality probe with the reload
-trigger it fires.
+``recall_breaches``, ``last_fold_seconds``). The delta tail refreshes
+the data plane's entity sketches (``dataobs.observe_tail``), and
+``run_forever`` holds the continuous profiler while it runs.
+
+Every ``PIO_QUALITY_EVERY`` applied folds the updater scores each live
+model against its shadow, a snapshot of the last full-retrain
+COMPLETED instance taken at bind time before any fold
+(``probe_quality``; ``obs/quality.py`` computes the report, and on a
+card the live top-k goes through ``topk_dot``). The worst case across
+algorithms feeds the ``pio_model_quality_*`` gauges and is pushed to
+each ``patch_urls`` target's ``/admin/quality``. A breach of the
+``PIO_QUALITY_DRIFT_BAND`` fires the reload lane once per bound
+instance (``reload_trigger``, else ``GET /reload`` on each of
+``reload_urls``: ``pio stream --reload-url``), journals
+``drift_breach`` and ``auto_reload``, and resyncs the updater.
 
 Config (env), the JAX package's names and defaults:
   PIO_STREAM_INTERVAL_SEC   daemon poll cadence (1.0)
@@ -74,6 +85,8 @@ Config (env), the JAX package's names and defaults:
   PIO_STREAM_RECALL_FLOOR   breach threshold for the probe (0.95)
   PIO_STREAM_RECALL_SAMPLE  probe query sample size (16)
   PIO_STREAM_RECALL_K       probe k (10)
+  PIO_QUALITY_EVERY         applied folds between quality probes (20)
+  PIO_QUALITY_DRIFT_BAND    the drift band a probe breaches (obs/quality.py)
 """
 
 from __future__ import annotations
@@ -95,7 +108,8 @@ from predictionio_torch.data.store import resolve_app
 from predictionio_torch.index.recall import recall_at_k
 from predictionio_torch.models.als import ALSAlgorithm
 from predictionio_torch.models.twotower import TwoTowerAlgorithm
-from predictionio_torch.obs import journal, metrics, perfacct, trace
+from predictionio_torch.obs import (contprof, dataobs, journal, metrics,
+                                    perfacct, quality, trace)
 from predictionio_torch.ops.als import ALSConfig, fold_in_solve
 from predictionio_torch.ops.twotower import online_delta_step
 from predictionio_torch.parallel.context import DeviceContext
@@ -498,7 +512,10 @@ class StreamUpdater:
     in-process :class:`~predictionio_torch.serving.engine_server.
     EngineServer` objects; ``patch_urls`` are remote engine-server base
     URLs (``pio stream --url``). With neither, the local model copy is
-    still folded: the embedding caller owns serving.
+    still folded: the embedding caller owns serving. A drift-band
+    breach of the quality probe calls ``reload_trigger`` when given,
+    else ``GET /reload`` on each of ``reload_urls`` (bearer-authed when
+    ``PIO_ADMIN_TOKEN`` is set).
     """
 
     def __init__(
@@ -512,6 +529,8 @@ class StreamUpdater:
         instance=None,
         patch_urls: Sequence[str] = (),
         patch_servers: Sequence[Any] = (),
+        reload_urls: Sequence[str] = (),
+        reload_trigger: Optional[Any] = None,
     ):
         self.storage = storage or get_storage()
         self._ctx = ctx or DeviceContext()
@@ -521,6 +540,8 @@ class StreamUpdater:
         self.engine_variant = engine_variant
         self.patch_urls = [u.rstrip("/") for u in patch_urls]
         self.patch_servers = list(patch_servers)
+        self.reload_urls = [u.rstrip("/") for u in reload_urls]
+        self.reload_trigger = reload_trigger
         #: fold cycles by outcome
         self.folds = {"ok": 0, "empty": 0, "rebased": 0, "patch_failed": 0}
         #: delta events folded into the live model
@@ -583,6 +604,10 @@ class StreamUpdater:
                 "(ALS fold-in / two-tower online steps)")
         if instance.id != self.instance_id:
             self._staleness_debt = False
+            # the drift reload re-arms only for a new instance: one
+            # reload per breach episode, none while the retrain that
+            # fixes the drift is still running
+            self._quality_reload_fired = False
         self.instance_id = instance.id
         self._ds = ds
         self._app_id, self._channel_id = app_id, channel_id
@@ -594,6 +619,13 @@ class StreamUpdater:
         # be rewound to an instant the log does not index by time)
         self.cursor = events.delta_cursor(app_id, channel_id)
         self._folds_since_probe = 0
+        self._folds_since_quality = 0
+        # the shadow: the freshly loaded instance, snapshotted before any
+        # fold touches it (drift is distance from the last full retrain)
+        self._shadows: Dict[int, quality.ShadowRef] = {
+            folder.index: quality.ShadowRef(folder.model, instance.id)
+            for folder in folders
+            if quality.ShadowRef.supports(getattr(folder, "model", None))}
 
     def resync(self) -> None:
         """Rebind to the newest COMPLETED instance (after a retrain or
@@ -650,6 +682,10 @@ class StreamUpdater:
                     "seconds": time.perf_counter() - t0}
         prev_cursor = self.cursor
         self.cursor = new_cursor
+        if len(cols):
+            # the tail refreshes the entity sketches of THIS process;
+            # the insert lane already counted these events
+            dataobs.DATAOBS.observe_tail(self._app_id, cols)
         max_delta = metrics.env_int("PIO_STREAM_MAX_DELTA", 200_000)
         n = len(cols)
         truncated = n > max_delta
@@ -737,6 +773,16 @@ class StreamUpdater:
             recall = self.probe_recall()
             if recall is not None:
                 out["index_recall"] = recall
+        self._folds_since_quality += 1
+        if self._folds_since_quality >= metrics.env_int(
+                "PIO_QUALITY_EVERY", 20):
+            self._folds_since_quality = 0
+            report = self.probe_quality()
+            if report is not None:
+                out["quality"] = {
+                    k: report.get(k)
+                    for k in ("recall_vs_retrain", "rmse_drift",
+                              "factor_drift", "breached")}
         return out
 
     # -- retrieval drift probe -----------------------------------------------
@@ -779,6 +825,121 @@ class StreamUpdater:
                 "factor tables; run a full retrain (rolling /reload)",
                 worst, floor)
         return worst
+
+    # -- shadow-retrain drift probe ------------------------------------------
+    def probe_quality(self) -> Optional[Dict[str, Any]]:
+        """Score every fold-capable live model against its shadow and
+        publish the worst case to the ``pio_model_quality_*`` gauges and
+        ``GET /admin/quality`` (obs/quality.py computes it). A
+        drift-band breach fires the reload lane once per bound instance
+        and resyncs the updater. Returns the published report, or None
+        when nothing was probeable."""
+        reports = []
+        for folder in self._folders:
+            shadow = self._shadows.get(folder.index)
+            if shadow is None:
+                continue
+            report = quality.drift_report(folder.model, shadow)
+            if report.get("recall_vs_retrain") is not None:
+                reports.append(report)
+        if not reports:
+            return None
+        # the most pessimistic verdict across algorithms: a healthy ALS
+        # must not mask a drifted two-tower
+        merged = dict(min(reports, key=lambda r: r["recall_vs_retrain"]))
+        merged["recall_vs_retrain"] = min(r["recall_vs_retrain"]
+                                          for r in reports)
+        for name in ("rmse_drift", "factor_drift"):
+            values = [r[name] for r in reports if r.get(name) is not None]
+            if values:
+                merged[name] = max(values)
+        merged["algorithms_probed"] = len(reports)
+        merged = quality.publish_drift(merged)
+        # this daemon's quality state is not the servers': push the
+        # report onto each patch target's /admin/quality (in-process
+        # patch_servers share this process's state already)
+        if self.patch_urls:
+            self._push_drift(merged)
+        if merged["breached"] and not self._quality_reload_fired:
+            self._quality_reload_fired = True
+            quality.note_auto_reload()
+            journal.emit("drift_breach", band=merged["band"],
+                         breached=merged["breached"],
+                         recall=merged.get("recall_vs_retrain"),
+                         rmse_drift=merged.get("rmse_drift"),
+                         factor_drift=merged.get("factor_drift"))
+            journal.emit("auto_reload", reason="drift_breach")
+            log.warning(
+                "model-quality drift breached the band %.2f (%s: "
+                "recall_vs_retrain=%s rmse_drift=%s factor_drift=%s): "
+                "triggering the rolling /reload lane and resyncing; a "
+                "full retrain owns closing the episode",
+                merged["band"], ",".join(merged["breached"]),
+                merged.get("recall_vs_retrain"), merged.get("rmse_drift"),
+                merged.get("factor_drift"))
+            self._trigger_reload()
+            try:
+                # the updater's own model is the drifted one: rebind to
+                # the instance serving rolled back onto
+                self.resync()
+            except Exception:  # noqa: BLE001 — resync is advisory
+                log.exception("post-breach stream resync failed")
+        return merged
+
+    def _push_drift(self, report: Dict[str, Any]) -> None:
+        """POST the drift report to each patch target's
+        ``/admin/quality``; failures are logged, never raised (drift
+        delivery is telemetry)."""
+        body = json.dumps({"drift": report}).encode()
+        headers = trace.traced_headers({"Content-Type": "application/json"})
+        token = os.environ.get("PIO_ADMIN_TOKEN")
+        if token:
+            headers["Authorization"] = f"Bearer {token}"
+        timeout = metrics.env_float("PIO_STREAM_PATCH_TIMEOUT", 10.0)
+        for url in self.patch_urls:
+            try:
+                req = urllib.request.Request(
+                    url + "/admin/quality", data=body, headers=headers,
+                    method="POST")
+                with urllib.request.urlopen(req, timeout=timeout) as resp:
+                    resp.read()
+            except Exception as e:  # noqa: BLE001 — telemetry delivery
+                # must not break the fold loop
+                log.warning("drift report push to %s failed: %s", url, e)
+
+    def _trigger_reload(self) -> None:
+        """Fire the rolling-reload lane: ``reload_trigger`` when given,
+        else ``GET /reload`` on every reload URL (a router answers 202
+        and rolls its fleet; an engine server reloads in place)."""
+        if self.reload_trigger is not None:
+            try:
+                self.reload_trigger()
+            except Exception:  # noqa: BLE001 — operator plumbing; its
+                # failure must not kill the fold loop
+                log.exception("drift reload trigger failed")
+            return
+        if not self.reload_urls:
+            log.warning("drift band breached but no reload lane is "
+                        "configured (pio stream --reload-url): run a "
+                        "full retrain and a rolling /reload")
+            return
+        headers = trace.traced_headers()
+        token = os.environ.get("PIO_ADMIN_TOKEN")
+        if token:
+            headers["Authorization"] = f"Bearer {token}"
+        timeout = metrics.env_float("PIO_STREAM_PATCH_TIMEOUT", 10.0)
+        for url in self.reload_urls:
+            try:
+                req = urllib.request.Request(url + "/reload",
+                                             headers=headers)
+                with urllib.request.urlopen(req, timeout=timeout) as resp:
+                    resp.read()
+                log.warning("drift breach: rolling reload triggered at "
+                            "%s", url)
+            except Exception as e:  # noqa: BLE001 — logged; the daemon
+                # keeps folding either way
+                log.warning("drift-breach reload trigger to %s failed: "
+                            "%s", url, e)
 
     # -- patch delivery ------------------------------------------------------
     def _publish(self, blocks: List[dict]) -> bool:
@@ -857,11 +1018,19 @@ class StreamUpdater:
         interval = (interval if interval is not None
                     else metrics.env_float("PIO_STREAM_INTERVAL_SEC", 1.0))
         stop = stop or threading.Event()
-        while not stop.is_set():
-            try:
-                self.poll_once()
-            except Exception:  # noqa: BLE001 — the daemon must survive
-                # a transient storage/serving failure; the error is
-                # logged and the next tick retries from the same cursor
-                log.exception("stream fold cycle failed")
-            stop.wait(interval)
+        # the daemon holds the continuous profiler while it runs
+        # (refcounted: one beside a server shares its sampler)
+        owner = f"StreamUpdater:{id(self):#x}"
+        contprof.retain(owner)
+        try:
+            while not stop.is_set():
+                try:
+                    self.poll_once()
+                except Exception:  # noqa: BLE001 — the daemon must
+                    # survive a transient storage/serving failure; the
+                    # error is logged and the next tick retries from the
+                    # same cursor
+                    log.exception("stream fold cycle failed")
+                stop.wait(interval)
+        finally:
+            contprof.release(owner)

@@ -16,7 +16,9 @@ deadman watchdog (the trainers beat it through
 ``torchmon.observe_train_step``), the whole-train wall time lands in
 ``pio_train_seconds{engine}``, the device-memory gauges refresh after
 the train, and a completed instance moves the freshness horizon
-(``note_publish``) and logs the stage split in one line. The chaos
+(``note_publish``), freezes the data plane's schema profile as the
+trained-against baseline (``dataobs.freeze_schemas``) and logs the
+stage split in one line. The chaos
 harness's ``train`` seam sits just before ``engine.train``. The JAX
 package's multi-host writer election and profiler capture are not
 ported (ROADMAP.md, queue 1 items 12 and 13).
@@ -38,7 +40,7 @@ from predictionio_torch.core.persistent_model import (PersistentModel,
                                                       manifest_for)
 from predictionio_torch.data.metadata import EngineInstance, Model
 from predictionio_torch.data.storage import Storage, get_storage
-from predictionio_torch.obs import health, memacct, perfacct, torchmon
+from predictionio_torch.obs import dataobs, health, memacct, perfacct, torchmon
 from predictionio_torch.parallel.context import DeviceContext
 from predictionio_torch.resilience import chaos
 from predictionio_torch.workflow.config import WorkflowParams
@@ -129,6 +131,9 @@ def run_train(engine: Engine, engine_params: EngineParams, engine_id: str,
         storage.engine_instances().update(instance)
         # the model is servable: move the freshness horizon
         perfacct.LEDGER.note_publish()
+        # the live schema profile becomes the trained-against baseline:
+        # drift after this point is what schema_change events report
+        dataobs.DATAOBS.freeze_schemas(instance.id)
         runs = perfacct.LEDGER.snapshot().get("runs") or []
         if runs:
             stages = runs[-1].get("stages") or {}

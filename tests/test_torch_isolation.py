@@ -176,6 +176,11 @@ OBSERVABILITY = ("predictionio_torch.obs",
                  "predictionio_torch.obs.health",
                  "predictionio_torch.obs.torchmon",
                  "predictionio_torch.obs.profiler",
+                 "predictionio_torch.obs.dataobs",
+                 "predictionio_torch.obs.contprof",
+                 "predictionio_torch.obs.anomaly",
+                 "predictionio_torch.obs.collect",
+                 "predictionio_torch.obs.push",
                  "predictionio_torch.index",
                  "predictionio_torch.index.exact",
                  "predictionio_torch.index.ivf",

@@ -19,7 +19,8 @@ from predictionio_tpu.obs import flight as jax_flight
 from predictionio_tpu.obs import journal as jax_journal
 from predictionio_tpu.obs import metrics as jax_metrics
 from predictionio_tpu.obs import trace as jax_trace
-from predictionio_torch.obs import flight, health, journal, metrics, trace
+from predictionio_torch.obs import (collect, flight, health, journal, metrics,
+                                    trace)
 
 from tests.torch_operator_fixtures import port_operator_state  # noqa: F401
 
@@ -131,8 +132,9 @@ def test_spans_equal_under_one_clock(monkeypatch):
     assert spans[0]["duration_ms"] == 3.5
     assert spans[2]["error"] == "ValueError: boom"
     assert headers == {"A": "b", trace.TRACE_HEADER: tid}
-    # the local trace document: one root, its child, and the failed span
-    doc = trace.local_trace(tid)
+    # the trace document of this process: one root, its child, and the
+    # failed span
+    doc = collect.stitch_trace(tid, [collect.Member("local", None)])
     assert doc["span_count"] == 3 and doc["complete"]
     query = next(r for r in doc["roots"] if r["name"] == "serve.query")
     assert [c["name"] for c in query["children"]] == ["serve.dispatch"]

@@ -7,12 +7,11 @@ servers deploy it. ``/readyz``, ``/admin/memory``, ``/admin/journal``,
 ``/admin/spans`` and the operator routes (``/admin/{slo,chaos,
 resilience,timeline,quality}``) must answer with the same status codes
 and the same JSON keys, ``/readyz`` also with the store down (both
-serve DEGRADED). The
-port's unported admin routes answer 501 naming their ROADMAP item, the
-admin gate answers 401, and a query's trace shows at ``/admin/trace``.
-The ``/metrics`` families of the two packages, every module of each
-imported in a fresh interpreter, are equal except for the families
-named here.
+serve DEGRADED). Every other admin route of the JAX server answers on
+the port with the JAX status and keys, the admin gate answers 401, and
+a query's trace shows at ``/admin/trace``. The ``/metrics`` families of
+the two packages, every module of each imported in a fresh interpreter,
+are equal except for the families named here.
 """
 
 import datetime as _dt
@@ -34,8 +33,8 @@ from predictionio_tpu.templates.recommendation import (
 from predictionio_tpu.workflow.train import run_train
 from predictionio_torch.core.engine import resolve_engine_factory
 from predictionio_torch.data.storage import Storage
+from predictionio_torch.obs import perfacct
 from predictionio_torch.serving.engine_server import deploy
-from predictionio_torch.serving.http import UNPORTED_ADMIN
 
 from tests.test_storage import make_storage
 from tests.torch_operator_fixtures import port_operator_state  # noqa: F401
@@ -44,22 +43,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENGINE_ID = "torch_obs_routes"
 JAX_FACTORY = "predictionio_tpu.templates.recommendation.recommendation_engine"
 
-#: the JAX families whose modules the port has not ported (ROADMAP
-#: queue 1 item 10) or replaced: jax.monitoring's compile events and the
-#: Pallas flag became the port's kernel families
-JAX_ONLY_FAMILIES = {
-    "pio_anomaly_active", "pio_anomaly_events_total",
-    "pio_collect_member_errors_total", "pio_data_batches_dropped_total",
-    "pio_data_breaches_total", "pio_data_entity_cardinality",
-    "pio_data_entity_skew", "pio_data_events_total",
-    "pio_data_ingest_bytes_total", "pio_data_schema_changes_total",
-    "pio_data_tail_events_total", "pio_jax_compile_cache_total",
-    "pio_jax_compile_seconds", "pio_pallas_kernel_enabled",
-    "pio_prof_downshifts_total", "pio_prof_effective_hz",
-    "pio_prof_overhead_ratio", "pio_prof_samples_total",
-    "pio_prof_trie_evictions_total", "pio_push_total",
-    "pio_query_unknown_entity_ratio",
-}
+#: the JAX families the port replaced: jax.monitoring's compile events
+#: and the Pallas flag became the port's kernel families
+JAX_ONLY_FAMILIES = {"pio_jax_compile_cache_total",
+                     "pio_jax_compile_seconds", "pio_pallas_kernel_enabled"}
 #: the port's own: the nvcc builds and the kernel flag (obs/torchmon.py)
 PORT_ONLY_FAMILIES = {"pio_kernel_build_total", "pio_kernel_build_seconds",
                       "pio_kernel_enabled"}
@@ -190,12 +177,36 @@ def test_readyz_with_the_store_down_is_degraded_in_both(servers,
     assert _call(servers["port"].port, "/readyz")[1]["status"] == "ok"
 
 
+#: the JAX server's remaining admin routes: (path, the status both
+#: answer on a server without a fleet)
+MORE_ADMIN = [
+    ("/admin/tail", 200), ("/admin/tail?q=0.5", 200),
+    ("/admin/prof", 200), ("/admin/prof?endpoint=/queries.json", 200),
+    ("/admin/prof?slow=1", 200), ("/admin/anomaly", 200),
+    ("/admin/data", 200), ("/admin/data?top=3", 200),
+    ("/admin/trace?id=" + "4c" * 16, 200),
+    ("/admin/fleet/metrics", 404), ("/admin/fleet/tail", 404),
+    ("/admin/fleet/prof", 404), ("/admin/fleet/journal", 404),
+    ("/admin/fleet/anomaly", 404), ("/admin/fleet/data", 404),
+    ("/admin/tail?q=x", 400), ("/admin/data?top=x", 400),
+]
+
+
 def test_unported_admin_routes_name_their_item(servers):
-    for path, item in sorted(UNPORTED_ADMIN.items()):
-        code, body, _ = _call(servers["port"].port, path)
-        assert code == 501, path
-        assert body["roadmap_item"] == item
-        assert f"item {item}" in body["message"]
+    """Every admin route of the JAX server answers on the port, with the
+    JAX status and the JAX keys; none answers 501. Enough queries go to
+    each that the tail attribution has its cohorts."""
+    for name in ("port", "jax"):
+        for k in range(perfacct.MIN_TAIL_RECORDS):
+            _call(servers[name].port, "/queries.json", "POST",
+                  {"user": f"u{k % 25}", "num": 3})
+    for path, status in MORE_ADMIN:
+        port_code, port_body, _ = _call(servers["port"].port, path)
+        jax_code, jax_body, _ = _call(servers["jax"].port, path)
+        assert port_code == jax_code == status, path
+        assert set(port_body) == set(jax_body), path
+    collapsed = _call(servers["port"].port, "/admin/prof?format=collapsed")
+    assert collapsed[0] == 200 and isinstance(collapsed[1], str)
 
 
 def test_admin_gate_and_profile_on_the_cpu(servers, monkeypatch, tmp_path):

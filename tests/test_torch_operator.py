@@ -129,8 +129,10 @@ def test_engine_server_sheds_with_429_before_the_body_is_read(store,
         assert answer["reason"] == "burn_rate"
         assert answer["retryAfterSec"] == 10
         assert shed.labels("engine", "burn_rate").value == before + 1
-        record = next(r for r in flight.RECORDER.dump(50)["records"]
-                      if r["trace"] == "cd" * 16)
+        # the handler seals its record after the answer went out
+        record = wait_for(lambda: next(
+            (r for r in flight.RECORDER.dump(50)["records"]
+             if r["trace"] == "cd" * 16), None), 10, "the shed's record")
         assert record["shed"] == "burn_rate" and record["status"] == 429
         # a 5 MB announced body that never comes: the 429 goes out
         # without waiting for it (an unread body this large closes the

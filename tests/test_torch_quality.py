@@ -208,3 +208,31 @@ class TestDriftReport:
         if drift == "corrupted":
             assert set(port_quality.breached_metrics(port)) == {
                 "recall_vs_retrain", "rmse_drift", "factor_drift"}
+
+    @pytest.mark.parametrize("device", ["cpu", "cuda"])
+    def test_failing_index_stays_on_its_device(self, device):
+        """A model whose index cannot build: on the CPU the probe falls
+        back to brute force and reports as the JAX probe does; on a
+        card the failure raises instead of moving the top-k to the
+        host."""
+        import torch
+
+        port_model, jax_model = _als_pair(2)
+        shadow = port_quality.ShadowRef(port_model, "inst")
+
+        def no_index():
+            raise RuntimeError("CUDA out of memory building the index")
+
+        port_model.retrieval_index = no_index
+        port_model.device = torch.device(device)
+        if device == "cuda":
+            with pytest.raises(RuntimeError, match="out of memory"):
+                port_quality.drift_report(port_model, shadow, sample=16,
+                                          k=5, seed=2)
+            return
+        port = port_quality.drift_report(port_model, shadow, sample=16,
+                                         k=5, seed=2)
+        jax = jax_quality.drift_report(
+            jax_model, jax_quality.ShadowRef(jax_model, "inst"), sample=16,
+            k=5, seed=2)
+        assert port == jax and port["recall_vs_retrain"] == 1.0

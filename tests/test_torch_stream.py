@@ -588,6 +588,97 @@ def test_the_updater_folds_like_the_jax_updater(jax_trained, tmp_path):
     storage.events().close()
 
 
+#: quality reports of the two packages: the same folds within FOLD_ATOL
+#: scored against the same shadow; the drift figures are rounded to 4
+#: decimals by both, so they may differ by one unit in the last place
+QUALITY_ATOL = 2e-4
+
+
+def test_the_quality_probe_reports_like_the_jax_updater(
+        jax_trained, tmp_path, monkeypatch):
+    """``PIO_QUALITY_EVERY=1``: after each fold both updaters score the
+    live model against the shadow of the bound instance; the reports
+    must agree (recall exactly, drift within QUALITY_ATOL), and the
+    port's report is the one ``obs/quality.py`` publishes."""
+    from predictionio_tpu.obs import quality as jax_quality
+    from predictionio_torch.obs import quality
+
+    monkeypatch.setenv("PIO_QUALITY_EVERY", "1")
+    _, app_id, _ = jax_trained
+    jax_storage, storage = _copies(jax_trained, tmp_path)
+    want_up = JaxUpdater(jax_recommendation_engine(), "s",
+                         storage=jax_storage, patch_servers=[_Recorder()])
+    got_up = StreamUpdater(recommendation_engine(), "s", storage=storage,
+                           ctx=CPU, patch_servers=[_Recorder()])
+    jax_quality.STATE.clear()
+    try:
+        for rows in DELTAS:
+            _append(jax_storage, JaxEvent, app_id, rows)
+            _append(storage, Event, app_id, rows)
+            want = want_up.poll_once()["quality"]
+            got = got_up.poll_once()["quality"]
+            assert got["recall_vs_retrain"] == want["recall_vs_retrain"]
+            assert got["breached"] == want["breached"]
+            for name in ("rmse_drift", "factor_drift"):
+                assert got[name] == pytest.approx(want[name], abs=QUALITY_ATOL)
+            assert got["factor_drift"] > 0.0
+            published = quality.STATE.drift()
+            assert published["recall_vs_retrain"] == got["recall_vs_retrain"]
+            assert published["shadow_instance"] == got_up.instance_id
+            assert set(published) == set(jax_quality.STATE.drift())
+    finally:
+        jax_quality.STATE.clear()
+        jax_storage.events().close()
+        storage.events().close()
+
+
+def test_one_reload_per_breach(port_trained, monkeypatch):
+    """A band every fold breaches: the first probe fires the reload lane
+    once (``drift_breach`` and ``auto_reload`` journaled, the updater
+    resynced), and later breaches of the same bound instance do not
+    fire it again."""
+    from predictionio_torch.obs import journal
+
+    storage, app_id, engine, _ = port_trained
+    monkeypatch.setenv("PIO_QUALITY_EVERY", "1")
+    monkeypatch.setenv("PIO_QUALITY_DRIFT_BAND", "0")
+    fired = []
+    up = StreamUpdater(engine, "stream_p", storage=storage, ctx=CPU,
+                       reload_trigger=lambda: fired.append(1))
+    before = len(journal.JOURNAL.recent(kind="auto_reload"))
+    for rows in DELTAS:
+        _append(storage, Event, app_id, rows)
+        stats = up.poll_once()
+        assert stats["quality"]["breached"]
+    assert fired == [1]
+    assert len(journal.JOURNAL.recent(kind="auto_reload")) == before + 1
+    assert journal.JOURNAL.recent(kind="drift_breach")[-1]["band"] == 0.0
+
+
+def test_the_reload_lane_gets_the_servers_reload(port_trained,
+                                                 monkeypatch):
+    """``reload_urls``: the breach's ``GET /reload`` reaches a port
+    engine server, which reloads in place (its journal's ``reload``)."""
+    from predictionio_torch.obs import journal
+
+    storage, app_id, engine, _ = port_trained
+    monkeypatch.setenv("PIO_QUALITY_EVERY", "1")
+    monkeypatch.setenv("PIO_QUALITY_DRIFT_BAND", "0")
+    server = EngineServer(engine, "stream_p", host="127.0.0.1", port=0,
+                          storage=storage, device="cpu",
+                          micro_batch=False).start()
+    try:
+        up = StreamUpdater(engine, "stream_p", storage=storage, ctx=CPU,
+                           patch_servers=[server],
+                           reload_urls=[f"http://127.0.0.1:{server.port}/"])
+        reloads = len(journal.JOURNAL.recent(kind="reload"))
+        _append(storage, Event, app_id, DELTAS[0])
+        assert up.poll_once()["quality"]["breached"]
+        assert len(journal.JOURNAL.recent(kind="reload")) == reloads + 1
+    finally:
+        server.stop()
+
+
 # ---------------------------------------------------------------------------
 # /model/patch on both engine servers
 # ---------------------------------------------------------------------------
@@ -991,9 +1082,9 @@ def test_the_two_tower_lane_folds_like_the_jax_updater(tmp_path,
 
 def test_cli_stream_once_and_undeploy(tmp_path, monkeypatch, capsys):
     """``cli deploy`` serves a trained eventlog engine in a process of its
-    own; ``cli stream --once --url`` folds from the tail (0 events:
-    the blind window belongs to retrains) and prints its stats;
-    ``cli undeploy`` stops the server, whose process exits 0."""
+    own; ``cli stream --once --url --reload-url`` folds from the tail
+    (0 events: the blind window belongs to retrains) and prints its
+    stats; ``cli undeploy`` stops the server, whose process exits 0."""
     env = _el_env(tmp_path / "store")
     for key, value in env.items():
         monkeypatch.setenv(key, value)
@@ -1015,8 +1106,9 @@ def test_cli_stream_once_and_undeploy(tmp_path, monkeypatch, capsys):
     try:
         _wait_healthy(port, proc)
         capsys.readouterr()
+        url = f"http://127.0.0.1:{port}"
         assert cli.main(["stream", "--engine-json", str(engine_json),
-                         "--once", "--url", f"http://127.0.0.1:{port}",
+                         "--once", "--url", url, "--reload-url", url,
                          "--device", "cpu"]) == 0
         stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
         assert stats["events"] == 0 and stats["rebased"] is False
@@ -1037,8 +1129,6 @@ def test_cli_stream_errors_are_command_errors(tmp_path, monkeypatch,
         "predictionio_torch.templates.recommendation.recommendation_engine"}))
     args = ["stream", "--engine-json", str(engine_json), "--once",
             "--device", "cpu"]
-    assert cli.main(args + ["--reload-url", "http://127.0.0.1:1"]) == 1
-    assert "queue 1 item 10" in capsys.readouterr().err
     monkeypatch.setenv("PIO_STORAGE_SOURCES_FS_TYPE", "localfs")
     monkeypatch.setenv("PIO_STORAGE_SOURCES_FS_PATH", str(tmp_path / "fs"))
     storage = Storage.from_env({"PIO_STORAGE_SOURCES_FS_TYPE": "localfs",

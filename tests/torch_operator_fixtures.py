@@ -6,8 +6,9 @@ instance served them.
 ``port_operator_state`` is autouse wherever it is imported: the port's
 circuit breakers, chaos rules, SLO monitor (whose fast-window burn is
 the admission controller's third shed signal), shed episodes, quality
-state and timeline are process-wide, so one test's open circuit, active
-fault or slow traffic must never reach the next test in the worker.
+state, timeline, regression sentinel and data plane are process-wide,
+so one test's open circuit, active fault, slow traffic or sketches must
+never reach the next test in the worker.
 The JAX package's twins are reset by tests/conftest.py.
 """
 
@@ -24,7 +25,8 @@ from predictionio_torch.core import (Algorithm, DataSource, FirstServing,
                                      IdentityPreparator)
 from predictionio_torch.core.engine import Engine
 from predictionio_torch.core.params import EngineParams, Params
-from predictionio_torch.obs import journal, quality, slo, timeline
+from predictionio_torch.obs import (anomaly, dataobs, journal, quality, slo,
+                                    timeline)
 from predictionio_torch.parallel.context import DeviceContext
 from predictionio_torch.resilience import alerts, chaos, policy
 from predictionio_torch.workflow.train import run_train
@@ -40,6 +42,8 @@ def reset_port_operator_state() -> None:
     journal.SHED_EPISODES.reset()
     quality.STATE.clear()
     timeline.TIMELINE.clear()
+    anomaly.SENTINEL.reset()
+    dataobs.DATAOBS.reset()
 
 
 @pytest.fixture(autouse=True)
