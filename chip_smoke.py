@@ -391,13 +391,46 @@ exits non-zero before printing any result.
    ``cli template get``/``train``/``deploy`` of vanilla and
    one answer; categorical naive Bayes (100,000 points) and a Markov
    chain (2,000 states, top 16) on the card against float64.
+14. Multi-process phase, the Recommendation engine's main path across
+   processes. Two worker processes (``chip_smoke.py --md-worker RANK
+   PORT DIR``) start first: each brings up a gloo world of 2 itself
+   (NCCL refuses two ranks on one device), then ``initialize_from_env``
+   keeps it, on ``cuda:0``, and bins its half of the ALS layout on the
+   host. Meanwhile (a), a world of one over NCCL in this process
+   (``initialize_from_env`` with the three variables at a free local
+   port, 1 and 0): ``topk_dot``, its plain version and ``matmul`` +
+   ``topk`` timed on rank 0's slab (B=1, I=13,372, D=64, k=16; the
+   bound beside them); once the workers are ready, ``ALSTrainer`` over
+   ``create_mesh()`` at ML-20M widths, rank 64, ``MD_ITERS``
+   alternations of direct f32 solves, on the front door's cut of the
+   ratings (``depth_cut`` of the first ``FD_HISTORY``: 5,051,090, every
+   20th held out), against the same train without a mesh (relative
+   Frobenius error at most ``MD_FACTOR_TOL``); ``ShardedTopKScorer``
+   over phase 3's seeded factors, 64 lone queries excluding 0, 1 or 4
+   of the user's best items and one batch of 64 (k = 16), every answer
+   held to float64 under phase 2's near-tie rule and exactly one
+   ``topk_dot`` launch a call; an ALS model's answers through the
+   sharded scorer equal to its retrieval index's; the world destroyed.
+   Then (b), once this process writes the workers' ``go`` file: on each
+   rank the sharded scorer over its slab (the same queries and checks,
+   its launches counted), the sharded ALS train of (a) (factors within
+   ``MD_FACTOR_TOL`` of (a)'s, held-out RMSE within ``MD_RMSE_TOL``),
+   and a two-process ``run_train`` of the recommendation engine over one
+   localfs store at the ``pio train`` phase's ML-100K shape: one
+   instance row and one blob (rank 0 alone writes), the same COMPLETED
+   id on both ranks, and rank 1's in-process deploy answering a query
+   checked against float64 of the stored factors through ``topk_dot``.
+   A worker that fails, hangs past ``MD_WORKER_TIMEOUT`` or is not
+   ready fails the phase. One ``{"multi_device": ...}`` line prints
+   before ``obs``'s, and the three worlds' scorer launches join
+   ``topk_dot``'s ``launches_by_path``.
 
 Output: the card's name and power limit (``nvidia-smi``), a ``serve``,
 a ``fleet``, a ``train``, an ``als_train``, an ``ingest``, a ``front_door`` (with
 the card's line), a ``pio_train``, a ``stream`` (with the card's line),
-an ``eval``, a ``project`` and a ``families`` line (each with the
-card's line), the ``kernels`` line, and last ``{"ok": true, "device":
-...}``.
+an ``eval``, a ``project``, a ``families`` and a ``multi_device``
+line (each with the card's line), the ``kernels`` line, and last
+``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -860,6 +893,17 @@ def store_ml20m_instance(storage, instance_id: str, U, V, user_names,
                                   models=pickle.dumps([model])))
 
 
+def localfs_env(root: str) -> dict:
+    """The storage variables of one localfs store at ``root`` holding
+    every repository."""
+    env = {"PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
+           "PIO_STORAGE_SOURCES_FS_PATH": root}
+    for repo in ("METADATA", "EVENTDATA", "MODELDATA"):
+        env[f"PIO_STORAGE_REPOSITORIES_{repo}_NAME"] = repo.lower()
+        env[f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE"] = "FS"
+    return env
+
+
 def serve_phase(after=None) -> dict:
     """Phase 3. ``after(server, truth, store_env, sent)``, when given,
     runs on
@@ -884,12 +928,7 @@ def serve_phase(after=None) -> dict:
     server = None
     os.environ["PIO_FLIGHT_PAYLOADS"] = str(FLEET_CAPTURE)
     try:
-        store_env = {"PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
-                     "PIO_STORAGE_SOURCES_FS_PATH": store}
-        for repo in ("METADATA", "EVENTDATA", "MODELDATA"):
-            store_env[f"PIO_STORAGE_REPOSITORIES_{repo}_NAME"] = (
-                repo.lower())
-            store_env[f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE"] = "FS"
+        store_env = localfs_env(store)
         storage = Storage.from_env(store_env)
         store_ml20m_instance(storage, "ml20m-rank64", U, V, user_names,
                              item_names)
@@ -5210,6 +5249,486 @@ def families_rest_phase() -> dict:
             "e2": {**e2, "phase_sec": time.perf_counter() - t3}}
 
 
+# -- multi-device phase --------------------------------------------------------
+
+# phase 14: the ALS train's config (ML-20M widths, rank 64, 2 iterations;
+# direct f32 solves, whose factors tests/test_torch_als.py holds to a
+# relative Frobenius error of 1e-4 across summation orders), the sharded
+# scorer's queries, and the workers' time limit
+MD_ITERS, MD_K, MD_LONE, MD_BATCH = 2, 16, 64, 64
+MD_FACTOR_TOL, MD_RMSE_TOL = 1e-4, 1e-3
+MD_WORKER_TIMEOUT = 300
+
+
+def md_config():
+    from predictionio_torch.ops.als import ALSConfig
+
+    return ALSConfig(rank=RANK, iterations=MD_ITERS, reg=ALS_REG,
+                     block_size=ALS_BLOCK, solver="direct",
+                     compute_dtype="float32", cg_dtype="float32")
+
+
+def md_ratings(ratings):
+    """Phase 14's ratings: the front door's history cut (``depth_cut`` of
+    the first ``FD_HISTORY``: 5,051,090, every width kept), every 20th
+    held out as in the ALS phase. -> (train COO, held-out COO)."""
+    uu, ii, vals = ratings
+    rows = np.flatnonzero(depth_cut(uu, ii)[:FD_HISTORY])
+    held = np.zeros(len(rows), bool)
+    held[::20] = True
+    u, i, r = uu[rows], ii[rows], vals[rows].astype(np.float32)
+    return (u[~held], i[~held], r[~held]), (u[held], i[held], r[held])
+
+
+def md_sides(coo, n_shards: int) -> tuple:
+    """Both sides of ``coo``'s layout for ``n_shards`` shards (host
+    binning, the native one-pass route)."""
+    from predictionio_torch.ops.als import build_compressed_side
+
+    u, i, r = coo
+    cfg = md_config()
+    return (build_compressed_side(u, i, r, N_USERS, cfg, n_shards, None),
+            build_compressed_side(i, u, r, N_ITEMS, cfg, n_shards, None))
+
+
+def md_train(sides, total: int, mesh) -> tuple:
+    """``ALSTrainer.from_sides`` on the rank's card over ``mesh`` (None:
+    no mesh): one warm alternation, then ``MD_ITERS`` timed. ->
+    (factors, ms an alternation)."""
+    import torch
+    from predictionio_torch.ops.als import ALSTrainer
+
+    trainer = ALSTrainer.from_sides(*sides, N_USERS, N_ITEMS, total,
+                                    md_config(), device="cuda",
+                                    mesh=mesh).compile()
+    t0 = time.perf_counter()
+    trainer.step_n()
+    ms = 1e3 * (time.perf_counter() - t0) / MD_ITERS
+    factors = trainer.factors()
+    del trainer
+    torch.cuda.empty_cache()
+    return factors, ms
+
+
+def rel_frob(a, b) -> float:
+    return float(np.linalg.norm(np.asarray(a, np.float64) - b)
+                 / max(np.linalg.norm(np.asarray(b, np.float64)), 1e-30))
+
+
+def factor_diffs(x_got, y_got, want) -> dict:
+    """The larger relative Frobenius error of the two tables against
+    ``want`` (an ``ALSFactors``), and the largest element difference."""
+    pairs = ((x_got, want.user_factors), (y_got, want.item_factors))
+    return {"rel_err": max(rel_frob(a, b) for a, b in pairs),
+            "max_abs_diff": max(float(np.abs(a - b).max())
+                                for a, b in pairs)}
+
+
+def md_queries():
+    """The sharded scorer's queries, the same on every rank (the scorer
+    is SPMD): ``MD_LONE`` lone users with 0, 1 or 4 of their best items
+    excluded, and one batch of ``MD_BATCH`` users excluding their best."""
+    rng = np.random.default_rng(SEED + 14)
+    U, V, _, _ = ml20m_factors(np.random.default_rng(SEED))
+    users = rng.integers(0, N_USERS, MD_LONE + MD_BATCH)
+    best = np.argsort(-(U[users] @ V.T), axis=1)[:, :4]
+    lone = []
+    for j in range(MD_LONE):
+        e = (0, 1, 4)[j % 3]
+        lone.append((users[j:j + 1], best[j:j + 1, :e].astype(np.int32)
+                     if e else None))
+    batch = (users[MD_LONE:], best[MD_LONE:, :1].astype(np.int32))
+    return U, V, lone, batch
+
+
+def check_scored(truth, users, excl, k: int, scores, ids, what: str):
+    """A sharded answer ([B, k] scores and ids for rows ``users``,
+    ``excl`` [B, E] or None) against float64 under phase 2's near-tie
+    rule: each slot's score within 1e-5 |q| max|item| of the float64
+    ranking's, and an id other than the float64 one only where that
+    item scores within the same tolerance of the slot."""
+    for b, u in enumerate(users):
+        q = truth.U[u]
+        scores64 = truth.V @ q
+        allowed = np.ones(len(truth.V), bool)
+        if excl is not None:
+            allowed[excl[b][excl[b] >= 0]] = False
+        cand = np.flatnonzero(allowed)
+        order = cand[np.lexsort((cand, -scores64[cand]))[:k]]
+        tol = 1e-5 * float(np.linalg.norm(q)) * truth.vmax
+        if len(set(ids[b].tolist())) != k or not allowed[ids[b]].all():
+            fail(f"{what}: row {b} repeats or serves an excluded item")
+        for j in range(k):
+            if abs(float(scores[b, j]) - scores64[order[j]]) > tol:
+                fail(f"{what}: row {b} slot {j} score {scores[b, j]} vs "
+                     f"{scores64[order[j]]}")
+            if ids[b, j] != order[j] and abs(
+                    scores64[ids[b, j]] - scores64[order[j]]) > tol:
+                fail(f"{what}: row {b} slot {j} item {ids[b, j]} vs "
+                     f"{order[j]}")
+
+
+def md_score_all(scorer, U, lone, batch, truth, what: str) -> dict:
+    """Every query through ``scorer`` (counted launches), each answer
+    checked against float64. -> launches, lone ms (median, max)."""
+    import torch
+    from predictionio_torch.ops.kernels import topk_dot as tkd
+
+    dev = scorer.device
+    tkd.launches.reset()
+    lat = []
+    for users, excl in lone:
+        t0 = time.perf_counter()
+        s, i = scorer.score(torch.as_tensor(U[users], device=dev), MD_K,
+                            excl)
+        lat.append(1e3 * (time.perf_counter() - t0))
+        check_scored(truth, users, excl, MD_K, s, i, f"{what} lone")
+    users, excl = batch
+    s, i = scorer.score(torch.as_tensor(U[users], device=dev), MD_K, excl)
+    launches = tkd.launches.value
+    check_scored(truth, users, excl, MD_K, s, i, f"{what} batch")
+    calls = len(lone) + 1
+    if launches != calls:
+        fail(f"{what}: topk_dot launched {launches} times for {calls} "
+             "score calls")
+    lat.sort()
+    return {"launches": launches, "score_calls": calls,
+            "lone_ms_p50": lat[len(lat) // 2], "lone_ms_max": lat[-1]}
+
+
+def md_ml100k_store(root: str) -> dict:
+    """A localfs store at the ``pio train`` phase's ML-100K shape (its
+    seed): 943 users, 1,682 items, 100,000 rate events. -> its env."""
+    from predictionio_torch.data.storage import EventColumns, Storage
+
+    env = localfs_env(root)
+    rng = np.random.default_rng(SEED + 3)
+    n_users, n_items, n = 943, 1682, 100_000
+    us = rng.integers(1, n_users + 1, n)
+    its = rng.integers(1, n_items + 1, n)
+    rs = rng.integers(1, 6, n)
+    storage = Storage.from_env(env)
+    app = storage.apps().insert("ml100k")
+    storage.events().init(app.id)
+    storage.events().insert_columnar(EventColumns(
+        entity_codes=(us - 1).astype(np.int32),
+        target_codes=(its - 1).astype(np.int32),
+        name_codes=np.zeros(n, np.int32), values=rs.astype(np.float64),
+        times_us=(883_612_800 + np.arange(n, dtype=np.int64)) * 1_000_000,
+        entity_vocab=[f"u{j}" for j in range(1, n_users + 1)],
+        target_vocab=[f"i{j}" for j in range(1, n_items + 1)],
+        names=["rate"]), app.id, entity_type="user",
+        target_entity_type="item", value_property="rating")
+    return env
+
+
+def md_worker(rank: int, port: int, work: str) -> int:
+    """One rank of phase 14 (b): ``chip_smoke.py --md-worker RANK PORT
+    DIR``. Joins a gloo world of 2 on ``cuda:0`` and bins its ALS layout
+    from ``DIR/coo.npz`` while the parent sets up (a), writes
+    ``DIR/ready<r>``, then waits for ``DIR/go``: the sharded scorer
+    over phase 3's factors (every answer held to float64, ``topk_dot``'s
+    launches one a call); the sharded ALS train; a two-process
+    ``run_train`` of the recommendation engine over the localfs store
+    that ``DIR/store_env.json`` names, and on rank 1 its deploy and one
+    query. Writes ``DIR/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke worker: no CUDA device")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from predictionio_torch.core.params import EngineParams
+    from predictionio_torch.data.storage import Storage, set_storage
+    from predictionio_torch.models.als import ALSParams
+    from predictionio_torch.ops.als import predict_rmse
+    from predictionio_torch.ops.kernels import topk_dot as tkd
+    from predictionio_torch.ops.topk import ShardedTopKScorer
+    from predictionio_torch.parallel import multihost as mh
+    from predictionio_torch.parallel.context import DeviceContext
+    from predictionio_torch.parallel.mesh import axis_size, create_mesh
+    from predictionio_torch.templates import recommendation as reco_t
+    from predictionio_torch.workflow.deploy import prepare_deploy
+    from predictionio_torch.workflow.train import run_train
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # NCCL refuses two ranks on one device: the worker brings up gloo
+    # itself, and initialize_from_env leaves that world as it is
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    os.environ.update({"PIO_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+                       "PIO_NUM_PROCESSES": "2",
+                       "PIO_PROCESS_ID": str(rank)})
+    if not mh.initialize_from_env():
+        raise SystemExit("chip_smoke worker: no world")
+    if mh.rank_device().type != "cuda":
+        raise SystemExit("chip_smoke worker: the rank is not on the card")
+    mesh = create_mesh()
+    if axis_size(mesh, "data") != 2:
+        raise SystemExit(f"chip_smoke worker: mesh {mesh}")
+    out = {"rank": rank, "device": str(mh.rank_device())}
+    U, V, lone, batch = md_queries()
+    truth = Truth(U, V, [], [])
+    z = np.load(os.path.join(work, "coo.npz"))
+    sides = md_sides((z["u"], z["i"], z["r"]), 2)
+    total = len(z["u"])
+    out["setup_sec"] = time.perf_counter() - t_start
+    open(os.path.join(work, f"ready{rank}"), "w").close()
+    go = os.path.join(work, "go")
+    while not os.path.exists(go):
+        if time.perf_counter() - t_start > MD_WORKER_TIMEOUT:
+            raise SystemExit("chip_smoke worker: no go from the parent")
+        time.sleep(0.05)
+    t_go = time.perf_counter()
+
+    scorer = ShardedTopKScorer(V, mesh, device=mh.rank_device())
+    out["slab"] = [scorer.slab_start, scorer.slab]
+    out["scorer"] = md_score_all(scorer, U, lone, batch, truth,
+                                 f"sharded world 2 rank {rank}")
+    mh.barrier("md_scorer")
+    t_als = time.perf_counter()
+    factors, ms = md_train(sides, total, mesh)
+    del sides
+    out["alternation_ms"] = ms
+    out["rmse"] = predict_rmse(factors, (z["hu"], z["hi"], z["hr"]))
+    if rank == 0:
+        np.savez(os.path.join(work, "factors2.npz"),
+                 X=factors.user_factors, Y=factors.item_factors)
+    del z, factors
+
+    t_train = time.perf_counter()
+    env = json.load(open(os.path.join(work, "store_env.json")))
+    storage = Storage.from_env(env)
+    set_storage(storage)
+    engine = reco_t.recommendation_engine()
+    ep = EngineParams(
+        data_source_params=("", reco_t.RecoDataSourceParams(
+            app_name="ml100k")),
+        algorithm_params_list=[("als", ALSParams(rank=16,
+                                                 num_iterations=10))])
+    inst = run_train(engine, ep, engine_id="ml100k-2proc", storage=storage)
+    out["run_train"] = {"id": inst.id, "status": inst.status,
+                        "sec": time.perf_counter() - t_train}
+    if rank == 1:
+        fresh = Storage.from_env(env)
+        stored = fresh.engine_instances().get_latest_completed(
+            "ml100k-2proc", "0", "default")
+        if stored is None or stored.id != inst.id:
+            raise SystemExit("chip_smoke worker: the instance is not "
+                             "visible to rank 1")
+        tkd.launches.reset()
+        dep = prepare_deploy(engine, stored, ctx=DeviceContext("cuda"),
+                             storage=fresh)
+        model = dep.models[0]
+        if model.sharded_axis is not None or model.device.type != "cuda":
+            raise SystemExit("chip_smoke worker: deployed off the card")
+        out["deploy"] = {"answer": dep.query({"user": "u7", "num": 10}),
+                         "launches": tkd.launches.value}
+    mh.barrier("md_done")
+    now = time.perf_counter()
+    out["sec"] = {"scorer": t_als - t_go, "als": t_train - t_als,
+                  "run_train_and_deploy": now - t_train,
+                  "after_go": now - t_go}
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    mh.shutdown()
+    return 0
+
+
+def multi_device_phase(ratings) -> dict:
+    """Phase 14. (b)'s two ``md_worker`` processes start first and set
+    up (imports, the gloo world, their host binning) while (a), a world
+    of one over NCCL in this process, sets up (its world, its host
+    binning) and times ``topk_dot`` on a world-of-two slab (rank 0's:
+    the first ``ceil(I / 2)`` items); (a)'s trains and queries run once
+    both workers are ready,
+    and the workers touch the card only after (a) has ended and this
+    process writes their ``go`` file, so no timed part overlaps
+    another's work."""
+    import torch
+    from predictionio_torch.data.storage import Storage
+    from predictionio_torch.models.als import ALSModel, als_model_from_arrays
+    from predictionio_torch.ops.als import predict_rmse
+    from predictionio_torch.ops.topk import ShardedTopKScorer
+    from predictionio_torch.parallel import multihost as mh
+    from predictionio_torch.parallel.mesh import create_mesh
+    from predictionio_torch.workflow.deploy import load_blob
+
+    t_phase = time.perf_counter()
+    train, held = md_ratings(ratings)
+    work = tempfile.mkdtemp(prefix="pio_chip_smoke_md_")
+    procs = []
+    try:
+        np.savez(os.path.join(work, "coo.npz"), u=train[0], i=train[1],
+                 r=train[2], hu=held[0], hi=held[1], hr=held[2])
+        store = {}
+        store_thread = threading.Thread(
+            target=lambda: store.update(
+                env=md_ml100k_store(os.path.join(work, "store"))),
+            name="md-store")
+        store_thread.start()
+        port = free_port()
+        logs = []
+        for rank in range(2):
+            log_path = os.path.join(work, f"worker{rank}.log")
+            logs.append(log_path)
+            with open(log_path, "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--md-worker", str(rank), str(port), work],
+                    stdout=log, stderr=subprocess.STDOUT))
+
+        # (a) world of one, NCCL
+        os.environ.update({
+            "PIO_COORDINATOR_ADDRESS": f"127.0.0.1:{free_port()}",
+            "PIO_NUM_PROCESSES": "1", "PIO_PROCESS_ID": "0"})
+        try:
+            if not mh.initialize_from_env():
+                fail("phase 14: initialize_from_env brought up no world")
+            import torch.distributed as dist
+
+            if (dist.get_backend() != "nccl"
+                    or mh.rank_device().type != "cuda"):
+                fail(f"phase 14: world of one on {dist.get_backend()}, "
+                     f"{mh.rank_device()}")
+            mesh = create_mesh()
+            sides = md_sides(train, 1)
+            U, V, lone, batch = md_queries()
+            slab = torch.as_tensor(V[:-(-N_ITEMS // 2)], device="cuda")
+            slab_timing = time_topk(
+                torch.as_tensor(U[lone[0][0]], device="cuda"), slab,
+                torch.full((1, 1), -1, dtype=torch.int32, device="cuda"),
+                MD_K, (1, slab.shape[0], RANK, MD_K, 1))
+            del slab
+            t_wait = time.perf_counter()
+            store_thread.join()
+            while not all(os.path.exists(os.path.join(work, f"ready{r}"))
+                          for r in range(2)):
+                dead = [r for r, p in enumerate(procs)
+                        if p.poll() is not None]
+                if dead or time.perf_counter() - t_wait > MD_WORKER_TIMEOUT:
+                    log = open(logs[dead[0] if dead else 0]).read()
+                    fail(f"phase 14 (b): worker(s) {dead} ended or hung "
+                         f"before they were ready:\n{log[-3000:]}")
+                time.sleep(0.05)
+            ready_wait = time.perf_counter() - t_wait
+            meshed, ms1 = md_train(sides, len(train[0]), mesh)
+            plain, ms0 = md_train(sides, len(train[0]), None)
+            del sides
+            world1 = {"alternation_ms": ms1, "no_mesh_alternation_ms": ms0,
+                      "factors_vs_no_mesh": factor_diffs(
+                          meshed.user_factors, meshed.item_factors, plain),
+                      "rmse": predict_rmse(meshed, held),
+                      "no_mesh_rmse": predict_rmse(plain, held)}
+            if world1["factors_vs_no_mesh"]["rel_err"] > MD_FACTOR_TOL:
+                fail(f"phase 14 (a): factors over the mesh differ from "
+                     f"the train without one: {world1['factors_vs_no_mesh']}")
+            del plain
+            truth = Truth(U, V, [], [])
+            scorer = ShardedTopKScorer(V, mesh, device="cuda")
+            world1["scorer"] = md_score_all(scorer, U, lone, batch, truth,
+                                            "sharded world 1")
+            # the sharded scorer against phase 3's path: the same
+            # model's answers through its retrieval index
+            names_u = [f"u{j}" for j in range(N_USERS)]
+            names_i = [f"i{j}" for j in range(N_ITEMS)]
+            model = als_model_from_arrays(U, V, names_u, names_i,
+                                          rank=RANK).to("cuda")
+            users = [names_u[int(u)] for u, _ in lone[:16]]
+            base = [model.recommend(u, 10) for u in users]
+            model.enable_sharded_serving(mesh)
+            if [model.recommend(u, 10) for u in users] != base:
+                fail("phase 14 (a): the sharded scorer's answers differ "
+                     "from the retrieval index's")
+            del model, scorer
+            torch.cuda.synchronize()
+        finally:
+            mh.shutdown()
+            for key in ("PIO_COORDINATOR_ADDRESS", "PIO_NUM_PROCESSES",
+                        "PIO_PROCESS_ID"):
+                os.environ.pop(key, None)
+        t_a = time.perf_counter() - t_phase
+
+        # (b) world of two on the one card, over gloo
+        if "env" not in store:
+            fail("phase 14 (b): the ML-100K store was not made")
+        env = store["env"]
+        with open(os.path.join(work, "store_env.json"), "w") as f:
+            json.dump(env, f)
+        open(os.path.join(work, "go"), "w").close()
+        t_go = time.perf_counter()
+        deadline = time.monotonic() + MD_WORKER_TIMEOUT
+        for rank, proc in enumerate(procs):
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                fail(f"phase 14 (b): worker {rank} still running after "
+                     f"{MD_WORKER_TIMEOUT} s")
+        t_b = time.perf_counter() - t_go
+        for rank, proc in enumerate(procs):
+            if proc.returncode != 0:
+                tail = open(logs[rank]).read()[-3000:]
+                fail(f"phase 14 (b): worker {rank} exited "
+                     f"{proc.returncode}:\n{tail}")
+        ranks = [json.load(open(os.path.join(work, f"rank{r}.json")))
+                 for r in range(2)]
+        got = np.load(os.path.join(work, "factors2.npz"))
+        factor_err = factor_diffs(got["X"], got["Y"], meshed)
+        if factor_err["rel_err"] > MD_FACTOR_TOL:
+            fail(f"phase 14 (b): the sharded train's factors differ from "
+                 f"(a)'s: {factor_err}")
+        for r in ranks:
+            if abs(r["rmse"] - world1["rmse"]) > MD_RMSE_TOL:
+                fail(f"phase 14 (b): rank {r['rank']} RMSE {r['rmse']} vs "
+                     f"(a)'s {world1['rmse']}")
+        trains = [r["run_train"] for r in ranks]
+        if trains[0]["id"] != trains[1]["id"] or {
+                t["status"] for t in trains} != {"COMPLETED"}:
+            fail(f"phase 14 (b): the ranks' instances differ: {trains}")
+        storage = Storage.from_env(env)
+        instances = storage.engine_instances().get_all()
+        blob = storage.models().get(trains[0]["id"])
+        if len(instances) != 1 or blob is None:
+            fail(f"phase 14 (b): {len(instances)} instance rows, blob "
+                 f"{blob is not None}: one writer expected")
+        model = load_blob(blob.models)[0]
+        if not isinstance(model, ALSModel):
+            fail("phase 14 (b): the stored model is not an ALS model")
+        inv_u = model.user_ids.inverse()
+        inv_i = model.item_ids.inverse()
+        served = Truth(model.user_factors, model.item_factors,
+                       [inv_u[j] for j in range(len(inv_u))],
+                       [inv_i[j] for j in range(len(inv_i))])
+        deploy = ranks[1]["deploy"]
+        check_answer(served, {"user": "u7", "num": 10}, deploy["answer"],
+                     "phase 14 (b) rank 1's deploy")
+        if deploy["launches"] < 1:
+            fail("phase 14 (b): rank 1's deploy launched no topk_dot")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    return {
+        "world1": world1,
+        "world2": [{k: r[k] for k in ("rank", "device", "slab", "scorer",
+                                      "alternation_ms", "rmse",
+                                      "run_train", "setup_sec", "sec")}
+                   for r in ranks],
+        "world2_factors_vs_world1": factor_err,
+        "world2_deploy_launches": ranks[1]["deploy"]["launches"],
+        "slab_topk_dot": slab_timing,
+        "launches": {"sharded_world1": world1["scorer"]["launches"],
+                     "sharded_world2_rank0": ranks[0]["scorer"]["launches"],
+                     "sharded_world2_rank1": ranks[1]["scorer"]["launches"]},
+        "a_sec": t_a, "a_waited_for_workers_sec": ready_wait,
+        "b_after_go_sec": t_b,
+        "phase_sec": time.perf_counter() - t_phase,
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -5327,8 +5846,10 @@ def main() -> int:
         sessionrec = sessionrec_phase(ecom_root, project_cut)
     finally:
         shutil.rmtree(ecom_root, ignore_errors=True)
-    del ratings, project_cut
     mark("sessionrec")
+    multi_device = multi_device_phase(ratings)
+    del ratings, project_cut
+    mark("multi_device")
     families = {"sessionrec": sessionrec, **families_rest,
                 "phase_sec": sessionrec["phase_sec"] + rest_sec,
                 "rest_overlapped_build": True}
@@ -5339,6 +5860,10 @@ def main() -> int:
     topk["launches_by_path"]["sessionrec_cli_deploy"] = sessionrec[
         "topk_dot_launches"]
     topk["similar_product_d10"] = similar["kernel_d10"]
+    topk["launches_by_path"].update(multi_device["launches"])
+    topk["sharded_slab"] = multi_device["slab_topk_dot"]
+    print(json.dumps({"multi_device": {**multi_device, "card": card}}),
+          flush=True)
     for entry, key in ((flash, "flash_ce_launches"),
                        (embed, "embed_update_launches")):
         entry["launches_by_path"] = {
@@ -5357,4 +5882,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--md-worker"]:
+        sys.exit(md_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -709,11 +709,20 @@ class EventLogEventStore(S.EventStore):
         return _unpack_records(buf)
 
     def find_columnar(self, app_id, channel_id=None, value_property=None,
-                      time_ordered=True, **find_kwargs) -> S.EventColumns:
+                      time_ordered=True, shard_index=None, shard_count=None,
+                      **find_kwargs) -> S.EventColumns:
         """One native pass: filter, dict-encode and extract the property;
         no Event objects. ``time_ordered=False`` (bulk training reads)
         fuses filter and encode into one parse per record and skips the
-        sort."""
+        sort. An entity-hash read shard (``shard_index``/``shard_count``)
+        is applied after the read, on the encoded columns: the scan
+        still reads the whole log (local disk), and only the shard's
+        rows stay. A row limit then applies to the shard."""
+        S.EventStore.check_shard_params(shard_index, shard_count)
+        sharding = shard_count is not None and shard_count > 1
+        # the shard filter precedes a row limit: scan unlimited, filter,
+        # then limit_columns
+        shard_limit = find_kwargs.pop("limit", None) if sharding else None
         unknown = set(find_kwargs) - _FIND_FILTERS - {"limit", "reversed"}
         if unknown:
             # a mistyped filter must fail, never scan unfiltered
@@ -728,7 +737,13 @@ class EventLogEventStore(S.EventStore):
             1 if time_ordered else 0, *out.argrefs())
         if n < 0:
             raise S.StorageError("columnar find failed in native event log")
-        return out.take(n)
+        cols = out.take(n)
+        if sharding:
+            cols = S.shard_columns(cols, shard_index, shard_count)
+            cols = S.limit_columns(
+                cols, shard_limit,
+                newest_first=bool(find_kwargs.get("reversed", False)))
+        return cols
 
     # -- streaming delta reads ---------------------------------------------
     @staticmethod

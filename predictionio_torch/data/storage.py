@@ -22,12 +22,14 @@ from __future__ import annotations
 import abc
 import dataclasses
 import datetime as _dt
+import hashlib
+import io
 import logging
 import math
 import os
 import re
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -144,6 +146,193 @@ def unpack_vocab(data, offsets) -> List[str]:
             for i in range(len(offs) - 1)]
 
 
+def stable_hash(s: str) -> int:
+    """Process-independent 64-bit hash of a string id: the partition
+    function of every entity-routed split (host-sharded training reads,
+    ``parallel.multihost``, and shard-filtered columnar scans,
+    ``find_columnar(shard_index=, shard_count=)``), as every HBase reader
+    and writer agrees on the MD5 rowkey prefix
+    (hbase/HBEventsUtil.scala:96-108). The same md5 as the JAX package's,
+    so both packages shard alike; builtin ``hash`` is salted per
+    process."""
+    return int.from_bytes(hashlib.md5(s.encode()).digest()[:8], "little")
+
+
+def _compact_columns(cols: EventColumns, keep: np.ndarray) -> EventColumns:
+    """Rows where ``keep`` is True, with every vocabulary compacted to
+    the ids those rows reference (first-seen order preserved)."""
+
+    def remap(codes, vocab, sentinel: bool):
+        kept = codes[keep]
+        used = np.unique(kept)
+        if sentinel:
+            used = used[used >= 0]
+        table = np.full(len(vocab), -1, np.int32)
+        table[used] = np.arange(len(used), dtype=np.int32)
+        new_vocab = [vocab[int(c)] for c in used]
+        if sentinel:
+            new_codes = np.where(
+                kept >= 0,
+                table[np.maximum(kept, 0)] if table.size else np.int32(-1),
+                np.int32(-1)).astype(np.int32)
+        else:
+            new_codes = table[kept].astype(np.int32, copy=False)
+        return new_codes, new_vocab
+
+    ent, ent_v = remap(cols.entity_codes, cols.entity_vocab, False)
+    tgt, tgt_v = remap(cols.target_codes, cols.target_vocab, True)
+    nam, nam_v = remap(cols.name_codes, cols.names, False)
+    return EventColumns(
+        entity_codes=ent, target_codes=tgt, name_codes=nam,
+        values=cols.values[keep], times_us=cols.times_us[keep],
+        entity_vocab=ent_v, target_vocab=tgt_v, names=nam_v)
+
+
+def shard_columns(cols: EventColumns, shard_index: int,
+                  shard_count: int) -> EventColumns:
+    """The rows of ``cols`` whose entity id hash-routes to shard
+    ``shard_index`` of ``shard_count`` (``stable_hash % count``): all of
+    one entity's events land on one shard (the reference's rowkey-prefix
+    region split, HBEventsUtil RowKey:81). Vocabularies are compacted to
+    the surviving rows."""
+    if shard_count <= 1:
+        return cols
+    vmask = np.fromiter(
+        (stable_hash(v) % shard_count == shard_index
+         for v in cols.entity_vocab),
+        np.bool_, count=len(cols.entity_vocab))
+    keep = (vmask[cols.entity_codes] if len(cols)
+            else np.zeros(0, np.bool_))
+    return _compact_columns(cols, keep)
+
+
+def limit_columns(cols: EventColumns, limit: Optional[int],
+                  newest_first: bool = False) -> EventColumns:
+    """The ``limit`` rows of ``cols`` by event time (newest when
+    ``newest_first``), vocabularies compacted: how a shard-filtered read
+    applies a row limit after its shard filter, as ``find`` orders and
+    then truncates."""
+    if limit is None or limit < 0 or len(cols) <= limit:
+        return cols
+    order = np.argsort(cols.times_us, kind="stable")
+    if newest_first:
+        order = order[::-1]
+    take = order[:limit]
+    sub = EventColumns(
+        entity_codes=cols.entity_codes[take],
+        target_codes=cols.target_codes[take],
+        name_codes=cols.name_codes[take],
+        values=cols.values[take], times_us=cols.times_us[take],
+        entity_vocab=cols.entity_vocab, target_vocab=cols.target_vocab,
+        names=cols.names)
+    return _compact_columns(sub, np.ones(limit, np.bool_))
+
+
+def merge_columns(parts: Sequence[EventColumns],
+                  time_ordered: bool = False) -> EventColumns:
+    """Concatenate columnar scan results (one per shard) into one
+    ``EventColumns`` with union vocabularies; codes are remapped per
+    part. ``time_ordered=True`` stably sorts the merged rows by event
+    time (shard scans interleave times)."""
+    if not parts:
+        return EventColumns(
+            entity_codes=np.empty(0, np.int32),
+            target_codes=np.empty(0, np.int32),
+            name_codes=np.empty(0, np.int32),
+            values=np.empty(0, np.float64), times_us=np.empty(0, np.int64),
+            entity_vocab=[], target_vocab=[], names=[])
+    if len(parts) == 1 and not time_ordered:
+        return parts[0]
+    ent_vocab: Dict[str, int] = {}
+    tgt_vocab: Dict[str, int] = {}
+    nam_vocab: Dict[str, int] = {}
+    ents, tgts, nams, vals, tims = [], [], [], [], []
+
+    def vocab_map(vocab, union):
+        return np.fromiter((union.setdefault(v, len(union)) for v in vocab),
+                           np.int32, count=len(vocab))
+
+    for cols in parts:
+        ent_map = vocab_map(cols.entity_vocab, ent_vocab)
+        tgt_map = vocab_map(cols.target_vocab, tgt_vocab)
+        nam_map = vocab_map(cols.names, nam_vocab)
+        ents.append(ent_map[cols.entity_codes] if len(cols)
+                    else cols.entity_codes)
+        if len(cols):
+            tgts.append(np.where(
+                cols.target_codes >= 0,
+                tgt_map[np.maximum(cols.target_codes, 0)]
+                if tgt_map.size else np.int32(-1),
+                np.int32(-1)).astype(np.int32))
+            nams.append(nam_map[cols.name_codes])
+        else:
+            tgts.append(cols.target_codes)
+            nams.append(cols.name_codes)
+        vals.append(cols.values)
+        tims.append(cols.times_us)
+    merged = EventColumns(
+        entity_codes=np.concatenate(ents).astype(np.int32, copy=False),
+        target_codes=np.concatenate(tgts).astype(np.int32, copy=False),
+        name_codes=np.concatenate(nams).astype(np.int32, copy=False),
+        values=np.concatenate(vals), times_us=np.concatenate(tims),
+        entity_vocab=list(ent_vocab), target_vocab=list(tgt_vocab),
+        names=list(nam_vocab))
+    if time_ordered and len(merged):
+        order = np.argsort(merged.times_us, kind="stable")
+        merged = EventColumns(
+            entity_codes=merged.entity_codes[order],
+            target_codes=merged.target_codes[order],
+            name_codes=merged.name_codes[order],
+            values=merged.values[order], times_us=merged.times_us[order],
+            entity_vocab=merged.entity_vocab,
+            target_vocab=merged.target_vocab, names=merged.names)
+    return merged
+
+
+def columns_to_npz(cols: EventColumns) -> bytes:
+    """``EventColumns`` -> one .npz blob: the wire format in which
+    ``parallel.multihost.exchange_columns`` moves a read shard (the JAX
+    package's storage server speaks it too)."""
+    buf = io.BytesIO()
+    columns_to_npz_file(cols, buf)
+    return buf.getvalue()
+
+
+def columns_to_npz_file(cols: EventColumns, f) -> None:
+    """Write the npz wire format to an open binary file; vocabularies
+    travel as ``pack_vocab`` bytes and offsets."""
+
+    def vocab_arrays(vocab):
+        joined, offsets = pack_vocab(vocab)
+        return np.frombuffer(joined, dtype=np.uint8), offsets
+
+    ent_b, ent_off = vocab_arrays(cols.entity_vocab)
+    tgt_b, tgt_off = vocab_arrays(cols.target_vocab)
+    nam_b, nam_off = vocab_arrays(cols.names)
+    np.savez(
+        f, entity_codes=cols.entity_codes, target_codes=cols.target_codes,
+        name_codes=cols.name_codes, values=cols.values,
+        times_us=cols.times_us,
+        entity_vocab=ent_b, entity_vocab_offsets=ent_off,
+        target_vocab=tgt_b, target_vocab_offsets=tgt_off,
+        names=nam_b, names_offsets=nam_off)
+
+
+def npz_to_columns(blob) -> EventColumns:
+    """Inverse of :func:`columns_to_npz`; takes bytes, a binary file
+    object or a path (``np.load``'s own contract)."""
+    z = np.load(io.BytesIO(blob) if isinstance(blob, bytes) else blob)
+
+    def vocab(key):
+        return unpack_vocab(z[key], z[key + "_offsets"])
+
+    return EventColumns(
+        entity_codes=z["entity_codes"], target_codes=z["target_codes"],
+        name_codes=z["name_codes"], values=z["values"],
+        times_us=z["times_us"], entity_vocab=vocab("entity_vocab"),
+        target_vocab=vocab("target_vocab"), names=vocab("names"))
+
+
 class EventStore(abc.ABC):
     """Event DAO (ref: LEvents.scala:30 + PEvents.scala:30, one store
     for both the write path and the bulk training read)."""
@@ -205,15 +394,43 @@ class EventStore(abc.ABC):
         ``[start_time, until_time)`` is half-open, ``limit`` None or -1
         means all, ``reversed`` returns newest first."""
 
+    @staticmethod
+    def check_shard_params(shard_index: Optional[int],
+                           shard_count: Optional[int]) -> None:
+        """Validate the optional entity-hash read-shard pair (both set
+        or neither; the index in range). Every find_columnar calls it."""
+        if (shard_index is None) != (shard_count is None):
+            raise ValueError(
+                "shard_index and shard_count must be given together")
+        if shard_count is not None and not 0 <= shard_index < shard_count:
+            raise ValueError(f"shard_index {shard_index} out of range for "
+                             f"shard_count {shard_count}")
+
     def find_columnar(self, app_id: int, channel_id: Optional[int] = None,
                       value_property: Optional[str] = None,
                       time_ordered: bool = True,
+                      shard_index: Optional[int] = None,
+                      shard_count: Optional[int] = None,
                       **find_kwargs) -> EventColumns:
         """Filtered scan as dict-encoded columns (see EventColumns), by
         converting ``find``'s events as the JAX package's default does.
         ``time_ordered`` is accepted for the same signature: ``find``
-        always orders by time."""
+        always orders by time.
+
+        ``shard_index``/``shard_count`` select the entity-hash read shard
+        (``stable_hash(entity_id) % count == index``): each of N training
+        processes reads its ~1/N of the rows (the reference's
+        per-executor HBase region scans, hbase/HBPEvents.scala:48). A row
+        ``limit`` applies after the shard filter."""
+        self.check_shard_params(shard_index, shard_count)
+        sharding = shard_count is not None and shard_count > 1
+        limit = find_kwargs.pop("limit", None) if sharding else None
         events = self.find(app_id, channel_id=channel_id, **find_kwargs)
+        if sharding:
+            events = [e for e in events
+                      if stable_hash(e.entity_id) % shard_count == shard_index]
+            if limit is not None and limit >= 0:
+                events = events[:limit]
         n = len(events)
         ent_codes = np.empty(n, np.int32)
         tgt_codes = np.empty(n, np.int32)

@@ -61,14 +61,19 @@ def find(app_name: str, channel_name: Optional[str] = None,
 def find_columnar(app_name: str, channel_name: Optional[str] = None,
                   value_property: Optional[str] = None,
                   time_ordered: bool = True,
+                  shard_index: Optional[int] = None,
+                  shard_count: Optional[int] = None,
                   storage: Optional[Storage] = None,
                   **find_kwargs) -> EventColumns:
-    """Bulk training read as dict-encoded columns (storage.EventColumns)."""
+    """Bulk training read as dict-encoded columns (storage.EventColumns).
+    ``shard_index``/``shard_count`` select this process's entity-hash
+    read shard: N training processes each fetch ~1/N of the rows."""
     storage = storage or get_storage()
     app_id, channel_id = resolve_app(app_name, channel_name, storage)
     return storage.events().find_columnar(
         app_id, channel_id=channel_id, value_property=value_property,
-        time_ordered=time_ordered, **find_kwargs)
+        time_ordered=time_ordered, shard_index=shard_index,
+        shard_count=shard_count, **find_kwargs)
 
 
 def supports_bin_columnar(app_name: str, channel_name: Optional[str] = None,

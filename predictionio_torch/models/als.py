@@ -12,8 +12,13 @@ The factors stay numpy arrays, as in the JAX package's pickled models;
 ``ALSAlgorithm.load_persistent_model`` places the serving state on the
 deployment's device: the user table as a tensor, and the retrieval
 index, whose item table the ``topk_dot`` kernel streams. Pickles drop
-every device-side piece. ``als_model_from_arrays`` builds a model from
-the factors and vocabularies of a JAX-trained one (as numpy arrays).
+every device-side piece. ``enable_sharded_serving`` swaps in the
+sharded scorer (``ops.topk.ShardedTopKScorer``: one item slab per rank
+of a mesh axis); the model pickles that choice as ``sharded_axis``, and
+``load_persistent_model`` re-enables it where the deployment's mesh has
+that axis at a size above 1 and clears it otherwise.
+``als_model_from_arrays`` builds a model from the factors and
+vocabularies of a JAX-trained one (as numpy arrays).
 
 ``PreparedRatings`` is the prepared data both factor models train on:
 indexed COO ratings, or on the binned lane a deferred read
@@ -44,12 +49,14 @@ from predictionio_torch.core.params import Params
 from predictionio_torch.data.bimap import BiMap
 from predictionio_torch.obs import memacct, perfacct
 from predictionio_torch.ops.als import (ALSConfig, ALSGridTrainer,
-                                        ALSTrainer, als_row_cost_slots,
+                                        ALSTrainer, data_shards,
+                                        als_row_cost_slots,
                                         layout_cache_key, load_layout,
                                         save_layout, side_layout_from_binned)
-from predictionio_torch.ops.topk import TopKScorer
+from predictionio_torch.ops.topk import ShardedTopKScorer, TopKScorer
 from predictionio_torch.parallel.context import (DeviceContext, DeviceLike,
                                                  resolve_device)
+from predictionio_torch.parallel.mesh import axis_size, mesh_size
 
 log = logging.getLogger(__name__)
 
@@ -139,6 +146,9 @@ class ALSModel:
         self.item_ids = item_ids
         self.index_backend = index_backend
         self.index_kernel = index_kernel
+        #: the mesh axis the item table is served sharded over (None:
+        #: one device); the mesh itself never pickles
+        self.sharded_axis: Optional[str] = None
         self._init_device_state()
         self._register_memory()
 
@@ -156,22 +166,21 @@ class ALSModel:
 
     def _init_device_state(self) -> None:
         self.device: Optional[torch.device] = None
-        self._scorer: Optional[TopKScorer] = None
+        self._scorer = None
         self._index = None
         self._user_table: Optional[torch.Tensor] = None
+        self._mesh = None
         self._lock = threading.Lock()
 
     def __getstate__(self):
         d = dict(self.__dict__)
-        for key in ("device", "_scorer", "_index", "_user_table", "_lock"):
+        for key in ("device", "_scorer", "_index", "_user_table", "_mesh",
+                    "_lock"):
             d.pop(key, None)  # device state never pickles
         return d
 
     def __setstate__(self, d):
-        # a JAX-trained pickle also carries ``sharded_axis``: sharded
-        # serving waits for the multi-device slice, and a single-device
-        # deploy clears it in the JAX package too
-        d.pop("sharded_axis", None)
+        d.setdefault("sharded_axis", None)  # pickled before the field
         d.setdefault("index_backend", "auto")
         d.setdefault("index_kernel", "auto")
         self.__dict__.update(d)
@@ -206,12 +215,33 @@ class ALSModel:
         return table[torch.as_tensor(np.asarray(rows, np.int64),
                                      device=device)]
 
-    def scorer(self) -> TopKScorer:
+    def scorer(self):
+        """The batch scorer on the serving device: a ``TopKScorer``, or,
+        with sharded serving on, the ``ShardedTopKScorer`` over the
+        enabling mesh."""
         device = self._serving_device()
         with self._lock:
             if self._scorer is None:
-                self._scorer = TopKScorer(self.item_factors, device=device)
+                if self.sharded_axis is not None and self._mesh is not None:
+                    self._scorer = ShardedTopKScorer(
+                        self.item_factors, self._mesh, axis=self.sharded_axis,
+                        device=device)
+                else:
+                    self._scorer = TopKScorer(self.item_factors,
+                                              device=device)
             return self._scorer
+
+    def enable_sharded_serving(self, mesh, axis: str = "data") -> None:
+        """Serve through a ``ShardedTopKScorer``: the item table split
+        into slabs over ``mesh[axis]``, each rank's top-k merged over the
+        axis (``ops.topk``): serving for a catalog larger than one card.
+        The same answers as the single-device scorer. ``recommend`` and
+        ``similar_items`` then go through it, and every rank of the axis
+        must call them with the same queries."""
+        with self._lock:
+            self._mesh = mesh
+            self.sharded_axis = axis
+            self._scorer = None   # made over the mesh on first use
 
     def retrieval_index(self):
         """The model's retrieval index over the item factor table, on the
@@ -247,6 +277,13 @@ class ALSModel:
         dropped and re-made on use. Returns (n_new_users, n_new_items)."""
         rank = self.user_factors.shape[1] if self.user_factors.size else (
             self.item_factors.shape[1])
+        if item_rows and self.sharded_axis is not None:
+            # the slabs live on every rank of the mesh, which a patch on
+            # one process cannot reach; quietly serving from one device
+            # instead would change capacity. A rolling /reload swaps them
+            raise ValueError(
+                "item-row patches are not supported on a sharded-serving "
+                "model; use the rolling /reload")
 
         def patched(ids: BiMap, factors: np.ndarray, rows, what: str):
             fresh = [key for key, _ in rows if key not in ids]
@@ -310,8 +347,14 @@ class ALSModel:
             return [(inv[int(cand[j])], float(s))
                     for s, j in zip(top_s[0], top_j[0])]
         excl = np.fromiter(exclude, dtype=np.int32) if exclude else None
-        scores, idx = self.retrieval_index().search(
-            self.user_rows([row]), num, excl)
+        if self.sharded_axis is not None:
+            # sharded serving keeps the mesh scorer: no single-device
+            # index over a sharded catalog
+            scores, idx = self.scorer().score(self.user_rows([row]), num,
+                                              excl)
+        else:
+            scores, idx = self.retrieval_index().search(
+                self.user_rows([row]), num, excl)
         inv = self.item_ids.inverse()
         return [(inv[int(i)], float(s))
                 for s, i in zip(scores[0], idx[0])
@@ -333,8 +376,12 @@ class ALSModel:
         # the result filter below backstops even that
         excl = np.fromiter(list(exclude) + [row], dtype=np.int32,
                            count=len(exclude) + 1)
-        scores, idx = self.retrieval_index().search(
-            self.item_factors[row], num, excl)
+        if self.sharded_axis is not None:
+            scores, idx = self.scorer().score(self.item_factors[row], num,
+                                              excl)
+        else:
+            scores, idx = self.retrieval_index().search(
+                self.item_factors[row], num, excl)
         inv = self.item_ids.inverse()
         return [(inv[int(i)], float(s))
                 for s, i in zip(scores[0], idx[0])
@@ -402,7 +449,7 @@ class ALSAlgorithm(Algorithm):
             cfg, device=ctx.device,
             max_ratings_per_user=p.max_ratings_per_user,
             max_ratings_per_item=p.max_ratings_per_item,
-            cache_key=pd.fingerprint)
+            cache_key=pd.fingerprint, mesh=ctx.mesh)
         return self._fit(trainer, "coo", pd.user_ids, pd.item_ids)
 
     @staticmethod
@@ -434,10 +481,13 @@ class ALSAlgorithm(Algorithm):
         the grid's layout from; sequential trains share the cached
         layout instead), per-row rating caps (the grid's sides are
         uncapped, and a grid must not train other data than the
-        sequential path), or params that differ in anything else. The
-        JAX package also declines a multi-device mesh; the port trains
-        on one device per process, so there is no such case here."""
+        sequential path), params that differ in anything else, or a
+        context mesh of more than one rank (the grid axis takes the
+        batch dimension, and the grid trainer runs on one device), as in
+        the JAX package."""
         if len(params_list) < 2 or pd.binned_request is not None:
+            return None
+        if mesh_size(ctx.mesh) > 1:
             return None
         base = params_list[0]
         for p in params_list:
@@ -478,10 +528,11 @@ class ALSAlgorithm(Algorithm):
         retrain on unchanged events skips the read. Either way the sides
         go to ``ALSTrainer.from_sides``."""
         p: ALSParams = self.params
+        n_shards = data_shards(ctx.mesh)
         key = None
         if pd.fingerprint:
             # the COO lane's derivation: either lane's entry serves both
-            key = layout_cache_key(pd.fingerprint, cfg, 1,
+            key = layout_cache_key(pd.fingerprint, cfg, n_shards,
                                    p.max_ratings_per_user,
                                    p.max_ratings_per_item)
             cached = load_layout(key)
@@ -489,13 +540,14 @@ class ALSAlgorithm(Algorithm):
             # again below and overwrite it
             if cached is not None and cached.vocabs is not None:
                 trainer = ALSTrainer.from_cache(cached, cfg,
-                                                device=ctx.device)
+                                                device=ctx.device,
+                                                mesh=ctx.mesh)
                 return self._fit(trainer, "binned",
                                  BiMap.from_vocab(cached.vocabs[0]),
                                  BiMap.from_vocab(cached.vocabs[1]))
         binned = pd.binned_request.bin(
             seg_len=cfg.seg_len, max_len_user=p.max_ratings_per_user,
-            max_len_item=p.max_ratings_per_item, n_shards=1,
+            max_len_item=p.max_ratings_per_item, n_shards=n_shards,
             block_size=cfg.block_size,
             row_cost_slots=als_row_cost_slots(cfg.rank))
         if binned.n_rows == 0:
@@ -509,7 +561,7 @@ class ALSAlgorithm(Algorithm):
                         binned.n_rows, vocabs=(users, items))
         trainer = ALSTrainer.from_sides(user_side, item_side, len(users),
                                         len(items), binned.n_rows, cfg,
-                                        device=ctx.device)
+                                        device=ctx.device, mesh=ctx.mesh)
         # the native bytes are on the device now; release them
         del user_side, item_side
         scan = {"scan_sec": binned.scan_sec, "native_bin_sec": binned.bin_sec}
@@ -543,8 +595,19 @@ class ALSAlgorithm(Algorithm):
 
     def load_persistent_model(self, persisted: ALSModel,
                               ctx: DeviceContext) -> ALSModel:
-        """Put the serving tables on the deployment's device."""
-        return persisted.to(ctx.device)
+        """Put the serving tables on the deployment's device, and
+        re-enable sharded serving when the model was served sharded and
+        the context's mesh (``ctx.require_mesh()``) has that axis at a
+        size above 1; otherwise clear it (a deployment on one device)."""
+        model = persisted.to(ctx.device)
+        axis = model.sharded_axis
+        if axis is not None:
+            mesh = ctx.require_mesh()
+            if axis_size(mesh, axis) > 1:
+                model.enable_sharded_serving(mesh, axis=axis)
+            else:
+                model.sharded_axis = None
+        return model
 
     def warmup(self, model: ALSModel, ctx: DeviceContext) -> None:
         """Drive every shape bucket the server dispatches before the

@@ -40,10 +40,21 @@ dimension of each half-step (``GridHalfStep``). The streaming lane's
 ``fold_in_solve`` solves a handful of touched groups against fixed
 opposing factors with the same Gramian and CG.
 
+Sharded over a mesh (``ALSTrainer(..., mesh=)``, one device per
+process, ``parallel/mesh.py``), the group axis splits over the mesh's
+``data`` axis, as the JAX package's ``shard_map`` half-step does: every
+rank bins the full COO with ``n_shards`` shards, puts only its
+``rows_per_shard`` rows and ``groups_per_shard`` groups on its device,
+solves its groups against the replicated opposing factors, and an
+all-gather over the ``data`` group rebuilds the padded ``[groups_per_shard
+* n_shards, K]`` factor table on every rank (the JAX package's
+``out_specs=P("data", None)`` followed by the next step's ``P()``). The
+transfer bytes and the work model are then per rank.
+
 The trainer carries the JAX trainer's observability hooks: the
 data-path stages, the MFU accounting and the memory ledger. Not ported
-here (ROADMAP.md, queue 1): the chunked double-buffered transfer, the
-gather roof probe (item 3) and the sharded half-step (item 12).
+here (ROADMAP.md, queue 1): the chunked double-buffered transfer and the
+gather roof probe (item 3).
 """
 
 from __future__ import annotations
@@ -52,7 +63,7 @@ import dataclasses
 import math
 import time
 import warnings
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +75,9 @@ from predictionio_torch.ops.ragged import (SegmentedGroups,
                                            build_compressed_segmented,
                                            build_segmented_groups)
 from predictionio_torch.parallel.context import DeviceLike, resolve_device
+from predictionio_torch.parallel.mesh import (axis_group, axis_rank,
+                                              axis_size, mesh_size)
+from predictionio_torch.parallel.multihost import all_gather_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -357,11 +371,13 @@ def make_half_step(cfg: ALSConfig, row_block: int, group_block: int,
 
 def _init_factors(gen: torch.Generator, n_groups: int, n_real: int,
                   rank: int) -> torch.Tensor:
-    """Scaled-normal factors drawn on the host from ``gen`` (so every
-    device starts from the same numbers), padded rows zeroed: pad rows
-    must never influence a solve."""
-    X = torch.randn((n_groups, rank), generator=gen) * (1.0 / math.sqrt(rank))
-    X[n_real:] = 0.0
+    """Scaled-normal factors for the ``n_real`` real rows, drawn on the
+    host from ``gen`` (so every device and every rank starts from the
+    same numbers, whatever the padding), and ``n_groups - n_real``
+    padded rows of zeros: pad rows must never influence a solve."""
+    X = torch.zeros((n_groups, rank))
+    X[:n_real] = (torch.randn((n_real, rank), generator=gen)
+                  * (1.0 / math.sqrt(rank)))
     return X
 
 
@@ -540,6 +556,12 @@ def build_compressed_side(
                                      cfg, n_shards, max_len))
 
 
+def data_shards(mesh) -> int:
+    """Shards of the group axis: the mesh's ``data`` size, or 1 where
+    the mesh is None or of size 1 (the unsharded path)."""
+    return axis_size(mesh, "data") if mesh_size(mesh) > 1 else 1
+
+
 def layout_cache_key(cache_key: str, cfg: ALSConfig, n_shards: int,
                      max_ratings_per_user: Optional[int] = None,
                      max_ratings_per_item: Optional[int] = None) -> str:
@@ -618,7 +640,10 @@ def save_layout(key: str, user_side: SideLayout, item_side: SideLayout,
 class DeviceSide:
     """One side's arrays on the device and the half-step bound to them;
     called as ``side(opposing, own_prev)`` it returns the side's new
-    ``[n_groups, K]`` factors."""
+    ``[n_groups * n_shards, K]`` factors. Sharded, the arrays are this
+    rank's shard (``shard`` of ``n_shards`` along the mesh's ``data``
+    axis, whose process group is ``group``): it solves its ``n_groups``
+    groups from its rows of ``own_prev`` and all-gathers the table."""
 
     step: HalfStep
     idx: torch.Tensor              # [R, L] int32 gather indexes
@@ -626,7 +651,10 @@ class DeviceSide:
     mask: Optional[torch.Tensor]   # [R, L] uint8, None when val is coded
     seg: torch.Tensor              # [R] int32 group of each row
     counts: torch.Tensor           # [G] int32 ratings of each group
-    n_groups: int
+    n_groups: int                  # groups on this rank
+    n_shards: int = 1
+    shard: int = 0
+    group: Any = None
 
     def args(self) -> tuple:
         """The arrays in the order the half-step takes them."""
@@ -635,7 +663,12 @@ class DeviceSide:
         return self.idx, self.val, self.mask, self.seg, self.counts
 
     def __call__(self, opposing, own_prev):
-        return self.step(opposing, own_prev, *self.args())
+        if self.n_shards == 1:
+            return self.step(opposing, own_prev, *self.args())
+        g0 = self.shard * self.n_groups
+        local = self.step(opposing, own_prev[g0:g0 + self.n_groups],
+                          *self.args())
+        return all_gather_rows(local, self.group)
 
 
 class ALSTrainer:
@@ -646,7 +679,12 @@ class ALSTrainer:
     on ``device``: ``None`` means ``cuda:0`` and raises without CUDA.
 
     Made from COO triples (``ALSTrainer(...)``) or from prebuilt sides
-    (``ALSTrainer.from_sides``); both go through one set-up path."""
+    (``ALSTrainer.from_sides``); both go through one set-up path.
+
+    ``mesh`` (``parallel.mesh.create_mesh``) of more than one rank
+    shards the group axis over its ``data`` axis (the module docstring
+    says how); every rank of the axis must make the trainer and run it
+    alike. ``None`` or a mesh of size 1 is the unsharded path."""
 
     def __init__(
         self,
@@ -658,6 +696,7 @@ class ALSTrainer:
         max_ratings_per_user: Optional[int] = None,
         max_ratings_per_item: Optional[int] = None,
         cache_key: Optional[str] = None,
+        mesh=None,
     ):
         """``cache_key`` (a data fingerprint) turns on the layout cache:
         under ``layout_cache_key(cache_key, ...)`` a hit loads both
@@ -666,12 +705,13 @@ class ALSTrainer:
         and no COO, raises LayoutCacheMiss."""
         key = None
         cached = None
+        n_shards = data_shards(mesh)
         if cache_key is not None:
-            key = layout_cache_key(cache_key, cfg, 1, max_ratings_per_user,
-                                   max_ratings_per_item)
+            key = layout_cache_key(cache_key, cfg, n_shards,
+                                   max_ratings_per_user, max_ratings_per_item)
             cached = load_layout(key)
         if cached is not None:
-            self._setup_cached(cached, cfg, device)
+            self._setup_cached(cached, cfg, device, mesh)
             return
         if user_coo is None:
             raise LayoutCacheMiss(f"no cached layout for key {cache_key!r} "
@@ -679,15 +719,15 @@ class ALSTrainer:
         u_idx, i_idx, vals = user_coo
         t0 = time.perf_counter()
         user_side = build_compressed_side(
-            u_idx, i_idx, vals, n_users, cfg, 1, max_ratings_per_user)
+            u_idx, i_idx, vals, n_users, cfg, n_shards, max_ratings_per_user)
         item_side = build_compressed_side(
-            i_idx, u_idx, vals, n_items, cfg, 1, max_ratings_per_item)
+            i_idx, u_idx, vals, n_items, cfg, n_shards, max_ratings_per_item)
         bin_sec = time.perf_counter() - t0
         if key is not None:
             save_layout(key, user_side, item_side, n_users, n_items,
                         len(vals))
         self._setup(user_side, item_side, n_users, n_items, len(vals), cfg,
-                    device)
+                    device, mesh)
         #: host seconds spent binning both sides
         self.bin_sec = bin_sec
         perfacct.LEDGER.note_stage("bin", bin_sec)
@@ -695,37 +735,49 @@ class ALSTrainer:
     @classmethod
     def from_sides(cls, user_side: SideLayout, item_side: SideLayout,
                    n_users: int, n_items: int, total_entries: int,
-                   cfg: ALSConfig, device: DeviceLike = None
+                   cfg: ALSConfig, device: DeviceLike = None, mesh=None
                    ) -> "ALSTrainer":
         """A trainer from prebuilt compressed sides: the event log's
         fused scan+bin (``side_layout_from_binned``) or a cache entry.
         The arrays (zero-copy views over native buffers or a cache
-        file's mapping) go to the device as they are."""
+        file's mapping) go to the device as they are; sharded, the sides
+        must have been binned with the mesh's ``data`` size as
+        ``n_shards``."""
         self = cls.__new__(cls)
         self._setup(user_side, item_side, n_users, n_items, total_entries,
-                    cfg, device)
+                    cfg, device, mesh)
         return self
 
     @classmethod
     def from_cache(cls, cached: CachedLayout, cfg: ALSConfig,
-                   device: DeviceLike = None) -> "ALSTrainer":
+                   device: DeviceLike = None, mesh=None) -> "ALSTrainer":
         """A trainer from a layout cache entry (``load_layout``)."""
         self = cls.__new__(cls)
-        self._setup_cached(cached, cfg, device)
+        self._setup_cached(cached, cfg, device, mesh)
         return self
 
     def _setup_cached(self, cached: CachedLayout, cfg: ALSConfig,
-                      device: DeviceLike) -> None:
+                      device: DeviceLike, mesh) -> None:
         self._setup(cached.user_side, cached.item_side, cached.n_users,
-                    cached.n_items, cached.total_entries, cfg, device)
+                    cached.n_items, cached.total_entries, cfg, device, mesh)
         self.cache_hit = True
         self.load_sec = cached.load_sec
 
     def _setup(self, user_side: SideLayout, item_side: SideLayout,
                n_users: int, n_items: int, total_entries: int,
-               cfg: ALSConfig, device: DeviceLike) -> None:
+               cfg: ALSConfig, device: DeviceLike, mesh) -> None:
+        n_shards = data_shards(mesh)
+        for side in (user_side, item_side):
+            if side.n_shards != n_shards:
+                raise ValueError(
+                    f"a layout binned for {side.n_shards} shard(s) on a "
+                    f"mesh whose data axis has {n_shards}")
         self.cfg = cfg
         self.device = resolve_device(device)
+        #: the mesh the group axis shards over (None: unsharded)
+        self.mesh = mesh
+        self._group = axis_group(mesh, "data")
+        self._shard = axis_rank(mesh, "data")
         self.n_users, self.n_items = n_users, n_items
         self.total_entries = total_entries
         #: host seconds of binning and of a cache load (0 where none ran)
@@ -739,8 +791,9 @@ class ALSTrainer:
         self.wait_device()
         #: seconds of the host -> device puts and the index recombine
         self.put_sec = time.perf_counter() - t0
+        #: bytes this rank put on its device (its shard of each side)
         self.transfer_bytes = (user_side.transfer_bytes
-                               + item_side.transfer_bytes)
+                               + item_side.transfer_bytes) // n_shards
         self._slot_bytes = (user_side.slot_bytes, item_side.slot_bytes)
         # the data-path ledger's transfer stage, and the device-memory
         # ledger's train_data footprint (swept when the trainer goes)
@@ -751,20 +804,28 @@ class ALSTrainer:
         self._acct: Optional[perfacct.StepAccountant] = None
 
         gen = torch.Generator().manual_seed(cfg.seed)
-        #: the padded factor tables on the device; set them to start
-        #: from other factors
-        self.X = _init_factors(gen, self._user.n_groups, self.n_users,
-                               cfg.rank).to(self.device)
-        self.Y = _init_factors(gen, self._item.n_groups, self.n_items,
-                               cfg.rank).to(self.device)
+        #: the padded factor tables on the device (every group of every
+        #: shard, on every rank); set them to start from other factors
+        self.X = _init_factors(gen, self._user.n_groups * n_shards,
+                               self.n_users, cfg.rank).to(self.device)
+        self.Y = _init_factors(gen, self._item.n_groups * n_shards,
+                               self.n_items, cfg.rank).to(self.device)
 
     def _put_side(self, side: SideLayout) -> DeviceSide:
         """The wire arrays to the device, once each, straight from the
         host arrays (native buffers or a cache file's read-only mapping
         included: no host copy); the index streams recombined to int32
         there. uint16 goes as int16 and is widened with ``& 0xFFFF``: the
-        cast every device has."""
-        def put(a):
+        cast every device has. Sharded, only this rank's rows and groups
+        go."""
+        n_shards = side.n_shards
+        rows = side.idx_lo.shape[0] // n_shards
+        groups = side.groups_per_shard
+        r0, g0 = self._shard * rows, self._shard * groups
+
+        def put(a, per_shard=rows, start=r0):
+            if n_shards > 1:
+                a = a[start:start + per_shard]
             with warnings.catch_warnings():
                 # a cache entry's views are read-only; nothing writes to
                 # the layout's tensors
@@ -777,12 +838,13 @@ class ALSTrainer:
         if side.idx_hi is not None:
             idx = idx | (put(side.idx_hi).to(torch.int32) << 16)
         step = make_half_step(self.cfg, side.row_block, side.group_block,
-                              side.groups_per_shard, val_affine=side.affine)
+                              groups, val_affine=side.affine)
         return DeviceSide(
             step=step, idx=idx, val=put(side.val),
             mask=None if side.mask is None else put(side.mask),
-            seg=put(side.seg), counts=put(side.counts),
-            n_groups=side.groups_per_shard)
+            seg=put(side.seg), counts=put(side.counts, groups, g0),
+            n_groups=groups, n_shards=n_shards, shard=self._shard,
+            group=self._group)
 
     def sides(self) -> Tuple[DeviceSide, DeviceSide]:
         """The user side (solves X against Y), then the item side."""
@@ -790,7 +852,8 @@ class ALSTrainer:
 
     def layout(self) -> dict:
         """The device layout's shapes: virtual rows, slots per row and
-        groups (padded) of each side, and the bytes that crossed."""
+        groups (padded) of each side on this rank, and the bytes that
+        crossed to it."""
         return {"user_rows": int(self._user.idx.shape[0]),
                 "item_rows": int(self._item.idx.shape[0]),
                 "seg_len": [int(self._user.idx.shape[1]),
@@ -859,8 +922,9 @@ class ALSTrainer:
 
     def work_model(self) -> dict:
         """Analytic FLOP and byte counts per alternation (both
-        half-steps), from the padded shapes on the device; padded slots
-        count, since they are gathered and multiplied like real ones.
+        half-steps), from the padded shapes on the device (this rank's
+        shard, when sharded); padded slots count, since they are
+        gathered and multiplied like real ones.
 
         The bytes are the dominant streams: the gathered opposing
         factors, the materialized [B, L, K] block (one write and one
@@ -899,14 +963,15 @@ def als_train(
     max_ratings_per_user: Optional[int] = None,
     max_ratings_per_item: Optional[int] = None,
     cache_key: Optional[str] = None,
+    mesh=None,
 ) -> ALSFactors:
     """One-call train from COO (user_idx, item_idx, rating) triples;
-    ``cache_key`` as for ``ALSTrainer``."""
+    ``cache_key`` and ``mesh`` as for ``ALSTrainer``."""
     return ALSTrainer(
         user_coo, n_users, n_items, cfg, device=device,
         max_ratings_per_user=max_ratings_per_user,
         max_ratings_per_item=max_ratings_per_item,
-        cache_key=cache_key,
+        cache_key=cache_key, mesh=mesh,
     ).run()
 
 

@@ -1,8 +1,7 @@
 """Top-k scoring for serving, with latency-aware placement.
 
-Counterpart of ``predictionio_tpu/ops/topk.py`` (its single-device
-parts; the sharded scorer waits for the multi-device slice). A query is
-an embedding-row lookup plus a ``[B, K] x [K, I]`` product and a top-k.
+Counterpart of ``predictionio_tpu/ops/topk.py``. A query is an
+embedding-row lookup plus a ``[B, K] x [K, I]`` product and a top-k.
 ``TopKScorer`` routes each call either to the HOST (numpy matvec +
 partial sort, the reference's driver-side scan) or to the DEVICE
 (``torch.matmul`` + mask + ``torch.topk`` on the scorer's device — the
@@ -12,6 +11,12 @@ by a cost model against the measured dispatch latency of the device.
 for a scorer on the CPU only: a scorer on a CUDA device always takes the
 device route, so no query leaves the card for the host while the card
 holds the tables.
+
+``ShardedTopKScorer`` serves a catalog whose item table is split into
+contiguous slabs over a mesh axis, one slab per rank (the JAX package's
+``make_sharded_topk``): each rank takes its slab's top-k through the
+``topk_dot`` kernel, the ``[B, k]`` candidate lists are all-gathered
+over the axis, and every rank re-ranks the ``n * k`` survivors.
 
 One total order everywhere: score descending, then item index
 ascending. The host route gets it from a stable sort of the
@@ -30,6 +35,8 @@ import numpy as np
 import torch
 
 from predictionio_torch.parallel.context import DeviceLike, resolve_device
+from predictionio_torch.parallel.mesh import axis_group, axis_rank, axis_size
+from predictionio_torch.parallel.multihost import all_gather_rows
 
 NEG_INF = np.float32(-1e30)
 
@@ -77,21 +84,32 @@ def _rows(x) -> int:
     return 1 if len(shape) < 2 else int(shape[0])
 
 
-def ordered_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor,
-                                                        torch.Tensor]:
+def ordered_topk(scores: torch.Tensor, k: int,
+                 ids: Optional[torch.Tensor] = None,
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-``k`` of each row of ``scores`` [B, I] under (score
     descending, index ascending): ``(values [B, k], idx [B, k] int64)``.
 
     Each entry becomes one int64 key — the score's bits mapped so that
     signed order is float order (high 32 bits) over ``2^32 - 1 - index``
-    (low 32 bits) — so ``torch.topk`` sees no ties at all."""
+    (low 32 bits) — so ``torch.topk`` sees no ties at all.
+
+    ``ids`` ([B, I] ints), when given, names each entry: ties break by
+    ascending id, -1 (an empty candidate slot) after every id, and the
+    returned ``idx`` are the winners' ids."""
     s = scores + 0.0  # -0.0 ranks as +0.0
     bits = s.view(torch.int32).long()
     ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
-    idx = torch.arange(s.shape[1], device=s.device, dtype=torch.int64)
-    key = ordered * (1 << 32) + ((1 << 32) - 1 - idx)
+    if ids is None:
+        tie = torch.arange(s.shape[1], device=s.device, dtype=torch.int64)
+    else:
+        tie = ids.long()
+        tie = torch.where(tie < 0, (1 << 32) - 1, tie)
+    key = ordered * (1 << 32) + ((1 << 32) - 1 - tie)
     top = torch.topk(key, k, dim=1).indices
-    return torch.gather(scores, 1, top), top
+    if ids is None:
+        return torch.gather(scores, 1, top), top
+    return torch.gather(scores, 1, top), torch.gather(ids.long(), 1, top)
 
 
 def mask_excluded(scores: torch.Tensor, exclude_idx: torch.Tensor) -> None:
@@ -289,6 +307,90 @@ class TopKScorer:
         s, i = ordered_topk(scores, k_bucket)
         return (s[:B, :k].cpu().numpy(),
                 i[:B, :k].to(torch.int32).cpu().numpy())
+
+
+class ShardedTopKScorer:
+    """``TopKScorer`` drop-in whose item table is split into contiguous
+    slabs over mesh axis ``axis``: the rank at position ``r`` of the
+    axis holds items ``[r * slab, (r + 1) * slab)``, ``slab = ceil(I /
+    n)`` (the last slab is shorter, possibly empty). Same ``score``
+    signature and bucketing as ``TopKScorer``.
+
+    ``score`` is SPMD: every rank of the axis calls it with the same
+    queries, as every JAX device runs the ``shard_map`` body. Per rank,
+    in order: the global exclusions are routed to slab-local ids (-1
+    off the slab); the slab's top-``min(k, slab)`` comes from the
+    ``topk_dot`` kernel (one launch; the kernel masks the slab's ragged
+    tail, so nothing is zero-padded), or from the device route outside
+    the kernel's caps; the candidates are padded to ``k`` with
+    ``NEG_INF`` and id -1; the ``[B, k]`` scores and global ids are
+    all-gathered over the axis; and the ``n * k`` candidates are
+    re-ranked under the one total order (``ordered_topk`` by id).
+    Results are replicated on every rank."""
+
+    def __init__(self, item_factors, mesh, axis: str = "data",
+                 max_exclude: int = 64, device: DeviceLike = None):
+        self.mesh, self.axis, self.max_exclude = mesh, axis, max_exclude
+        self.device = resolve_device(device)
+        factors = np.ascontiguousarray(_as_numpy(item_factors),
+                                       dtype=np.float32)
+        self.n_items = int(factors.shape[0])
+        self.n_shards = axis_size(mesh, axis)
+        self._group = axis_group(mesh, axis)
+        shard = axis_rank(mesh, axis)
+        per = -(-self.n_items // self.n_shards)
+        start = min(shard * per, self.n_items)
+        stop = min(start + per, self.n_items)
+        #: this rank's slab: its first global id and its item rows
+        self.slab_start = start
+        self.item_slab = torch.as_tensor(factors[start:stop],
+                                         device=self.device)
+
+    @property
+    def slab(self) -> int:
+        return int(self.item_slab.shape[0])
+
+    def _slab_topk(self, user_vecs: torch.Tensor, excl: torch.Tensor,
+                   k_loc: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The slab's ordered top-``k_loc``, ``(scores, slab-local ids)``:
+        the ``topk_dot`` kernel inside its caps, else the device route."""
+        from predictionio_torch.ops.kernels import topk_dot as kernel
+
+        B, E = user_vecs.shape[0], excl.shape[1]
+        if (B <= kernel.MAX_BATCH and k_loc <= kernel.MAX_K
+                and E <= kernel.MAX_EXCLUDE):
+            return kernel.topk_dot(user_vecs, self.item_slab, excl, k_loc)
+        return _topk_scores(user_vecs, self.item_slab, excl, k_loc)
+
+    def score(self, user_vecs, k: int,
+              exclude_idx: Optional[np.ndarray] = None,
+              ) -> Tuple[np.ndarray, np.ndarray]:
+        """(scores [B, k], item_indices [B, k]) as numpy on every rank of
+        the axis; ``exclude_idx`` as for ``TopKScorer.score``."""
+        user_vecs, excl, k, k_bucket, B = _prepare_score_inputs(
+            user_vecs, k, exclude_idx, self.n_items, self.max_exclude,
+            self.device)
+        Bb = user_vecs.shape[0]
+        start, slab = self.slab_start, self.slab
+        local = torch.where((excl >= start) & (excl < start + slab),
+                            excl - start, -1).to(torch.int32).contiguous()
+        cand_s = torch.full((Bb, k_bucket), float(NEG_INF),
+                            dtype=torch.float32, device=self.device)
+        cand_i = torch.full((Bb, k_bucket), -1, dtype=torch.int32,
+                            device=self.device)
+        k_loc = min(k_bucket, slab)
+        if k_loc > 0:
+            s, i = self._slab_topk(user_vecs, local, k_loc)
+            cand_s[:, :k_loc] = s
+            cand_i[:, :k_loc] = i.to(torch.int32) + start
+        n = self.n_shards
+        all_s = all_gather_rows(cand_s, self._group).view(n, Bb, k_bucket)
+        all_i = all_gather_rows(cand_i, self._group).view(n, Bb, k_bucket)
+        flat_s = all_s.permute(1, 0, 2).reshape(Bb, n * k_bucket)
+        flat_i = all_i.permute(1, 0, 2).reshape(Bb, n * k_bucket)
+        top_s, top_i = ordered_topk(flat_s, k_bucket, ids=flat_i)
+        return (top_s[:B, :k].cpu().numpy(),
+                top_i[:B, :k].to(torch.int32).cpu().numpy())
 
 
 def cosine_normalize(m: np.ndarray, eps: float = 1e-8) -> np.ndarray:

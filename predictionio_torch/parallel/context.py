@@ -1,20 +1,23 @@
 """The runtime context handed to every DASE component.
 
-Counterpart of ``predictionio_tpu.parallel.mesh.MeshContext``: where the
-JAX package carries a device mesh, the port carries one explicit
-``torch.device``. One card per process in this slice, so
-``data_parallel_size()`` is 1; multi-card serving and training come with
-the multi-device slice (ROADMAP.md).
+Counterpart of ``predictionio_tpu.parallel.mesh.MeshContext``: the port
+computes on one device per process, so the context carries that explicit
+``torch.device`` and, beside it, the mesh of the ``torch.distributed``
+world the process belongs to (``parallel/mesh.py``): ``require_mesh()``
+makes it on first use, and ``data_parallel_size()`` reads its ``data``
+axis (1 with no world).
 
-No silent CPU: with no argument the context means ``cuda:0`` and raises
-``RuntimeError`` when CUDA is absent. The CPU is reached only by asking
-for it (``device="cpu"``), as the tests and ``--device cpu`` do.
+No silent CPU: with no argument the context means the current CUDA
+device (``cuda:0`` unless ``parallel.multihost.initialize_from_env``
+made the rank's card current) and raises ``RuntimeError`` when CUDA is
+absent. The CPU is reached only by asking for it (``device="cpu"``), as
+the tests and ``--device cpu`` do.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Union
+from typing import Any, Dict, Optional, Union
 
 import torch
 
@@ -22,9 +25,10 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` -> ``cuda:0``; anything else -> that device. A CUDA
-    device without CUDA raises instead of quietly running on the CPU."""
-    dev = torch.device("cuda:0" if device is None else device)
+    """``None`` -> the current CUDA device (``cuda:0`` unless a rank made
+    its card current); anything else -> that device. A CUDA device
+    without CUDA raises instead of quietly running on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -38,18 +42,31 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 @dataclasses.dataclass
 class DeviceContext:
-    """Device, seed and free-form runtime config (the reference's
-    SparkContext role, as ``MeshContext`` plays it in the JAX package)."""
+    """Device, mesh, seed and free-form runtime config (the reference's
+    SparkContext role, as ``MeshContext`` plays it in the JAX package).
+    ``mesh`` None means no sharding until ``require_mesh()`` makes one
+    over the world."""
 
     device: torch.device
     seed: int = 0
     config: Dict[str, str] = dataclasses.field(default_factory=dict)
+    mesh: Any = None
 
     def __init__(self, device: DeviceLike = None, seed: int = 0,
-                 config: Optional[Dict[str, str]] = None):
+                 config: Optional[Dict[str, str]] = None, mesh: Any = None):
         self.device = resolve_device(device)
         self.seed = int(seed)
         self.config = dict(config or {})
+        self.mesh = mesh
+
+    def require_mesh(self):
+        """The context's mesh, made over the world (``create_mesh()``'s
+        default layout) on first use."""
+        if self.mesh is None:
+            from predictionio_torch.parallel.mesh import create_mesh
+
+            self.mesh = create_mesh()
+        return self.mesh
 
     def rng(self) -> torch.Generator:
         """A generator on this context's device, seeded from ``seed``
@@ -58,7 +75,9 @@ class DeviceContext:
         return torch.Generator(device=self.device).manual_seed(self.seed)
 
     def data_parallel_size(self) -> int:
-        return 1
+        from predictionio_torch.parallel.mesh import axis_size
+
+        return axis_size(self.require_mesh(), "data")
 
 
 class OnDevice:

@@ -15,8 +15,9 @@ the fused native scan+bin (the ``eventlog`` backend), ``read_training``
 reads nothing: it hands the fit stage a ``BinnedReadRequest``, and
 ``ALSAlgorithm.train`` bins the mmapped log straight into the trainer's
 layout with its own knobs, or loads that layout from the cache under the
-DataSource's ``data_fingerprint``. Other stores read through the
-columnar path. ``pio train`` then fits ALS (``ops/als.py``) on the
+DataSource's ``data_fingerprint``. Other stores, and every store in a
+``torch.distributed`` world of more than one process (each rank reads
+its entity-hash shard), read through the columnar path. ``pio train`` then fits ALS (``ops/als.py``) on the
 card; the two-tower template trains on the same data. ``read_eval``
 gives ``pio eval`` its k folds (``eval_k``) from the row read.
 """
@@ -34,6 +35,7 @@ from predictionio_torch.core.params import Params
 from predictionio_torch.data import store
 from predictionio_torch.data.bimap import BiMap
 from predictionio_torch.models.als import ALSAlgorithm, PreparedRatings
+from predictionio_torch.parallel import multihost as mh
 from predictionio_torch.parallel.context import DeviceContext
 from predictionio_torch.templates._columnar import read_interactions
 
@@ -198,11 +200,20 @@ class RecoDataSource(DataSource):
         return (f"{fp}|reco|{p.rate_event}|{p.buy_event}|{p.buy_rating}"
                 f"|{p.columnar}")
 
+    def _binned_supported(self) -> bool:
+        """The fused native lane needs a store that has it and a
+        single-process run: in a world of more than one, each rank reads
+        its entity-hash shard through the columnar path, and two ranks
+        would both take the event log's writer lock."""
+        p: RecoDataSourceParams = self.params
+        if mh.process_count() > 1:
+            return False
+        return store.supports_bin_columnar(p.app_name, p.channel_name)
+
     def read_training(self, ctx: DeviceContext) -> RatingsTD:
         p: RecoDataSourceParams = self.params
         fp = self.data_fingerprint()
-        if p.columnar and p.binned and store.supports_bin_columnar(
-                p.app_name, p.channel_name):
+        if p.columnar and p.binned and self._binned_supported():
             return RatingsTD(
                 binned_request=BinnedReadRequest(
                     app_name=p.app_name, channel_name=p.channel_name,

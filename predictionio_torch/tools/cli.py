@@ -362,10 +362,14 @@ def cmd_build(args) -> int:
 
 
 def cmd_train(args) -> int:
+    from predictionio_torch.parallel import multihost
     from predictionio_torch.parallel.context import DeviceContext
     from predictionio_torch.workflow.config import WorkflowParams
     from predictionio_torch.workflow.train import run_train
 
+    # under PIO_COORDINATOR_ADDRESS / PIO_NUM_PROCESSES / PIO_PROCESS_ID
+    # the world comes up first, so the default device is the rank's card
+    multihost.initialize_from_env(device=args.device)
     variant = load_variant(args.engine_json)
     engine = variant.create_engine()
     wp = WorkflowParams(batch=args.batch,

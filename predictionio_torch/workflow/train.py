@@ -1,7 +1,7 @@
 """Training workflow: train an engine, persist models + instance metadata.
 
-Counterpart of ``predictionio_tpu/workflow/train.py`` for one process
-(ref: workflow/CoreWorkflow.runTrain:42 and CreateWorkflow.scala:232-255):
+Counterpart of ``predictionio_tpu/workflow/train.py`` (ref:
+workflow/CoreWorkflow.runTrain:42 and CreateWorkflow.scala:232-255):
 create an EngineInstance row (INIT), run Engine.train on the context's
 device, pickle the per-algorithm models into the Models repo under the
 instance id (a ``PersistentModel`` saves itself and leaves a manifest
@@ -20,8 +20,19 @@ the train, and a completed instance moves the freshness horizon
 trained-against baseline (``dataobs.freeze_schemas``) and logs the
 stage split in one line. The chaos
 harness's ``train`` seam sits just before ``engine.train``. The JAX
-package's multi-host writer election and profiler capture are not
-ported (ROADMAP.md, queue 1 items 12 and 13).
+package's profiler capture is not ported (ROADMAP.md, queue 1 item 13).
+
+Across processes (``PIO_COORDINATOR_ADDRESS``, ``PIO_NUM_PROCESSES``,
+``PIO_PROCESS_ID``; ``parallel.multihost.initialize_from_env`` runs
+before any mesh), every process runs the same ``engine.train`` on its
+own device, with the context's mesh over the world so the ALS half-step
+shards over the ranks, and storage is single-writer: process 0 alone
+writes the EngineInstance row and the model blob, the instance id is
+broadcast from it, the models are serialized on every process, and a
+final barrier makes the COMPLETED row visible to every process before
+any of them goes on to deploy. A failure on one process ends that
+process; its peers then fail in their next collective (the gloo or NCCL
+timeout), as a lost Spark driver fails its executors.
 """
 
 from __future__ import annotations
@@ -41,7 +52,9 @@ from predictionio_torch.core.persistent_model import (PersistentModel,
 from predictionio_torch.data.metadata import EngineInstance, Model
 from predictionio_torch.data.storage import Storage, get_storage
 from predictionio_torch.obs import dataobs, health, memacct, perfacct, torchmon
+from predictionio_torch.parallel import multihost as mh
 from predictionio_torch.parallel.context import DeviceContext
+from predictionio_torch.parallel.mesh import create_mesh
 from predictionio_torch.resilience import chaos
 from predictionio_torch.workflow.config import WorkflowParams
 
@@ -84,13 +97,20 @@ def run_train(engine: Engine, engine_params: EngineParams, engine_id: str,
               workflow_params: Optional[WorkflowParams] = None,
               storage: Optional[Storage] = None) -> EngineInstance:
     """ref: CoreWorkflow.runTrain:42. Returns the COMPLETED instance.
-    ``ctx`` defaults to the card."""
+    ``ctx`` defaults to the card (the rank's card across processes; a
+    ``ctx`` on the CPU makes the ranks join over gloo)."""
+    distributed = mh.initialize_from_env(
+        device=ctx.device if ctx is not None else None)
     storage = storage or get_storage()
-    ctx = ctx or DeviceContext()
+    ctx = ctx or DeviceContext(mh.rank_device() if distributed else None)
+    if distributed and ctx.mesh is None:
+        ctx.mesh = create_mesh()
     wp = workflow_params or WorkflowParams()
+    writer = not distributed or mh.process_index() == 0
     ep_json = engine_params.to_json_dict()
     instance = EngineInstance(
-        id=uuid.uuid4().hex, status="INIT", start_time=_now(),
+        id=mh.broadcast_string(uuid.uuid4().hex), status="INIT",
+        start_time=_now(),
         end_time=_now(), engine_id=engine_id, engine_version=engine_version,
         engine_variant=engine_variant, engine_factory=engine_factory,
         batch=batch or wp.batch,
@@ -98,13 +118,17 @@ def run_train(engine: Engine, engine_params: EngineParams, engine_id: str,
         preparator_params=json.dumps(ep_json["preparatorParams"]),
         algorithms_params=json.dumps(ep_json["algorithmParamsList"]),
         serving_params=json.dumps(ep_json["servingParams"]))
-    storage.engine_instances().insert(instance)
+    inserted = False
+    if writer:
+        storage.engine_instances().insert(instance)
+        inserted = True
     log.info("training instance %s (engine %s) on %s", instance.id,
              engine_id, ctx.device)
     perfacct.LEDGER.start_run(instance.id)
     try:
         instance.status = "TRAINING"
-        storage.engine_instances().update(instance)
+        if writer:
+            storage.engine_instances().update(instance)
         t0 = time.perf_counter()
         with health.TRAIN_WATCHDOG.deadman():
             # chaos seam: an injected train fault takes the FAILED
@@ -122,13 +146,16 @@ def run_train(engine: Engine, engine_params: EngineParams, engine_id: str,
             instance.batch = (instance.batch + f" [stopped after "
                               f"{result.stopped_after}]").strip()
         elif wp.save_model:
-            storage.models().insert(Model(
-                id=instance.id, models=serialize_models(persisted_models(
-                    engine, engine_params, result.models, instance.id,
-                    ctx))))
+            # serialized on every process (a save hook may need all of
+            # them); only the writer stores
+            blob = serialize_models(persisted_models(
+                engine, engine_params, result.models, instance.id, ctx))
+            if writer:
+                storage.models().insert(Model(id=instance.id, models=blob))
         instance.status = "COMPLETED"
         instance.end_time = _now()
-        storage.engine_instances().update(instance)
+        if writer:
+            storage.engine_instances().update(instance)
         # the model is servable: move the freshness horizon
         perfacct.LEDGER.note_publish()
         # the live schema profile becomes the trained-against baseline:
@@ -142,10 +169,15 @@ def run_train(engine: Engine, engine_params: EngineParams, engine_id: str,
                               for k, v in sorted(stages.items())),
                      extra={"pio": {"instance": instance.id,
                                     "datapath_stages": stages}})
+        # every process sees the COMPLETED row before any deploys from it
+        mh.barrier("pio_train_" + instance.id)
         log.info("training completed: instance %s", instance.id)
         return instance
     except Exception:
         instance.status = "FAILED"
         instance.end_time = _now()
-        storage.engine_instances().update(instance)
+        if inserted:
+            # never update a row that was never inserted (the insert
+            # itself may be what failed)
+            storage.engine_instances().update(instance)
         raise

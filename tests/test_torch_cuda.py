@@ -1309,3 +1309,84 @@ def test_train_mfu_is_set_after_five_twotower_steps(cuda, monkeypatch):
     mfu = metrics.REGISTRY.get("pio_train_mfu").labels("twotower").value
     assert 0.0 < mfu <= 1.0
     assert mfu == trainer._acct.last_mfu
+
+
+_WORLD2_WORKER = """
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from predictionio_torch.ops import als
+from predictionio_torch.ops.kernels import topk_dot as tkd
+from predictionio_torch.ops.topk import ShardedTopKScorer
+from predictionio_torch.parallel import multihost as mh
+from predictionio_torch.parallel.mesh import create_mesh
+
+rank, port = int(sys.argv[1]), int(sys.argv[2])
+# two ranks on one card: gloo (NCCL refuses them), set up by the caller
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        world_size=2, rank=rank)
+assert mh.initialize_from_env() is True
+assert mh.rank_device().type == "cuda"
+mesh = create_mesh()
+rng = np.random.default_rng(0)
+items = rng.normal(size=(5_001, 64)).astype(np.float32)
+users = rng.normal(size=(9, 64)).astype(np.float32)
+scorer = ShardedTopKScorer(items, mesh)
+assert scorer.item_slab.device.type == "cuda"
+full = torch.tensor(items, device="cuda")
+tkd.launches.reset()
+for b in range(8):
+    excl = np.array([[b, 2_600 + b, -1]], np.int32)
+    s, i = scorer.score(users[b:b + 1], 16, excl)
+    q = torch.tensor(users[b:b + 1], device="cuda")
+    rs, ri = tkd.topk_dot(q, full, torch.tensor(excl, device="cuda"), 16)
+    np.testing.assert_array_equal(i, ri.cpu().numpy())
+    np.testing.assert_allclose(s, rs.cpu().numpy(), rtol=1e-5, atol=1e-5)
+s, i = scorer.score(users, 16)
+assert tkd.launches.value == 9 + 8, tkd.launches.value
+nnz = 20_000
+coo = (rng.integers(0, 700, nnz), rng.integers(0, 300, nnz),
+       rng.integers(1, 11, nnz).astype(np.float32) / 2)
+cfg = als.ALSConfig(rank=16, iterations=2, block_size=64, solver="direct",
+                    compute_dtype="float32", cg_dtype="float32")
+got = als.als_train(coo, 700, 300, cfg, mesh=mesh)
+want = als.als_train(coo, 700, 300, cfg)
+for a, b in ((got.user_factors, want.user_factors),
+             (got.item_factors, want.item_factors)):
+    assert np.linalg.norm(a - b) <= 1e-4 * np.linalg.norm(b)
+mh.shutdown()
+print("RANK OK", rank)
+"""
+
+
+def test_sharded_scorer_and_als_on_a_world_of_two_on_the_card(cuda):
+    """Two gloo ranks on ``cuda:0``: the sharded scorer answers as
+    ``topk_dot`` over the whole table does, one launch a call on each
+    rank, and the sharded ALS train equals the unsharded one."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": root,
+           "PIO_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+           "PIO_NUM_PROCESSES": "2"}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _WORLD2_WORKER, str(r), str(port)],
+        env={**env, "PIO_PROCESS_ID": str(r)}, cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"RANK OK {r}" in out, out[-3000:]

@@ -261,3 +261,29 @@ def test_importing_the_operator_modules_starts_nothing():
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == {
         "torch": False, "threads": 1}
+
+
+#: the multi-process path: the world and mesh, the sharded reads, the
+#: sharded ALS half-step and top-k, and the single-writer train
+MULTI_PROCESS = ("predictionio_torch.parallel",
+                 "predictionio_torch.parallel.context",
+                 "predictionio_torch.parallel.mesh",
+                 "predictionio_torch.parallel.multihost",
+                 "predictionio_torch.data.storage",
+                 "predictionio_torch.data.store",
+                 "predictionio_torch.data.backends.memory",
+                 "predictionio_torch.data.backends.localfs",
+                 "predictionio_torch.data.backends.eventlog",
+                 "predictionio_torch.templates._columnar",
+                 "predictionio_torch.templates.recommendation",
+                 "predictionio_torch.ops.als",
+                 "predictionio_torch.ops.topk",
+                 "predictionio_torch.ops.kernels.topk_dot",
+                 "predictionio_torch.models.als",
+                 "predictionio_torch.workflow.train",
+                 "predictionio_torch.workflow.deploy",
+                 "predictionio_torch.tools.cli")
+
+
+def test_the_multi_process_modules_are_walked_and_import_no_jax():
+    assert _walk_and_import(MULTI_PROCESS) == {"missing": [], "bad": []}
