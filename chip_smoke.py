@@ -360,7 +360,8 @@ exits non-zero before printing any result.
    removed (its ratings; 138,493 users; 26,744 items): ``cli template get
    sessionrec``, ``cli train`` on ``cuda:0`` at the
    template defaults (dim 64, 2 heads, 2 layers, max_len 64, dropout
-   0.1, batch 256, 5 epochs: 541 steps an epoch): its log's read and
+   0.1, batch 256; 541 steps an epoch) but ``SR_EPOCHS`` epochs of the
+   default 5, a cut for the script's time limit: its log's read and
    ``build_sequences`` seconds, epoch seconds, step ms, losses (finite,
    the last below the first and below ln V) and peak memory; ``cli
    deploy`` on ``cuda:0``, lone queries by user, by an ``items``
@@ -420,10 +421,27 @@ exits non-zero before printing any result.
    instance row and one blob (rank 0 alone writes), the same COMPLETED
    id on both ranks, and rank 1's in-process deploy answering a query
    checked against float64 of the stored factors through ``topk_dot``.
-   A worker that fails, hangs past ``MD_WORKER_TIMEOUT`` or is not
-   ready fails the phase. One ``{"multi_device": ...}`` line prints
-   before ``obs``'s, and the three worlds' scorer launches join
-   ``topk_dot``'s ``launches_by_path``.
+   (c) The two-tower trainer at the stretch width (1M users and items,
+   dim 128, batch 8192, bf16) for ``MD_TT_STEPS`` steps from one carried
+   state (``md_tt_state``): in (a)'s world, over ``create_mesh()``
+   against no mesh; on each rank of (b)'s world, DP over ``{"data":
+   2}``, then TP over ``{"model": 2}`` with ``shard_embeddings``, each
+   rank's losses and whole slab of both tables held to the world of
+   one's (``MD_TT_LOSS_RTOL``, ``MD_TT_TABLE_ATOL``), ``flash_ce``
+   launched 3 times and ``embed_update`` 2 times a step on every rank;
+   the TP run's checkpoint written by rank 0 alone and resumed by both,
+   the resumed slabs equal to the saved ones. (d) The session
+   recommender at phase 13's widths, one epoch of ``MD_SR_STEPS`` steps
+   through ``SessionRecTrainer.run`` with ``seq_axis`` over ``{"seq":
+   2}`` (ring attention across the two ranks), then with the batch
+   split over ``{"data": 2}``, each epoch's loss held to one process's
+   with ``attn_block=16`` (``MD_SR_LOSS_RTOL``). A worker that fails, hangs past
+   ``MD_WORKER_TIMEOUT`` or is not ready fails the phase. One
+   ``{"multi_device": ...}`` line prints before ``obs``'s (with
+   ``twotower`` and ``sessionrec`` entries: ms a step on each rank,
+   world of one against two, and the launch counts); the three worlds'
+   scorer launches join ``topk_dot``'s ``launches_by_path`` and the
+   trainers' launches ``flash_ce``'s and ``embed_update``'s.
 
 Output: the card's name and power limit (``nvidia-smi``), a ``serve``,
 a ``fleet``, a ``train``, an ``als_train``, an ``ingest``, a ``front_door`` (with
@@ -530,6 +548,9 @@ ECOM_APP = "ml20m-ec"
 # stored weights into the profiled trainer (>= 43 batches of 256)
 SR_SCORE_TOL, SR_LOSS_RTOL, SR_GRAD_RTOL = 2e-5, 1e-5, 1e-4
 SR_PROFILE_USERS = 12_000
+# the template's train: 2 of its default 5 epochs (~7 s an epoch on an
+# H100; the loss falls in the first two, 6.25 -> 6.07 of ln V = 10.19)
+SR_EPOCHS = 2
 # the classification Quick Start: entities, labels, each label's Poisson
 # means of attr0..attr2; the regression file's rows and weights
 # (tests/test_regression.py's TRUE_W)
@@ -4460,11 +4481,15 @@ def similar_product_phase(ratings) -> dict:
         if len(models) != 2 or not all(
                 isinstance(m, SimilarProductModel) for m in models):
             fail(f"pio train stored {[type(m).__name__ for m in models]}")
-        for m in models:
-            if m.item_factors.shape != (N_ITEMS, 10) or not np.all(
-                    np.isfinite(m.item_factors)):
-                fail(f"similar-product factors {m.item_factors.shape} not "
-                     f"finite at rank 10 over {N_ITEMS} items")
+        for m, algo in zip(models, ("als", "likealgo")):
+            finite = np.isfinite(m.item_factors)
+            if m.item_factors.shape != (N_ITEMS, 10) or not finite.all():
+                fail(f"similar-product {algo} factors "
+                     f"{m.item_factors.shape} not finite at rank 10 over "
+                     f"{N_ITEMS} items: {int((~finite).any(1).sum())} rows "
+                     f"non-finite, the finite ones up to "
+                     f"{np.abs(m.item_factors[finite]).max(initial=0.0)}; "
+                     f"the train's log ends {qs['train_log'][-6:]}")
         truths = [SimTruth(m) for m in models]
 
         # queries whose float64 answer float32 cannot change
@@ -4954,7 +4979,8 @@ def sessionrec_phase(root: str, ratings) -> dict:
     _, sub_env = eventlog_env(root)
     t0 = time.perf_counter()
     qs = quick_start(CLI, sub_env, root, "sessionrec", ECOM_APP,
-                     [{"name": "sessionrec", "params": {}}], "sessionrec",
+                     [{"name": "sessionrec",
+                       "params": {"epochs": SR_EPOCHS}}], "sessionrec",
                      project="project_sessionrec", build=False)
     (model,) = qs["models"]
     lines = [line for line in qs["stderr"].splitlines()
@@ -5258,6 +5284,24 @@ def families_rest_phase() -> dict:
 MD_ITERS, MD_K, MD_LONE, MD_BATCH = 2, 16, 64, 64
 MD_FACTOR_TOL, MD_RMSE_TOL = 1e-4, 1e-3
 MD_WORKER_TIMEOUT = 300
+# phase 14 (c): the two-tower trainer at the stretch width (TT_*, bf16)
+# for MD_TT_STEPS steps (one epoch of the first MD_TT_STEPS * TT_BATCH
+# positives) from one carried state. DP and TP compute the world of one's
+# arithmetic (the same gathered batch through flash_ce, the same rows
+# through embed_update); only the float atomics that sum a row's
+# duplicates in embed_update reorder, which moves a loss by ~1e-7 and a
+# table entry (|x| ~ 0.09) by ~1e-6 after a few steps, so the ranks are
+# held to the world of one at rtol 1e-4 (losses) and atol 2e-4 (every
+# table entry). (d): the session recommender at phase 13's width (dim 64,
+# 2 heads, 2 layers, max_len 64, batch 256, the ML-20M catalog) for one
+# epoch over the first MD_SR_USERS users' histories (MD_SR_STEPS steps),
+# dropout off: ring attention over two ranks, or the batch split over
+# two, against blockwise attention in one process sum f32 products in
+# another order, and AdamW moves entries whose gradient is at rounding
+# level by +-lr on that rounding, so the epoch's loss is held at rtol
+# 1e-4, the CPU tests' epoch tolerance against the JAX trainer
+MD_TT_STEPS, MD_TT_LOSS_RTOL, MD_TT_TABLE_ATOL = 6, 1e-4, 2e-4
+MD_SR_STEPS, MD_SR_USERS, MD_SR_LOSS_RTOL = 4, 1024, 1e-4
 
 
 def md_config():
@@ -5422,6 +5466,194 @@ def md_ml100k_store(root: str) -> dict:
     return env
 
 
+def md_tt_state():
+    """(c)'s carried state, on the host: both 1M x 128 tables ~ N(0,
+    1/128) from a seeded CPU generator (the same bits in every process),
+    zero accumulators, and the stretch config's empty tails."""
+    import torch
+    from predictionio_torch.ops.twotower import SIDES, TwoTowerState
+
+    gen = torch.Generator().manual_seed(SEED + 140)
+    tables = {side: torch.randn((TT_IDS, TT_DIM), generator=gen)
+              * TT_DIM ** -0.5 for side in SIDES}
+    return TwoTowerState(tables=tables,
+                         acc={side: torch.zeros(TT_IDS) for side in SIDES},
+                         dense={side: [] for side in SIDES})
+
+
+def md_tt_data():
+    """(c)'s positives (the first ``MD_TT_STEPS`` batches of the stretch
+    positives) and its one epoch order."""
+    uu, ii = synth_positives()
+    n = MD_TT_STEPS * TT_BATCH
+    return ((uu[:n], ii[:n], None),
+            np.random.default_rng(SEED + 141).permutation(n))
+
+
+def md_tt_run(pos, perm, state, mesh, **cfg) -> tuple:
+    """One epoch (``MD_TT_STEPS`` steps) of the stretch two-tower trainer
+    on this process's card over ``mesh`` from ``state``, its kernel
+    launches counted. -> (trainer, summary)."""
+    import torch
+    from predictionio_torch.ops.kernels import embed_update as eu
+    from predictionio_torch.ops.kernels import flash_ce as fce
+    from predictionio_torch.ops.twotower import (TwoTowerConfig,
+                                                 TwoTowerTrainer)
+
+    trainer = TwoTowerTrainer(
+        pos, TT_IDS, TT_IDS,
+        TwoTowerConfig(dim=TT_DIM, batch_size=TT_BATCH, epochs=1,
+                       learning_rate=3e-3, seed=11, temperature=TEMP, **cfg),
+        device="cuda", state=state, mesh=mesh)
+    torch.cuda.synchronize()
+    fce.launches.reset()
+    eu.launches.reset()
+    losses = trainer.run(perms=[perm])
+    torch.cuda.synchronize()
+    launches = {"flash_ce": fce.launches.value,
+                "embed_update": eu.launches.value}
+    if launches != {"flash_ce": 3 * MD_TT_STEPS,
+                    "embed_update": 2 * MD_TT_STEPS}:
+        fail(f"phase 14 (c): {MD_TT_STEPS} steps over {mesh} launched "
+             f"{launches}, 3 and 2 a step expected")
+    if not (trainer.kernel_plan["flash_ce"]
+            and trainer.kernel_plan["embed_update"]):
+        fail(f"phase 14 (c): kernel plan {trainer.kernel_plan}")
+    return trainer, {"losses": losses,
+                     "ms_per_step": 1e3 * trainer.epoch_seconds[0]
+                     / MD_TT_STEPS, "launches": launches}
+
+
+def md_tt_table_err(trainer, state, ref) -> float:
+    """Largest difference of this rank's rows of both tables from the
+    world of one's: ``ref`` holds its final rows at the ids the epoch
+    touched, every other row is the carried state's."""
+    import torch
+    from predictionio_torch.ops.twotower import SIDES
+
+    err = 0.0
+    for side in SIDES:
+        start, stop = trainer.slabs[side]
+        want = state.tables[side][start:stop].to("cuda", copy=True)
+        ids = torch.as_tensor(ref[f"{side}_ids"], device="cuda")
+        rows = torch.as_tensor(ref[f"{side}_rows"], device="cuda")
+        own = (ids >= start) & (ids < stop)
+        want[ids[own] - start] = rows[own]
+        err = max(err, float((trainer.tables[side] - want).abs().max()))
+    return err
+
+
+def md_sr_setup(train):
+    """(d)'s data, config and weights: the first ``MD_SR_USERS`` users'
+    ratings of phase 14's ALS cut as histories (row order for time) over
+    the whole ML-20M catalog, phase 13's widths, dropout off, and one
+    seeded CPU initialization (the same in every process)."""
+    import torch
+    from predictionio_torch.ops import sessionrec as sr
+
+    u, i, _ = train
+    keep = u < MD_SR_USERS
+    events = (u[keep], i[keep], np.flatnonzero(keep).astype(np.float64))
+    cfg = sr.SessionRecConfig(dim=64, heads=2, layers=2, ffn_mult=4,
+                              max_len=64, dropout=0.0, batch_size=256,
+                              epochs=1, seed=13)
+    encoder = sr.SessionEncoder(N_ITEMS, cfg)
+    sr.init_encoder(encoder, torch.Generator().manual_seed(SEED + 142))
+    return events, cfg, sr.params_to_flax(encoder)
+
+
+def md_sr_epoch(events, cfg, params, mesh=None) -> dict:
+    """One epoch (``MD_SR_STEPS`` steps) of the session recommender
+    through ``SessionRecTrainer.run`` on this process's card (over
+    ``mesh``): the epoch's loss and the ms a step."""
+    from predictionio_torch.ops import sessionrec as sr
+
+    trainer = sr.SessionRecTrainer(events, MD_SR_USERS, N_ITEMS, cfg,
+                                   device="cuda", params=params, mesh=mesh)
+    losses = trainer.run(epochs=1)
+    if trainer.steps_per_epoch != MD_SR_STEPS:
+        fail(f"phase 14 (d): an epoch of {trainer.steps_per_epoch} steps, "
+             f"{MD_SR_STEPS} expected")
+    if not np.isfinite(losses[0]):
+        fail(f"phase 14 (d): epoch loss {losses}")
+    return {"loss": losses[0], "batch": trainer.batch,
+            "ms_per_step": 1e3 * trainer.epoch_seconds[0] / MD_SR_STEPS}
+
+
+def md_worker_train(rank: int, work: str, tt, sr_setup) -> dict:
+    """(c) and (d) on one rank of the gloo world of two: the stretch
+    two-tower trainer over ``{"data": 2}`` and over ``{"model": 2}`` with
+    ``shard_embeddings`` (checkpointed by rank 0 alone and resumed by
+    both), then the session recommender with ``seq_axis`` over
+    ``{"seq": 2}`` and with the batch split over ``{"data": 2}``; each
+    held to the world of one's results in ``work``."""
+    import torch
+    from predictionio_torch.ops.twotower import SIDES, TwoTowerTrainer
+    from predictionio_torch.parallel import multihost as mh
+    from predictionio_torch.parallel.mesh import create_mesh
+
+    pos, perm, state = tt
+    ref = np.load(os.path.join(work, "tt_ref.npz"))
+    sr_ref = json.load(open(os.path.join(work, "sr_ref.json")))
+    out = {}
+    t0 = time.perf_counter()
+    for name, axes, cfg in (("dp", {"data": 2}, {}),
+                            ("tp", {"model": 2},
+                             {"shard_embeddings": True,
+                              "checkpoint_dir": os.path.join(work, "ckpt")})):
+        trainer, summary = md_tt_run(pos, perm, state, create_mesh(axes),
+                                     **cfg)
+        summary["loss_rel_err"] = max(
+            abs(a - b) / abs(b) for a, b in zip(summary["losses"],
+                                                ref["losses"]))
+        summary["table_max_abs_err"] = md_tt_table_err(trainer, state, ref)
+        summary["slabs"] = trainer.slabs
+        if (summary["loss_rel_err"] > MD_TT_LOSS_RTOL
+                or summary["table_max_abs_err"] > MD_TT_TABLE_ATOL):
+            fail(f"phase 14 (c) {name} rank {rank}: {summary} against the "
+                 "world of one")
+        if name == "tp":
+            summary["checkpoint_sec"] = trainer.checkpoint_seconds
+            if len(trainer.checkpoint_seconds) != (rank == 0):
+                fail(f"phase 14 (c) rank {rank} wrote "
+                     f"{len(trainer.checkpoint_seconds)} checkpoints: rank 0 "
+                     "alone writes one")
+            t1 = time.perf_counter()
+            resumed = TwoTowerTrainer(pos, TT_IDS, TT_IDS, trainer.cfg,
+                                      device="cuda", state=state,
+                                      mesh=trainer.mesh)
+            summary["resume_sec"] = time.perf_counter() - t1
+            if resumed._epochs_done != 1 or not all(
+                    torch.equal(getattr(resumed, part)[side],
+                                getattr(trainer, part)[side])
+                    for part in ("tables", "acc") for side in SIDES):
+                fail(f"phase 14 (c) rank {rank}: the resumed slabs differ "
+                     "from the checkpointed ones")
+            summary["on_disk"] = sorted(os.listdir(cfg["checkpoint_dir"]))
+            del resumed
+        out[name] = summary
+        del trainer
+        torch.cuda.empty_cache()
+    out["twotower_sec"] = time.perf_counter() - t0
+    mh.barrier("md_tt_done")
+    t0 = time.perf_counter()
+    events, cfg, params = sr_setup
+    out["sessionrec"] = {}
+    for name, axes, extra in (("seq_axis", {"seq": 2}, {"seq_axis": "seq"}),
+                              ("batch_split", {"data": 2},
+                               {"attn_block": 16})):
+        sr_run = md_sr_epoch(events, dataclasses.replace(cfg, **extra),
+                             params, create_mesh(axes))
+        sr_run["loss_rel_err"] = (abs(sr_run["loss"] - sr_ref["loss"])
+                                  / abs(sr_ref["loss"]))
+        if sr_run["loss_rel_err"] > MD_SR_LOSS_RTOL:
+            fail(f"phase 14 (d) {name} rank {rank}: {sr_run} against one "
+                 f"process's {sr_ref}")
+        out["sessionrec"][name] = sr_run
+    out["sessionrec_sec"] = time.perf_counter() - t0
+    return out
+
+
 def md_worker(rank: int, port: int, work: str) -> int:
     """One rank of phase 14 (b): ``chip_smoke.py --md-worker RANK PORT
     DIR``. Joins a gloo world of 2 on ``cuda:0`` and bins its ALS layout
@@ -5473,6 +5705,8 @@ def md_worker(rank: int, port: int, work: str) -> int:
     z = np.load(os.path.join(work, "coo.npz"))
     sides = md_sides((z["u"], z["i"], z["r"]), 2)
     total = len(z["u"])
+    tt = (*md_tt_data(), md_tt_state())
+    sr_setup = md_sr_setup((z["u"], z["i"], z["r"]))
     out["setup_sec"] = time.perf_counter() - t_start
     open(os.path.join(work, f"ready{rank}"), "w").close()
     go = os.path.join(work, "go")
@@ -5525,15 +5759,58 @@ def md_worker(rank: int, port: int, work: str) -> int:
             raise SystemExit("chip_smoke worker: deployed off the card")
         out["deploy"] = {"answer": dep.query({"user": "u7", "num": 10}),
                          "launches": tkd.launches.value}
+    mh.barrier("md_deployed")
+    t_tt = time.perf_counter()
+    out["train"] = md_worker_train(rank, work, tt, sr_setup)
+    del tt
     mh.barrier("md_done")
     now = time.perf_counter()
     out["sec"] = {"scorer": t_als - t_go, "als": t_train - t_als,
-                  "run_train_and_deploy": now - t_train,
+                  "run_train_and_deploy": t_tt - t_train,
+                  "twotower_and_sessionrec": now - t_tt,
                   "after_go": now - t_go}
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     mh.shutdown()
     return 0
+
+
+def md_world1_train(work: str, mesh, pos, perm, state, sr_setup) -> dict:
+    """(c) and (d) in the world of one: the stretch two-tower trainer over
+    ``mesh`` against the same run without one (losses and both whole
+    tables), whose losses and touched rows ``work/tt_ref.npz`` keeps for
+    the workers; the session recommender's steps in one process with
+    blockwise attention, kept in ``work/sr_ref.json``."""
+    import torch
+
+    plain, plain_run = md_tt_run(pos, perm, state, None)
+    meshed, meshed_run = md_tt_run(pos, perm, state, mesh)
+    meshed_run["loss_rel_err"] = max(
+        abs(a - b) / abs(b)
+        for a, b in zip(meshed_run["losses"], plain_run["losses"]))
+    meshed_run["table_max_abs_err"] = max(
+        float((meshed.tables[side] - plain.tables[side]).abs().max())
+        for side in plain.tables)
+    if (meshed_run["loss_rel_err"] > MD_TT_LOSS_RTOL
+            or meshed_run["table_max_abs_err"] > MD_TT_TABLE_ATOL):
+        fail(f"phase 14 (c): the trainer over the world of one differs "
+             f"from the one without a mesh: {meshed_run}")
+    ref = {"losses": np.asarray(plain_run["losses"])}
+    for side, ids in (("user", pos[0]), ("item", pos[1])):
+        touched = np.unique(ids)
+        ref[f"{side}_ids"] = touched
+        ref[f"{side}_rows"] = plain.tables[side][
+            torch.as_tensor(touched, device="cuda")].cpu().numpy()
+    np.savez(os.path.join(work, "tt_ref.npz"), **ref)
+    del plain, meshed
+    torch.cuda.empty_cache()
+    events, cfg, params = sr_setup
+    sr_one = md_sr_epoch(events, dataclasses.replace(cfg, attn_block=16),
+                         params)
+    with open(os.path.join(work, "sr_ref.json"), "w") as f:
+        json.dump(sr_one, f)
+    return {"twotower": {"no_mesh": plain_run, "mesh": meshed_run},
+            "sessionrec_attn_block16": sr_one}
 
 
 def multi_device_phase(ratings) -> dict:
@@ -5565,7 +5842,8 @@ def multi_device_phase(ratings) -> dict:
         store = {}
         store_thread = threading.Thread(
             target=lambda: store.update(
-                env=md_ml100k_store(os.path.join(work, "store"))),
+                env=md_ml100k_store(os.path.join(work, "store")),
+                tt=(*md_tt_data(), md_tt_state()), sr=md_sr_setup(train)),
             name="md-store")
         store_thread.start()
         port = free_port()
@@ -5642,6 +5920,10 @@ def multi_device_phase(ratings) -> dict:
                 fail("phase 14 (a): the sharded scorer's answers differ "
                      "from the retrieval index's")
             del model, scorer
+            t_tt = time.perf_counter()
+            world1.update(md_world1_train(work, mesh, *store["tt"],
+                                          store["sr"]))
+            world1["twotower_and_sessionrec_sec"] = time.perf_counter() - t_tt
             torch.cuda.synchronize()
         finally:
             mh.shutdown()
@@ -5711,12 +5993,34 @@ def multi_device_phase(ratings) -> dict:
                 proc.kill()
                 proc.wait()
         shutil.rmtree(work, ignore_errors=True)
+    tt1 = world1.pop("twotower")
+    tt_launches = {kernel: {
+        "world1_no_mesh": tt1["no_mesh"]["launches"][kernel],
+        "world1_mesh": tt1["mesh"]["launches"][kernel],
+        **{f"world2_{mode}_rank{r['rank']}": r["train"][mode]["launches"][
+            kernel] for r in ranks for mode in ("dp", "tp")}}
+        for kernel in ("flash_ce", "embed_update")}
     return {
         "world1": world1,
         "world2": [{k: r[k] for k in ("rank", "device", "slab", "scorer",
                                       "alternation_ms", "rmse",
                                       "run_train", "setup_sec", "sec")}
                    for r in ranks],
+        "twotower": {
+            "steps": MD_TT_STEPS, "batch": TT_BATCH, "ids": TT_IDS,
+            "dim": TT_DIM, "loss_rtol": MD_TT_LOSS_RTOL,
+            "table_atol": MD_TT_TABLE_ATOL, "world1": tt1,
+            "world2": [{"rank": r["rank"], "dp": r["train"]["dp"],
+                        "tp": r["train"]["tp"],
+                        "sec": r["train"]["twotower_sec"]} for r in ranks],
+            "launches": tt_launches},
+        "sessionrec": {
+            "steps": MD_SR_STEPS, "users": MD_SR_USERS,
+            "loss_rtol": MD_SR_LOSS_RTOL,
+            "world1_attn_block16": world1.pop("sessionrec_attn_block16"),
+            "world2": [{"rank": r["rank"], **r["train"]["sessionrec"],
+                        "sec": r["train"]["sessionrec_sec"]}
+                       for r in ranks]},
         "world2_factors_vs_world1": factor_err,
         "world2_deploy_launches": ranks[1]["deploy"]["launches"],
         "slab_topk_dot": slab_timing,
@@ -5868,7 +6172,9 @@ def main() -> int:
                        (embed, "embed_update_launches")):
         entry["launches_by_path"] = {
             "train": entry["launches"],
-            "checkpoint_resume": project["checkpoint"][key]}
+            "checkpoint_resume": project["checkpoint"][key],
+            **{f"multi_device_{path}": n for path, n in multi_device[
+                "twotower"]["launches"][entry["name"]].items()}}
     print(json.dumps({"obs": {**obs, "card_line": card}}), flush=True)
     print(json.dumps({"phase_wall_sec": walls,
                        "script_sec": time.perf_counter() - t_start}),

@@ -22,8 +22,14 @@ Safety properties owned here, not by the trainers:
   - atomicity: write to ``.tmp`` then ``os.replace``; a crash mid-write
     never corrupts the latest good checkpoint; a torn newest file falls
     back to the previous one. The two most recent checkpoints are kept.
-  - one process: a ``torch.distributed`` world larger than 1 raises
-    (multi-process training waits for ROADMAP.md queue 1 item 12).
+  - across processes (a ``torch.distributed`` world): process 0 is the
+    single writer (the trainer hands in its state whole, its shards
+    gathered by every rank), and a barrier after the write makes the
+    file visible to every rank before any goes on. ``directory`` must be
+    one filesystem shared by every process: each restores from it, and
+    ``restore`` broadcasts process 0's epoch; a process that found
+    another fails fast, and when process 0 starts fresh every process
+    does.
 
 Format: one pickle per checkpoint, ``{"epoch", "state", "fingerprint"}``
 as in the JAX package; tensors in ``state`` are stored as numpy arrays
@@ -112,14 +118,6 @@ class _CheckpointUnpickler(pickle.Unpickler):
         return type(name, (_Foreign,), {"__module__": module})
 
 
-def _check_one_process() -> None:
-    if multihost.process_count() > 1:
-        raise NotImplementedError(
-            "checkpointing a torch.distributed run: multi-process "
-            "training is not ported to predictionio_torch yet "
-            "(ROADMAP.md, queue 1 item 12)")
-
-
 class TrainCheckpointer:
     """Epoch-granular checkpoint writer/reader over one directory."""
 
@@ -146,10 +144,19 @@ class TrainCheckpointer:
         """Save after ``epoch`` completed epochs when due; returns
         whether a checkpoint was written. ``state`` is a nest of dicts,
         lists and tuples whose tensors (on any device) are copied to the
-        host as numpy arrays."""
+        host as numpy arrays. Across processes every rank calls this and
+        process 0 alone writes; the ranks meet after the write."""
         if epoch % self.every:
             return False
-        _check_one_process()
+        if multihost.process_count() > 1:
+            if multihost.process_index() == 0:
+                self._write(epoch, state)
+            multihost.barrier(f"pio_checkpoint_{epoch}")
+            return multihost.process_index() == 0
+        self._write(epoch, state)
+        return True
+
+    def _write(self, epoch: int, state: Any) -> None:
         path = self._path(epoch)
         with open(path + ".tmp", "wb") as f:
             pickle.dump({"epoch": epoch, "state": _to_host(state),
@@ -162,15 +169,21 @@ class TrainCheckpointer:
             except FileNotFoundError:
                 pass
         log.info("checkpoint written: %s", path)
-        return True
 
     def restore(self) -> Optional[Tuple[int, Any]]:
         """(completed_epochs, state) from the newest readable checkpoint
         whose fingerprint matches this run, or None. A torn newest file
         falls back to the previous one; a fingerprint mismatch (another
         run's data or config, or the JAX trainer's file) is skipped with
-        a warning and the run starts fresh."""
-        _check_one_process()
+        a warning and the run starts fresh.
+
+        Across processes every rank calls this: process 0's epoch is
+        broadcast, every rank starts fresh when process 0 does, and a
+        rank that found another epoch (a directory that is not shared)
+        raises instead of training out of step with the others."""
+        return self._reconcile(self._restore_local())
+
+    def _restore_local(self) -> Optional[Tuple[int, Any]]:
         for epoch in reversed(self._epochs_on_disk()):
             try:
                 with open(self._path(epoch), "rb") as f:
@@ -188,3 +201,21 @@ class TrainCheckpointer:
                 return None
             return int(doc["epoch"]), doc["state"]
         return None
+
+    def _reconcile(self, local: Optional[Tuple[int, Any]]
+                   ) -> Optional[Tuple[int, Any]]:
+        if multihost.process_count() <= 1:
+            return local
+        mine = local[0] if local is not None else -1
+        epoch0 = int(multihost.broadcast_string(str(mine)))
+        if epoch0 == -1:
+            return None
+        if mine != epoch0:
+            found = f"epoch {mine}" if mine >= 0 else "no checkpoint"
+            raise RuntimeError(
+                f"checkpoint desync: process 0 restored epoch {epoch0} but "
+                f"process {multihost.process_index()} found {found} in "
+                f"{self.directory!r} — checkpoint_dir must be a filesystem "
+                "shared by ALL processes (process 0 is the single writer; "
+                "every process restores from it)")
+        return local

@@ -11,9 +11,10 @@ the context's device; serving through the retrieval index, the
 
 A model blob the JAX package wrote holds numpy only (the flax params
 tree, the histories, the id maps), so it unpickles here and serves
-after ``to(device)``. ``seq_axis`` (ring attention over a mesh) raises
-in training (ROADMAP.md, queue 1 item 12); a model trained with it by
-the JAX package serves here through blockwise attention, as in JAX.
+after ``to(device)``. ``seq_axis`` trains with ring attention over the
+context's mesh (made over the world when the context has none); a
+model trained with it, by either package, serves through blockwise
+attention, as in JAX.
 """
 
 from __future__ import annotations
@@ -193,9 +194,12 @@ class SessionRecAlgorithm(Algorithm):
             torch.cuda.init()   # the allocator exists before its stats reset
             torch.cuda.reset_peak_memory_stats(ctx.device)
         t0 = time.perf_counter()
+        # ring attention needs a mesh when the caller made none (as
+        # ALSAlgorithm does, on demand)
+        mesh = ctx.require_mesh() if cfg.seq_axis else ctx.mesh
         trainer = SessionRecTrainer((pd.user_idx, pd.item_idx, pd.times),
                                     pd.n_users, pd.n_items, cfg,
-                                    device=ctx.device)
+                                    device=ctx.device, mesh=mesh)
         setup_sec = time.perf_counter() - t0
         losses = trainer.run()
         steps = trainer.steps_per_epoch

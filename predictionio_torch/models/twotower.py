@@ -7,7 +7,9 @@ surface (top-``num`` itemScores, ``{"item": ...}`` for similar items),
 so the recommendation engine can swap ``"als"`` for ``"twotower"`` — or
 run both and let Serving combine them. Compute: ``ops/twotower.py`` on
 the context's device (the ``flash_ce`` and ``embed_update`` kernels on
-a card).
+a card), over the context's mesh across processes (``pio train`` on
+several processes: DP over the world, TP over ``model`` with
+``shard_embeddings``), the ranks ending with equal vectors.
 
 Scores are cosine similarities (the towers L2-normalize), so averaging
 with ALS dot products needs score-scale awareness — the caveat the
@@ -96,7 +98,7 @@ class TwoTowerAlgorithm(Algorithm):
             embed_update_kernel=p.embed_update_kernel)
         trainer = TwoTowerTrainer(
             (u, i, r if p.weight_by_rating else None), pd.n_users,
-            pd.n_items, cfg, device=ctx.device)
+            pd.n_items, cfg, device=ctx.device, mesh=ctx.mesh)
         losses = trainer.run()
         emb = trainer.embeddings(losses)
         model = TwoTowerModel(emb.user_vecs, emb.item_vecs, pd.user_ids,

@@ -112,17 +112,21 @@ def mfu(flops: float, seconds: float,
 
 
 def twotower_matmul_flops(batch: int, dim: int,
-                          tail_widths: Sequence[int]) -> float:
+                          tail_widths: Sequence[int],
+                          tail_rows: Optional[int] = None) -> float:
     """Analytic matmul FLOPs per two-tower training step (fwd + bwd):
     the [B, B] logits einsum and its two rank-D backward products, plus
-    the tail MLP matmuls — moved here from bench.py so the live MFU
-    gauge and the bench capture can never drift apart. The optimizer's
+    the tail MLP matmuls over ``tail_rows`` rows (default the batch; a
+    data-parallel rank runs the tails on its share of the batch and the
+    loss on the whole) — moved here from bench.py so the live MFU gauge
+    and the bench capture can never drift apart. The optimizer's
     elementwise work deliberately does not count."""
     B, D = float(batch), float(dim)
     flops = 3 * 2.0 * B * B * D          # logits fwd + dL/du + dL/dv
     per_row = sum(2.0 * a * b
                   for a, b in zip(tail_widths[:-1], tail_widths[1:]))
-    flops += 2 * 3 * per_row * B         # two towers, fwd+bwd(x2)
+    rows = B if tail_rows is None else float(tail_rows)
+    flops += 2 * 3 * per_row * rows      # two towers, fwd+bwd(x2)
     return flops
 
 

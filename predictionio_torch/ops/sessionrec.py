@@ -49,8 +49,19 @@ asynchronously, so the epoch is the timed unit), and the
 ``perfacct.sessionrec_step_flops``. The batches move no bytes from the
 host (the sequences live on the device), so no transfer is recorded.
 
-Not in this port yet: ring attention over a mesh (``seq_axis``;
-ROADMAP.md queue 1 item 12).
+Across processes (``mesh=``, a mesh over a ``torch.distributed``
+world, ``parallel/mesh.py``), as the JAX trainer shards over a device
+mesh: the batch splits over ``data`` (the batch rounded down to a
+multiple of its size) and, with ``seq_axis``, the sequence over that
+axis, each rank encoding its ``[B/n, L/S]`` block with ring attention
+(``ops/attention.py``; layer norms and the feed-forward are position
+by position, so only attention crosses ranks) and its positions'
+embeddings offset to their global place. The loss stays the whole
+batch's masked mean: the ranks' numerators and pad-dependent
+denominators are summed apart (a mean of the ranks' means is not the
+whole mean when their pad counts differ), the gradients are summed over
+both axes and every rank takes the same AdamW step. A model trained
+with ``seq_axis`` serves blockwise (``SessionScorer``).
 """
 
 from __future__ import annotations
@@ -59,7 +70,7 @@ import dataclasses
 import logging
 import math
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -71,9 +82,11 @@ from predictionio_torch.core.checkpoint import (TrainCheckpointer,
 from predictionio_torch.index import make_index
 from predictionio_torch.obs import perfacct, torchmon
 from predictionio_torch.ops.attention import (blockwise_attention,
-                                              mha_reference)
+                                              mha_reference, ring_attention)
 from predictionio_torch.ops.kernels.topk_dot import MAX_EXCLUDE
+from predictionio_torch.parallel import multihost as mh
 from predictionio_torch.parallel.context import DeviceLike, resolve_device
+from predictionio_torch.parallel.mesh import axis_group, axis_rank, axis_size
 
 log = logging.getLogger(__name__)
 
@@ -100,23 +113,44 @@ class SessionRecConfig:
     checkpoint_every: int = 1             # epochs between checkpoints
 
 
-def _dropout(x: torch.Tensor, rate: float,
-             gen: Optional[torch.Generator]) -> torch.Tensor:
-    """flax ``nn.Dropout``: keep with probability ``1 - rate`` and scale
-    the kept by ``1 / (1 - rate)``; ``gen is None`` is inference."""
-    if gen is None or rate == 0.0:
-        return x
-    keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
-    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+def _keep_all(x: torch.Tensor) -> torch.Tensor:
+    """Inference: no dropout."""
+    return x
+
+
+class _Dropout:
+    """flax ``nn.Dropout`` for one training step: keep with probability
+    ``1 - rate`` and scale the kept by ``1 / (1 - rate)``. Each mask is
+    drawn from ``gen`` at the whole batch's ``[B, L, D]`` (``shape`` is
+    ``(B, L)``) and the block ``[rows, cols]`` of the ``x`` it is given
+    kept, so every rank of a mesh, holding its block of the batch,
+    applies the masks that one process would apply to the whole."""
+
+    def __init__(self, rate: float, gen: torch.Generator,
+                 shape: Tuple[int, int], rows: slice = slice(None),
+                 cols: slice = slice(None)):
+        self.rate, self.gen, self.shape = rate, gen, tuple(shape)
+        self.block = (rows, cols)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rate == 0.0:
+            return x
+        keep_prob = 1.0 - self.rate
+        u = torch.rand(*self.shape, x.shape[-1], generator=self.gen,
+                       device=x.device)
+        keep = u[self.block] < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 class _Block(nn.Module):
-    """Pre-LN transformer block (flax ``_Block``)."""
+    """Pre-LN transformer block (flax ``_Block``); with ``seq_axis`` and
+    a mesh its input is the rank's sequence shard and its attention the
+    ring's."""
 
-    def __init__(self, cfg: SessionRecConfig):
+    def __init__(self, cfg: SessionRecConfig, mesh=None):
         super().__init__()
         self.cfg = cfg
+        self.mesh = mesh
         d, inner = cfg.dim, cfg.heads * (cfg.dim // cfg.heads)
         self.norm0 = nn.LayerNorm(d, eps=LN_EPS)
         self.qkv = nn.Linear(d, 3 * inner)
@@ -126,44 +160,54 @@ class _Block(nn.Module):
         self.ffn_out = nn.Linear(d * cfg.ffn_mult, d)
 
     def forward(self, x: torch.Tensor,
-                gen: Optional[torch.Generator]) -> torch.Tensor:
+                drop: Callable[[torch.Tensor], torch.Tensor]
+                ) -> torch.Tensor:
         cfg = self.cfg
         head_dim = cfg.dim // cfg.heads
         h = self.norm0(x)
         B, L, _ = h.shape
         q, k, v = self.qkv(h).view(B, L, 3, cfg.heads, head_dim).unbind(2)
-        if cfg.attn_block:
+        if cfg.seq_axis is not None and self.mesh is not None:
+            attn = ring_attention(q, k, v, axis=cfg.seq_axis, causal=True,
+                                  mesh=self.mesh)
+        elif cfg.attn_block:
             attn = blockwise_attention(q, k, v, block_size=cfg.attn_block)
         else:
             attn = mha_reference(q, k, v, causal=True)
         attn = self.proj(attn.reshape(B, L, cfg.heads * head_dim))
-        x = x + _dropout(attn, cfg.dropout, gen)
+        x = x + drop(attn)
         h = F.gelu(self.ffn_in(self.norm1(x)), approximate="tanh")
-        return x + _dropout(self.ffn_out(h), cfg.dropout, gen)
+        return x + drop(self.ffn_out(h))
 
 
 class SessionEncoder(nn.Module):
     """Item + position embedding -> causal blocks -> hidden states
     ``[B, L, dim]``. The vocabulary is ``n_items + 1``: row 0 is the
-    padding token."""
+    padding token. With ``seq_axis`` and a ``mesh`` the encoder runs on
+    the rank's sequence shard (attention over the ring)."""
 
-    def __init__(self, n_items: int, cfg: SessionRecConfig):
+    def __init__(self, n_items: int, cfg: SessionRecConfig, mesh=None):
         super().__init__()
         self.n_items, self.cfg = n_items, cfg
         self.item_embed = nn.Embedding(n_items + 1, cfg.dim)
         self.pos_embed = nn.Parameter(torch.zeros(cfg.max_len, cfg.dim))
-        self.blocks = nn.ModuleList(_Block(cfg) for _ in range(cfg.layers))
+        self.blocks = nn.ModuleList(_Block(cfg, mesh)
+                                    for _ in range(cfg.layers))
         self.final_norm = nn.LayerNorm(cfg.dim, eps=LN_EPS)
 
     def forward(self, seq: torch.Tensor,
-                gen: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``gen`` draws the dropout masks; None is inference."""
+                drop: Optional[_Dropout] = None,
+                pos_offset: int = 0) -> torch.Tensor:
+        """``drop`` applies the dropout masks; None is inference.
+        ``pos_offset``: the global position of ``seq``'s first column
+        (a sequence shard's)."""
         cfg = self.cfg
+        drop = drop if drop is not None else _keep_all
         x = self.item_embed(seq) * (cfg.dim ** 0.5)
-        x = x + self.pos_embed[None, : seq.shape[1]]
-        x = _dropout(x, cfg.dropout, gen)
+        x = x + self.pos_embed[None, pos_offset:pos_offset + seq.shape[1]]
+        x = drop(x)
         for block in self.blocks:
-            x = block(x, gen)
+            x = block(x, drop)
         x = self.final_norm(x)
         return x * (seq > 0)[..., None].to(x.dtype)
 
@@ -300,33 +344,61 @@ class SessionRecModelState:
     losses: List[float]
 
 
-def tied_loss(encoder: SessionEncoder, seq: torch.Tensor, tgt: torch.Tensor,
-              gen: Optional[torch.Generator]) -> torch.Tensor:
-    """Masked mean next-item CE over the ``[B, L, V]`` logits of the
-    hidden states against the tied item table (targets ``> 0`` count)."""
-    h = encoder(seq, gen)
+def _tied_terms(encoder: SessionEncoder, seq: torch.Tensor,
+                tgt: torch.Tensor, drop: Optional[_Dropout],
+                pos_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The masked next-item CE's numerator (the CE summed over targets
+    ``> 0``) and denominator (their count), over the ``[B, L, V]``
+    logits of the hidden states against the tied item table."""
+    h = encoder(seq, drop, pos_offset=pos_offset)
     logits = h @ encoder.item_embed.weight.T
     ll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                          tgt.reshape(-1).long(), reduction="none")
     mask = (tgt > 0).reshape(-1).to(ll.dtype)
-    return (ll * mask).sum() / mask.sum().clamp_min(1e-8)
+    return (ll * mask).sum(), mask.sum()
+
+
+def tied_loss(encoder: SessionEncoder, seq: torch.Tensor, tgt: torch.Tensor,
+              gen: Optional[torch.Generator]) -> torch.Tensor:
+    """Masked mean next-item CE over the ``[B, L, V]`` logits of the
+    hidden states against the tied item table (targets ``> 0`` count);
+    ``gen`` draws the dropout masks, None is inference."""
+    drop = (None if gen is None
+            else _Dropout(encoder.cfg.dropout, gen, seq.shape[:2]))
+    num, den = _tied_terms(encoder, seq, tgt, drop)
+    return num / den.clamp_min(1e-8)
 
 
 class SessionRecTrainer:
     """Sequence build, parameter init and the optimizer up front; ``run``
     walks the epochs. ``params`` (a flax variables tree) starts from
-    given weights instead of this trainer's own initialization."""
+    given weights instead of this trainer's own initialization. ``mesh``
+    (a mesh over the world's ranks) splits the batch over ``data`` and,
+    with ``seq_axis``, the sequence over that axis; every rank starts
+    from the same weights (``params``, or the same seeded init)."""
 
     def __init__(self, events: Tuple[np.ndarray, np.ndarray, np.ndarray],
                  n_users: int, n_items: int, cfg: SessionRecConfig,
-                 device: DeviceLike = None, params: Optional[Dict] = None):
-        if cfg.seq_axis is not None:
-            raise NotImplementedError(
-                f"seq_axis={cfg.seq_axis!r}: ring attention over a device "
-                "mesh is not ported to predictionio_torch yet (ROADMAP.md, "
-                "queue 1 item 12); train with attn_block on one device")
-        self.cfg, self.n_items = cfg, n_items
+                 device: DeviceLike = None, params: Optional[Dict] = None,
+                 mesh=None):
+        self.cfg, self.n_items, self.mesh = cfg, n_items, mesh
         self.device = dev = resolve_device(device)
+        self.n_data = axis_size(mesh, "data")
+        self.n_seq = axis_size(mesh, cfg.seq_axis) if cfg.seq_axis else 1
+        if cfg.max_len % self.n_seq:
+            raise ValueError(f"max_len {cfg.max_len} does not split over "
+                             f"{self.n_seq} ranks of {cfg.seq_axis!r}")
+        #: the process groups the loss and gradients are summed over
+        self._groups = []
+        if self.n_data > 1:
+            self._groups.append(axis_group(mesh, "data"))
+        seq_rank = 0
+        if self.n_seq > 1:
+            self._groups.append(axis_group(mesh, cfg.seq_axis))
+            seq_rank = axis_rank(mesh, cfg.seq_axis)
+        #: this rank's columns of a batch (SP; its rows follow below)
+        cols = cfg.max_len // self.n_seq
+        self._seq_cols = slice(seq_rank * cols, (seq_rank + 1) * cols)
         u_idx, i_idx, times = events
         t0 = time.perf_counter()
         seqs = build_sequences(np.asarray(u_idx, np.int64),
@@ -338,14 +410,19 @@ class SessionRecTrainer:
         #: host seconds of ``build_sequences``
         self.sequence_seconds = time.perf_counter() - t0
 
-        self.encoder = SessionEncoder(n_items, cfg).to(dev)
+        self.encoder = SessionEncoder(n_items, cfg, mesh=mesh).to(dev)
         if params is None:
             init_encoder(self.encoder,
                          torch.Generator(device=dev).manual_seed(cfg.seed))
         else:
             self.encoder.load_state_dict(params_from_flax(params))
         self._opt = self._make_opt()
-        self.batch = cfg.batch_size
+        self.batch = max(cfg.batch_size - cfg.batch_size % self.n_data,
+                         self.n_data)
+        self.rank_rows = self.batch // self.n_data
+        data_rank = axis_rank(mesh, "data") if self.n_data > 1 else 0
+        self._rows = slice(data_rank * self.rank_rows,
+                           (data_rank + 1) * self.rank_rows)
         self._inputs_dev = torch.from_numpy(
             np.ascontiguousarray(self.inputs)).to(dev)
         self._targets_dev = torch.from_numpy(
@@ -355,11 +432,13 @@ class SessionRecTrainer:
             cfg.seed + 1)
         self._epochs_done = 0
         self._losses: List[float] = []
-        #: MFU accounting (obs/perfacct.py) over the analytic step count
+        #: MFU accounting (obs/perfacct.py) over the analytic step count,
+        #: this rank's share of it (every term splits over the blocks)
         self._acct = perfacct.StepAccountant(
             "sessionrec", perfacct.sessionrec_step_flops(
                 self.batch, cfg.max_len, n_items + 1, cfg.dim, cfg.layers,
-                cfg.heads, cfg.ffn_mult), device=dev)
+                cfg.heads, cfg.ffn_mult) / (self.n_data * self.n_seq),
+            device=dev)
         #: host wall time of each epoch, ending when its losses reached
         #: the host; steps per epoch
         self.epoch_seconds: List[float] = []
@@ -427,13 +506,29 @@ class SessionRecTrainer:
             rows.append(sel)
         return np.stack(rows) if rows else np.zeros((0, self.batch), np.int64)
 
+    def _sum_over_ranks(self, t: torch.Tensor) -> torch.Tensor:
+        for group in self._groups:
+            t = mh.all_reduce_sum(t, group)
+        return t
+
     def step(self, seq: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
-        """One AdamW step on a batch; the loss stays on the device."""
-        loss = tied_loss(self.encoder, seq, tgt, self._dropout_gen)
+        """One AdamW step on a batch (the whole batch on every rank of a
+        mesh, each taking its block; one process takes all of it); the
+        loss stays on the device."""
         self._opt.zero_grad(set_to_none=True)
-        loss.backward()
+        block = (self._rows, self._seq_cols)
+        drop = _Dropout(self.cfg.dropout, self._dropout_gen, seq.shape[:2],
+                        *block)
+        num, den = _tied_terms(self.encoder, seq[block], tgt[block], drop,
+                               pos_offset=self._seq_cols.start)
+        # the whole batch's masked mean: this rank's numerator over the
+        # denominator summed over every rank
+        part = num / self._sum_over_ranks(den).clamp_min(1e-8)
+        part.backward()
+        for p in self.encoder.parameters():
+            p.grad = self._sum_over_ranks(p.grad)
         self._opt.step()
-        return loss.detach()
+        return self._sum_over_ranks(part.detach())
 
     def run(self, epochs: Optional[int] = None) -> List[float]:
         """Train up to ``epochs`` TOTAL epochs (resume-aware: epochs a

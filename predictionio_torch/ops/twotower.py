@@ -45,8 +45,36 @@ orders.
 
 The trainer carries the JAX trainer's observability hooks (step
 timing and the watchdog beat, the MFU accounting, the kernel plan and
-the memory ledger). Not in this port yet: meshes and sharded tables
-(ROADMAP.md queue 1 item 12).
+the memory ledger).
+
+Across processes (``mesh=``, a mesh over a ``torch.distributed`` world,
+``parallel/mesh.py``), one rank a process, as the JAX trainer shards
+over a device mesh:
+
+  - DP over ``data``: every rank walks the same epoch order; each looks
+    up and runs the tails on its share of the batch (``batch / n``
+    rows, the batch rounded down to a multiple of ``n`` as in JAX),
+    the tower outputs are all-gathered and the loss is the whole
+    batch's, its in-batch negatives spanning every rank's rows. A
+    rank's rows get their slice of the whole loss's gradient; the tail
+    gradients are summed over ``data`` and the table gradients
+    all-gathered, so every rank applies the whole batch's rowwise
+    Adagrad (one ``embed_update`` a table) and the tables stay equal on
+    every rank. Adagrad squares each batch row's gradient into the
+    row's accumulator before the step is read, so the ranks' updates
+    cannot be applied apart and summed.
+  - TP over ``model`` with ``shard_embeddings``: each table and its
+    accumulator are split into contiguous slabs of ``ceil(N / m)``
+    rows; a lookup is each rank's owned rows (zeros elsewhere) summed
+    over ``model``, and the update is ``embed_update`` on the owned
+    rows at their local ids. ``embeddings()`` gathers the whole tables
+    on every rank, and a checkpoint holds them whole.
+
+On a CUDA device both kernels launch on every rank whatever the mesh
+(the JAX plan turns them off on a multi-device mesh, where a
+``pallas_call`` does not partition; here each rank is its own process).
+On the CPU the plan mirrors JAX's: a mesh of more than one rank runs
+the torch forms.
 """
 
 from __future__ import annotations
@@ -67,7 +95,10 @@ from predictionio_torch.ops.kernels import embed_update as _embed
 from predictionio_torch.ops.kernels import flash_ce as _flash
 from predictionio_torch.ops.kernels.flash_ce import (DIRECT_EXP_MAX_INV_TEMP,
                                                      blockwise_softmax_ce)
+from predictionio_torch.parallel import multihost as mh
 from predictionio_torch.parallel.context import DeviceLike, resolve_device
+from predictionio_torch.parallel.mesh import (axis_group, axis_rank,
+                                              axis_size, mesh_size)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,7 +120,8 @@ class TwoTowerConfig:
     compute_dtype: str = "bfloat16"    # tower matmul input dtype (f32 sums)
     loss_chunk: Optional[int] = 2048   # blockwise CE column tile; engages
                                        # when batch >= 2*chunk (None: dense)
-    shard_embeddings: bool = False     # not ported (ROADMAP queue 1 item 12)
+    shard_embeddings: bool = False     # TP: tables row-sharded over the
+                                       # mesh's "model" axis
     checkpoint_dir: Optional[str] = None  # mid-training checkpoint/resume
     checkpoint_every: int = 1             # epochs between checkpoints
     flash_ce_kernel: str = "auto"      # CPU only: "on" = the kernel's plain
@@ -190,7 +222,8 @@ def twotower_state_from_jax(tables, acc, dense, adam_mu, adam_nu,
     second moments and step count), as numpy arrays in the same nesting,
     -> a :class:`TwoTowerState` on ``device``. Handing it to
     :class:`TwoTowerTrainer` starts the port from the JAX trainer's
-    point.
+    point; the state holds whole tables, of which a TP rank takes its
+    slab (pass ``device="cpu"`` to keep the whole tables off the card).
 
     Dense AdamW becomes ``torch.optim.AdamW(lr, weight_decay)``: optax's
     ``adamw`` (b1 0.9, b2 0.999, eps 1e-8 outside the root, decoupled
@@ -213,18 +246,22 @@ def twotower_state_from_jax(tables, acc, dense, adam_mu, adam_nu,
 
 
 def plan_kernels(cfg: TwoTowerConfig, batch: int,
-                 device: torch.device) -> dict:
+                 device: torch.device, mesh=None) -> dict:
     """Which form computes a trainer's loss and table update, with the
     reasons (the JAX package's ``_plan_kernels`` without its probe). On
-    a CUDA device each kernel serves wherever it is eligible and the
-    flags are not consulted; on the CPU ``on`` selects a kernel's plain
-    version (the JAX package's interpret mode), ``auto``/``off`` the
-    torch forms. The table update's plain version is its torch form, so
-    on the CPU its entry reports the flag and changes no arithmetic."""
+    a CUDA device each kernel serves wherever it is eligible, on every
+    rank of a mesh, and the flags are not consulted; on the CPU ``on``
+    selects a kernel's plain version (the JAX package's interpret
+    mode), ``auto``/``off`` the torch forms, and a mesh of more than one
+    rank takes both kernels off as the JAX plan does. The table update's
+    plain version is its torch form, so on the CPU its entry reports
+    the flag and changes no arithmetic."""
     on_card = device.type == "cuda"
+    single = on_card or mesh_size(mesh) <= 1
     direct = (1.0 / cfg.temperature) <= DIRECT_EXP_MAX_INV_TEMP
-    eligible = direct and batch >= _flash.MIN_BATCH
-    why_not = ("1/temp outside the direct-exp regime" if not direct
+    eligible = single and direct and batch >= _flash.MIN_BATCH
+    why_not = ("multi-device mesh" if not single
+               else "1/temp outside the direct-exp regime" if not direct
                else f"batch {batch} < {_flash.MIN_BATCH}")
 
     def decide(flag: str, env: str, ok: bool, why: str):
@@ -244,12 +281,22 @@ def plan_kernels(cfg: TwoTowerConfig, batch: int,
     plan["flash_ce"], plan["flash_ce_reason"] = decide(
         cfg.flash_ce_kernel, "PIO_TT_FLASH_CE", eligible, why_not)
     plan["embed_update"], plan["embed_update_reason"] = decide(
-        cfg.embed_update_kernel, "PIO_TT_EMBED_UPDATE", True, "")
+        cfg.embed_update_kernel, "PIO_TT_EMBED_UPDATE", single,
+        "multi-device mesh")
     return plan
 
 
 def _tensor_bytes(tensors) -> int:
     return int(sum(t.numel() * t.element_size() for t in tensors))
+
+
+def slab_bounds(n: int, parts: int, part: int) -> Tuple[int, int]:
+    """``[start, stop)`` of part ``part`` of ``n`` rows split into
+    contiguous slabs of ``ceil(n / parts)`` (the last may be shorter or
+    empty), as ``ops.topk.ShardedTopKScorer`` splits its items."""
+    size = -(-n // parts)
+    start = min(part * size, n)
+    return start, min(start + size, n)
 
 
 class TwoTowerTrainer:
@@ -261,14 +308,20 @@ class TwoTowerTrainer:
                                         Optional[np.ndarray]],
                  n_users: int, n_items: int, cfg: TwoTowerConfig,
                  device: DeviceLike = None,
-                 state: Optional[TwoTowerState] = None):
-        if cfg.shard_embeddings:
-            raise NotImplementedError(
-                "shard_embeddings: sharded tables and meshes are not "
-                "ported to predictionio_torch yet (ROADMAP.md, queue 1 "
-                "item 12)")
+                 state: Optional[TwoTowerState] = None, mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
+        # DP over "data", TP over "model" (tables sharded only with
+        # shard_embeddings, as in JAX); a group is None on an axis of 1
+        self.n_data = axis_size(mesh, "data")
+        self._data_group = axis_group(mesh, "data")
+        self._data_rank = axis_rank(mesh, "data")
+        self.n_model = (axis_size(mesh, "model") if cfg.shard_embeddings
+                        else 1)
+        self._model_group = (axis_group(mesh, "model") if self.n_model > 1
+                             else None)
+        self._model_rank = axis_rank(mesh, "model") if self.n_model > 1 else 0
         self.cdt = compute_dtype(cfg)
         self.n_users, self.n_items = int(n_users), int(n_items)
         u_idx, i_idx, w = positives
@@ -277,8 +330,15 @@ class TwoTowerTrainer:
         w = (np.ones(len(u), np.float32) if w is None
              else np.asarray(w, np.float32))
         self.n_pos = len(u)
-        self.batch = cfg.batch_size
+        self.batch = max(cfg.batch_size - cfg.batch_size % self.n_data,
+                         self.n_data)
+        #: rows of a batch this rank looks up and runs the tails on
+        self.rank_rows = self.batch // self.n_data
         self.steps_per_epoch = max(1, -(-self.n_pos // self.batch))
+        #: this rank's [start, stop) rows of each table (TP: its slab)
+        self.slabs = {side: slab_bounds(n, self.n_model, self._model_rank)
+                      for side, n in (("user", self.n_users),
+                                      ("item", self.n_items))}
         # the positives live on the device; index n_pos is the padding
         # row (weight 0) that fills the last batch of an epoch
         dev = self.device
@@ -288,7 +348,7 @@ class TwoTowerTrainer:
         self.table_lr = (cfg.table_learning_rate
                          if cfg.table_learning_rate is not None
                          else 10.0 * cfg.learning_rate)
-        self.kernel_plan = plan_kernels(cfg, self.batch, self.device)
+        self.kernel_plan = plan_kernels(cfg, self.batch, self.device, mesh)
         torchmon.record_kernel_plan(self.kernel_plan)
         self._perm_gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
         self._set_state(state if state is not None else self._init_state())
@@ -358,10 +418,29 @@ class TwoTowerTrainer:
             dense={side: _init_dense(gen, tail_widths(cfg), dev)
                    for side in SIDES})
 
+    def _own(self, side: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole table or accumulator, a copy on
+        the trainer's device (the trainer updates its tables in place;
+        the caller's state stays as it was)."""
+        start, stop = self.slabs[side]
+        if self.n_model > 1:
+            whole = whole[start:stop]
+        return whole.to(self.device, copy=True).contiguous()
+
+    def _whole(self, side: str, own: torch.Tensor,
+                dst: Optional[int] = None) -> Optional[torch.Tensor]:
+        """A table or accumulator whole in host memory, from every TP
+        rank's slab (every rank of ``model`` must call), on every rank
+        or on process ``dst`` alone (None elsewhere); the slabs cross
+        one at a time, so no card holds the whole of a sharded table."""
+        if self._model_group is None:
+            return own.cpu() if dst in (None, mh.process_index()) else None
+        return mh.gather_rows_to_host(own, self._model_group, dst)
+
     def _set_state(self, state: TwoTowerState) -> None:
-        self.tables = {side: state.tables[side].to(self.device).contiguous()
+        self.tables = {side: self._own(side, state.tables[side])
                        for side in SIDES}
-        self.acc = {side: state.acc[side].to(self.device).contiguous()
+        self.acc = {side: self._own(side, state.acc[side])
                     for side in SIDES}
         self.dense = {side: [{k: a.to(self.device).clone().requires_grad_(True)
                               for k, a in layer.items()}
@@ -384,8 +463,13 @@ class TwoTowerTrainer:
 
     def _checkpoint_state(self) -> dict:
         """What a checkpoint holds (``core/checkpoint.py`` copies the
-        tensors to the host)."""
-        return {"tables": self.tables, "acc": self.acc,
+        tensors to the host): the whole tables, gathered from the TP
+        ranks' slabs to process 0's host memory (every rank calls this;
+        process 0 writes, and the other ranks' tables are None)."""
+        return {"tables": {side: self._whole(side, self.tables[side], 0)
+                           for side in SIDES},
+                "acc": {side: self._whole(side, self.acc[side], 0)
+                        for side in SIDES},
                 "dense": self.dense,
                 "opt": (self._opt.state_dict() if self._opt is not None
                         else None),
@@ -405,10 +489,10 @@ class TwoTowerTrainer:
         def t(a):
             return torch.from_numpy(np.asarray(a)).to(self.device)
 
-        self.tables = {side: t(state["tables"][side]).contiguous()
-                       for side in SIDES}
-        self.acc = {side: t(state["acc"][side]).contiguous()
-                    for side in SIDES}
+        self.tables = {side: self._own(side, torch.from_numpy(
+            np.asarray(state["tables"][side]))) for side in SIDES}
+        self.acc = {side: self._own(side, torch.from_numpy(
+            np.asarray(state["acc"][side]))) for side in SIDES}
         self.dense = {side: [{k: t(a).requires_grad_(True)
                               for k, a in layer.items()}
                              for layer in state["dense"][side]]
@@ -436,9 +520,16 @@ class TwoTowerTrainer:
     # -- the step ------------------------------------------------------------
 
     def _loss_from_rows(self, ue, ve, u_idx, i_idx, weight) -> torch.Tensor:
+        """The loss of the whole batch from this rank's looked-up rows
+        (``ue``, ``ve``; DP: its share) and the whole batch's ids and
+        weights."""
         cfg = self.cfg
         u = apply_tail(self.dense["user"], ue, self.cdt)   # [B, D] f32 unit
         v = apply_tail(self.dense["item"], ve, self.cdt)
+        if self._data_group is not None:
+            # every rank's rows; each rank's loss is the whole batch's
+            u = mh.gather_shards(u, self._data_group)
+            v = mh.gather_shards(v, self._data_group)
         if self.kernel_plan["flash_ce"]:
             return _flash.flash_ce(u, v, u_idx, i_idx, weight,
                                    cfg.temperature, self.cdt)
@@ -450,18 +541,51 @@ class TwoTowerTrainer:
         return dense_softmax_ce(u, v, u_idx, i_idx, weight, cfg.temperature,
                                 self.cdt)
 
+    def _lookup(self, side: str, idx: torch.Tensor) -> torch.Tensor:
+        """Table rows of global ids ``idx``: a gather, or under TP each
+        rank's owned rows (zeros elsewhere) summed over ``model``."""
+        table = self.tables[side]
+        if self._model_group is None:
+            return table[idx]
+        start, stop = self.slabs[side]
+        own = (idx >= start) & (idx < stop)
+        rows = (table[torch.where(own, idx - start, 0)] if stop > start
+                else table.new_zeros((len(idx), table.shape[1])))
+        rows = torch.where(own[:, None], rows, 0.0)
+        return mh.all_reduce_sum(rows, self._model_group)
+
+    def _update(self, side: str, idx: torch.Tensor,
+                grad: torch.Tensor) -> None:
+        """Rowwise Adagrad of the whole batch's table gradient ``grad``
+        at global ids ``idx``: on the whole table, or under TP on the
+        rows this rank owns at their local ids."""
+        table, acc = self.tables[side], self.acc[side]
+        if self._model_group is not None:
+            start, stop = self.slabs[side]
+            sel = torch.nonzero((idx >= start) & (idx < stop)).squeeze(1)
+            if not len(sel):
+                return
+            idx, grad = idx[sel] - start, grad[sel]
+        _embed.rowwise_adagrad(table, acc, idx, grad, self.table_lr)
+
     def _step(self, rows: torch.Tensor) -> torch.Tensor:
         u_idx, i_idx, w = self._u[rows], self._i[rows], self._w[rows]
-        ue = self.tables["user"][u_idx].requires_grad_(True)   # [B, E]
-        ve = self.tables["item"][i_idx].requires_grad_(True)
+        lo = self._data_rank * self.rank_rows     # DP: this rank's share
+        hi = lo + self.rank_rows
+        ue = self._lookup("user", u_idx[lo:hi]).requires_grad_(True)
+        ve = self._lookup("item", i_idx[lo:hi]).requires_grad_(True)
         loss = self._loss_from_rows(ue, ve, u_idx, i_idx, w)
         loss.backward()
         with torch.no_grad():
             for side, idx, grad in (("user", u_idx, ue.grad),
                                     ("item", i_idx, ve.grad)):
-                _embed.rowwise_adagrad(self.tables[side], self.acc[side],
-                                       idx, grad, self.table_lr)
+                if self._data_group is not None:
+                    grad = mh.all_gather_rows(grad, self._data_group)
+                self._update(side, idx, grad)
         if self._opt is not None:
+            if self._data_group is not None:
+                for p in self._dense_params():
+                    p.grad = mh.all_reduce_sum(p.grad, self._data_group)
             self._opt.step()
             self._opt.zero_grad(set_to_none=True)
         return loss.detach()
@@ -510,7 +634,9 @@ class TwoTowerTrainer:
                 "twotower", 2 * self._param_bytes + self._opt_bytes
                 + self._data_bytes, source="analytic")
             self._epochs_done += 1
-            if self._ckpt is not None:
+            if self._ckpt is not None and (
+                    self._epochs_done % self._ckpt.every == 0):
+                # gathers TP slabs: only when a checkpoint is due
                 t0 = time.perf_counter()
                 if self._ckpt.maybe_save(self._epochs_done,
                                          self._checkpoint_state()):
@@ -521,14 +647,15 @@ class TwoTowerTrainer:
 
     @torch.no_grad()
     def _all_vecs(self, side: str) -> np.ndarray:
+        """The whole side's serving vectors on every rank (TP: each
+        rank's slab through the tail, gathered over ``model``)."""
         table = self.tables[side]
-        out = np.empty((len(table), self.cfg.dim), np.float32)
+        vecs = torch.empty((len(table), self.cfg.dim))     # host memory
         chunk = 8192
         for s in range(0, len(table), chunk):
-            out[s:s + chunk] = apply_tail(self.dense[side],
-                                          table[s:s + chunk],
-                                          self.cdt).cpu().numpy()
-        return out
+            vecs[s:s + chunk] = apply_tail(self.dense[side],
+                                           table[s:s + chunk], self.cdt)
+        return self._whole(side, vecs).numpy()
 
     def embeddings(self, losses: Optional[List[float]] = None
                    ) -> TwoTowerEmbeddings:
@@ -537,19 +664,23 @@ class TwoTowerTrainer:
                                   losses=losses or [])
 
     def matmul_flops_per_step(self) -> float:
-        """Matmul FLOPs of one training step (forward and backward): the
-        ``[B, B]`` logits and their two rank-D gradient products, plus
-        the tail MLPs (``obs.perfacct.twotower_matmul_flops``, the one
-        copy of the formula)."""
+        """Matmul FLOPs of one training step on this rank (forward and
+        backward): the ``[B, B]`` logits of the whole batch and their
+        two rank-D gradient products, plus the tail MLPs over the rank's
+        share of the batch (``obs.perfacct.twotower_matmul_flops``, the
+        one copy of the formula)."""
         return perfacct.twotower_matmul_flops(self.batch, self.cfg.dim,
-                                              tail_widths(self.cfg))
+                                              tail_widths(self.cfg),
+                                              tail_rows=self.rank_rows)
 
 
 def twotower_train(positives, n_users: int, n_items: int,
-                   cfg: TwoTowerConfig, device: DeviceLike = None
-                   ) -> TwoTowerEmbeddings:
-    """One-call train from positive (user_idx, item_idx, weight?) triples."""
-    trainer = TwoTowerTrainer(positives, n_users, n_items, cfg, device=device)
+                   cfg: TwoTowerConfig, device: DeviceLike = None,
+                   mesh=None) -> TwoTowerEmbeddings:
+    """One-call train from positive (user_idx, item_idx, weight?) triples
+    (over ``mesh``'s ranks when given)."""
+    trainer = TwoTowerTrainer(positives, n_users, n_items, cfg,
+                              device=device, mesh=mesh)
     return trainer.embeddings(trainer.run())
 
 

@@ -19,13 +19,25 @@ columnar read) in tensors on the collective device: the rank's card
 under NCCL, the CPU under gloo. Device tensors go through
 :func:`all_gather_rows`, which under gloo stages a CUDA tensor through
 host memory (``_gloo_host_staged``; gloo gathers no CUDA tensor) and
-never does so under NCCL.
+never does so under NCCL; :func:`all_reduce_sum`, :func:`gather_shards`
+and :func:`ring_shift` (the trainers' sum over an axis group, their
+differentiable gather, and the ring attention's neighbour exchange)
+stage the same way.
+
+A world this module brings up leaves when its process ends: an exit
+hook runs :func:`shutdown` (a barrier over the world's store, bounded
+by ``EXIT_BARRIER_SECONDS``, then ``destroy_process_group``). A rank
+that ends with a live gloo or NCCL group can abort in the group's
+teardown at interpreter exit, after its work is done.
 """
 
 from __future__ import annotations
 
+import atexit
+import datetime
 import logging
 import os
+import time
 from typing import Callable, Iterable, List, Optional, TypeVar
 
 import numpy as np
@@ -41,6 +53,16 @@ T = TypeVar("T")
 #: this rank's device, set by initialize_from_env (None: no world yet,
 #: or a world that someone else set up and no device was asked for)
 _rank_device: Optional[torch.device] = None
+
+#: the store of a world initialize_from_env brought up (None: no world,
+#: or one the caller brought up); the exit barrier runs over it
+_store: Optional[dist.Store] = None
+
+#: how long the exit barrier waits for the other ranks: a rank whose
+#: peer died leaves after this long instead of hanging
+EXIT_BARRIER_SECONDS = 30.0
+
+_exit_hook_registered = False
 
 
 def _stable_hash(s: str) -> int:
@@ -90,8 +112,9 @@ def initialize_from_env(device: DeviceLike = None) -> bool:
     when a world is up after the call. A world that is already up (set
     up by this call earlier, or by the caller with its own backend) is
     left as it is, and the call returns True. Raises when only some of
-    the variables are set."""
-    global _rank_device
+    the variables are set. A world this call brings up is left at
+    process exit (:func:`shutdown` from an ``atexit`` hook)."""
+    global _rank_device, _store, _exit_hook_registered
     if _world():
         if device is not None or (_rank_device is None
                                   and torch.cuda.is_available()):
@@ -114,21 +137,73 @@ def initialize_from_env(device: DeviceLike = None) -> bool:
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     backend = "nccl" if dev.type == "cuda" else "gloo"
-    dist.init_process_group(backend, init_method=f"tcp://{addr}",
-                            world_size=num, rank=pid)
-    _rank_device = dev
+    host, port = addr.rsplit(":", 1)
+    # the store is made here (what init_method="tcp://" would make) so
+    # that the exit barrier can run over it
+    from torch.distributed.constants import default_pg_timeout
+
+    store = dist.TCPStore(host, int(port), num, pid == 0,
+                          timeout=default_pg_timeout)
+    dist.init_process_group(backend, store=store, world_size=num, rank=pid)
+    _rank_device, _store = dev, store
+    if not _exit_hook_registered:
+        atexit.register(_leave_at_exit)
+        _exit_hook_registered = True
     log.info("torch.distributed up: rank %d/%d over %s on %s", pid, num,
              backend, dev)
     return True
 
 
+def _exit_barrier(timeout: float) -> None:
+    """Every rank of the world at this point, over the store: the last
+    to arrive sets a key the others wait for, and process 0, whose
+    process hosts the store, leaves only after the others have seen it.
+    Raises (``DistStoreError``, ``TimeoutError``) when a rank does not
+    come within ``timeout`` seconds, a peer that died for one."""
+    n = dist.get_world_size()
+    store = _store
+    if store is None or n == 1:
+        return
+    wait = datetime.timedelta(seconds=timeout)
+    if store.add("pio_exit/arrived", 1) == n:
+        store.set("pio_exit/all", "1")
+    else:
+        store.wait(["pio_exit/all"], wait)
+    if process_index() != 0:
+        store.add("pio_exit/left", 1)
+        return
+    deadline = time.monotonic() + timeout
+    while store.add("pio_exit/left", 0) < n - 1:
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"ranks still in the exit barrier after "
+                               f"{timeout} s")
+        time.sleep(0.005)
+
+
 def shutdown() -> None:
-    """Leave the world (destroy the default process group); no-op
-    without one."""
-    global _rank_device
+    """Leave the world: a barrier of every rank (a world this module
+    brought up; bounded by ``EXIT_BARRIER_SECONDS``, after which the
+    rank leaves without it), then ``destroy_process_group``. Every rank
+    calls it, or the exit hook does; a no-op without a world, so a
+    second call does nothing."""
+    global _rank_device, _store
     if _world():
+        try:
+            _exit_barrier(EXIT_BARRIER_SECONDS)
+        except (RuntimeError, TimeoutError) as e:
+            # DistStoreError and DistNetworkError are RuntimeErrors: a
+            # peer that died or left before the barrier
+            log.warning("leaving the world without the exit barrier: %s",
+                        e)
         dist.destroy_process_group()
-    _rank_device = None
+    _rank_device, _store = None, None
+
+
+def _leave_at_exit() -> None:
+    try:
+        shutdown()
+    except Exception:  # noqa: BLE001 — exit proceeds; say why it failed
+        log.exception("leaving the torch.distributed world at exit failed")
 
 
 def process_index() -> int:
@@ -259,6 +334,11 @@ def _gloo_host_staged(x: torch.Tensor, n: int, group) -> List[torch.Tensor]:
     return [p.to(x.device) for p in parts]
 
 
+def _p2p_peer(group, group_rank: int) -> int:
+    return (group_rank if group is None
+            else dist.get_global_rank(group, group_rank))
+
+
 def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's ``x`` (one shape on all ranks) concatenated along
     dim 0 in rank order, on ``x``'s device. NCCL gathers device tensors
@@ -274,6 +354,101 @@ def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
         parts = [torch.empty_like(x) for _ in range(n)]
         dist.all_gather(parts, x, group=group)
     return torch.cat(parts, dim=0)
+
+
+def gather_rows_to_host(x: torch.Tensor, group=None,
+                        dst: Optional[int] = None) -> Optional[torch.Tensor]:
+    """Every rank's ``x`` concatenated along dim 0 in rank order, where
+    the ranks' row counts may differ (a table's slabs), in host memory:
+    on every rank of ``group`` (the world for None), or, with ``dst`` (a
+    global rank), on that rank alone and None elsewhere; a group
+    without ``dst`` moves nothing. The parts cross one at a time
+    (broadcast, or send and receive to ``dst``), so a rank's card holds
+    at most one part beside its own: a table sharded because no card
+    holds it is never whole on a card."""
+    me = dist.get_rank()
+    n = dist.get_world_size(group)
+    ranks = [_p2p_peer(group, r) for r in range(n)]
+    if dst is not None and dst not in ranks:
+        return None
+    lens = _gather_sizes(x.shape[0], group)
+    dev = _collective_device(group)
+    own = x.detach().to(dev).contiguous()
+    out = (torch.empty((sum(lens), *x.shape[1:]), dtype=x.dtype)
+           if dst in (None, me) else None)
+    start = 0
+    for src, k in zip(ranks, lens):
+        part = own if src == me else None
+        if k and dst is None:
+            if part is None:
+                part = own.new_empty((k, *x.shape[1:]))
+            dist.broadcast(part, src, group=group)
+        elif k and src != dst:
+            if me == dst:
+                part = own.new_empty((k, *x.shape[1:]))
+                dist.recv(part, src, group=group)
+            elif me == src:
+                dist.send(own, dst, group=group)
+        if out is not None and k:
+            out[start:start + k] = part
+        start += k
+    return out
+
+
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of every rank's ``x`` over ``group`` (the world for
+    None), as a new tensor on ``x``'s device; ``x`` is left as it is.
+    NCCL sums device tensors where they lie; a CUDA tensor in a gloo
+    group is summed through host memory."""
+    if dist.get_world_size(group) == 1:
+        return x.detach().clone()
+    staged = x.device.type == "cuda" and dist.get_backend(group) == "gloo"
+    out = x.detach().cpu() if staged else x.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out.to(x.device) if staged else out
+
+
+def ring_shift(x: torch.Tensor, group=None) -> torch.Tensor:
+    """One step round ``group``'s ring (the world for None): ``x`` goes
+    to the next rank (group rank ``r`` -> ``r + 1 mod n``) and the call
+    returns what the previous rank sent, of ``x``'s shape and dtype, on
+    ``x``'s device (``batch_isend_irecv``; a CUDA tensor in a gloo group
+    crosses through host memory)."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    r = dist.get_rank(group)
+    staged = x.device.type == "cuda" and dist.get_backend(group) == "gloo"
+    send = (x.detach().cpu() if staged else x.detach()).contiguous()
+    recv = torch.empty_like(send)
+    reqs = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, send, _p2p_peer(group, (r + 1) % n), group),
+        dist.P2POp(dist.irecv, recv, _p2p_peer(group, (r - 1) % n), group)])
+    for req in reqs:
+        req.wait()  # graftlint: disable=JT12 — the process group's timeout bounds a send or receive as it does every collective here
+    return recv.to(x.device) if staged else recv
+
+
+class _GatherShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.lo = dist.get_rank(group) * x.shape[dim]
+        ctx.size, ctx.dim = x.shape[dim], dim
+        whole = all_gather_rows(x.movedim(dim, 0).contiguous(), group)
+        return whole.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.lo, ctx.size), None, None
+
+
+def gather_shards(x: torch.Tensor, group=None, dim: int = 0
+                  ) -> torch.Tensor:
+    """Every rank's shard of ``x`` along ``dim``, in rank order, as a
+    differentiable op for code in which every rank computes the same
+    loss of the whole: the gradient of a rank's shard is its slice of
+    the whole's gradient."""
+    return _GatherShards.apply(x, group, dim)
 
 
 def global_array(local, mesh=None, *spec,
@@ -295,13 +470,7 @@ def to_host(x) -> np.ndarray:
         return np.asarray(x)
     if process_count() == 1:
         return x.detach().cpu().numpy()
-    lens = _gather_sizes(x.shape[0])
-    padded = x.detach().new_zeros((max(lens), *x.shape[1:]))
-    padded[:x.shape[0]] = x.detach()
-    full = all_gather_rows(padded)
-    m = max(lens)
-    return torch.cat([full[r * m:r * m + k] for r, k in enumerate(lens)]
-                     ).cpu().numpy()
+    return gather_rows_to_host(x).numpy()
 
 
 def all_hosts_sum(x, mesh=None) -> np.ndarray:

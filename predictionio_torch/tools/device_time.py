@@ -8,6 +8,8 @@ function needs a CUDA card.
 
 from __future__ import annotations
 
+import logging
+
 import torch
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
@@ -17,6 +19,9 @@ BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor cores
 # H100 SXM exponentials: 132 SMs x 16 special-function results per clock
 # (CUDA C++ Programming Guide, arithmetic throughput, cc 9.0) x 1.98 GHz
 SFU_PER_S = 132 * 16 * 1.98e9
+
+log = logging.getLogger(__name__)
+PROFILE_WINDOWS = 3              # profile_call's windows before it gives up
 
 
 def call_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -67,24 +72,27 @@ def profile_call(fn, iters: int = 100, cold: bool = False) -> dict:
     memset; ``split``, that time by kernel (short names); the kernels and
     the memsets traced per call, and the kernels' names. ``cold``: each
     call follows a ``bitwise_not_`` over ``L2_FLUSH_BYTES``, so it finds
-    nothing of its inputs in L2; the flush's own kernel is left out."""
-    from torch.profiler import ProfilerActivity, profile
+    nothing of its inputs in L2; the flush's own kernel is left out.
 
+    CUPTI now and then hands a window back with none of its device
+    records (seen once in many back-to-back windows of one process), so
+    a window that traced no device time is recorded again, up to
+    ``PROFILE_WINDOWS`` times in all, before this raises; ``windows``
+    says how many it took."""
     flush = (torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32,
                          device="cuda") if cold else None)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            if flush is not None:
-                flush.bitwise_not_()
-            fn()
-        torch.cuda.synchronize()
-    traced = device_split(prof, skip="bitwise_not")
-    split = {name: v["ms"] / iters for name, v in traced.items()}
-    if sum(split.values()) <= 0:
-        raise RuntimeError("torch.profiler traced no device time")
+    for window in range(1, PROFILE_WINDOWS + 1):
+        traced = _profile_window(fn, iters, flush)
+        split = {name: v["ms"] / iters for name, v in traced.items()}
+        if sum(split.values()) > 0:
+            break
+        log.warning("torch.profiler window %d of %d traced no device "
+                    "time; recording it again", window, PROFILE_WINDOWS)
+    else:
+        raise RuntimeError(f"torch.profiler traced no device time in "
+                           f"{PROFILE_WINDOWS} windows")
     memsets = sum(v["count"] for name, v in traced.items()
                   if "memset" in name.lower())
     launched = sum(v["count"] for v in traced.values())
@@ -92,7 +100,24 @@ def profile_call(fn, iters: int = 100, cold: bool = False) -> dict:
             "kernels_per_call": (launched - memsets) / iters,
             "memsets_per_call": memsets / iters,
             "kernels": sorted(name for name in split
-                              if "memset" not in name.lower())}
+                              if "memset" not in name.lower()),
+            "windows": window}
+
+
+def _profile_window(fn, iters: int, flush) -> dict:
+    """One ``torch.profiler`` window over ``iters`` calls of ``fn`` (each
+    after ``flush.bitwise_not_()`` when ``flush`` is given), read by
+    ``device_split`` without the flush's kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            if flush is not None:
+                flush.bitwise_not_()
+            fn()
+        torch.cuda.synchronize()
+    return device_split(prof, skip="bitwise_not")
 
 
 def device_split(prof, skip: str = "") -> dict:

@@ -6,7 +6,8 @@ Seeded numpy ``[B, L, H, D]`` inputs go through both packages:
 ``blockwise_attention`` against both the JAX blockwise function and the
 materialized oracle, at atol 1e-5. A fully masked block stays finite,
 a ragged block size raises ``ValueError`` as in JAX, and ring attention
-raises naming ROADMAP.md queue 1 item 12.
+on one rank equals JAX's on a one-device mesh (worlds of several
+processes: ``tests/test_torch_ring_attention.py``).
 """
 
 import jax.numpy as jnp
@@ -97,9 +98,27 @@ def test_blockwise_gradients_match_the_materialized_form():
 
 @pytest.mark.parametrize("fn", ["ring_attention", "ring_attention_sharded"])
 def test_ring_attention_raises_naming_its_roadmap_item(fn):
-    q, k, v = _t(_qkv(L=16))
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+    """Ring attention on one rank (no world; a mesh whose ``seq`` axis
+    has one rank) against JAX ``ring_attention_sharded`` on a one-device
+    ``seq`` mesh and the materialized form, causal and not; worlds of
+    several processes are in ``tests/test_torch_ring_attention.py``."""
+    import jax
+
+    from predictionio_tpu.parallel.mesh import create_mesh as jax_mesh
+    from predictionio_torch.parallel.mesh import create_mesh
+
+    arrays = _qkv(L=16, seed=6)
+    mesh = jax_mesh({"seq": 1}, jax.devices()[:1])
+    for causal in (True, False):
         if fn == "ring_attention":
-            attention.ring_attention(q, k, v, axis="seq")
+            got = attention.ring_attention(*_t(arrays), axis="seq",
+                                           causal=causal)
         else:
-            attention.ring_attention_sharded(q, k, v, None)
+            got = attention.ring_attention_sharded(
+                *_t(arrays), create_mesh({"seq": 1}), axis="seq",
+                causal=causal)
+        want = jax_attn.ring_attention_sharded(*_j(arrays), mesh,
+                                               axis="seq", causal=causal)
+        ref = attention.mha_reference(*_t(arrays), causal=causal)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=ATOL)

@@ -78,11 +78,34 @@ def test_fingerprint_mismatch_starts_fresh_with_a_warning(tmp_path, caplog):
 
 def test_a_distributed_world_raises_naming_its_roadmap_item(tmp_path,
                                                             monkeypatch):
-    ck = TrainCheckpointer(str(tmp_path))
-    monkeypatch.setattr(checkpoint.multihost, "process_count", lambda: 2)
-    for call in (lambda: ck.maybe_save(1, {}), ck.restore):
-        with pytest.raises(NotImplementedError, match=r"queue 1 item 12\)"):
-            call()
+    """Across processes (the world stood in for, as process 1 of 2):
+    process 0 alone writes and every rank meets after the write;
+    ``restore`` follows process 0's broadcast epoch, starts fresh when
+    process 0 does, and raises when this process found another epoch,
+    with the JAX package's message. Real worlds:
+    ``tests/test_torch_sharded_twotower.py``."""
+    mh = checkpoint.multihost
+    met, epoch0 = [], ["-1"]
+    monkeypatch.setattr(mh, "process_count", lambda: 2)
+    monkeypatch.setattr(mh, "process_index", lambda: 1)
+    monkeypatch.setattr(mh, "barrier", met.append)
+    monkeypatch.setattr(mh, "broadcast_string", lambda s: epoch0[0])
+    ck = TrainCheckpointer(str(tmp_path / "a"))
+    assert ck.maybe_save(1, {"x": 1}) is False
+    assert met == ["pio_checkpoint_1"] and not os.listdir(tmp_path / "a")
+    TrainCheckpointer(str(tmp_path / "b")).maybe_save(2, {"x": 2})
+    assert os.listdir(tmp_path / "b") == []       # not process 0's to write
+    monkeypatch.setattr(mh, "process_count", lambda: 1)
+    TrainCheckpointer(str(tmp_path / "b")).maybe_save(2, {"x": 2})
+    monkeypatch.setattr(mh, "process_count", lambda: 2)
+    ck = TrainCheckpointer(str(tmp_path / "b"))
+    assert ck.restore() is None                   # process 0 starts fresh
+    epoch0[0] = "2"
+    assert ck.restore() == (2, {"x": 2})
+    epoch0[0] = "3"
+    with pytest.raises(RuntimeError, match="checkpoint desync: process 0 "
+                       "restored epoch 3 but process 1 found epoch 2"):
+        ck.restore()
 
 
 def _toy_data(n=400, n_users=30, n_items=12, seed=2):

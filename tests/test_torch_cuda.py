@@ -1390,3 +1390,91 @@ def test_sharded_scorer_and_als_on_a_world_of_two_on_the_card(cuda):
                 p.communicate()
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0 and f"RANK OK {r}" in out, out[-3000:]
+
+
+_TT_WORLD2_WORKER = """
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from predictionio_torch.ops import twotower as tt
+from predictionio_torch.ops.kernels import embed_update as eu
+from predictionio_torch.ops.kernels import flash_ce as fce
+from predictionio_torch.parallel import multihost as mh
+from predictionio_torch.parallel.mesh import create_mesh
+
+rank, port = int(sys.argv[1]), int(sys.argv[2])
+torch.backends.cuda.matmul.allow_tf32 = False
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        world_size=2, rank=rank)
+assert mh.initialize_from_env() is True
+rng = np.random.default_rng(3)
+pos = (rng.integers(0, 3_000, 4 * 512), rng.integers(0, 2_000, 4 * 512),
+       None)
+perm = rng.permutation(4 * 512)
+gen = torch.Generator().manual_seed(4)
+state = tt.TwoTowerState(
+    tables={"user": torch.randn(3_000, 32, generator=gen) / 32 ** 0.5,
+            "item": torch.randn(2_000, 32, generator=gen) / 32 ** 0.5},
+    acc={"user": torch.zeros(3_000), "item": torch.zeros(2_000)},
+    dense={"user": [], "item": []})
+
+
+def run(mesh, **cfg):
+    t = tt.TwoTowerTrainer(pos, 3_000, 2_000, tt.TwoTowerConfig(
+        dim=32, batch_size=512, epochs=1, learning_rate=1e-2,
+        compute_dtype="float32", **cfg), device="cuda", state=state,
+        mesh=mesh)
+    assert t.kernel_plan["flash_ce"] and t.kernel_plan["embed_update"]
+    f0, e0 = fce.launches.value, eu.launches.value
+    losses = t.run(perms=[perm])
+    assert fce.launches.value - f0 == 3 * 4, fce.launches.value - f0
+    assert eu.launches.value - e0 == 2 * 4, eu.launches.value - e0
+    return losses, {s: t._whole(s, t.tables[s]).cpu() for s in tt.SIDES}
+
+
+want, tables = run(None)
+for mesh, cfg in ((create_mesh({"data": 2}), {}),
+                  (create_mesh({"model": 2}), {"shard_embeddings": True})):
+    got, got_tables = run(mesh, **cfg)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    for s in tt.SIDES:
+        torch.testing.assert_close(got_tables[s], tables[s], rtol=0,
+                                   atol=1e-5)
+mh.shutdown()
+print("RANK OK", rank)
+"""
+
+
+def test_twotower_dp_and_tp_on_a_world_of_two_on_the_card(cuda):
+    """Two gloo ranks on ``cuda:0``: the two-tower trainer over ``{"data":
+    2}`` and over ``{"model": 2}`` with ``shard_embeddings`` launches
+    ``flash_ce`` 3 times and ``embed_update`` 2 times a step on each
+    rank and ends where the one-process trainer does (f32; only the
+    atomics that sum a row's duplicates reorder)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": root,
+           "PIO_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+           "PIO_NUM_PROCESSES": "2"}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _TT_WORLD2_WORKER, str(r), str(port)],
+        env={**env, "PIO_PROCESS_ID": str(r)}, cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"RANK OK {r}" in out, out[-3000:]

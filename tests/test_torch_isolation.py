@@ -287,3 +287,26 @@ MULTI_PROCESS = ("predictionio_torch.parallel",
 
 def test_the_multi_process_modules_are_walked_and_import_no_jax():
     assert _walk_and_import(MULTI_PROCESS) == {"missing": [], "bad": []}
+
+
+#: multi-process training beyond ALS: the two-tower and session
+#: recommender trainers over a mesh, ring attention, the checkpointer
+#: across processes, the exit hook's runtime and the flops formula
+MULTI_PROCESS_TRAINING = ("predictionio_torch.parallel.multihost",
+                          "predictionio_torch.parallel.mesh",
+                          "predictionio_torch.ops.twotower",
+                          "predictionio_torch.ops.attention",
+                          "predictionio_torch.ops.sessionrec",
+                          "predictionio_torch.ops.kernels.flash_ce",
+                          "predictionio_torch.ops.kernels.embed_update",
+                          "predictionio_torch.core.checkpoint",
+                          "predictionio_torch.obs.perfacct",
+                          "predictionio_torch.models.twotower",
+                          "predictionio_torch.models.sessionrec",
+                          "predictionio_torch.templates.twotower",
+                          "predictionio_torch.workflow.train")
+
+
+def test_the_multi_process_training_modules_are_walked_and_import_no_jax():
+    assert _walk_and_import(MULTI_PROCESS_TRAINING) == {"missing": [],
+                                                        "bad": []}

@@ -150,3 +150,29 @@ def test_ledger_and_tail_report_equal_jax():
                for d in rng.exponential(5.0, 64)]
     assert perfacct.tail_report(records, q=0.9) == \
         jax_perfacct.tail_report(records, q=0.9)
+
+
+@pytest.mark.parametrize("empty_windows", [0, 1, 2, 3])
+def test_profile_call_records_an_empty_window_again(monkeypatch,
+                                                    empty_windows):
+    """A profiler window that traced no device time is recorded again,
+    up to ``PROFILE_WINDOWS`` windows, and then the call raises."""
+    traced = {"k": {"count": 4, "ms": 2.0},
+              "Memset (Device)": {"count": 2, "ms": 0.5}}
+    windows = []
+
+    def window(fn, iters, flush):
+        windows.append(iters)
+        return {} if len(windows) <= empty_windows else traced
+
+    monkeypatch.setattr(device_time, "_profile_window", window)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    if empty_windows == device_time.PROFILE_WINDOWS:
+        with pytest.raises(RuntimeError, match="no device time"):
+            device_time.profile_call(lambda: None, iters=2)
+        assert len(windows) == device_time.PROFILE_WINDOWS
+        return
+    out = device_time.profile_call(lambda: None, iters=2)
+    assert out["windows"] == len(windows) == empty_windows + 1
+    assert out["ms"] == 1.25 and out["kernels"] == ["k"]
+    assert (out["kernels_per_call"], out["memsets_per_call"]) == (2.0, 1.0)

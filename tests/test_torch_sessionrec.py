@@ -177,21 +177,40 @@ JAX_CFG = jax_sr.SessionRecConfig(dim=16, heads=2, layers=2, max_len=8,
 
 
 def test_seq_axis_raises_naming_its_roadmap_item():
-    users, items, times = _cyclic_events(n_users=4, n_items=5, hist=3)
-    cfg = sr.SessionRecConfig(dim=8, heads=2, layers=1, max_len=4,
-                              seq_axis="seq")
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        sr.SessionRecTrainer((users, items, times), 4, 5, cfg, device="cpu")
-    algo = models.SessionRecAlgorithm(models.SessionRecParams(seq_axis="seq"))
-    from predictionio_torch.parallel.context import DeviceContext
-
+    """``seq_axis`` on one process: the trainer over a mesh whose ``seq``
+    axis has one rank, and the algorithm with no mesh in its context
+    (it makes one, ``require_mesh``), train as the JAX trainer with
+    ``seq_axis`` on a one-device ``seq`` mesh from the same weights
+    (epoch loss rtol 1e-4, ``test_torch_sessionrec_train.py``'s).
+    Worlds of several processes: ``test_torch_sharded_sessionrec.py``."""
+    from predictionio_tpu.parallel.mesh import create_mesh as jax_mesh
     from predictionio_torch.data.bimap import BiMap
+    from predictionio_torch.parallel.context import DeviceContext
+    from predictionio_torch.parallel.mesh import create_mesh
 
-    pd = models.PreparedSequences(BiMap.string_int(map(str, range(4))),
-                                  BiMap.string_int(map(str, range(5))),
+    users, items, times = _cyclic_events(n_users=20, n_items=12, hist=12)
+    cfg = dataclasses.replace(JAX_CFG, epochs=1, seq_axis="seq")
+    with jitted_flax_init():
+        jt = jax_sr.SessionRecTrainer(
+            (users, items, times), 20, 12, cfg,
+            mesh=jax_mesh({"seq": 1}, jax.devices()[:1]))
+    p0 = _np_tree(jt._params)
+    want = jt.run()
+    tt = sr.SessionRecTrainer((users, items, times), 20, 12, _port_cfg(cfg),
+                              device="cpu", params=p0,
+                              mesh=create_mesh({"seq": 1}))
+    np.testing.assert_allclose(tt.run(), want, rtol=1e-4)
+    algo = models.SessionRecAlgorithm(models.SessionRecParams(
+        **{f: getattr(cfg, f) for f in ("dim", "heads", "layers", "max_len",
+                                        "dropout", "batch_size",
+                                        "learning_rate", "epochs",
+                                        "seq_axis")}))
+    pd = models.PreparedSequences(BiMap.string_int(map(str, range(20))),
+                                  BiMap.string_int(map(str, range(12))),
                                   users, items, times)
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        algo.train(DeviceContext("cpu"), pd)
+    model = algo.train(DeviceContext("cpu"), pd)
+    assert np.isfinite(model.state.losses).all()
+    assert model.state.cfg.seq_axis == "seq"
 
 
 # -- serving --------------------------------------------------------------------

@@ -176,13 +176,29 @@ def test_kernel_plan_on_a_cuda_device_ignores_the_flags(monkeypatch):
 
 
 def test_unported_options_raise_naming_their_roadmap_item():
-    """Sharded tables wait for item 12 (checkpoints are ported: see
-    tests/test_torch_checkpoint.py)."""
+    """``shard_embeddings`` with no mesh, or a mesh whose ``model`` axis
+    has one rank, keeps the tables whole, as the JAX trainer does: both
+    train as the JAX trainer with the option set (f32 tolerances of the
+    carried-state test). Worlds of several processes:
+    ``tests/test_torch_sharded_twotower.py``."""
+    from predictionio_torch.parallel.mesh import create_mesh
+
     u, i, n_users, n_items = _positives()
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 12\)"):
-        tt.TwoTowerTrainer((u, i, None), n_users, n_items,
-                           tt.TwoTowerConfig(dim=8, shard_embeddings=True),
-                           device="cpu")
+    base = dict(dim=8, epochs=2, batch_size=128, seed=7, learning_rate=1e-2,
+                compute_dtype="float32", shard_embeddings=True)
+    ref = JaxTrainer((u, i, None), n_users, n_items, JaxConfig(**base))
+    state = _carry(ref)
+    l_ref = ref.run()
+    e_ref = ref.embeddings(l_ref)
+    for mesh in (None, create_mesh({"data": 1, "model": 1})):
+        port = tt.TwoTowerTrainer((u, i, None), n_users, n_items,
+                                  tt.TwoTowerConfig(**base), device="cpu",
+                                  state=state, mesh=mesh)
+        assert port.slabs == {"user": (0, n_users), "item": (0, n_items)}
+        l_port = port.run(perms=_jax_orders(7, len(u), 2))
+        np.testing.assert_allclose(l_port, l_ref, rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(port.embeddings().item_vecs,
+                                   e_ref.item_vecs, rtol=1e-3, atol=1e-4)
 
 
 # -- data path -----------------------------------------------------------------
