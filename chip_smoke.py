@@ -262,9 +262,9 @@ exits non-zero before printing any result.
    and idle share per grid alternation. (b) ``python -m
    predictionio_torch.tools.cli eval`` of a module written into the
    temporary directory: an ``Evaluation`` of ``recommendation_engine``
-   with a rating-MSE metric, and a generator of four ``lambda_`` (0.01
-   to 5.0; 3 folds, rank 64, 3 iterations, f32) over the ``pio train``
-   phase's eventlog events. It must exit 0, print the one-liner, log 4
+   with a rating-MSE metric, and a generator of three ``lambda_`` (0.01
+   to 1.0; 3 folds, rank 64, 3 iterations, f32) over the ``pio train``
+   phase's eventlog events. It must exit 0, print the one-liner, log 3
    candidates grid-trained in 3 runs and no fallback, and leave one
    EVALCOMPLETED EvaluationInstance whose JSON scores match an
    in-process sequential ``FastEvalEngineWorkflow`` on the card (rtol
@@ -442,19 +442,59 @@ exits non-zero before printing any result.
    world of one against two, and the launch counts); the three worlds'
    scorer launches join ``topk_dot``'s ``launches_by_path`` and the
    trainers' launches ``flash_ce``'s and ``embed_update``'s.
+15. Storage-tier phase, the Recommendation engine trained and served
+   over the ``rest`` tier. Three in-process ``StorageServer``s on
+   127.0.0.1, each over its own storage (events in an event log,
+   metadata and models in sqlite), behind one ``rest`` source with
+   ``REPLICAS=2``: events sharded by ``stable_hash(user) % 3`` onto
+   their owner and its successor, metadata and models on servers 0 and
+   1. (a) Phase 14's training rows (the front door's ``depth_cut``,
+   every 20th held out), ordered by owner shard, go in through
+   ``insert_columnar`` (meanwhile the same rows into a local event
+   log); each server must hold 0.55-0.78 of them and the three twice
+   their number. (b) ``cli.main(["train", ...])`` in this process on
+   ``cuda:0`` under the ``rest`` environment (ALS at rank 64,
+   ``TIER_ITERS`` alternations of direct f32 solves, the columnar read
+   and host binning), then the same over the local log (its native
+   binned lane): the tier read numbers ids in the local log's order,
+   so the factors must agree within ``TIER_FACTOR_TOL`` of the largest
+   magnitude and the held-out RMSE within ``TIER_RMSE_TOL``; the
+   instance row and its blob must be on both metadata replicas. (c) An
+   ``EngineServer`` on ``cuda`` loads the instance through the tier;
+   lone user (a third with a blacklist) and item queries are checked
+   against float64 and the ``topk_dot`` counter, reset before the
+   deploy, must rise by at least their number. (d) Server 0 stops: the
+   tier's ``find_columnar`` must return the same multiset of (user,
+   item, rating), ``GET /reload`` must load the instance from the
+   surviving replica and answer right, ``serving_status()`` must read
+   EVENTDATA and METADATA serving, degraded, server 0 down, and of one
+   write a shard (into the repair app below, whose log indexes its ids
+   at once), those whose replica set holds server 0 must raise
+   ``StorageUnavailableError`` naming it while the other lands; then
+   server 0 restarts on its directories. (e) A repair app (every
+   ``TIER_REPAIR_STRIDE``-th training row, made in (a)) loses ``TIER_REPAIR_LOST``
+   rows of shard 0 on its non-owner replica and the instance row on
+   metadata replica 1, written through those servers' own storage;
+   ``cli.main(["storagerepair", ...])`` must print exactly that many
+   rows and 1 record copied, a second run zeros, and each shard's two
+   copies must then hold the same rows. One ``{"storage": ...}`` line
+   prints before ``obs``'s; the deploy's launches join ``topk_dot``'s
+   ``launches_by_path``.
 
 Output: the card's name and power limit (``nvidia-smi``), a ``serve``,
 a ``fleet``, a ``train``, an ``als_train``, an ``ingest``, a ``front_door`` (with
 the card's line), a ``pio_train``, a ``stream`` (with the card's line),
-an ``eval``, a ``project``, a ``families`` and a ``multi_device``
-line (each with the card's line), the ``kernels`` line, and last
+an ``eval``, a ``project``, a ``families``, a ``multi_device`` and a
+``storage`` line (each with the card's line), the ``kernels`` line, and last
 ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
+import io
 import json
 import logging
 import os
@@ -510,7 +550,7 @@ FD_DRAIN_TIMEOUT = 30
 # steps), the first the ALS phase's own training; (b) pio eval's sweep
 GRID_REGS, GRID_ITERS, GRID_CG = (0.05, 0.02, 0.1, 0.05), (5, 5, 5, 3), \
     (6, 6, 6, 4)
-EVAL_REGS, EVAL_K = (0.01, 0.1, 1.0, 5.0), 3
+EVAL_REGS, EVAL_K = (0.01, 0.1, 1.0), 3
 # the stream phase: bench.py _stream_stage's throughput fold (STREAM_EVENTS
 # ratings from STREAM_USERS new users over STREAM_HOT existing items),
 # the ratings row whose user gets one more rating, the two-tower online
@@ -6033,6 +6073,490 @@ def multi_device_phase(ratings) -> dict:
     }
 
 
+# -- phase 15: the storage tier ---------------------------------------------
+
+#: three in-process storage servers, events sharded by entity hash with
+#: successor replicas, metadata and models on the first two; the engine
+#: json's ALS: phase 14's rank, alternations and direct f32 solves
+TIER_SERVERS, TIER_REPLICAS = 3, 2
+TIER_APP, TIER_REPAIR_APP, TIER_ENGINE = "ml20m-tier", "ml20m-repair", \
+    "tier-als"
+TIER_ITERS = 2
+# factors against the local event log's train: the same layout, initial
+# factors and f32 solves, `index_add_` atomics summing in another order
+TIER_FACTOR_TOL, TIER_RMSE_TOL = 1e-4, 1e-5
+TIER_LONE_USERS, TIER_LONE_ITEMS = 24, 8
+# the repair app: every TIER_REPAIR_STRIDE-th training row (repair reads
+# rows as JSON, ~1e4 rows/s a server on a host core: a cut of depth),
+# and the rows deleted from one shard's non-owner replica
+TIER_REPAIR_STRIDE, TIER_REPAIR_LOST = 960, 7
+# two copies of ~4.8M events in three logs (~173 bytes an event), the
+# local log, the scan spools
+TIER_DISK_BYTES = 4 << 30
+RECO = "predictionio_torch.templates.recommendation.recommendation_engine"
+
+
+def tier_server_env(root: str) -> dict:
+    """A storage server's own storage: events in an event log, metadata
+    and models in sqlite."""
+    env = {"PIO_STORAGE_SOURCES_EL_TYPE": "eventlog",
+           "PIO_STORAGE_SOURCES_EL_PATH": os.path.join(root, "el"),
+           "PIO_STORAGE_SOURCES_DB_TYPE": "sqlite",
+           "PIO_STORAGE_SOURCES_DB_PATH": os.path.join(root, "meta.db")}
+    for repo, source in (("EVENTDATA", "EL"), ("METADATA", "DB"),
+                         ("MODELDATA", "DB")):
+        env[f"PIO_STORAGE_REPOSITORIES_{repo}_NAME"] = repo.lower()
+        env[f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE"] = source
+    return env
+
+
+def tier_client_env(ports) -> dict:
+    """One ``rest`` source ``CENTRAL`` over the servers, every
+    repository on it."""
+    env = {"PIO_STORAGE_SOURCES_CENTRAL_TYPE": "rest",
+           "PIO_STORAGE_SOURCES_CENTRAL_HOSTS": "127.0.0.1",
+           "PIO_STORAGE_SOURCES_CENTRAL_PORTS": ",".join(map(str, ports)),
+           "PIO_STORAGE_SOURCES_CENTRAL_REPLICAS": str(TIER_REPLICAS),
+           "PIO_STORAGE_SOURCES_CENTRAL_TIMEOUT": "120"}
+    for repo in ("METADATA", "EVENTDATA", "MODELDATA"):
+        env[f"PIO_STORAGE_REPOSITORIES_{repo}_NAME"] = repo.lower()
+        env[f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE"] = "CENTRAL"
+    return env
+
+
+def tier_columns(train):
+    """The training ratings as ``EventColumns`` whose rows (and times)
+    follow the user's owner shard of three, then the row's place: the
+    order the tier's merged read returns them in, so the local log read
+    sees the same rows, id orders and initial factors."""
+    from predictionio_torch.data.storage import EventColumns, stable_hash
+
+    u, i, r = train
+    shard_of = np.fromiter((stable_hash(f"u{j}") % TIER_SERVERS
+                            for j in range(N_USERS)), np.int64,
+                           count=N_USERS)
+    order = np.lexsort((np.arange(len(u)), shard_of[u]))
+    return EventColumns(
+        entity_codes=u[order].astype(np.int32),
+        target_codes=i[order].astype(np.int32),
+        name_codes=np.zeros(len(u), np.int32),
+        values=r[order].astype(np.float64),
+        times_us=1_700_000_000_000_000 + np.arange(len(u), dtype=np.int64),
+        entity_vocab=[f"u{j}" for j in range(N_USERS)],
+        target_vocab=[f"i{j}" for j in range(N_ITEMS)], names=["rate"])
+
+
+def row_keys(cols) -> np.ndarray:
+    """(user, item, rating) of every row as one sorted int64 key array:
+    a multiset that two reads can be compared on."""
+    users = np.array([int(s[1:]) for s in cols.entity_vocab], np.int64)
+    items = np.array([int(s[1:]) for s in cols.target_vocab], np.int64)
+    key = ((users[cols.entity_codes] * N_ITEMS + items[cols.target_codes])
+           * 16 + np.round(cols.values * 2).astype(np.int64))
+    return np.sort(key)
+
+
+class TierLog(logging.Handler):
+    """The records of one ``cli train``: its ALS fit and stage lines."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.fit, self.stages = None, None
+
+    def emit(self, record):
+        if record.getMessage().startswith("ALS trained on the "):
+            self.fit = dict(record.args[1])
+        pio = getattr(record, "pio", None)
+        if isinstance(pio, dict) and "datapath_stages" in pio:
+            self.stages = dict(pio["datapath_stages"])
+
+
+def tier_train(env: dict, engine_json: str, engine_id: str,
+               lane: str) -> dict:
+    """``cli.main(["train", ...])`` in this process, on the card, with
+    ``env`` as its storage; the instance id, its fit and stage seconds."""
+    from predictionio_torch.data import storage as storage_mod
+    from predictionio_torch.tools import cli
+
+    saved = {k: v for k, v in os.environ.items()
+             if k.startswith("PIO_STORAGE_")}
+    for k in saved:
+        del os.environ[k]
+    os.environ.update(env)
+    storage_mod.set_storage(None)
+    handler = TierLog()
+    loggers = [logging.getLogger(n) for n in (
+        "predictionio_torch.models.als", "predictionio_torch.workflow.train")]
+    for lg in loggers:
+        lg.addHandler(handler)
+    t0 = time.perf_counter()
+    try:
+        code = cli.main(["train", "--engine-json", engine_json,
+                         "--engine-id", engine_id])
+    finally:
+        for lg in loggers:
+            lg.removeHandler(handler)
+        for k in env:
+            os.environ.pop(k, None)
+        os.environ.update(saved)
+        storage_mod.set_storage(None)
+    sec = time.perf_counter() - t0
+    if code != 0 or handler.fit is None or handler.stages is None:
+        fail(f"phase 15: cli train of {engine_id} exited {code} (fit "
+             f"{handler.fit}, stages {handler.stages})")
+    if handler.fit["lane"] != lane:
+        fail(f"phase 15: {engine_id} trained on the {handler.fit['lane']} "
+             f"lane, not the {lane} lane")
+    instance = storage_mod.Storage.from_env(env).engine_instances(
+    ).get_latest_completed(engine_id, "0", "default")
+    if instance is None:
+        fail(f"phase 15: no COMPLETED {engine_id} instance")
+    return {"instance": instance.id, "sec": sec, "fit": handler.fit,
+            "stages": handler.stages}
+
+
+def model_rmse(model, held) -> float:
+    """Held-out RMSE of an ALS model over (user, item, rating) index
+    arrays; a pair the model lacks predicts 0."""
+    hu, hi, hr = held
+    U, V = np.asarray(model.user_factors), np.asarray(model.item_factors)
+    ui = np.array([model.user_ids.get(f"u{j}", -1) for j in hu], np.int64)
+    ii = np.array([model.item_ids.get(f"i{j}", -1) for j in hi], np.int64)
+    ok = (ui >= 0) & (ii >= 0)
+    pred = np.zeros(len(hr), np.float64)
+    pred[ok] = np.einsum("nk,nk->n", U[ui[ok]].astype(np.float64),
+                         V[ii[ok]].astype(np.float64))
+    return float(np.sqrt(np.mean((pred - hr) ** 2)))
+
+
+def model_truth(model) -> Truth:
+    inv_u, inv_i = model.user_ids.inverse(), model.item_ids.inverse()
+    return Truth(np.asarray(model.user_factors),
+                 np.asarray(model.item_factors),
+                 [inv_u[j] for j in range(len(inv_u))],
+                 [inv_i[j] for j in range(len(inv_i))])
+
+
+def tier_queries(truth: Truth, rng):
+    """Lone user queries (every third with a blacklist of the user's
+    three best items) and item queries."""
+    users = rng.choice(len(truth.users), TIER_LONE_USERS, replace=False)
+    names_u = list(truth.users)
+    qs = []
+    for n, j in enumerate(users):
+        q = {"user": names_u[int(j)], "num": 10}
+        if n % 3 == 0:
+            best = np.argsort(-(truth.V @ truth.U[int(j)]))[:3]
+            q["blacklist"] = [truth.item_names[int(b)] for b in best]
+        qs.append(q)
+    for j in rng.choice(len(truth.item_names), TIER_LONE_ITEMS,
+                        replace=False):
+        qs.append({"item": truth.item_names[int(j)], "num": 10})
+    return qs
+
+
+def tier_start(root: str, port: int = 0):
+    from predictionio_torch.data.storage import Storage
+    from predictionio_torch.serving.storage_server import StorageServer
+
+    backend = Storage.from_env(tier_server_env(root))
+    return backend, StorageServer(storage=backend, host="127.0.0.1",
+                                  port=port, bind_retries=5).start()
+
+
+def tier_stop(backend, server) -> None:
+    """Stop a server and release its storage: the event log's writer
+    lock and the sqlite connection."""
+    server.stop()
+    backend.events().close()
+    backend.client_for("METADATA").close()
+
+
+def storage_tier_phase(ratings) -> dict:
+    """Phase 15 (see the docstring): ingest, ``cli train`` and deploy
+    over three storage servers, then a server down and back, then
+    repair."""
+    from predictionio_torch.data import storage as storage_mod
+    from predictionio_torch.data.event import Event
+    from predictionio_torch.data.storage import (Storage,
+                                                 StorageUnavailableError,
+                                                 stable_hash)
+    from predictionio_torch.ops.kernels import topk_dot
+    from predictionio_torch.resilience import policy
+    from predictionio_torch.serving.engine_server import EngineServer
+    from predictionio_torch.templates.recommendation import \
+        recommendation_engine
+    from predictionio_torch.tools import cli
+    from predictionio_torch.workflow.deploy import load_blob
+
+    t_phase = time.perf_counter()
+    steps = {}
+
+    def step(name: str) -> None:
+        steps[name] = time.perf_counter() - t_phase - sum(steps.values())
+
+    train, held = md_ratings(ratings)
+    cols = tier_columns(train)
+    n = len(cols)
+    root = temp_store("pio_chip_smoke_tier_", TIER_DISK_BYTES)
+    roots = [os.path.join(root, f"server{k}") for k in range(TIER_SERVERS)]
+    started = [tier_start(r) for r in roots]
+    backends = [b for b, _ in started]
+    srvs = [s for _, s in started]
+    server = None
+    try:
+        env = tier_client_env([s.port for s in srvs])
+        urls = [f"http://127.0.0.1:{s.port}" for s in srvs]
+        tier = Storage.from_env(env)
+        # (a) ingest; the local log of the same rows (native, off the
+        # GIL) fills meanwhile
+        work = os.path.join(root, "work")
+        os.makedirs(work)
+        local_env = {"PIO_STORAGE_SOURCES_EL_TYPE": "eventlog",
+                     "PIO_STORAGE_SOURCES_EL_PATH": os.path.join(work, "el")}
+
+        def local_ingest():
+            local = Storage.from_env(local_env)
+            local_app = local.apps().insert(TIER_APP)
+            local.events().init(local_app.id)
+            local.events().insert_columnar(
+                cols, local_app.id, entity_type="user",
+                target_entity_type="item", value_property="rating")
+            local.events().close()
+
+        app = tier.apps().insert(TIER_APP)
+        tier.events().init(app.id)
+        with concurrent.futures.ThreadPoolExecutor(TIER_SERVERS) as pool:
+            local_done = pool.submit(local_ingest)
+            t0 = time.perf_counter()
+            if tier.events().insert_columnar(
+                    cols, app.id, entity_type="user",
+                    target_entity_type="item", value_property="rating") != n:
+                fail("phase 15 (a): insert_columnar counted another row "
+                     "total")
+            ingest_sec = time.perf_counter() - t0
+            local_done.result()
+            step("setup_ingest_and_local_log")
+            rows = list(pool.map(
+                lambda b: len(b.events().find_columnar(
+                    app.id, time_ordered=False)), backends))
+        if sum(rows) != TIER_REPLICAS * n or not all(
+                0.55 * n <= r <= 0.78 * n for r in rows):
+            fail(f"phase 15 (a): rows per server {rows} of {n} ingested")
+        keep = slice(None, None, TIER_REPAIR_STRIDE)
+        repair_cols = dataclasses.replace(
+            cols, entity_codes=cols.entity_codes[keep],
+            target_codes=cols.target_codes[keep],
+            name_codes=cols.name_codes[keep], values=cols.values[keep],
+            times_us=cols.times_us[keep])
+        repair_app = tier.apps().insert(TIER_REPAIR_APP)
+        tier.events().init(repair_app.id)
+        tier.events().insert_columnar(
+            repair_cols, repair_app.id, entity_type="user",
+            target_entity_type="item", value_property="rating")
+        step("row_counts_and_repair_app")
+
+        # (b) train over the tier, and from the local event log
+        engine_json = os.path.join(work, "engine.json")
+        with open(engine_json, "w") as f:
+            json.dump({"engineFactory": RECO, "datasource": {"params": {
+                "app_name": TIER_APP}},
+                "algorithms": [{"name": "als", "params": {
+                    "rank": RANK, "num_iterations": TIER_ITERS,
+                    "lambda_": ALS_REG, "block_size": ALS_BLOCK,
+                    "solver": "direct", "compute_dtype": "float32",
+                    "cg_dtype": "float32"}}]}, f)
+        rest_train = tier_train(env, engine_json, TIER_ENGINE, "coo")
+        step("rest_train")
+        # the local log bins natively: the same layout bytes as the
+        # tier's host binning of the same rows
+        local_train = tier_train(local_env, engine_json, TIER_ENGINE,
+                                 "binned")
+        step("local_train")
+        blob = tier.models().get(rest_train["instance"])
+        for k in range(TIER_REPLICAS):
+            inst = backends[k].engine_instances().get(rest_train["instance"])
+            copy = backends[k].models().get(rest_train["instance"])
+            if inst is None or inst.status != "COMPLETED" or copy is None \
+                    or copy.models != blob.models:
+                fail(f"phase 15 (b): metadata replica {k} lacks the "
+                     "instance row or its blob")
+        model = load_blob(blob.models)[0]
+        local_model = load_blob(Storage.from_env(local_env).models().get(
+            local_train["instance"]).models)[0]
+        if list(model.user_ids.keys()) != list(local_model.user_ids.keys()) \
+                or list(model.item_ids.keys()) != list(
+                    local_model.item_ids.keys()):
+            fail("phase 15 (b): the tier's read numbered ids in another "
+                 "order than the local log's")
+        scale = max(float(np.abs(np.asarray(t)).max()) for t in (
+            local_model.user_factors, local_model.item_factors))
+        diff = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+                   for a, b in ((model.user_factors, local_model.user_factors),
+                                (model.item_factors, local_model.item_factors)))
+        rmse, local_rmse = model_rmse(model, held), model_rmse(local_model,
+                                                               held)
+        if diff > TIER_FACTOR_TOL * scale or abs(rmse - local_rmse) > \
+                TIER_RMSE_TOL:
+            fail(f"phase 15 (b): factors {diff} apart (limit "
+                 f"{TIER_FACTOR_TOL * scale}), RMSE {rmse} vs {local_rmse}")
+
+        step("train_checks")
+
+        # (c) deploy from the tier, answer through topk_dot
+        truth = model_truth(model)
+        queries = tier_queries(truth, np.random.default_rng(SEED + 15))
+        topk_dot.launches.reset()
+        t0 = time.perf_counter()
+        server = EngineServer(recommendation_engine(),
+                              engine_id=TIER_ENGINE, host="127.0.0.1",
+                              port=0, storage=tier, device="cuda").start()
+        deploy_sec = time.perf_counter() - t0
+        lat = []
+        for q in queries:
+            t0 = time.perf_counter()
+            got = post(server.port, q)
+            lat.append(1e3 * (time.perf_counter() - t0))
+            check_answer(truth, q, got, "phase 15 (c)")
+        launches = topk_dot.launches.value
+        if launches < len(queries):
+            fail(f"phase 15 (c): {launches} topk_dot launches for "
+                 f"{len(queries)} lone queries")
+        lat.sort()
+        step("deploy_and_queries")
+
+        # (d) one server down: server 0, the metadata tier's owner
+        tier_stop(*started[0])
+        read = tier.events().find_columnar(app.id, value_property="rating",
+                                           time_ordered=False)
+        if len(read) != n or not np.array_equal(row_keys(read),
+                                                row_keys(cols)):
+            fail(f"phase 15 (d): {len(read)} rows read of {n}, or another "
+                 "multiset")
+        del read
+        step("failover_read")
+        code, body = http_json(server.port, "/reload")
+        if code != 200 or body.get("engineInstanceId") != \
+                rest_train["instance"]:
+            fail(f"phase 15 (d): GET /reload answered {code} {body}")
+        for q in queries[:6] + queries[-2:]:
+            check_answer(truth, q, post(server.port, q),
+                         "phase 15 (d) after reload")
+        status = tier.serving_status()
+        for repo in ("EVENTDATA", "METADATA"):
+            d = status[repo]
+            if not (d["serving"] and d["degraded"]) or d["endpoints"].get(
+                    urls[0]) is not False:
+                fail(f"phase 15 (d): {repo} status {d}")
+        writes = {}
+        for shard in range(TIER_SERVERS):
+            user = next(f"u{j}" for j in range(N_USERS)
+                        if stable_hash(f"u{j}") % TIER_SERVERS == shard)
+            needs_down = 0 in [(shard + r) % TIER_SERVERS
+                               for r in range(TIER_REPLICAS)]
+            event = Event(event="rate", entity_type="user", entity_id=user,
+                          target_entity_type="item", target_entity_id="i0",
+                          properties={"rating": 3.0})
+            try:
+                # into the repair app: a row write makes the event log
+                # index its table's ids first (~15 s at 3.2M rows)
+                tier.events().insert(event, repair_app.id)
+                writes[shard] = "ok"
+            except StorageUnavailableError as e:
+                writes[shard] = "unavailable"
+                if urls[0] not in str(e):
+                    fail(f"phase 15 (d): the failed write does not name "
+                         f"{urls[0]}: {e}")
+            if (writes[shard] == "ok") == needs_down:
+                fail(f"phase 15 (d): a write to shard {shard} "
+                     f"(needs the down server: {needs_down}) was "
+                     f"{writes[shard]}")
+        t0 = time.perf_counter()
+        started[0] = tier_start(roots[0], port=srvs[0].port)
+        backends[0], srvs[0] = started[0]
+        policy.reset_breakers()
+        restart_sec = time.perf_counter() - t0
+        step("failover_reload_status_writes_restart")
+
+        # (e) repair: one shard's non-owner replica loses rows, the
+        # metadata replica the instance row
+        lost_shard = 0
+        replica = backends[(lost_shard + 1) % TIER_SERVERS]
+        victims = [e for e in replica.events().find(repair_app.id)
+                   if stable_hash(e.entity_id) % TIER_SERVERS == lost_shard
+                   ][:TIER_REPAIR_LOST]
+        for e in victims:
+            replica.events().delete(e.event_id, repair_app.id)
+        backends[1].engine_instances().delete(rest_train["instance"])
+        os.environ.update(env)
+        runs = []
+        try:
+            for _ in range(2):
+                storage_mod.set_storage(None)
+                out = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(out):
+                    code = cli.main(["storagerepair", "--appname",
+                                     TIER_REPAIR_APP])
+                runs.append((code, out.getvalue().splitlines(),
+                             time.perf_counter() - t0))
+        finally:
+            for k in env:
+                os.environ.pop(k, None)
+            storage_mod.set_storage(None)
+        expect = [(len(victims), 1), (0, 0)]
+        for (code, lines, _), (rows_copied, records) in zip(runs, expect):
+            want = [f"Event replica repair for app {TIER_REPAIR_APP}: "
+                    f"{rows_copied} rows copied, 0 rows deleted",
+                    f"Metadata/model replica repair: {records} records "
+                    "copied, 0 records deleted"]
+            if code != 0 or lines != want:
+                fail(f"phase 15 (e): storagerepair exited {code}: {lines}, "
+                     f"expected {want}")
+        if len(victims) != TIER_REPAIR_LOST:
+            fail(f"phase 15 (e): {len(victims)} rows deleted")
+        for k in range(TIER_SERVERS):
+            owner = sorted((e.entity_id, e.target_entity_id,
+                            e.properties.get_opt("rating"))
+                           for e in backends[k].events().find(repair_app.id)
+                           if stable_hash(e.entity_id) % TIER_SERVERS == k)
+            copy = sorted((e.entity_id, e.target_entity_id,
+                           e.properties.get_opt("rating"))
+                          for e in backends[(k + 1) % TIER_SERVERS].events(
+                          ).find(repair_app.id)
+                          if stable_hash(e.entity_id) % TIER_SERVERS == k)
+            if owner != copy:
+                fail(f"phase 15 (e): shard {k}'s replicas differ after "
+                     "repair")
+        if backends[1].engine_instances().get(rest_train["instance"]) is None:
+            fail("phase 15 (e): the instance row was not copied back")
+        step("repair")
+    finally:
+        if server is not None:
+            server.stop()
+        for b, s in started:
+            with contextlib.suppress(Exception):
+                tier_stop(b, s)
+        shutil.rmtree(root, ignore_errors=True)
+    return {
+        "servers": TIER_SERVERS, "replicas": TIER_REPLICAS,
+        "ingest": {"rows": n, "sec": ingest_sec, "rows_per_server": rows,
+                   "rows_per_sec": n / ingest_sec},
+        "train": {"rest": rest_train, "local_eventlog": local_train,
+                  "factor_max_abs_diff": diff, "factor_scale": scale,
+                  "rmse": rmse, "local_rmse": local_rmse},
+        "deploy": {"sec": deploy_sec, "lone_queries": len(queries),
+                   "lone_ms_p50": lat[len(lat) // 2], "lone_ms_max": lat[-1],
+                   "topk_dot_launches": launches},
+        "failover": {"down": urls[0], "rows_read": n, "writes": writes,
+                     "restart_sec": restart_sec},
+        "repair": {"rows": len(repair_cols), "lost": len(victims),
+                   "runs": [{"lines": lines, "sec": sec}
+                            for _, lines, sec in runs]},
+        "steps_sec": steps, "phase_sec": time.perf_counter() - t_phase,
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -6152,8 +6676,10 @@ def main() -> int:
         shutil.rmtree(ecom_root, ignore_errors=True)
     mark("sessionrec")
     multi_device = multi_device_phase(ratings)
-    del ratings, project_cut
     mark("multi_device")
+    storage = storage_tier_phase(ratings)
+    del ratings, project_cut
+    mark("storage_tier")
     families = {"sessionrec": sessionrec, **families_rest,
                 "phase_sec": sessionrec["phase_sec"] + rest_sec,
                 "rest_overlapped_build": True}
@@ -6165,6 +6691,8 @@ def main() -> int:
         "topk_dot_launches"]
     topk["similar_product_d10"] = similar["kernel_d10"]
     topk["launches_by_path"].update(multi_device["launches"])
+    topk["launches_by_path"]["storage_tier_deploy"] = storage["deploy"][
+        "topk_dot_launches"]
     topk["sharded_slab"] = multi_device["slab_topk_dot"]
     print(json.dumps({"multi_device": {**multi_device, "card": card}}),
           flush=True)
@@ -6175,6 +6703,7 @@ def main() -> int:
             "checkpoint_resume": project["checkpoint"][key],
             **{f"multi_device_{path}": n for path, n in multi_device[
                 "twotower"]["launches"][entry["name"]].items()}}
+    print(json.dumps({"storage": {**storage, "card": card}}), flush=True)
     print(json.dumps({"obs": {**obs, "card_line": card}}), flush=True)
     print(json.dumps({"phase_wall_sec": walls,
                        "script_sec": time.perf_counter() - t_start}),

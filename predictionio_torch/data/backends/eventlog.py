@@ -1013,6 +1013,7 @@ class EventLogStorageClient(S.StorageClient):
     ``<PATH>/meta`` (the HBase-for-events, ES-for-metadata pairing)."""
 
     def __init__(self, config: Dict[str, str]):
+        super().__init__(config)
         base = os.path.expanduser(
             config.get("PATH", os.path.join("~", ".pio_store", "eventlog")))
         self._events = EventLogEventStore(

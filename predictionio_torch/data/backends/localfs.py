@@ -174,6 +174,32 @@ class LocalFSModelsRepo(S.ModelsRepo):
         except FileNotFoundError:
             return None
 
+    def size(self, id: str) -> Optional[int]:
+        # one stat, no blob read
+        try:
+            return os.path.getsize(self._path(id))
+        except OSError:
+            return None
+
+    def delete(self, id: str) -> None:
+        try:
+            os.remove(self._path(id))
+        except FileNotFoundError:
+            pass
+
+    def list(self):
+        def blobs():
+            for name in sorted(os.listdir(self._dir)):
+                if not name.startswith("pio_"):
+                    continue
+                try:
+                    with open(os.path.join(self._dir, name), "rb") as f:
+                        yield name[len("pio_"):], f.read()
+                except FileNotFoundError:
+                    continue  # deleted between listdir and open
+
+        return S.blob_inventory(blobs())
+
 
 class _MetadataDoc:
     """``metadata.json`` under the cross-process ``flock``: each change
@@ -360,6 +386,9 @@ class LocalFSChannelsRepo(S.ChannelsRepo):
     def delete(self, channel_id):
         self._doc.remove("channels", "id", int(channel_id))
 
+    def put(self, channel):
+        self._doc.upsert("channels", "id", channel)
+
 
 class LocalFSEngineManifestsRepo(S.EngineManifestsRepo):
     """Keyed on (id, version), as the JAX backend keys them."""
@@ -402,6 +431,9 @@ class LocalFSEngineInstancesRepo(S.EngineInstancesRepo):
     def get_all(self) -> List[EngineInstance]:
         return self._doc.records("engine_instances", EngineInstance)
 
+    def delete(self, id: str) -> None:
+        self._doc.remove("engine_instances", "id", id)
+
 
 class LocalFSEvaluationInstancesRepo(S.EvaluationInstancesRepo):
     def __init__(self, doc: _MetadataDoc):
@@ -427,6 +459,7 @@ class LocalFSStorageClient(S.StorageClient):
     """Directory-rooted storage source; ``PATH`` config key sets the root."""
 
     def __init__(self, config: Dict[str, str]):
+        super().__init__(config)
         basedir = os.path.expanduser(config.get("PATH") or "~/.pio_store")
         os.makedirs(basedir, exist_ok=True)
         doc = _MetadataDoc(basedir)

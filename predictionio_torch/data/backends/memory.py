@@ -234,6 +234,12 @@ class MemoryChannelsRepo(_RecordRepo, S.ChannelsRepo):
         with self._lock:
             self._records.pop(int(channel_id), None)
 
+    def put(self, channel):
+        # replication write: the owner assigned the id and validated
+        # the record (S.ChannelsRepo.put)
+        with self._lock:
+            self._put(int(channel.id), channel)
+
 
 class MemoryEngineManifestsRepo(_RecordRepo, S.EngineManifestsRepo):
     """Keyed on (id, version)."""
@@ -279,6 +285,10 @@ class MemoryEngineInstancesRepo(S.EngineInstancesRepo):
         with self._lock:
             return [copy.deepcopy(r) for r in self._records.values()]
 
+    def delete(self, id):
+        with self._lock:
+            self._records.pop(id, None)
+
 
 class MemoryEvaluationInstancesRepo(_RecordRepo, S.EvaluationInstancesRepo):
     def insert(self, instance: EvaluationInstance) -> str:
@@ -316,9 +326,24 @@ class MemoryModelsRepo(S.ModelsRepo):
             m = self._models.get(id)
             return Model(id=m.id, models=m.models) if m is not None else None
 
+    def size(self, id):
+        with self._lock:
+            m = self._models.get(id)
+            return None if m is None else len(m.models)
+
+    def delete(self, id):
+        with self._lock:
+            self._models.pop(id, None)
+
+    def list(self):
+        with self._lock:
+            return S.blob_inventory((m.id, m.models)
+                                    for m in self._models.values())
+
 
 class MemoryStorageClient(S.StorageClient):
     def __init__(self, config: Dict[str, str]):
+        super().__init__(config)
         lock = threading.RLock()
         sequences = _Sequences()
         self._events = MemoryEventStore()

@@ -1,0 +1,1852 @@
+"""``rest`` storage backend: proxy DAOs talking to a Storage Server.
+
+Copy of ``predictionio_tpu/data/backends/rest.py``. The wire is the JAX
+package's (the same routes, JSON bodies, NDJSON finds, npz scans and
+headers), so the port's client talks to either package's storage
+server and either client to the port's server. What follows is the JAX
+module's account.
+
+The reference reaches its scale-out tiers through network clients —
+HBase RPC for events, the Elasticsearch transport client for metadata
+(elasticsearch/StorageClient.scala:42), HDFS for model blobs
+(hdfs/HDFSModels.scala:28). This backend is that client side for the
+framework's own storage service (serving/storage_server.py): every DAO
+call becomes an HTTP request, so any number of trainer/serving hosts
+share one logical METADATA / EVENTDATA / MODELDATA over DCN.
+
+Source config (reference env grammar, conf/pio-env.sh.template):
+
+    PIO_STORAGE_SOURCES_CENTRAL_TYPE=rest
+    PIO_STORAGE_SOURCES_CENTRAL_HOSTS=10.0.0.5
+    PIO_STORAGE_SOURCES_CENTRAL_PORTS=7077
+    PIO_STORAGE_SOURCES_CENTRAL_AUTH_KEY=...   # optional shared secret
+    PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE=CENTRAL   # etc.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import time
+import urllib.error
+import urllib.request
+from http.client import IncompleteRead
+from typing import Any, Dict, List, Optional
+
+from predictionio_torch.data.event import Event
+from predictionio_torch.data import metadata as MD
+from predictionio_torch.resilience.policy import (
+    CircuitOpenError,
+    Policy,
+    breaker_for,
+)
+from predictionio_torch.data.metadata import (
+    AccessKey,
+    App,
+    Channel,
+    EngineInstance,
+    EngineManifest,
+    EvaluationInstance,
+    Model,
+)
+from predictionio_torch.data import storage as S
+from predictionio_torch.obs import trace
+
+log = logging.getLogger(__name__)
+
+
+class StorageCircuitOpenError(S.StorageUnavailableError):
+    """Unavailable because the endpoint's circuit is OPEN: retrying the
+    SAME endpoint is guaranteed to fail fast again until the half-open
+    window, so same-endpoint retry loops must give up immediately —
+    that is the breaker's whole fail-fast contract. Replica failover
+    (a DIFFERENT endpoint) still proceeds: this subclasses
+    StorageUnavailableError, so `_first_live` advances past a
+    circuit-broken replica like any other dead one."""
+
+
+def _span_name(path: str) -> str:
+    """Bounded span/metric name for a storage-server route:
+    /storage/events/find -> storage.find, /storage/meta/apps/get ->
+    storage.meta.apps.get, /storage/models/<id> -> storage.models."""
+    parts = path.split("?", 1)[0].strip("/").split("/")
+    if len(parts) >= 3 and parts[1] == "events":
+        name = parts[2] if not parts[2].startswith("scan") else "scan"
+        return f"storage.{name}"
+    if len(parts) >= 4 and parts[1] == "meta":
+        return f"storage.meta.{parts[2]}.{parts[3]}"
+    if len(parts) >= 2 and parts[1] == "models":
+        return "storage.models"
+    return "storage.request"
+
+
+class _Transport:
+    """One storage-server endpoint + auth; shared by all proxy DAOs.
+
+    Resilience (the role HBase's client plays with its connection pool
+    and bounded retries, hbase/StorageClient.scala), now carried by the
+    framework-wide resilience :class:`Policy`: connection-level
+    failures — refused, reset, timed out — are classified as
+    StorageUnavailableError and, for IDEMPOTENT operations, retried
+    with capped exponential backoff + FULL jitter. Non-idempotent
+    writes (event/metadata inserts) never auto-retry: their first
+    attempt's outcome is unknown, and a blind replay could
+    double-write. Every request also runs through this endpoint's
+    circuit breaker: after enough consecutive connection failures the
+    circuit opens and calls fail FAST (StorageUnavailableError without
+    a connect attempt) until a half-open probe succeeds — a dead
+    storage server costs microseconds, not timeout x retries, which is
+    what lets the engine server flip to degraded mode instead of
+    stalling."""
+
+    def __init__(self, base_url: str, auth_key: Optional[str], timeout: float,
+                 retries: int = 3, backoff: float = 0.2):
+        self.base_url = base_url.rstrip("/")
+        self.auth_key = auth_key
+        self.timeout = timeout
+        self.retries = max(0, int(retries))
+        self.backoff = backoff
+        self.policy = Policy(deadline=timeout, retries=self.retries,
+                             backoff_base=backoff, backoff_cap=10.0)
+        self.breaker = breaker_for(self.base_url)
+
+    def _request_obj(self, path, body, method, content_type) -> urllib.request.Request:
+        req = urllib.request.Request(
+            self.base_url + path, data=body, method=method,
+            headers={"Content-Type": content_type},
+        )
+        if self.auth_key:
+            req.add_header("X-PIO-Storage-Key", self.auth_key)
+        # propagate the serving request's trace id (and the active
+        # span as X-PIO-Parent-Span) so the storage server's span
+        # records join the same chain — and the federation collector
+        # (obs/collect.py) can parent its edge span under this
+        # client's storage.* span in the stitched cross-process tree
+        for name, value in trace.traced_headers().items():
+            req.add_header(name, value)
+        return req
+
+    def _error(self, path: str, e: urllib.error.HTTPError) -> S.StorageError:
+        payload = e.read()
+        error_type = None
+        row_error = False
+        try:
+            body = json.loads(payload)
+            message = body.get("message", payload.decode())
+            error_type = body.get("type")
+            row_error = bool(body.get("row_error", False))
+        except Exception:  # noqa: BLE001 — raw body is the best we have
+            message = payload.decode(errors="replace")
+        err = S.StorageError(
+            f"storage server {self.base_url}{path}: HTTP {e.code}: {message}"
+        )
+        # structured discriminators (the server's "type" / "row_error"
+        # fields) so callers can re-map client errors without grepping
+        # messages; server_message carries the unwrapped text for
+        # re-raises that want local/remote message parity
+        err.error_type = error_type
+        err.row_error = row_error
+        err.server_message = message
+        return err
+
+    def _sleep_backoff(self, attempt: int) -> None:
+        # the outer scan/fetch retry loops share the policy's jittered
+        # schedule (full jitter: spreads a retry storm instead of
+        # synchronizing it)
+        time.sleep(self.policy.backoff_seconds(attempt))
+
+    def _circuit_open_error(self, e: CircuitOpenError) -> S.StorageError:
+        return StorageCircuitOpenError(
+            f"storage server {self.base_url} unreachable (circuit open, "
+            f"next probe in {e.retry_after:.1f}s)")
+
+    def request(
+        self,
+        path: str,
+        body: Optional[bytes] = None,
+        method: str = "POST",
+        content_type: str = "application/json",
+        timeout: Optional[float] = None,
+        idempotent: bool = False,
+    ):
+        """(status, body bytes). A 404 is returned (not raised) ONLY when
+        the server marks it as a data miss (``{"missing": true}``); a
+        bare 404 means route/version skew and raises StorageError, so it
+        can never masquerade as empty data. Connection-level failures
+        raise StorageUnavailableError — after the policy's bounded
+        retries when ``idempotent``, immediately (fail-fast, no connect)
+        while the endpoint's circuit is open."""
+        with trace.span(_span_name(path), endpoint=self.base_url):
+            try:
+                return self.policy.run(
+                    lambda: self._one_attempt(path, body, method,
+                                              content_type, timeout),
+                    target=self.base_url,  # per-endpoint retry metrics
+                    idempotent=idempotent,
+                    retry_on=(S.StorageUnavailableError,),
+                    breaker=self.breaker,
+                )
+            except CircuitOpenError as e:
+                raise self._circuit_open_error(e) from None
+
+    def _one_attempt(self, path, body, method, content_type, timeout):
+        req = self._request_obj(path, body, method, content_type)
+        try:
+            with urllib.request.urlopen(
+                req, timeout=timeout if timeout is not None else self.timeout
+            ) as resp:
+                return resp.status, resp.read()
+        except urllib.error.HTTPError as e:
+            # an HTTP answer means the server is UP: these are
+            # application errors — never retried, invisible to the
+            # breaker's consecutive-failure count
+            if e.code == 404:
+                payload = e.read()
+                try:
+                    missing = json.loads(payload).get("missing", False)
+                except Exception:  # noqa: BLE001
+                    missing = False
+                if missing:
+                    return 404, payload
+                raise S.StorageError(
+                    f"storage server {self.base_url}{path}: unknown route "
+                    "(server/client version skew?)"
+                ) from None
+            raise self._error(path, e) from None
+        except (urllib.error.URLError, ConnectionError, TimeoutError) as e:
+            reason = getattr(e, "reason", e)
+            raise S.StorageUnavailableError(
+                f"storage server {self.base_url} unreachable: {reason}"
+            ) from None
+
+    def json_call(self, path: str, payload: Dict[str, Any],
+                  idempotent: bool = False) -> Any:
+        status, body = self.request(path, json.dumps(payload).encode(),
+                                    idempotent=idempotent)
+        if status == 404:
+            return None
+        return json.loads(body)
+
+    def stream_lines(self, path: str, payload: Dict[str, Any]):
+        """Yield non-empty response lines without buffering the body
+        (the server chunk-streams finds; urllib decodes transparently).
+        Connection failures — at connect or mid-stream — raise
+        StorageUnavailableError so read callers can retry the scan.
+        Streaming cannot run inside ``Policy.run`` (the generator
+        outlives the call), so the breaker is applied by hand: fail
+        fast while open, one failure/success record per stream."""
+        if not self.breaker.allow():
+            raise self._circuit_open_error(
+                CircuitOpenError(self.base_url, self.breaker.retry_after()))
+        req = self._request_obj(
+            path, json.dumps(payload).encode(), "POST", "application/json"
+        )
+        try:
+            resp = urllib.request.urlopen(req, timeout=self.timeout)
+        except urllib.error.HTTPError as e:
+            self.breaker.record_success()  # an HTTP answer: reachable
+            raise self._error(path, e) from None
+        except (urllib.error.URLError, ConnectionError, TimeoutError) as e:
+            self.breaker.record_failure()
+            raise S.StorageUnavailableError(
+                f"storage server {self.base_url} unreachable: "
+                f"{getattr(e, 'reason', e)}"
+            ) from None
+        try:
+            with resp:
+                for line in resp:
+                    line = line.strip()
+                    if line:
+                        yield line
+        except (urllib.error.URLError, ConnectionError, TimeoutError,
+                IncompleteRead) as e:
+            self.breaker.record_failure()
+            raise S.StorageUnavailableError(
+                f"storage server {self.base_url}: connection lost "
+                f"mid-stream: {getattr(e, 'reason', e)}"
+            ) from None
+        self.breaker.record_success()
+
+
+class RestEventStore(S.EventStore):
+    def __init__(self, transport: _Transport):
+        self._t = transport
+
+    def _call(self, method: str, app_id, channel_id, idempotent=False,
+              **extra) -> Any:
+        payload = {"app_id": int(app_id), "channel_id": channel_id}
+        payload.update(extra)
+        return self._t.json_call(f"/storage/events/{method}", payload,
+                                 idempotent=idempotent)
+
+    def init(self, app_id, channel_id=None):
+        self._call("init", app_id, channel_id, idempotent=True)
+
+    def remove(self, app_id, channel_id=None):
+        self._call("remove", app_id, channel_id, idempotent=True)
+
+    def compact(self, app_id, channel_id=None):
+        # runs ON the storage server, against its local backend; None
+        # when that backend stores events in place
+        return self._call("compact", app_id, channel_id,
+                          idempotent=True)["stats"]
+
+    def insert(self, event: Event, app_id, channel_id=None) -> str:
+        # NOT retried: a lost response would double-insert
+        out = self._call("insert", app_id, channel_id,
+                         event=event.to_dict(api_format=False))
+        return out["eventId"]
+
+    def insert_batch(self, events, app_id, channel_id=None) -> List[str]:
+        out = self._call("insert_batch", app_id, channel_id,
+                         events=[e.to_dict(api_format=False) for e in events])
+        return out["eventIds"]
+
+    def insert_json_batch(self, raw: bytes, app_id, channel_id=None, *,
+                          strict: bool = True):
+        """Forward the RAW API-format JSON array to the storage
+        server's native encoder (/storage/events/insert_json) — the
+        event server's batch route then has zero per-row Python on
+        either host. Raises JsonRowsUnsupported when the server's
+        backend has no native lane (or declines the shape), so callers
+        fall back to the per-row wire path. Same return contract as
+        EventLogEventStore.insert_json_batch."""
+        from urllib.parse import urlencode
+
+        from predictionio_torch.data.backends.eventlog import (
+            JsonRowsUnsupported,
+        )
+
+        params = {"app_id": int(app_id), "strict": "1" if strict else "0"}
+        if channel_id is not None:
+            params["channel_id"] = int(channel_id)
+        try:
+            status, body = self._t.request(
+                "/storage/events/insert_json?" + urlencode(params), raw)
+        except S.StorageError as e:
+            if "unknown route" in str(e):
+                raise JsonRowsUnsupported() from None  # older server
+            if getattr(e, "error_type", None) == "ValueError":
+                # the server's structured discriminator: a CLIENT error
+                # (malformed body) — re-raise as ValueError so the
+                # batch route answers 400, not 500
+                raise ValueError(str(e)) from None
+            if getattr(e, "row_error", False):
+                # the server's row_error discriminator, set ONLY for a
+                # strict=True row-validation failure: re-raise clean
+                # (transport wrapper stripped) under the same type the
+                # local DAO raises synchronously. Other StorageErrors
+                # (lock contention, I/O) keep their transport context
+                # and type
+                raise S.RowValidationError(
+                    getattr(e, "server_message", str(e))) from None
+            raise
+        out = json.loads(body)
+        if out.get("unsupported"):
+            raise JsonRowsUnsupported()
+        return out["ids"], out["codes"], out["names"], out["etypes"]
+
+    def get(self, event_id, app_id, channel_id=None) -> Optional[Event]:
+        out = self._call("get", app_id, channel_id, event_id=event_id,
+                         idempotent=True)
+        return Event.from_dict(out["event"]) if out else None
+
+    def delete(self, event_id, app_id, channel_id=None) -> bool:
+        # retried: deleting an id twice converges to the same state (the
+        # replay may report found=False if the first attempt landed)
+        return bool(self._call("delete", app_id, channel_id,
+                               event_id=event_id, idempotent=True)["found"])
+
+    _FIND_KEYS = frozenset(
+        {"start_time", "until_time", "entity_type", "entity_id",
+         "event_names", "target_entity_type", "target_entity_id",
+         "limit", "reversed"}
+    )
+
+    @classmethod
+    def _find_payload(cls, app_id, channel_id, find_kwargs) -> Dict[str, Any]:
+        unknown = set(find_kwargs) - cls._FIND_KEYS
+        if unknown:
+            # a typo'd filter must fail loudly, never scan unfiltered
+            # (the eventlog backend enforces the same invariant)
+            raise TypeError(
+                f"got unexpected filters {sorted(unknown)}"
+            )
+        payload: Dict[str, Any] = {
+            "app_id": int(app_id), "channel_id": channel_id,
+        }
+        for key in ("start_time", "until_time"):
+            v = find_kwargs.get(key)
+            payload[key] = v.isoformat() if v is not None else None
+        for key in ("entity_type", "entity_id", "limit"):
+            payload[key] = find_kwargs.get(key)
+        names = find_kwargs.get("event_names")
+        payload["event_names"] = list(names) if names is not None else None
+        payload["reversed"] = bool(find_kwargs.get("reversed", False))
+        # tri-state target filters (absent | null | value) via *_set flags
+        tt = find_kwargs.get("target_entity_type", S.UNSET)
+        if tt is not S.UNSET:
+            payload["target_entity_type_set"] = True
+            payload["target_entity_type"] = tt
+        ti = find_kwargs.get("target_entity_id", S.UNSET)
+        if ti is not S.UNSET:
+            payload["target_entity_id_set"] = True
+            payload["target_entity_id"] = ti
+        return payload
+
+    def find(
+        self,
+        app_id,
+        channel_id=None,
+        start_time=None,
+        until_time=None,
+        entity_type=None,
+        entity_id=None,
+        event_names=None,
+        target_entity_type=S.UNSET,
+        target_entity_id=S.UNSET,
+        limit=None,
+        reversed=False,
+        placement_shards=None,
+        placement_count=None,
+    ) -> List[Event]:
+        """``placement_shards``/``placement_count`` (beyond the abstract
+        contract; used by ShardedRestEventStore under replication) ask
+        the SERVER to return only rows whose entity hash-routes to one
+        of those shards — a replica holding R shards' copies then sends
+        one shard's bytes, not its whole event set."""
+        payload = self._find_payload(app_id, channel_id, {
+            "start_time": start_time, "until_time": until_time,
+            "entity_type": entity_type, "entity_id": entity_id,
+            "event_names": event_names,
+            "target_entity_type": target_entity_type,
+            "target_entity_id": target_entity_id,
+            "limit": limit, "reversed": reversed,
+        })
+        if placement_count is not None:
+            payload["placement_shards"] = [int(x) for x in placement_shards]
+            payload["placement_count"] = int(placement_count)
+        # a read: on a mid-stream connection drop, retry the whole scan
+        last = None
+        with trace.span("storage.find", endpoint=self._t.base_url):
+            for attempt in range(1 + self._t.retries):
+                if attempt:
+                    self._t._sleep_backoff(attempt - 1)
+                try:
+                    return [
+                        Event.from_dict(json.loads(line))
+                        for line in self._t.stream_lines(
+                            "/storage/events/find", payload)
+                    ]
+                except StorageCircuitOpenError:
+                    # guaranteed to fail fast again until the half-open
+                    # window: backoff-sleeping against it would defeat
+                    # the breaker (failover happens a layer up)
+                    raise
+                except S.StorageUnavailableError as e:
+                    last = e
+            raise last
+
+    def find_columnar(
+        self,
+        app_id,
+        channel_id=None,
+        value_property=None,
+        time_ordered=True,
+        shard_index=None,
+        shard_count=None,
+        **find_kwargs,
+    ) -> S.EventColumns:
+        """Bulk training read over the wire as one binary npz of
+        dict-encoded columns — 20M rows without per-event JSON.
+
+        ``shard_index``/``shard_count`` travel in the request so the
+        SERVER applies the entity-hash read shard: each of N training
+        hosts receives only its ~1/N of the bytes (the per-executor
+        HBase region-scan role, hbase/HBPEvents.scala:48).
+
+        Two-phase, resumable: the server runs the scan once and spools
+        the npz to disk (POST find_columnar -> {"scan_id", "bytes"});
+        the bytes stream via GET .../scan/<id>?offset=N, so a dropped
+        connection resumes from the last received byte instead of
+        re-scanning, and an expired/restarted server triggers a
+        re-prepare. The scan is released when fully received."""
+        import tempfile
+
+        S.EventStore.check_shard_params(shard_index, shard_count)
+        payload = self._find_payload(app_id, channel_id, find_kwargs)
+        payload["value_property"] = value_property
+        payload["time_ordered"] = bool(time_ordered)
+        if shard_count is not None:
+            payload["shard_index"] = int(shard_index)
+            payload["shard_count"] = int(shard_count)
+        body = json.dumps(payload).encode()
+        # outer loop retries SCAN EXPIRY only (the `continue` below);
+        # connection failures raise out of request() after its own
+        # idempotent retries — the budgets are for different failure
+        # modes and do not multiply
+        for attempt in range(1 + self._t.retries):
+            if attempt:
+                self._t._sleep_backoff(attempt - 1)
+            status, prep_body = self._t.request(
+                "/storage/events/find_columnar", body,
+                timeout=max(self._t.timeout, 600.0),  # scans take minutes
+                idempotent=True,
+            )
+            try:
+                prep = json.loads(prep_body)
+                scan_id, total = prep["scan_id"], int(prep["bytes"])
+            except (ValueError, KeyError, TypeError):
+                raise S.StorageError(
+                    f"storage server {self._t.base_url}: find_columnar did "
+                    "not answer the scan handshake (server/client version "
+                    "skew?)"
+                ) from None
+            # spool to a client-side temp file: the multi-GB blob never
+            # sits in memory next to the decoded arrays
+            with tempfile.TemporaryFile() as spool:
+                if not self._fetch_scan(scan_id, total, spool):
+                    continue  # scan expired / server restarted: re-prepare
+                try:
+                    self._t.request(f"/storage/events/scan/{scan_id}",
+                                    method="DELETE", idempotent=True)
+                except S.StorageError:
+                    pass  # best-effort release; the server TTL reaps it
+                spool.seek(0)
+                return S.npz_to_columns(spool)
+        raise S.StorageUnavailableError(
+            f"storage server {self._t.base_url}: bulk scan kept expiring "
+            f"after {1 + self._t.retries} attempts"
+        )
+
+    def _fetch_scan(self, scan_id: str, total: int, spool) -> bool:
+        """Stream a spooled scan into ``spool``, resuming from the
+        received-byte offset on connection failures (each received
+        chunk resets the retry budget — only LACK OF PROGRESS counts
+        against it). False when the scan is gone server-side (caller
+        re-prepares)."""
+        received = 0
+        failures = 0
+        breaker = self._t.breaker
+        while received < total:
+            if not breaker.allow():
+                raise StorageCircuitOpenError(
+                    f"storage server {self._t.base_url} unreachable "
+                    f"(circuit open mid-scan, {received}/{total} bytes)")
+            req = self._t._request_obj(
+                f"/storage/events/scan/{scan_id}?offset={received}",
+                None, "GET", "application/octet-stream",
+            )
+            try:
+                with urllib.request.urlopen(req, timeout=self._t.timeout) as resp:
+                    while True:
+                        chunk = resp.read(1 << 20)
+                        if not chunk:
+                            break
+                        spool.write(chunk)
+                        received += len(chunk)
+                        failures = 0
+                breaker.record_success()
+            except urllib.error.HTTPError as e:
+                breaker.record_success()  # an HTTP answer: reachable
+                if e.code == 404:
+                    return False
+                raise self._t._error(f"/storage/events/scan/{scan_id}", e) from None
+            except (urllib.error.URLError, ConnectionError, TimeoutError,
+                    IncompleteRead):
+                breaker.record_failure()
+                failures += 1
+                if failures > self._t.retries:
+                    raise S.StorageUnavailableError(
+                        f"storage server {self._t.base_url}: scan fetch made "
+                        f"no progress after {failures} attempts "
+                        f"({received}/{total} bytes)"
+                    ) from None
+                self._t._sleep_backoff(failures - 1)
+        return True
+
+    def insert_columnar(
+        self,
+        cols: S.EventColumns,
+        app_id,
+        channel_id=None,
+        *,
+        entity_type: str,
+        target_entity_type=None,
+        value_property=None,
+    ) -> int:
+        """Bulk ingest over the wire: npz body, scalar params in the
+        query string (percent-encoded UTF-8 — header values would be
+        latin-1-only)."""
+        from urllib.parse import urlencode
+
+        params = {"app_id": int(app_id), "entity_type": entity_type}
+        if channel_id is not None:
+            params["channel_id"] = int(channel_id)
+        if target_entity_type is not None:
+            params["target_entity_type"] = target_entity_type
+        if value_property is not None:
+            params["value_property"] = value_property
+        status, body = self._t.request(
+            "/storage/events/insert_columnar?" + urlencode(params),
+            S.columns_to_npz(cols),
+            content_type="application/octet-stream",
+            timeout=max(self._t.timeout, 600.0),  # bulk ingest
+        )
+        return int(json.loads(body)["count"])
+
+
+class ShardedRestEventStore(S.EventStore):
+    """EVENTDATA partitioned across N storage servers by entity hash —
+    the HBase region model (rowkey = MD5(entity) prefix spreads load
+    across region servers, hbase/HBEventsUtil.scala:96-108) rebuilt on
+    the framework's own storage service.
+
+    Writes route by ``stable_hash(entity_id) % N`` (all of one entity's
+    events live on one server); reads fan out to every shard and merge.
+    A down shard fails LOUDLY: the underlying transport error names the
+    shard's endpoint, and no read silently returns a partial result.
+
+    ``replicas=R`` adds successor replication (the HDFS-under-HBase
+    role): shard k's rows are written synchronously to servers
+    k..k+R-1 (mod N), and reads pick the first LIVE server of each
+    shard's replica set, asking it for shard k's rows only (the
+    server-side shard filter keeps replica-held foreign shards out), so
+    any R-1 servers can be down and every read still completes with the
+    full data. Write availability intentionally requires a shard's
+    whole replica set up: a failed replica write fails loudly, rolls
+    back the copies already written (row path, by client-stamped id;
+    best-effort), and writes land successors-first/owner-last so any
+    un-rolled-back partial sits where owner-preferring reads don't
+    look. Row-path inserts stamp event ids CLIENT-side so all copies
+    share one id (get/delete/rollback stay consistent); bulk columnar
+    ingest replicates rows but each copy gets its own server-assigned
+    id — fine for the immutable interaction logs it exists for, not for
+    rows that will be point-deleted; a mid-ingest failure is recovered
+    by ``remove()`` + re-init + re-ingest, NOT a blind re-run (which
+    would duplicate rows on replicas that already took the part).
+    """
+
+    def __init__(self, stores: List[RestEventStore], replicas: int = 1):
+        assert len(stores) > 1
+        if not 1 <= replicas <= len(stores):
+            raise S.StorageError(
+                f"REPLICAS={replicas} needs between 1 and {len(stores)} "
+                "(the endpoint count) storage servers"
+            )
+        self._stores = stores
+        self._replicas = replicas
+
+    def _shard_of(self, entity_id: str) -> int:
+        return S.stable_hash(entity_id) % len(self._stores)
+
+    def _shard_for(self, entity_id: str) -> RestEventStore:
+        return self._stores[self._shard_of(entity_id)]
+
+    def _owners(self, shard: int) -> List[int]:
+        """Server indexes holding shard ``shard``, owner first."""
+        n = len(self._stores)
+        return [(shard + r) % n for r in range(self._replicas)]
+
+    def shard_names(self) -> List[str]:
+        return [st._t.base_url for st in self._stores]
+
+    def _pmap(self, items, fn) -> List[Any]:
+        """fn(item) concurrently, results in order — fan-out reads must
+        overlap the per-shard network I/O, and one slow shard must not
+        serialize the others. The first error propagates (loud, the
+        transport message names the endpoint). Worker count is bounded:
+        rollbacks can fan over thousands of (server, id) pairs."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        items = list(items)
+        with ThreadPoolExecutor(max_workers=min(16, max(1, len(items)))) as ex:
+            return list(ex.map(fn, items))
+
+    def _map_shards(self, fn) -> List[Any]:
+        return self._pmap(self._stores, fn)
+
+    def _assign_live_servers(self) -> Dict[int, List[int]]:
+        """server index -> shards it should answer for, choosing each
+        shard's first LIVE replica (one cheap concurrent liveness probe,
+        then each distinct server is scanned once). Raises when some
+        shard's whole replica set is down, naming the shard."""
+        def probe(st: RestEventStore) -> bool:
+            try:
+                st._t.request("/", method="GET")
+                return True
+            except S.StorageError:
+                return False
+
+        alive = self._pmap(self._stores, probe)
+        assignment: Dict[int, List[int]] = {}
+        for k in range(len(self._stores)):
+            srv = next((o for o in self._owners(k) if alive[o]), None)
+            if srv is None:
+                raise S.StorageUnavailableError(
+                    f"event shard {k}: every replica is down "
+                    f"({', '.join(self._stores[o]._t.base_url for o in self._owners(k))})"
+                )
+            if srv != k:
+                log.warning("shard %d: owner down, reading from replica %s",
+                            k, self._stores[srv]._t.base_url)
+            assignment.setdefault(srv, []).append(k)
+        return assignment
+
+    def _first_live(self, shard: int, fn):
+        """fn(store) against the first live server of the shard's
+        replica set — read failover. Only connection-level failures
+        advance to the next replica; application errors propagate."""
+        last: Optional[Exception] = None
+        for s in self._owners(shard):
+            try:
+                return fn(self._stores[s])
+            except S.StorageUnavailableError as e:
+                log.warning("shard %d: %s down, trying next replica: %s",
+                            shard, self._stores[s]._t.base_url, e)
+                last = e
+        raise last  # every replica of this shard is down
+
+    # -- lifecycle: every shard ---------------------------------------------
+    def init(self, app_id, channel_id=None):
+        self._map_shards(lambda st: st.init(app_id, channel_id))
+
+    def remove(self, app_id, channel_id=None):
+        self._map_shards(lambda st: st.remove(app_id, channel_id))
+
+    def compact(self, app_id, channel_id=None):
+        return self._map_shards(lambda st: st.compact(app_id, channel_id))
+
+    # -- writes: routed (to every replica when replicas > 1) ----------------
+    #
+    # Replica-write consistency: copies are written SUCCESSORS-FIRST,
+    # owner last — reads prefer the owner, so a partial failure leaves
+    # phantom rows only on replicas no healthy read consults — and a
+    # row-path failure additionally ROLLS BACK the already-written
+    # copies by their client-stamped ids (best-effort; a rollback
+    # failure is logged and the original error still raised). Bulk
+    # columnar ingest has no ids to roll back by: a failed replica
+    # write there means re-running the ingest (documented).
+
+    def _rollback(self, written: List[tuple], app_id, channel_id) -> None:
+        """Best-effort delete of already-written copies: ``written`` is
+        (server index, [event ids]) pairs, fanned out concurrently (a
+        1000-row rollback must not serialize 1000 round-trips on the
+        failure path)."""
+        pairs = [(s, eid) for s, eids in written for eid in eids]
+
+        def drop(pair):
+            s, eid = pair
+            try:
+                self._stores[s].delete(eid, app_id, channel_id)
+            except S.StorageError:
+                log.warning(
+                    "replica write rollback failed on %s for %s — "
+                    "copies diverged until the delete is replayed",
+                    self._stores[s]._t.base_url, eid)
+
+        if pairs:
+            self._pmap(pairs, drop)
+
+    def insert(self, event: Event, app_id, channel_id=None) -> str:
+        # one CLIENT-assigned id shared by every copy, so point reads,
+        # deletes and rollbacks address all replicas consistently
+        event = event if event.event_id else event.with_id()
+        written: List[tuple] = []
+        for s in reversed(self._owners(self._shard_of(event.entity_id))):
+            try:
+                self._stores[s].insert(event, app_id, channel_id)
+            except S.StorageError:
+                # roll back the committed copies AND the failing server:
+                # a connection drop AFTER the server committed raises
+                # here too, and the idempotent delete covers both
+                # outcomes (the client-stamped id names every copy)
+                self._rollback(written + [(s, [event.event_id])],
+                               app_id, channel_id)
+                raise
+            written.append((s, [event.event_id]))
+        return event.event_id
+
+    def insert_batch(self, events, app_id, channel_id=None) -> List[str]:
+        # ids are client-stamped at ANY replica count so a failure can
+        # roll back every copy — including a commit-then-drop on the
+        # very server that raised
+        events = [e if e.event_id else e.with_id() for e in events]
+        by_shard: Dict[int, List[int]] = {}
+        for pos, e in enumerate(events):
+            by_shard.setdefault(self._shard_of(e.entity_id), []).append(pos)
+        ids: List[Optional[str]] = [None] * len(events)
+        # rollback scope is the WHOLE batch, across shard groups: a
+        # caller retrying a "failed" batch gets fresh ids, so any
+        # committed group left behind would duplicate its rows
+        all_written: List[tuple] = []
+        for shard, positions in by_shard.items():
+            batch = [events[p] for p in positions]
+            batch_ids = [e.event_id for e in batch]
+            for s in reversed(self._owners(shard)):
+                try:
+                    out = self._stores[s].insert_batch(batch, app_id, channel_id)
+                except S.StorageError:
+                    self._rollback(all_written + [(s, batch_ids)],
+                                   app_id, channel_id)
+                    raise
+                all_written.append((s, batch_ids))
+            for p, eid in zip(positions, out):
+                ids[p] = eid
+        return ids  # type: ignore[return-value]
+
+    def insert_columnar(self, cols, app_id, channel_id=None, *,
+                        entity_type, target_entity_type=None,
+                        value_property=None) -> int:
+        n = len(self._stores)
+        total = 0
+        for shard in range(n):
+            part = S.shard_columns(cols, shard, n)
+            if len(part):
+                # successors first, owner last: a partial failure's
+                # phantom copies sit where owner-preferring reads don't
+                # look. Rows carry no client ids, so there is no
+                # rollback here — recovery from a mid-ingest failure is
+                # remove() + re-init + re-ingest (a blind re-run would
+                # DUPLICATE rows on replicas that already took the part)
+                for s in reversed(self._owners(shard)):
+                    count = self._stores[s].insert_columnar(
+                        part, app_id, channel_id, entity_type=entity_type,
+                        target_entity_type=target_entity_type,
+                        value_property=value_property)
+                total += count
+        return total
+
+    # -- anti-entropy -------------------------------------------------------
+    @staticmethod
+    def _content_key(e: Event) -> tuple:
+        """Identity of an event MINUS its id — columnar-ingested copies
+        carry per-server ids, so content equality is what says two
+        differently-id'd rows are the same event."""
+        return (e.event, e.entity_type, e.entity_id,
+                e.target_entity_type, e.target_entity_id,
+                e.event_time,
+                json.dumps(e.properties.to_dict()
+                           if hasattr(e.properties, "to_dict")
+                           else dict(e.properties), sort_keys=True))
+
+    def repair(self, app_id, channel_id=None) -> Dict[str, int]:
+        """Owner-authoritative replica reconciliation — the anti-entropy
+        role HBase inherits from HDFS block repair. The write protocol's
+        commit point is the OWNER copy (written last), so for every
+        shard the owner's rows are truth: each replica gains the owner
+        rows it is missing and drops rows the owner does not have
+        (rollback leftovers, re-ingested duplicates). Rows are matched
+        by id first, then by CONTENT multiset, so columnar-ingested
+        copies (same rows, per-server ids) are recognized as consistent
+        instead of rewritten.
+
+        Operational preconditions: the full replica set of every shard
+        must be up (repairing against a down owner would erase
+        committed data), and writes must be QUIESCED for the repaired
+        app — an insert in flight (replica written, owner not yet) is
+        indistinguishable from an orphan and would be deleted, like an
+        HBase major compaction this runs in a maintenance window.
+        Memory is proportional to the largest shard's row count (owner
+        and replica rows are materialized per shard for the diff); for
+        huge bulk-ingested immutable logs prefer remove() + re-ingest.
+        Raises on an unreplicated store — a zeros result must always
+        mean "checked and consistent", never "nothing to check".
+        Returns {"copied": n, "deleted": n}."""
+        if self._replicas == 1:
+            raise S.StorageError(
+                "EVENTDATA is sharded but not replicated (REPLICAS=1) — "
+                "nothing to repair"
+            )
+        import collections as _c
+
+        n = len(self._stores)
+        copied = 0
+        to_delete: List[tuple] = []   # (server, event_id)
+        for shard in range(n):
+            owners = self._owners(shard)
+            truth_rows = self._stores[owners[0]].find(
+                app_id, channel_id=channel_id,
+                placement_shards=[shard], placement_count=n)
+            truth_by_id = {e.event_id: e for e in truth_rows}
+            for r in owners[1:]:
+                have = self._stores[r].find(
+                    app_id, channel_id=channel_id,
+                    placement_shards=[shard], placement_count=n)
+                have_ids = {e.event_id for e in have}
+                # unmatched-by-id remainders pair up by content
+                owner_rest = [truth_by_id[i]
+                              for i in truth_by_id.keys() - have_ids]
+                replica_rest = [e for e in have
+                                if e.event_id not in truth_by_id]
+                owner_content = _c.Counter(
+                    self._content_key(e) for e in owner_rest)
+                missing, extras = [], []
+                matched = _c.Counter()
+                for e in replica_rest:
+                    k = self._content_key(e)
+                    if matched[k] < owner_content[k]:
+                        matched[k] += 1   # same event, different id
+                    else:
+                        extras.append(e)
+                seen = _c.Counter()
+                for e in owner_rest:
+                    k = self._content_key(e)
+                    seen[k] += 1
+                    if seen[k] > matched[k]:
+                        missing.append(e)
+                if missing:
+                    self._stores[r].insert_batch(missing, app_id, channel_id)
+                    copied += len(missing)
+                to_delete.extend((r, e.event_id) for e in extras)
+
+        def drop(pair):
+            r, eid = pair
+            self._stores[r].delete(eid, app_id, channel_id)
+
+        if to_delete:
+            # fanned out, same reasoning as _rollback: a large orphan
+            # set must not serialize one round-trip per id
+            self._pmap(to_delete, drop)
+        return {"copied": copied, "deleted": len(to_delete)}
+
+    # -- point reads: the id does not encode its shard ----------------------
+    def get(self, event_id, app_id, channel_id=None) -> Optional[Event]:
+        if self._replicas == 1:
+            results = self._map_shards(
+                lambda st: st.get(event_id, app_id, channel_id))
+            return next((e for e in results if e is not None), None)
+
+        # replicated read: a down server is tolerated as long as every
+        # shard still has a live replica — then a miss is a REAL miss
+        def probe(i):
+            try:
+                return self._stores[i].get(event_id, app_id, channel_id)
+            except S.StorageUnavailableError as e:
+                return e
+
+        results = self._pmap(range(len(self._stores)), probe)
+        for r in results:
+            if isinstance(r, Event):
+                return r
+        down = {i for i, r in enumerate(results)
+                if isinstance(r, S.StorageUnavailableError)}
+        for k in range(len(self._stores)):
+            if all(o in down for o in self._owners(k)):
+                raise next(r for r in results
+                           if isinstance(r, S.StorageUnavailableError))
+        return None
+
+    def delete(self, event_id, app_id, channel_id=None) -> bool:
+        # a delete is a WRITE: it must reach every replica (a copy left
+        # on a down server would resurrect on recovery), so server
+        # unavailability propagates — same strictness as inserts
+        return any(self._map_shards(
+            lambda st: st.delete(event_id, app_id, channel_id)))
+
+    # -- scans: fan out (one live replica per shard) + merge ----------------
+    def find(self, app_id, channel_id=None, limit=None, reversed=False,
+             **find_kwargs) -> List[Event]:
+        n = len(self._stores)
+        if self._replicas == 1:
+            # per-shard results are time-ordered and individually
+            # limited; the merged sort + truncation is the global answer
+            parts = self._map_shards(
+                lambda st: st.find(app_id, channel_id=channel_id,
+                                   limit=limit, reversed=reversed,
+                                   **find_kwargs))
+        else:
+            # replicated: resolve one live server per shard and scan
+            # each distinct server ONCE for all its assigned shards —
+            # the server's placement filter (applied BEFORE any row
+            # limit) keeps a replica's foreign-shard copies off the
+            # wire, so the per-shard limit optimization applies here
+            # too. The client-side re-filter is a cheap guard against
+            # an older server ignoring the placement keys (such a
+            # server must not be mixed with limited scans).
+            assignment = self._assign_live_servers()
+
+            def fetch(srv, shards):
+                return self._stores[srv].find(
+                    app_id, channel_id=channel_id, limit=limit,
+                    reversed=reversed, placement_shards=shards,
+                    placement_count=n, **find_kwargs)
+
+            def scan(item):
+                srv, shards = item
+                try:
+                    part = fetch(srv, shards)
+                except S.StorageUnavailableError:
+                    # the server died between the liveness probe and
+                    # the scan: fail over per shard through the rest
+                    # of each replica set instead of failing the read
+                    part = []
+                    for k in shards:
+                        part.extend(self._first_live(
+                            k, lambda st: st.find(
+                                app_id, channel_id=channel_id,
+                                limit=limit, reversed=reversed,
+                                placement_shards=[k], placement_count=n,
+                                **find_kwargs)))
+                mine = set(shards)
+                return [e for e in part
+                        if S.stable_hash(e.entity_id) % n in mine]
+
+            parts = self._pmap(assignment.items(), scan)
+        merged = sorted(
+            (e for part in parts for e in part),
+            key=lambda e: e.event_time, reverse=bool(reversed),
+        )
+        if limit is not None and limit >= 0:
+            merged = merged[:limit]
+        return merged
+
+    def find_columnar(self, app_id, channel_id=None, value_property=None,
+                      time_ordered=True, shard_index=None, shard_count=None,
+                      limit=None, **find_kwargs) -> S.EventColumns:
+        S.EventStore.check_shard_params(shard_index, shard_count)
+        host_shard = ({"shard_index": shard_index, "shard_count": shard_count}
+                      if shard_count is not None else {})
+        newest_first = bool(find_kwargs.get("reversed", False))
+        if limit is not None:
+            # per-shard limit is a bandwidth optimization: each shard's
+            # top-`limit` by time is a superset of its contribution to
+            # the global top-`limit` (truncated again after the merge)
+            find_kwargs["limit"] = limit
+        n = len(self._stores)
+        if self._replicas == 1:
+            parts = self._map_shards(
+                lambda st: st.find_columnar(
+                    app_id, channel_id=channel_id,
+                    value_property=value_property,
+                    time_ordered=(time_ordered or limit is not None),
+                    **host_shard, **find_kwargs))
+        else:
+            # replicated: the ONE server-side shard-filter pair carries
+            # the PLACEMENT filter (keeps the replica's foreign shards
+            # out); a requested host read shard is applied client-side
+            # on each part instead
+            kw = dict(find_kwargs)
+            if host_shard:
+                # the client-side host filter must precede any limit, so
+                # the per-shard limit optimization is off in this combo
+                kw.pop("limit", None)
+
+            def one_shard(k):
+                part = self._first_live(
+                    k, lambda st: st.find_columnar(
+                        app_id, channel_id=channel_id,
+                        value_property=value_property,
+                        time_ordered=(time_ordered or limit is not None),
+                        shard_index=k, shard_count=n, **kw))
+                if host_shard:
+                    part = S.shard_columns(part, shard_index, shard_count)
+                return part
+
+            parts = self._pmap(range(n), one_shard)
+        merged = S.merge_columns(
+            parts, time_ordered=(time_ordered or limit is not None))
+        if limit is not None:
+            # respects `reversed` (keep the global NEWEST rows), unlike
+            # a head-truncation of the ascending merge
+            merged = S.limit_columns(merged, limit,
+                                     newest_first=newest_first)
+        elif time_ordered and newest_first and len(merged):
+            # no limit, but reversed time order was asked for: the
+            # ascending merge must flip to newest-first (find's order)
+            import numpy as np
+
+            flip = np.arange(len(merged))[::-1]
+            merged = S.EventColumns(
+                entity_codes=merged.entity_codes[flip],
+                target_codes=merged.target_codes[flip],
+                name_codes=merged.name_codes[flip],
+                values=merged.values[flip],
+                times_us=merged.times_us[flip],
+                entity_vocab=merged.entity_vocab,
+                target_vocab=merged.target_vocab,
+                names=merged.names,
+            )
+        return merged
+
+
+class _RestRepo:
+    """Generic metadata repo proxy: method calls become /storage/meta RPCs."""
+
+    repo: str = ""
+    record_cls: type = object
+
+    def __init__(self, transport: _Transport):
+        self._t = transport
+
+    def _rpc(self, method: str, args: List[Any], kind: str) -> Any:
+        # reads, full-record updates and deletes are idempotent;
+        # inserts are not (replaying one could double-create)
+        idempotent = not method.startswith("insert")
+        out = self._t.json_call(
+            f"/storage/meta/{self.repo}/{method}", {"args": args},
+            idempotent=idempotent,
+        )
+        result = out["result"] if out else None
+        if result is None:
+            return [] if kind == "records" else None
+        if kind == "record":
+            return MD.dict_to_record(self.record_cls, result)
+        if kind == "records":
+            return [MD.dict_to_record(self.record_cls, r) for r in result]
+        return result
+
+
+class RestAppsRepo(_RestRepo, S.AppsRepo):
+    repo, record_cls = "apps", App
+
+    def insert(self, name, description=None):
+        return self._rpc("insert", [name, description], "record")
+
+    def put(self, app):
+        self._rpc("put", [MD.record_to_dict(app)], "scalar")
+
+    def get(self, app_id):
+        return self._rpc("get", [int(app_id)], "record")
+
+    def get_by_name(self, name):
+        return self._rpc("get_by_name", [name], "record")
+
+    def get_all(self):
+        return self._rpc("get_all", [], "records")
+
+    def update(self, app):
+        self._rpc("update", [MD.record_to_dict(app)], "scalar")
+
+    def delete(self, app_id):
+        self._rpc("delete", [int(app_id)], "scalar")
+
+
+class RestAccessKeysRepo(_RestRepo, S.AccessKeysRepo):
+    repo, record_cls = "access_keys", AccessKey
+
+    def insert(self, access_key):
+        return self._rpc("insert", [MD.record_to_dict(access_key)], "scalar")
+
+    def put(self, access_key):
+        self._rpc("put", [MD.record_to_dict(access_key)], "scalar")
+
+    def get(self, key):
+        return self._rpc("get", [key], "record")
+
+    def get_all(self):
+        return self._rpc("get_all", [], "records")
+
+    def get_by_app_id(self, app_id):
+        return self._rpc("get_by_app_id", [int(app_id)], "records")
+
+    def update(self, access_key):
+        self._rpc("update", [MD.record_to_dict(access_key)], "scalar")
+
+    def delete(self, key):
+        self._rpc("delete", [key], "scalar")
+
+
+class RestChannelsRepo(_RestRepo, S.ChannelsRepo):
+    repo, record_cls = "channels", Channel
+
+    def insert(self, name, app_id):
+        return self._rpc("insert", [name, int(app_id)], "record")
+
+    def put(self, channel):
+        self._rpc("put", [MD.record_to_dict(channel)], "scalar")
+
+    def get(self, channel_id):
+        return self._rpc("get", [int(channel_id)], "record")
+
+    def get_by_app_id(self, app_id):
+        return self._rpc("get_by_app_id", [int(app_id)], "records")
+
+    def delete(self, channel_id):
+        self._rpc("delete", [int(channel_id)], "scalar")
+
+
+class RestEngineManifestsRepo(_RestRepo, S.EngineManifestsRepo):
+    repo, record_cls = "engine_manifests", EngineManifest
+
+    def insert(self, manifest):
+        self._rpc("insert", [MD.record_to_dict(manifest)], "scalar")
+
+    def put(self, manifest):
+        self._rpc("put", [MD.record_to_dict(manifest)], "scalar")
+
+    def get(self, id, version):
+        return self._rpc("get", [id, version], "record")
+
+    def get_all(self):
+        return self._rpc("get_all", [], "records")
+
+    def update(self, manifest):
+        self._rpc("update", [MD.record_to_dict(manifest)], "scalar")
+
+    def delete(self, id, version):
+        self._rpc("delete", [id, version], "scalar")
+
+
+class RestEngineInstancesRepo(_RestRepo, S.EngineInstancesRepo):
+    repo, record_cls = "engine_instances", EngineInstance
+
+    def insert(self, instance):
+        return self._rpc("insert", [MD.record_to_dict(instance)], "scalar")
+
+    def put(self, instance):
+        self._rpc("put", [MD.record_to_dict(instance)], "scalar")
+
+    def get(self, id):
+        return self._rpc("get", [id], "record")
+
+    def get_all(self):
+        return self._rpc("get_all", [], "records")
+
+    def get_latest_completed(self, engine_id, engine_version, engine_variant):
+        return self._rpc(
+            "get_latest_completed",
+            [engine_id, engine_version, engine_variant], "record",
+        )
+
+    def get_completed(self, engine_id, engine_version, engine_variant):
+        return self._rpc(
+            "get_completed", [engine_id, engine_version, engine_variant],
+            "records",
+        )
+
+    def update(self, instance):
+        self._rpc("update", [MD.record_to_dict(instance)], "scalar")
+
+    def delete(self, id):
+        self._rpc("delete", [id], "scalar")
+
+
+class RestEvaluationInstancesRepo(_RestRepo, S.EvaluationInstancesRepo):
+    repo, record_cls = "evaluation_instances", EvaluationInstance
+
+    def insert(self, instance):
+        return self._rpc("insert", [MD.record_to_dict(instance)], "scalar")
+
+    def put(self, instance):
+        self._rpc("put", [MD.record_to_dict(instance)], "scalar")
+
+    def get(self, id):
+        return self._rpc("get", [id], "record")
+
+    def get_all(self):
+        return self._rpc("get_all", [], "records")
+
+    def get_completed(self):
+        return self._rpc("get_completed", [], "records")
+
+    def update(self, instance):
+        self._rpc("update", [MD.record_to_dict(instance)], "scalar")
+
+    def delete(self, id):
+        self._rpc("delete", [id], "scalar")
+
+
+class RestModelsRepo(S.ModelsRepo):
+    """Model blobs as raw bodies — the HDFSModels role over HTTP."""
+
+    def __init__(self, transport: _Transport):
+        self._t = transport
+
+    def insert(self, model: Model) -> None:
+        # PUT of the full blob under a fixed id: idempotent by nature
+        self._t.request(
+            f"/storage/models/{model.id}", bytes(model.models), method="PUT",
+            content_type="application/octet-stream", idempotent=True,
+        )
+
+    def get(self, id: str) -> Optional[Model]:
+        status, body = self._t.request(
+            f"/storage/models/{id}", method="GET", idempotent=True
+        )
+        if status == 404:
+            return None
+        return Model(id=id, models=body)
+
+    def delete(self, id: str) -> None:
+        self._t.request(f"/storage/models/{id}", method="DELETE",
+                        idempotent=True)
+
+    def list(self) -> List[Dict[str, Any]]:
+        status, body = self._t.request("/storage/models", method="GET",
+                                       idempotent=True)
+        return json.loads(body)["models"]
+
+
+# ---------------------------------------------------------------------------
+# Replicated METADATA / MODELDATA
+# ---------------------------------------------------------------------------
+#
+# The reference's metadata tier is highly available because
+# Elasticsearch replicates every index across its cluster
+# (elasticsearch/StorageClient.scala:42 — the transport client talks
+# to a CLUSTER), and model blobs survive machine loss because HDFS
+# keeps 3 copies of every block (hdfs/HDFSModels.scala:28). Here the
+# same availability is built from the framework's own storage servers:
+# with ``REPLICAS=R``, apps / access keys / channels / manifests /
+# instances / model blobs live on the FIRST R endpoints — every write
+# lands synchronously on all R, reads prefer the owner (endpoint 0)
+# and fail over through its successors, and `pio storagerepair`
+# reconciles divergence owner-authoritatively.
+#
+# Write-order invariant (same as the event tier): copies are written
+# SUCCESSORS-FIRST, owner LAST. Reads prefer the owner, so a partial
+# failure leaves phantom copies only where healthy reads don't look,
+# and a failed write reads back as "never happened". The exception is
+# the id-ASSIGNING inserts (apps, channels): their id comes from the
+# owner's sequence, so the owner must be written first — a failed
+# successor write then ROLLS BACK every copy by the now-known id.
+# Write availability intentionally requires the full replica set up
+# (a write that skipped a down replica would silently un-replicate);
+# the error names the dead endpoint.
+
+
+class _ReplicatedRepoBase:
+    """R per-endpoint proxies; index 0 is the owner."""
+
+    def __init__(self, proxies: List[Any]):
+        assert len(proxies) > 1
+        self._proxies = proxies
+
+    @staticmethod
+    def _url(proxy) -> str:
+        return proxy._t.base_url
+
+    def _read(self, fn):
+        """fn against the first live replica, owner-preferred. Only
+        connection-level failures advance; application errors (a 400,
+        a validation failure) propagate from the owner."""
+        last: Optional[Exception] = None
+        for p in self._proxies:
+            try:
+                return fn(p)
+            except S.StorageUnavailableError as e:
+                log.warning("metadata replica %s down, failing over: %s",
+                            self._url(p), e)
+                last = e
+        raise last
+
+    def _write_all(self, fn, rollback=None) -> None:
+        """fn on every replica, successors-first owner-last. On failure:
+        best-effort ``rollback(proxy)`` on the already-written copies
+        AND the failing endpoint (a commit-then-connection-drop raises
+        here too, and an idempotent rollback covers both outcomes),
+        then the original error propagates, naming the endpoint."""
+        written: List[Any] = []
+        for p in reversed(self._proxies):
+            try:
+                fn(p)
+            except S.StorageError:
+                if rollback is not None:
+                    for q in written + [p]:
+                        try:
+                            rollback(q)
+                        except S.StorageError:
+                            log.warning(
+                                "metadata write rollback failed on %s — "
+                                "copies diverged until `pio storagerepair`",
+                                self._url(q))
+                raise
+            written.append(p)
+
+    def _insert_owner_first(self, insert_fn, record_of, rollback):
+        """The id-assigning insert protocol: owner insert assigns the
+        id, successors take the full record via put, failure rolls back
+        every copy by id."""
+        record = insert_fn(self._proxies[0])
+        written = [self._proxies[0]]
+        for p in self._proxies[1:]:
+            try:
+                p.put(record_of(record))
+            except S.StorageError:
+                for q in written + [p]:
+                    try:
+                        rollback(q, record)
+                    except S.StorageError:
+                        log.warning(
+                            "metadata insert rollback failed on %s — "
+                            "copies diverged until `pio storagerepair`",
+                            self._url(q))
+                raise
+            written.append(p)
+        return record
+
+
+class ReplicatedAppsRepo(_ReplicatedRepoBase, S.AppsRepo):
+    def insert(self, name, description=None):
+        return self._insert_owner_first(
+            lambda p: p.insert(name, description),
+            lambda app: app,
+            lambda q, app: q.delete(app.id))
+
+    def get(self, app_id):
+        return self._read(lambda p: p.get(app_id))
+
+    def get_by_name(self, name):
+        return self._read(lambda p: p.get_by_name(name))
+
+    def get_all(self):
+        return self._read(lambda p: p.get_all())
+
+    def update(self, app):
+        # put (an upsert) instead of update on every copy: it also
+        # self-heals a replica that missed the record entirely
+        self._write_all(lambda p: p.put(app))
+
+    def put(self, app):
+        self._write_all(lambda p: p.put(app))
+
+    def delete(self, app_id):
+        self._write_all(lambda p: p.delete(app_id))
+
+
+class ReplicatedAccessKeysRepo(_ReplicatedRepoBase, S.AccessKeysRepo):
+    def insert(self, access_key):
+        # the key is generated CLIENT-side so every copy shares it (the
+        # event tier's client-stamped-id move); server-side generation
+        # would mint a different key per replica
+        if not access_key.key:
+            access_key = AccessKey.generate(access_key.appid,
+                                            access_key.events)
+        self._write_all(lambda p: p.put(access_key),
+                        rollback=lambda q: q.delete(access_key.key))
+        return access_key.key
+
+    def get(self, key):
+        return self._read(lambda p: p.get(key))
+
+    def get_all(self):
+        return self._read(lambda p: p.get_all())
+
+    def get_by_app_id(self, app_id):
+        return self._read(lambda p: p.get_by_app_id(app_id))
+
+    def update(self, access_key):
+        self._write_all(lambda p: p.put(access_key))
+
+    def put(self, access_key):
+        self._write_all(lambda p: p.put(access_key))
+
+    def delete(self, key):
+        self._write_all(lambda p: p.delete(key))
+
+
+class ReplicatedChannelsRepo(_ReplicatedRepoBase, S.ChannelsRepo):
+    def insert(self, name, app_id):
+        return self._insert_owner_first(
+            lambda p: p.insert(name, app_id),
+            lambda ch: ch,
+            lambda q, ch: q.delete(ch.id))
+
+    def get(self, channel_id):
+        return self._read(lambda p: p.get(channel_id))
+
+    def get_by_app_id(self, app_id):
+        return self._read(lambda p: p.get_by_app_id(app_id))
+
+    def put(self, channel):
+        self._write_all(lambda p: p.put(channel))
+
+    def delete(self, channel_id):
+        self._write_all(lambda p: p.delete(channel_id))
+
+
+class ReplicatedEngineManifestsRepo(_ReplicatedRepoBase, S.EngineManifestsRepo):
+    def insert(self, manifest):
+        # manifests upsert by natural key (`pio build` re-registers), so
+        # a rollback could erase a PRE-EXISTING registration — rely on
+        # owner-last ordering + repair instead
+        self._write_all(lambda p: p.put(manifest))
+
+    def get(self, id, version):
+        return self._read(lambda p: p.get(id, version))
+
+    def get_all(self):
+        return self._read(lambda p: p.get_all())
+
+    def update(self, manifest):
+        self._write_all(lambda p: p.put(manifest))
+
+    def put(self, manifest):
+        self._write_all(lambda p: p.put(manifest))
+
+    def delete(self, id, version):
+        self._write_all(lambda p: p.delete(id, version))
+
+
+class ReplicatedEngineInstancesRepo(_ReplicatedRepoBase, S.EngineInstancesRepo):
+    def insert(self, instance):
+        # id client-stamped (the server would mint one per replica)
+        if not instance.id:
+            import uuid as _uuid
+
+            instance.id = _uuid.uuid4().hex
+        self._write_all(lambda p: p.put(instance),
+                        rollback=lambda q: q.delete(instance.id))
+        return instance.id
+
+    def get(self, id):
+        return self._read(lambda p: p.get(id))
+
+    def get_all(self):
+        return self._read(lambda p: p.get_all())
+
+    def get_latest_completed(self, engine_id, engine_version, engine_variant):
+        return self._read(lambda p: p.get_latest_completed(
+            engine_id, engine_version, engine_variant))
+
+    def get_completed(self, engine_id, engine_version, engine_variant):
+        return self._read(lambda p: p.get_completed(
+            engine_id, engine_version, engine_variant))
+
+    def update(self, instance):
+        self._write_all(lambda p: p.put(instance))
+
+    def put(self, instance):
+        self._write_all(lambda p: p.put(instance))
+
+    def delete(self, id):
+        self._write_all(lambda p: p.delete(id))
+
+
+class ReplicatedEvaluationInstancesRepo(_ReplicatedRepoBase,
+                                        S.EvaluationInstancesRepo):
+    def insert(self, instance):
+        if not instance.id:
+            import uuid as _uuid
+
+            instance.id = _uuid.uuid4().hex
+        self._write_all(lambda p: p.put(instance),
+                        rollback=lambda q: q.delete(instance.id))
+        return instance.id
+
+    def get(self, id):
+        return self._read(lambda p: p.get(id))
+
+    def get_all(self):
+        return self._read(lambda p: p.get_all())
+
+    def get_completed(self):
+        return self._read(lambda p: p.get_completed())
+
+    def update(self, instance):
+        self._write_all(lambda p: p.put(instance))
+
+    def put(self, instance):
+        self._write_all(lambda p: p.put(instance))
+
+    def delete(self, id):
+        self._write_all(lambda p: p.delete(id))
+
+
+class ReplicatedModelsRepo(_ReplicatedRepoBase, S.ModelsRepo):
+    """Model blobs on R endpoints — the HDFS-3x-copies role
+    (hdfs/HDFSModels.scala:28) so a serving host can /reload from a
+    surviving replica after the blob's home dies."""
+
+    def insert(self, model):
+        self._write_all(lambda p: p.insert(model),
+                        rollback=lambda q: q.delete(model.id))
+
+    def get(self, id):
+        return self._read(lambda p: p.get(id))
+
+    def delete(self, id):
+        self._write_all(lambda p: p.delete(id))
+
+    def list(self):
+        return self._read(lambda p: p.list())
+
+
+#: (repo accessor, record key, enumerate(client) -> records) per
+#: metadata repo — drives owner-authoritative reconciliation. Channels
+#: have no get_all: they are enumerated through the endpoint's OWN apps
+#: listing (apps are repaired first, so the listings agree by then).
+_META_REPAIR_SPECS = [
+    ("apps", lambda r: r.id, lambda c: c.get_all()),
+    ("access_keys", lambda r: r.key, lambda c: c.get_all()),
+    ("channels", lambda r: r.id, None),  # via apps; see _enumerate_channels
+    ("engine_manifests", lambda r: (r.id, r.version), lambda c: c.get_all()),
+    ("engine_instances", lambda r: r.id, lambda c: c.get_all()),
+    ("evaluation_instances", lambda r: r.id, lambda c: c.get_all()),
+]
+
+
+class RestStorageClient(S.StorageClient):
+    """Storage source of TYPE ``rest`` (HOSTS/PORTS per the env grammar).
+
+    N comma-separated endpoints shard EVENTDATA by entity hash across N
+    storage servers (ShardedRestEventStore — the HBase region-server
+    fan-out role). Metadata and model blobs are NOT hash-shardable (they
+    are keyed lookups + listings): with ``REPLICAS=1`` they pin to the
+    FIRST endpoint; with ``REPLICAS=R>1`` they are REPLICATED across the
+    first R endpoints (Replicated*Repo — the ES-index-replication /
+    HDFS-3x-blobs roles), so the death of the metadata home no longer
+    takes out apps, access keys, engine instances, or trained models.
+    HOSTS/PORTS zip elementwise; a single value on
+    one side broadcasts (``HOSTS=10.0.0.5 PORTS=7077,7078`` = two
+    servers on one box; ``HOSTS=a,b PORTS=7077`` = one port on two).
+    ``REPLICAS=R`` (default 1) adds successor replication of the event
+    shards — any R-1 servers down, reads still complete (the
+    HDFS-replication-under-HBase role; see ShardedRestEventStore).
+    """
+
+    def __init__(self, config: Dict[str, str]):
+        super().__init__(config)
+        hosts = [h.strip() for h in
+                 (config.get("HOSTS") or "127.0.0.1").split(",")]
+        ports = [p.strip() for p in
+                 (config.get("PORTS") or "7077").split(",")]
+        if len(hosts) == 1 and len(ports) > 1:
+            hosts = hosts * len(ports)
+        if len(ports) == 1 and len(hosts) > 1:
+            ports = ports * len(hosts)
+        if len(hosts) != len(ports):
+            raise S.StorageError(
+                f"rest source: {len(hosts)} HOSTS vs {len(ports)} PORTS "
+                "(must match, or one side must be a single value)"
+            )
+        scheme = config.get("SCHEME", "http")
+        timeout = float(config.get("TIMEOUT", "30"))
+        retries = int(config.get("RETRIES", "3"))
+        self._transports = [
+            _Transport(f"{scheme}://{h}:{p}", config.get("AUTH_KEY"),
+                       timeout, retries=retries)
+            for h, p in zip(hosts, ports)
+        ]
+        self._transport = self._transports[0]  # metadata/models home
+        replicas = int(config.get("REPLICAS", "1"))
+        if len(self._transports) == 1:
+            if replicas > 1:
+                raise S.StorageError(
+                    f"REPLICAS={replicas} needs multiple endpoints "
+                    "(comma-separated HOSTS/PORTS)"
+                )
+            self._events: S.EventStore = RestEventStore(self._transport)
+        else:
+            self._events = ShardedRestEventStore(
+                [RestEventStore(t) for t in self._transports],
+                replicas=replicas)
+        self._meta_replicas = replicas if len(self._transports) > 1 else 1
+        if self._meta_replicas > 1:
+            # metadata + models on the first R endpoints: synchronous
+            # replication, owner-preferring read failover
+            metas = self._transports[:self._meta_replicas]
+            self._apps = ReplicatedAppsRepo([RestAppsRepo(t) for t in metas])
+            self._access_keys = ReplicatedAccessKeysRepo(
+                [RestAccessKeysRepo(t) for t in metas])
+            self._channels = ReplicatedChannelsRepo(
+                [RestChannelsRepo(t) for t in metas])
+            self._engine_manifests = ReplicatedEngineManifestsRepo(
+                [RestEngineManifestsRepo(t) for t in metas])
+            self._engine_instances = ReplicatedEngineInstancesRepo(
+                [RestEngineInstancesRepo(t) for t in metas])
+            self._evaluation_instances = ReplicatedEvaluationInstancesRepo(
+                [RestEvaluationInstancesRepo(t) for t in metas])
+            self._models = ReplicatedModelsRepo(
+                [RestModelsRepo(t) for t in metas])
+        else:
+            self._apps = RestAppsRepo(self._transport)
+            self._access_keys = RestAccessKeysRepo(self._transport)
+            self._channels = RestChannelsRepo(self._transport)
+            self._engine_manifests = RestEngineManifestsRepo(self._transport)
+            self._engine_instances = RestEngineInstancesRepo(self._transport)
+            self._evaluation_instances = RestEvaluationInstancesRepo(self._transport)
+            self._models = RestModelsRepo(self._transport)
+
+    def events(self): return self._events
+    def apps(self): return self._apps
+    def access_keys(self): return self._access_keys
+    def channels(self): return self._channels
+    def engine_manifests(self): return self._engine_manifests
+    def engine_instances(self): return self._engine_instances
+    def evaluation_instances(self): return self._evaluation_instances
+    def models(self): return self._models
+
+    def health_check(self) -> bool:
+        """`pio status` probe: EVERY shard must answer GET / as alive."""
+        return all(self.health_detail().values())
+
+    def health_detail(self) -> Dict[str, bool]:
+        """Per-endpoint liveness, keyed by shard URL — `pio status`
+        names the down shard instead of a bare FAILED. Deliberately
+        conservative for the repos pinned to the first endpoint
+        (metadata/models): ANY down shard marks the source unhealthy,
+        because a partially-down event tier makes training reads fail
+        even while metadata lookups still answer."""
+        def probe(t: _Transport) -> bool:
+            try:
+                status, body = t.request("/", method="GET")
+                return (status == 200
+                        and json.loads(body).get("status") == "alive")
+            except (S.StorageError, ValueError):
+                # ValueError: a 200 with a non-JSON body (e.g. a proxy
+                # error page) is just as dead as a refused connection —
+                # it must mark THIS shard down, not abort the probe
+                return False
+
+        # concurrent: a down shard waiting out its timeout must not
+        # stall the probes of the healthy ones
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(max_workers=len(self._transports)) as ex:
+            alive = list(ex.map(probe, self._transports))
+        return {t.base_url: a for t, a in zip(self._transports, alive)}
+
+    @property
+    def meta_replicated(self) -> bool:
+        """Whether METADATA/MODELDATA on this source is replicated —
+        the capability probe `pio storagerepair` uses to SKIP an
+        unreplicated source (vs repair_meta's loud StorageError, which
+        must stay loud for direct callers)."""
+        return self._meta_replicas > 1
+
+    def health_tiers(self) -> Dict[str, Any]:
+        """Tier-resolved health: beyond the
+        conservative per-endpoint map, report whether each TIER can
+        still ANSWER — metadata/models serve while ANY of their first R
+        replicas lives; the event tier serves while EVERY shard has a
+        live replica. `pio status` turns this into distinct exit codes
+        so operators can page on "down" vs "degraded-but-serving"."""
+        detail = self.health_detail()
+        alive = [detail[t.base_url] for t in self._transports]
+        n = len(self._transports)
+        meta_serving = any(alive[:self._meta_replicas])
+        if isinstance(self._events, ShardedRestEventStore):
+            ev = self._events
+            events_serving = all(
+                any(alive[o] for o in ev._owners(k)) for k in range(n))
+        else:
+            events_serving = alive[0]
+        return {
+            "endpoints": detail,
+            "metadata_serving": meta_serving,
+            "events_serving": events_serving,
+            "all_up": all(alive),
+        }
+
+    # -- metadata/model anti-entropy ----------------------------------------
+    def _enumerate_channels(self, proxies_by_repo, endpoint) -> List[Channel]:
+        """All channels an endpoint holds, via its OWN apps listing
+        (ChannelsRepo has no get_all; apps are repaired first so the
+        listings agree by the time channels reconcile)."""
+        apps = proxies_by_repo["apps"][endpoint].get_all()
+        chan_repo = proxies_by_repo["channels"][endpoint]
+        out: List[Channel] = []
+        for app in apps:
+            out.extend(chan_repo.get_by_app_id(app.id))
+        return out
+
+    def repair_meta(self) -> Dict[str, int]:
+        """Owner-authoritative reconciliation of the replicated
+        METADATA + MODELDATA tier (`pio storagerepair`) — the
+        anti-entropy role ES performs when a recovered node re-syncs
+        its replica shards. For every repo the owner endpoint's records
+        are truth: each replica gains the owner records it is missing
+        or holds stale (compared as full dicts), and drops records the
+        owner does not have (rollback leftovers). Model blobs compare
+        by sha256 from the inventory route.
+
+        Preconditions mirror ShardedRestEventStore.repair: every
+        metadata replica must be up (the failover read would otherwise
+        treat a stale successor as truth), and writes should be
+        quiesced. Raises on an unreplicated source — zeros must mean
+        "checked and consistent". Returns {"copied": n, "deleted": n}.
+        """
+        if self._meta_replicas <= 1:
+            raise S.StorageError(
+                "METADATA/MODELDATA is not replicated (REPLICAS=1) — "
+                "nothing to repair"
+            )
+        metas = self._transports[:self._meta_replicas]
+        proxies_by_repo = {
+            "apps": [RestAppsRepo(t) for t in metas],
+            "access_keys": [RestAccessKeysRepo(t) for t in metas],
+            "channels": [RestChannelsRepo(t) for t in metas],
+            "engine_manifests": [RestEngineManifestsRepo(t) for t in metas],
+            "engine_instances": [RestEngineInstancesRepo(t) for t in metas],
+            "evaluation_instances": [RestEvaluationInstancesRepo(t)
+                                     for t in metas],
+        }
+        copied = deleted = 0
+        for repo_name, key_of, enumerate_fn in _META_REPAIR_SPECS:
+            proxies = proxies_by_repo[repo_name]
+
+            def records_of(endpoint: int):
+                if enumerate_fn is None:
+                    return self._enumerate_channels(proxies_by_repo, endpoint)
+                return enumerate_fn(proxies[endpoint])
+
+            truth = {key_of(r): r for r in records_of(0)}
+            if not truth:
+                # empty-owner guard (a
+                # re-provisioned BLANK owner must never erase the
+                # surviving replicas' records under the banner of
+                # "repair" — that is exactly the outage replication
+                # exists to survive
+                for endpoint in range(1, len(metas)):
+                    n_replica = len(records_of(endpoint))
+                    if n_replica:
+                        raise S.StorageError(
+                            f"metadata repair refused: owner "
+                            f"{metas[0].base_url} has no {repo_name} "
+                            f"records while replica "
+                            f"{metas[endpoint].base_url} holds "
+                            f"{n_replica} — a blank (re-provisioned?) "
+                            "owner would delete them all; seed the "
+                            "owner from a replica or remove the stale "
+                            "replica data first")
+                continue
+            truth_dicts = {k: MD.record_to_dict(r) for k, r in truth.items()}
+            for endpoint in range(1, len(metas)):
+                have = {key_of(r): r for r in records_of(endpoint)}
+                for k, rec in truth.items():
+                    mine = have.get(k)
+                    if mine is None or MD.record_to_dict(mine) != truth_dicts[k]:
+                        proxies[endpoint].put(rec)
+                        copied += 1
+                for k, rec in have.items():
+                    if k not in truth:
+                        # delete signatures vary by repo; the key IS the
+                        # delete argument except manifests' (id, version)
+                        if repo_name == "engine_manifests":
+                            proxies[endpoint].delete(*k)
+                        else:
+                            proxies[endpoint].delete(k)
+                        deleted += 1
+        # model blobs: sha256 inventory diff, owner-authoritative
+        model_proxies = [RestModelsRepo(t) for t in metas]
+        truth_inv = {m["id"]: m for m in model_proxies[0].list()}
+        if not truth_inv:
+            # same empty-owner guard as the record repos above
+            for endpoint in range(1, len(metas)):
+                n_replica = len(model_proxies[endpoint].list())
+                if n_replica:
+                    raise S.StorageError(
+                        f"metadata repair refused: owner "
+                        f"{metas[0].base_url} has no model blobs while "
+                        f"replica {metas[endpoint].base_url} holds "
+                        f"{n_replica} — seed the owner from a replica "
+                        "or remove the stale replica data first")
+            return {"copied": copied, "deleted": deleted}
+        for endpoint in range(1, len(metas)):
+            have_inv = {m["id"]: m for m in model_proxies[endpoint].list()}
+            for mid, info in truth_inv.items():
+                mine = have_inv.get(mid)
+                if mine is None or mine["sha256"] != info["sha256"]:
+                    blob = model_proxies[0].get(mid)
+                    if blob is not None:  # deleted between list and get
+                        model_proxies[endpoint].insert(blob)
+                        copied += 1
+            for mid in have_inv.keys() - truth_inv.keys():
+                model_proxies[endpoint].delete(mid)
+                deleted += 1
+        return {"copied": copied, "deleted": deleted}
+
+
+S.register_backend("rest", RestStorageClient)

@@ -1,20 +1,21 @@
 """Storage abstraction + env-configured registry.
 
-Copy of ``predictionio_tpu/data/storage.py`` trimmed to what the event
-server, the app and access-key commands, ``pio build``, ``pio train``,
-``pio deploy`` and ``pio eval`` use: the EVENTDATA repository (events:
-appended one by one, in batches or as dict-encoded columns; read by id,
-by a filtered scan, as dict-encoded columns, or binned straight into the
-ALS layout by the native event log; entity properties folded from
-``$set``/``$unset``/``$delete`` events), the apps, access keys and
-channels that name an event table, engine manifests, engine and
-evaluation instances and model blobs. The env-var
-contract is the same (ref: Storage.scala:40,151,183): sources are
-declared with ``PIO_STORAGE_SOURCES_<NAME>_TYPE`` (+ per-type config)
-and repositories are mapped onto them with
+Copy of ``predictionio_tpu/data/storage.py``: the EVENTDATA repository
+(events: appended one by one, in batches or as dict-encoded columns;
+read by id, by a filtered scan, as dict-encoded columns, or binned
+straight into the ALS layout by the native event log; entity
+properties folded from ``$set``/``$unset``/``$delete`` events), the
+apps, access keys and channels that name an event table, engine
+manifests, engine and evaluation instances and model blobs, each with
+the upsert (``put``) that replication and repair write through. The
+env-var contract is the same (ref: Storage.scala:40,151,183): sources
+are declared with ``PIO_STORAGE_SOURCES_<NAME>_TYPE`` (+ per-type
+config; the types are ``memory``, ``localfs``, ``eventlog``, ``sqlite``
+and ``rest``) and repositories are mapped onto them with
 ``PIO_STORAGE_REPOSITORIES_<REPO>_{NAME,SOURCE}``; with no storage vars
 at all, one localfs source rooted at ``$PIO_FS_BASEDIR`` (default
-``~/.pio_store``) serves everything.
+``~/.pio_store``) serves everything. A source is opened at its first
+use.
 """
 
 from __future__ import annotations
@@ -50,6 +51,13 @@ UNSET = object()
 
 class StorageError(RuntimeError):
     pass
+
+
+class StorageUnavailableError(StorageError):
+    """Connection-level failure (refused, reset, timed out): the backend
+    could not be reached, as opposed to an application error it
+    answered with. Idempotent network operations retry on it, and
+    replica failover moves past it."""
 
 
 class RowValidationError(StorageError):
@@ -536,6 +544,14 @@ class AppsRepo(abc.ABC):
     @abc.abstractmethod
     def delete(self, app_id: int) -> None: ...
 
+    def put(self, app: App) -> None:
+        """Upsert the full record under its existing id: the replication
+        and repair write (the metadata-tier role of ES's replica shards,
+        elasticsearch/StorageClient.scala:42). It assigns no id and does
+        not check uniqueness again: the owner's ``insert`` did both.
+        Backends whose ``update`` is not an upsert override it."""
+        self.update(app)
+
 
 class AccessKeysRepo(abc.ABC):
     """ref: AccessKeys.scala"""
@@ -553,6 +569,10 @@ class AccessKeysRepo(abc.ABC):
     @abc.abstractmethod
     def delete(self, key: str) -> None: ...
 
+    def put(self, access_key: AccessKey) -> None:
+        """Replication and repair upsert (see ``AppsRepo.put``)."""
+        self.update(access_key)
+
 
 class ChannelsRepo(abc.ABC):
     """ref: Channels.scala — created by ``pio app channel-new``; a
@@ -566,6 +586,11 @@ class ChannelsRepo(abc.ABC):
     def get_by_app_id(self, app_id: int) -> List[Channel]: ...
     @abc.abstractmethod
     def delete(self, channel_id: int) -> None: ...
+    @abc.abstractmethod
+    def put(self, channel: Channel) -> None:
+        """Replication and repair upsert under the record's existing id
+        (see ``AppsRepo.put``); abstract because channels have no
+        ``update`` to fall back on."""
 
 
 class EngineManifestsRepo(abc.ABC):
@@ -582,6 +607,10 @@ class EngineManifestsRepo(abc.ABC):
     @abc.abstractmethod
     def delete(self, id: str, version: str) -> None: ...
 
+    def put(self, manifest: EngineManifest) -> None:
+        """Replication and repair upsert (see ``AppsRepo.put``)."""
+        self.update(manifest)
+
 
 class EngineInstancesRepo(abc.ABC):
     """ref: EngineInstances.scala"""
@@ -592,10 +621,16 @@ class EngineInstancesRepo(abc.ABC):
     def get(self, id: str) -> Optional[EngineInstance]: ...
     @abc.abstractmethod
     def get_all(self) -> List[EngineInstance]: ...
+    @abc.abstractmethod
+    def delete(self, id: str) -> None: ...
 
     def update(self, instance: EngineInstance) -> None:
         """Replace the record under its id (insert is an upsert)."""
         self.insert(instance)
+
+    def put(self, instance: EngineInstance) -> None:
+        """Replication and repair upsert (see ``AppsRepo.put``)."""
+        self.update(instance)
 
     def get_completed(self, engine_id: str, engine_version: str,
                       engine_variant: str) -> List[EngineInstance]:
@@ -630,6 +665,10 @@ class EvaluationInstancesRepo(abc.ABC):
         """Replace the record under its id (insert is an upsert)."""
         self.insert(instance)
 
+    def put(self, instance: EvaluationInstance) -> None:
+        """Replication and repair upsert (see ``AppsRepo.put``)."""
+        self.update(instance)
+
     def get_completed(self) -> List[EvaluationInstance]:
         """ref: EvaluationInstances.getCompleted — EVALCOMPLETED runs,
         newest first."""
@@ -645,12 +684,37 @@ class ModelsRepo(abc.ABC):
     def insert(self, model: Model) -> None: ...
     @abc.abstractmethod
     def get(self, id: str) -> Optional[Model]: ...
+    @abc.abstractmethod
+    def delete(self, id: str) -> None: ...
+
+    def size(self, id: str) -> Optional[int]:
+        """Blob length in bytes, or None when absent. Backends answer
+        from metadata (a stat, a SQL ``length``); this fallback fetches
+        the blob and measures it."""
+        model = self.get(id)
+        return None if model is None else len(model.models)
+
+    @abc.abstractmethod
+    def list(self) -> List[Dict[str, Any]]:
+        """Inventory for replica repair: one ``{"id", "bytes",
+        "sha256"}`` per stored blob (the role of HDFS's block reports
+        under 3x replication, hdfs/HDFSModels.scala:28)."""
+
+
+def blob_inventory(blobs) -> List[Dict[str, Any]]:
+    """``ModelsRepo.list`` rows of ``(id, bytes)`` pairs."""
+    return [{"id": mid, "bytes": len(blob),
+             "sha256": hashlib.sha256(blob).hexdigest()}
+            for mid, blob in blobs]
 
 
 class StorageClient(abc.ABC):
     """One configured storage source (ref: BaseStorageClient,
     Storage.scala:298), made from its ``PIO_STORAGE_SOURCES_<NAME>_*``
     config."""
+
+    def __init__(self, config: Dict[str, str]):
+        self.config = config
 
     @abc.abstractmethod
     def events(self) -> EventStore: ...
@@ -671,8 +735,8 @@ class StorageClient(abc.ABC):
 
     def health_check(self) -> bool:
         """Backend reachability probe (ref: Storage.verifyAllDataObjects
-        instantiates each DAO against its live backend). The port's
-        backends are local and healthy once constructed."""
+        instantiates each DAO against its live backend). Local backends
+        are healthy once constructed; network backends override."""
         return True
 
 
@@ -687,7 +751,7 @@ def _load_backends() -> None:
     # import side effect registers the built-in backends; the eventlog
     # backend builds its native library at first use, not on import
     from predictionio_torch.data.backends import (eventlog, localfs,  # noqa: F401
-                                                  memory)
+                                                  memory, rest, sqlite)
 
 
 _SOURCE_RE = re.compile(r"^PIO_STORAGE_SOURCES_([^_]+)_(.+)$")
@@ -699,8 +763,8 @@ REPOSITORIES = ("METADATA", "EVENTDATA", "MODELDATA")
 class Storage:
     """Repositories mapped to StorageClients (ref: Storage.scala:40-166).
     A source is opened at its first use, so a deployment whose EVENTDATA
-    source has a type the port lacks still reads its metadata and
-    models."""
+    source cannot be opened (a type no backend registers, a server that
+    is down) still reads its metadata and models."""
 
     def __init__(self, sources: Dict[str, Dict[str, str]],
                  repo_to_source: Dict[str, str]):
@@ -723,8 +787,8 @@ class Storage:
                 type_name = self._sources[source].get("TYPE")
                 if type_name not in _BACKENDS:
                     raise StorageError(
-                        f"storage source {source}: TYPE {type_name!r} is "
-                        f"not ported (known: {sorted(_BACKENDS)})")
+                        f"storage source {source}: unknown TYPE "
+                        f"{type_name!r} (known: {sorted(_BACKENDS)})")
                 client = _BACKENDS[type_name](self._sources[source])
                 self._clients[source] = client
         return client
@@ -767,14 +831,68 @@ class Storage:
                 results[repo] = False
         return results
 
+    def health_details(self) -> Dict[str, Dict[str, bool]]:
+        """Per repository, each endpoint's liveness for sources that
+        expose it (the sharded ``rest`` source), so ``pio status`` names
+        a down shard; a one-endpoint source reports one empty-named
+        entry. Each client is probed once, however many repositories it
+        serves."""
+        out: Dict[str, Dict[str, bool]] = {}
+        probed: Dict[int, Dict[str, bool]] = {}
+        for repo in REPOSITORIES:
+            try:
+                client = self.client_for(repo)
+                cached = probed.get(id(client))
+                if cached is None:
+                    detail = getattr(client, "health_detail", None)
+                    cached = (dict(detail()) if detail is not None
+                              else {"": client.health_check()})
+                    probed[id(client)] = cached
+                out[repo] = dict(cached)
+            except Exception as e:  # noqa: BLE001 — reported, not raised
+                log.warning("health detail probe failed for %s: %s: %s",
+                            repo, type(e).__name__, e)
+                out[repo] = {"": False}
+        return out
+
     def serving_status(self) -> Dict[str, Dict[str, Any]]:
-        """Per repository, whether its source can answer (``serving``),
-        whether it answers with some endpoint down (``degraded``) and
-        each endpoint's state: the shape ``pio status`` reads. Every
-        port source has one endpoint, so ``degraded`` is always False."""
-        return {repo: {"serving": up, "degraded": False,
-                       "endpoints": {"": up}}
-                for repo, up in self.verify_all_data_objects().items()}
+        """Per repository, whether its tier can still answer
+        (``serving``: a replicated source serves through surviving
+        replicas), whether it answers with some endpoint down
+        (``degraded``) and each endpoint's state: what ``pio status``
+        turns into exit codes. A client with ``health_tiers`` (the
+        ``rest`` source) resolves its tiers itself; any other serves
+        while its one endpoint answers. A source that cannot be opened
+        reads not serving."""
+        out: Dict[str, Dict[str, Any]] = {}
+        probed: Dict[int, Dict[str, Any]] = {}
+        for repo in REPOSITORIES:
+            try:
+                client = self.client_for(repo)
+                tiers = probed.get(id(client))
+                if tiers is None:
+                    fn = getattr(client, "health_tiers", None)
+                    if fn is not None:
+                        tiers = dict(fn())
+                    else:
+                        up = bool(client.health_check())
+                        tiers = {"endpoints": {"": up},
+                                 "metadata_serving": up,
+                                 "events_serving": up, "all_up": up}
+                    probed[id(client)] = tiers
+                serving = (tiers["events_serving"] if repo == "EVENTDATA"
+                           else tiers["metadata_serving"])
+                out[repo] = {
+                    "serving": bool(serving),
+                    "degraded": bool(serving) and not tiers["all_up"],
+                    "endpoints": dict(tiers["endpoints"]),
+                }
+            except Exception as e:  # noqa: BLE001 — reported, not raised
+                log.warning("serving-status probe failed for %s: %s: %s",
+                            repo, type(e).__name__, e)
+                out[repo] = {"serving": False, "degraded": False,
+                             "endpoints": {"": False}}
+        return out
 
     @staticmethod
     def from_env(env: Optional[Dict[str, str]] = None) -> "Storage":

@@ -1,12 +1,12 @@
 """Engine-facing event-store API.
 
 Copy of ``predictionio_tpu/data/store.py`` (ref: store/PEventStore.scala:30,
-store/LEventStore.scala:60, store/Common.scala:28) without
-``extract_entity_map``: engines address data by app name (+ optional
-channel name); the store resolves the (app id, channel id) pair from
-metadata and raises if the app or channel does not exist. ``find``,
-``find_columnar``, ``bin_columnar`` and ``aggregate_properties`` are
-the training read; ``find_by_entity`` is the serve-time lookup.
+store/LEventStore.scala:60, store/Common.scala:28): engines address
+data by app name (+ optional channel name); the store resolves the
+(app id, channel id) pair from metadata and raises if the app or
+channel does not exist. ``find``, ``find_columnar``, ``bin_columnar``,
+``aggregate_properties`` and ``extract_entity_map`` are the training
+read; ``find_by_entity`` is the serve-time lookup.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from __future__ import annotations
 import datetime as _dt
 from typing import Any, Dict, List, Optional
 
+from predictionio_torch.data.bimap import EntityMap
 from predictionio_torch.data.datamap import PropertyMap
 from predictionio_torch.data.event import Event
 from predictionio_torch.data.storage import (UNSET, BinnedInteractions,
@@ -127,6 +128,22 @@ def aggregate_properties(app_name: str, entity_type: str,
     return storage.events().aggregate_properties(
         app_id, entity_type, channel_id=channel_id, start_time=start_time,
         until_time=until_time, required=required)
+
+
+def extract_entity_map(app_name: str, entity_type: str, extract,
+                       channel_name: Optional[str] = None,
+                       start_time: Optional[_dt.datetime] = None,
+                       until_time: Optional[_dt.datetime] = None,
+                       required: Optional[List[str]] = None,
+                       storage: Optional[Storage] = None) -> EntityMap:
+    """Aggregate properties, then index entities into an EntityMap whose
+    payload is ``extract(PropertyMap)`` per entity
+    (ref: PEvents.extractEntityMap:109)."""
+    props = aggregate_properties(
+        app_name, entity_type, channel_name=channel_name,
+        start_time=start_time, until_time=until_time, required=required,
+        storage=storage)
+    return EntityMap({eid: extract(pm) for eid, pm in props.items()})
 
 
 def find_by_entity(app_name: str, entity_type: str, entity_id: str,

@@ -740,7 +740,7 @@ class JSONRequestHandler(BaseHTTPRequestHandler):
 
     def __init_subclass__(cls, **kwargs):
         super().__init_subclass__(**kwargs)
-        for name in ("do_GET", "do_POST", "do_DELETE"):
+        for name in ("do_GET", "do_POST", "do_PUT", "do_DELETE"):
             fn = cls.__dict__.get(name)
             if fn is not None:
                 setattr(cls, name, _instrument(fn))

@@ -11,6 +11,10 @@ flight, trace, profile, prof, journal, anomalies, data, mem and top.
     python -m predictionio_torch.tools.cli accesskey delete KEY
     python -m predictionio_torch.tools.cli eventserver [--ip IP] [--port 7070]
     python -m predictionio_torch.tools.cli adminserver [--ip IP] [--port 7071]
+    python -m predictionio_torch.tools.cli storageserver [--ip IP] \
+        [--port 7077] [--auth-key KEY]
+    python -m predictionio_torch.tools.cli storagerepair --appname APP \
+        [--channel CH]
     python -m predictionio_torch.tools.cli import --appname APP --input F
     python -m predictionio_torch.tools.cli export --appname APP --output F
     python -m predictionio_torch.tools.cli status
@@ -60,7 +64,12 @@ flight, trace, profile, prof, journal, anomalies, data, mem and top.
 The app, access-key, server, import/export and status commands take the
 JAX console's arguments and print its lines (ref:
 tools/.../console/Console.scala:128-735); they touch no device and
-import no torch. ``template list`` names every template the JAX console
+import no torch; ``storageserver`` serves this host's configured
+storage to ``rest`` sources (``serving/storage_server.py``),
+``storagerepair`` reconciles the replicas of a replicated ``rest``
+source, owner-authoritatively, and ``status`` exits 2 when every tier
+still serves through replicas with some endpoint down, 1 when a tier
+cannot serve. ``template list`` names every template the JAX console
 offers and the port's module of each; ``template get`` scaffolds a project
 directory from the port's template source (an editable
 ``<name>_engine.py``, an ``engine.json`` whose factory resolves from the
@@ -154,12 +163,21 @@ def cmd_app(args) -> int:
         commands.app_data_delete(args.name, args.channel, st)
         print(f"App data deleted: {args.name}")
     elif args.app_command == "compact":
-        s = commands.app_compact(args.name, args.channel, st)
-        if s is None:
+        stats = commands.app_compact(args.name, args.channel, st)
+        # a sharded rest source returns one stats dict (or None) per shard
+        shard_stats = stats if isinstance(stats, list) else [stats]
+        if all(s is None for s in shard_stats):
             print("Backend stores events in place; nothing to compact.")
         else:
-            print(f"Compacted: dropped {s['dropped']} records, "
-                  f"{s['before_bytes']} -> {s['after_bytes']} bytes")
+            for i, s in enumerate(shard_stats):
+                prefix = f"shard {i}: " if len(shard_stats) > 1 else ""
+                if s is None:
+                    print(f"{prefix}stores events in place; nothing to "
+                          "compact.")
+                else:
+                    print(f"{prefix}Compacted: dropped {s['dropped']} "
+                          f"records, {s['before_bytes']} -> "
+                          f"{s['after_bytes']} bytes")
     elif args.app_command == "channel-new":
         ch = commands.channel_new(args.name, args.channel, st)
         print(f"Channel created: {ch.name} (id {ch.id})")
@@ -232,17 +250,81 @@ def cmd_export(args) -> int:
     return 0
 
 
+#: `pio status` exit code when every tier still serves through its
+#: replicas but some endpoint is down: distinct from 1 (a tier cannot
+#: serve) so operators page on the right thing (ref:
+#: Storage.verifyAllDataObjects role, Storage.scala:237)
+STATUS_DEGRADED = 2
+
+
 def cmd_status(args) -> int:
-    """ref: Storage.verifyAllDataObjects (Storage.scala:237). Each port
-    source has one endpoint, so a tier either serves or FAILED."""
+    """ref: Storage.verifyAllDataObjects (Storage.scala:237), resolved
+    per tier: OK, DEGRADED (serving through replicas) or FAILED, with
+    each endpoint of a sharded source named."""
     details = get_storage().serving_status()
+    all_up = all(d["serving"] and not d["degraded"] for d in details.values())
+    serving = all(d["serving"] for d in details.values())
     for repo, d in sorted(details.items()):
-        print(f"{repo}: {'OK' if d['serving'] else 'FAILED'}")
-    if all(d["serving"] for d in details.values()):
+        state = ("OK" if d["serving"] and not d["degraded"]
+                 else "DEGRADED" if d["serving"] else "FAILED")
+        print(f"{repo}: {state}")
+        if len(d["endpoints"]) > 1 or not d["serving"] or d["degraded"]:
+            for shard, alive in sorted(d["endpoints"].items()):
+                if shard:
+                    print(f"  shard {shard}: {'OK' if alive else 'DOWN'}")
+    if all_up:
         print("(sleeping)")
         return 0
+    if serving:
+        print("Storage degraded: every tier still serving through replicas, "
+              "but some endpoint is down.")
+        return STATUS_DEGRADED
     print("Unable to connect to all storage backends.")
     return 1
+
+
+def cmd_storageserver(args) -> int:
+    """Serve this host's configured storage to ``rest``-backend peers
+    (the scale-out tier: the HBase/ES/HDFS roles behind one HTTP
+    service); SIGTERM drains it."""
+    from predictionio_torch.serving.http import install_drain_handler
+    from predictionio_torch.serving.storage_server import StorageServer
+
+    server = StorageServer(host=args.ip, port=args.port,
+                           auth_key=args.auth_key)
+    install_drain_handler(server)
+    print(f"Storage server running on {args.ip}:{server.port}", flush=True)
+    server.serve_forever()
+    return 0
+
+
+def cmd_storagerepair(args) -> int:
+    """Repair every replicated tier: the app's events, then the metadata
+    and model replica set. A tier that is not replicated is reported as
+    skipped; when neither tier can be repaired the command fails with
+    the events tier's error (nothing was checked)."""
+    from predictionio_torch.data.storage import StorageError
+
+    repaired = 0
+    try:
+        stats = commands.repair_events(args.appname, args.channel)
+        print(f"Event replica repair for app {args.appname}: "
+              f"{stats['copied']} rows copied, {stats['deleted']} rows "
+              "deleted")
+        repaired += 1
+    except (commands.CommandError, StorageError) as e:
+        print(f"Events: skipped ({e})")
+        events_error = e
+    try:
+        stats = commands.repair_metadata()
+        print(f"Metadata/model replica repair: {stats['copied']} records "
+              f"copied, {stats['deleted']} records deleted")
+        repaired += 1
+    except commands.CommandError as e:
+        print(f"Metadata/models: skipped ({e})")
+    if not repaired:
+        raise events_error
+    return 0
 
 
 # -- templates -----------------------------------------------------------------
@@ -1616,6 +1698,23 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("status", help="verify storage configuration")
     p.set_defaults(func=cmd_status)
+
+    p = sub.add_parser("storageserver",
+                       help="serve this host's storage to rest-backend peers")
+    p.add_argument("--ip", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=7077)
+    p.add_argument("--auth-key", default=None,
+                   help="require X-PIO-Storage-Key on every request")
+    p.set_defaults(func=cmd_storageserver)
+
+    p = sub.add_parser(
+        "storagerepair",
+        help="reconcile event replicas on a replicated sharded source "
+             "(owner-authoritative anti-entropy; run in a maintenance "
+             "window — writes to the app must be quiesced)")
+    p.add_argument("--appname", required=True)
+    p.add_argument("--channel", default=None)
+    p.set_defaults(func=cmd_storagerepair)
 
     p_tpl = sub.add_parser("template", help="engine templates")
     tpl_sub = p_tpl.add_subparsers(dest="template_command", required=True)

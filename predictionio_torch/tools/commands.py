@@ -1,9 +1,8 @@
 """Shared command client for the CLI and the admin API.
 
-Counterpart of ``predictionio_tpu/tools/commands.py`` without
-``repair_events`` / ``repair_metadata``, which exist for the sharded
-``rest`` source the port does not have. Behavior contracts from the
-reference console + admin (tools/.../console/App.scala, AccessKey.scala,
+Counterpart of ``predictionio_tpu/tools/commands.py``. Behavior
+contracts from the reference console + admin
+(tools/.../console/App.scala, AccessKey.scala,
 admin/CommandClient.scala):
 
   - ``app new`` (App.scala:34-66): fail if the name exists, insert the
@@ -17,6 +16,9 @@ admin/CommandClient.scala):
     event store.
   - ``accesskey new/list/delete`` (AccessKey.scala): key with per-key
     event whitelist.
+  - ``storagerepair``: owner-authoritative replica repair of an app's
+    events and of the metadata and model tier on a replicated ``rest``
+    source.
 
 Each function raises ``CommandError`` with the reference's message
 shape on failure; callers (CLI / admin) map that to exit codes / HTTP.
@@ -28,7 +30,8 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 from predictionio_torch.data.metadata import AccessKey, App, Channel
-from predictionio_torch.data.storage import Storage, get_storage
+from predictionio_torch.data.storage import Storage, StorageError, get_storage
+from predictionio_torch.data.store import resolve_app
 
 
 class CommandError(RuntimeError):
@@ -199,3 +202,67 @@ def status(storage: Optional[Storage] = None) -> Dict[str, bool]:
     """ref: `pio status` -> Storage.verifyAllDataObjects
     (Storage.scala:237)."""
     return _storage(storage).verify_all_data_objects()
+
+
+def repair_events(app_name: str, channel_name: Optional[str] = None,
+                  storage: Optional[Storage] = None) -> Dict[str, int]:
+    """Owner-authoritative replica reconciliation of an app's events on
+    a replicated sharded EVENTDATA source (`pio storagerepair`) — the
+    anti-entropy role HBase inherits from HDFS. A backend with no
+    replicas to check fails loudly (a silent zeros result would be
+    indistinguishable from "checked and consistent"): CommandError when
+    the source is not sharded rest at all, StorageError from repair()
+    itself when it is sharded but unreplicated. Run only while writes
+    to the app are quiesced (see ShardedRestEventStore.repair)."""
+    st = _storage(storage)
+    app_id, channel_id = resolve_app(app_name, channel_name, st)
+    events = st.events()
+    repair = getattr(events, "repair", None)
+    if repair is None:
+        raise CommandError(
+            "EVENTDATA is not a sharded rest source — nothing to repair "
+            "(configure comma-separated HOSTS/PORTS with REPLICAS>1)"
+        )
+    # an unreplicated sharded store raises StorageError from repair()
+    # itself (the loud-failure guard lives with the operation)
+    return repair(app_id, channel_id)
+
+
+def repair_metadata(storage: Optional[Storage] = None) -> Dict[str, int]:
+    """Owner-authoritative reconciliation of replicated METADATA and
+    MODELDATA (`pio storagerepair`) — the tier-availability counterpart
+    of repair_events (ES replica re-sync / HDFS block-repair roles).
+    Each distinct replicated client repairs once even when both
+    repositories share a source. Fails loudly when no repository is on
+    a replicated rest source — zeros must mean "checked and
+    consistent", never "nothing to check"."""
+    st = _storage(storage)
+    clients: list = []
+    for repo in ("METADATA", "MODELDATA"):
+        try:
+            c = st.client_for(repo)
+        except StorageError:
+            continue
+        if not any(c is seen for seen in clients):
+            clients.append(c)
+    totals = {"copied": 0, "deleted": 0}
+    found = False
+    for c in clients:
+        fn = getattr(c, "repair_meta", None)
+        # an unreplicated rest source (REPLICAS=1) is "nothing to
+        # check" — the same CommandError as no rest source at all —
+        # while an exception from a replicated repair stays LOUD (it
+        # means divergence was left behind, not that there was nothing
+        # to do)
+        if fn is None or not getattr(c, "meta_replicated", False):
+            continue
+        found = True
+        stats = fn()
+        totals["copied"] += stats["copied"]
+        totals["deleted"] += stats["deleted"]
+    if not found:
+        raise CommandError(
+            "METADATA/MODELDATA is not a replicated rest source — nothing "
+            "to repair (configure REPLICAS>1 on its source)"
+        )
+    return totals

@@ -1478,3 +1478,102 @@ def test_twotower_dp_and_tp_on_a_world_of_two_on_the_card(cuda):
                 p.communicate()
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0 and f"RANK OK {r}" in out, out[-3000:]
+
+
+def test_rest_tier_train_and_deploy_on_the_card(cuda, tmp_path, monkeypatch):
+    """The Recommendation engine trained by ``cli train`` on ``cuda:0``
+    over three in-process storage servers (``REPLICAS=2``, memory
+    storage behind each) and served by an ``EngineServer`` on the card
+    that loads it through the tier: every lone answer equals a float64
+    top-k of the stored factors (scores to 1e-5 * |q| * max|item|, ids
+    except across such near-ties), one ``topk_dot`` launch or more a
+    query."""
+    import datetime as dt
+    import json
+    import os
+    import urllib.request
+
+    from predictionio_torch.data import storage as storage_mod
+    from predictionio_torch.data.event import Event
+    from predictionio_torch.serving.engine_server import EngineServer
+    from predictionio_torch.serving.storage_server import StorageServer
+    from predictionio_torch.templates.recommendation import \
+        recommendation_engine
+    from predictionio_torch.tools import cli
+    from predictionio_torch.workflow.deploy import load_blob
+
+    backends = [storage_mod.Storage.from_env(
+        {"PIO_STORAGE_SOURCES_M_TYPE": "memory"}) for _ in range(3)]
+    servers = [StorageServer(storage=b, host="127.0.0.1", port=0).start()
+               for b in backends]
+    env = {"PIO_STORAGE_SOURCES_C_TYPE": "rest",
+           "PIO_STORAGE_SOURCES_C_HOSTS": "127.0.0.1",
+           "PIO_STORAGE_SOURCES_C_PORTS": ",".join(
+               str(s.port) for s in servers),
+           "PIO_STORAGE_SOURCES_C_REPLICAS": "2"}
+    server = None
+    try:
+        tier = storage_mod.Storage.from_env(env)
+        app = tier.apps().insert("reco")
+        tier.events().init(app.id)
+        rng = np.random.default_rng(5)
+        t0 = dt.datetime(2026, 1, 1, tzinfo=dt.timezone.utc)
+        tier.events().insert_batch([Event(
+            event="rate", entity_type="user",
+            entity_id=f"u{int(rng.integers(200))}",
+            target_entity_type="item",
+            target_entity_id=f"i{int(rng.integers(120))}",
+            properties={"rating": float(rng.integers(1, 6))},
+            event_time=t0 + dt.timedelta(seconds=j)) for j in range(4000)],
+            app.id)
+        ej = tmp_path / "engine.json"
+        ej.write_text(json.dumps({
+            "engineId": "reco-card", "engineFactory":
+            "predictionio_torch.templates.recommendation."
+            "recommendation_engine",
+            "datasource": {"params": {"app_name": "reco"}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": 16, "num_iterations": 4, "lambda_": 0.05,
+                "block_size": 64}}]}))
+        for k in [k for k in os.environ if k.startswith("PIO_STORAGE_")]:
+            monkeypatch.delenv(k)
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        storage_mod.set_storage(None)
+        try:
+            assert cli.main(["train", "--engine-json", str(ej)]) == 0
+        finally:
+            storage_mod.set_storage(None)
+        inst = tier.engine_instances().get_latest_completed(
+            "reco-card", "0", "default")
+        model = load_blob(tier.models().get(inst.id).models)[0]
+        U = np.asarray(model.user_factors, np.float64)
+        V = np.asarray(model.item_factors, np.float64)
+        names = list(model.item_ids.keys())
+        tkd.launches.reset()
+        server = EngineServer(recommendation_engine(), engine_id="reco-card",
+                              host="127.0.0.1", port=0, storage=tier,
+                              device="cuda").start()
+        users = list(model.user_ids.keys())[:12]
+        for user in users:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{server.port}/queries.json",
+                data=json.dumps({"user": user, "num": 10}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                got = json.loads(resp.read())["itemScores"]
+            q = U[model.user_ids[user]]
+            scores = V @ q
+            order = np.lexsort((np.arange(len(V)), -scores))[:10]
+            tol = 1e-5 * np.linalg.norm(q) * np.linalg.norm(V, axis=1).max()
+            assert len(got) == 10
+            for entry, j in zip(got, order):
+                assert abs(entry["score"] - scores[j]) <= tol
+                assert entry["item"] == names[j] or abs(
+                    scores[model.item_ids[entry["item"]]] - scores[j]) <= tol
+        assert tkd.launches.value >= len(users)
+    finally:
+        if server is not None:
+            server.stop()
+        for s in servers:
+            s.stop()

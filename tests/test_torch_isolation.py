@@ -310,3 +310,19 @@ MULTI_PROCESS_TRAINING = ("predictionio_torch.parallel.multihost",
 def test_the_multi_process_training_modules_are_walked_and_import_no_jax():
     assert _walk_and_import(MULTI_PROCESS_TRAINING) == {"missing": [],
                                                         "bad": []}
+
+
+#: the storage tier: the sqlite and rest backends, the storage server,
+#: batch views, and the commands and console that repair replicas
+STORAGE_TIER = ("predictionio_torch.data.backends.sqlite",
+                "predictionio_torch.data.backends.rest",
+                "predictionio_torch.serving.storage_server",
+                "predictionio_torch.data.view",
+                "predictionio_torch.data.bimap",
+                "predictionio_torch.data.store",
+                "predictionio_torch.tools.commands",
+                "predictionio_torch.tools.cli")
+
+
+def test_the_storage_tier_modules_are_walked_and_import_no_jax():
+    assert _walk_and_import(STORAGE_TIER) == {"missing": [], "bad": []}

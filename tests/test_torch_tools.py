@@ -145,11 +145,11 @@ def test_status(pkg):
 
 def test_status_names_a_source_that_cannot_open(tmp_path, capsys,
                                                 monkeypatch):
-    """A source of a type the port lacks fails its repositories, and
-    ``pio status`` exits 1 naming them."""
+    """A source of a type no backend registers fails its repositories,
+    and ``pio status`` exits 1 naming them."""
     env = {"PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
            "PIO_STORAGE_SOURCES_FS_PATH": str(tmp_path / "fs"),
-           "PIO_STORAGE_SOURCES_RS_TYPE": "rest",
+           "PIO_STORAGE_SOURCES_RS_TYPE": "hbase",
            "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "FS",
            "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "FS",
            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "RS"}
