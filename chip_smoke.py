@@ -481,12 +481,53 @@ exits non-zero before printing any result.
    prints before ``obs``'s; the deploy's launches join ``topk_dot``'s
    ``launches_by_path``.
 
+16. Operator's tools phase (``python3 chip_smoke.py --operator-tools``
+   runs it alone, after building the kernels). (a) The kernel-library
+   cache, in the background while (b) and (c) run: two fresh
+   interpreters (``--cache-child``) over an empty temporary
+   ``PIO_COMPILE_CACHE_DIR`` (only their environment holds it; every
+   other phase uses the package's shared ``_build/``). The first builds
+   ``embed_update`` into ``<dir>/kernels`` (``pio_kernel_build_total
+   {result="built"}`` 1, its nvcc seconds); the second loads it
+   (``result="cached"`` 1, no build: the cache's files unchanged; ``nvcc
+   --version`` still runs, for the key), launches it against its plain
+   version as phase 2 does, and reads ``/readyz``'s ``compile_cache``
+   probe from an admin server. (b) In a fresh interpreter
+   (``--profile-child``), as ``pio train`` runs: a capture opened late
+   in a long-lived process loses the device records of its window's
+   first part, 0.4 ms a second of the process's age on the H100 host
+   (ROADMAP.md §3, fault 13; the phase records what a window opened in
+   this process loses, ``capture_lead``, from
+   ``tools/profile_window.lead_loss``). There ``run_train`` of the
+   two-tower algorithm on phase 14 (c)'s cut (its first 49,152
+   positives over the stretch width's id maps, 6 steps, one epoch, the
+   trainer's seeded initial state), without and then with
+   ``PIO_PROFILE_DIR``:
+   ``breakdown.json`` beside the trace, its ``steps`` 1 (one a two-tower
+   epoch, as JAX counts), its launches naming ``flash_ce`` 18 and
+   ``embed_update`` 12 times (the launch counters agree), the profiled
+   tables within ``OT_TABLE_RTOL`` of their scale of the plain run's;
+   its ``device_ms_per_step`` printed beside the epoch's device time
+   from ``tools/device_time.profile_call``. Then ``cli.main(["train",
+   ...])`` in this process under ``PIO_PROFILE_DIR`` of the ``pio
+   train`` phase's ALS engine over an ML-100K-shaped store: ALS counts
+   no step, so its ``breakdown.json`` is the train's total (JAX's
+   branch). (c) An in-process ``EngineServer`` on the card over that
+   ALS instance with ``PIO_UPDATE_URL`` at a local server: answers
+   checked against float64 through ``topk_dot``, one GET with
+   ``component=engine-server``, and no ``pio-upgrade-check`` thread left
+   after its stop. One ``{"operator_tools": ...}`` line prints after
+   ``storage``'s; (b)'s launches join ``flash_ce``'s and
+   ``embed_update``'s ``launches_by_path``, (c)'s ``topk_dot``'s, and the
+   ``kernels`` line gains each library's ``load_sec`` and
+   ``embed_update``'s cold build and cached load seconds.
+
 Output: the card's name and power limit (``nvidia-smi``), a ``serve``,
 a ``fleet``, a ``train``, an ``als_train``, an ``ingest``, a ``front_door`` (with
 the card's line), a ``pio_train``, a ``stream`` (with the card's line),
-an ``eval``, a ``project``, a ``families``, a ``multi_device`` and a
-``storage`` line (each with the card's line), the ``kernels`` line, and last
-``{"ok": true, "device": ...}``.
+an ``eval``, a ``project``, a ``families``, a ``multi_device``, a
+``storage`` and an ``operator_tools`` line (each with the card's line),
+the ``kernels`` line, and last ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -6557,6 +6598,493 @@ def storage_tier_phase(ratings) -> dict:
     }
 
 
+# -- phase 16: the operator's tools -------------------------------------------
+
+# (a) the kernel-library cache: the smallest source, built by one fresh
+# interpreter into an empty PIO_COMPILE_CACHE_DIR and loaded cached by a
+# second; its check against the plain version uses phase 2's tolerance
+OT_CACHE_KERNEL = "embed_update"
+OT_CHILD_TIMEOUT = 600
+# (b) the profiled two-tower train: phase 14 (c)'s cut (MD_TT_STEPS steps
+# of the stretch width, one epoch); two runs of one process differ only
+# by embed_update's float atomics, held at OT_TABLE_RTOL of the tables'
+# largest magnitude; profile_call times OT_EPOCH_ITERS epochs
+OT_TABLE_RTOL, OT_EPOCH_ITERS = 1e-6, 3
+OT_ALS_ENGINE = "ml100k-als-prof"
+
+
+def cache_child(mode: str) -> int:
+    """One fresh interpreter of phase 16 (a), run by ``cache_phase``
+    under its ``PIO_COMPILE_CACHE_DIR``: load ``OT_CACHE_KERNEL``'s
+    library (``built`` or ``cached``), report the build counters, the
+    nvcc and load seconds and the library's directory; the ``cached``
+    run also holds the kernel to its plain version on the card and
+    reads ``/readyz`` of an admin server in this process. Prints one
+    JSON line."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from predictionio_torch.data.storage import Storage
+    from predictionio_torch.obs import torchmon
+    from predictionio_torch.ops import kernels
+    from predictionio_torch.ops.kernels import embed_update as eu
+    from predictionio_torch.tools.admin import AdminServer
+
+    torch.cuda.init()
+    t0 = time.perf_counter()
+    kernels.load_library(OT_CACHE_KERNEL)
+    request_sec = time.perf_counter() - t0
+    counts = {result: torchmon.KERNEL_BUILD_TOTAL.labels(
+        OT_CACHE_KERNEL, result).value
+        for result in ("built", "cached", "cache_unavailable")}
+    out = {"mode": mode, "counts": counts, "request_sec": request_sec,
+           "nvcc_sec": torchmon.KERNEL_BUILD_SECONDS.labels(
+               OT_CACHE_KERNEL).sum,
+           "load_sec": kernels.load_seconds()[OT_CACHE_KERNEL],
+           "library_dir": kernels.library_dir(),
+           "library": os.path.basename(kernels._library_path(
+               OT_CACHE_KERNEL)),
+           "ptxas": kernels.ptxas_report(OT_CACHE_KERNEL)}
+    if mode == "cached":
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 160)
+        max_err = 0.0
+        eu.launches.reset()
+        for N, E, B, vocab in ((64, 24, 37, 64), (TT_IDS, TT_DIM, TT_BATCH,
+                                                  TT_IDS)):
+            table = torch.randn((N, E), generator=gen, device=dev)
+            idx = torch.randint(0, vocab, (B,), generator=gen, device=dev)
+            grad = torch.randn((B, E), generator=gen, device=dev)
+            scale = torch.rand(B, generator=gen, device=dev)
+            want = eu.embed_update_reference(table.clone(), idx, grad, scale)
+            eu.embed_update(table, idx, grad, scale)
+            torch.cuda.synchronize()
+            err = (table - want).abs()
+            if bool((err > 1e-6 + 1e-5 * want.abs()).any()):
+                fail(f"phase 16 (a): the cached {OT_CACHE_KERNEL} differs "
+                     f"at N={N}: max err {float(err.max())}")
+            max_err = max(max_err, float(err.max()))
+        server = AdminServer(Storage.from_env(
+            {"PIO_STORAGE_SOURCES_M_TYPE": "memory"}), host="127.0.0.1",
+            port=0).start()
+        try:
+            ready = json.loads(urllib.request.urlopen(
+                f"http://127.0.0.1:{server.port}/readyz", timeout=60).read())
+        finally:
+            server.stop()
+        out.update({"max_abs_err": max_err, "launches": eu.launches.value,
+                    "readyz_compile_cache": ready["probes"]["compile_cache"],
+                    "readyz_kernels": ready["probes"]["kernels"]})
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def cache_phase() -> dict:
+    """(a): two fresh interpreters over an empty ``PIO_COMPILE_CACHE_DIR``
+    (only their environment holds it): the first builds
+    ``OT_CACHE_KERNEL`` (``built`` 1, its nvcc seconds), the second finds
+    it (``cached`` 1, no build: the cache's files unchanged), launches it
+    against its plain version and reads ``/readyz``'s ``compile_cache``
+    probe."""
+    cache = tempfile.mkdtemp(prefix="pio_chip_smoke_cache_")
+    env = {**os.environ, "PIO_COMPILE_CACHE_DIR": cache,
+           "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+    env.pop("PIO_COMPILE_CACHE", None)
+    runs, listing = {}, {}
+    try:
+        for mode in ("built", "cached"):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--cache-child",
+                 mode], env=env, capture_output=True, text=True,
+                timeout=OT_CHILD_TIMEOUT)
+            if proc.returncode != 0:
+                fail(f"phase 16 (a): the {mode} interpreter exited "
+                     f"{proc.returncode}: {proc.stderr[-2000:]}")
+            runs[mode] = json.loads(proc.stdout.strip().splitlines()[-1])
+            runs[mode]["process_sec"] = time.perf_counter() - t0
+            kdir = os.path.join(cache, "kernels")
+            listing[mode] = sorted(
+                (f, os.stat(os.path.join(kdir, f)).st_mtime_ns)
+                for f in os.listdir(kdir))
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    built, cached = runs["built"], runs["cached"]
+    kdir = os.path.join(cache, "kernels")
+    if built["counts"] != {"built": 1, "cached": 0, "cache_unavailable": 0} \
+            or not built["nvcc_sec"] > 0 or built["library_dir"] != kdir:
+        fail(f"phase 16 (a): the first interpreter did not build into the "
+             f"cache: {built}")
+    if cached["counts"] != {"built": 0, "cached": 1, "cache_unavailable": 0} \
+            or cached["nvcc_sec"] != 0 or cached["library_dir"] != kdir \
+            or cached["library"] != built["library"]:
+        fail(f"phase 16 (a): the second interpreter did not load the "
+             f"cached library: {cached}")
+    names = [f for f, _ in listing["built"]]
+    if listing["cached"] != listing["built"] or names != sorted(
+            [built["library"], built["library"] + ".log"]):
+        fail(f"phase 16 (a): the cache changed under the second "
+             f"interpreter, or holds more than the library and its log: "
+             f"{listing}")
+    if cached["launches"] < 2 or cached["readyz_compile_cache"][
+            "status"] != "ok" or cached["readyz_kernels"]["status"] != "ok":
+        fail(f"phase 16 (a): launches {cached['launches']}, /readyz "
+             f"{cached['readyz_compile_cache']} {cached['readyz_kernels']}")
+    return {"kernel": OT_CACHE_KERNEL, "built": built, "cached": cached,
+            "cold_nvcc_sec": built["nvcc_sec"],
+            "cached_load_sec": cached["load_sec"]}
+
+
+class CutDataSource:
+    """(b)'s data source: the prepared ratings it is handed (phase 14
+    (c)'s cut over the stretch width's id maps)."""
+
+    prepared = None
+
+
+def ot_engine():
+    """(b)'s engine: ``CutDataSource``'s prepared ratings into the port's
+    two-tower algorithm; the trained model is kept on
+    ``algorithm.trained`` (the runs save no blob: a 1M-row model pickles
+    to 1 GB)."""
+    from predictionio_torch.core import (DataSource, Engine, FirstServing,
+                                         IdentityPreparator)
+    from predictionio_torch.models.twotower import TwoTowerAlgorithm
+
+    class Source(DataSource):
+        def read_training(self, ctx):
+            return CutDataSource.prepared
+
+    class Algorithm(TwoTowerAlgorithm):
+        trained = None
+
+        def train(self, ctx, pd):
+            Algorithm.trained = super().train(ctx, pd)
+            return Algorithm.trained
+
+    return Engine(Source, IdentityPreparator, {"twotower": Algorithm},
+                  FirstServing), Algorithm
+
+
+def profile_child(root: str) -> int:
+    """``--profile-child``: (b)'s two-tower part in a fresh interpreter,
+    as ``pio train`` runs (fault 13 of ROADMAP.md's list: a capture late
+    in a long-lived process loses the device records of its window's
+    first part): ``run_train`` of the two-tower engine on phase 14 (c)'s
+    cut without, then with ``PIO_PROFILE_DIR`` under ``root``; the
+    launch counters, the record, the tables and ``profile_call``'s
+    epoch. Prints one JSON line."""
+    import torch
+    from predictionio_torch.core.params import EngineParams
+    from predictionio_torch.data.bimap import BiMap
+    from predictionio_torch.data.storage import Storage
+    from predictionio_torch.models.als import PreparedRatings
+    from predictionio_torch.models.twotower import TwoTowerParams
+    from predictionio_torch.ops.kernels import embed_update as eu
+    from predictionio_torch.ops.kernels import flash_ce as fce
+    from predictionio_torch.ops.twotower import (TwoTowerConfig,
+                                                 TwoTowerTrainer)
+    from predictionio_torch.parallel.context import DeviceContext
+    from predictionio_torch.tools import profile_window
+    from predictionio_torch.tools.device_time import profile_call
+    from predictionio_torch.workflow.config import WorkflowParams
+    from predictionio_torch.workflow.train import run_train
+
+    (uu, ii, _), _ = md_tt_data()
+    n = len(uu)
+    CutDataSource.prepared = PreparedRatings(
+        user_ids=BiMap.from_vocab([f"u{j}" for j in range(TT_IDS)]),
+        item_ids=BiMap.from_vocab([f"i{j}" for j in range(TT_IDS)]),
+        user_idx=uu, item_idx=ii, ratings=np.ones(n, np.float32))
+    cfg = dict(dim=TT_DIM, batch_size=TT_BATCH, epochs=1, learning_rate=3e-3,
+               seed=11, temperature=TEMP)
+    engine, algo = ot_engine()
+    ep = EngineParams(data_source_params=("", None),
+                      preparator_params=("", None),
+                      algorithm_params_list=[("twotower",
+                                              TwoTowerParams(**cfg))],
+                      serving_params=("", None))
+    storage = Storage.from_env({"PIO_STORAGE_SOURCES_M_TYPE": "memory"})
+    prof_dir = os.path.join(root, "profiles")
+    want = {"flash_ce": 3 * MD_TT_STEPS, "embed_update": 2 * MD_TT_STEPS}
+
+    def train(name: str) -> dict:
+        torch.cuda.synchronize()
+        fce.launches.reset()
+        eu.launches.reset()
+        t0 = time.perf_counter()
+        instance = run_train(engine, ep, engine_id=f"ot-{name}",
+                             ctx=DeviceContext("cuda"), storage=storage,
+                             workflow_params=WorkflowParams(
+                                 save_model=False))
+        torch.cuda.synchronize()
+        run = {"instance": instance.id, "model": algo.trained,
+               "sec": time.perf_counter() - t0,
+               "launches": {"flash_ce": fce.launches.value,
+                            "embed_update": eu.launches.value}}
+        if run["launches"] != want:
+            fail(f"phase 16 (b): the {name} train launched "
+                 f"{run['launches']}, want {want}")
+        return run
+
+    try:
+        runs = {"plain": train("plain")}
+        os.environ["PIO_PROFILE_DIR"] = prof_dir
+        runs["profiled"] = train("profiled")
+    finally:
+        os.environ.pop("PIO_PROFILE_DIR", None)
+        CutDataSource.prepared = None
+    out = os.path.join(prof_dir, runs["profiled"]["instance"])
+    path = os.path.join(out, "breakdown.json")
+    if not os.path.exists(path) or not os.path.exists(
+            os.path.join(out, "trace.json")):
+        fail(f"phase 16 (b): no breakdown.json and trace.json in {out}")
+    with open(path) as f:
+        breakdown = json.load(f)
+    trace = breakdown.get("trace") or {}
+    if breakdown.get("steps") != 1 or trace.get("device") != "cuda":
+        fail(f"phase 16 (b): breakdown steps {breakdown.get('steps')} "
+             f"(one a two-tower epoch, as JAX counts), device "
+             f"{trace.get('device')}")
+    named = {k: sum(v for name, v in trace["launches"].items()
+                    if name.startswith(k)) for k in want}
+    if named != want:
+        fail(f"phase 16 (b): the capture counts {named} launches, want "
+             f"{want}: {trace['launches']}")
+    in_top = {k: sorted(name for name in trace["by_category"]
+                        if name.startswith(k)) for k in want}
+    table_err, scale = 0.0, 0.0
+    for side in ("user_factors", "item_factors"):
+        a = np.asarray(getattr(runs["plain"]["model"], side))
+        b = np.asarray(getattr(runs["profiled"]["model"], side))
+        table_err = max(table_err, float(np.abs(a - b).max()))
+        scale = max(scale, float(np.abs(a).max()))
+    if not table_err <= OT_TABLE_RTOL * scale:
+        fail(f"phase 16 (b): the profiled tables are {table_err} from the "
+             f"plain run's (scale {scale})")
+    # the epoch's device time by tools/device_time.py, the same cut
+    trainer = TwoTowerTrainer((uu, ii, None), TT_IDS, TT_IDS,
+                              TwoTowerConfig(**{**cfg, "epochs": 10 ** 6}),
+                              device="cuda")
+    epoch = profile_call(lambda: trainer.run(trainer._epochs_done + 1),
+                         iters=OT_EPOCH_ITERS)
+    del trainer, runs
+    print(json.dumps({
+        "cut": {"positives": n, "steps": MD_TT_STEPS, "epochs": 1,
+                "ids": TT_IDS, "dim": TT_DIM, "batch": TT_BATCH},
+        "steps": breakdown["steps"],
+        "device_ms_per_step": breakdown["device_ms_per_step"],
+        "device_time_sec": trace["device_time_sec"],
+        "device_time_ms_per_train_step": trace["device_time_sec"] * 1e3
+        / MD_TT_STEPS,
+        "profile_call_ms_per_epoch": epoch["ms"],
+        "profile_call_windows": epoch["windows"],
+        "by_category_ms_per_step": breakdown["by_category_ms_per_step"],
+        "launches": named, "in_top_8": in_top,
+        "table_max_abs_diff": table_err, "table_scale": scale,
+        "process_age_sec": profile_window.process_age_sec()}), flush=True)
+    return 0
+
+
+def profile_phase(root: str) -> dict:
+    """(b): the two-tower capture in a fresh interpreter
+    (``profile_child``), then the ALS ``cli train`` of the ``pio
+    train`` phase's ML-100K shape under ``PIO_PROFILE_DIR`` in this
+    process."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--profile-child",
+         root], env={**os.environ, "PYTHONPATH": os.path.dirname(
+             os.path.abspath(__file__))},
+        capture_output=True, text=True, timeout=OT_CHILD_TIMEOUT)
+    if proc.returncode != 0:
+        fail(f"phase 16 (b): the profiled two-tower interpreter exited "
+             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    twotower = json.loads(proc.stdout.strip().splitlines()[-1])
+    twotower["process_sec"] = time.perf_counter() - t0
+    return {"twotower": twotower, "als": profiled_cli_train(root)}
+
+
+def profiled_cli_train(root: str) -> dict:
+    """(b)'s ALS: ``cli.main(["train", ...])`` in this process under
+    ``PIO_PROFILE_DIR`` over an ML-100K-shaped localfs store (rank 16,
+    10 iterations: the ``pio train`` phase's engine). ALS counts no
+    step, so its record is the train's total (JAX's ``steps == 0``
+    branch)."""
+    from predictionio_torch.data import storage as storage_mod
+    from predictionio_torch.tools import cli
+
+    store = os.path.join(root, "ml100k")
+    env = md_ml100k_store(store)
+    engine_json = os.path.join(root, "engine-als.json")
+    with open(engine_json, "w") as f:
+        json.dump({"id": "default", "engineId": OT_ALS_ENGINE,
+                   "engineFactory": RECO,
+                   "datasource": {"params": {"app_name": "ml100k"}},
+                   "algorithms": [{"name": "als", "params": {
+                       "rank": 16, "num_iterations": 10}}]}, f)
+    prof_dir = os.path.join(root, "als_profiles")
+    saved = {k: v for k, v in os.environ.items()
+             if k.startswith("PIO_STORAGE_")}
+    for k in saved:
+        del os.environ[k]
+    os.environ.update({**env, "PIO_PROFILE_DIR": prof_dir})
+    storage_mod.set_storage(None)
+    logger = logging.getLogger()
+    handlers = list(logger.handlers), logger.level
+    t0 = time.perf_counter()
+    try:
+        code = cli.main(["train", "--engine-json", engine_json])
+    finally:
+        for k in (*env, "PIO_PROFILE_DIR"):
+            os.environ.pop(k, None)
+        os.environ.update(saved)
+        storage_mod.set_storage(None)
+        for handler in list(logger.handlers):
+            if handler not in handlers[0]:
+                logger.removeHandler(handler)
+        logger.setLevel(handlers[1])
+    sec = time.perf_counter() - t0
+    instance = storage_mod.Storage.from_env(env).engine_instances(
+    ).get_latest_completed(OT_ALS_ENGINE, "0", "default")
+    if code != 0 or instance is None:
+        fail(f"phase 16 (b): the profiled ALS cli train exited {code}")
+    path = os.path.join(prof_dir, instance.id, "breakdown.json")
+    if not os.path.exists(path):
+        fail(f"phase 16 (b): the ALS train wrote no {path}")
+    with open(path) as f:
+        breakdown = json.load(f)
+    if "steps" in breakdown or breakdown.get("device") != "cuda" or not (
+            breakdown.get("device_time_sec", 0) > 0):
+        fail(f"phase 16 (b): the ALS record is not JAX's total: "
+             f"{sorted(breakdown)}")
+    return {"train_sec": sec, "device_time_sec": breakdown["device_time_sec"],
+            "by_category": breakdown["by_category"], "env": env,
+            "instance": instance.id}
+
+
+def version_check(env: dict) -> dict:
+    """(c): an in-process ``EngineServer`` on the card over (b)'s ALS
+    instance with ``PIO_UPDATE_URL`` at a local server: one GET with
+    ``component=engine-server``, answers checked against float64 through
+    ``topk_dot``, and no ``pio-upgrade-check`` thread after its stop."""
+    import http.server
+
+    from predictionio_torch.data.storage import Storage
+    from predictionio_torch.ops.kernels import topk_dot as tkd
+    from predictionio_torch.serving.engine_server import EngineServer
+    from predictionio_torch.templates.recommendation import (
+        recommendation_engine)
+    from predictionio_torch.workflow.deploy import load_blob
+
+    paths = []
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):
+            paths.append(self.path)
+            body = json.dumps({"version": "99.0.0"}).encode()
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):
+            pass
+
+    updates = http.server.HTTPServer(("127.0.0.1", 0), Handler)
+    feed = threading.Thread(target=updates.serve_forever, daemon=True)
+    feed.start()
+    storage = Storage.from_env(env)
+    instance = storage.engine_instances().get_latest_completed(
+        OT_ALS_ENGINE, "0", "default")
+    truth = model_truth(load_blob(storage.models().get(
+        instance.id).models)[0])
+    picked = tier_queries(truth, np.random.default_rng(SEED + 161))
+    queries = ([q for q in picked if "user" in q][:6]
+               + [q for q in picked if "item" in q][:2])
+    os.environ["PIO_UPDATE_URL"] = f"http://127.0.0.1:{updates.server_port}/v"
+    tkd.launches.reset()
+    try:
+        server = EngineServer(recommendation_engine(), OT_ALS_ENGINE,
+                              host="127.0.0.1", port=0, storage=storage,
+                              device="cuda").start()
+    finally:
+        os.environ.pop("PIO_UPDATE_URL", None)
+    try:
+        for j, q in enumerate(queries):
+            check_answer(truth, q, post(server.port, q),
+                         f"phase 16 (c) query {j}")
+        wait_until(lambda: paths, 30, "the engine server's version check")
+    finally:
+        server.stop()
+        updates.shutdown()
+        updates.server_close()
+        feed.join(timeout=10)
+    left = [t.name for t in threading.enumerate()
+            if t.name == "pio-upgrade-check" and t.is_alive()]
+    if paths != ["/v?component=engine-server"] or left:
+        fail(f"phase 16 (c): the update server saw {paths}; threads left "
+             f"{left}")
+    launched = tkd.launches.value
+    if launched < len(queries):
+        fail(f"phase 16 (c): {launched} topk_dot launches for "
+             f"{len(queries)} queries")
+    return {"requests": paths, "queries": len(queries),
+            "topk_dot_launches": launched, "threads_left": left}
+
+
+def operator_tools_phase() -> dict:
+    """Phase 16: (a) in the background while (b) and (c) run here; then
+    the lead a capture window opened in this process loses (fault 13,
+    ``tools/profile_window.py``), recorded, not checked."""
+    from predictionio_torch.tools import profile_window
+
+    root = tempfile.mkdtemp(prefix="pio_chip_smoke_ot_")
+    t0 = time.perf_counter()
+    try:
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            cache = pool.submit(cache_phase)
+            profiled = profile_phase(root)
+            als = profiled.pop("als")
+            version = version_check(als.pop("env"))
+            cache = cache.result()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"cache": cache, "profile": {**profiled, "als": als},
+            "version_check": version,
+            "capture_lead": profile_window.lead_loss(),
+            "phase_sec": time.perf_counter() - t0}
+
+
+def operator_tools_main() -> int:
+    """``python3 chip_smoke.py --operator-tools``: phase 16 alone, after
+    building the kernels it launches into the package's ``_build/``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from predictionio_torch.ops import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    t0 = time.perf_counter()
+    from predictionio_torch.obs import torchmon
+
+    built = kernels.build_all()
+    nvcc_sec = {name: torchmon.KERNEL_BUILD_SECONDS.labels(name).sum
+                for name in built}
+    print(f"built {built} in {time.perf_counter() - t0:.1f}s ({nvcc_sec})",
+          flush=True)
+    tools = operator_tools_phase()
+    print(json.dumps({"operator_tools": {**tools, "card": card}}),
+          flush=True)
+    print(card, flush=True)
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -6601,9 +7129,14 @@ def main() -> int:
         synth_sec = time.perf_counter() - t0
         built, build_sec = build.result()
     mark("build_with_families_rest_and_ratings")
-    print(f"built {built} in {build_sec:.1f}s (meanwhile phase 13's "
-          f"(b)-(c) {rest_sec:.1f}s, the ratings {synth_sec:.1f}s)",
-          flush=True)
+    from predictionio_torch.obs import torchmon
+
+    # each source's own nvcc seconds (0 where its library was on disk)
+    nvcc_sec = {name: torchmon.KERNEL_BUILD_SECONDS.labels(name).sum
+                for name in built}
+    print(f"built {built} in {build_sec:.1f}s ({nvcc_sec}; meanwhile "
+          f"phase 13's (b)-(c) {rest_sec:.1f}s, the ratings "
+          f"{synth_sec:.1f}s)", flush=True)
     topk = kernel_phase()
     print(f"topk_dot: {topk['cases']} shapes agree", flush=True)
     flash = flash_ce_phase()
@@ -6680,6 +7213,8 @@ def main() -> int:
     storage = storage_tier_phase(ratings)
     del ratings, project_cut
     mark("storage_tier")
+    tools = operator_tools_phase()
+    mark("operator_tools")
     families = {"sessionrec": sessionrec, **families_rest,
                 "phase_sec": sessionrec["phase_sec"] + rest_sec,
                 "rest_overlapped_build": True}
@@ -6704,6 +7239,19 @@ def main() -> int:
             **{f"multi_device_{path}": n for path, n in multi_device[
                 "twotower"]["launches"][entry["name"]].items()}}
     print(json.dumps({"storage": {**storage, "card": card}}), flush=True)
+    flash["launches_by_path"]["profiled_train"] = tools["profile"][
+        "twotower"]["launches"]["flash_ce"]
+    embed["launches_by_path"]["profiled_train"] = tools["profile"][
+        "twotower"]["launches"]["embed_update"]
+    topk["launches_by_path"]["version_check_deploy"] = tools[
+        "version_check"]["topk_dot_launches"]
+    embed["build_sec_cold"] = tools["cache"]["cold_nvcc_sec"]
+    embed["load_sec_cached"] = tools["cache"]["cached_load_sec"]
+    for entry in (topk, flash, embed):
+        entry["build_sec"] = nvcc_sec.get(entry["name"])
+        entry["load_sec"] = kernels.load_seconds().get(entry["name"])
+    print(json.dumps({"operator_tools": {**tools, "card": card}}),
+          flush=True)
     print(json.dumps({"obs": {**obs, "card_line": card}}), flush=True)
     print(json.dumps({"phase_wall_sec": walls,
                        "script_sec": time.perf_counter() - t_start}),
@@ -6719,4 +7267,10 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--md-worker"]:
         sys.exit(md_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--cache-child"]:
+        sys.exit(cache_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--profile-child"]:
+        sys.exit(profile_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--operator-tools"]:
+        sys.exit(operator_tools_main())
     sys.exit(main())

@@ -18,19 +18,20 @@ Entry points run on the card: ``DeviceContext()`` means ``cuda:0`` and
 raises when CUDA is absent, unless the caller asks for ``device="cpu"``
 (the tests do) or passes ``--device cpu`` to the CLI.
 
-Ported so far: ``pio deploy`` of the Recommendation (ALS) and two-tower
-engines — loading a trained instance (JAX-trained blobs included) and
-answering ``POST /queries.json`` through the ``topk_dot`` kernel — and
-``pio train`` of the two-tower engine from the event store, through the
-``flash_ce`` (loss forward and backward) and ``embed_update`` (table
-update) kernels, and ``pio train`` of the Recommendation (ALS) engine
-(``ops/als.py``: the segmented layout, the gather+Gramian half-step and
-the Jacobi CG solve in PyTorch), over the native event log's fused
-scan+bin and the layout cache when the events are in an ``eventlog``
-store; the front door, ``pio eval`` and ``pio stream``; and the
-engine-project path (``pio template get`` and ``pio build``, engine
-variants with their project modules, two-tower checkpoints, and the
-similar-product and e-commerce engines). What remains is in ROADMAP.md.
+What is ported: ``pio train`` and ``pio deploy`` of every engine the
+JAX package ships (Recommendation/ALS, two-tower and the hybrid,
+similar product, e-commerce, the session recommender, classification,
+regression, vanilla), serving ``POST /queries.json`` through the
+``topk_dot`` kernel and training the two-tower tables through the
+``flash_ce`` and ``embed_update`` kernels; the native event log's data
+lane and the front door (event server, apps, keys, import/export);
+``pio eval`` with grid tuning; ``pio stream``; the engine-project path;
+the observability plane and the deployed engine's operator contract
+(fleet, router, SLOs, chaos, replay); training and serving across
+processes; the storage tier (sqlite, the sharded and replicated
+``rest`` backends, ``pio storageserver``); and the kernel-library cache,
+``pio train``'s profile capture (``PIO_PROFILE_DIR``), the version check
+and ``pio bench-compare``. What remains is in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

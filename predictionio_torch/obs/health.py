@@ -10,9 +10,15 @@ copies, with two device-facing probes rewritten:
                 FAILED, never DEGRADED, and nothing falls back to the
                 CPU; a process that registered no card (an event
                 server, a ``device="cpu"`` deployment) reports ``cpu``.
-  kernels       replaces the compile-cache probe: every kernel library
-                this process asked for (``ops/kernels/__init__.py``:
-                what a deployment's warm-up launched) is loaded.
+  compile_cache the JAX probe over the kernel-library cache
+                (``parallel/compile_cache.py``): the hit rate of
+                ``pio_kernel_build_total`` (``cached`` hits, ``built``
+                misses) against ``PIO_CACHE_HIT_FLOOR`` once
+                ``PIO_CACHE_MIN_LOOKUPS`` lookups were made, with the
+                JAX probe's status and reason texts.
+  kernels       the port's own: every kernel library this process
+                asked for (``ops/kernels/__init__.py``: what a
+                deployment's warm-up launched) is loaded.
 
 A :class:`Watchdog` reads its clocks from ``clock=`` (an object with
 ``monotonic()`` and ``perf_counter()``; the ``time`` module by
@@ -302,6 +308,32 @@ def _kernels_probe() -> ProbeResult:
     return ok("loaded: " + ", ".join(sorted(loaded)))
 
 
+def _compile_cache_probe() -> ProbeResult:
+    """JAX's probe over the kernel-library requests: a ``cached`` one is
+    a hit, a ``built`` one a miss, summed over the kernels."""
+    family = metrics.REGISTRY.get("pio_kernel_build_total")
+    hits = misses = 0.0
+    if family is not None:
+        for values, child in family.children():
+            if values[-1] == "cached":
+                hits += child.value
+            elif values[-1] == "built":
+                misses += child.value
+    lookups = hits + misses
+    min_lookups = metrics.env_float("PIO_CACHE_MIN_LOOKUPS", 32.0)
+    if lookups < min_lookups:
+        return ok(f"{int(lookups)} lookup(s); floor applies from "
+                  f"{int(min_lookups)}")
+    rate = hits / lookups
+    floor = metrics.env_float("PIO_CACHE_HIT_FLOOR", 0.5)
+    if rate < floor:
+        return degraded(
+            f"compile-cache hit rate {rate:.2f} below floor {floor:.2f} "
+            f"({int(hits)}/{int(lookups)}) — recompiling work another "
+            "process already paid for")
+    return ok(f"hit rate {rate:.2f} over {int(lookups)} lookups")
+
+
 def _flight_error_probe() -> ProbeResult:
     records = flight.RECORDER.records(64)
     if len(records) < 16:
@@ -388,6 +420,7 @@ def install_default_probes() -> None:
         if _defaults_installed:
             return
         REGISTRY.register("devices", _devices_probe)
+        REGISTRY.register("compile_cache", _compile_cache_probe)
         REGISTRY.register("kernels", _kernels_probe)
         REGISTRY.register("flight_errors", _flight_error_probe)
         REGISTRY.register("disk", _disk_probe)

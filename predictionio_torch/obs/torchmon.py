@@ -7,8 +7,11 @@ port compiles no programs, and its one compile tax is ``nvcc``
 building the hand-written kernels (``ops/kernels/__init__.py``
 ``build_all``), which reports here:
 
-  pio_kernel_build_total{kernel,result="built"|"cached"}  library built
-                                                    now or found on disk
+  pio_kernel_build_total{kernel,result="built"|"cached"|
+                         "cache_unavailable"}       library built now or
+                                                    found on disk; the
+                                                    cache directory could
+                                                    not be used
   pio_kernel_build_seconds{kernel}                  nvcc wall time
   pio_kernel_enabled{kernel=}                       kernel vs torch form
                                                     (the JAX package's
@@ -21,11 +24,18 @@ building the hand-written kernels (``ops/kernels/__init__.py``
 Every family but the kernel ones keeps its JAX name, so one dashboard
 reads both packages. Nothing here imports torch or raises:
 observability must not change whether training runs.
+
+:func:`train_steps` counts the steps JAX's profile capture divides by
+(``workflow/train.py``): the session trainer's steps, and the two-tower
+trainer's epochs (one dispatch each in the JAX package). It is kept
+apart from ``pio_train_step_seconds``, which the session trainer feeds
+once an epoch (it times the epoch, its steps run asynchronously).
 """
 
 from __future__ import annotations
 
 import logging
+import threading
 from typing import Optional
 
 from predictionio_torch.obs import metrics
@@ -37,8 +47,10 @@ _BUILD_BUCKETS = (0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0, 300.0, 600.0)
 
 KERNEL_BUILD_TOTAL = metrics.counter(
     "pio_kernel_build_total",
-    "Kernel library requests by outcome: built (nvcc ran now) or cached "
-    "(the library for this source and these flags was on disk)",
+    "Kernel library requests by outcome: built (nvcc ran now), cached "
+    "(the library for this source, these flags and this nvcc was on "
+    "disk) or cache_unavailable (PIO_COMPILE_CACHE_DIR could not be "
+    "used; the package's _build/ served instead)",
     ("kernel", "result"),
 )
 
@@ -94,6 +106,24 @@ def record_kernel_plan(plan: dict) -> None:
     for kernel in ("flash_ce", "embed_update"):
         if kernel in plan:
             KERNEL_ENABLED.labels(kernel).set(float(bool(plan[kernel])))
+
+
+_steps_lock = threading.Lock()
+_train_steps = 0
+
+
+def count_train_steps(n: int) -> None:
+    """Add ``n`` train steps, as JAX's profile capture counts them."""
+    global _train_steps
+    with _steps_lock:
+        _train_steps += int(n)
+
+
+def train_steps() -> int:
+    """Train steps counted in this process so far (read before and after
+    a train: the difference is the train's)."""
+    with _steps_lock:
+        return _train_steps
 
 
 def record_transfer(nbytes: Optional[int], direction: str) -> None:

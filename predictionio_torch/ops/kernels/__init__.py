@@ -2,9 +2,16 @@
 
 Counterpart of ``predictionio_tpu/ops/pallas/__init__.py``. Each kernel
 is a CUDA C++ source under ``csrc/`` with a plain C entry point. It is
-compiled with ``nvcc`` for ``sm_90a`` into a shared library under
-``_build/`` at first use, and loaded with ``ctypes``; no PyTorch
-headers are involved, so a build takes seconds.
+compiled with ``nvcc`` for ``sm_90a`` into a shared library at first
+use, and loaded with ``ctypes``. No PyTorch headers are involved, yet a
+build can take minutes (``topk_dot``'s took over two minutes on an
+H100 host; PERF.md has the times). So the libraries can live in a cache
+shared across checkouts (``parallel/compile_cache.py``): under
+``$PIO_COMPILE_CACHE_DIR/kernels/`` when that is set, else (or with
+``PIO_COMPILE_CACHE=0``) in the package's ``_build/``, which git
+ignores. :func:`library_dir` resolves the directory at every build and
+load. A library's name hashes its source, ``NVCC_FLAGS`` and ``nvcc
+--version``; its build log (``ptxas -v``) sits beside it.
 
 The selection contract differs from the Pallas one on purpose. There is
 no probe and no degrade: a wrapper given CUDA tensors launches its
@@ -13,10 +20,12 @@ kernel or raises (a failed build, a refused launch and a non-zero
 kernel, kept beside it, runs only for tensors that lie on the CPU.
 
 Each library request reports to ``obs/torchmon.py``
-(``pio_kernel_build_total{kernel,result="built"|"cached"}`` and
-``pio_kernel_build_seconds{kernel}``), and :func:`requested_kernels` /
-:func:`loaded_kernels` feed the ``/readyz`` kernel-library probe
-(``obs/health.py``).
+(``pio_kernel_build_total{kernel,result="built"|"cached"|
+"cache_unavailable"}`` and ``pio_kernel_build_seconds{kernel}``); the
+built/cached counts feed the ``/readyz`` ``compile_cache`` probe, and
+:func:`requested_kernels` / :func:`loaded_kernels` its ``kernels``
+probe (``obs/health.py``). :func:`load_seconds` keeps the ``ctypes``
+load time of each library this process loaded.
 
 ``resolve_flag`` keeps the on/off/auto flag and its environment
 override (``PIO_INDEX_KERNEL``). It chooses only on the CPU (between a
@@ -43,7 +52,6 @@ _TRUTHY = {"1", "true", "yes", "on"}
 _FALSY = {"0", "false", "no", "off"}
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 
 #: sm_90a, not sm_90: wgmma and setmaxnreg exist only for the "a" target;
 #: ``-Xptxas -v`` reports each kernel's registers and spills
@@ -110,18 +118,49 @@ def nvcc_path() -> str:
                        "to build the port's CUDA kernels")
 
 
-def _library_path(name: str) -> str:
-    """Build output named by a hash of the source and the flags, so an
-    edited source never loads a stale library."""
+_nvcc_versions: Dict[str, str] = {}
+
+
+def nvcc_version() -> str:
+    """``nvcc --version``'s output (once per process and ``nvcc``); part
+    of every library's key, so a cache shared across toolkits never
+    loads another toolkit's library."""
+    nvcc = nvcc_path()
+    version = _nvcc_versions.get(nvcc)
+    if version is None:
+        version = subprocess.run([nvcc, "--version"], capture_output=True,
+                                 text=True, check=True,
+                                 timeout=60).stdout
+        _nvcc_versions[nvcc] = version
+    return version
+
+
+def library_dir(name: Optional[str] = None) -> str:
+    """Where the libraries are built and loaded now (resolved from the
+    environment at each call): ``$PIO_COMPILE_CACHE_DIR/kernels`` or the
+    package's ``_build/`` (``parallel/compile_cache.py``)."""
+    from predictionio_torch.parallel import compile_cache
+
+    return compile_cache.kernel_dir(name)
+
+
+def _library_path(name: str, directory: Optional[str] = None) -> str:
+    """Build output named by a hash of the source, the flags and the
+    ``nvcc`` version, so an edited source or another toolkit never
+    loads a stale library."""
     with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
+                                + nvcc_version().encode())
+    return os.path.join(directory or library_dir(),
+                        f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _libs_lock = threading.Lock()
 #: every kernel whose library this process asked for (load_library)
 _requested: set = set()
+#: ctypes load seconds of each library this process loaded
+_load_seconds: Dict[str, float] = {}
 
 
 def requested_kernels() -> List[str]:
@@ -137,11 +176,17 @@ def loaded_kernels() -> List[str]:
         return sorted(_libs)
 
 
+def load_seconds() -> Dict[str, float]:
+    """``ctypes`` load seconds of each library this process loaded."""
+    with _libs_lock:
+        return dict(_load_seconds)
+
+
 def build_all(names: Optional[List[str]] = None) -> List[str]:
     """Build every kernel under ``csrc/`` (or ``names``) whose library
-    is missing, with one ``nvcc`` per source, all started together; each
-    output goes to a temporary name renamed into place on success.
-    Returns the names."""
+    is missing from :func:`library_dir`, with one ``nvcc`` per source,
+    all started together; each output goes to a temporary name of this
+    process renamed into place on success. Returns the names."""
     from predictionio_torch.obs import torchmon
 
     if names is None:
@@ -151,28 +196,38 @@ def build_all(names: Optional[List[str]] = None) -> List[str]:
         builds = []
         t0 = time.perf_counter()
         for name in names:
-            out = _library_path(name)
+            out = _library_path(name, library_dir(name))
             if os.path.exists(out):
                 torchmon.record_kernel_build(name, None)
                 continue
-            os.makedirs(BUILD_DIR, exist_ok=True)
+            os.makedirs(os.path.dirname(out), exist_ok=True)
             tmp = f"{out}.{os.getpid()}.tmp"
             cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
                    os.path.join(CSRC_DIR, f"{name}.cu")]
-            builds.append((name, tmp, out, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
-        # wait for every nvcc before reporting a failure: none outlives us
-        outputs = [proc.communicate()[0] for *_, proc in builds]  # graftlint: disable=JT21 — _libs_lock exists to keep a second caller from starting the same nvcc builds; it waits for them, once per process per source
-        for (name, tmp, out, proc), output in zip(builds, outputs):
+            # the build log goes to a file (a pipe could fill while
+            # another nvcc is waited for), renamed beside the library
+            with open(f"{tmp}.log", "w") as log_file:  # graftlint: disable=JT21 — the build log is opened beside the library under the same lock as the build; once per build
+                builds.append((name, tmp, out, subprocess.Popen(
+                    cmd, stdout=log_file, stderr=subprocess.STDOUT)))
+        # wait for every nvcc before reporting a failure: none outlives
+        # us; each build's seconds end when its own nvcc exits
+        seconds: Dict[str, float] = {}
+        while len(seconds) < len(builds):
+            for name, *_, proc in builds:
+                if name not in seconds and proc.poll() is not None:
+                    seconds[name] = time.perf_counter() - t0
+            if len(seconds) < len(builds):
+                time.sleep(0.05)  # graftlint: disable=JT21 — _libs_lock exists to keep a second caller from starting the same nvcc builds; it waits for them, once per process per source
+        for name, tmp, out, proc in builds:
             if proc.returncode != 0:
+                with open(f"{tmp}.log") as f:  # graftlint: disable=JT21 — the failed build's log is read for its error, once
+                    output = f.read()
                 raise RuntimeError(
                     f"nvcc failed to build kernel {name!r} "
                     f"(exit {proc.returncode}):\n{output}")
-            with open(f"{out}.log", "w") as f:  # graftlint: disable=JT21 — the build log is written beside the library before it is renamed into place, under the same lock as the build; once per build
-                f.write(output)
+            os.replace(f"{tmp}.log", f"{out}.log")
             os.replace(tmp, out)
-            torchmon.record_kernel_build(name, time.perf_counter() - t0)
+            torchmon.record_kernel_build(name, seconds[name])
     return names
 
 
@@ -232,6 +287,9 @@ def load_library(name: str) -> ctypes.CDLL:
     with _libs_lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(_library_path(name))
+            t0 = time.perf_counter()
+            # build_all counted an unusable cache; resolve it quietly
+            lib = ctypes.CDLL(_library_path(name, library_dir()))
+            _load_seconds[name] = time.perf_counter() - t0
             _libs[name] = lib
     return lib

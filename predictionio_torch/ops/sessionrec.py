@@ -44,7 +44,9 @@ distinct seen items goes to the index's masked full product. Excluded items come
 Observability: each epoch's wall time (it ends when the step losses
 reach the host) goes to ``torchmon.observe_train_step`` (the JAX
 trainer observes each step, which it syncs; here the steps run
-asynchronously, so the epoch is the timed unit), and the
+asynchronously, so the epoch is the timed unit), the epoch's steps go
+to ``torchmon.count_train_steps`` (the count a ``PIO_PROFILE_DIR``
+capture divides by, as JAX's divides by its step observations), and the
 ``sessionrec`` MFU gauge counts the epoch's steps of
 ``perfacct.sessionrec_step_flops``. The batches move no bytes from the
 host (the sequences live on the device), so no transfer is recorded.
@@ -554,6 +556,7 @@ class SessionRecTrainer:
             self._epochs_done += 1
             self.epoch_seconds.append(time.perf_counter() - t0)
             torchmon.observe_train_step(self.epoch_seconds[-1])
+            torchmon.count_train_steps(len(step_losses))
             self._acct.observe(self.epoch_seconds[-1],
                                steps=len(step_losses))
             log.info("sessionrec epoch %d: loss %.6f, %.3f s, %d steps "

@@ -628,6 +628,9 @@ class TwoTowerTrainer:
             # train-step watchdog) and the MFU gauge over the epoch's
             # steps; the peak is the JAX trainer's analytic floor
             torchmon.observe_train_step(self.epoch_seconds[-1])
+            # one epoch is one step of a profile capture's count: the
+            # JAX trainer's epoch is one dispatch
+            torchmon.count_train_steps(1)
             self._acct.observe(self.epoch_seconds[-1],
                                steps=self.steps_per_epoch)
             memacct.note_train_peak(

@@ -76,7 +76,12 @@ def create_mesh(axes: Optional[Dict[str, int]] = None,
     JAX package's signature and must number the world's ranks. Over an
     initialized world: a ``DeviceMesh`` (every rank must call this, as
     it makes the axes' process groups); with no world: a
-    :class:`SingleMesh`."""
+    :class:`SingleMesh`. The kernel-library cache is checked first, as
+    the JAX function turns its compile cache on here."""
+    from predictionio_torch.parallel.compile_cache import (
+        enable_persistent_cache)
+
+    enable_persistent_cache()
     n = dist.get_world_size() if dist.is_initialized() else 1
     if devices is not None and len(list(devices)) != n:
         raise ValueError(f"{len(list(devices))} devices for a world of {n} "

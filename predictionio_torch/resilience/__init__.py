@@ -1,9 +1,10 @@
 """Resilience subsystem: surviving failure, not just observing it.
 
-Copy of ``predictionio_tpu/resilience/``. The port has no REST storage
-backend and no metrics pusher yet (ROADMAP.md, queue 1 items 13 and
-10): its outbound calls under a policy are the alert webhook and the
-fleet's restart backoff. What follows is the JAX package's account.
+Copy of ``predictionio_tpu/resilience/``. The port's outbound calls
+under a policy are those of the JAX package: the ``rest`` storage
+backend (``data/backends/rest.py``), the metrics pusher
+(``obs/push.py``), the alert webhook and the fleet's restart backoff.
+What follows is the JAX package's account.
 
 The obs stack (PRs 2-5) can *see* a wedged backend or a latency
 collapse — burn-rate alerts fire, watchdogs dump stacks — but nothing

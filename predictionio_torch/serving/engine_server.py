@@ -78,7 +78,11 @@ The operator contract (the JAX server's resilience hooks):
     a failed reload POST an error line to ``log_url``;
   - query coverage (obs/dataobs.py): each answered query's user and
     item references, and how many of them the served model has never
-    seen, feed ``pio_query_unknown_entity_ratio``.
+    seen, feed ``pio_query_unknown_entity_ratio``;
+  - the version check (ref: UpgradeActor, CreateServer.scala:246): with
+    ``PIO_UPDATE_URL`` set, a ``pio-upgrade-check`` thread
+    (``tools/upgrade.py``) checks at start and daily; ``stop`` ends and
+    joins it.
 """
 
 from __future__ import annotations
@@ -110,6 +114,7 @@ from predictionio_torch.resilience.policy import breaker_for
 from predictionio_torch.serving.http import (HTTPServerBase,
                                              JSONRequestHandler,
                                              _admin_authorized)
+from predictionio_torch.tools.upgrade import start_upgrade_daemon
 from predictionio_torch.workflow.deploy import Deployment, prepare_deploy
 
 log = logging.getLogger(__name__)
@@ -473,6 +478,10 @@ class EngineServer(HTTPServerBase):
                          bind_retries=bind_retries)
         # the devices probe checks this deployment's card from now on
         health.register_device(self.ctx.device)
+        # daily version check, no-op unless PIO_UPDATE_URL is configured
+        # (ref: UpgradeActor, CreateServer.scala:163-170,246); started
+        # once the port is bound, ended and joined by stop()
+        self._upgrade = start_upgrade_daemon("engine-server")
 
     # -- deployment management ----------------------------------------------
     def _resolve_instance(self, instance_id: Optional[str]):
@@ -774,6 +783,8 @@ class EngineServer(HTTPServerBase):
             memacct.release_model(model)
         if not self._stopped.is_set():
             health.unregister_device(self.ctx.device)
+        if self._upgrade is not None:
+            self._upgrade.stop()
         super().stop()
 
     def status(self) -> dict:

@@ -1,7 +1,8 @@
 """The port's console: ``pio`` for apps, keys, events, templates, build,
 train, deploy, stream and eval, the operator commands slo, chaos,
-replay, canary and fleet, and the observability commands metrics,
-flight, trace, profile, prof, journal, anomalies, data, mem and top.
+replay, canary and fleet, the observability commands metrics,
+flight, trace, profile, prof, journal, anomalies, data, mem and top, and
+bench-compare.
 
     python -m predictionio_torch.tools.cli app new NAME [--description D]
     python -m predictionio_torch.tools.cli app list|show|delete|data-delete|
@@ -60,6 +61,8 @@ flight, trace, profile, prof, journal, anomalies, data, mem and top.
     python -m predictionio_torch.tools.cli mem [--url URL] [--json]
     python -m predictionio_torch.tools.cli top [--url URL] [--fleet] \\
         [--once [--json] | --interval SEC]
+    python -m predictionio_torch.tools.cli bench-compare [FILE ...] \\
+        [--dir D] [--tolerance PCT] [--against prev|first]
 
 The app, access-key, server, import/export and status commands take the
 JAX console's arguments and print its lines (ref:
@@ -1645,6 +1648,18 @@ def cmd_top(args) -> int:
         return 0
 
 
+def cmd_bench_compare(args) -> int:
+    """Per-metric deltas across the bench trajectory (BENCH_r*.json):
+    newest round vs the previous (or --against first), REGRESSION/
+    IMPROVED verdicts beyond --tolerance percent, exit 1 on any
+    regression (JAX's ``cmd_bench_compare``; no torch import)."""
+    from predictionio_torch.tools import benchcmp
+
+    files = args.files or benchcmp.default_files(args.dir)
+    return benchcmp.run(files, tolerance_pct=args.tolerance,
+                        against=args.against)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m predictionio_torch.tools.cli",
@@ -2091,6 +2106,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--json", action="store_true",
                    help="raw data-plane report")
     p.set_defaults(func=cmd_data)
+
+    p = sub.add_parser(
+        "bench-compare",
+        help="compare the newest BENCH_r*.json round against a baseline; "
+             "print per-metric deltas, exit 1 on regressions beyond the "
+             "tolerance band",
+    )
+    p.add_argument("files", nargs="*", default=[],
+                   help="bench files in trajectory order (default: "
+                        "BENCH_r*.json in --dir)")
+    p.add_argument("--dir", default=".",
+                   help="directory holding BENCH_r*.json (default: cwd)")
+    p.add_argument("--tolerance", type=float, default=10.0,
+                   help="tolerance band in percent (default 10)")
+    p.add_argument("--against", choices=["prev", "first"], default="prev",
+                   help="baseline round: the previous one (default) or "
+                        "the first")
+    p.set_defaults(func=cmd_bench_compare)
     return parser
 
 

@@ -136,3 +136,19 @@ def device_split(prof, skip: str = "") -> dict:
         entry["count"] += e.count
         entry["ms"] += e.self_device_time_total / 1e3
     return out
+
+
+def cpu_split(prof) -> dict:
+    """CPU operators a finished ``torch.profiler.profile`` traced, by
+    name: ``{name: {"count": calls, "ms": summed self CPU time}}`` (what
+    a capture without a card has in place of kernels)."""
+    out: dict = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        if e.self_cpu_time_total <= 0:
+            continue
+        entry = out.setdefault(e.key, {"count": 0, "ms": 0.0})
+        entry["count"] += e.count
+        entry["ms"] += e.self_cpu_time_total / 1e3
+    return out

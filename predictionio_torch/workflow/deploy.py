@@ -34,6 +34,7 @@ from predictionio_torch.core.persistent_model import (PersistentModelManifest,
                                                       load_from_manifest)
 from predictionio_torch.data.metadata import EngineInstance
 from predictionio_torch.data.storage import Storage, get_storage
+from predictionio_torch.parallel.compile_cache import enable_persistent_cache
 from predictionio_torch.parallel.context import DeviceContext
 
 
@@ -120,7 +121,10 @@ def latest_completed_instance_id(storage: Storage, engine_id: str,
 def prepare_deploy(engine: Engine, instance: EngineInstance,
                    ctx: Optional[DeviceContext] = None,
                    storage: Optional[Storage] = None) -> Deployment:
-    """ref: Engine.prepareDeploy:174. ``ctx`` defaults to the card."""
+    """ref: Engine.prepareDeploy:174. ``ctx`` defaults to the card. The
+    kernel-library cache is checked first (the JAX deploy turns its
+    compile cache on here): the warm-up loads the kernels."""
+    enable_persistent_cache()
     storage = storage or get_storage()
     ctx = ctx or DeviceContext()
     engine_params = engine_params_from_instance(engine, instance)

@@ -23,6 +23,7 @@ from predictionio_torch.core.fast_eval import FastEvalEngineWorkflow
 from predictionio_torch.core.params import EngineParams
 from predictionio_torch.data.metadata import EvaluationInstance
 from predictionio_torch.data.storage import Storage, get_storage
+from predictionio_torch.parallel.compile_cache import enable_persistent_cache
 from predictionio_torch.parallel.context import DeviceContext
 from predictionio_torch.workflow.config import WorkflowParams
 
@@ -48,7 +49,9 @@ def run_evaluation(
     use_fast_eval: bool = True,
 ) -> MetricEvaluatorResult:
     """ref: CoreWorkflow.runEvaluation:96. Returns the evaluator result.
-    ``ctx`` defaults to the card."""
+    ``ctx`` defaults to the card. The kernel-library cache is checked
+    first, as the JAX workflow turns its compile cache on here."""
+    enable_persistent_cache()
     storage = storage or get_storage()
     ctx = ctx or DeviceContext()
     evaluator = evaluator or MetricEvaluator()

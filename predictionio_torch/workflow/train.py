@@ -19,8 +19,23 @@ the train, and a completed instance moves the freshness horizon
 (``note_publish``), freezes the data plane's schema profile as the
 trained-against baseline (``dataobs.freeze_schemas``) and logs the
 stage split in one line. The chaos
-harness's ``train`` seam sits just before ``engine.train``. The JAX
-package's profiler capture is not ported (ROADMAP.md, queue 1 item 13).
+harness's ``train`` seam sits just before ``engine.train``.
+
+``PIO_PROFILE_DIR`` captures the whole ``engine.train`` under
+``torch.profiler`` (``obs/profiler.py``; inside the deadman, as in JAX)
+into ``<dir>/<instance_id>/trace.json`` (a Chrome trace; process
+``p > 0`` of a world under ``process_<p>/``), then logs
+JAX's per-step breakdown record and writes it as ``breakdown.json``
+beside the trace: device ms a step by kernel over the steps the
+trainers counted (``torchmon.count_train_steps``: the session
+trainer's steps, the two-tower trainer's epochs), or the train's total
+when none was counted (ALS). The profiler keeps every event in host
+memory until the train ends, so the capture is meant for short trains.
+A capture that cannot start (another window is open:
+``ProfilerBusy``) leaves the train unprofiled, and a failed parse never
+fails the train. ``run_train`` also checks the kernel-library cache
+(``parallel/compile_cache.py``) where the JAX workflow turns its
+compile cache on.
 
 Across processes (``PIO_COORDINATOR_ADDRESS``, ``PIO_NUM_PROCESSES``,
 ``PIO_PROCESS_ID``; ``parallel.multihost.initialize_from_env`` runs
@@ -37,10 +52,13 @@ timeout), as a lost Spark driver fails its executors.
 
 from __future__ import annotations
 
+import contextlib
 import datetime as _dt
 import json
 import logging
+import os
 import pickle
+import sys
 import time
 import uuid
 from typing import Any, List, Optional
@@ -51,8 +69,10 @@ from predictionio_torch.core.persistent_model import (PersistentModel,
                                                       manifest_for)
 from predictionio_torch.data.metadata import EngineInstance, Model
 from predictionio_torch.data.storage import Storage, get_storage
-from predictionio_torch.obs import dataobs, health, memacct, perfacct, torchmon
+from predictionio_torch.obs import (dataobs, health, memacct, perfacct,
+                                    profiler, torchmon)
 from predictionio_torch.parallel import multihost as mh
+from predictionio_torch.parallel.compile_cache import enable_persistent_cache
 from predictionio_torch.parallel.context import DeviceContext
 from predictionio_torch.parallel.mesh import create_mesh
 from predictionio_torch.resilience import chaos
@@ -90,6 +110,87 @@ def persisted_models(engine: Engine, engine_params: EngineParams,
     return out
 
 
+@contextlib.contextmanager
+def _maybe_profile(instance_id: str):
+    """With ``PIO_PROFILE_DIR`` set, the block runs under
+    ``torch.profiler`` into ``<dir>/<instance_id>``, and the per-step
+    breakdown is logged and written after it (JAX's ``_maybe_profile``).
+    Profiling never changes whether training runs: a capture that
+    cannot start, stop or be parsed is logged and the train goes on."""
+    profile_dir = os.environ.get("PIO_PROFILE_DIR")
+    if not profile_dir:
+        yield
+        return
+    out = os.path.join(profile_dir, instance_id)
+    if mh.process_index() > 0:
+        # each process traces its own work; process 0's is the JAX path
+        out = os.path.join(out, f"process_{mh.process_index()}")
+    steps_before = torchmon.train_steps()
+    capture = profiler.trace_capture(out)
+    try:
+        result = capture.__enter__()
+    except Exception as e:  # noqa: BLE001 — ProfilerBusy, or no profiler
+        log.info("train runs unprofiled: the profiler could not start "
+                 "(%s)", e)
+        yield
+        return
+    try:
+        yield
+    except BaseException:
+        # the capture ends without a trace; the train's error goes on
+        with contextlib.suppress(Exception):
+            capture.__exit__(*sys.exc_info())
+        raise
+    try:
+        capture.__exit__(None, None, None)
+    except Exception:  # noqa: BLE001 — observability must not break train
+        log.exception("train profile could not be written to %s", out)
+        return
+    _log_step_breakdown(out, torchmon.train_steps() - steps_before,
+                        result)
+
+
+def _log_step_breakdown(profile_dir: str, steps: int,
+                        capture: dict) -> None:
+    """The finished capture as device ms/step by kernel, logged with
+    JAX's messages and ``extra`` keys and written to ``breakdown.json``
+    (JAX's ``_log_step_breakdown``). A train whose loops counted no step
+    has ``steps == 0``: the TOTAL device time is logged instead — a
+    whole-train number must never be presented as a per-step one."""
+    try:
+        breakdown = (profiler.step_breakdown(capture, steps) if steps > 0
+                     else profiler.parse_capture(capture))
+    except Exception as e:  # noqa: BLE001 — observability must not break train
+        breakdown = {"error": str(e)}
+    if "error" in breakdown:
+        log.info("train profile captured at %s (device-time breakdown "
+                 "unavailable: %s)", profile_dir, breakdown["error"])
+        return
+    if steps > 0:
+        log.info(
+            "train device time: %.3f ms/step over %d step(s)",
+            breakdown["device_ms_per_step"], breakdown["steps"],
+            extra={"pio": {"profile_dir": profile_dir, **{
+                k: breakdown[k] for k in ("device_ms_per_step",
+                                          "by_category_ms_per_step",
+                                          "steps")}}},
+        )
+    else:
+        log.info(
+            "train device time: %.3f s total (no per-step timings "
+            "observed)", breakdown["device_time_sec"],
+            extra={"pio": {"profile_dir": profile_dir,
+                           "device_time_sec": breakdown["device_time_sec"],
+                           "by_category": breakdown.get("by_category")}},
+        )
+    try:
+        with open(os.path.join(profile_dir, "breakdown.json"), "w") as f:
+            json.dump(breakdown, f, indent=1, sort_keys=True)
+    except OSError as e:
+        log.warning("could not persist %s/breakdown.json: %s",
+                    profile_dir, e)
+
+
 def run_train(engine: Engine, engine_params: EngineParams, engine_id: str,
               engine_version: str = "0", engine_variant: str = "default",
               engine_factory: str = "", batch: str = "",
@@ -101,6 +202,7 @@ def run_train(engine: Engine, engine_params: EngineParams, engine_id: str,
     ``ctx`` on the CPU makes the ranks join over gloo)."""
     distributed = mh.initialize_from_env(
         device=ctx.device if ctx is not None else None)
+    enable_persistent_cache()
     storage = storage or get_storage()
     ctx = ctx or DeviceContext(mh.rank_device() if distributed else None)
     if distributed and ctx.mesh is None:
@@ -130,7 +232,7 @@ def run_train(engine: Engine, engine_params: EngineParams, engine_id: str,
         if writer:
             storage.engine_instances().update(instance)
         t0 = time.perf_counter()
-        with health.TRAIN_WATCHDOG.deadman():
+        with health.TRAIN_WATCHDOG.deadman(), _maybe_profile(instance.id):
             # chaos seam: an injected train fault takes the FAILED
             # instance path below; an injected hang sits under the
             # deadman

@@ -1577,3 +1577,123 @@ def test_rest_tier_train_and_deploy_on_the_card(cuda, tmp_path, monkeypatch):
             server.stop()
         for s in servers:
             s.stop()
+
+
+# -- the operator's tools: the kernel-library cache, the profile capture --------
+
+CACHED_LOAD = """\
+import json
+import torch
+from predictionio_torch.obs import torchmon
+from predictionio_torch.ops import kernels
+from predictionio_torch.ops.kernels import embed_update as eu
+torch.cuda.init()
+kernels.load_library("embed_update")
+gen = torch.Generator(device="cuda").manual_seed(3)
+table = torch.randn((500, 64), generator=gen, device="cuda")
+idx = torch.randint(0, 500, (300,), generator=gen, device="cuda")
+grad = torch.randn((300, 64), generator=gen, device="cuda")
+scale = torch.rand(300, generator=gen, device="cuda")
+want = eu.embed_update_reference(table.clone(), idx, grad, scale)
+eu.embed_update(table, idx, grad, scale)
+torch.cuda.synchronize()
+ok = bool(((table - want).abs() <= 1e-6 + 1e-5 * want.abs()).all())
+print(json.dumps({
+    "built": torchmon.KERNEL_BUILD_TOTAL.labels("embed_update",
+                                                "built").value,
+    "cached": torchmon.KERNEL_BUILD_TOTAL.labels("embed_update",
+                                                 "cached").value,
+    "dir": kernels.library_dir(), "launches": eu.launches.value, "ok": ok}))
+"""
+
+
+def test_a_library_built_into_a_cache_loads_cached_in_a_second_interpreter(
+        cuda, tmp_path, monkeypatch):
+    """``embed_update`` built into an empty ``PIO_COMPILE_CACHE_DIR`` by
+    this process (``built`` 1) loads in a second interpreter with no
+    build (``cached`` 1) and agrees with its plain version there."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from predictionio_torch.obs import torchmon
+    from predictionio_torch.ops import kernels
+
+    monkeypatch.setenv("PIO_COMPILE_CACHE_DIR", str(tmp_path / "cache"))
+    monkeypatch.delenv("PIO_COMPILE_CACHE", raising=False)
+    monkeypatch.setattr(kernels, "_libs", {})
+    monkeypatch.setattr(kernels, "_load_seconds", {})
+    built = torchmon.KERNEL_BUILD_TOTAL.labels("embed_update", "built")
+    before = built.value
+    kernels.load_library("embed_update")
+    assert built.value == before + 1
+    kdir = tmp_path / "cache" / "kernels"
+    files = sorted(os.listdir(kdir))
+    assert len(files) == 2 and files[1] == files[0] + ".log"
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", CACHED_LOAD], cwd=root,
+                          env={**os.environ, "PYTHONPATH": root},
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got == {"built": 0, "cached": 1, "dir": str(kdir),
+                   "launches": 1, "ok": True}
+    assert sorted(os.listdir(kdir)) == files
+
+
+def test_a_profiled_twotower_cut_names_both_kernels(cuda, tmp_path,
+                                                    monkeypatch):
+    """``run_train`` of the two-tower algorithm under ``PIO_PROFILE_DIR``
+    on the card, 6 steps in one epoch: ``breakdown.json`` counts one step
+    (one a two-tower epoch, as JAX counts) and names ``flash_ce`` with 3
+    launches a step and ``embed_update`` with 2."""
+    import json
+
+    from predictionio_torch.core import (DataSource, Engine, FirstServing,
+                                         IdentityPreparator)
+    from predictionio_torch.core.params import EngineParams
+    from predictionio_torch.data.bimap import BiMap
+    from predictionio_torch.data.storage import Storage
+    from predictionio_torch.models.als import PreparedRatings
+    from predictionio_torch.models.twotower import (TwoTowerAlgorithm,
+                                                    TwoTowerParams)
+    from predictionio_torch.parallel.context import DeviceContext
+    from predictionio_torch.workflow.train import run_train
+
+    rng = np.random.default_rng(16)
+    n_ids, steps, batch = 5000, 6, 1024
+    prepared = PreparedRatings(
+        user_ids=BiMap.from_vocab([f"u{j}" for j in range(n_ids)]),
+        item_ids=BiMap.from_vocab([f"i{j}" for j in range(n_ids)]),
+        user_idx=rng.integers(0, n_ids, steps * batch),
+        item_idx=rng.integers(0, n_ids, steps * batch),
+        ratings=np.ones(steps * batch, np.float32))
+
+    class Source(DataSource):
+        def read_training(self, ctx):
+            return prepared
+
+    engine = Engine(Source, IdentityPreparator,
+                    {"twotower": TwoTowerAlgorithm}, FirstServing)
+    ep = EngineParams(
+        data_source_params=("", None), preparator_params=("", None),
+        algorithm_params_list=[("twotower", TwoTowerParams(
+            dim=64, batch_size=batch, epochs=1))],
+        serving_params=("", None))
+    monkeypatch.setenv("PIO_PROFILE_DIR", str(tmp_path / "prof"))
+    fce.launches.reset()
+    eu.launches.reset()
+    instance = run_train(
+        engine, ep, engine_id="tt-prof", ctx=DeviceContext("cuda"),
+        storage=Storage.from_env({"PIO_STORAGE_SOURCES_M_TYPE": "memory"}))
+    assert (fce.launches.value, eu.launches.value) == (3 * steps, 2 * steps)
+    got = json.loads((tmp_path / "prof" / instance.id /
+                      "breakdown.json").read_text())
+    assert got["steps"] == 1 and got["trace"]["device"] == "cuda"
+    launches = got["trace"]["launches"]
+    assert sum(n for k, n in launches.items()
+               if k.startswith("flash_ce")) == 3 * steps
+    assert sum(n for k, n in launches.items()
+               if k.startswith("embed_update")) == 2 * steps
+    assert got["device_ms_per_step"] > 0

@@ -189,6 +189,24 @@ OBSERVABILITY = ("predictionio_torch.obs",
                  "predictionio_torch.tools.device_time")
 
 
+#: the operator's tools: the kernel-library cache, the profile capture,
+#: the version check and bench-compare
+OPERATOR_TOOLS = ("predictionio_torch.parallel.compile_cache",
+                  "predictionio_torch.ops.kernels",
+                  "predictionio_torch.obs.profiler",
+                  "predictionio_torch.obs.health",
+                  "predictionio_torch.workflow.train",
+                  "predictionio_torch.tools.upgrade",
+                  "predictionio_torch.tools.benchcmp",
+                  "predictionio_torch.tools.profile_window",
+                  "predictionio_torch.serving.engine_server",
+                  "predictionio_torch.tools.cli")
+
+
+def test_the_operator_tool_modules_are_walked_and_import_no_jax():
+    assert _walk_and_import(OPERATOR_TOOLS) == {"missing": [], "bad": []}
+
+
 def test_the_observability_modules_are_walked_and_import_no_jax():
     assert _walk_and_import(OBSERVABILITY) == {"missing": [], "bad": []}
 

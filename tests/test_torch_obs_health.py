@@ -112,7 +112,9 @@ def test_default_probes_replace_compile_cache_with_kernels(monkeypatch):
     health.install_default_probes()
     jax_names = {"devices", "compile_cache", "flight_errors", "disk",
                  "device_memory"}
-    assert set(reg.names()) == jax_names - {"compile_cache"} | {"kernels"}
+    # JAX's five (compile_cache over the kernel-library cache) plus the
+    # port's kernel-library probe
+    assert set(reg.names()) == jax_names | {"kernels"}
 
 
 def test_shared_monitor_thread_is_joined():

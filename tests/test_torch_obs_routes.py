@@ -145,14 +145,14 @@ def test_routes_answer_like_jax(servers, path):
     assert port_code == jax_code == 200
     assert set(port_body) == set(jax_body)
     if path == "/readyz":
-        # the same probe entries; the port checks kernel libraries where
-        # the JAX server checks its compile cache
+        # the same probe entries, the port's compile_cache over its
+        # kernel-library cache, plus its kernel-library probe
         # (a micro-batching server elsewhere in the process adds its
         # queue's probe to the process registry); the engine server's
         # storage circuit registers the breakers' probe, as in JAX
         assert set(port_body["probes"]) - {"serving_queue"} == {
-            "devices", "kernels", "flight_errors", "disk", "device_memory",
-            "storage", "circuit_breakers"}
+            "devices", "compile_cache", "kernels", "flight_errors", "disk",
+            "device_memory", "storage", "circuit_breakers"}
         assert {"devices", "compile_cache", "flight_errors", "disk",
                 "device_memory", "storage"} <= set(jax_body["probes"])
         for name, entry in port_body["probes"].items():
