@@ -493,12 +493,12 @@ exits non-zero before printing any result.
    --version`` still runs, for the key), launches it against its plain
    version as phase 2 does, and reads ``/readyz``'s ``compile_cache``
    probe from an admin server. (b) In a fresh interpreter
-   (``--profile-child``), as ``pio train`` runs: a capture opened late
-   in a long-lived process loses the device records of its window's
-   first part, 0.4 ms a second of the process's age on the H100 host
-   (ROADMAP.md §3, fault 13; the phase records what a window opened in
-   this process loses, ``capture_lead``, from
-   ``tools/profile_window.lead_loss``). There ``run_train`` of the
+   (``--profile-child``), as ``pio train`` runs (a window opened late in
+   a long-lived process once lost the device records of its first
+   kernels, ROADMAP.md §3, fault 13, now repaired by the capture's
+   lead-in; the phase records what a window opened in this process
+   loses, ``capture_lead``, from ``tools/profile_window.lead_loss``,
+   which must be nothing). There ``run_train`` of the
    two-tower algorithm on phase 14 (c)'s cut (its first 49,152
    positives over the stretch width's id maps, 6 steps, one epoch, the
    trainer's seeded initial state), without and then with
@@ -522,11 +522,37 @@ exits non-zero before printing any result.
    ``kernels`` line gains each library's ``load_sec`` and
    ``embed_update``'s cold build and cached load seconds.
 
+17. Last tools phase (``python3 chip_smoke.py --last-tools`` runs it
+   alone, over a store of its own: an ML-100K localfs store, its ALS
+   engine trained and one ``cli eval`` of the eval phase's sweep, both
+   through ``cli.main`` in this process). In the whole script it reads
+   the ``pio train`` phase's eventlog store, kept until now: (a)
+   ``cli.main(["run", "pio_last_tools.answer", ...])`` in this process,
+   the target a module the phase writes into a temporary directory on
+   ``sys.path``: it reads the newest COMPLETED ``ml100k-als-el``
+   instance through ``get_storage()`` (the storage ``pio run``
+   configured), loads the model on ``cuda`` and answers 8 lone user
+   queries through ``ALSModel.recommend``, each a flight record under
+   its own trace id; every answer is checked against float64 on the
+   host in the port's order, ``topk_dot``'s launches rise by at least 8,
+   and the passthrough argv and the exit code (3) come back. (b)
+   ``cli.main(["shell"])`` with stdin a short script: the bound names,
+   ``ctx``'s device (the card) and the app ``storage`` lists. (c) A
+   ``DashboardServer`` on port 0 over the store's evaluation instances:
+   the index lists them newest first, each
+   ``evaluator_results.{txt,html,json}`` is the stored instance's bytes,
+   every operator view answers 200 with HTML, ``/flight`` lists (a)'s
+   trace ids and ``/memory`` the card's memory (``memory_stats``, the
+   card's total). One ``{"last_tools": ...}`` line prints after
+   ``operator_tools``'s; (a)'s launches join ``topk_dot``'s
+   ``launches_by_path``.
+
 Output: the card's name and power limit (``nvidia-smi``), a ``serve``,
 a ``fleet``, a ``train``, an ``als_train``, an ``ingest``, a ``front_door`` (with
 the card's line), a ``pio_train``, a ``stream`` (with the card's line),
 an ``eval``, a ``project``, a ``families``, a ``multi_device``, a
-``storage`` and an ``operator_tools`` line (each with the card's line),
+``storage``, an ``operator_tools`` and a ``last_tools`` line (each with
+the card's line),
 the ``kernels`` line, and last ``{"ok": true, "device": ...}``.
 """
 
@@ -1004,6 +1030,34 @@ def localfs_env(root: str) -> dict:
         env[f"PIO_STORAGE_REPOSITORIES_{repo}_NAME"] = repo.lower()
         env[f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE"] = "FS"
     return env
+
+
+@contextlib.contextmanager
+def cli_env(env: dict):
+    """The process's storage variables replaced by ``env`` (and the
+    storage singleton reset) for an in-process ``cli.main``; the root
+    logger's handlers and level, which ``cli.main`` sets, put back."""
+    from predictionio_torch.data import storage as storage_mod
+
+    saved = {k: v for k, v in os.environ.items()
+             if k.startswith("PIO_STORAGE_")}
+    for k in saved:
+        del os.environ[k]
+    os.environ.update(env)
+    storage_mod.set_storage(None)
+    logger = logging.getLogger()
+    handlers, level = list(logger.handlers), logger.level
+    try:
+        yield
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+        os.environ.update(saved)
+        storage_mod.set_storage(None)
+        for handler in list(logger.handlers):
+            if handler not in handlers:
+                logger.removeHandler(handler)
+        logger.setLevel(level)
 
 
 def serve_phase(after=None) -> dict:
@@ -6219,12 +6273,6 @@ def tier_train(env: dict, engine_json: str, engine_id: str,
     from predictionio_torch.data import storage as storage_mod
     from predictionio_torch.tools import cli
 
-    saved = {k: v for k, v in os.environ.items()
-             if k.startswith("PIO_STORAGE_")}
-    for k in saved:
-        del os.environ[k]
-    os.environ.update(env)
-    storage_mod.set_storage(None)
     handler = TierLog()
     loggers = [logging.getLogger(n) for n in (
         "predictionio_torch.models.als", "predictionio_torch.workflow.train")]
@@ -6232,15 +6280,12 @@ def tier_train(env: dict, engine_json: str, engine_id: str,
         lg.addHandler(handler)
     t0 = time.perf_counter()
     try:
-        code = cli.main(["train", "--engine-json", engine_json,
-                         "--engine-id", engine_id])
+        with cli_env(env):
+            code = cli.main(["train", "--engine-json", engine_json,
+                             "--engine-id", engine_id])
     finally:
         for lg in loggers:
             lg.removeHandler(handler)
-        for k in env:
-            os.environ.pop(k, None)
-        os.environ.update(saved)
-        storage_mod.set_storage(None)
     sec = time.perf_counter() - t0
     if code != 0 or handler.fit is None or handler.stages is None:
         fail(f"phase 15: cli train of {engine_id} exited {code} (fit "
@@ -6924,26 +6969,9 @@ def profiled_cli_train(root: str) -> dict:
                    "algorithms": [{"name": "als", "params": {
                        "rank": 16, "num_iterations": 10}}]}, f)
     prof_dir = os.path.join(root, "als_profiles")
-    saved = {k: v for k, v in os.environ.items()
-             if k.startswith("PIO_STORAGE_")}
-    for k in saved:
-        del os.environ[k]
-    os.environ.update({**env, "PIO_PROFILE_DIR": prof_dir})
-    storage_mod.set_storage(None)
-    logger = logging.getLogger()
-    handlers = list(logger.handlers), logger.level
     t0 = time.perf_counter()
-    try:
+    with cli_env({**env, "PIO_PROFILE_DIR": prof_dir}):
         code = cli.main(["train", "--engine-json", engine_json])
-    finally:
-        for k in (*env, "PIO_PROFILE_DIR"):
-            os.environ.pop(k, None)
-        os.environ.update(saved)
-        storage_mod.set_storage(None)
-        for handler in list(logger.handlers):
-            if handler not in handlers[0]:
-                logger.removeHandler(handler)
-        logger.setLevel(handlers[1])
     sec = time.perf_counter() - t0
     instance = storage_mod.Storage.from_env(env).engine_instances(
     ).get_latest_completed(OT_ALS_ENGINE, "0", "default")
@@ -7085,6 +7113,283 @@ def operator_tools_main() -> int:
     return 0
 
 
+# -- phase 17: the last tools ------------------------------------------------
+
+# (a) the pio run job's lone user queries, its passthrough's result count
+# and exit code; the engine of the phase's own ML-100K ALS train when the
+# pio train phase's store is gone
+LT_QUERIES, LT_NUM, LT_EXIT = 8, 10, 3
+LT_ALS_ENGINE = "ml100k-als-lt"
+LT_TARGET = '''"""A pio run job: the newest COMPLETED instance of an ALS engine,
+loaded on the card, answers lone user queries; each is a flight record
+under its own trace id. argv: OUT ENGINE_ID NUM USER..."""
+import json
+
+from predictionio_torch.data.storage import get_storage
+from predictionio_torch.obs import flight, trace
+from predictionio_torch.workflow.deploy import load_blob
+
+
+def answer(argv):
+    out, engine_id, num, users = argv[0], argv[1], int(argv[2]), argv[3:]
+    storage = get_storage()
+    instance = storage.engine_instances().get_latest_completed(
+        engine_id, "0", "default")
+    (model,) = load_blob(storage.models().get(instance.id).models)
+    model.to("cuda")
+    answers = []
+    for user in users:
+        with trace.new_trace() as trace_id:
+            key = flight.begin(trace_id, "pio-run", "CALL",
+                               "ALSModel.recommend")
+            with trace.span("recommend", user=user):
+                recs = model.recommend(user, num)
+            flight.finish(key, 200)
+        answers.append({"user": user, "trace": trace_id, "itemScores": [
+            {"item": i, "score": s} for i, s in recs]})
+    with open(out, "w") as f:
+        json.dump({"instance": instance.id, "argv": list(argv),
+                   "device": str(model.device), "answers": answers}, f)
+    return %d
+''' % LT_EXIT
+LT_SHELL = (
+    "print(sorted(k for k in ('storage', 'store', 'ctx', 'commands') "
+    "if k in globals()))\n"
+    "print('device', ctx.device)\n"
+    "print('apps', sorted(a.name for a in storage.apps().get_all()))\n")
+LT_VIEWS = ("/flight", "/flight?slow=1", "/slo", "/resilience", "/timeline",
+            "/quality", "/data", "/memory", "/trace", "/prof", "/fleet",
+            "/anomaly")
+
+
+def last_tools_store(root: str):
+    """When the ``pio train`` phase's store is gone: an ML-100K localfs
+    store, its ALS engine trained and one ``cli eval`` of the eval
+    phase's sweep over it, both through ``cli.main`` in this process.
+    -> (storage env, ALS engine id, seconds)."""
+    from predictionio_torch.tools import cli
+
+    t0 = time.perf_counter()
+    env = md_ml100k_store(os.path.join(root, "ml100k"))
+    engine_json = os.path.join(root, "engine-als.json")
+    with open(engine_json, "w") as f:
+        json.dump({"id": "default", "engineId": LT_ALS_ENGINE,
+                   "engineFactory": RECO,
+                   "datasource": {"params": {"app_name": "ml100k"}},
+                   "algorithms": [{"name": "als", "params": {
+                       "rank": 16, "num_iterations": 10}}]}, f)
+    with open(os.path.join(root, "pio_eval_ml100k.py"), "w") as f:
+        f.write(EVAL_MODULE % (EVAL_K, EVAL_REGS))
+    sys.path.insert(0, root)
+    try:
+        with cli_env(env):
+            trained = cli.main(["train", "--engine-json", engine_json])
+            evaluated = cli.main(["eval", "pio_eval_ml100k.Eval",
+                                  "pio_eval_ml100k.Gen", "--batch",
+                                  "chip_smoke"])
+    finally:
+        sys.path.remove(root)
+        sys.modules.pop("pio_eval_ml100k", None)
+    if (trained, evaluated) != (0, 0):
+        fail(f"phase 17: the store's cli train / eval exited {trained} / "
+             f"{evaluated}")
+    return env, LT_ALS_ENGINE, time.perf_counter() - t0
+
+
+def pio_run_check(root: str, env: dict, engine_id: str) -> dict:
+    """(a): ``cli.main(["run", "pio_last_tools.answer", ...])`` in this
+    process over ``env``: the job's 8 lone user answers against float64
+    on the host through ``topk_dot``, its passthrough argv, exit code and
+    device."""
+    from predictionio_torch.data.storage import Storage
+    from predictionio_torch.ops.kernels import topk_dot as tkd
+    from predictionio_torch.tools import cli
+    from predictionio_torch.workflow.deploy import load_blob
+
+    storage = Storage.from_env(env)
+    instance = storage.engine_instances().get_latest_completed(
+        engine_id, "0", "default")
+    if instance is None:
+        fail(f"phase 17 (a): no COMPLETED {engine_id} instance")
+    truth = model_truth(load_blob(storage.models().get(
+        instance.id).models)[0])
+    rng = np.random.default_rng(SEED + 171)
+    names = list(truth.users)
+    users = [names[int(j)] for j in rng.choice(len(names), LT_QUERIES,
+                                               replace=False)]
+    with open(os.path.join(root, "pio_last_tools.py"), "w") as f:
+        f.write(LT_TARGET)
+    out = os.path.join(root, "answers.json")
+    argv = [out, engine_id, str(LT_NUM), *users]
+    sys.path.insert(0, root)
+    before = tkd.launches.value
+    t0 = time.perf_counter()
+    try:
+        with cli_env(env):
+            code = cli.main(["run", "pio_last_tools.answer", *argv])
+    finally:
+        sys.path.remove(root)
+        sys.modules.pop("pio_last_tools", None)
+    run_sec = time.perf_counter() - t0
+    launched = tkd.launches.value - before
+    with open(out) as f:
+        done = json.load(f)
+    if code != LT_EXIT or done["argv"] != argv:
+        fail(f"phase 17 (a): pio run exited {code} (want {LT_EXIT}) with "
+             f"argv {done['argv']} (want {argv})")
+    if done["instance"] != instance.id or not done["device"].startswith(
+            "cuda"):
+        fail(f"phase 17 (a): the job served {done['instance']} on "
+             f"{done['device']}, not {instance.id} on the card")
+    for j, got in enumerate(done["answers"]):
+        check_answer(truth, {"user": got["user"], "num": LT_NUM}, got,
+                     f"phase 17 (a) query {j}")
+    if launched < LT_QUERIES:
+        fail(f"phase 17 (a): {launched} topk_dot launches for "
+             f"{LT_QUERIES} queries")
+    return {"exit_code": code, "instance": instance.id,
+            "queries": len(done["answers"]), "topk_dot_launches": launched,
+            "run_sec": run_sec,
+            "traces": [a["trace"] for a in done["answers"]]}
+
+
+def pio_shell_check(env: dict) -> dict:
+    """(b): ``cli.main(["shell"])`` in this process, its stdin a short
+    script: the bound names, ``ctx``'s device (the card) and the apps
+    ``storage`` lists."""
+    from predictionio_torch.tools import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    stdin = sys.stdin
+    sys.stdin = io.StringIO(LT_SHELL)
+    try:
+        with cli_env(env), contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            code = cli.main(["shell"])
+    finally:
+        sys.stdin = stdin
+    import torch
+
+    text = out.getvalue()
+    card = f"device cuda:{torch.cuda.current_device()}"
+    if code != 0 or "['commands', 'ctx', 'storage', 'store']" not in text \
+            or card not in text or "'ml100k'" not in text:
+        fail(f"phase 17 (b): pio shell exited {code}: {text[-800:]} "
+             f"{err.getvalue()[-800:]}")
+    return {"exit_code": code,
+            "lines": [line for line in text.replace(">>> ", "\n")
+                      .splitlines() if line.strip()]}
+
+
+def dashboard_check(env: dict, traces) -> dict:
+    """(c): a ``DashboardServer`` on port 0 in this process over the
+    store's evaluation instances: the index newest first, each
+    ``evaluator_results.{txt,html,json}`` the stored instance's bytes,
+    every operator view 200 with HTML, ``/flight`` listing (a)'s trace
+    ids, ``/memory`` the card's memory."""
+    import torch
+
+    from predictionio_torch.data.storage import Storage
+    from predictionio_torch.tools.dashboard import DashboardServer
+
+    storage = Storage.from_env(env)
+    done = storage.evaluation_instances().get_completed()
+    if not done:
+        fail("phase 17 (c): the store holds no completed evaluation")
+    server = DashboardServer(storage=storage, host="127.0.0.1",
+                             port=0).start()
+    base = f"http://127.0.0.1:{server.port}"
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=60) as resp:
+            return resp.status, resp.headers.get("Content-Type"), resp.read()
+
+    t0 = time.perf_counter()
+    try:
+        status, _, index = get("/")
+        at = [index.find(i.id.encode()) for i in done]
+        if status != 200 or min(at) < 0 or at != sorted(at):
+            fail(f"phase 17 (c): the index does not list "
+                 f"{[i.id for i in done]} newest first")
+        for instance in done:
+            for fmt, field in (("txt", "evaluator_results"),
+                               ("html", "evaluator_results_html"),
+                               ("json", "evaluator_results_json")):
+                status, _, body = get(f"/engine_instances/{instance.id}/"
+                                      f"evaluator_results.{fmt}")
+                if status != 200 or body != getattr(instance,
+                                                    field).encode():
+                    fail(f"phase 17 (c): evaluator_results.{fmt} of "
+                         f"{instance.id} is not the stored one")
+        views = {}
+        for path in LT_VIEWS:
+            status, ctype, body = get(path)
+            if status != 200 or not ctype.startswith("text/html") or \
+                    not body.startswith(b"<!DOCTYPE html>"):
+                fail(f"phase 17 (c): {path} answered {status} {ctype}")
+            views[path] = len(body)
+        flight_page = get("/flight")[2].decode()
+        missing = [t for t in traces if f"<td>{t[:16]}</td>" not in
+                   flight_page]
+        if missing:
+            fail(f"phase 17 (c): /flight lacks the pio run queries' "
+                 f"traces {missing}")
+        memory_page = get("/memory")[2].decode()
+        total = int(torch.cuda.mem_get_info(0)[1])
+        if "Basis <b>memory_stats</b>" not in memory_page or \
+                f"of {total:,} B" not in memory_page:
+            fail(f"phase 17 (c): /memory does not show the card's "
+                 f"{total:,} B: {memory_page[:600]}")
+    finally:
+        server.stop()
+    return {"instances": [i.id for i in done], "views_bytes": views,
+            "flight_traces": len(traces), "card_memory_bytes": total,
+            "requests_sec": time.perf_counter() - t0}
+
+
+def last_tools_phase(store_env=None, engine_id=None) -> dict:
+    """Phase 17 over the ``pio train`` phase's eventlog store
+    (``store_env``, its ALS engine ``engine_id``, its ``cli eval``'s
+    instance), or over a store of its own when that is gone."""
+    root = tempfile.mkdtemp(prefix="pio_chip_smoke_lt_")
+    t0 = time.perf_counter()
+    try:
+        own_sec = None
+        if store_env is None:
+            store_env, engine_id, own_sec = last_tools_store(root)
+        run = pio_run_check(root, store_env, engine_id)
+        shell = pio_shell_check(store_env)
+        dashboard = dashboard_check(store_env, run["traces"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"run": run, "shell": shell, "dashboard": dashboard,
+            "own_store_sec": own_sec,
+            "phase_sec": time.perf_counter() - t0}
+
+
+def last_tools_main() -> int:
+    """``python3 chip_smoke.py --last-tools``: phase 17 alone, over a
+    store of its own, after building the kernel it launches."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from predictionio_torch.ops import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    t0 = time.perf_counter()
+    built = kernels.build_all()
+    print(f"built {built} in {time.perf_counter() - t0:.1f}s", flush=True)
+    tools = last_tools_phase()
+    print(json.dumps({"last_tools": {**tools, "card": card}}), flush=True)
+    print(card, flush=True)
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -7184,6 +7489,8 @@ def main() -> int:
         "stream_drift_reload": streamed["quality_probe"]["reload_launches"],
         "obs_profile": obs["profile"]["launches"],
         "fleet_replicas": fleet["answers"]["topk_dot_launches"]}
+    # phase 17 reads the pio train phase's ALS instance and the eval
+    # phase's evaluation from this store; it is removed after phase 17
     store = tempfile.mkdtemp(prefix="pio_chip_smoke_ml100k_")
     try:
         pio_train = pio_train_phase(store)
@@ -7194,27 +7501,32 @@ def main() -> int:
               flush=True)
         evaluation = eval_phase(ratings, als["algorithm_rmse_heldout"],
                                 store)
+        print(json.dumps({"eval": {**evaluation, "card": card}}),
+              flush=True)
+        mark("eval")
+        # phase 13's session recommender trains on phase 12's e-commerce
+        # store
+        ecom_root = temp_store("pio_chip_smoke_ecom_", INGEST_DISK_BYTES)
+        try:
+            project = project_phase(project_cut, ecom_root)
+            print(json.dumps({"project": {**project, "card": card}}),
+                  flush=True)
+            mark("project")
+            sessionrec = sessionrec_phase(ecom_root, project_cut)
+        finally:
+            shutil.rmtree(ecom_root, ignore_errors=True)
+        mark("sessionrec")
+        multi_device = multi_device_phase(ratings)
+        mark("multi_device")
+        storage = storage_tier_phase(ratings)
+        del ratings, project_cut
+        mark("storage_tier")
+        tools = operator_tools_phase()
+        mark("operator_tools")
+        last = last_tools_phase(ml100k_eventlog(store)[0], "ml100k-als-el")
     finally:
         shutil.rmtree(store, ignore_errors=True)
-    print(json.dumps({"eval": {**evaluation, "card": card}}), flush=True)
-    mark("eval")
-    # phase 13's session recommender trains on phase 12's e-commerce store
-    ecom_root = temp_store("pio_chip_smoke_ecom_", INGEST_DISK_BYTES)
-    try:
-        project = project_phase(project_cut, ecom_root)
-        print(json.dumps({"project": {**project, "card": card}}), flush=True)
-        mark("project")
-        sessionrec = sessionrec_phase(ecom_root, project_cut)
-    finally:
-        shutil.rmtree(ecom_root, ignore_errors=True)
-    mark("sessionrec")
-    multi_device = multi_device_phase(ratings)
-    mark("multi_device")
-    storage = storage_tier_phase(ratings)
-    del ratings, project_cut
-    mark("storage_tier")
-    tools = operator_tools_phase()
-    mark("operator_tools")
+    mark("last_tools")
     families = {"sessionrec": sessionrec, **families_rest,
                 "phase_sec": sessionrec["phase_sec"] + rest_sec,
                 "rest_overlapped_build": True}
@@ -7245,6 +7557,7 @@ def main() -> int:
         "twotower"]["launches"]["embed_update"]
     topk["launches_by_path"]["version_check_deploy"] = tools[
         "version_check"]["topk_dot_launches"]
+    topk["launches_by_path"]["pio_run"] = last["run"]["topk_dot_launches"]
     embed["build_sec_cold"] = tools["cache"]["cold_nvcc_sec"]
     embed["load_sec_cached"] = tools["cache"]["cached_load_sec"]
     for entry in (topk, flash, embed):
@@ -7252,6 +7565,7 @@ def main() -> int:
         entry["load_sec"] = kernels.load_seconds().get(entry["name"])
     print(json.dumps({"operator_tools": {**tools, "card": card}}),
           flush=True)
+    print(json.dumps({"last_tools": {**last, "card": card}}), flush=True)
     print(json.dumps({"obs": {**obs, "card_line": card}}), flush=True)
     print(json.dumps({"phase_wall_sec": walls,
                        "script_sec": time.perf_counter() - t_start}),
@@ -7273,4 +7587,6 @@ if __name__ == "__main__":
         sys.exit(profile_child(sys.argv[2]))
     if sys.argv[1:2] == ["--operator-tools"]:
         sys.exit(operator_tools_main())
+    if sys.argv[1:2] == ["--last-tools"]:
+        sys.exit(last_tools_main())
     sys.exit(main())

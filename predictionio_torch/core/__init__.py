@@ -12,7 +12,8 @@ from predictionio_torch.core.controller import (
     SanityCheck,
     Serving,
 )
-from predictionio_torch.core.engine import Engine, EngineFactory, TrainResult
+from predictionio_torch.core.engine import (Engine, EngineFactory, SimpleEngine,
+                                         TrainResult)
 
 __all__ = [
     "Params",
@@ -28,5 +29,6 @@ __all__ = [
     "AverageServing",
     "Engine",
     "EngineFactory",
+    "SimpleEngine",
     "TrainResult",
 ]

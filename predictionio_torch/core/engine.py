@@ -223,6 +223,14 @@ def _materialize(classes: Dict[str, type], name: str,
     return params_from_dict(_declared_params_class(classes[name]), params_dict)
 
 
+class SimpleEngine(Engine):
+    """1-of-each sugar (ref: EngineParams.scala:98 SimpleEngine)."""
+
+    def __init__(self, data_source: type, preparator: type,
+                 algorithm: type, serving: type):
+        super().__init__(data_source, preparator, algorithm, serving)
+
+
 class EngineFactory(abc.ABC):
     """User entry point (ref: EngineFactory.scala:28)."""
 

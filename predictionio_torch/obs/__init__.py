@@ -42,14 +42,15 @@ Counterpart of ``predictionio_tpu/obs/__init__.py``, one registry:
                   merged metrics, tail, profile, journal, anomalies and
                   data (``GET /admin/trace``, ``/admin/fleet/*``)
 
-Importing this package imports no torch and starts no thread: the
+Importing this package imports no torch and starts no thread
+(``obs.quality``, which uses numpy, loads on first use): the
 journal's writer, the watchdog monitor, the profiler's sampler, the
 data plane's worker and the pusher start on first use.
 """
 
 from predictionio_torch.obs import (flight, health, journal, memacct,
-                                    metrics, perfacct, profiler, push,
-                                    torchmon, trace)
+                                    metrics, perfacct, profiler, push, slo,
+                                    timeline, torchmon, trace)
 from predictionio_torch.obs import logging as obs_logging
 from predictionio_torch.obs.metrics import (
     CONTENT_TYPE,
@@ -76,7 +77,18 @@ __all__ = [
     "perfacct",
     "profiler",
     "push",
+    "quality",
+    "slo",
     "span",
+    "timeline",
     "torchmon",
     "trace",
 ]
+
+
+def __getattr__(name):
+    if name == "quality":
+        import importlib
+
+        return importlib.import_module("predictionio_torch.obs.quality")
+    raise AttributeError(name)

@@ -27,6 +27,27 @@ profiler's xplane:
     (``device: "cpu"``). No subprocess is needed: no proto stack has
     to be kept apart, as the JAX parser's must.
 
+A window on a card opens after a lead-in. A ``torch.profiler`` session
+started in a process that has run a while drops the device records of
+the first kernels it sees: 4 of 100 markers at 100 s of the process's
+age, 17 at 250 s, 37 at 500 s on an H100 host
+(``tools/profile_window.py --lead none``), and as many when the session
+only waits before its first kernel, while the records it keeps are
+stamped within a millisecond of their launches. So a window whose first
+kernels are the caller's would lose them: a capture opened late in a
+long-lived process (``POST /admin/profile`` on a server up for hours)
+under-counts, and a short one records nothing.
+:func:`windowed_profile` starts the profiler, then launches a tiny
+kernel every millisecond for :func:`lead_in_sec` (it grows with the
+process's age) so that the lead-in's kernels take that loss; then a
+marker opens the caller's window and a second one closes it. The
+summary keeps the device records between the two markers, so the
+lead-in stays out of ``seconds`` and ``idle_share``. The lead-in's
+length is fitted to windows up to ~925 s of age; where it falls short
+and the card's record of a marker is lost, the window has no bounds,
+and its summary says ``window_lost`` and holds no device time rather
+than counting the lead-in as the caller's.
+
 ``ProfilerBusy`` and ``ProfilerUnavailable`` keep their meaning. A
 process with a CUDA card always has the profiler; without one it is
 unavailable (``POST /admin/profile`` answers 501) unless
@@ -59,6 +80,35 @@ class ProfilerBusy(RuntimeError):
 
 _capture_lock = threading.Lock()
 _active = threading.Event()
+
+#: the lead-in per second of the process's age, its floor and its cap:
+#: a tiny kernel a millisecond, over ten times the records a session
+#: dropped at 500 s of age on an H100 host (37)
+LEAD_PER_SEC_OF_AGE = 1e-3
+LEAD_FLOOR_SEC = 0.02
+LEAD_MAX_SEC = 10.0
+LEAD_SPACING_SEC = 1e-3
+#: the record_function ranges around the markers that open and close a
+#: window on a card
+OPEN_MARK = "pio_profiler::open"
+CLOSE_MARK = "pio_profiler::close"
+
+
+def process_age_sec() -> float:
+    """Seconds since this process started (``/proc``)."""
+    with open("/proc/self/stat") as f:
+        start_ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        uptime = float(f.read().split()[0])
+    return uptime - start_ticks / os.sysconf("SC_CLK_TCK")
+
+
+def lead_in_sec(age_sec: Optional[float] = None) -> float:
+    """The wait between a profiler's start and the caller's window at a
+    process age of ``age_sec`` (this process's when None)."""
+    age = process_age_sec() if age_sec is None else age_sec
+    return min(LEAD_MAX_SEC,
+               LEAD_FLOOR_SEC + LEAD_PER_SEC_OF_AGE * max(0.0, age))
 
 
 def backend() -> str:
@@ -105,26 +155,135 @@ def _activities():
     return acts
 
 
-def summarize(prof, window_sec: float) -> Dict[str, Any]:
+def _mark(name: str) -> None:
+    """One small kernel inside a ``record_function`` range called
+    ``name`` (the profiler also records the range on the card)."""
+    import torch
+
+    with torch.profiler.record_function(name):
+        torch.ones(1, device="cuda")
+
+
+def _lead_kernel() -> None:
+    """One tiny kernel of the lead-in, waited for."""
+    import torch
+
+    torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+
+
+def _lead_in(seconds: float, sleep) -> None:
+    """A tiny kernel every ``LEAD_SPACING_SEC`` for ``seconds``."""
+    end = time.perf_counter() + seconds
+    while True:
+        _lead_kernel()
+        if time.perf_counter() >= end:
+            return
+        sleep(LEAD_SPACING_SEC)
+
+
+def device_window(prof) -> Dict[str, Any]:
+    """Where a :func:`windowed_profile`'s markers put the caller's
+    window on the card's clock: ``start_us`` (the end of the open
+    marker's range as the card recorded it) and ``end_us`` (the start of
+    the close marker's), each None when the card's record of it was
+    lost, ``lost`` (either was), and ``clock_offset_ms``, the card's
+    start of the open marker less its range's start on the host clock
+    (the marker's launch latency)."""
+    import torch
+
+    events = prof.events()
+    cpu, cuda = (torch.autograd.DeviceType.CPU,
+                 torch.autograd.DeviceType.CUDA)
+    host = {e.name: e for e in events
+            if e.device_type == cpu and e.name in (OPEN_MARK, CLOSE_MARK)}
+    card = {e.name: e for e in events
+            if e.device_type == cuda and e.name in (OPEN_MARK, CLOSE_MARK)}
+    opened, closed = card.get(OPEN_MARK), card.get(CLOSE_MARK)
+    return {
+        "start_us": opened.time_range.end if opened else None,
+        "end_us": closed.time_range.start if closed else None,
+        "lost": opened is None or closed is None,
+        "clock_offset_ms": ((opened.time_range.start
+                             - host[OPEN_MARK].time_range.start) / 1e3
+                            if opened and OPEN_MARK in host else None),
+    }
+
+
+@contextlib.contextmanager
+def windowed_profile(sleep=time.sleep):
+    """``with windowed_profile() as w:`` — the block runs under
+    ``torch.profiler``; on exit ``w`` holds ``prof``, ``seconds`` (the
+    block's time on the host clock, from the open marker to the last
+    device work's end), ``lead_sec`` and, on a card, ``window``
+    (:func:`device_window`). On a card the block starts after the
+    lead-in (:func:`lead_in_sec`) and the open marker."""
+    import torch
+    from torch.profiler import profile
+
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.synchronize()
+    state: Dict[str, Any] = {"lead_sec": 0.0, "window": None}
+    with profile(activities=_activities()) as prof:
+        state["prof"] = prof
+        if cuda:
+            state["lead_sec"] = lead_in_sec()
+            _lead_in(state["lead_sec"], sleep)
+            _mark(OPEN_MARK)
+        # the window is the time the caller's work was traced, not the
+        # profiler's own start and stop
+        t0 = time.perf_counter()
+        try:
+            yield state
+        finally:
+            if cuda:
+                torch.cuda.synchronize()
+            state["seconds"] = time.perf_counter() - t0
+            if cuda:
+                _mark(CLOSE_MARK)
+                torch.cuda.synchronize()
+    if cuda:
+        state["window"] = device_window(prof)
+        if state["window"]["lost"]:
+            log.warning("the profiler window lost a marker: its %.3fs "
+                        "lead-in did not take the session's first lost "
+                        "records, so the window has no device time",
+                        state["lead_sec"])
+
+
+def summarize(prof, window_sec: float,
+              window: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """Device time of a finished profile by short kernel name, and the
     share of the ``window_sec`` window the device spent idle (1 - summed
     kernel time over the window, clamped at 0: kernels on one stream do
-    not overlap)."""
+    not overlap). ``window`` (:func:`device_window`) keeps only the
+    device records between its markers; a window that lost a marker has
+    no bounds, so its summary says ``window_lost`` and holds no kernels,
+    ``device_ms`` or ``idle_share``."""
     import torch
 
     from predictionio_torch.tools import device_time
 
-    kernels = device_time.device_split(prof)
-    device_ms = sum(v["ms"] for v in kernels.values())
     window_ms = window_sec * 1e3
-    out = {
+    out: Dict[str, Any] = {
         "window_ms": window_ms,
+        "device": "cuda" if torch.cuda.is_available() else "cpu",
+    }
+    if window is not None:
+        out["window"] = dict(window)
+    if window is not None and window["lost"]:
+        out.update({"window_lost": True, "device_ms": None,
+                    "idle_share": None, "kernels": {}})
+        return out
+    kernels = device_time.device_split(prof, window=window)
+    device_ms = sum(v["ms"] for v in kernels.values())
+    out.update({
         "device_ms": device_ms,
         "idle_share": (max(0.0, 1.0 - device_ms / window_ms)
                        if window_ms > 0 else None),
         "kernels": kernels,
-        "device": "cuda" if torch.cuda.is_available() else "cpu",
-    }
+    })
     if out["device"] == "cpu":
         out["cpu_ops"] = device_time.cpu_split(prof)
     return out
@@ -140,37 +299,30 @@ def kernel_count(summary: Dict[str, Any], prefix: str) -> int:
 @contextlib.contextmanager
 def trace_capture(out_dir: str):
     """``with trace_capture(dir) as result:`` — the block runs under
-    ``torch.profiler``; on exit the Chrome trace is written to
-    ``dir/trace.json`` and ``result`` (a dict) gains ``artifact``,
-    ``seconds`` and ``summary``. Raises ProfilerBusy while another
+    ``torch.profiler`` (:func:`windowed_profile`: on a card, after the
+    lead-in); on exit the Chrome trace is written to ``dir/trace.json``
+    and ``result`` (a dict) gains ``artifact``, ``seconds``,
+    ``lead_sec`` and ``summary``. Raises ProfilerBusy while another
     window is open."""
     if not _capture_lock.acquire(blocking=False):
         raise ProfilerBusy("a profiler capture is already running")
     try:
-        import torch
-        from torch.profiler import profile
-
         os.makedirs(out_dir, exist_ok=True)
         result: Dict[str, Any] = {}
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        with profile(activities=_activities()) as prof:
-            # the window is the time the caller's work was traced, not
-            # the profiler's own start and stop
-            t0 = time.perf_counter()
+        with windowed_profile() as w:
             _active.set()
             try:
                 yield result
             finally:
-                if torch.cuda.is_available():
-                    torch.cuda.synchronize()
-                window = time.perf_counter() - t0
                 _active.clear()
         path = os.path.join(out_dir, "trace.json")
-        prof.export_chrome_trace(path)
-        result.update({"artifact": path, "seconds": window,
-                       "summary": summarize(prof, window)})
-        log.info("profiler capture of %.3fs written to %s", window, path)
+        w["prof"].export_chrome_trace(path)
+        result.update({"artifact": path, "seconds": w["seconds"],
+                       "lead_sec": w["lead_sec"],
+                       "summary": summarize(w["prof"], w["seconds"],
+                                            w["window"])})
+        log.info("profiler capture of %.3fs written to %s", w["seconds"],
+                 path)
     finally:
         _capture_lock.release()
 
@@ -200,6 +352,9 @@ def parse_capture(capture: Dict[str, Any]) -> Dict[str, Any]:
     summary = capture.get("summary")
     if not summary:
         return {"error": "the capture holds no summary"}
+    if summary.get("window_lost"):
+        return {"error": "the capture lost a window marker: no device "
+                         "time"}
     device = summary.get("device", "cuda")
     split = (summary.get("cpu_ops") or {}) if device == "cpu" else (
         summary.get("kernels") or {})

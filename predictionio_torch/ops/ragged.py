@@ -1,10 +1,10 @@
 """Ragged -> static-shape conversion (host side).
 
-Counterpart of ``predictionio_tpu/ops/ragged.py``, trimmed to the
-segmented layout the ALS trainer reads. Event streams produce ragged
-per-entity lists (each user rates a different number of items); the
-half-step wants fixed shapes, so the COO ratings are binned into
-fixed-length *virtual rows*:
+Counterpart of ``predictionio_tpu/ops/ragged.py``. Event streams
+produce ragged per-entity lists (each user rates a different number of
+items); the device wants fixed shapes, so the COO ratings are binned
+into fixed-length *virtual rows* (the segmented layout the ALS trainer
+reads):
 
   COO (group_idx, item_idx, value)  ->
       idx  [R, L]  int32   (0 where padded)
@@ -22,8 +22,14 @@ Two routes give the same bits as the JAX package's: at or above
 ``build_compressed_segmented`` plans and fills the transfer-compressed
 wire streams in one native call. ``PIO_NATIVE_RAGGED=0`` takes the numpy
 route everywhere; otherwise a native library that fails to build raises
-``NativeBuildError``. The per-group padded layout waits for the
-templates that use it (ROADMAP.md, queue 1).
+``NativeBuildError``.
+
+``build_padded_groups`` gives the per-group padded layout (one row a
+group, ``[G, L]`` with ``counts`` capped at L) through numpy alone, the
+same bits as either of the JAX package's routes: a group longer than
+``max_len`` keeps its latest entries, and the group axis pads to
+``group_multiple``. Nothing of the port reads it at the sizes where a
+native fill would pay.
 """
 
 from __future__ import annotations
@@ -65,6 +71,21 @@ def _native_lib(nnz: int) -> Optional[ctypes.CDLL]:
     lib.rb_free.restype = None
     lib.rb_free.argtypes = [ctypes.c_void_p]
     return lib
+
+
+@dataclass
+class PaddedGroups:
+    """Static-shape view of ragged per-group data (row == group)."""
+
+    idx: np.ndarray     # [G, L] int32
+    val: np.ndarray     # [G, L] float32
+    mask: np.ndarray    # [G, L] float32
+    counts: np.ndarray  # [G] int32 (capped at L)
+    n_groups: int       # true number of groups (before group-axis padding)
+
+    @property
+    def max_len(self) -> int:
+        return self.idx.shape[1]
 
 
 def pad_to_multiple(n: int, multiple: int) -> int:
@@ -291,3 +312,59 @@ def build_compressed_segmented(
         raise MemoryError("native compressed binning could not allocate")
     return BinnedSide(**native.unpack_cside(out, native.NativeOwner(
         lib.rb_free)))
+
+
+def build_padded_groups(
+    group_idx: np.ndarray,
+    item_idx: np.ndarray,
+    values: np.ndarray,
+    n_groups: int,
+    max_len: Optional[int] = None,
+    group_multiple: int = 1,
+    len_multiple: int = 8,
+) -> PaddedGroups:
+    """Bin COO triples into per-group padded blocks.
+
+    ``max_len`` caps a group's entries, keeping its latest (None sizes L
+    to the longest group); ``group_multiple`` pads the group axis;
+    ``len_multiple`` rounds L up. A group id outside ``[0, n_groups)``
+    raises ValueError.
+    """
+    group_idx = np.asarray(group_idx, dtype=np.int64)
+    item_idx = np.asarray(item_idx, dtype=np.int64)
+    values = np.asarray(values, dtype=np.float32)
+    if not (len(group_idx) == len(item_idx) == len(values)):
+        raise ValueError("COO arrays must have equal length")
+    nnz = len(group_idx)
+    if nnz and (group_idx.min() < 0 or group_idx.max() >= n_groups):
+        raise ValueError("group index out of range")
+
+    counts_true = np.bincount(group_idx, minlength=n_groups).astype(np.int64)
+    longest = int(counts_true.max()) if nnz else 0
+    L = longest if max_len is None else min(max_len, longest) if longest else 0
+    L = max(pad_to_multiple(max(L, 1), len_multiple), len_multiple)
+    G = pad_to_multiple(max(n_groups, 1), group_multiple)
+
+    idx = np.zeros((G, L), dtype=np.int32)
+    val = np.zeros((G, L), dtype=np.float32)
+    mask = np.zeros((G, L), dtype=np.float32)
+
+    if nnz:
+        # a stable sort by group keeps each group's arrival (time) order,
+        # so keeping its last L entries keeps the latest
+        order = np.argsort(group_idx, kind="stable")
+        g_sorted = group_idx[order]
+        starts = np.zeros(n_groups + 1, dtype=np.int64)
+        np.cumsum(counts_true, out=starts[1:])
+        pos_in_group = np.arange(nnz, dtype=np.int64) - starts[g_sorted]
+        kept = pos_in_group >= counts_true[g_sorted] - L
+        slot = pos_in_group - np.maximum(counts_true[g_sorted] - L, 0)
+        g_k, s_k = g_sorted[kept], slot[kept]
+        idx[g_k, s_k] = item_idx[order][kept].astype(np.int32)
+        val[g_k, s_k] = values[order][kept]
+        mask[g_k, s_k] = 1.0
+
+    counts_out = np.zeros(G, dtype=np.int32)
+    counts_out[:n_groups] = np.minimum(counts_true, L).astype(np.int32)
+    return PaddedGroups(idx=idx, val=val, mask=mask, counts=counts_out,
+                        n_groups=n_groups)

@@ -997,6 +997,13 @@ class FleetSupervisor:
                                              "errors": errors}}
                 log.warning("canary not started: %s", "; ".join(errors))
                 return
+            # arm the verdict's evidence window BEFORE the canary is
+            # visible: once _canary_name is set, routers shadow and the
+            # monitor may decide (and end the canary) at once, and a
+            # window armed after that would reopen an ended canary and
+            # wipe the pairs its verdict read
+            quality.STATE.canary_begin(replica.name, baseline,
+                                       replica.version or candidate)
             with self._state_lock:
                 self._canary = {
                     "active": True,
@@ -1015,8 +1022,6 @@ class FleetSupervisor:
                          baseline=baseline,
                          candidate=replica.version or candidate,
                          forced=bool(force) or None)
-            quality.STATE.canary_begin(replica.name, baseline,
-                                       replica.version or candidate)
             log.info("canary ACTIVE: %s serves candidate %s against "
                      "baseline %s", replica.name, candidate, baseline)
 

@@ -1,8 +1,9 @@
 """The port's console: ``pio`` for apps, keys, events, templates, build,
 train, deploy, stream and eval, the operator commands slo, chaos,
 replay, canary and fleet, the observability commands metrics,
-flight, trace, profile, prof, journal, anomalies, data, mem and top, and
-bench-compare.
+flight, trace, profile, prof, journal, anomalies, data, mem and top,
+bench-compare, and dashboard, run, shell and lint: every command of the
+JAX console.
 
     python -m predictionio_torch.tools.cli app new NAME [--description D]
     python -m predictionio_torch.tools.cli app list|show|delete|data-delete|
@@ -12,6 +13,7 @@ bench-compare.
     python -m predictionio_torch.tools.cli accesskey delete KEY
     python -m predictionio_torch.tools.cli eventserver [--ip IP] [--port 7070]
     python -m predictionio_torch.tools.cli adminserver [--ip IP] [--port 7071]
+    python -m predictionio_torch.tools.cli dashboard [--ip IP] [--port 9000]
     python -m predictionio_torch.tools.cli storageserver [--ip IP] \
         [--port 7077] [--auth-key KEY]
     python -m predictionio_torch.tools.cli storagerepair --appname APP \
@@ -19,6 +21,8 @@ bench-compare.
     python -m predictionio_torch.tools.cli import --appname APP --input F
     python -m predictionio_torch.tools.cli export --appname APP --output F
     python -m predictionio_torch.tools.cli status
+    python -m predictionio_torch.tools.cli shell [--device cpu]
+    python -m predictionio_torch.tools.cli run pkg.mod.callable [ARG ...]
     python -m predictionio_torch.tools.cli template list
     python -m predictionio_torch.tools.cli template get NAME DIRECTORY
     python -m predictionio_torch.tools.cli build \\
@@ -63,6 +67,8 @@ bench-compare.
         [--once [--json] | --interval SEC]
     python -m predictionio_torch.tools.cli bench-compare [FILE ...] \\
         [--dir D] [--tolerance PCT] [--against prev|first]
+    python -m predictionio_torch.tools.cli lint [PATH ...] [--project] \\
+        [--json] [--list-rules]
 
 The app, access-key, server, import/export and status commands take the
 JAX console's arguments and print its lines (ref:
@@ -109,10 +115,16 @@ console's arguments and exit codes, as do the observability commands;
 and ``top`` read this process's own state without ``--url``
 (``anomalies`` exits 1 while an anomaly is active, ``trace`` when no
 span of the id was found, ``profile`` where the server has no card).
-Storage comes from the
-``PIO_STORAGE_*`` environment, as for ``pio``. The other commands stay
-with ``predictionio_tpu.tools.cli`` until their slices are ported
-(ROADMAP.md queue 1).
+``dashboard`` serves the evaluation instances and this process's
+operator views (``tools/dashboard.py``); ``run`` imports a dotted
+``module.callable`` (or runs a module as ``__main__``) in process with
+the passthrough argv and maps its return value to the exit code, as the
+JAX console does; ``shell`` is a REPL with ``storage``, ``store``,
+``ctx`` (a ``DeviceContext`` on the card unless ``--device cpu``) and
+``commands`` bound; ``lint`` runs the port's copy of graftlint over the
+installed ``predictionio_torch`` package when given no path (exit 2 on a
+bad path). Storage comes from the ``PIO_STORAGE_*`` environment, as for
+``pio``.
 """
 
 from __future__ import annotations
@@ -237,6 +249,15 @@ def cmd_adminserver(args) -> int:
     return 0
 
 
+def cmd_dashboard(args) -> int:
+    from predictionio_torch.tools.dashboard import DashboardServer
+
+    server = DashboardServer(host=args.ip, port=args.port)
+    print(f"Dashboard running on {args.ip}:{server.port}", flush=True)
+    server.serve_forever()
+    return 0
+
+
 # -- data ----------------------------------------------------------------------
 
 def cmd_import(args) -> int:
@@ -250,6 +271,107 @@ def cmd_export(args) -> int:
     n = eventdata.export_events(args.appname, args.output, args.channel,
                                 format=args.format)
     print(f"Exported {n} event(s).")
+    return 0
+
+
+def cmd_shell(args) -> int:
+    """REPL with storage, the event store API, a device context and the
+    commands bound (ref: bin/pio-shell, a Spark shell on the PIO
+    classpath). ``ctx`` is on the card unless ``--device cpu``."""
+    import code
+
+    from predictionio_torch.data import store
+    from predictionio_torch.parallel.context import DeviceContext
+
+    ns = {
+        "storage": get_storage(),
+        "store": store,
+        "ctx": DeviceContext(args.device),
+        "commands": commands,
+    }
+    banner = (
+        "predictionio-torch shell — bound: storage (Storage), store "
+        "(PEventStore/LEventStore API), ctx (DeviceContext), commands"
+    )
+    code.interact(banner=banner, local=ns)
+    return 0
+
+
+def cmd_run(args) -> int:
+    """Generic entry-point runner (ref: Runner.scala:27 — ``pio run
+    <mainClass>`` spark-submits an arbitrary class on the PIO
+    classpath). Here: resolve a dotted ``module.callable`` (or a bare
+    module, executed as ``__main__``) in process with storage already
+    configured, passing the remaining argv through."""
+    import importlib
+    import importlib.util
+
+    target = args.target
+    passthrough = list(args.args or [])
+    module_name, _, attr = target.rpartition(".")
+    obj = None
+    if module_name:
+        try:
+            obj = getattr(importlib.import_module(module_name), attr, None)
+        except ModuleNotFoundError as e:
+            # only "the dotted prefix itself is not a module" is
+            # swallowed (the full name is then run as a module); an
+            # import failing inside a real module is the user's error
+            if e.name is None or not (
+                    module_name == e.name
+                    or module_name.startswith(e.name + ".")):
+                raise
+            obj = None
+
+    def exit_code(value, from_exit: bool) -> int:
+        if isinstance(value, bool):      # True = success, not exit code 1
+            return 0 if value else 1
+        if isinstance(value, int):
+            return value
+        if value is None:
+            return 0
+        # a callable's result object is success; a SystemExit message
+        # (sys.exit("msg")) is failure
+        return 1 if from_exit else 0
+
+    if obj is not None and callable(obj):
+        try:
+            return exit_code(obj(passthrough), from_exit=False)
+        except SystemExit as e:
+            return exit_code(e.code, from_exit=True)
+    import runpy
+
+    # resolve the module first, so "not a module" is the friendly error
+    # while an ImportError inside a real module keeps its traceback
+    try:
+        spec = importlib.util.find_spec(target)
+    except ModuleNotFoundError as e:
+        if e.name and (target == e.name or target.startswith(e.name + ".")):
+            spec = None
+        else:  # a real module failed on a missing dependency
+            raise
+    except ValueError:  # an already-imported module with no __spec__
+        spec = None
+    if spec is None:
+        raise commands.CommandError(
+            f"cannot resolve {target!r} as a callable or module")
+    old_argv = sys.argv
+    sys.argv = [target] + passthrough
+    try:
+        runpy.run_module(target, run_name="__main__")
+    except SystemExit as e:   # module mains exit; keep their code
+        return exit_code(e.code, from_exit=True)
+    except ImportError as e:
+        # a package without __main__ (or the target itself failing to
+        # import) is a resolution failure, not a crash of the user's code
+        name = getattr(e, "name", None)
+        if (name and (name == target or name.startswith(target + "."))) or \
+                "cannot be directly executed" in str(e):
+            raise commands.CommandError(
+                f"cannot run {target!r}: {e}") from e
+        raise
+    finally:
+        sys.argv = old_argv
     return 0
 
 
@@ -1648,6 +1770,23 @@ def cmd_top(args) -> int:
         return 0
 
 
+def cmd_lint(args) -> int:
+    """graftlint, the port's copy of the JAX package's static analysis
+    (rules JT01-JT17 and JT22-JT23 per file; ``--project`` adds the
+    whole-program concurrency layer JT18-JT20), over the installed
+    ``predictionio_torch`` package when no path is given."""
+    from predictionio_torch.tools.lint import run_cli
+
+    try:
+        return run_cli(args.paths, fmt=args.format,
+                       show_rules=args.list_rules, project=args.project)
+    except FileNotFoundError as e:
+        # exit 2, not 1: a bad path stays distinguishable from "lint ran
+        # and found something" for CI wrappers
+        print(f"graftlint: {e}", file=sys.stderr)
+        return 2
+
+
 def cmd_bench_compare(args) -> int:
     """Per-metric deltas across the bench trajectory (BENCH_r*.json):
     newest round vs the previous (or --against first), REGRESSION/
@@ -1695,7 +1834,8 @@ def build_parser() -> argparse.ArgumentParser:
     p_ak.set_defaults(func=cmd_accesskey)
 
     for name, port, func in (("eventserver", 7070, cmd_eventserver),
-                             ("adminserver", 7071, cmd_adminserver)):
+                             ("adminserver", 7071, cmd_adminserver),
+                             ("dashboard", 9000, cmd_dashboard)):
         p = sub.add_parser(name)
         p.add_argument("--ip", default="0.0.0.0")
         p.add_argument("--port", type=int, default=port)
@@ -1713,6 +1853,19 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("status", help="verify storage configuration")
     p.set_defaults(func=cmd_status)
+
+    p = sub.add_parser("shell", help="interactive Python shell with the "
+                                     "framework preloaded (ref: bin/pio-shell)")
+    p.add_argument("--device", default=None,
+                   help="the bound ctx's device (default: the card)")
+    p.set_defaults(func=cmd_shell)
+
+    p = sub.add_parser("run", help="run a dotted module.callable (or module "
+                                   "as __main__) with storage configured "
+                                   "(ref: pio run / Runner.scala)")
+    p.add_argument("target")
+    p.add_argument("args", nargs=argparse.REMAINDER)
+    p.set_defaults(func=cmd_run)
 
     p = sub.add_parser("storageserver",
                        help="serve this host's storage to rest-backend peers")
@@ -2124,6 +2277,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="baseline round: the previous one (default) or "
                         "the first")
     p.set_defaults(func=cmd_bench_compare)
+
+    p = sub.add_parser("lint", help="run graftlint (static analysis, rules "
+                                    "JT01-JT23) over the tree")
+    p.add_argument("paths", nargs="*", default=[],
+                   help="files/dirs (default: the installed package)")
+    p.add_argument("--project", action="store_true",
+                   help="add the whole-program concurrency pass "
+                        "(JT18-JT20: lock discipline, races, deadlocks)")
+    p.add_argument("--format", choices=["human", "json"], default="human")
+    p.add_argument("--json", action="store_const", const="json",
+                   dest="format", help="shorthand for --format json")
+    p.add_argument("--list-rules", action="store_true")
+    p.set_defaults(func=cmd_lint)
     return parser
 
 

@@ -76,9 +76,9 @@ def profile_call(fn, iters: int = 100, cold: bool = False) -> dict:
 
     CUPTI now and then hands a window back with none of its device
     records (seen once in many back-to-back windows of one process), so
-    a window that traced no device time is recorded again, up to
-    ``PROFILE_WINDOWS`` times in all, before this raises; ``windows``
-    says how many it took."""
+    a window that traced no device time, or lost a marker of its bounds,
+    is recorded again, up to ``PROFILE_WINDOWS`` times in all, before
+    this raises; ``windows`` says how many it took."""
     flush = (torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32,
                          device="cuda") if cold else None)
     fn()
@@ -89,7 +89,8 @@ def profile_call(fn, iters: int = 100, cold: bool = False) -> dict:
         if sum(split.values()) > 0:
             break
         log.warning("torch.profiler window %d of %d traced no device "
-                    "time; recording it again", window, PROFILE_WINDOWS)
+                    "time or lost a marker; recording it again", window,
+                    PROFILE_WINDOWS)
     else:
         raise RuntimeError(f"torch.profiler traced no device time in "
                            f"{PROFILE_WINDOWS} windows")
@@ -106,35 +107,52 @@ def profile_call(fn, iters: int = 100, cold: bool = False) -> dict:
 
 def _profile_window(fn, iters: int, flush) -> dict:
     """One ``torch.profiler`` window over ``iters`` calls of ``fn`` (each
-    after ``flush.bitwise_not_()`` when ``flush`` is given), read by
-    ``device_split`` without the flush's kernel."""
-    from torch.profiler import ProfilerActivity, profile
+    after ``flush.bitwise_not_()`` when ``flush`` is given), opened after
+    ``obs.profiler``'s lead-in and read by ``device_split`` between its
+    markers, without the flush's kernel; empty when a marker was lost."""
+    from predictionio_torch.obs import profiler
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiler.windowed_profile() as w:
         for _ in range(iters):
             if flush is not None:
                 flush.bitwise_not_()
             fn()
-        torch.cuda.synchronize()
-    return device_split(prof, skip="bitwise_not")
+    if w["window"]["lost"]:
+        return {}
+    return device_split(w["prof"], skip="bitwise_not", window=w["window"])
 
 
-def device_split(prof, skip: str = "") -> dict:
+def device_split(prof, skip: str = "", window=None) -> dict:
     """Device work a finished ``torch.profiler.profile`` traced, by
-    short kernel name: ``{name: {"count": launches, "ms": summed self
-    device time}}``; events whose name contains ``skip`` (when given)
-    are left out. The one reader of a trace's device events, shared by
-    the timing helpers here and ``obs/profiler.py``'s capture summary."""
+    short kernel name: ``{name: {"count": launches, "ms": summed device
+    time}}`` of its kernels, copies and memsets. The card's records of
+    ``record_function`` ranges (``Optimizer.step#AdamW.step``, the
+    window's markers) span the kernels inside them and are left out, as
+    are events whose name contains ``skip`` (when given) and, with
+    ``window`` (``obs.profiler.device_window``), those that start
+    outside its bounds on the card's clock; a window that lost a marker
+    has no bounds and raises ValueError. The one reader of a trace's
+    device events, shared by the timing helpers here and
+    ``obs/profiler.py``'s capture summary."""
+    window = window or {}
+    if window.get("lost"):
+        raise ValueError("the profiler window lost a marker: it has no "
+                         "bounds to count device records between")
+    lo, hi = window.get("start_us"), window.get("end_us")
     out: dict = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    for e in prof.events():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.is_user_annotation):
             continue
         if skip and skip in e.key:
             continue
+        start = e.time_range.start
+        if (lo is not None and start < lo) or (hi is not None
+                                               and start >= hi):
+            continue
         entry = out.setdefault(kernel_name(e.key), {"count": 0, "ms": 0.0})
-        entry["count"] += e.count
-        entry["ms"] += e.self_device_time_total / 1e3
+        entry["count"] += 1
+        entry["ms"] += e.time_range.elapsed_us() / 1e3
     return out
 
 

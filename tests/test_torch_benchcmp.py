@@ -7,8 +7,8 @@ round without metrics, rounds with ``key.*`` blocks, a missing file)
 through both packages give the same printed rows and the same exit
 codes, through ``benchcmp.run`` and through ``cli bench-compare``;
 ``load_metrics``, ``compare``'s deltas and the direction rules agree
-metric for metric. And the port's command tree is JAX's less
-``dashboard``, ``lint``, ``run`` and ``shell``. The root logger's
+metric for metric. And the port's command tree is JAX's, every
+command of it. The root logger's
 handlers and level are put back after each test.
 """
 
@@ -30,8 +30,8 @@ from tests.torch_env_guard import shared_env_unchanged  # noqa: F401
 
 FIXTURES = sorted(str(p) for p in (Path(__file__).parent / "data" / "bench")
                   .glob("BENCH_r*.json"))
-#: the JAX console's commands the port leaves to a later slice
-NOT_PORTED = {"dashboard", "lint", "run", "shell"}
+#: the JAX console's commands the port leaves to a later slice: none
+NOT_PORTED: set = set()
 
 
 @pytest.fixture(autouse=True)

@@ -370,6 +370,52 @@ def test_degraded_candidate_is_auto_rolled_back(store, monkeypatch):
         assert fleet.canary()["last"]["rejected_version"] == candidate.id
 
 
+@pytest.mark.parametrize("candidate_value", [2.0, 9.0])
+def test_a_canary_start_descheduled_after_it_is_visible_still_ends(
+        store, monkeypatch, candidate_value):
+    """The canary-start thread arms the verdict's evidence window before
+    it makes the canary visible, so a start descheduled right after
+    (simulated: the journal's ``canary_start`` line takes 2 s) cannot
+    reopen a canary the monitor has meanwhile promoted or rolled back.
+    Under load that window once ended a promoted canary with its quality
+    record still active."""
+    _canary_env(monkeypatch)
+    real_emit = fleet_mod.journal.emit
+
+    def slow_emit(kind, **fields):
+        if kind == "canary_start":
+            threading.Event().wait(2.0)
+        return real_emit(kind, **fields)
+
+    monkeypatch.setattr(fleet_mod.journal, "emit", slow_emit)
+    armed = []
+    real_begin = quality.STATE.canary_begin
+    engine, baseline = train_const(store)
+    with running_fleet(store, engine) as (fleet, router, base):
+
+        def begin(*args, **kwargs):
+            armed.append((fleet.canary_replica_name(),
+                          fleet.canary().get("active")))
+            return real_begin(*args, **kwargs)
+
+        monkeypatch.setattr(quality.STATE, "canary_begin", begin)
+        _, candidate = train_const(store, value=candidate_value)
+        status, body, _ = post(base + "/admin/fleet",
+                               body=json.dumps({"canary": "start"}).encode())
+        assert status == 202, body
+        outcome = "promoted" if candidate_value == 2.0 else "rolled_back"
+        wait_for(lambda: fleet.canary().get("active"), 60, "canary active")
+        _drive_until(base, lambda: (fleet.canary().get("last") or {}).get(
+            "outcome") == outcome, f"the auto verdict ({outcome})")
+        wait_for(lambda: quality.STATE.canary().get("outcome") == outcome,
+                 60, "the quality record's end")
+        assert armed == [(None, False)]
+        ended = quality.STATE.canary()
+        assert ended["active"] is False
+        assert ended["candidate_version"] == candidate.id
+        assert ended["baseline_version"] == baseline.id
+
+
 # -- the supervisor's restart schedule -------------------------------------------
 
 def _restart_schedule(make_fleet, seed):

@@ -344,3 +344,46 @@ STORAGE_TIER = ("predictionio_torch.data.backends.sqlite",
 
 def test_the_storage_tier_modules_are_walked_and_import_no_jax():
     assert _walk_and_import(STORAGE_TIER) == {"missing": [], "bad": []}
+
+
+#: the last of the JAX package: the dashboard, the linter, the per-group
+#: padded layout, and the public API's packages
+LAST_TOOLS = ("predictionio_torch.tools.dashboard",
+              "predictionio_torch.tools.lint",
+              "predictionio_torch.tools.lint.__main__",
+              "predictionio_torch.tools.lint.engine",
+              "predictionio_torch.tools.lint.rules",
+              "predictionio_torch.tools.lint.project",
+              "predictionio_torch.tools.lint.concurrency",
+              "predictionio_torch.ops.ragged",
+              "predictionio_torch.data",
+              "predictionio_torch.data.datamap",
+              "predictionio_torch.core",
+              "predictionio_torch.core.engine",
+              "predictionio_torch.obs",
+              "predictionio_torch.obs.profiler",
+              "predictionio_torch.tools.profile_window",
+              "predictionio_torch.tools.cli")
+
+
+def test_the_last_tool_modules_are_walked_and_import_no_jax():
+    assert _walk_and_import(LAST_TOOLS) == {"missing": [], "bad": []}
+
+
+def test_the_linter_imports_no_torch_and_starts_nothing():
+    """``pio lint`` is pure AST: importing the port's linter and the
+    dashboard's module imports no torch and starts no thread."""
+    code = (
+        "import json, sys, threading\n"
+        "import predictionio_torch.tools.lint\n"
+        "lint_torch = 'torch' in sys.modules\n"
+        "import predictionio_torch.tools.dashboard\n"
+        "print(json.dumps({'lint_torch': lint_torch,\n"
+        "                  'threads': threading.active_count()}))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {
+        "lint_torch": False, "threads": 1}
