@@ -185,7 +185,15 @@ exits non-zero before printing any result.
    segment-sum, solve) from ``torch.profiler``, the launches and the
    device's idle share per alternation, and ``work_model`` bytes over
    device time as a share of the card's HBM rate
-   (``tools/als_timing.py``). Then the main path, with the launch
+   (``tools/als_timing.py``); the gather roof
+   (``measure_gather_roof``: the user side's gather, mask and reduce
+   alone) and the train's slots a second over it; and the put sweep:
+   the layout, which the trainer saved to a layout cache of its own,
+   put again from the cache's file mapping (warm in the page cache) at
+   each of ``PUT_SWEEP``'s settings (the one-shot put first and last,
+   chunks of 8, 32 and 64 MB through pinned staging buffers on a side
+   stream), each setting's ``put_sec``, ``transfer_sec`` and chunks,
+   and its device tensors equal to the first put's. Then the main path, with the launch
    counters reset just before: ``ALSAlgorithm.train`` on ``cuda`` over
    the same prepared ratings (RMSE in the band again), the model stored
    in a memory store and deployed with the port's ``EngineServer``;
@@ -335,7 +343,15 @@ exits non-zero before printing any result.
    similarproduct``, ``app_name`` set in the project's engine.json with
    both algorithms at the template defaults (rank 10, 20 iterations),
    ``cli build`` (its manifest stored), ``cli train`` (on ``cuda:0``,
-   per its log) and ``cli deploy`` (on ``cuda:0``, per its deploy line),
+   per its log; in every Quick Start of phases 12 and 13 template get,
+   build and train run as ``cli.main`` in this process, and the deploy
+   as a ``cli`` process) and ``cli deploy`` (on
+   ``cuda:0``, per its deploy line); ``likealgo``'s item factors must
+   be finite and their largest |value| within ``LIKE_BOUND_FACTOR``
+   (10x) of the same config solved on the card with ``solver="direct"``
+   (a failure names the rows; ``python3 chip_smoke.py
+   --likealgo-repeat N`` trains it N times alone and counts the trains
+   in bounds),
    asked exclusion-only, two-item, blacklist, ``num`` 1, category and
    whitelist queries and an unknown item. Each answer is checked against
    ``StandardizingServing`` over float64 top-ks of the stored models'
@@ -2466,13 +2482,71 @@ def store_and_deploy(model, params, instance_id: str, user_names,
     return {**served, "lone_queries": lone}
 
 
+#: the put sweep's settings, in run order: PIO_BIN_CHUNK_MB, or None
+#: for the one-shot put (PIO_TRANSFER_DOUBLE_BUFFER=0); the one-shot put
+#: first and last, so that a drift of the host shows
+PUT_SWEEP = (None, 8.0, 32.0, 64.0, None)
+
+
+def put_sweep(key: str, cfg, trainer) -> dict:
+    """The ALS layout put again from its cache entry (a file mapping,
+    warm in the page cache after its save) at each of ``PUT_SWEEP``'s
+    settings: ``put_sec`` (the copies, the index recombine and a full
+    sync), ``transfer_sec`` (first put to last copy) and the chunks;
+    every setting's device tensors must equal ``trainer``'s (put from
+    the host arrays) bit for bit."""
+    import torch
+    from predictionio_torch.ops.als import ALSTrainer, load_layout
+
+    want = [t for side in trainer.sides()
+            for t in (side.idx, side.val, side.mask, side.seg, side.counts)
+            if t is not None]
+    saved = {k: os.environ.get(k) for k in ("PIO_BIN_CHUNK_MB",
+                                            "PIO_TRANSFER_DOUBLE_BUFFER")}
+    points = []
+    try:
+        for mb in PUT_SWEEP:
+            if mb is None:
+                os.environ["PIO_TRANSFER_DOUBLE_BUFFER"] = "0"
+            else:
+                os.environ.pop("PIO_TRANSFER_DOUBLE_BUFFER", None)
+                os.environ["PIO_BIN_CHUNK_MB"] = str(mb)
+            cached = load_layout(key)
+            if cached is None:
+                fail("the ALS phase's layout is not in its cache")
+            put = ALSTrainer.from_cache(cached, cfg, device="cuda")
+            got = [t for side in put.sides()
+                   for t in (side.idx, side.val, side.mask, side.seg,
+                             side.counts) if t is not None]
+            if len(got) != len(want) or not all(
+                    a.dtype == b.dtype and torch.equal(a, b)
+                    for a, b in zip(got, want)):
+                fail(f"the put at PIO_BIN_CHUNK_MB={mb} does not hold the "
+                     "host put's device tensors")
+            points.append({"chunk_mb": mb, "put_sec": put.put_sec,
+                           "transfer_sec": put.transfer_sec,
+                           "chunks": put.put_chunks,
+                           "load_sec": cached.load_sec})
+            del put, got, cached
+        if points[0]["chunks"] or not points[1]["chunks"]:
+            fail(f"the put sweep did not take its paths: {points}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return {"bytes": trainer.transfer_bytes, "points": points}
+
+
 def als_train_phase(ratings) -> dict:
     import torch
     from predictionio_torch.data.bimap import BiMap
     from predictionio_torch.models.als import (ALSAlgorithm, ALSParams,
                                                PreparedRatings)
     from predictionio_torch.ops.als import (ALSConfig, ALSFactors,
-                                            ALSTrainer, predict_rmse)
+                                            ALSTrainer, layout_cache_key,
+                                            predict_rmse)
     from predictionio_torch.ops.kernels import embed_update as eu
     from predictionio_torch.ops.kernels import flash_ce as fce
     from predictionio_torch.ops.kernels import topk_dot as tkd
@@ -2486,14 +2560,34 @@ def als_train_phase(ratings) -> dict:
     cfg = ALSConfig(rank=RANK, iterations=ALS_ITERS, reg=ALS_REG,
                     block_size=ALS_BLOCK)
 
-    # the trainer alone: binning, transfer, compile, 5 timed alternations
+    # the trainer alone: binning (its layout saved to a cache of its own
+    # for the put sweep), transfer, compile, 5 timed alternations
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    trainer = ALSTrainer(train, N_USERS, N_ITEMS, cfg, device="cuda")
-    trainer.compile()
-    t0 = time.perf_counter()
-    trainer.step_n()
-    train_sec = time.perf_counter() - t0
+    cache_dir = tempfile.mkdtemp(prefix="pio_chip_smoke_putcache_")
+    old_cache = os.environ.get("PIO_BIN_CACHE_DIR")
+    os.environ["PIO_BIN_CACHE_DIR"] = cache_dir
+    try:
+        trainer = ALSTrainer(train, N_USERS, N_ITEMS, cfg, device="cuda",
+                             cache_key="chip-smoke-als")
+        trainer.compile()
+        t0 = time.perf_counter()
+        trainer.step_n()
+        train_sec = time.perf_counter() - t0
+        roof = trainer.measure_gather_roof()
+        puts = put_sweep(layout_cache_key("chip-smoke-als", cfg, 1), cfg,
+                         trainer)
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+        if old_cache is None:
+            os.environ.pop("PIO_BIN_CACHE_DIR", None)
+        else:
+            os.environ["PIO_BIN_CACHE_DIR"] = old_cache
+    train_slots_per_sec = roof["slots_per_iteration"] / (train_sec
+                                                          / ALS_ITERS)
+    roof.update(train_slots_per_sec=train_slots_per_sec,
+                train_over_roof=train_slots_per_sec
+                / roof["roof_slots_per_sec"])
     peak_mem = torch.cuda.max_memory_allocated()
     factors = trainer.factors()
     rmse_trainer = predict_rmse(factors, held)
@@ -2505,8 +2599,11 @@ def als_train_phase(ratings) -> dict:
     layout = trainer.layout()
     profile = stage_profile(trainer, train_sec * 1e3 / ALS_ITERS)
     timing = {"bin_sec": trainer.bin_sec, "put_sec": trainer.put_sec,
+              "put_chunks": trainer.put_chunks,
+              "transfer_sec": trainer.transfer_sec,
               "compile_sec": trainer.compile_sec, "train_sec": train_sec,
-              "work_model": trainer.work_model()}
+              "work_model": trainer.work_model(), "gather_roof": roof,
+              "put_sweep": puts}
     del trainer
     torch.cuda.empty_cache()
 
@@ -4387,21 +4484,65 @@ def interactions(uu, ii, names, name_codes, times_us, value=None):
         target_vocab=[f"i{j}" for j in range(N_ITEMS)], names=names)
 
 
-def quick_start(cli, sub_env: dict, root: str, template: str, app: str,
+class LogLines(logging.Handler):
+    """The lines the root logger emits while attached, as
+    ``LEVEL:name:message``: an in-process ``cli.main``'s stderr."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record) -> None:
+        self.lines.append(
+            f"{record.levelname}:{record.name}:{record.getMessage()}")
+
+
+def in_process_cli(argv, store_env: dict, what: str) -> str:
+    """``cli.main(argv)`` in this process over the store ``store_env``
+    names (which it leaves closed: an event log has one holder), failing
+    on a non-zero exit; -> its log lines."""
+    from predictionio_torch.data import storage as storage_mod
+    from predictionio_torch.tools import cli as pio_cli
+
+    lines = LogLines()
+    root = logging.getLogger()
+    out = io.StringIO()
+    with cli_env(store_env), contextlib.redirect_stdout(out):
+        root.addHandler(lines)
+        try:
+            code = pio_cli.main(argv)
+            storage = storage_mod.get_storage()
+            close = getattr(storage.events(), "close", None)
+            if close is not None:
+                close()
+        finally:
+            root.removeHandler(lines)
+    log = "\n".join(lines.lines)
+    if code != 0:
+        fail(f"pio {argv[0]} ({what}) exited {code}: {out.getvalue()[-1000:]}"
+             f" {log[-3000:]}")
+    return log
+
+
+def quick_start(sub_env: dict, root: str, template: str, app: str,
                 algorithms: list, what: str, project: str = "project",
                 build: bool = True, datasource: dict = None) -> dict:
     """``cli template get`` into ``root/project``, the datasource params
     set in the project's engine.json (``datasource``, else ``app_name``
     ``app``), ``cli build`` (unless ``build`` is false), ``cli train``
-    (which must run on ``cuda:0``). -> the engine.json path, seconds of
-    each step, the stored instance's models, the train's log."""
+    (which must run on ``cuda:0``), each as ``cli.main`` in this process
+    (a ``cli`` process costs 7-9 s to start; the deploy stays one). ->
+    the engine.json path, seconds of each step, the stored instance's
+    models, the train's log."""
     from predictionio_torch.data.storage import Storage
     from predictionio_torch.workflow.deploy import load_blob
 
+    store_env = {k: v for k, v in sub_env.items()
+                 if k.startswith("PIO_STORAGE_")}
     proj = os.path.join(root, project)
     secs = {}
     t0 = time.perf_counter()
-    run_cli(cli, ["template", "get", template, proj], sub_env, root, what)
+    in_process_cli(["template", "get", template, proj], store_env, what)
     secs["template_get_sec"] = time.perf_counter() - t0
     ej = os.path.join(proj, "engine.json")
     with open(ej) as f:
@@ -4412,17 +4553,16 @@ def quick_start(cli, sub_env: dict, root: str, template: str, app: str,
         json.dump(variant, f)
     if build:
         t0 = time.perf_counter()
-        run_cli(cli, ["build", "--engine-json", ej], sub_env, root, what)
+        in_process_cli(["build", "--engine-json", ej], store_env, what)
         secs["build_sec"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out = run_cli(cli, ["train", "--engine-json", ej], sub_env, root, what,
-                  timeout=900)
+    stderr = in_process_cli(["train", "--engine-json", ej], store_env,
+                            what)
     secs["train_sec"] = time.perf_counter() - t0
-    if "on cuda:0" not in out.stderr:
+    if "on cuda:0" not in stderr:
         fail(f"pio train ({what}) did not train on cuda:0: "
-             f"{out.stderr[-1500:]}")
-    storage = Storage.from_env({k: v for k, v in sub_env.items()
-                                if k.startswith("PIO_STORAGE_")})
+             f"{stderr[-1500:]}")
+    storage = Storage.from_env(store_env)
     engine_id = variant["engineFactory"]
     if build and storage.engine_manifests().get(engine_id, "0") is None:
         fail(f"pio build ({what}) registered no manifest")
@@ -4432,8 +4572,8 @@ def quick_start(cli, sub_env: dict, root: str, template: str, app: str,
         fail(f"pio train ({what}) stored no COMPLETED instance")
     models = load_blob(storage.models().get(instance.id).models)
     return {"engine_json": ej, "secs": secs, "models": models,
-            "stderr": out.stderr,
-            "train_log": [line[-500:] for line in out.stderr.splitlines()
+            "stderr": stderr,
+            "train_log": [line[-500:] for line in stderr.splitlines()
                           if any(key in line for key in (
                               "training read:", "trained:", "took"))]}
 
@@ -4575,6 +4715,109 @@ def standardized(q, answers):
     return top, ctol + 1e-9
 
 
+#: how far above the direct solve's largest |item factor| a likealgo
+#: train's may lie
+LIKE_BOUND_FACTOR = 10.0
+
+
+def like_rows(ratings):
+    """The similar-product phase's like (+1) / dislike (-1) rows: every
+    ``PROJECT_LIKE_EVERY``-th rating, a like at >= 3.5, in event-time
+    order."""
+    uu, ii, vals = ratings
+    sel = np.arange(0, len(uu), PROJECT_LIKE_EVERY)
+    return uu[sel], ii[sel], np.where(vals[sel] >= 3.5, 1.0, -1.0)
+
+
+def like_direct_bound(ratings) -> dict:
+    """``LikeAlgorithm``'s config solved with ``solver="direct"`` on the
+    card over the phase's like pairs (the latest event of a pair wins,
+    as the algorithm folds them): the bound a likealgo train's largest
+    |item factor| must keep."""
+    from predictionio_torch.models._interactions import latest_pairs
+    from predictionio_torch.models.similarproduct import (
+        LikeAlgorithm, SimilarProductParams)
+    from predictionio_torch.ops.als import ALSTrainer
+
+    u, i, v = like_rows(ratings)
+    coo = latest_pairs(u, i, v, N_ITEMS)
+    cfg = dataclasses.replace(
+        LikeAlgorithm.als_config(SimilarProductParams()), solver="direct")
+    t0 = time.perf_counter()
+    factors = ALSTrainer(coo, N_USERS, N_ITEMS, cfg, device="cuda").run()
+    direct = float(np.abs(factors.item_factors).max())
+    if not np.isfinite(direct) or direct <= 0.0:
+        fail(f"likealgo's direct solve gave a largest |item factor| of "
+             f"{direct}")
+    return {"pairs": len(coo[0]), "dislikes": int((coo[2] < 0).sum()),
+            "direct_max_abs": direct, "direct_sec": time.perf_counter() - t0,
+            "bound": LIKE_BOUND_FACTOR * direct}
+
+
+def like_out_of_bounds(item_factors, item_names, bound: float) -> list:
+    """The rows whose factors are not finite or exceed ``bound`` in
+    |value|, as (name, largest |finite value|, finite?)."""
+    finite = np.isfinite(item_factors).all(1)
+    big = np.abs(np.where(np.isfinite(item_factors), item_factors,
+                          0.0)).max(1)
+    return [(item_names[r], float(big[r]), bool(finite[r]))
+            for r in np.flatnonzero(~finite | (big > bound))]
+
+
+def likealgo_repeat(ratings, runs: int) -> dict:
+    """``LikeAlgorithm.train`` on the card ``runs`` times over the
+    similar-product phase's likes, each held to ``like_direct_bound``;
+    -> the trains in bounds, and each one's largest |item factor|, rows
+    out of bounds and seconds."""
+    from predictionio_torch.models._interactions import Interactions
+    from predictionio_torch.models.similarproduct import (
+        LikeAlgorithm, SimilarProductData, SimilarProductParams)
+    from predictionio_torch.parallel.context import DeviceContext
+
+    bound = like_direct_bound(ratings)
+    u, i, v = like_rows(ratings)
+    users = [f"u{j}" for j in range(N_USERS)]
+    items = [f"i{j}" for j in range(N_ITEMS)]
+    pd = SimilarProductData(users=users, items=items, likes=Interactions(
+        entity_vocab=users, target_vocab=items, entity_idx=u,
+        target_idx=i, values=v))
+    out = []
+    for _ in range(runs):
+        algo = LikeAlgorithm(SimilarProductParams())
+        t0 = time.perf_counter()
+        model = algo.train(DeviceContext("cuda"), pd)
+        sec = time.perf_counter() - t0
+        bad = like_out_of_bounds(model.item_factors,
+                                 list(model.item_ids.keys()), bound["bound"])
+        f = model.item_factors
+        out.append({"max_abs": float(np.abs(f[np.isfinite(f)]).max(
+            initial=0.0)), "rows_out_of_bounds": len(bad),
+            "first_out_of_bounds": bad[:3], "sec": sec,
+            **{k: algo.last_train[k] for k in ("put_sec", "train_sec")}})
+    return {**bound, "runs": runs,
+            "in_bounds": sum(1 for t in out if not t["rows_out_of_bounds"]),
+            "trains": out}
+
+
+def likealgo_repeat_main(runs: int) -> int:
+    """``python3 chip_smoke.py --likealgo-repeat N``: ``likealgo_repeat``
+    alone (no kernel is built: the train launches none)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    card = card_line()
+    result = likealgo_repeat(project_ratings(synth_ratings()), runs)
+    print(json.dumps({"likealgo_repeat": {**result, "card": card}}),
+          flush=True)
+    if result["in_bounds"] != runs:
+        fail(f"{runs - result['in_bounds']} of {runs} likealgo trains "
+             "left their bound")
+    return 0
+
+
 def similar_product_phase(ratings) -> dict:
     """(b) The similar-product Quick Start at MovieLens-20M widths."""
     import torch
@@ -4608,7 +4851,7 @@ def similar_product_phase(ratings) -> dict:
         events.close()
         ingest_sec = time.perf_counter() - t0
 
-        qs = quick_start(cli, sub_env, root, "similarproduct", "ml20m-sp",
+        qs = quick_start(sub_env, root, "similarproduct", "ml20m-sp",
                          [{"name": "als", "params": {}},
                           {"name": "likealgo", "params": {}}],
                          "similar product")
@@ -4625,6 +4868,18 @@ def similar_product_phase(ratings) -> dict:
                      f"non-finite, the finite ones up to "
                      f"{np.abs(m.item_factors[finite]).max(initial=0.0)}; "
                      f"the train's log ends {qs['train_log'][-6:]}")
+        # likealgo's dislikes put confidences below 1: its factors must
+        # stay within LIKE_BOUND_FACTOR of a direct solve's
+        like = like_direct_bound(ratings)
+        bad = like_out_of_bounds(models[1].item_factors,
+                                 list(models[1].item_ids.keys()),
+                                 like["bound"])
+        if bad:
+            fail(f"pio train (similar product): {len(bad)} likealgo item "
+                 f"rows not finite or above {like['bound']} in |value|, "
+                 f"the first {bad[:10]}; the train's log ends "
+                 f"{qs['train_log'][-6:]}")
+        like["max_abs"] = float(np.abs(models[1].item_factors).max())
         truths = [SimTruth(m) for m in models]
 
         # queries whose float64 answer float32 cannot change
@@ -4714,6 +4969,7 @@ def similar_product_phase(ratings) -> dict:
             "skipped_ambiguous": skipped, "index_queries": index_queries,
             "topk_dot_launches": launches, **{
                 k: served[k] for k in ("deploy_sec", "query_ms")},
+            "likealgo": like,
             "kernel_d10": {"max_abs_err": max(errs), **timing}}
 
 
@@ -4793,7 +5049,7 @@ def ecommerce_phase(ratings, root: str) -> dict:
     events.close()
     ingest_sec = time.perf_counter() - t0
 
-    qs = quick_start(CLI, sub_env, root, "ecommercerecommendation",
+    qs = quick_start(sub_env, root, "ecommercerecommendation",
                      "ml20m-ec", [{"name": "als", "params": {
                          "app_name": "ml20m-ec", "unseen_only": True}}],
                      "e-commerce")
@@ -5113,7 +5369,7 @@ def sessionrec_phase(root: str, ratings) -> dict:
 
     _, sub_env = eventlog_env(root)
     t0 = time.perf_counter()
-    qs = quick_start(CLI, sub_env, root, "sessionrec", ECOM_APP,
+    qs = quick_start(sub_env, root, "sessionrec", ECOM_APP,
                      [{"name": "sessionrec",
                        "params": {"epochs": SR_EPOCHS}}], "sessionrec",
                      project="project_sessionrec", build=False)
@@ -5215,7 +5471,7 @@ def classification_phase(root: str) -> dict:
         for j in range(FAM_CLS_USERS)])
     events.close()
     ingest_sec = time.perf_counter() - t0
-    qs = quick_start(CLI, sub_env, root, "classification", "cls200k",
+    qs = quick_start(sub_env, root, "classification", "cls200k",
                      [{"name": "naive", "params": {}},
                       {"name": "logistic", "params": {}}],
                      "classification", project="project_cls", build=False)
@@ -5284,7 +5540,7 @@ def regression_phase(root: str) -> dict:
     t0 = time.perf_counter()
     np.savetxt(path, np.column_stack([y, x]), fmt="%.8g")
     write_sec = time.perf_counter() - t0
-    qs = quick_start(CLI, sub_env, root, "regression", None,
+    qs = quick_start(sub_env, root, "regression", None,
                      [{"name": "sgd", "params": {"iterations": 400,
                                                  "step_size": 0.2}},
                       {"name": "ridge", "params": {}}],
@@ -5389,7 +5645,7 @@ def families_rest_phase() -> dict:
         reg = regression_phase(root)
         t2 = time.perf_counter()
         _, sub_env = eventlog_env(root)
-        qs = quick_start(CLI, sub_env, root, "vanilla", "cls200k",
+        qs = quick_start(sub_env, root, "vanilla", "cls200k",
                          [{"name": "algo", "params": {"mult": 3}}],
                          "vanilla", project="project_vanilla", build=False)
 
@@ -7589,4 +7845,6 @@ if __name__ == "__main__":
         sys.exit(operator_tools_main())
     if sys.argv[1:2] == ["--last-tools"]:
         sys.exit(last_tools_main())
+    if sys.argv[1:2] == ["--likealgo-repeat"]:
+        sys.exit(likealgo_repeat_main(int(sys.argv[2])))
     sys.exit(main())

@@ -51,16 +51,31 @@ all-gather over the ``data`` group rebuilds the padded ``[groups_per_shard
 ``out_specs=P("data", None)`` followed by the next step's ``P()``). The
 transfer bytes and the work model are then per rank.
 
+One difference that keeps a train finite: an implicit train whose
+values put some confidence ``1 + alpha * r`` below 1 (a dislike of -1 at
+alpha 1 has confidence 0) subtracts outer products from ``Y^T Y``. Such
+systems are positive definite but badly conditioned where a group
+disliked popular items, and the CG matvec's bf16 copy of A makes them
+indefinite: the factors then grow without bound over the iterations
+(and overflow on a card). The trainers solve such a train with a
+float32 matvec whatever ``cg_dtype`` says (``matvec_dtype``); explicit
+trains and implicit trains over counts keep ``cg_dtype``.
+
 The trainer carries the JAX trainer's observability hooks: the
-data-path stages, the MFU accounting and the memory ledger. Not ported
-here (ROADMAP.md, queue 1): the chunked double-buffered transfer and the
-gather roof probe (item 3).
+data-path stages, the MFU accounting and the memory ledger, the put's
+completion stamps (``wait_device_timed``) and the gather roof probe
+(``measure_gather_roof``). Its put copies each wire array larger than
+``PIO_BIN_CHUNK_MB`` in row chunks through two pinned staging buffers
+on a side stream (``ChunkedPut``), so that the host's page-in of chunk
+N+1 overlaps chunk N on the wire; ``PIO_TRANSFER_DOUBLE_BUFFER=0``
+restores the one-shot put.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 import warnings
 from typing import Any, List, Optional, Sequence, Tuple
@@ -115,6 +130,22 @@ def _dtype(name: str) -> torch.dtype:
     if str(name) not in _DTYPES:
         raise ValueError(f"dtype {name!r}: one of {sorted(_DTYPES)}")
     return _DTYPES[str(name)]
+
+
+def matvec_dtype(cfg: ALSConfig, lo: float, hi: float,
+                 alphas: Optional[Sequence[float]] = None) -> str:
+    """The CG matvec's dtype for a train over values in ``[lo, hi]``:
+    float32 where the train is implicit and some confidence ``1 + alpha
+    * r`` (of any candidate's ``alphas``, else ``cfg.alpha``) falls
+    below 1, else ``cfg.cg_dtype``. Below 1, a value's outer product is
+    subtracted from ``Y^T Y``, and A rounded to bf16 can turn
+    indefinite (the module docstring says why)."""
+    if not cfg.implicit:
+        return cfg.cg_dtype
+    for a in ([cfg.alpha] if alphas is None else alphas):
+        if min(float(a) * lo, float(a) * hi) < 0.0:
+            return "float32"
+    return cfg.cg_dtype
 
 
 def als_row_cost_slots(rank: int) -> float:
@@ -415,6 +446,21 @@ class SideLayout:
     def kept_entries(self) -> int:
         return int(self.counts.sum())
 
+    def value_range(self) -> Tuple[float, float]:
+        """The least and the largest real (unpadded) value, ``(0, 0)``
+        where the side holds none."""
+        if self.affine is not None:
+            codes = self.val[self.val != PAD_CODE]
+            if not codes.size:
+                return 0.0, 0.0
+            a, b = self.affine
+            ends = (a + b * float(codes.min()), a + b * float(codes.max()))
+            return min(ends), max(ends)
+        real = self.val[self.mask != 0]
+        if not real.size:
+            return 0.0, 0.0
+        return float(real.min()), float(real.max())
+
     @property
     def slot_bytes(self) -> int:
         return (2 + (1 if self.idx_hi is not None else 0)
@@ -636,6 +682,113 @@ def save_layout(key: str, user_side: SideLayout, item_side: SideLayout,
         **user_side.meta("u_"), **item_side.meta("i_")})
 
 
+#: default row chunk of the double-buffered put (MB), as the JAX
+#: package's; PIO_BIN_CHUNK_MB overrides it, PIO_TRANSFER_DOUBLE_BUFFER=0
+#: restores the one-shot put of each array
+DEFAULT_CHUNK_MB = 64.0
+
+
+def put_chunk_bytes() -> int:
+    """Bytes of one chunk of the double-buffered put, 0 for the one-shot
+    put (the environment's choice, read at each trainer's put)."""
+    if os.environ.get("PIO_TRANSFER_DOUBLE_BUFFER", "1") == "0":
+        return 0
+    mb = float(os.environ.get("PIO_BIN_CHUNK_MB", str(DEFAULT_CHUNK_MB)))
+    return max(0, int(mb * 1e6))
+
+
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    """A tensor over the host array's memory (a cache entry's read-only
+    views included: nothing writes to the layout's tensors)."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings(
+            "ignore", message="The given NumPy array is not writable")
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+
+class ChunkedPut:
+    """The double-buffered host -> device put: an array larger than
+    ``chunk_bytes`` crosses in row chunks, each copied on the host into
+    one of two staging buffers (pinned on a card) and from there into
+    its slice of one preallocated device tensor, with no concatenation
+    after. On a card the device copies are ``non_blocking`` on a side
+    stream with an event per buffer, so that the host's copy of chunk
+    N+1 (the page-in of an mmap'd cache file included) overlaps chunk
+    N's DMA; a buffer is written again only once its last copy is done.
+    An array of at most ``chunk_bytes`` goes in one synchronous copy.
+    On the CPU the chunks go by plain copies, so that the slicing runs
+    where the tests run.
+
+    ``done()`` records an event after every copy issued so far and
+    makes the caller's stream wait on it: call it before the device
+    reads what was put."""
+
+    def __init__(self, device: torch.device, chunk_bytes: int):
+        self.device = device
+        self.chunk_bytes = int(chunk_bytes)
+        self._cuda = device.type == "cuda"
+        self.stream = torch.cuda.Stream(device) if self._cuda else None
+        self._bufs: List[Optional[torch.Tensor]] = [None, None]
+        self._freed: List[Any] = [None, None]  # each buffer's last copy
+        self._turn = 0
+        #: chunks copied through the staging buffers
+        self.chunks = 0
+
+    def put(self, a: np.ndarray) -> torch.Tensor:
+        if a.ndim == 0 or a.shape[0] < 2 or a.nbytes <= self.chunk_bytes:
+            return _from_numpy(a).to(self.device)
+        a = np.ascontiguousarray(a)
+        per_row = a.nbytes // a.shape[0]
+        rows = max(1, self.chunk_bytes // per_row)
+        out = torch.empty(a.shape, dtype=_from_numpy(a[:0]).dtype,
+                          device=self.device)
+        if self._cuda:
+            # the block may have served work still queued on the
+            # caller's stream: the side stream writes it after that
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        for s in range(0, a.shape[0], rows):
+            chunk = a[s:s + rows]
+            staged = self._stage(chunk, rows * per_row)
+            if self._cuda:
+                with torch.cuda.stream(self.stream):
+                    out[s:s + len(chunk)].copy_(staged, non_blocking=True)
+                    ev = torch.cuda.Event()
+                    ev.record(self.stream)
+                self._freed[self._turn] = ev
+            else:
+                out[s:s + len(chunk)].copy_(staged)
+            self._turn ^= 1
+            self.chunks += 1
+        return out
+
+    def _stage(self, chunk: np.ndarray, size: int) -> torch.Tensor:
+        """``chunk`` copied into this turn's staging buffer, once the
+        buffer's previous copy to the device is done."""
+        k = self._turn
+        if self._freed[k] is not None:
+            self._freed[k].synchronize()
+            self._freed[k] = None
+        buf = self._bufs[k]
+        if buf is None or buf.numel() < size:
+            buf = self._bufs[k] = torch.empty(
+                max(size, self.chunk_bytes), dtype=torch.uint8,
+                pin_memory=self._cuda)
+        n = chunk.nbytes
+        np.copyto(buf.numpy()[:n].view(chunk.dtype).reshape(chunk.shape),
+                  chunk)
+        return buf[:n].view(_from_numpy(chunk[:0]).dtype).view(chunk.shape)
+
+    def done(self):
+        """An event after every copy issued so far (None on the CPU,
+        where they are done), which the caller's stream now waits on."""
+        if not self._cuda:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(self.stream)
+        torch.cuda.current_stream(self.device).wait_event(ev)
+        return ev
+
+
 @dataclasses.dataclass
 class DeviceSide:
     """One side's arrays on the device and the half-step bound to them;
@@ -785,9 +938,27 @@ class ALSTrainer:
         self.load_sec = 0.0
         #: whether the layout came from the layout cache
         self.cache_hit = False
-        t0 = time.perf_counter()
+        #: the CG matvec's dtype: float32 for an implicit train with a
+        #: confidence below 1 (``matvec_dtype``), else ``cfg.cg_dtype``
+        self.cg_dtype = (matvec_dtype(cfg, *user_side.value_range())
+                         if cfg.implicit else cfg.cg_dtype)
+        self._step_cfg = dataclasses.replace(cfg, cg_dtype=self.cg_dtype)
+        chunk_bytes = put_chunk_bytes() if n_shards == 1 else 0
+        # sharded ranks put whole slices, as the JAX package's mesh does
+        self._stager = (ChunkedPut(self.device, chunk_bytes)
+                        if chunk_bytes > 0 else None)
+        #: when the first put began, and (end of issue, bytes) of each
+        #: side's put: with ``wait_device_timed``'s stamps a caller can
+        #: tell the wire's window from host work before it
+        self.put_start = t0 = time.perf_counter()
+        self._put_log: List[Tuple[float, int]] = []
+        self._put_done: List[Any] = []
+        self._transfer_noted = False
+        #: chunks that crossed through the staging buffers (0: one-shot)
+        self.put_chunks = 0
         self._user = self._put_side(user_side)
         self._item = self._put_side(item_side)
+        self.wait_device_timed()
         self.wait_device()
         #: seconds of the host -> device puts and the index recombine
         self.put_sec = time.perf_counter() - t0
@@ -795,9 +966,8 @@ class ALSTrainer:
         self.transfer_bytes = (user_side.transfer_bytes
                                + item_side.transfer_bytes) // n_shards
         self._slot_bytes = (user_side.slot_bytes, item_side.slot_bytes)
-        # the data-path ledger's transfer stage, and the device-memory
-        # ledger's train_data footprint (swept when the trainer goes)
-        perfacct.LEDGER.note_stage("transfer", self.put_sec)
+        # the device-memory ledger's train_data footprint (swept when
+        # the trainer goes); wait_device_timed noted the transfer stage
         memacct.LEDGER.register(self, "als", "train_data",
                                 int(self.transfer_bytes))
         #: the MFU/roofline accountant, made on the first timed run
@@ -814,10 +984,11 @@ class ALSTrainer:
     def _put_side(self, side: SideLayout) -> DeviceSide:
         """The wire arrays to the device, once each, straight from the
         host arrays (native buffers or a cache file's read-only mapping
-        included: no host copy); the index streams recombined to int32
-        there. uint16 goes as int16 and is widened with ``& 0xFFFF``: the
-        cast every device has. Sharded, only this rank's rows and groups
-        go."""
+        included: no host copy but the staging of a chunked put); the
+        index streams recombined to int32 there. uint16 goes as int16
+        and is widened with ``& 0xFFFF``: the cast every device has.
+        Sharded, only this rank's rows and groups go, each slice in one
+        copy."""
         n_shards = side.n_shards
         rows = side.idx_lo.shape[0] // n_shards
         groups = side.groups_per_shard
@@ -826,23 +997,30 @@ class ALSTrainer:
         def put(a, per_shard=rows, start=r0):
             if n_shards > 1:
                 a = a[start:start + per_shard]
-            with warnings.catch_warnings():
-                # a cache entry's views are read-only; nothing writes to
-                # the layout's tensors
-                warnings.filterwarnings(
-                    "ignore", message="The given NumPy array is not writable")
-                return torch.from_numpy(np.ascontiguousarray(a)).to(
-                    self.device)
+            if self._stager is not None:
+                return self._stager.put(a)
+            return _from_numpy(a).to(self.device)
 
-        idx = put(side.idx_lo.view(np.int16)).to(torch.int32) & 0xFFFF
-        if side.idx_hi is not None:
-            idx = idx | (put(side.idx_hi).to(torch.int32) << 16)
-        step = make_half_step(self.cfg, side.row_block, side.group_block,
-                              groups, val_affine=side.affine)
+        idx_lo = put(side.idx_lo.view(np.int16))
+        idx_hi = None if side.idx_hi is None else put(side.idx_hi)
+        val = put(side.val)
+        mask = None if side.mask is None else put(side.mask)
+        seg = put(side.seg)
+        counts = put(side.counts, groups, g0)
+        done = None if self._stager is None else self._stager.done()
+        if done is None and self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+        self._put_done.append(done)
+        self._put_log.append((time.perf_counter(), side.transfer_bytes))
+        idx = idx_lo.to(torch.int32) & 0xFFFF
+        if idx_hi is not None:
+            idx = idx | (idx_hi.to(torch.int32) << 16)
+        step = make_half_step(self._step_cfg, side.row_block,
+                              side.group_block, groups,
+                              val_affine=side.affine)
         return DeviceSide(
-            step=step, idx=idx, val=put(side.val),
-            mask=None if side.mask is None else put(side.mask),
-            seg=put(side.seg), counts=put(side.counts, groups, g0),
+            step=step, idx=idx, val=val, mask=mask, seg=seg, counts=counts,
             n_groups=groups, n_shards=n_shards, shard=self._shard,
             group=self._group)
 
@@ -873,6 +1051,85 @@ class ALSTrainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self
+
+    def wait_device_timed(self) -> List[float]:
+        """One ``perf_counter`` stamp a side, in put order, each taken
+        once that side's last copy is known to be done (on a card, after
+        its event synchronizes; a failed copy raises there). With
+        ``put_start`` and ``_put_log`` a caller reads the wire's window:
+        the last side's span from the end of its issue to its stamp
+        holds no host work. The first call notes the ``transfer``
+        stage (first put to last copy) and lets the staging buffers go,
+        as the JAX trainer's ``_note_transfer`` does."""
+        out = []
+        for done in self._put_done:
+            if done is not None:
+                done.synchronize()
+            out.append(time.perf_counter())
+        if not self._transfer_noted:
+            self._transfer_noted = True
+            if self._stager is not None:
+                self.put_chunks = self._stager.chunks
+            self._stager = None
+            #: seconds from the first put to the last copy known done
+            self.transfer_sec = out[-1] - self.put_start
+            perfacct.LEDGER.note_stage("transfer", self.transfer_sec)
+        return out
+
+    def measure_gather_roof(self, reps: int = 3) -> dict:
+        """The empirical roof of the stage an alternation is bound by:
+        only the user side's stage-1 gather, mask-multiply and reduce
+        (``Yc.index_select`` by row block, times the mask, a float32
+        sum) in the real layout and dtypes, with no Gramian, segment
+        sum or solve. Its slots a second are what the device issues for
+        this access pattern, so a train's slots a second over it is a
+        measured bound fraction. Timed over ``reps`` calls after one
+        warm call, with CUDA events on a card. Returns JAX's keys:
+        ``roof_slots_per_sec``, ``slots_per_iteration`` (both sides'
+        slots, pads included) and ``roof_kernel_sec``."""
+        side = self._user
+        idx, K = side.idx, self.cfg.rank
+        R, L = idx.shape
+        rb = min(side.step.row_block, R)
+        cdt = side.step.cdt
+        Yc = self.Y.to(cdt)
+
+        def gather() -> torch.Tensor:
+            total = torch.zeros((), dtype=torch.float32, device=self.device)
+            for s in range(0, R, rb):
+                idx_b = idx[s:s + rb]
+                mask_b = (side.val[s:s + rb] != PAD_CODE
+                          if side.mask is None else side.mask[s:s + rb])
+                g = (Yc.index_select(0, idx_b.reshape(-1))
+                     .view(*idx_b.shape, K) * mask_b.to(cdt)[..., None])
+                total += g.sum(dtype=torch.float32)
+            return total
+
+        if not math.isfinite(float(gather())):
+            raise RuntimeError("gather roof probe: the warm call's sum is "
+                               "not finite")
+        if self.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                gather()
+            end.record()
+            end.synchronize()
+            dt = start.elapsed_time(end) / 1e3 / reps
+        else:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                gather()
+            dt = (time.perf_counter() - t0) / reps
+        if not dt > 0.0:
+            raise RuntimeError(f"gather roof probe timed {dt} s a call")
+        slots_user = float(R) * float(L)
+        slots_item = (float(self._item.idx.shape[0])
+                      * float(self._item.idx.shape[1]))
+        return {"roof_slots_per_sec": slots_user / dt,
+                "slots_per_iteration": slots_user + slots_item,
+                "roof_kernel_sec": dt}
 
     def compile(self) -> "ALSTrainer":
         """One warm alternation on copies of the factors, so that
@@ -934,7 +1191,7 @@ class ALSTrainer:
         derived from it is a lower bound."""
         K = self.cfg.rank
         cs = _dtype(self.cfg.compute_dtype).itemsize
-        cg_b = _dtype(self.cfg.cg_dtype).itemsize
+        cg_b = _dtype(self.cg_dtype).itemsize
         cg_iters = self.cfg.cg_iters if self.cfg.solver == "cg" else 0
         flops = 0.0
         bytes_ = 0.0
@@ -1150,7 +1407,14 @@ class ALSGridTrainer:
         self.bin_sec = time.perf_counter() - t0
         t0 = time.perf_counter()
         dev = self.device
-        step_cfg = dataclasses.replace(cfg, cg_iters=max_cg)
+        vals = np.asarray(vals)
+        #: the CG matvec's dtype (``matvec_dtype`` over every
+        #: candidate's ``alpha``)
+        self.cg_dtype = (matvec_dtype(cfg, float(vals.min()),
+                                      float(vals.max()), alphas)
+                         if cfg.implicit and vals.size else cfg.cg_dtype)
+        step_cfg = dataclasses.replace(cfg, cg_iters=max_cg,
+                                       cg_dtype=self.cg_dtype)
         regs_t = torch.tensor(regs, device=dev)
         alphas_t = torch.tensor(alphas, device=dev)
         # budgets equal to the run's steps freeze nothing: no where()s

@@ -97,7 +97,8 @@ import time
 import urllib.request
 import uuid
 import weakref
-from typing import Any, Callable, List, Optional
+from collections import deque
+from typing import Any, Callable, List, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
 from predictionio_torch.core.engine import Engine
@@ -157,7 +158,11 @@ class ServingStats:
     """Request bookkeeping (ref: CreateServer.scala:552-559). Every
     record lands in the engine-wide ``pio_serving_request_seconds``
     histogram (the status page's percentiles read it); counts and
-    totals are per server."""
+    totals are per server, and so is a window of the last ``WINDOW``
+    raw serve times (``recent``: exact samples, where the histogram's
+    buckets would quantize them)."""
+
+    WINDOW = 8192
 
     def __init__(self, engine_id: str = "default"):
         self._lock = threading.Lock()
@@ -166,6 +171,15 @@ class ServingStats:
         self._sum = 0.0
         self._last = 0.0
         self.start_time = _dt.datetime.now(tz=UTC)
+        self._window: deque = deque(maxlen=self.WINDOW)
+
+    @property
+    def request_count(self) -> int:
+        return self._count
+
+    @property
+    def total_serving_sec(self) -> float:
+        return self._sum
 
     def record(self, seconds: float) -> None:
         # the request's trace id rides along as an OpenMetrics exemplar
@@ -176,6 +190,14 @@ class ServingStats:
             self._count += 1
             self._sum += seconds
             self._last = seconds
+            self._window.append(seconds)
+
+    def recent(self, n: Optional[int] = None) -> List[float]:
+        """The last ``n`` (default: every windowed) serve times, oldest
+        first."""
+        with self._lock:
+            out = list(self._window)
+        return out if n is None else out[-n:]
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -241,6 +263,10 @@ class MicroBatcher:
         health.REGISTRY.register(self._probe_name, self._queue_probe)
         self._hist_lock = threading.Lock()
         self._hist: dict = {}
+        # (queue wait s, dispatch s) of each answered request, under
+        # the histogram's lock: what a concurrency sweep reads to tell
+        # waiting for the worker from the dispatch itself
+        self._splits: deque = deque(maxlen=50_000)
         self._stop = False
         # orders submit()'s stop-check+enqueue against stop()'s flag+wake
         self._stop_lock = threading.Lock()
@@ -313,6 +339,13 @@ class MicroBatcher:
                     p.event.set()
         except Exception:  # noqa: BLE001 — see above
             log.exception("batcher shutdown drain failed")
+
+    def recent_splits(self, n: int) -> List[Tuple[float, float]]:
+        """The last ``n`` answered requests' (queue wait s, dispatch s),
+        oldest first."""
+        with self._hist_lock:
+            items = list(self._splits)
+        return items[-n:]
 
     def queue_depth(self) -> int:
         """Requests waiting for the worker now (the admission
@@ -387,11 +420,17 @@ class MicroBatcher:
         for p in batch:
             p.event.set()
 
-    @staticmethod
-    def _record_splits(batch: List[_Pending], t_start: float) -> None:
-        """Each request's queue wait and dispatch time, attributed to its
-        flight record."""
+    def _record_splits(self, batch: List[_Pending], t_start: float) -> None:
+        """Each answered request's queue wait and dispatch time, kept in
+        the ring ``recent_splits`` reads and attributed to its flight
+        record. A request whose submitter gave up meanwhile is left
+        out: its wait is the caller's timeout."""
         t_done = time.perf_counter()
+        with self._hist_lock:
+            for p in batch:
+                if not p.abandoned:
+                    self._splits.append((t_start - p.t_submit,
+                                         t_done - t_start))
         for p in batch:
             if p.abandoned or p.trace_ctx is None:
                 continue

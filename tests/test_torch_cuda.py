@@ -1841,3 +1841,106 @@ def test_pio_run_answers_lone_queries_on_the_card(cuda, tmp_path,
             assert abs(score - scores[want[j]]) <= tol
             assert item == items[want[j]] or abs(
                 scores[items.index(item)] - scores[want[j]]) <= tol
+
+
+def _put_ratings(n_users=3000, n_items=70_000, nnz=200_000, seed=11):
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, n_users, nnz)
+    i = (rng.zipf(1.3, nnz) * 337) % n_items          # idx_hi on one side
+    r = np.clip(np.round(rng.normal(3, 1, nnz) * 2) / 2, 0.5, 5.0)
+    return u, i, r.astype(np.float32)
+
+
+def _device_arrays(trainer):
+    return [t for side in trainer.sides()
+            for t in (side.idx, side.val, side.mask, side.seg, side.counts)
+            if t is not None]
+
+
+@pytest.mark.parametrize("halfstar", [True, False])
+def test_chunked_put_holds_the_one_shot_puts_tensors_on_the_card(
+        cuda, monkeypatch, halfstar):
+    """Chunks through pinned staging buffers on a side stream land the
+    same bytes as the one-shot put, for chunks smaller than every array
+    and for the default (some arrays in one piece); a half-step reads
+    them at once, the put's events ordered before it."""
+    u, i, r = _put_ratings()
+    if not halfstar:
+        r = r + np.float32(1e-3) * (np.arange(len(r)) % 7)
+    cfg = als.ALSConfig(rank=16, iterations=1, block_size=512)
+    monkeypatch.setenv("PIO_TRANSFER_DOUBLE_BUFFER", "0")
+    one = als.ALSTrainer((u, i, r), 3000, 70_000, cfg, device=cuda)
+    assert one.put_chunks == 0
+    monkeypatch.delenv("PIO_TRANSFER_DOUBLE_BUFFER")
+    for mb in ("0.05", "0.4", "64"):
+        monkeypatch.setenv("PIO_BIN_CHUNK_MB", mb)
+        got = als.ALSTrainer((u, i, r), 3000, 70_000, cfg, device=cuda)
+        assert (got.put_chunks > 0) == (mb != "64")
+        for a, b in zip(_device_arrays(got), _device_arrays(one)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        stamps = got.wait_device_timed()
+        assert got.put_start <= stamps[0] <= stamps[1]
+        X = got._user(got.Y, got.X)
+        assert bool(torch.isfinite(X).all())
+
+
+def test_chunked_put_of_large_arrays_on_a_side_stream(cuda):
+    """Many chunks in flight through the two staging buffers, read on
+    the caller's stream right after ``done``: every byte lands."""
+    rng = np.random.default_rng(3)
+    a = rng.integers(0, 255, size=(50_000, 257), dtype=np.uint8)
+    b = rng.normal(size=(300_001,)).astype(np.float32)
+    stager = als.ChunkedPut(cuda, 1 << 20)
+    ga, gb = stager.put(a), stager.put(b)
+    stager.done()
+    assert stager.chunks == 13 + 2
+    assert torch.equal(ga.cpu(), torch.from_numpy(a))
+    assert torch.equal(gb.cpu(), torch.from_numpy(b))
+
+
+def test_gather_roof_on_the_card(cuda):
+    u, i, r = _put_ratings(n_items=20_000)
+    trainer = als.ALSTrainer((u, i, r), 3000, 20_000,
+                             als.ALSConfig(rank=32, block_size=512),
+                             device=cuda)
+    roof = trainer.measure_gather_roof()
+    user, item = trainer.sides()
+    assert roof["slots_per_iteration"] == user.idx.numel() + item.idx.numel()
+    assert roof["roof_kernel_sec"] > 0.0
+    assert roof["roof_slots_per_sec"] == pytest.approx(
+        user.idx.numel() / roof["roof_kernel_sec"])
+
+
+@pytest.mark.parametrize("seed", [0, 2, 3])
+def test_likealgo_stays_bounded_on_the_card(cuda, seed):
+    """The like/dislike rows of tests/test_torch_likealgo.py (users
+    dislike the most popular item): ``LikeAlgorithm.train`` on the card
+    solves them with a float32 matvec, and its largest |item factor|
+    stays within 2x of ``solver="direct"``'s."""
+    import dataclasses
+
+    from predictionio_torch.models._interactions import Interactions
+    from predictionio_torch.models.similarproduct import (
+        LikeAlgorithm, SimilarProductData, SimilarProductParams)
+    from predictionio_torch.parallel.context import DeviceContext
+
+    rng = np.random.default_rng(seed)
+    n_users, n_items, n = 2000, 100, 8000
+    uu = rng.integers(0, n_users, size=n)
+    ii = rng.zipf(2.2, size=n) % n_items
+    U, V = rng.normal(size=(n_users, 8)), rng.normal(size=(n_items, 8))
+    z = (np.einsum("nk,nk->n", U[uu], V[ii]) / np.sqrt(8.0)
+         + rng.normal(0, 0.3, n))
+    users = [f"u{j}" for j in range(n_users)]
+    items = [f"i{j}" for j in range(n_items)]
+    pd = SimilarProductData(users=users, items=items, likes=Interactions(
+        entity_vocab=users, target_vocab=items, entity_idx=uu,
+        target_idx=ii, values=np.where(z >= 0.4, 1.0, -1.0)))
+    algo = LikeAlgorithm(SimilarProductParams())
+    model = algo.train(DeviceContext(cuda), pd)
+    _, _, coo = algo.training_coo(pd)
+    direct = als.ALSTrainer(coo, n_users, n_items, dataclasses.replace(
+        algo.als_config(algo.params), solver="direct"), device=cuda).run()
+    assert np.isfinite(model.item_factors).all()
+    assert np.abs(model.item_factors).max() <= 2.0 * np.abs(
+        direct.item_factors).max()

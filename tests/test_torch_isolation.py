@@ -387,3 +387,14 @@ def test_the_linter_imports_no_torch_and_starts_nothing():
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == {
         "lint_torch": False, "threads": 1}
+
+
+#: the ALS trainer's put, stamps and roof probe, likealgo's float32
+#: matvec, and the serving accessors
+ALS_TRANSFER = ("predictionio_torch.ops.als",
+                "predictionio_torch.models.similarproduct",
+                "predictionio_torch.serving.engine_server")
+
+
+def test_the_als_transfer_modules_are_walked_and_import_no_jax():
+    assert _walk_and_import(ALS_TRANSFER) == {"missing": [], "bad": []}

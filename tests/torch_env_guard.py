@@ -1,8 +1,9 @@
 """The environment names both packages read, held still around a test.
 
 ``PIO_PROFILE_DIR``, ``PIO_COMPILE_CACHE_DIR``, ``PIO_COMPILE_CACHE``,
-``PIO_UPDATE_URL`` and ``PIO_FS_BASEDIR`` are read by the JAX package
-too (its mesh, train, deploy, eval and engine server), and one xdist
+``PIO_UPDATE_URL``, ``PIO_FS_BASEDIR``, ``PIO_BIN_CHUNK_MB`` and
+``PIO_TRANSFER_DOUBLE_BUFFER`` are read by the JAX package too (its
+mesh, train, deploy, eval, engine server and ALS put), and one xdist
 worker runs many test files in turn: a value a port test leaves set
 would make a later JAX train capture a profile or point JAX's compile
 cache at a deleted directory. Tests set them with ``monkeypatch`` only;
@@ -17,7 +18,8 @@ import os
 import pytest
 
 SHARED_ENV = ("PIO_PROFILE_DIR", "PIO_COMPILE_CACHE_DIR",
-              "PIO_COMPILE_CACHE", "PIO_UPDATE_URL", "PIO_FS_BASEDIR")
+              "PIO_COMPILE_CACHE", "PIO_UPDATE_URL", "PIO_FS_BASEDIR",
+              "PIO_BIN_CHUNK_MB", "PIO_TRANSFER_DOUBLE_BUFFER")
 
 
 @pytest.fixture(autouse=True)
